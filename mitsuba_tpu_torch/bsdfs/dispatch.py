@@ -1,0 +1,76 @@
+"""Wavefront BSDF dispatch (port of mitsuba_tpu/bsdfs/dispatch.py without
+composites and opacity masks).
+
+Each BSDF kind present in the scene is evaluated on all lanes and the
+result selected by material mask. The `twosided` adapter
+(src/bsdfs/twosided.cpp) mirrors the local frame for lanes whose material
+has the flag and wi.z < 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from mitsuba_tpu_torch.bsdfs import models as md
+from mitsuba_tpu_torch.bsdfs.table import LAMBERTIAN, MaterialTable
+
+_MODELS = {
+    LAMBERTIAN: (md.lambertian_eval, md.lambertian_pdf, md.lambertian_sample),
+}
+
+
+def _flip_mask(p, wi):
+    return p["two_sided"] & (wi[..., 2] < 0)
+
+
+def _flip(v, mask):
+    sign = torch.tensor([1.0, 1.0, -1.0], dtype=v.dtype, device=v.device)
+    return torch.where(mask[..., None], v * sign, v)
+
+
+def _resolve(p, albedo=None):
+    if albedo is not None:
+        p = dict(p, reflectance=albedo)
+    return p
+
+
+def bsdf_eval(table: MaterialTable, material_id, wi, wo, albedo=None):
+    """fCos for every lane (reference BSDF::fCos)."""
+    p = _resolve(table.gather(material_id), albedo)
+    fl = _flip_mask(p, wi)
+    wi_f, wo_f = _flip(wi, fl), _flip(wo, fl)
+    out = torch.zeros(wi.shape[:-1] + (table.reflectance.shape[-1],),
+                      device=wi.device)
+    for kind in table.kinds_present:
+        mask = p["kind"] == kind
+        out = torch.where(mask[..., None], _MODELS[kind][0](p, wi_f, wo_f),
+                          out)
+    return out
+
+
+def bsdf_pdf(table: MaterialTable, material_id, wi, wo):
+    """Solid-angle pdf of bsdf_sample (reference BSDF::pdf)."""
+    p = table.gather(material_id)
+    fl = _flip_mask(p, wi)
+    wi_f, wo_f = _flip(wi, fl), _flip(wo, fl)
+    out = torch.zeros(wi.shape[:-1], device=wi.device)
+    for kind in table.kinds_present:
+        mask = p["kind"] == kind
+        out = torch.where(mask, _MODELS[kind][1](p, wi_f, wo_f), out)
+    return out
+
+
+def bsdf_sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
+    """Sample wo ~ BSDF; returns the merged per-lane sample dict
+    (reference BSDF::sampleCos)."""
+    p = _resolve(table.gather(material_id), albedo)
+    fl = _flip_mask(p, wi)
+    wi_f = _flip(wi, fl)
+    out = md.zero_sample(wi, p["reflectance"].shape[-1])
+    for kind in table.kinds_present:
+        mask = p["kind"] == kind
+        s = _MODELS[kind][2](p, wi_f, u2, u1)
+        s = dict(s, wo=_flip(s["wo"], fl))
+        for key in out:
+            sel = mask[..., None] if out[key].ndim > mask.ndim else mask
+            out[key] = torch.where(sel, s[key], out[key])
+    return out

@@ -1,0 +1,88 @@
+"""Vector math and shading frames (port of mitsuba_tpu/core/math.py).
+
+Vectors are float tensors with a trailing axis of size 3; everything
+broadcasts over leading (wavefront) axes. Dot products are written out
+component by component, in the reference's summation order, so that the
+CPU and CUDA paths round identically.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+EPSILON = 1e-4          # ray epsilon, cf. reference Epsilon (mitsuba.h)
+INV_PI = 1.0 / math.pi
+
+
+def dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack(
+        [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def squared_length(v):
+    return dot(v, v)
+
+
+def normalize(v, eps: float = 1e-20):
+    return v / torch.sqrt(torch.clamp(dot(v, v), min=eps))[..., None]
+
+
+def safe_sqrt(x):
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def coordinate_system(n):
+    """Orthonormal (s, t) around unit normal n — Duff et al. branchless
+    formulation, as in the reference. [s, t, n] is right-handed."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    sign = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    s = torch.stack([1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1)
+    t = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
+    return s, t
+
+
+class Frame:
+    """A batched shading frame (s, t, n); local +z is n."""
+
+    __slots__ = ("s", "t", "n")
+
+    def __init__(self, s, t, n):
+        self.s, self.t, self.n = s, t, n
+
+    @staticmethod
+    def from_normal(n):
+        s, t = coordinate_system(n)
+        return Frame(s, t, n)
+
+    @staticmethod
+    def from_normal_tangent(n, tangent):
+        """Frame whose s axis follows the tangent projected off n; falls
+        back to from_normal where the tangent degenerates."""
+        s = tangent - n * dot(n, tangent)[..., None]
+        l2 = dot(s, s)[..., None]
+        ok = l2 > 1e-18
+        s_fb, _ = coordinate_system(n)
+        s = torch.where(ok, s / torch.sqrt(torch.where(ok, l2, 1.0)), s_fb)
+        t = cross(n, s)
+        return Frame(s, t, n)
+
+    def to_local(self, v):
+        return torch.stack(
+            [dot(v, self.s), dot(v, self.t), dot(v, self.n)], dim=-1)
+
+    def to_world(self, v):
+        return (v[..., 0:1] * self.s + v[..., 1:2] * self.t
+                + v[..., 2:3] * self.n)
+
+
+def cos_theta(w):
+    return w[..., 2]

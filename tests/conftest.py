@@ -30,6 +30,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: test measured >=5s on the CPU backend; excluded "
         "from the fast lane (pytest -m 'not slow', <6 min)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without "
+        "one (run on the card: see README, PyTorch / CUDA port)")
 
 
 def pytest_collection_modifyitems(config, items):
