@@ -11,10 +11,11 @@ from __future__ import annotations
 import torch
 
 from mitsuba_tpu_torch.bsdfs import models as md
-from mitsuba_tpu_torch.bsdfs.table import LAMBERTIAN, MaterialTable
+from mitsuba_tpu_torch.bsdfs.table import LAMBERTIAN, PHONG, MaterialTable
 
 _MODELS = {
     LAMBERTIAN: (md.lambertian_eval, md.lambertian_pdf, md.lambertian_sample),
+    PHONG: (md.phong_eval, md.phong_pdf, md.phong_sample),
 }
 
 

@@ -1,5 +1,5 @@
-"""SoA material table (port of mitsuba_tpu/bsdfs/table.py, lambertian
-rows only).
+"""SoA material table (port of mitsuba_tpu/bsdfs/table.py, lambertian and
+phong rows).
 
 The reference gathers small tables with a one-hot matmul for the TPU's
 matrix unit; here `gather` is a plain index gather, which is exact.
@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 LAMBERTIAN = 0      # src/bsdfs/lambertian.cpp
-KIND_NAMES = {LAMBERTIAN: "lambertian"}
+PHONG = 4           # src/bsdfs/phong.cpp (the reference's kind number)
+KIND_NAMES = {LAMBERTIAN: "lambertian", PHONG: "phong"}
 
 
 @dataclass
@@ -20,6 +21,9 @@ class MaterialTable:
     kind: torch.Tensor         # (M,) int32
     reflectance: torch.Tensor  # (M, C) diffuse albedo
     two_sided: torch.Tensor    # (M,) bool — twosided adapter applied
+    specular: torch.Tensor     # (M, C) phong specular reflectance
+    exponent: torch.Tensor     # (M,) phong exponent
+    tex_id: torch.Tensor       # (M,) reflectance texture, -1 = none
     kinds_present: tuple = (LAMBERTIAN,)
 
     @property
@@ -34,6 +38,8 @@ class MaterialTable:
             "kind": self.kind[i],
             "reflectance": self.reflectance[i],
             "two_sided": self.two_sided[i],
+            "specular": self.specular[i],
+            "exponent": self.exponent[i],
         }
 
 
@@ -42,7 +48,7 @@ def check_kinds(kinds):
     missing = sorted(set(int(k) for k in kinds) - set(KIND_NAMES))
     if missing:
         raise NotImplementedError(
-            f"BSDF kinds {missing} are not ported (only lambertian)")
+            f"BSDF kinds {missing} are not ported (only lambertian, phong)")
 
 
 class MaterialBuilder:
@@ -51,20 +57,38 @@ class MaterialBuilder:
     def __init__(self):
         self.rows = []
 
-    def lambertian(self, reflectance=(0.5, 0.5, 0.5), two_sided=False):
-        self.rows.append(dict(kind=LAMBERTIAN, reflectance=reflectance,
-                              two_sided=two_sided))
+    def _add(self, **kw):
+        row = dict(kind=LAMBERTIAN, reflectance=(0.5, 0.5, 0.5),
+                   specular=(1.0, 1.0, 1.0), exponent=30.0, tex_id=-1,
+                   two_sided=False)
+        row.update(kw)
+        self.rows.append(row)
         return len(self.rows) - 1
+
+    def lambertian(self, reflectance=(0.5, 0.5, 0.5), two_sided=False,
+                   tex_id=-1):
+        return self._add(kind=LAMBERTIAN, reflectance=reflectance,
+                         two_sided=two_sided, tex_id=tex_id)
+
+    def phong(self, diffuse=(0.5, 0.5, 0.5), specular=(0.2, 0.2, 0.2),
+              exponent=30.0, tex_id=-1):
+        return self._add(kind=PHONG, reflectance=diffuse, specular=specular,
+                         exponent=exponent, tex_id=tex_id)
 
     def build(self) -> MaterialTable:
         if not self.rows:
             self.lambertian()
+
+        def col(key, dtype):
+            return torch.as_tensor(
+                np.array([r[key] for r in self.rows], dtype))
+
         return MaterialTable(
-            kind=torch.as_tensor(
-                np.array([r["kind"] for r in self.rows], np.int32)),
-            reflectance=torch.as_tensor(
-                np.array([r["reflectance"] for r in self.rows], np.float32)),
-            two_sided=torch.as_tensor(
-                np.array([r["two_sided"] for r in self.rows], bool)),
+            kind=col("kind", np.int32),
+            reflectance=col("reflectance", np.float32),
+            two_sided=col("two_sided", bool),
+            specular=col("specular", np.float32),
+            exponent=col("exponent", np.float32),
+            tex_id=col("tex_id", np.int32),
             kinds_present=tuple(sorted({r["kind"] for r in self.rows})),
         )

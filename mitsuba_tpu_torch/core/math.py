@@ -13,6 +13,7 @@ import torch
 
 EPSILON = 1e-4          # ray epsilon, cf. reference Epsilon (mitsuba.h)
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
 
 
 def dot(a, b):
@@ -86,3 +87,23 @@ class Frame:
 
 def cos_theta(w):
     return w[..., 2]
+
+
+def reflect_local(w):
+    """Mirror reflection in the local frame: (x, y, z) -> (-x, -y, z)."""
+    return torch.stack([-w[..., 0], -w[..., 1], w[..., 2]], dim=-1)
+
+
+def spherical_direction(theta, phi):
+    """Spherical coordinates -> direction (reference sphericalDirection)."""
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                        cos_t], dim=-1)
+
+
+def to_spherical(v):
+    """Direction -> (theta, phi) with phi in [0, 2 pi)."""
+    theta = torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+    phi = torch.atan2(v[..., 1], v[..., 0])
+    phi = torch.where(phi < 0, phi + 2.0 * math.pi, phi)
+    return theta, phi

@@ -1,8 +1,8 @@
 from mitsuba_tpu_torch.emitters.table import (
-    AREA, EmitterBuilder, EmitterTable, eval_and_pdf_environment,
+    AREA, SKY, EmitterBuilder, EmitterTable, eval_and_pdf_environment,
     eval_emitter_hit, pdf_direct_area, sample_direct,
 )
 
-__all__ = ["AREA", "EmitterBuilder", "EmitterTable",
+__all__ = ["AREA", "SKY", "EmitterBuilder", "EmitterTable",
            "eval_and_pdf_environment", "eval_emitter_hit",
            "pdf_direct_area", "sample_direct"]

@@ -1,13 +1,16 @@
 """Conversion of a scene of the JAX package into the port's `Scene`.
 
-`from_jax_scene` reads the reference scene's arrays as numpy (geometry,
-materials, emitters, camera) and builds the port's tables from them, so
-that both packages render the same scene. It needs no jax import of its
-own: `np.asarray` reads the reference's arrays. Every feature of the
-reference scene that the port does not implement raises
-NotImplementedError.
+`from_jax_scene` reads the reference scene's arrays as numpy (geometry on
+the brute or cluster backend, materials, textures, emitters with the
+baked sky's sampling tables, camera) and builds the port's tables from
+them, so that both packages render the same scene from the same arrays.
+It needs no jax import of its own: `np.asarray` reads the reference's
+arrays. Every feature of the reference scene that the port does not
+implement raises NotImplementedError.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -18,9 +21,17 @@ from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
 from mitsuba_tpu_torch.render.camera import Camera
 from mitsuba_tpu_torch.render.intersect import GeometryTables
 from mitsuba_tpu_torch.render.scene import Scene
+from mitsuba_tpu_torch.render.texture import TextureTable
+from mitsuba_tpu_torch.render.texture import check_kinds as check_textures
 
 _GEOM_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                 "material_id", "emitter_id", "shape_id")
+_CLUSTER_FIELDS = ("bvh_min", "bvh_max", "shade_pack", "mt_start",
+                   "cl_sc_bmin", "cl_sc_bmax", "ex_tri", "ex_b0lo",
+                   "ex_b0hi", "ex_b1lo", "ex_b1hi", "ex_b2lo", "ex_b2hi",
+                   "ex_ct0", "ex_ct1", "ex_ct2")
+_ENV_FIELDS = ("env_image", "env_prob", "env_alias", "env_pdf_img",
+               "env_to_world", "env_to_env")
 
 
 def _unported(what):
@@ -32,40 +43,59 @@ def _t(x):
 
 
 def _geometry(g) -> GeometryTables:
-    if g.backend != "brute":
+    if g.backend not in ("brute", "cluster"):
         _unported(f"intersection backend '{g.backend}'")
     if g.has_analytic or g.n_hair > 0 or g.has_instances:
         _unported("analytic, hair or instanced geometry")
-    return GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS})
+    geom = GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS})
+    if g.backend == "brute":
+        return geom
+    if g.ex_tri is None:
+        _unported("a cluster geometry without exact-cull tables")
+    st = g.st_tables
+    return dataclasses.replace(
+        geom, **{k: _t(getattr(g, k)) for k in _CLUSTER_FIELDS},
+        sc_tri=_t(st["sc_tri"]), ex_caps=g.ex_caps, backend="cluster")
 
 
-def _materials(mt, textures) -> MaterialTable:
+def _materials(mt) -> MaterialTable:
     kinds = np.asarray(mt.kind)
     check_kinds(kinds)
     if mt.has_composite or mt.cloth is not None:
         _unported("composite or cloth BSDFs")
     if np.any(np.asarray(mt.opacity) < 1.0):
         _unported("opacity masks")
-    if np.any(np.asarray(mt.tex_id) >= 0) or textures.n_textures > 0:
-        _unported("textures")
     return MaterialTable(
         kind=_t(kinds),
         reflectance=_t(mt.reflectance),
         two_sided=_t(mt.two_sided),
+        specular=_t(mt.specular),
+        exponent=_t(mt.exponent),
+        tex_id=_t(mt.tex_id),
         kinds_present=tuple(sorted({int(k) for k, _ in mt.kinds_present})),
     )
 
 
+def _textures(tx) -> TextureTable:
+    check_textures(np.asarray(tx.kind))
+    return TextureTable(
+        kind=_t(tx.kind), color0=_t(tx.color0), color1=_t(tx.color1),
+        uv_scale=_t(tx.uv_scale), uv_offset=_t(tx.uv_offset))
+
+
 def _emitters(em) -> EmitterTable:
     check_emitters(np.asarray(em.kind))
+    env = {}
     if em.env_id >= 0:
-        _unported("environment emitters")
+        env = {k: _t(getattr(em, k)) for k in _ENV_FIELDS}
     return EmitterTable(
         **{k: _t(getattr(em, k)) for k in (
             "kind", "radiance", "tri_pdf_area", "rec_cdf", "rec_pmf",
             "rec_emitter", "rec_prim")},
+        **env,
         n_tri_records=int(em.n_tri_records),
         kinds_present=tuple(int(k) for k in em.kinds_present),
+        env_id=int(em.env_id),
     )
 
 
@@ -87,9 +117,10 @@ def from_jax_scene(scene, device="cpu") -> Scene:
         _unported("participating media or subsurface scattering")
     return Scene(
         geom=_geometry(scene.geom),
-        materials=_materials(scene.materials, scene.textures),
+        materials=_materials(scene.materials),
         emitters=_emitters(scene.emitters),
         camera=_camera(scene.camera),
         width=scene.width,
         height=scene.height,
+        textures=_textures(scene.textures),
     ).to(device)

@@ -1,0 +1,106 @@
+"""nvcc builds of the port's CUDA sources, shared by every kernel wrapper.
+
+Each source under `csrc/` compiles on its own into a shared library with a
+plain C interface (sm_90a, `--fmad=false`, IEEE division), named by a
+hash of the source and the flags, into `_build/` at first use, and loads
+with ctypes. `build_all` starts one nvcc per source at once and waits for
+all of them, so a fresh checkout builds in the time of its slowest file.
+Nothing here runs when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_LIBS = {}          # source path -> ctypes.CDLL
+
+
+def source(name: str) -> str:
+    return os.path.join(CSRC, name)
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+
+def lib_path(src: str) -> str:
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def _start(src: str):
+    """Start nvcc for `src` unless its library exists; returns
+    (process, temporary output path) or None."""
+    out = lib_path(src)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp
+
+
+def _finish(src: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    os.replace(tmp, lib_path(src))
+    return log
+
+
+def build_all(sources) -> dict:
+    """Compile every source not built yet, all nvcc processes at once,
+    then load them. Returns {source: compiler output ('' if cached)}."""
+    started = {src: _start(src) for src in sources}
+    logs = {src: _finish(src, st) for src, st in started.items()}
+    for src in sources:
+        load(src)
+    return logs
+
+
+def load(src: str) -> ctypes.CDLL:
+    """The loaded library of `src`, built first if needed."""
+    path = lib_path(src)
+    hit = _LIBS.get(src)
+    if hit is not None and hit[0] == path:
+        return hit[1]
+    if not os.path.exists(path):
+        _finish(src, _start(src))
+    lib = ctypes.CDLL(path)
+    _LIBS[src] = (path, lib)
+    return lib
+
+
+def bind(src: str, name: str, argtypes):
+    """A C function of the library of `src`, typed: it returns the CUDA
+    error code of its launch (0 when the launch was accepted)."""
+    fn = getattr(load(src), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")

@@ -18,12 +18,10 @@ Triangle table layout (T, 29), as in the reference:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
+
+from mitsuba_tpu_torch.ops import build as nv
 
 SHD_COLS = 29
 _DET_EPS = 1e-9
@@ -31,12 +29,7 @@ _DET_EPS = 1e-9
 # of float32): 1M lanes x 32 triangles in one chunk
 _MAX_ELEMS = 1 << 25
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "intersect_brute.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+SOURCE = nv.source("intersect_brute.cu")
 
 # kernel launches since import (or since a caller reset it): a run shows
 # that it went through the kernel by reading this before and after
@@ -161,39 +154,14 @@ def closest_hit_shaded_and_any_ref(table, o, d, mint, maxt, so, sd, smint,
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME)")
-
-
 def build() -> str:
     """Compile the kernel (at most once per source hash) and load it.
     Returns the compiler's output, empty when the library was cached."""
     global _LIB
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"intersect_brute_{digest.hexdigest()[:16]}.so")
-    log = ""
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-        os.replace(tmp, lib_path)
-    if _LIB is None or _LIB[0] != lib_path:
-        lib = ctypes.CDLL(lib_path)
-        fn = lib.mts_shaded_any
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i] + [p] * 8 + [i] + [p] * 17 + [p]
-        fn.restype = ctypes.c_int
-        _LIB = (lib_path, lib, fn)
+    log = nv.build_all([SOURCE])[SOURCE]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    _LIB = nv.bind(SOURCE, "mts_shaded_any",
+                   [p, i] + [p] * 8 + [i] + [p] * 17 + [p])
     return log
 
 
@@ -243,7 +211,7 @@ def _launch(table, o, d, mint, maxt, so, sd, smint, smaxt):
         t, u, v, gx, gy, gz, sx, sy, sz, tu, tv = f32
         prim, hit, mid, eid, sid, occ = i32
         stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = _LIB[2](
+        err = _LIB(
             table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
             mint.data_ptr(), maxt.data_ptr(), so.data_ptr(), sd.data_ptr(),
             smint.data_ptr(), smaxt.data_ptr(), n,
@@ -252,8 +220,7 @@ def _launch(table, o, d, mint, maxt, so, sd, smint, smaxt):
             sx.data_ptr(), sy.data_ptr(), sz.data_ptr(), tu.data_ptr(),
             tv.data_ptr(), mid.data_ptr(), eid.data_ptr(), sid.data_ptr(),
             occ.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"intersect_brute launch failed: CUDA error {err}")
+    nv.check(err, "intersect_brute")
     if n > 0:
         LAUNCHES += 1
     rec = dict(

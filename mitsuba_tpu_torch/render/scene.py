@@ -1,11 +1,13 @@
 """Scene container and builder (port of the parts of
-mitsuba_tpu/render/scene.py that build the Cornell box).
+mitsuba_tpu/render/scene.py that build bench configs 1 and 3).
 
-A `Scene` holds the geometry, material and emitter tables and the camera,
-all on one device. `SceneBuilder` assembles them on the host; shapes bind
-lambertian materials and area emitters. Every other scene feature of the
-reference (analytic shapes, media, textures, instancing, other BSDFs and
-emitters) is not ported yet.
+A `Scene` holds the geometry, material, emitter and texture tables and the
+camera, all on one device. `SceneBuilder` assembles them on the host;
+shapes bind lambertian or phong materials (optionally checkerboard-
+textured) and area emitters, and the builder's emitters may hold a
+Preetham sky. Every other scene feature of the reference (analytic shapes,
+media, instancing, other BSDFs, emitters and texture kinds) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from mitsuba_tpu_torch.core import transform as tf
 from mitsuba_tpu_torch.emitters import EmitterBuilder, EmitterTable
 from mitsuba_tpu_torch.render.camera import Camera, make_perspective
 from mitsuba_tpu_torch.render.intersect import GeometryTables, build_geometry
+from mitsuba_tpu_torch.render.texture import TextureBuilder, TextureTable
 
 
 @dataclass
@@ -29,6 +32,7 @@ class Scene:
     materials: MaterialTable
     emitters: EmitterTable
     camera: Camera
+    textures: TextureTable
     width: int = 256
     height: int = 256
 
@@ -46,7 +50,7 @@ class Scene:
 
         return Scene(move(self.geom), move(self.materials),
                      move(self.emitters), move(self.camera),
-                     self.width, self.height)
+                     move(self.textures), self.width, self.height)
 
 
 class SceneBuilder:
@@ -55,6 +59,7 @@ class SceneBuilder:
     def __init__(self):
         self.materials = MaterialBuilder()
         self.emitters = EmitterBuilder()
+        self.textures = TextureBuilder()
         self._shapes = []     # (mesh, material_id, emitter_id, shape_id)
         self.camera = None
         self.width = 256
@@ -86,7 +91,8 @@ class SceneBuilder:
             cam = make_perspective(np.eye(4), 45.0, self.width / self.height)
         scene = Scene(geom=geom, materials=self.materials.build(),
                       emitters=em, camera=cam,
-                      width=self.width, height=self.height)
+                      width=self.width, height=self.height,
+                      textures=self.textures.build())
         return scene.to(device)
 
 
@@ -136,6 +142,31 @@ def cornell_box(width=256, height=256, backend="brute", device="cpu") \
         tf.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]),
         fov_deg=39.3077,
         aspect=width / height,
+    )
+    b.set_camera(cam, width, height)
+    return b.build(backend=backend, device=device)
+
+
+def textured_mesh_scene(width=256, height=256, backend="cluster",
+                        device="cpu") -> Scene:
+    """Bench config 3 (reference mitsuba_tpu/render/scene.py:435): a
+    101,762-triangle mesh — the reference's fallback when its bunny mesh
+    is absent, a 160 x 320 sphere — with a phong body on a checkerboard-
+    textured floor under a Preetham sky."""
+    b = SceneBuilder()
+    tex = b.textures.checkerboard(bright=(0.7, 0.7, 0.7),
+                                  dark=(0.2, 0.2, 0.25), uv_scale=(8.0, 8.0))
+    floor_mat = b.materials.lambertian((1.0, 1.0, 1.0), tex_id=tex)
+    body_mat = b.materials.phong(diffuse=(0.4, 0.3, 0.2),
+                                 specular=(0.3,) * 3, exponent=40.0)
+    b.add_shape(mesh_mod.make_sphere_mesh([0, 0.8, 0], 0.8, 160, 320),
+                body_mat)
+    b.add_shape(mesh_mod.make_quad([-6, 0, -6], [-6, 0, 6], [6, 0, 6],
+                                   [6, 0, -6]), floor_mat)
+    b.emitters.sky(turbidity=3.0, sun_dir=(0.35, 0.6, -0.5), scale=1.0)
+    cam = make_perspective(
+        tf.look_at([0, 1.4, -3.2], [0, 0.7, 0], [0, 1, 0]),
+        fov_deg=40.0, aspect=width / height,
     )
     b.set_camera(cam, width, height)
     return b.build(backend=backend, device=device)

@@ -1,19 +1,21 @@
-"""The CUDA intersector kernel on the card, against its plain version.
+"""The CUDA kernels on the card, against their plain versions.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-The kernel and the plain version run the same IEEE float32 operations in
-the same order (nvcc --fmad=false, no fast math), so ids, occlusion and
-t, u, v must be equal; normals and uv are held to 1e-6 absolute.
+Each kernel and its plain version run the same IEEE float32 operations in
+the same order (nvcc --fmad=false, no fast math), so ids, occlusion, keys
+and t, u, v must be equal; normals and uv are held to 1e-6 absolute.
 """
 import numpy as np
 import pytest
 import torch
 
+from mitsuba_tpu_torch.ops import exact as ep
 from mitsuba_tpu_torch.ops import intersect as ip
+from mitsuba_tpu_torch.ops import stream as sp
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +108,124 @@ def test_render_on_the_card_goes_through_the_kernel(cuda):
         ref.mean())
     rays, rays_ref = int(aux["rays_traced"]), int(aux_ref["rays_traced"])
     assert abs(rays - rays_ref) <= 0.01 * rays_ref
+
+
+# ---------------------------------------------------------------------------
+# the cluster kernels (#5 refine, #6 child refine, #7 items, #10 stream)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cluster():
+    """A 2,210-triangle cluster scene on the card and 1,000 rays (8 rows,
+    the last ragged) from above toward it, every 7th lane dead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    from mitsuba_tpu.render.mesh import make_quad, make_sphere_mesh
+    from mitsuba_tpu_torch.ops.rows import pack_rays
+    from mitsuba_tpu_torch.render.intersect import build_geometry
+
+    dev = torch.device("cuda", 0)
+    ep.build()
+    sp.build()
+    geom = build_geometry(
+        [(make_sphere_mesh([0, 0.8, 0], 0.8, 24, 48), 0, -1),
+         (make_quad([-6, 0, -6], [-6, 0, 6], [6, 0, 6], [6, 0, -6]), 1, -1)],
+        backend="cluster")
+    rng = np.random.default_rng(0)
+    n = 1000
+    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.2, 2.5, n)
+    tgt = (rng.normal(size=(n, 3)) * 0.5).astype(np.float32)
+    tgt[:, 1] += 0.8
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mint = np.full(n, 1e-4, np.float32)
+    maxt = np.where(np.arange(n) % 7 == 0, -1.0, 1e30).astype(np.float32)
+    rays = pack_rays(*[torch.from_numpy(x) for x in (o, d, mint, maxt)])[0]
+    ex = {k: v.to(dev) for k, v in geom.ex_tables.items()}
+    st = {k: v.to(dev) for k, v in geom.st_tables.items()}
+    return dev, rays.to(dev), ex, st
+
+
+def test_refine_kernel_matches_plain_version(cluster):
+    dev, rays, ex, _st = cluster
+    ids, tns = sp.build_sc_lists(rays, ex["b0_lo"], ex["b0_hi"])
+    ids = ids[:, :128].contiguous()
+    live = torch.clamp((tns < 3e38).sum(1), max=128).to(torch.int32)
+    before = ep.LAUNCHES["refine"]
+    got = ep.refine(rays, ids, live, ex["b0_lo"], ex["b0_hi"])
+    assert ep.LAUNCHES["refine"] == before + 1
+    ref = ep.refine_ref(rays, ids, live, ex["b0_lo"], ex["b0_hi"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert int((ref < 3e38).sum()) > 100
+
+
+def test_child_refine_kernel_matches_plain_version(cluster):
+    dev, rays, ex, _st = cluster
+    r = rays.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pids = torch.randint(0, ex["ct0"].shape[0], (r, 24), generator=gen,
+                         device=dev, dtype=torch.int32)
+    live = torch.randint(0, 25, (r,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    before = ep.LAUNCHES["child_refine"]
+    got = ep.child_refine(rays, pids, live, ex["ct0"])
+    assert ep.LAUNCHES["child_refine"] == before + 1
+    ref = ep.child_refine_ref(rays, pids, live, ex["ct0"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert int((ref < 3e38).sum()) > 100
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_items_kernel_matches_plain_version(cluster, any_hit):
+    dev, rays, ex, _st = cluster
+    ids, blk_tn, _ovf = ep.build_exact_items(rays, ex, (128, 16, 32, 96))
+    before = ep.LAUNCHES["items"]
+    got = ep.items(ex["tri"], rays, ids, blk_tn, any_hit)
+    assert ep.LAUNCHES["items"] == before + 1
+    ref = ep.items_ref(ex["tri"], rays, ids, blk_tn, any_hit)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(got, ref) and 100 < int(ref.sum())
+        return
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((ref[3] >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_kernel_matches_plain_version(cluster, any_hit):
+    dev, rays, _ex, st = cluster
+    ids, tns = sp.build_sc_lists(rays, st["sc_bmin"], st["sc_bmax"])
+    before = sp.LAUNCHES
+    got = sp.stream_rows(rays, ids, tns, st["sc_tri"], any_hit)
+    assert sp.LAUNCHES == before + 1
+    ref = sp.stream_rows_ref(rays, ids, tns, st["sc_tri"], any_hit)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(got, ref) and 100 < int(ref.sum())
+        return
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((ref[3] >= 0).sum()) > 100
+
+
+def test_cluster_render_on_the_card_goes_through_the_kernels(cluster):
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.render.scene import textured_mesh_scene
+
+    dev = cluster[0]
+    cfg = PathConfig(max_depth=3, spp=2)
+    before = dict(ep.LAUNCHES)
+    img, aux = render(textured_mesh_scene(32, 32, device=dev), cfg, seed=3)
+    torch.cuda.synchronize()
+    for k in ("refine", "child_refine", "items"):
+        assert ep.LAUNCHES[k] > before[k], k
+    ref, aux_ref = render(textured_mesh_scene(32, 32), cfg, seed=3)
+    assert img.shape == ref.shape and bool(torch.isfinite(img).all())
+    # the same lanes draw the same numbers; transcendentals of the card
+    # may differ from the CPU's in the last bit, which moves a few paths
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
