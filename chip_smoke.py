@@ -2,30 +2,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through
+Drives the port's four main paths through
 mitsuba_tpu_torch.integrators.path.render: bench config 1 (the Cornell
-box, 256x256 px, 16 spp, depth 5, brute backend) and bench config 3 (the
+box, 256x256 px, 16 spp, depth 5, brute backend), bench config 3 (the
 101,762-triangle textured mesh under a sky, 512x512 px, 4 spp, depth 5,
-cluster backend). Phases, each printing one JSON line:
+cluster backend), the same scene on the bvh backend (the JAX package's
+default for it), and an instanced scene (three instances of config 3's
+101,760-triangle sphere sharing one copy of its triangles, on a floor
+under an area light, 512x512 px, 4 spp, depth 5, cluster backend).
+Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
-  2. the build of every kernel from csrc/ (one nvcc per source, all at
-     once, sm_90a), with the compiler's ptxas lines;
+  2. the build of every native source (one compiler per source, all at
+     once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
+     builder), with the compiler's ptxas lines;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes of its path: the brute kernel on 1,048,576 config-1 camera
-     rays; the refine (S1), child-refine (S2, S3) and item kernels on the
-     config-3 camera wavefront (coherent caps) and on a first diffuse
-     bounce wavefront with its shadow rays (diffuse caps); the stream
-     kernel on the bounce and shadow rows;
+     shapes of its path, with the bound of the work these inputs need
+     (the larger of their bytes over 3.35 TB/s and their float32
+     operations over 67 TFLOP/s): the brute kernel on 1,048,576 config-1
+     camera rays; the refine (S1), child-refine (S2, S3) and item kernels
+     on the config-3 camera wavefront (coherent caps) and on a first
+     diffuse bounce wavefront with its shadow rays (diffuse caps); the
+     stream kernel on the bounce and shadow rows; the BVH kernel on the
+     bvh path's camera, bounce and shadow wavefronts; the work-list
+     kernel, instanced and flat (on the same spheres baked into world
+     space), on one row chunk of the instanced path's camera, bounce and
+     shadow wavefronts; the BVH kernel as that path's overflow fallback,
+     on the static triangles and as the instance walks;
   4. 64x64 renders gated (8x8-block relative RMSE <= 0.10, as bench.py)
-     against tests/goldens/bench_cfg1.npz and, for config 3, against
-     tests/torch_goldens/bench_cfg3_sphere.npz: the committed
-     tests/goldens/bench_cfg3.npz was rendered with the bunny mesh,
-     which is absent, so both packages render its sphere fallback; the
-     distance to the bunny golden is reported beside;
-  5. config-1 renders and 6. config-3 renders: one warm-up, then timed
-     renders with every launch count set to 0 just before and read just
-     after.
+     against tests/goldens/bench_cfg1.npz, against
+     tests/torch_goldens/bench_cfg3_sphere.npz for config 3 on the
+     cluster and on the bvh backend (the committed
+     tests/goldens/bench_cfg3.npz was rendered with the bunny mesh, which
+     is absent, so both packages render its sphere fallback; the distance
+     to the bunny golden is reported beside), and against
+     tests/torch_goldens/instanced.npz for the instanced scene;
+  5. renders of each path: one warm-up, then timed renders with every
+     launch count set to 0 just before and read just after, then one
+     profiled render; on the instanced path one more render timing the
+     parts of its overflow fallback.
 
 Then a JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not
@@ -34,6 +49,7 @@ imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -45,8 +61,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W1, H1, SPP1, DEPTH1 = 256, 256, 16, 5     # bench config 1
-W3, H3, SPP3, DEPTH3 = 512, 512, 4, 5      # bench config 3
-TIMED1, TIMED3 = 3, 3                      # timed renders per config
+W3, H3, SPP3, DEPTH3 = 512, 512, 4, 5      # bench config 3, bvh, instanced
+TIMED = {"config1": 2, "config3": 2, "bvh": 2, "instanced": 2}
 # kernel vs plain: share of lanes whose ids must agree, and the tolerances
 # of the float outputs on lanes whose ids agree. Each kernel and its plain
 # version run the same IEEE float32 operations in the same order (no FMA
@@ -56,15 +72,35 @@ ID_AGREE_MIN = 0.9999
 RTOL, ATOL_NORMAL = 1e-5, 1e-5
 ATOL_NEAR_ZERO = 1e-6          # u, v, uv of rays at an edge are near 0
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
-MEAN_BAND = {1: (0.09, 0.21), 3: (0.17, 0.41)}   # bench.py expect_mean
+# bench.py expect_mean for configs 1 and 3 (bvh renders config 3's
+# scene); the instanced band is +-40% of the reference's 64x64 render of
+# its scene (tests/torch_goldens/instanced.npz, mean 0.5216), as wide as
+# config 3's band is around its golden
+MEAN_BAND = {"config1": (0.09, 0.21), "config3": (0.17, 0.41),
+             "bvh": (0.17, 0.41), "instanced": (0.31, 0.73)}
 # a plain version slower than this on the full wavefront is compared and
 # timed on its first PLAIN_CUT_ROWS rows instead (the phase says so)
 PLAIN_FULL_MAX_S = 1.0
 PLAIN_CUT_ROWS = 1024
+# float32 operations per test as the kernels write them (no FMA): a
+# Moller-Trumbore triangle test (two cross products, three dot products
+# and a determinant, one division, the bound compares); a slab test of a
+# box with the ray's reciprocals at hand (per axis two subtractions, two
+# products, a min and a max, then the interval's reductions and compare);
+# a ray moved into object space (a 3x4 map on origin and direction)
+MT_OPS, BOX_OPS, XFORM_OPS = 53, 25, 21
+# H100 SXM (NVIDIA's data sheet, at its 700 W limit): float32 outside
+# the tensor cores, and HBM3
+PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+_T0 = time.perf_counter()
 
 
 def phase(tag, **kv):
-    print(json.dumps({"phase": tag, **kv}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": tag, "t": time.perf_counter() - _T0, **kv}),
+          flush=True)
 
 
 def cuda_ms(fn, reps=10):
@@ -83,22 +119,52 @@ def cuda_ms(fn, reps=10):
 
 
 def launch_counts():
+    from mitsuba_tpu_torch.ops import bvh as bp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
     from mitsuba_tpu_torch.ops import stream as sp
+    from mitsuba_tpu_torch.ops import worklist as wl
 
-    return dict(shaded_any=ip.LAUNCHES, **ep.LAUNCHES, stream=sp.LAUNCHES)
+    return dict(shaded_any=ip.LAUNCHES, **ep.LAUNCHES, stream=sp.LAUNCHES,
+                **bp.LAUNCHES, **wl.LAUNCHES)
 
 
 def reset_launch_counts():
+    from mitsuba_tpu_torch.ops import bvh as bp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
     from mitsuba_tpu_torch.ops import stream as sp
+    from mitsuba_tpu_torch.ops import worklist as wl
 
     ip.LAUNCHES = 0
     sp.LAUNCHES = 0
-    for k in ep.LAUNCHES:
-        ep.LAUNCHES[k] = 0
+    for counts in (ep.LAUNCHES, bp.LAUNCHES, wl.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+def bound(args, outs, ops):
+    """The least time (ms) the card could take for this work: the larger
+    of the bytes it must move (each input read once, each output written
+    once) over the memory rate and its float32 operations over the peak
+    rate, with which of the two bounds it."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _tensors(args) + _tensors(outs))
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FP32_OPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=int(ops))
 
 
 # ---------------------------------------------------------------------------
@@ -169,28 +235,32 @@ def compare_kernel(scene):
             max_err = max(max_err, float((a - b)[fin].abs().max()))
     ms = cuda_ms(lambda: ip.closest_hit_shaded_and_any(*args))
     plain_ms = cuda_ms(lambda: ip.closest_hit_shaded_and_any_ref(*args))
+    # every lane tests every triangle, once for its bounce ray and once
+    # for its shadow ray
+    bd = bound(args, (rec_p, occ_p), 2 * n * args[0].shape[0] * MT_OPS)
     phase("kernel_vs_plain", kernel="shaded_any", lanes=n,
           id_mismatches=mism, float_mismatches=bad, max_abs_err=max_err,
           ms=ms, plain_ms=plain_ms, hit_lanes=int(rec_p["valid"].sum()),
-          occluded_lanes=int(occ_p.sum()))
+          occluded_lanes=int(occ_p.sum()), **bd, library_ms=None)
     for k, c in mism.items():
         if c > (1.0 - ID_AGREE_MIN) * n:
             raise AssertionError(f"kernel vs plain: {c} lanes differ in {k}")
     for k, c in bad.items():
         if c:
             raise AssertionError(f"kernel vs plain: {c} lanes differ in {k}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **bd)
 
 
 # ---------------------------------------------------------------------------
 # config 3: the exact-cull kernels and the stream kernel
 # ---------------------------------------------------------------------------
 
-def cfg3_wavefronts(scene):
-    """The config-3 camera wavefront (pixel-Morton lanes), a first diffuse
-    bounce from its hits (cosine directions around the shading normal)
-    and that bounce's shadow rays toward sampled sky directions, both
-    sorted as path_trace sorts them."""
+def wavefronts(scene):
+    """The camera wavefront of `render` (pixel-Morton lanes on the cluster
+    backend, scanline lanes elsewhere), a first diffuse bounce from its
+    hits (cosine directions around the shading normal) and that bounce's
+    shadow rays toward sampled emitter points or sky directions, both
+    sorted as path_trace sorts them on the cluster backend."""
     from mitsuba_tpu_torch.core import math as m
     from mitsuba_tpu_torch.core import warp
     from mitsuba_tpu_torch.emitters import sample_direct
@@ -215,6 +285,8 @@ def cfg3_wavefronts(scene):
     shadow = Ray(o=its.p, d=ds.d, mint=eps,
                  maxt=torch.where(its.valid & ds.valid,
                                   ds.dist * (1.0 - 1e-3), -1.0))
+    if scene.geom.backend != "cluster":
+        return cam, bounce, shadow
     return (cam,
             _perm_ray(bounce, _bounce_order(scene.geom, bounce)),
             _perm_ray(shadow, _bounce_order(scene.geom, shadow)))
@@ -231,27 +303,47 @@ def query_rows(geom, ray):
     return rays[(rays[:, 7] >= rays[:, 6]).any(dim=1)].contiguous()
 
 
+@contextlib.contextmanager
+def wrapped(module, names, wrap):
+    """Within the block, module.<name> is wrap(name, original) for each of
+    the names; the originals come back on leaving it."""
+    orig = {k: getattr(module, k) for k in names}
+    try:
+        for k in names:
+            setattr(module, k, wrap(k, orig[k]))
+        yield
+    finally:
+        for k in names:
+            setattr(module, k, orig[k])
+
+
+def record_calls(module, names, fn):
+    """Run fn() once, recording the positional arguments of each call of
+    module.<name> for the given names, with its keyword arguments if it
+    has any; returns (fn's result, {name: [args or (args, kwargs),
+    ...]})."""
+    calls = {k: [] for k in names}
+
+    def recorder(name, orig):
+        def call(*args, **kw):
+            calls[name].append((args, kw) if kw else args)
+            return orig(*args, **kw)
+        return call
+
+    with wrapped(module, names, recorder):
+        res = fn()
+    return res, calls
+
+
 def record_build(rays, ex, caps):
     """Run the exact build once, recording the arguments of each refine
     (S1) and child-refine (S2, S3) call."""
     from mitsuba_tpu_torch.ops import exact as ep
 
-    calls = []
-    orig = {k: getattr(ep, k) for k in ("refine", "child_refine")}
-
-    def recorder(name):
-        def call(*args):
-            calls.append(args)
-            return orig[name](*args)
-        return call
-
-    try:
-        ep.refine = recorder("refine")
-        ep.child_refine = recorder("child_refine")
-        ids, blk_tn, _ovf = ep.build_exact_items(rays, ex, caps)
-    finally:
-        ep.refine, ep.child_refine = orig["refine"], orig["child_refine"]
-    return calls, ids, blk_tn
+    (ids, blk_tn, _ovf), calls = record_calls(
+        ep, ("refine", "child_refine"),
+        lambda: ep.build_exact_items(rays, ex, caps))
+    return calls["refine"] + calls["child_refine"], ids, blk_tn
 
 
 def _cut(args, row_args, rows):
@@ -259,20 +351,31 @@ def _cut(args, row_args, rows):
                  for i, a in enumerate(args))
 
 
-def check_pair(name, stage, kern, plain, args, row_args, out_kind):
-    """Hold kernel against plain version on args; time both. out_kind:
-    'keys' (one float tensor), 'hit' ((t, u, v, prim)) or 'occ'."""
+def check_pair(name, stage, kern, plain, args, row_args, out_kind, ops_of,
+               counted=False, cut=PLAIN_CUT_ROWS, cutter=None, unit="rows",
+               **extra):
+    """Hold kernel against plain version on args; time both; bound the
+    work. row_args: the arguments whose leading size is the rows (or
+    lanes) of the call; out_kind: 'keys' (one float tensor), 'hit' ((t, u,
+    v, prim, ...)) or 'occ'. ops_of(args, work) -> the float32 operations
+    these inputs need, where work is what the plain version counted on
+    them (if `counted`, it takes a `work` dict). A plain version slower
+    than PLAIN_FULL_MAX_S runs, and both are compared and timed, on the
+    first `cut` rows (cutter(args, cut), or the row_args cut); `unit`
+    names what the rows are; `extra` joins the phase's line."""
     n_rows = args[row_args[0]].shape[0]
+    work = {}
+    kw = {"work": work} if counted else {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = plain(*args)
+    ref = plain(*args, **kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     rows = n_rows
-    if plain_s > PLAIN_FULL_MAX_S and n_rows > PLAIN_CUT_ROWS:
-        rows = PLAIN_CUT_ROWS
-        args = _cut(args, row_args, rows)
-        ref = plain(*args)
+    if plain_s > PLAIN_FULL_MAX_S and n_rows > cut:
+        rows = cut
+        args = cutter(args, cut) if cutter else _cut(args, row_args, cut)
+        ref = plain(*args, **kw)
     got = kern(*args)
     torch.cuda.synchronize()
     id_mism, float_mism, max_err, n = 0, 0, 0.0, 0
@@ -294,20 +397,41 @@ def check_pair(name, stage, kern, plain, args, row_args, out_kind):
             a, b = a[same], b[same]
             float_mism += int((~torch.isclose(
                 a, b, rtol=RTOL, atol=ATOL_NEAR_ZERO)).sum())
-            if a.numel():
-                max_err = max(max_err, float((a - b).abs().max()))
+            fin = torch.isfinite(b)
+            if bool(fin.any()):
+                max_err = max(max_err, float((a - b)[fin].abs().max()))
     ms = cuda_ms(lambda: kern(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
     res = dict(kernel=name, stage=stage, rows=rows, rows_of=n_rows,
-               values=n, id_mismatches=id_mism,
+               unit=unit, values=n, id_mismatches=id_mism,
                float_mismatches=float_mism, max_abs_err=max_err, ms=ms,
-               plain_ms=plain_ms)
+               plain_ms=plain_ms, work=work,
+               **bound(args, ref, ops_of(args, work)), library_ms=None,
+               **extra)
     phase("kernel_vs_plain", **res)
     if id_mism > (1.0 - ID_AGREE_MIN) * n:
         raise AssertionError(f"{name} ({stage}): {id_mism} ids differ")
     if float_mism:
         raise AssertionError(f"{name} ({stage}): {float_mism} floats differ")
     return res
+
+
+def _refine_ops(args, _work):
+    # a slab test of every lane against every live entry
+    return int(args[2].sum()) * 128 * BOX_OPS
+
+
+def _child_refine_ops(args, _work):
+    # ... against the 8 children of every live parent
+    return int(args[2].sum()) * 8 * 128 * BOX_OPS
+
+
+def _walk_ops(_args, work):
+    return work["box_tests"] * BOX_OPS + work["tri_tests"] * MT_OPS
+
+
+def _items_ops(_args, work):
+    return work["tri_tests"] * MT_OPS
 
 
 def compare_cluster_kernels(scene):
@@ -317,7 +441,7 @@ def compare_cluster_kernels(scene):
     geom = scene.geom
     ex = geom.ex_tables
     dif, coh, _xl = geom.ex_caps
-    cam, bounce, shadow = cfg3_wavefronts(scene)
+    cam, bounce, shadow = wavefronts(scene)
     out = {}
     for wave, ray, caps in (("camera", cam, coh), ("bounce", bounce, dif)):
         rays = query_rows(geom, ray)
@@ -325,21 +449,23 @@ def compare_cluster_kernels(scene):
         for stage, args in zip(("S1", "S2", "S3"), calls):
             if len(args) == 5:
                 r = check_pair("refine", f"{wave} S1", ep.refine,
-                               ep.refine_ref, args, (0, 1, 2), "keys")
+                               ep.refine_ref, args, (0, 1, 2), "keys",
+                               _refine_ops)
             else:
                 r = check_pair("child_refine", f"{wave} {stage}",
                                ep.child_refine, ep.child_refine_ref, args,
-                               (0, 1, 2), "keys")
+                               (0, 1, 2), "keys", _child_refine_ops)
             out[(r["kernel"], wave, stage)] = r
         r = check_pair("items", f"{wave} closest", ep.items, ep.items_ref,
                        (ex["tri"], rays, ids, blk_tn, False), (1, 2, 3),
-                       "hit")
+                       "hit", _items_ops, counted=True)
         out[("items", wave, "closest")] = r
     rays = query_rows(geom, shadow)
     _calls, ids, blk_tn = record_build(rays, ex, dif)
     out[("items", "shadow", "any")] = check_pair(
         "items", "shadow any", ep.items, ep.items_ref,
-        (ex["tri"], rays, ids, blk_tn, True), (1, 2, 3), "occ")
+        (ex["tri"], rays, ids, blk_tn, True), (1, 2, 3), "occ", _items_ops,
+        counted=True)
     st = geom.st_tables
     for wave, ray, any_hit in (("bounce", bounce, False),
                                ("shadow", shadow, True)):
@@ -349,8 +475,134 @@ def compare_cluster_kernels(scene):
             "stream", f"{wave} {'any' if any_hit else 'closest'}",
             sp.stream_rows, sp.stream_rows_ref,
             (rays, lids, ltns, st["sc_tri"], any_hit), (0, 1, 2),
-            "occ" if any_hit else "hit")
+            "occ" if any_hit else "hit", _walk_ops, counted=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the bvh and instanced paths: the BVH kernel and the work-list kernel
+# ---------------------------------------------------------------------------
+
+def _ray_args(ray):
+    return tuple(x.contiguous() for x in (ray.o, ray.d, ray.mint, ray.maxt))
+
+
+def compare_bvh_kernels(scene):
+    """The BVH kernel, closest and any, on the bvh path's wavefronts."""
+    from mitsuba_tpu_torch.ops import bvh as bp
+
+    g = scene.geom
+    cam, bounce, shadow = wavefronts(scene)
+    out = {}
+    for wave, ray, any_hit in (("camera", cam, False),
+                               ("bounce", bounce, False),
+                               ("shadow", shadow, True)):
+        key = "bvh_any" if any_hit else "bvh_closest"
+        args = (g.bvh_packed, g.tri_packed) + _ray_args(ray)
+        out[(key, wave)] = check_pair(
+            key, f"{wave} {'any' if any_hit else 'closest'}",
+            bp.bvh_any if any_hit else bp.bvh_closest,
+            lambda *a, work=None, ah=any_hit: bp.walk_ref(*a, ah, work=work),
+            args, (2, 3, 4, 5), "occ" if any_hit else "hit", _walk_ops,
+            counted=True, cut=PLAIN_CUT_ROWS * 128, unit="lanes")
+    return out
+
+
+def worklist_chunk(geom, ray):
+    """The first row chunk of a work-list query of `ray`, as wl_closest
+    and wl_any build it: the arguments of one kernel launch (items, row
+    segments, the blocks, the rays and, instanced, block ids and maps),
+    and the chunk's overflow flags."""
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.ops.rows import pack_rays
+
+    rays = pack_rays(ray.o, ray.d, ray.mint,
+                     torch.clamp(ray.maxt, max=1e30))[0]
+    ry = rays[:wl.MAX_ITEMS_PER_CALL // wl.W_FACTOR].contiguous()
+    tab = geom.wl_tables
+    items, _total, ovf = wl.build_worklist(
+        ry, tab["bmin"], tab["bmax"], tab["sc_bmin"], tab["sc_bmax"],
+        ry.shape[0] * wl.W_FACTOR, wl.L_SC, wl.BEAM_S2)
+    return (items, wl.row_segments(items, ry.shape[0]), tab["tri"],
+            tab["tri_start"], ry, tab.get("block_id"), tab.get("xform")), ovf
+
+
+def _cut_chunk(args, rows):
+    items, seg = args[0], args[1]
+    return (items[:int(seg[rows])].contiguous(),
+            seg[:rows + 1].contiguous()) + args[2:4] + (
+        args[4][:rows].contiguous(),) + args[5:]
+
+
+def _wl_ops(args, work):
+    visit = XFORM_OPS if args[5] is not None else 0
+    if not args[7]:
+        visit += BOX_OPS               # closest: the can-improve slab test
+    return work["visits"] * visit + work["tri_tests"] * MT_OPS
+
+
+def compare_worklist_kernels(scene, flat):
+    """The work-list kernel, closest and any, instanced on the instanced
+    path's wavefronts and flat on the same rays against `flat` (the same
+    spheres baked into world space); then the BVH kernel as the path's
+    overflow fallback, on the launches its first bounce makes."""
+    from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.render import intersect as ri
+
+    cam, bounce, shadow = wavefronts(scene)
+    out = {}
+    for wave, ray, any_hit in (("camera", cam, False),
+                               ("bounce", bounce, False),
+                               ("shadow", shadow, True)):
+        key = "wl_any" if any_hit else "wl_closest"
+        for mode, geom in (("instanced", scene.geom), ("flat", flat.geom)):
+            args, ovf = worklist_chunk(geom, ray)
+            out[(key, wave, mode)] = check_pair(
+                key, f"{wave} {'any' if any_hit else 'closest'} {mode}",
+                wl.wl_rows, wl.wl_rows_ref, args + (any_hit,), (4,),
+                "occ" if any_hit else "hit", _wl_ops, counted=True,
+                cutter=_cut_chunk, overflow_rows=int(ovf.sum()))
+    _res, calls = record_calls(bp, ("bvh_closest", "bvh_any"), lambda: (
+        ri.ray_intersect(scene.geom, bounce), ri.ray_test(scene.geom, shadow)))
+    # the static triangles' walk at the kernel's clamp, and the instance
+    # walks at the reference walk's (keyword rcp_eps)
+    static = {k: [c for c in v if not isinstance(c[1], dict)]
+              for k, v in calls.items()}
+    inst = {k: [c for c in v if isinstance(c[1], dict)]
+            for k, v in calls.items()}
+    phase("fallback_calls", **{f"{k}_{w}": len(c[k])
+                               for w, c in (("static", static),
+                                            ("instances", inst))
+                               for k in c})
+    for key, any_hit in (("bvh_closest", False), ("bvh_any", True)):
+        kind = "any" if any_hit else "closest"
+        for args in static[key][:1]:
+            out[(key, "fallback")] = check_pair(
+                key, f"fallback {kind}", getattr(bp, key),
+                lambda *a, work=None, ah=any_hit: bp.walk_ref(
+                    *a, ah, work=work),
+                args, (2, 3, 4, 5), "occ" if any_hit else "hit",
+                _walk_ops, counted=True, cut=PLAIN_CUT_ROWS * 128,
+                cutter=_live_lanes, unit="lanes")
+        for args, kw in inst[key][:1]:
+            eps = kw["rcp_eps"]
+            out[(key, "instances")] = check_pair(
+                key, f"instance walk {kind}",
+                lambda *a, k=key, e=eps: getattr(bp, k)(*a, rcp_eps=e),
+                lambda *a, work=None, ah=any_hit, e=eps: bp.walk_ref(
+                    *a, ah, rcp_eps=e, work=work),
+                args, (2, 3, 4, 5), "occ" if any_hit else "hit",
+                _walk_ops, counted=True, cut=PLAIN_CUT_ROWS * 128,
+                cutter=_live_lanes, unit="lanes", rcp_eps=eps)
+    return out
+
+
+def _live_lanes(args, n):
+    """The first n live lanes (maxt >= mint) of a fallback call: its
+    overflow lanes; the others are dead."""
+    idx = torch.nonzero(args[5] >= args[4])[:n, 0]
+    return args[:2] + tuple(a[idx].contiguous() for a in args[2:])
 
 
 # ---------------------------------------------------------------------------
@@ -392,13 +644,15 @@ def golden_gate(tag, scene, golden, also=None):
 def device_profile(fn):
     """Device busy time (ms) of one call of fn under torch.profiler (the
     sum of its CUDA kernels' times), its wall time (ms), and the kernels
-    taking the most device time."""
+    taking the most device time. Only the device is traced: the host's
+    operator events would multiply the trace (and the time to read it)
+    several times over on the paths with hundreds of thousands of
+    launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -420,18 +674,43 @@ def device_profile(fn):
                      for ms, k, c in rows[:12]])
 
 
-def render_phase(tag, scene, cfg, band, need):
-    """One warm-up render, then timed renders with every launch count set
-    to 0 just before and read just after; then a profiled render."""
-    from mitsuba_tpu_torch.integrators.path import render
+def timed_calls(module, names, fn):
+    """Run fn() once with each module.<name> wrapped to synchronise and
+    time itself; returns {name: {calls, seconds, lanes}}."""
+    stats = {k: dict(calls=0, seconds=0.0, lanes=0) for k in names}
 
+    def timer(name, orig):
+        def call(geom, ray, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(geom, ray, *args)
+            torch.cuda.synchronize()
+            st = stats[name]
+            st["calls"] += 1
+            st["seconds"] += time.perf_counter() - t0
+            st["lanes"] += ray.o.shape[0]
+            return res
+        return call
+
+    with wrapped(module, names, timer):
+        fn()
+    return stats
+
+
+def render_phase(tag, scene, cfg, need):
+    """One warm-up render, then timed renders with every launch count set
+    to 0 just before and read just after; then a profiled render and, on
+    an instanced scene, a render timing its fallback's parts."""
+    from mitsuba_tpu_torch.integrators.path import render
+    from mitsuba_tpu_torch.render import intersect as ri
+
+    band = MEAN_BAND[tag]
     render(scene, cfg, seed=0)                  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n_timed = TIMED1 if tag == "config1" else TIMED3
     reset_launch_counts()
     secs, rays = [], []
-    for seed in range(n_timed):
+    for seed in range(TIMED[tag]):
         t0 = time.perf_counter()
         img, aux = render(scene, cfg, seed=seed)
         torch.cuda.synchronize()
@@ -440,11 +719,23 @@ def render_phase(tag, scene, cfg, band, need):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = device_profile(lambda: render(scene, cfg, seed=0))
+    extra = {}
+    if scene.geom.has_instances:
+        # the fallback of overflowing rows: the BVH kernel on the static
+        # triangles plus the exact instance walks (the same kernel on each
+        # group's tables) and the glue around them
+        t0 = time.perf_counter()
+        extra["fallback_glue"] = timed_calls(
+            ri, ("_fallback_closest", "_fallback_any", "_instances_closest",
+                 "_instances_any"), lambda: render(scene, cfg, seed=0))
+        extra["fallback_glue"]["render_seconds"] = time.perf_counter() - t0
     mean = float(img.mean())
     phase(tag, width=scene.width, height=scene.height, spp=cfg.spp,
-          depth=cfg.max_depth, seconds=secs, rays_traced=rays,
+          depth=cfg.max_depth, triangles=scene.geom.n_tris,
+          seconds=secs, rays_traced=rays,
           mrays_per_s=[r / s / 1e6 for r, s in zip(rays, secs)],
-          launches=launches, mean=mean, peak_mem_gib=peak, profile=prof)
+          launches=launches, mean=mean, band=band, peak_mem_gib=peak,
+          profile=prof, **extra)
     if tuple(img.shape) != (scene.height, scene.width, 3) \
             or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"{tag} image is not finite or misshapen")
@@ -464,11 +755,14 @@ def main():
     sys.path.insert(0, ROOT)
     from mitsuba_tpu_torch.integrators.path import PathConfig
     from mitsuba_tpu_torch.ops import build as nv
+    from mitsuba_tpu_torch.ops import bvh as bp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
     from mitsuba_tpu_torch.ops import stream as sp
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.render import bvh as rb
     from mitsuba_tpu_torch.render.scene import (
-        cornell_box, textured_mesh_scene,
+        cornell_box, instanced_scene, textured_mesh_scene,
     )
 
     device = torch.device("cuda", 0)
@@ -482,39 +776,68 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    sources = [ip.SOURCE, ep.SOURCE, sp.SOURCE]
-    logs = nv.build_all(sources)          # one nvcc per source, at once
-    for mod in (ip, ep, sp):
+    mods = (ip, ep, sp, bp, wl, rb)
+    logs = nv.build_all([mod.SOURCE for mod in mods])   # all at once
+    for mod in mods:
         mod.build()                       # bind the built libraries
     phase("build", seconds=time.perf_counter() - t0,
           ptxas={os.path.basename(src): [
               ln.strip() for ln in log.splitlines() if "ptxas" in ln]
               for src, log in logs.items()})
 
+    t0 = time.perf_counter()
+    scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
+    scene_bvh = textured_mesh_scene(W3, H3, device=device)
+    scene_inst = instanced_scene(W3, H3, device=device)
+    scene_flat = instanced_scene(W3, H3, flatten=True, device=device)
+    phase("scenes", seconds=time.perf_counter() - t0,
+          bvh=dict(backend=scene_bvh.geom.backend,
+                   triangles=scene_bvh.geom.n_tris,
+                   nodes=scene_bvh.geom.bvh_packed.shape[0]),
+          instanced=dict(triangles=scene_inst.geom.n_tris,
+                         group_triangles=[
+                             g.n_tris for g in scene_inst.geom.inst_groups],
+                         instances=len(scene_inst.geom.inst_gid),
+                         clusters=scene_inst.geom.mt_block_id.shape[0],
+                         blocks=scene_inst.geom.mt_tri.shape[0],
+                         max_clusters=wl.MAX_CLUSTERS),
+          flat=dict(triangles=scene_flat.geom.n_tris,
+                    clusters=scene_flat.geom.mt_start.shape[0]))
+
     brute = compare_kernel(cornell_box(W1, H1, device=device))
-    scene3 = textured_mesh_scene(W3, H3, device=device)
     cluster = compare_cluster_kernels(scene3)
+    bvh = compare_bvh_kernels(scene_bvh)
+    worklist = compare_worklist_kernels(scene_inst, scene_flat)
+    del scene_flat
     golden_gate("golden_64", cornell_box(64, 64, device=device),
                 "tests/goldens/bench_cfg1.npz")
     # tests/goldens/bench_cfg3.npz holds the bunny mesh, which is absent;
     # both packages render the sphere that replaces it, whose golden is
     # the JAX package's own CPU render (tests/torch_goldens)
-    golden_gate("golden_64_cfg3", textured_mesh_scene(64, 64, device=device),
-                "tests/torch_goldens/bench_cfg3_sphere.npz",
-                also="tests/goldens/bench_cfg3.npz")
+    for tag, backend in (("golden_64_cfg3", "cluster"),
+                         ("golden_64_bvh", "bvh")):
+        golden_gate(tag, textured_mesh_scene(64, 64, backend=backend,
+                                             device=device),
+                    "tests/torch_goldens/bench_cfg3_sphere.npz",
+                    also="tests/goldens/bench_cfg3.npz")
+    golden_gate("golden_64_instanced", instanced_scene(64, 64, device=device),
+                "tests/torch_goldens/instanced.npz")
+    cfg = PathConfig(max_depth=DEPTH3, spp=SPP3)
     l1 = render_phase("config1", cornell_box(W1, H1, device=device),
-                      PathConfig(max_depth=DEPTH1, spp=SPP1), MEAN_BAND[1],
+                      PathConfig(max_depth=DEPTH1, spp=SPP1),
                       ["shaded_any"])
-    l3 = render_phase("config3", scene3,
-                      PathConfig(max_depth=DEPTH3, spp=SPP3), MEAN_BAND[3],
+    l3 = render_phase("config3", scene3, cfg,
                       ["refine", "child_refine", "items"])
+    lb = render_phase("bvh", scene_bvh, cfg, ["bvh_closest", "bvh_any"])
+    li = render_phase("instanced", scene_inst, cfg, ["wl_closest", "wl_any"])
 
     def entry(kname, source, replaces, launches, r):
         return {"name": kname, "route": "cuda",
                 "source": f"mitsuba_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]}
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
 
     print(json.dumps({"kernels": [
         entry("shaded_any", "intersect_brute.cu",
@@ -530,6 +853,16 @@ def main():
         entry("stream", "stream.cu",
               "mitsuba_tpu/ops/stream_pallas.py:176", l3["stream"],
               cluster[("stream", "bounce", False)]),
+        entry("bvh_closest", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:169",
+              lb["bvh_closest"], bvh[("bvh_closest", "bounce")]),
+        entry("bvh_any", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:196",
+              lb["bvh_any"], bvh[("bvh_any", "shadow")]),
+        entry("wl_closest", "worklist.cu",
+              "mitsuba_tpu/ops/worklist_pallas.py:364", li["wl_closest"],
+              worklist[("wl_closest", "bounce", "instanced")]),
+        entry("wl_any", "worklist.cu",
+              "mitsuba_tpu/ops/worklist_pallas.py:458", li["wl_any"],
+              worklist[("wl_any", "shadow", "instanced")]),
     ]}), flush=True)
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,8 @@
 
 #include <cuda_runtime.h>
 
+#include "mt.cuh"
+
 #define LANES 128
 #define BI 16
 #define BIG 3e38f
@@ -155,30 +157,6 @@ struct Tri {
   int prim;
 };
 
-__device__ __forceinline__ bool mt(const Tri& tri, const Row& ry, float cap,
-                                   float& t, float& u, float& v) {
-  const float* f = tri.f;
-  const float* o = ry.o;
-  const float* d = ry.d;
-  float pvx = d[1] * f[8] - d[2] * f[7];
-  float pvy = d[2] * f[6] - d[0] * f[8];
-  float pvz = d[0] * f[7] - d[1] * f[6];
-  float det = f[3] * pvx + f[4] * pvy + f[5] * pvz;
-  float tvx = o[0] - f[0];
-  float tvy = o[1] - f[1];
-  float tvz = o[2] - f[2];
-  float qvx = tvy * f[5] - tvz * f[4];
-  float qvy = tvz * f[3] - tvx * f[5];
-  float qvz = tvx * f[4] - tvy * f[3];
-  bool ok_det = fabsf(det) > DET_EPS;
-  float inv = 1.0f / (ok_det ? det : 1.0f);
-  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-  v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv;
-  t = (f[6] * qvx + f[7] * qvy + f[8] * qvz) * inv;
-  return ok_det && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-         (t > ry.mn) && (t < cap);
-}
-
 __global__ void __launch_bounds__(LANES)
 items_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
              const float* __restrict__ blk_tn,
@@ -213,7 +191,8 @@ items_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
       bool hit = false;
       for (int k = 0; k < BI * 8; ++k) {
         float t, u, v;
-        hit = mt(st[k], ry, cap, t, u, v) || hit;
+        hit = mt_test(st[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u, v) ||
+              hit;
       }
       occ = occ || hit;
       t_bound = occ ? ry.mn - 1.0f : ry.mx;
@@ -226,7 +205,7 @@ items_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
         for (int sub = 0; sub < 8; ++sub) {
           float t, u, v;
           const Tri& tr = st[item * 8 + sub];
-          if (mt(tr, ry, tb, t, u, v) &&
+          if (mt_test(tr.f, ry.o, ry.d, ry.mn, tb, DET_EPS, t, u, v) &&
               (t < bt || (t == bt && sub < bs))) {
             bt = t;
             bs = sub;

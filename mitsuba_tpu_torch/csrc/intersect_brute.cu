@@ -30,6 +30,8 @@
 
 #include <cuda_runtime.h>
 
+#include "mt.cuh"
+
 namespace {
 
 constexpr int kCols = 29;        // table row: v0|e1|e2|n0|n1|n2|uv0|uv1|uv2|mid|eid|sid|pad2
@@ -44,31 +46,6 @@ struct Outputs {
   float* uvx; float* uvy;
   int* mid; int* eid; int* sid; int* occ;
 };
-
-// Moller-Trumbore against one table row; sums in the reference's order.
-__device__ __forceinline__ bool mt_hit(const float* r, float ox, float oy,
-                                       float oz, float dx, float dy, float dz,
-                                       float mn, float mx, float& t, float& u,
-                                       float& v) {
-  const float v0x = r[0], v0y = r[1], v0z = r[2];
-  const float e1x = r[3], e1y = r[4], e1z = r[5];
-  const float e2x = r[6], e2y = r[7], e2z = r[8];
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool det_ok = fabsf(det) > kDetEps;
-  const float inv_det = det_ok ? 1.0f / det : 0.0f;
-  const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-  u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  v = (dx * qx + dy * qy + dz * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > mn &&
-         t < mx;
-}
 
 __global__ void __launch_bounds__(kThreads)
 shaded_any_kernel(const float* __restrict__ table, int n_tris,
@@ -95,6 +72,9 @@ shaded_any_kernel(const float* __restrict__ table, int n_tris,
     smn = smint[i]; smx = smaxt[i];
   }
 
+  const float ro[3] = {ox, oy, oz}, rd[3] = {dx, dy, dz};
+  const float sro[3] = {sox, soy, soz}, srd[3] = {sdx, sdy, sdz};
+
   float t_b = __int_as_float(0x7f800000);  // +inf
   float u_b = 0.f, v_b = 0.f;
   int p_b = -1;
@@ -109,10 +89,10 @@ shaded_any_kernel(const float* __restrict__ table, int n_tris,
     for (int j = 0; j < rows; ++j) {
       const float* r = tab + j * kCols;
       float t, u, v;
-      if (mt_hit(r, ox, oy, oz, dx, dy, dz, mn, mx, t, u, v) && t < t_b) {
+      if (mt_test(r, ro, rd, mn, mx, kDetEps, t, u, v) && t < t_b) {
         t_b = t; u_b = u; v_b = v; p_b = c0 + j;
       }
-      if (!occ) occ = mt_hit(r, sox, soy, soz, sdx, sdy, sdz, smn, smx, t, u, v);
+      if (!occ) occ = mt_test(r, sro, srd, smn, smx, kDetEps, t, u, v);
     }
   }
   if (!live) return;

@@ -29,37 +29,14 @@
 
 #include <cuda_runtime.h>
 
+#include "mt.cuh"
+
 #define LANES 128
 #define SC_GROUP 8
 #define FIELDS 16
 #define BIG 3e38f
 #define DET_EPS 1e-12f
 #define PSEL_NONE (1 << 30)
-
-__device__ __forceinline__ void mt(const float* f, const float o[3],
-                                   const float d[3], float mnb, float cap,
-                                   float& t, float& u, float& v, bool& ok) {
-  float v0x = f[0], v0y = f[1], v0z = f[2];
-  float e1x = f[3], e1y = f[4], e1z = f[5];
-  float e2x = f[6], e2y = f[7], e2z = f[8];
-  float pvx = d[1] * e2z - d[2] * e2y;
-  float pvy = d[2] * e2x - d[0] * e2z;
-  float pvz = d[0] * e2y - d[1] * e2x;
-  float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  float tvx = o[0] - v0x;
-  float tvy = o[1] - v0y;
-  float tvz = o[2] - v0z;
-  float qvx = tvy * e1z - tvz * e1y;
-  float qvy = tvz * e1x - tvx * e1z;
-  float qvz = tvx * e1y - tvy * e1x;
-  bool ok_det = fabsf(det) > DET_EPS;
-  float inv = 1.0f / (ok_det ? det : 1.0f);
-  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-  v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv;
-  t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-  ok = ok_det && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-       (t > mnb) && (t < cap);
-}
 
 __device__ __forceinline__ float block_max(float x, float* red) {
   for (int off = 16; off > 0; off >>= 1)
@@ -114,8 +91,8 @@ stream_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
         bool hit = false;
         for (int row = 0; row < K; ++row) {
           float t, u, v;
-          bool ok;
-          mt(blk + row * LANES + k * FIELDS, o, d, mnb, cap, t, u, v, ok);
+          const bool ok = mt_test(blk + row * LANES + k * FIELDS, o, d, mnb,
+                                  cap, DET_EPS, t, u, v);
           hit = hit || ok;
         }
         occ = occ || hit;
@@ -141,9 +118,8 @@ stream_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
           int jg[2] = {0, 0};
           for (int j = 0; j < K / 8; ++j) {
             float t, u, v;
-            bool ok;
-            mt(blk + (j * 8 + s) * LANES + k * FIELDS, o, d, mnb, tb, t, u,
-               v, ok);
+            const bool ok = mt_test(blk + (j * 8 + s) * LANES + k * FIELDS,
+                                    o, d, mnb, tb, DET_EPS, t, u, v);
             const int g = j & 1;
             if (ok && t < tg[g]) {
               tg[g] = t;

@@ -9,7 +9,10 @@ As in the reference, the NEE shadow ray of a bounce is deferred and
 answered by the next bounce's queries.
 
 On the brute backend a bounce is one fused kernel launch for the closest
-hit and the pending shadow ray. The cluster backend sorts its rays
+hit and the pending shadow ray; on the bvh backend it is a closest-hit
+query and an any-hit query, each one launch of the BVH kernel, on lanes
+in scanline order (as in the reference, path.py:982). The cluster
+backend, instanced or not, sorts its rays
 (forced, as in the reference): `render` orders the camera lanes by pixel
 Morton code, the first bounce runs on them as they come, at the coherent
 cull caps and with no shadow query (there is no pending NEE yet), and
@@ -76,9 +79,10 @@ def _check_config(cfg: PathConfig, backend: str):
     if cfg.sort_mode != "full":
         raise NotImplementedError(
             f"sort_mode '{cfg.sort_mode}' is not ported (only 'full')")
-    if cfg.sort_rays and backend != "cluster":
+    if cfg.sort_rays and backend == "brute":
         raise NotImplementedError(
-            "sorted bounces are ported for the cluster backend only")
+            "sorted bounces on the brute backend need separate queries "
+            "(TPU kernels #2 and #3, not ported)")
 
 
 def _morton_keys(o, d, bmin, bmax):

@@ -1,9 +1,10 @@
 """Conversion of a scene of the JAX package into the port's `Scene`.
 
 `from_jax_scene` reads the reference scene's arrays as numpy (geometry on
-the brute or cluster backend, materials, textures, emitters with the
-baked sky's sampling tables, camera) and builds the port's tables from
-them, so that both packages render the same scene from the same arrays.
+the brute, bvh or cluster backend, instanced or not, materials, textures,
+emitters with the baked sky's sampling tables, camera) and builds the
+port's tables from them, so that both packages render the same scene
+from the same arrays.
 It needs no jax import of its own: `np.asarray` reads the reference's
 arrays. Every feature of the reference scene that the port does not
 implement raises NotImplementedError.
@@ -26,10 +27,16 @@ from mitsuba_tpu_torch.render.texture import check_kinds as check_textures
 
 _GEOM_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                 "material_id", "emitter_id", "shape_id")
-_CLUSTER_FIELDS = ("bvh_min", "bvh_max", "shade_pack", "mt_start",
-                   "cl_sc_bmin", "cl_sc_bmax", "ex_tri", "ex_b0lo",
-                   "ex_b0hi", "ex_b1lo", "ex_b1hi", "ex_b2lo", "ex_b2hi",
-                   "ex_ct0", "ex_ct1", "ex_ct2")
+_BVH_FIELDS = ("bvh_min", "bvh_max", "bvh_first", "bvh_count", "bvh_skip",
+               "bvh_packed", "tri_packed", "shade_pack")
+_CLUSTER_FIELDS = ("mt_tri", "mt_start", "mt_bmin", "mt_bmax", "cl_sc_bmin",
+                   "cl_sc_bmax")
+_EXACT_FIELDS = ("ex_tri", "ex_b0lo", "ex_b0hi", "ex_b1lo", "ex_b1hi",
+                 "ex_b2lo", "ex_b2hi", "ex_ct0", "ex_ct1", "ex_ct2")
+_INSTANCE_FIELDS = ("mt_block_id", "mt_xform", "mt_xform_fwd", "obj_v0",
+                    "obj_e1", "obj_e2", "obj_n0", "obj_n1", "obj_n2",
+                    "obj_uv0", "obj_uv1", "obj_uv2", "obj_mid", "obj_sid",
+                    "inst_xf_inv")
 _ENV_FIELDS = ("env_image", "env_prob", "env_alias", "env_pdf_img",
                "env_to_world", "env_to_env")
 
@@ -43,19 +50,31 @@ def _t(x):
 
 
 def _geometry(g) -> GeometryTables:
-    if g.backend not in ("brute", "cluster"):
+    if g.backend not in ("brute", "bvh", "cluster"):
         _unported(f"intersection backend '{g.backend}'")
-    if g.has_analytic or g.n_hair > 0 or g.has_instances:
-        _unported("analytic, hair or instanced geometry")
+    if g.has_analytic or g.n_hair > 0:
+        _unported("analytic or hair geometry")
     geom = GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS})
     if g.backend == "brute":
         return geom
-    if g.ex_tri is None:
-        _unported("a cluster geometry without exact-cull tables")
-    st = g.st_tables
-    return dataclasses.replace(
-        geom, **{k: _t(getattr(g, k)) for k in _CLUSTER_FIELDS},
-        sc_tri=_t(st["sc_tri"]), ex_caps=g.ex_caps, backend="cluster")
+    fields = {k: _t(getattr(g, k)) for k in _BVH_FIELDS}
+    if g.backend == "cluster":
+        fields.update({k: _t(getattr(g, k)) for k in _CLUSTER_FIELDS})
+        if g.has_instances:
+            fields.update({k: _t(getattr(g, k)) for k in _INSTANCE_FIELDS})
+            fields.update(
+                inst_groups=tuple(_geometry(s) for s in g.inst_groups),
+                inst_tri2virt=tuple(_t(x) for x in g.inst_tri2virt),
+                inst_gid=tuple(g.inst_gid),
+                inst_vp_base=tuple(g.inst_vp_base),
+                n_static_clusters=int(g.n_static_clusters), mt_k=g.mt_k)
+        elif g.ex_tri is None:
+            _unported("a cluster geometry without exact-cull tables")
+        else:
+            fields.update({k: _t(getattr(g, k)) for k in _EXACT_FIELDS})
+            fields.update(sc_tri=_t(g.st_tables["sc_tri"]),
+                          ex_caps=g.ex_caps)
+    return dataclasses.replace(geom, **fields, backend=g.backend)
 
 
 def _materials(mt) -> MaterialTable:

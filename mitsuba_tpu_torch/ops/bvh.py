@@ -1,0 +1,204 @@
+"""Skip-link BVH walk, closest and any hit: the CUDA kernel and its plain
+version (port of mitsuba_tpu/ops/bvh_pallas.py, TPU kernels
+`_closest_kernel` :169 and `_any_kernel` :196, entries `bvh_closest` and
+`bvh_any`).
+
+The tables are the flattened skip-link BVH of render/bvh.py as two float
+arrays: nodes (M, 9) bmin | bmax | first | count | skip and triangles
+(T, 9) v0 | e1 | e2, ints stored as exact float32. A walk starts at node
+0; a lane whose slab test against min(best t, maxt) passes an inner node
+goes to i + 1, anything else goes to skip[i]; at a leaf it tests its (at
+most MAX_LEAF) triangles, `min(first + k, T - 1)` with k < count, by
+Möller–Trumbore with the strict `t < min(best t, maxt)`. The any-hit walk
+caps by maxt alone and stops at the first occluder.
+
+The TPU kernel walks a packet of 1,024 rays with one node pointer and
+descends where any lane hits the box. Per lane that is the lane's own
+walk: every box below a missed one lies inside it, so the lane's slab
+tests there fail again (float rounding is monotone), and its best t only
+shrinks. So the plain version and the CUDA kernel walk one ray each.
+
+On CUDA tensors `bvh_closest` / `bvh_any` launch `csrc/bvh.cu`; on CPU
+tensors they run `walk_ref`, the same walk in plain PyTorch. Both take
+the clamp of the slab reciprocals as an argument: the TPU kernel's 1e-12
+by default, the 1e-20 of the reference's exact XLA walk for the instance
+walks (render/intersect.py).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mitsuba_tpu_torch.ops import build as nv
+from mitsuba_tpu_torch.ops.stream import mt
+
+SOURCE = nv.source("bvh.cu")
+MAX_LEAF = 4
+_DET_EPS = 1e-9
+# the clamp of |d| in the slab reciprocals: the TPU kernel's
+RCP_EPS = 1e-12
+# the plain walk checks for live lanes once every this many steps (each
+# check is a host sync; the steps between are no-ops on finished lanes)
+_CHECK_EVERY = 16
+
+# kernel launches since import, per query (reset by callers that count)
+LAUNCHES = {"bvh_closest": 0, "bvh_any": 0}
+_FN = None
+
+
+def build() -> str:
+    """Compile (once per source hash) and bind the kernel; returns the
+    compiler's output, empty when cached."""
+    global _FN
+    log = nv.build_all([SOURCE])[SOURCE]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    _FN = nv.bind(SOURCE, "mts_bvh",
+                  [p] * 6 + [i] * 4 + [ctypes.c_float] + [p] * 6)
+    return log
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _rcp(x, eps):
+    return torch.where(x >= 0, 1.0, -1.0) / torch.clamp(torch.abs(x), min=eps)
+
+
+def walk_ref(nodes, tris, o, d, mint, maxt, any_hit: bool,
+             rcp_eps: float = RCP_EPS, work=None):
+    """Plain version of the kernel: every lane walks the tree on its own,
+    all lanes advancing together one node per step. Returns (t, u, v,
+    prim, hit) with prim = -1 and hit = False on a miss (t is the walk's
+    best t, inf when nothing was hit), or the occlusion mask. rcp_eps
+    clamps |d| in the slab reciprocals, as the kernel's argument does.
+    work: a dict that, if given, receives the walk's box and triangle
+    tests (the work behind the kernel's bound)."""
+    n = o.shape[0]
+    m = nodes.shape[0]
+    n_tris = tris.shape[0]
+    dev = o.device
+    inv = _rcp(d, rcp_eps)
+    mn, mx = mint, maxt
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    t_b = torch.full((n,), float("inf"), device=dev)
+    u_b = torch.zeros(n, device=dev)
+    v_b = torch.zeros(n, device=dev)
+    p_b = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    live = node < m
+    n_box = n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    ks = torch.arange(MAX_LEAF, device=dev)[None]
+    step = 0
+    while step % _CHECK_EVERY or bool(live.any()):
+        step += 1
+        nd = torch.clamp(node, max=m - 1)
+        row = nodes[nd]
+        first = row[:, 6].to(torch.int64)
+        count = row[:, 7].to(torch.int64)
+        skip = row[:, 8].to(torch.int64)
+        t_cap = mx if any_hit else torch.minimum(t_b, mx)
+        t0 = (row[:, 0:3] - o) * inv
+        t1 = (row[:, 3:6] - o) * inv
+        lo = torch.minimum(t0, t1)
+        hi = torch.maximum(t0, t1)
+        tnear = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
+                              torch.maximum(lo[:, 2], mn))
+        tfar = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
+                             torch.minimum(hi[:, 2], t_cap))
+        box = live & (tnear <= tfar)
+        leaf = count > 0
+        if work is not None:
+            n_box = n_box + live.sum()
+            n_tri = n_tri + (box & leaf).long().mul(
+                torch.clamp(count, max=MAX_LEAF)).sum()
+        # the leaf's triangles at once: the kernel's sequential strict
+        # `t < min(best t, maxt)` keeps the least t below the leaf's
+        # starting cap, the first k among equal t
+        ti = torch.clamp(first[:, None] + ks, max=n_tris - 1)
+        t, u, v, hit = (x[..., 0] for x in mt(
+            tris[ti], [o[:, None, j:j + 1] for j in range(3)],
+            [d[:, None, j:j + 1] for j in range(3)], mn[:, None, None],
+            t_cap[:, None, None], eps=_DET_EPS))
+        take = hit & (box & leaf)[:, None] & (ks < count[:, None])
+        if any_hit:
+            occ = occ | take.any(dim=1)
+        else:
+            t = torch.where(take, t, float("inf"))
+            t_min, _ = t.min(dim=1)
+            k = ((t == t_min[:, None]) & take).to(torch.int8).argmax(
+                dim=1, keepdim=True)
+            has = take.any(dim=1)
+            t_b = torch.where(has, t_min, t_b)
+            u_b = torch.where(has, u.gather(1, k)[:, 0], u_b)
+            v_b = torch.where(has, v.gather(1, k)[:, 0], v_b)
+            p_b = torch.where(has, first + k[:, 0], p_b)
+        node = torch.where(live, torch.where(box & ~leaf, nd + 1, skip), node)
+        live = (node < m) & ~occ
+    if work is not None:
+        work.update(box_tests=int(n_box), tri_tests=int(n_tri))
+    if any_hit:
+        return occ
+    ok = (p_b >= 0) & (t_b < mx)
+    return t_b, u_b, v_b, torch.where(ok, p_b, -1).to(torch.int32), ok
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _check(nodes, tris, o, d, mint, maxt):
+    n = o.shape[0]
+    for x, shape in ((nodes, (nodes.shape[0], 9)), (tris, (tris.shape[0], 9)),
+                     (o, (n, 3)), (d, (n, 3)), (mint, (n,)), (maxt, (n,))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"expected float32 {shape}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.device != o.device:
+            raise ValueError("inputs must be on one device")
+    if nodes.shape[0] < 1 or tris.shape[0] < 1:
+        raise ValueError("empty BVH tables")
+
+
+def _query(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps):
+    _check(nodes, tris, o, d, mint, maxt)
+    if o.device.type == "cpu":
+        return walk_ref(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps)
+    if o.device.type != "cuda":
+        raise NotImplementedError(f"no BVH kernel for {o.device}")
+    if _FN is None:
+        build()
+    n = o.shape[0]
+    dev = o.device
+    args = [x.contiguous() for x in (nodes, tris, o, d, mint, maxt)]
+    with torch.cuda.device(dev):
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        p = torch.empty(n, dtype=torch.int32, device=dev)
+        hit = torch.empty(n, dtype=torch.int32, device=dev)
+        err = _FN(*[x.data_ptr() for x in args], n, nodes.shape[0],
+                  tris.shape[0], int(any_hit), rcp_eps, t.data_ptr(),
+                  u.data_ptr(),
+                  v.data_ptr(), p.data_ptr(), hit.data_ptr(),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    nv.check(err, "bvh")
+    if n > 0:
+        LAUNCHES["bvh_any" if any_hit else "bvh_closest"] += 1
+    if any_hit:
+        return hit.bool()
+    return t, u, v, p, hit.bool()
+
+
+def bvh_closest(nodes, tris, o, d, mint, maxt, rcp_eps: float = RCP_EPS):
+    """Closest hit: (t, u, v, prim, hit); prim = -1 where hit is False.
+    The kernel on CUDA tensors, its plain version on CPU ones. rcp_eps:
+    the clamp of |d| in the slab reciprocals (the exact instance walks of
+    render/intersect.py pass the reference's 1e-20)."""
+    return _query(nodes, tris, o, d, mint, maxt, False, rcp_eps)
+
+
+def bvh_any(nodes, tris, o, d, mint, maxt, rcp_eps: float = RCP_EPS):
+    """Any hit within (mint, maxt): the occlusion mask."""
+    return _query(nodes, tris, o, d, mint, maxt, True, rcp_eps)

@@ -38,11 +38,12 @@ import torch
 
 from mitsuba_tpu_torch.ops import build as nv
 from mitsuba_tpu_torch.ops.rows import BIG, LANES, pack_rays
-from mitsuba_tpu_torch.ops.stream import build_sc_lists
+from mitsuba_tpu_torch.ops.stream import (
+    build_sc_lists, mt, tests_to_first_hit,
+)
 
 SOURCE = nv.source("exact.cu")
 BI = 16                 # K8 clusters per item block
-_DET_EPS = 1e-12
 # largest (rows, entries, 3, 128) slab intermediate of the plain
 # versions, in elements (256 MB of float32)
 _MAX_ELEMS = 1 << 26
@@ -159,37 +160,14 @@ def _mt_items(tri, rays, cap):
     """Möller–Trumbore of rows (Rb, 8, 128) against their staged triangles
     tri (Rb, M, 16) with per-lane cap (Rb, 128) -> (t, u, v, ok) of shape
     (Rb, M, 128), in the kernel's operation order."""
-    f = [tri[:, :, i:i + 1] for i in range(9)]
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f
-    ox, oy, oz = (rays[:, None, j] for j in range(3))
-    dx, dy, dz = (rays[:, None, 3 + j] for j in range(3))
-    pvx = dy * e2z - dz * e2y
-    pvy = dz * e2x - dx * e2z
-    pvz = dx * e2y - dy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    tvx = ox - v0x
-    tvy = oy - v0y
-    tvz = oz - v0z
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    ok_det = torch.abs(det) > _DET_EPS
-    inv = 1.0 / torch.where(ok_det, det, 1.0)
-    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
-    v = (dx * qvx + dy * qvy + dz * qvz) * inv
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
-    ok = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-          & (t > rays[:, None, 6]) & (t < cap[:, None]))
-    return t, u, v, ok
+    return mt(tri, [rays[:, None, j] for j in range(3)],
+              [rays[:, None, 3 + j] for j in range(3)], rays[:, None, 6],
+              cap[:, None])
 
 
-def _items_block(blk, ry, mn, mx, occ, tb, any_hit):
-    """One item block of the plain walk for the rows of ry; returns the
-    rows' new state."""
-    if any_hit:
-        occ = occ | _mt_items(blk, ry, torch.where(occ, mn, mx))[3].any(
-            dim=1)
-        return occ, torch.where(occ, mn - 1.0, mx)
+def _items_block(blk, ry, tb):
+    """One item block of the plain closest-hit walk for the rows of ry:
+    (improved, t, u, v, prim) per lane."""
     t, u, v, ok = _mt_items(blk, ry, tb)
     # lexicographic (t, sublane, item) minimum: the per-sublane running
     # winner over the items (strict <), then the lowest sublane
@@ -206,10 +184,16 @@ def _items_block(blk, ry, mn, mx, occ, tb, any_hit):
                          first)[:, 0])
 
 
-def items_ref(tri, rays, ids, blk_tn, any_hit: bool):
+def items_ref(tri, rays, ids, blk_tn, any_hit: bool, work=None):
     """Plain kernel #7: rows walk their item blocks in order, each block
     tested only where its key is within the row's current bound. Returns
-    (t, u, v, prim) (R, 128) each, or the occlusion mask (R, 128) bool."""
+    (t, u, v, prim) (R, 128) each, or the occlusion mask (R, 128) bool.
+    work: a dict that, if given, receives the triangle tests these inputs
+    need, lane by lane: a block's key bounds every lane's entry into its
+    clusters from below, so of a tested block a live lane needs its 128
+    triangles where the key is within the lane's best t (closest), or its
+    triangles up to the first hit where the key is within maxt and the
+    lane is not yet occluded (any hit)."""
     r, e3 = ids.shape
     nb = e3 // BI
     dev = rays.device
@@ -219,8 +203,10 @@ def items_ref(tri, rays, ids, blk_tn, any_hit: bool):
     ub = torch.zeros_like(tb)
     vb = torch.zeros_like(tb)
     pb = torch.full((r, LANES), -1, dtype=torch.int32, device=dev)
+    live = rays[:, 6] <= rays[:, 7]
     # rows per step: (rows, 128 triangles, 128 lanes) intermediates
     step = max(1, _MAX_ELEMS // (BI * 8 * LANES * 4))
+    n_tri = torch.zeros((), dtype=torch.int64, device=dev)
     for b in range(nb):
         todo = torch.nonzero(
             blk_tn[:, b] <= (bound if any_hit else tb).amax(dim=1))[:, 0]
@@ -229,16 +215,29 @@ def items_ref(tri, rays, ids, blk_tn, any_hit: bool):
             cid = ids[rows, b * BI:(b + 1) * BI].long()
             blk = tri[cid][:, :, :, :16].reshape(rows.shape[0], BI * 8, 16)
             ry = rays[rows]
-            out = _items_block(blk, ry, ry[:, 6], ry[:, 7], occ[rows],
-                               tb[rows], any_hit)
+            key = blk_tn[rows, b][:, None]
             if any_hit:
-                occ[rows], bound[rows] = out
+                oc = occ[rows]
+                ok = _mt_items(blk, ry, torch.where(oc, ry[:, 6],
+                                                    ry[:, 7]))[3]
+                if work is not None:
+                    n_tri = n_tri + tests_to_first_hit(
+                        ok, live[rows] & ~oc & (key <= ry[:, 7]))
+                oc = oc | ok.any(dim=1)
+                occ[rows] = oc
+                bound[rows] = torch.where(oc, ry[:, 6] - 1.0, ry[:, 7])
                 continue
-            improved, tmin, u, v, p = out
-            tb[rows] = torch.where(improved, tmin, tb[rows])
+            t_rows = tb[rows]
+            if work is not None:
+                n_tri = n_tri + (live[rows] & (key <= t_rows)).sum() \
+                    * (BI * 8)
+            improved, tmin, u, v, p = _items_block(blk, ry, t_rows)
+            tb[rows] = torch.where(improved, tmin, t_rows)
             ub[rows] = torch.where(improved, u, ub[rows])
             vb[rows] = torch.where(improved, v, vb[rows])
             pb[rows] = torch.where(improved, p, pb[rows])
+    if work is not None:
+        work.update(tri_tests=int(n_tri))
     if any_hit:
         return occ
     return tb, ub, vb, pb

@@ -72,10 +72,12 @@ def build_sc_lists(rays, sc_bmin, sc_bmax):
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _mt(tri, o, d, mnb, cap):
-    """Möller–Trumbore of rows' rays (Ra, 1, 128) against triangle fields
-    tri (Ra, Kt, 16) -> (t, u, v, ok), each (Ra, Kt, 128); the operation
-    order of the kernel."""
+def mt(tri, o, d, mnb, cap, eps: float = _DET_EPS):
+    """Möller–Trumbore of rays against triangles whose fields v0 | e1 | e2
+    lead the last axis of tri: rows' rays (Ra, 1, 128) against tri (Ra,
+    Kt, 16) give (t, u, v, ok), each (Ra, Kt, 128). The operation order of
+    every kernel of the port (csrc/mt.cuh); a triangle with |det| <= eps
+    never hits, and its t, u, v are then meaningless."""
     f = [tri[..., i:i + 1] for i in range(9)]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f
     ox, oy, oz = o
@@ -90,7 +92,7 @@ def _mt(tri, o, d, mnb, cap):
     qvx = tvy * e1z - tvz * e1y
     qvy = tvz * e1x - tvx * e1z
     qvz = tvx * e1y - tvy * e1x
-    ok_det = torch.abs(det) > _DET_EPS
+    ok_det = torch.abs(det) > eps
     inv = 1.0 / torch.where(ok_det, det, 1.0)
     u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
     v = (dx * qvx + dy * qvy + dz * qvz) * inv
@@ -100,7 +102,16 @@ def _mt(tri, o, d, mnb, cap):
     return t, u, v, ok
 
 
-def _slab(box, o, d, mnb, tb):
+def tests_to_first_hit(ok, need):
+    """The triangle tests that lanes need up to their first hit: ok (Ra,
+    K, 128) in test order along dim 1, need (Ra, 128) the lanes that test
+    at all; a lane without a hit needs all K. A 0-d int64 tensor."""
+    first = ok.to(torch.int8).argmax(dim=1) + 1
+    per_lane = torch.where(ok.any(dim=1), first, ok.shape[1])
+    return torch.where(need, per_lane, 0).sum()
+
+
+def slab(box, o, d, mnb, tb):
     """Per-lane can-improve test against cluster AABBs box (Ra, 6)."""
     tn, tf = mnb, tb
     for j in range(3):
@@ -113,11 +124,11 @@ def _slab(box, o, d, mnb, tb):
     return tn <= tf
 
 
-def _visit(tri, o, d, mnb, tb):
+def visit(tri, o, d, mnb, tb):
     """One cluster (Ra, K, 16) against the rows' lanes with cap tb:
     returns (tmin, u, v, psel) per lane with the kernel's tie order."""
     ra, k, _ = tri.shape
-    t, u, v, ok = _mt(tri, o, d, mnb, tb)          # (Ra, K, 128)
+    t, u, v, ok = mt(tri, o, d, mnb, tb)          # (Ra, K, 128)
     n_chunks = k // 8
     sh = (ra, n_chunks, 8, LANES)
     t, u, v, ok = t.reshape(sh), u.reshape(sh), v.reshape(sh), ok.reshape(sh)
@@ -148,33 +159,39 @@ def _visit(tri, o, d, mnb, tb):
     return tmin, usel, vsel, psel
 
 
-def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool):
+def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool, work=None):
     """Plain version of the stream kernel, row for row: rays (R, 8, 128),
     ids/tns (R, L) from build_sc_lists, sc_tri (c_s, K, 128). Returns
     (t, u, v, vprim) (R, 128) each, or the occlusion mask (R, 128) bool.
     Rows advance together through a loop over list positions; each row
-    leaves the loop where the kernel's row would."""
+    leaves the loop where the kernel's row would. work: a dict that, if
+    given, receives the tests these inputs need, lane by lane: closest,
+    a slab test per live lane and visited cluster and the K triangle
+    tests of each lane whose slab test passed; any hit, the triangle
+    tests of each live, not yet occluded lane up to its first hit."""
     n_rows = rays.shape[0]
     dev = rays.device
     k_cl = sc_tri.shape[1]
     o_all = [rays[:, j] for j in range(3)]
     d_all = [rays[:, 3 + j] for j in range(3)]
     mnb_all, maxt = rays[:, 6], rays[:, 7]
+    live0 = mnb_all <= maxt
     if any_hit:
         occ = torch.zeros((n_rows, LANES), dtype=torch.bool, device=dev)
-        live0 = mnb_all <= maxt
     else:
         tb = maxt.clone()
         ub = torch.zeros_like(tb)
         vb = torch.zeros_like(tb)
         pb = torch.full((n_rows, LANES), -1, dtype=torch.int32, device=dev)
     cont = tns[:, 0] < BIG
+    n_box = n_tri = torch.zeros((), dtype=torch.int64, device=dev)
     i = 0
     while bool(cont.any()):
         rows = torch.nonzero(cont)[:, 0]
         o = [x[rows][:, None] for x in o_all]
         d = [x[rows][:, None] for x in d_all]
         mnb = mnb_all[rows][:, None]
+        live = live0[rows]
         sc = ids[rows, i].long()
         blocks = sc_tri[sc].reshape(rows.shape[0], k_cl, SC_GROUP, 16)
         nxt_t = tns[rows, i + 1]
@@ -184,22 +201,27 @@ def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool):
             mx = maxt[rows]
             for k in range(SC_GROUP):
                 cap = torch.where(oc, mnb[:, 0], mx)[:, None]
-                _t, _u, _v, ok = _mt(blocks[:, :, k], o, d, mnb, cap)
+                _t, _u, _v, ok = mt(blocks[:, :, k], o, d, mnb, cap)
+                if work is not None:
+                    n_tri = n_tri + tests_to_first_hit(ok, live & ~oc)
                 oc = oc | ok.any(dim=1)
             occ[rows] = oc
-            done = (oc | ~live0[rows]).all(dim=1)
+            done = (oc | ~live).all(dim=1)
             cont[rows] = has_next & ~done
         else:
             t_b, u_b, v_b, p_b = tb[rows], ub[rows], vb[rows], pb[rows]
             for k in range(SC_GROUP):
                 box = blocks[:, 0, k, 9:15]
-                can = _slab(box, [x[:, 0] for x in o],
+                can = slab(box, [x[:, 0] for x in o],
                             [x[:, 0] for x in d], mnb[:, 0], t_b)
+                if work is not None:
+                    n_box = n_box + live.sum()
+                    n_tri = n_tri + can.sum() * k_cl
                 vis = torch.nonzero(can.any(dim=1))[:, 0]
                 if vis.numel() == 0:
                     continue
                 tv = t_b[vis]
-                tmin, usel, vsel, psel = _visit(
+                tmin, usel, vsel, psel = visit(
                     blocks[vis, :, k], [x[vis] for x in o],
                     [x[vis] for x in d], mnb[vis], tv[:, None, :])
                 improved = tmin < tv
@@ -212,6 +234,8 @@ def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool):
             tb[rows], ub[rows], vb[rows], pb[rows] = t_b, u_b, v_b, p_b
             cont[rows] = has_next & (nxt_t <= t_b.amax(dim=1))
         i += 1
+    if work is not None:
+        work.update(box_tests=int(n_box), tri_tests=int(n_tri))
     if any_hit:
         return occ
     return tb, ub, vb, pb

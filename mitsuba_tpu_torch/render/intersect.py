@@ -1,46 +1,74 @@
-"""Ray–scene intersection on the brute and cluster backends (port of
-mitsuba_tpu/render/intersect.py, non-instanced triangle scenes).
+"""Ray–scene intersection on the brute, bvh and cluster backends, with
+true instancing on the cluster backend (port of
+mitsuba_tpu/render/intersect.py, triangle scenes).
 
 Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
 
-* brute (scenes of up to 64 triangles): the triangles in input order; the
-  path tracer's `ray_intersect_and_test` runs the fused kernel of
-  `ops/intersect.py` once per bounce and assembles the `Intersection` as
-  the reference's TPU kernel path does (intersect.py:1489-1518): the
+* brute (the "auto" choice up to 64 triangles): the triangles in input
+  order; the path tracer's `ray_intersect_and_test` runs the fused kernel
+  of `ops/intersect.py` once per bounce and assembles the `Intersection`
+  as the reference's TPU kernel path does (intersect.py:1489-1518): the
   shading frame is `Frame.from_normal(sh_n)`, `dp_du` its s axis.
-* cluster: the triangles in BVH order, cut into 8-triangle clusters with
-  an 8x box hierarchy for the exact cull (`ops/exact.py`) and into
-  32-triangle superclusters for the complete stream walk
-  (`ops/stream.py`). A query (`ray_intersect`, `ray_test`) clamps maxt to
-  the root box, runs the exact cull at diffuse or coherent caps,
+* bvh: the triangles in the order of a skip-link BVH (render/bvh.py); a
+  closest query is one launch of the packet-BVH kernel's port
+  (`ops/bvh.py`, bvh_closest), an any-hit query one of bvh_any
+  (intersect.py:1343-1351, 1557-1565).
+* cluster (the "auto" choice above 64 triangles): the BVH order cut into
+  8-triangle clusters with an 8x box hierarchy for the exact cull
+  (`ops/exact.py`) and into 32-triangle clusters, in superclusters of 8,
+  for the complete stream walk (`ops/stream.py`) and the work list
+  (`ops/worklist.py`). A query (`ray_intersect`, `ray_test`) clamps maxt
+  to the root box, runs the exact cull at diffuse or coherent caps,
   re-runs rows that overflowed at the XL caps on a row-compacted subset,
   and resolves whatever still overflows through the stream kernel
-  (intersect.py:1295-1319, 1523-1540). The hit record then comes from the
-  reference's generic tail (intersect.py:1359-1481): one packed
-  `shade_pack` row per hit, `dp_du` from the uv chart, and the frame
-  `Frame.from_normal_tangent(sh_n, dp_du)` — not the brute path's frame.
+  (intersect.py:1295-1319, 1523-1540).
+* cluster with instances (`build_geometry(..., instanced=...)`): N
+  instances of a group share one object-space copy of its 32-triangle
+  blocks, and each instance cluster has a world box and a world->object
+  map. There are no exact-cull tables; a query runs the work-list kernel
+  and re-resolves the lanes of overflowing rows through the BVH kernel on
+  the static triangles plus an exact walk of every instance, which is
+  the same kernel on the group's own tables with the reference walk's
+  reciprocal clamp (intersect.py:1329-1342, 1547-1556, 928-1000).
+  Instanced hits carry virtual prim ids >= n_tris, which decode to the
+  shared blocks.
+
+Off the brute backend the hit record comes from the reference's generic
+tail (intersect.py:1359-1481): one packed `shade_pack` row per hit (the
+shared block's attributes, rotated to world space, for an instanced
+hit), `dp_du` from the uv chart, and the frame
+`Frame.from_normal_tangent(sh_n, dp_du)` — not the brute path's frame.
 
 Each `lax.cond` of the reference is a Python branch on a device-side
-`any()`. Instancing and the `bvh` backend are not ported.
+`any()`. Separate closest and any-hit queries on the brute backend need
+TPU kernels #2 and #3, which are not ported; they raise.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from mitsuba_tpu.render.bvh import build_bvh          # numpy only, jax-free
-from mitsuba_tpu.render.clusters import (              # numpy only, jax-free
-    build_mt_tables, cut_clusters,
-)
 from mitsuba_tpu_torch.core import math as m
+from mitsuba_tpu_torch.ops import bvh as bp
 from mitsuba_tpu_torch.ops import exact as ep
 from mitsuba_tpu_torch.ops import intersect as ip
 from mitsuba_tpu_torch.ops import stream as sp
+from mitsuba_tpu_torch.ops import worklist as wl
+from mitsuba_tpu_torch.render.bvh import build_bvh
+from mitsuba_tpu_torch.render.clusters import (
+    MTTables, build_instanced_tables, build_mt_tables, cut_clusters,
+)
 from mitsuba_tpu_torch.render.records import Intersection, Ray
 
 LANE_ROW = 128
+BRUTE_MAX_TRIS = 64     # "auto" picks brute up to here, cluster above
+MT_K = 32               # triangles per work-list / stream cluster
+# the reference's exact XLA walk clamps |d| in its slab reciprocals at
+# this (m.safe_rcp), where the BVH kernel clamps at 1e-12
+_WALK_RCP_EPS = 1e-20
 
 
 @dataclass
@@ -57,18 +85,26 @@ class GeometryTables:
     material_id: torch.Tensor  # (T,) int32
     emitter_id: torch.Tensor   # (T,) int32, -1 = not emissive
     shape_id: torch.Tensor     # (T,) int32
-    # cluster backend only (None on brute)
-    bvh_min: torch.Tensor = None     # (M, 3) BVH node boxes, row 0 = root
+    # bvh and cluster backends (None on brute): the flattened BVH
+    bvh_min: torch.Tensor = None     # (M, 3) node boxes, row 0 = root
     bvh_max: torch.Tensor = None
+    bvh_first: torch.Tensor = None   # (M,) int32 leaf: first triangle
+    bvh_count: torch.Tensor = None   # (M,) int32 leaf size, 0 = inner
+    bvh_skip: torch.Tensor = None    # (M,) int32 next node after a miss
+    bvh_packed: torch.Tensor = None  # (M, 9) bmin|bmax|first|count|skip
+    tri_packed: torch.Tensor = None  # (T, 9) v0|e1|e2
     # the shading record in one row: e1|e2|n0|n1|n2|uv0|uv1|uv2|
     # mid|eid|sid (ints bitcast to float32)
     shade_pack: torch.Tensor = None  # (T, 24)
-    # stream tables: K = 32 clusters in superclusters of 8
-    sc_tri: torch.Tensor = None      # (C_s, 32, 128) lane = cluster*16+field
-    mt_start: torch.Tensor = None    # (C,) int32 first triangle per cluster
+    # cluster backend: K = 32 clusters in superclusters of 8
+    mt_tri: torch.Tensor = None      # (B, K, 16) blocks (shared, instanced)
+    mt_start: torch.Tensor = None    # (C,) int32 prim base per cluster
+    mt_bmin: torch.Tensor = None     # (C, 3) world cluster boxes
+    mt_bmax: torch.Tensor = None
     cl_sc_bmin: torch.Tensor = None  # (C_s, 3)
     cl_sc_bmax: torch.Tensor = None
-    # exact-cull tables: K8 clusters, 8x box hierarchy
+    sc_tri: torch.Tensor = None      # (C_s, 32, 128) lane = cluster*16+field
+    # exact-cull tables (cluster, no instances): K8 clusters, 8x boxes
     ex_tri: torch.Tensor = None      # (C8, 8, 128) lane 15 = prim (bitcast)
     ex_b0lo: torch.Tensor = None     # (C8, 3)
     ex_b0hi: torch.Tensor = None
@@ -80,11 +116,41 @@ class GeometryTables:
     ex_ct1: torch.Tensor = None      # (C8/64, 8, 128) L1-child box table
     ex_ct2: torch.Tensor = None      # (pad(C8/64)/8, 8, 128) root table
     ex_caps: tuple = None            # (diffuse, coherent, xl) caps
+    # true instancing (cluster): virtual prims >= n_tris decode to
+    # (cluster, local) and shade through the block-aligned obj_* tables
+    mt_block_id: torch.Tensor = None   # (C,) int32 cluster -> shared block
+    mt_xform: torch.Tensor = None      # (C, 16) world->object 3x4 rows
+    mt_xform_fwd: torch.Tensor = None  # (C, 12) object->world 3x4 rows
+    obj_v0: torch.Tensor = None        # (B*K, 3) block-aligned object tris
+    obj_e1: torch.Tensor = None
+    obj_e2: torch.Tensor = None
+    obj_n0: torch.Tensor = None
+    obj_n1: torch.Tensor = None
+    obj_n2: torch.Tensor = None
+    obj_uv0: torch.Tensor = None       # (B*K, 2)
+    obj_uv1: torch.Tensor = None
+    obj_uv2: torch.Tensor = None
+    obj_mid: torch.Tensor = None       # (B*K,) int32 material ids
+    obj_sid: torch.Tensor = None       # (B*K,) int32 shape ids
+    # the exact per-instance walks: each group's object-space geometry,
+    # its triangle -> cluster*K + local map, and per instance the
+    # world->object rows, group index and virtual prim base
+    inst_groups: tuple = ()            # GeometryTables per group
+    inst_tri2virt: tuple = ()          # (T_g,) int32 per group
+    inst_xf_inv: torch.Tensor = None   # (I, 12)
+    inst_gid: tuple = ()
+    inst_vp_base: tuple = ()
+    n_static_clusters: int = 0
+    mt_k: int = MT_K
     backend: str = "brute"
 
     @property
     def n_tris(self):
         return self.v0.shape[0]
+
+    @property
+    def has_instances(self):
+        return self.mt_block_id is not None
 
     @property
     def ex_tables(self):
@@ -98,6 +164,30 @@ class GeometryTables:
         return dict(sc_tri=self.sc_tri, sc_bmin=self.cl_sc_bmin,
                     sc_bmax=self.cl_sc_bmax, tri_start=self.mt_start)
 
+    @property
+    def wl_tables(self):
+        d = dict(tri=self.mt_tri, tri_start=self.mt_start,
+                 bmin=self.mt_bmin, bmax=self.mt_bmax,
+                 sc_bmin=self.cl_sc_bmin, sc_bmax=self.cl_sc_bmax)
+        if self.has_instances:
+            d.update(block_id=self.mt_block_id, xform=self.mt_xform)
+        return d
+
+    def to(self, device) -> "GeometryTables":
+        """The tables, the instance groups' included, on `device`."""
+        def move(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(device)
+            if isinstance(x, GeometryTables):
+                return x.to(device)
+            if isinstance(x, tuple):
+                return tuple(move(y) for y in x)
+            return x
+
+        return dataclasses.replace(self, **{
+            f.name: move(getattr(self, f.name))
+            for f in dataclasses.fields(self)})
+
 
 def _pad_boxes(lo, hi, mult=128):
     """Pad a box list to a multiple of `mult` with far-away degenerate
@@ -110,13 +200,20 @@ def _pad_boxes(lo, hi, mult=128):
     return lo, hi
 
 
-def build_geometry(meshes_with_ids, backend: str = "brute") \
-        -> GeometryTables:
+def _dev(x):
+    return torch.as_tensor(np.ascontiguousarray(x))
+
+
+def build_geometry(meshes_with_ids, backend: str = "auto",
+                   instanced=None) -> GeometryTables:
     """Assemble GeometryTables from [(TriMesh, material_id, emitter_id
-    [, shape_id]), ...]. backend 'brute' keeps the input order and builds
-    no tree; 'cluster' (the reference's choice above 64 triangles) orders
-    the triangles by a BVH and builds the cluster tables. Host numpy, as
-    in the reference."""
+    [, shape_id]), ...]. backend: 'brute' keeps the input order and
+    builds no tree; 'bvh' orders the triangles by a BVH; 'cluster' also
+    builds the cluster tables; 'auto' is cluster above 64 triangles,
+    brute below (intersect.py:257). instanced: (groups, instances) for
+    true instancing on the cluster backend, groups = [[(TriMesh in object
+    space, material_id, shape_id), ...], ...] and instances = [(group
+    index, 4x4 to_world), ...]. Host numpy, as in the reference."""
     vs, fs, ns, uvs, mids, eids, sids = [], [], [], [], [], [], []
     voff = 0
     for k, item in enumerate(meshes_with_ids):
@@ -149,46 +246,85 @@ def build_geometry(meshes_with_ids, backend: str = "brute") \
     mid = np.concatenate(mids)
     eid = np.concatenate(eids)
     sid = np.concatenate(sids)
-    if backend not in ("brute", "cluster"):
-        raise NotImplementedError(
-            f"intersection backend '{backend}' is not ported "
-            "(only 'brute' and 'cluster')")
+    if backend == "auto":
+        backend = "cluster" if f.shape[0] > BRUTE_MAX_TRIS else "brute"
+    if backend not in ("brute", "bvh", "cluster"):
+        raise ValueError(f"unknown intersection backend '{backend}'")
+    if instanced and instanced[1] and backend != "cluster":
+        raise ValueError("true instancing requires the cluster backend")
 
-    def dev(x):
-        return torch.as_tensor(np.ascontiguousarray(x))
-
-    cl = {}
-    if backend == "cluster":
+    tables = {}
+    if backend != "brute":
         bvh = build_bvh(v, f)
         p = bvh.perm
         f = f[p]
         mid, eid, sid = mid[p], eid[p], sid[p]
-        cl = _build_cluster(v[f], bvh, n[f], uv[f], mid, eid, sid)
+        tables = _bvh_tables(bvh, v[f], n[f], uv[f], mid, eid, sid)
     tri = v[f]  # (T, 3, 3)
+    if backend == "cluster":
+        inst = instanced if instanced and instanced[1] else None
+        tables.update(_build_cluster(tri, bvh, exact=inst is None))
+        if inst is not None:
+            tables.update(_build_instanced(tables, tri.shape[0], *inst))
+    caps = tables.pop("ex_caps", None)
     return GeometryTables(
-        **{k: dev(x) for k, x in cl.items() if k != "ex_caps"},
-        ex_caps=cl.get("ex_caps"),
+        **{k: (_dev(x) if isinstance(x, np.ndarray) else x)
+           for k, x in tables.items()},
+        ex_caps=caps,
         backend=backend,
-        v0=dev(tri[:, 0]),
-        e1=dev(tri[:, 1] - tri[:, 0]),
-        e2=dev(tri[:, 2] - tri[:, 0]),
-        n0=dev(n[f[:, 0]]), n1=dev(n[f[:, 1]]), n2=dev(n[f[:, 2]]),
-        uv0=dev(uv[f[:, 0]]), uv1=dev(uv[f[:, 1]]), uv2=dev(uv[f[:, 2]]),
-        material_id=dev(mid), emitter_id=dev(eid), shape_id=dev(sid),
+        v0=_dev(tri[:, 0]),
+        e1=_dev(tri[:, 1] - tri[:, 0]),
+        e2=_dev(tri[:, 2] - tri[:, 0]),
+        n0=_dev(n[f[:, 0]]), n1=_dev(n[f[:, 1]]), n2=_dev(n[f[:, 2]]),
+        uv0=_dev(uv[f[:, 0]]), uv1=_dev(uv[f[:, 1]]), uv2=_dev(uv[f[:, 2]]),
+        material_id=_dev(mid), emitter_id=_dev(eid), shape_id=_dev(sid),
     )
 
 
-def _build_cluster(tri, bvh, nrm, uvc, mid, eid, sid):
-    """numpy tables of the cluster backend (intersect.py:278-328, 476-504)
-    for the BVH-ordered soup tri (T, 3, 3) with its per-corner normals
-    nrm (T, 3, 3) and uvs uvc (T, 3, 2)."""
+def _bvh_tables(bvh, tri, nrm, uvc, mid, eid, sid):
+    """numpy BVH and shading tables (intersect.py:476-504) of the
+    BVH-ordered soup tri (T, 3, 3) with per-corner normals nrm (T, 3, 3)
+    and uvs uvc (T, 3, 2)."""
+    e1, e2 = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    nodes = np.concatenate(
+        [bvh.bounds_min, bvh.bounds_max,
+         bvh.first[:, None].astype(np.float32),
+         bvh.count[:, None].astype(np.float32),
+         bvh.skip[:, None].astype(np.float32)], axis=1)
+    shade = np.concatenate(
+        [e1.astype(np.float32), e2.astype(np.float32),
+         nrm[:, 0].astype(np.float32), nrm[:, 1].astype(np.float32),
+         nrm[:, 2].astype(np.float32),
+         uvc[:, 0].astype(np.float32), uvc[:, 1].astype(np.float32),
+         uvc[:, 2].astype(np.float32),
+         mid.astype(np.int32).view(np.float32)[:, None],
+         eid.astype(np.int32).view(np.float32)[:, None],
+         sid.astype(np.int32).view(np.float32)[:, None]], axis=1)
+    return dict(
+        bvh_min=bvh.bounds_min, bvh_max=bvh.bounds_max,
+        bvh_first=bvh.first, bvh_count=bvh.count, bvh_skip=bvh.skip,
+        bvh_packed=nodes.astype(np.float32),
+        tri_packed=np.concatenate([tri[:, 0], e1, e2],
+                                  axis=1).astype(np.float32),
+        shade_pack=shade)
+
+
+def _build_cluster(tri, bvh, exact: bool):
+    """numpy cluster tables (intersect.py:278-328) of the BVH-ordered
+    soup tri (T, 3, 3): the 32-triangle work-list and stream tables and,
+    if `exact`, the exact-cull tables."""
     n_t = tri.shape[0]
     v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
     mt = build_mt_tables(v0, e1, e2, cut_clusters(
-        bvh.first, bvh.count, bvh.skip, n_t, max_k=32), k=32)
+        bvh.first, bvh.count, bvh.skip, n_t, max_k=MT_K), k=MT_K)
     c, k, f = mt.tri.shape
-    sc_tri = mt.tri.reshape(c // 8, 8, k, f).transpose(0, 2, 1, 3) \
-        .reshape(c // 8, k, 8 * f)
+    out = dict(
+        mt_tri=mt.tri, mt_start=mt.tri_start, mt_bmin=mt.bmin,
+        mt_bmax=mt.bmax, cl_sc_bmin=mt.sc_bmin, cl_sc_bmax=mt.sc_bmax,
+        sc_tri=mt.tri.reshape(c // 8, 8, k, f).transpose(0, 2, 1, 3)
+        .reshape(c // 8, k, 8 * f))
+    if not exact:
+        return out
     mt8 = build_mt_tables(v0, e1, e2, cut_clusters(
         bvh.first, bvh.count, bvh.skip, n_t, max_k=8), k=8, sc_group=64)
     c8 = mt8.bmin.shape[0]
@@ -201,19 +337,7 @@ def _build_cluster(tri, bvh, nrm, uvc, mid, eid, sid):
     prim8 = (mt8.tri_start[:, None]
              + np.arange(8, dtype=np.int32)[None]).astype(np.int32)
     tri128[:, :, 15] = prim8.view(np.float32)
-    shade = np.concatenate(
-        [e1.astype(np.float32), e2.astype(np.float32),
-         nrm[:, 0].astype(np.float32), nrm[:, 1].astype(np.float32),
-         nrm[:, 2].astype(np.float32),
-         uvc[:, 0].astype(np.float32), uvc[:, 1].astype(np.float32),
-         uvc[:, 2].astype(np.float32),
-         mid.astype(np.int32).view(np.float32)[:, None],
-         eid.astype(np.int32).view(np.float32)[:, None],
-         sid.astype(np.int32).view(np.float32)[:, None]], axis=1)
-    return dict(
-        bvh_min=bvh.bounds_min, bvh_max=bvh.bounds_max, shade_pack=shade,
-        sc_tri=sc_tri, mt_start=mt.tri_start,
-        cl_sc_bmin=mt.sc_bmin, cl_sc_bmax=mt.sc_bmax,
+    out.update(
         ex_tri=tri128, ex_b0lo=mt8.bmin, ex_b0hi=mt8.bmax,
         ex_b1lo=b1lo, ex_b1hi=b1hi, ex_b2lo=b2lo, ex_b2hi=b2hi,
         ex_ct0=ep.pack_child_table(mt8.bmin, mt8.bmax),
@@ -221,13 +345,82 @@ def _build_cluster(tri, bvh, nrm, uvc, mid, eid, sid):
         ex_ct2=ep.pack_child_table(*_pad_boxes(b2lo, b2hi)),
         ex_caps=ep.auto_caps(c8),
     )
+    return out
+
+
+def _build_instanced(static, n_static_tris, groups, instances):
+    """numpy instancing tables (intersect.py:329-426): the static tables'
+    work-list blocks joined by each group's shared object-space blocks,
+    the block-aligned object attributes, and the side tables of the exact
+    per-instance walks."""
+    sub = [build_geometry([(msh, mi, -1, si) for msh, mi, si in items],
+                          backend="cluster") for items in groups]
+    static_mt = MTTables(static["mt_tri"], static["mt_start"],
+                         static["mt_bmin"], static["mt_bmax"],
+                         static["cl_sc_bmin"], static["cl_sc_bmax"])
+    group_mts = [MTTables(*(x.numpy() for x in (
+        g.mt_tri, g.mt_start, g.mt_bmin, g.mt_bmax, g.cl_sc_bmin,
+        g.cl_sc_bmax))) for g in sub]
+    it = build_instanced_tables(static_mt, n_static_tris, group_mts,
+                                instances, k=MT_K)
+    n_blocks = it.tri.shape[0]
+    base0 = static_mt.tri.shape[0]
+
+    def blk(field, width):
+        # block-aligned rows [block * K + local]; static blocks stay zero
+        # (their prims shade through the world tables)
+        out = np.zeros((n_blocks * MT_K, width), np.float32) if width > 1 \
+            else np.zeros(n_blocks * MT_K, np.int32)
+        base = base0
+        for g, gmt in zip(sub, group_mts):
+            src = getattr(g, field).numpy()
+            for ci, s in enumerate(gmt.tri_start.tolist()):
+                cnt = min(MT_K, src.shape[0] - s) if s < src.shape[0] else 0
+                if cnt > 0:
+                    out[(base + ci) * MT_K:(base + ci) * MT_K + cnt] = \
+                        src[s:s + cnt]
+            base += gmt.tri.shape[0]
+        return out
+
+    tri2virt = []
+    for g, gmt in zip(sub, group_mts):
+        t2v = np.zeros(g.n_tris, np.int64)
+        for ci, s in enumerate(gmt.tri_start.tolist()):
+            cnt = min(MT_K, g.n_tris - s) if s < g.n_tris else 0
+            if cnt > 0:
+                t2v[s:s + cnt] = ci * MT_K + np.arange(cnt)
+        tri2virt.append(_dev(t2v.astype(np.int32)))
+    vp_base, xf_inv = [], []
+    ccur = it.n_static_clusters
+    for gi, m4 in instances:
+        vp_base.append(n_static_tris + (ccur - it.n_static_clusters) * MT_K)
+        ccur += group_mts[gi].tri.shape[0]
+        inv = np.linalg.inv(np.asarray(m4, np.float64))
+        xf_inv.append(inv[:3, :4].reshape(-1))
+    return dict(
+        mt_tri=it.tri, mt_start=it.tri_start, mt_bmin=it.bmin,
+        mt_bmax=it.bmax, cl_sc_bmin=it.sc_bmin, cl_sc_bmax=it.sc_bmax,
+        sc_tri=None,
+        mt_block_id=it.block_id, mt_xform=it.xform,
+        mt_xform_fwd=it.xform_fwd,
+        obj_v0=blk("v0", 3), obj_e1=blk("e1", 3), obj_e2=blk("e2", 3),
+        obj_n0=blk("n0", 3), obj_n1=blk("n1", 3), obj_n2=blk("n2", 3),
+        obj_uv0=blk("uv0", 2), obj_uv1=blk("uv1", 2),
+        obj_uv2=blk("uv2", 2),
+        obj_mid=blk("material_id", 1), obj_sid=blk("shape_id", 1),
+        n_static_clusters=it.n_static_clusters,
+        inst_groups=tuple(sub), inst_tri2virt=tuple(tri2virt),
+        inst_xf_inv=np.asarray(xf_inv, np.float32),
+        inst_gid=tuple(int(g) for g, _ in instances),
+        inst_vp_base=tuple(int(x) for x in vp_base),
+    )
 
 
 # ---------------------------------------------------------------------------
 # brute backend: the fused kernel
 # ---------------------------------------------------------------------------
 
-def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
+def _fused_brute(geom: GeometryTables, ray: Ray, sray: Ray):
     """Closest hit (ray) and shadow any-hit (sray) on the brute backend:
     one fused kernel launch with a shared triangle loop. Returns
     (Intersection, occluded)."""
@@ -258,6 +451,130 @@ def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
         emitter_id=torch.where(valid, r["emitter_id"], -1),
     )
     return its, occ
+
+
+def _ray_args(ray: Ray):
+    return (ray.o.contiguous(), ray.d.contiguous(), ray.mint.contiguous(),
+            ray.maxt.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the exact skip-link walk (instance walks) and the instances
+# ---------------------------------------------------------------------------
+
+def _walk(geom: GeometryTables, ray: Ray, any_hit: bool):
+    """The reference's exact XLA walk (`_walk_phased`, `_closest_bvh`,
+    `_any_bvh`, intersect.py:677-801): per lane the same skip-link walk
+    as the BVH kernel's, with the walk's own reciprocal clamp, so it runs
+    through that kernel (its plain version on the CPU). Returns (t, u, v,
+    prim, valid) (prim = -1 on a miss), or the occlusion mask."""
+    fn = bp.bvh_any if any_hit else bp.bvh_closest
+    return fn(geom.bvh_packed, geom.tri_packed, *_ray_args(ray),
+              rcp_eps=_WALK_RCP_EPS)
+
+
+def _xf_ray(ray: Ray, xf_row) -> Ray:
+    """The ray under a (12,) world->object 3x4 row; t is invariant (the
+    direction transforms linearly, no renormalisation; intersect.py:757).
+    """
+    mm = xf_row.reshape(3, 4)
+    o = torch.stack([mm[r, 0] * ray.o[:, 0] + mm[r, 1] * ray.o[:, 1]
+                     + mm[r, 2] * ray.o[:, 2] + mm[r, 3] for r in range(3)],
+                    dim=-1)
+    d = torch.stack([mm[r, 0] * ray.d[:, 0] + mm[r, 1] * ray.d[:, 1]
+                     + mm[r, 2] * ray.d[:, 2] for r in range(3)], dim=-1)
+    return Ray(o, d, ray.mint, ray.maxt)
+
+
+def _instance_walks(geom, ray, any_hit):
+    """Every instance's exact walk of `ray`, the instances of one group in
+    one walk over their stacked object-space rays; per instance, in
+    instance order, the walk's (t, u, v, prim, valid) or occlusion."""
+    n = ray.o.shape[0]
+    out = [None] * len(geom.inst_gid)
+    for gi, sub in enumerate(geom.inst_groups):
+        ids = [ii for ii, g in enumerate(geom.inst_gid) if g == gi]
+        if not ids:
+            continue
+        rs = [_xf_ray(ray, geom.inst_xf_inv[ii]) for ii in ids]
+        res = _walk(sub, Ray(*(torch.cat([getattr(r, f) for r in rs])
+                              for f in ("o", "d", "mint", "maxt"))),
+                    any_hit)
+        for j, ii in enumerate(ids):
+            out[ii] = (res[j * n:(j + 1) * n] if any_hit else
+                       tuple(x[j * n:(j + 1) * n] for x in res))
+    return out
+
+
+def _instances_closest(geom, ray, t_best, u_b, v_b, prim_b, valid_b):
+    """Exact closest hit against every instance by its group's walk,
+    merged into the incoming best record in instance order; instanced
+    prims are virtual ids >= n_tris (intersect.py:766). The reference
+    caps each walk by the best t so far; uncapped walks give the same
+    record, since a walk's closest hit below the cap is found with or
+    without it and the merge keeps only strictly closer hits."""
+    for ii, (t, u, v, p, ok) in enumerate(
+            _instance_walks(geom, ray, any_hit=False)):
+        gi = geom.inst_gid[ii]
+        closer = ok & (t < t_best)
+        vp = geom.inst_vp_base[ii] + geom.inst_tri2virt[gi][
+            torch.clamp(p, 0, geom.inst_groups[gi].n_tris - 1).long()]
+        t_best = torch.where(closer, t, t_best)
+        u_b = torch.where(closer, u, u_b)
+        v_b = torch.where(closer, v, v_b)
+        prim_b = torch.where(closer, vp, prim_b)
+        valid_b = valid_b | closer
+    return t_best, u_b, v_b, prim_b, valid_b
+
+
+def _instances_any(geom, ray):
+    """Any hit against every instance by its group's walk (:788)."""
+    occ = torch.zeros(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
+    for hit in _instance_walks(geom, ray, any_hit=True):
+        occ = occ | hit
+    return occ
+
+
+def _fallback_closest(geom, ray, t, u, v, prim, valid, lane_ovf):
+    """Re-resolve the overflow lanes of a partial work-list result: the
+    BVH kernel on the static triangles, then the exact instance walks on
+    those lanes alone, capped by any hit found so far (intersect.py:928).
+    """
+    fb_maxt = torch.where(valid & torch.isfinite(t), t, ray.maxt)
+    mx = torch.where(lane_ovf, fb_maxt, -1.0)
+    fb = Ray(ray.o, ray.d, ray.mint, mx)
+    tf_, uf, vf, pf, okf = bp.bvh_closest(geom.bvh_packed, geom.tri_packed,
+                                          *_ray_args(fb))
+    if geom.has_instances:
+        idx = torch.nonzero(lane_ovf)[:, 0]
+        sub = Ray(fb.o[idx], fb.d[idx], fb.mint[idx], fb.maxt[idx])
+        r = _instances_closest(geom, sub, tf_[idx], uf[idx], vf[idx],
+                               pf[idx], okf[idx])
+        tf_, uf, vf, pf, okf = (x.index_put((idx,), y) for x, y in zip(
+            (tf_, uf, vf, pf, okf), r))
+    take = lane_ovf & okf & (~valid | (tf_ < t))
+    return (torch.where(take, tf_, t), torch.where(take, uf, u),
+            torch.where(take, vf, v), torch.where(take, pf, prim),
+            torch.where(lane_ovf, okf | valid, valid))
+
+
+def _fallback_any(geom, ray, occ, lane_ovf):
+    """Any-hit analog of _fallback_closest (intersect.py:976)."""
+    lane_ovf = lane_ovf & ~occ
+    mx = torch.where(lane_ovf, ray.maxt, -1.0)
+    fb = Ray(ray.o, ray.d, ray.mint, mx)
+    hit = bp.bvh_any(geom.bvh_packed, geom.tri_packed, *_ray_args(fb))
+    if geom.has_instances:
+        idx = torch.nonzero(lane_ovf)[:, 0]
+        sub = Ray(fb.o[idx], fb.d[idx], fb.mint[idx], fb.maxt[idx])
+        hit = hit.index_put((idx,), hit[idx] | _instances_any(geom, sub))
+    return occ | (hit & lane_ovf)
+
+
+def _lane_overflow(ovf, ray):
+    """Per-row overflow flags (R,) -> per-lane, live lanes only."""
+    n = ray.o.shape[0]
+    return torch.repeat_interleave(ovf, LANE_ROW)[:n] & (ray.mint <= ray.maxt)
 
 
 # ---------------------------------------------------------------------------
@@ -440,29 +757,109 @@ def _cluster_closest(geom, ray, coherent):
     return t, u, v, prim, valid
 
 
+def _cluster_any(geom, ray):
+    ray = _cap_root_exit(geom, ray)
+    occ, lane_ovf = ep.exact_any(geom.ex_tables, ray.o, ray.d, ray.mint,
+                                 ray.maxt, caps=geom.ex_caps[0])
+    lane_ovf = lane_ovf & (ray.mint <= ray.maxt)
+    if bool(lane_ovf.any()):
+        occ, lane_ovf = _retier_any(geom, ray, occ, lane_ovf)
+    if bool(lane_ovf.any()):
+        occ = _fallback_any_stream(geom, ray, occ, lane_ovf)
+    return occ
+
+
+def _worklist_closest(geom, ray):
+    t, u, v, prim, valid, ovf = wl.wl_closest(geom.wl_tables,
+                                              *_ray_args(ray))
+    lane_ovf = _lane_overflow(ovf, ray)
+    if bool(lane_ovf.any()):
+        t, u, v, prim, valid = _fallback_closest(
+            geom, ray, t, u, v, prim, valid, lane_ovf)
+    return t, u, v, prim, valid
+
+
+def _worklist_any(geom, ray):
+    occ, ovf = wl.wl_any(geom.wl_tables, *_ray_args(ray))
+    lane_ovf = _lane_overflow(ovf, ray)
+    if bool(lane_ovf.any()):
+        occ = _fallback_any(geom, ray, occ, lane_ovf)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# the hit record
+# ---------------------------------------------------------------------------
+
 def _shade(geom, ray, t, u, v, prim, valid) -> Intersection:
     """The reference's generic hit record (intersect.py:1359-1481)."""
     prim_raw = torch.where(valid, prim, 0)
+    is_inst = torch.zeros_like(valid)
+    if geom.has_instances:
+        is_inst = valid & (prim_raw >= geom.n_tris)
+    prim_s = torch.where(is_inst, 0, prim_raw)
     p = ray.at(torch.where(valid, t, 1.0))   # finite on a miss
     w = 1.0 - u - v
-    row = geom.shade_pack[prim_raw.long()]
+    row = geom.shade_pack[prim_s.long()]
     e1g, e2g = row[:, 0:3], row[:, 3:6]
     n0g, n1g, n2g = row[:, 6:9], row[:, 9:12], row[:, 12:15]
     uv0g, uv1g, uv2g = row[:, 15:17], row[:, 17:19], row[:, 19:21]
     ids = row[:, 21:24].contiguous().view(torch.int32)
+    material_id, emitter_id, shape_id = ids[:, 0], ids[:, 1], ids[:, 2]
     geo_n = m.normalize(m.cross(e1g, e2g))
     sh_n = m.normalize(w[:, None] * n0g + u[:, None] * n1g
                        + v[:, None] * n2g)
     uv = w[:, None] * uv0g + u[:, None] * uv1g + v[:, None] * uv2g
-    # parametric dp_du from the uv chart, e1 where the chart degenerates
-    duv1 = uv1g - uv0g
-    duv2 = uv2g - uv0g
-    det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
-    ok_uv = torch.abs(det_uv) > 1e-12
-    inv_det = 1.0 / torch.where(ok_uv, det_uv, 1.0)
-    dp_du = torch.where(
-        ok_uv[:, None],
-        (duv2[:, 1:2] * e1g - duv1[:, 1:2] * e2g) * inv_det[:, None], e1g)
+    if geom.has_instances:
+        # virtual prims decode to (cluster, local) and shade from the
+        # shared block tables, directions rotated to world space (by the
+        # forward 3x3; normals by the stored world->object rows
+        # transposed, the inverse transpose)
+        k = geom.mt_k
+        vp = torch.clamp(prim_raw - geom.n_tris, min=0)
+        vcid = torch.clamp(geom.n_static_clusters + vp // k, 0,
+                           geom.mt_block_id.shape[0] - 1).long()
+        oid = (geom.mt_block_id[vcid].long() * k + vp % k).long()
+        fwd = geom.mt_xform_fwd[vcid]
+        inv = geom.mt_xform[vcid]
+
+        def rot_fwd(x):
+            return torch.stack(
+                [fwd[:, 0] * x[:, 0] + fwd[:, 1] * x[:, 1]
+                 + fwd[:, 2] * x[:, 2],
+                 fwd[:, 4] * x[:, 0] + fwd[:, 5] * x[:, 1]
+                 + fwd[:, 6] * x[:, 2],
+                 fwd[:, 8] * x[:, 0] + fwd[:, 9] * x[:, 1]
+                 + fwd[:, 10] * x[:, 2]], dim=-1)
+
+        def rot_normal(x):
+            return torch.stack(
+                [inv[:, 0] * x[:, 0] + inv[:, 4] * x[:, 1]
+                 + inv[:, 8] * x[:, 2],
+                 inv[:, 1] * x[:, 0] + inv[:, 5] * x[:, 1]
+                 + inv[:, 9] * x[:, 2],
+                 inv[:, 2] * x[:, 0] + inv[:, 6] * x[:, 1]
+                 + inv[:, 10] * x[:, 2]], dim=-1)
+
+        e1w = rot_fwd(geom.obj_e1[oid])
+        e2w = rot_fwd(geom.obj_e2[oid])
+        n_obj = (w[:, None] * geom.obj_n0[oid] + u[:, None] * geom.obj_n1[oid]
+                 + v[:, None] * geom.obj_n2[oid])
+        uv_i = (w[:, None] * geom.obj_uv0[oid]
+                + u[:, None] * geom.obj_uv1[oid]
+                + v[:, None] * geom.obj_uv2[oid])
+        mask = is_inst[:, None]
+        geo_n = torch.where(mask, m.normalize(m.cross(e1w, e2w)), geo_n)
+        sh_n = torch.where(mask, m.normalize(rot_normal(n_obj)), sh_n)
+        uv = torch.where(mask, uv_i, uv)
+        material_id = torch.where(is_inst, geom.obj_mid[oid], material_id)
+        emitter_id = torch.where(is_inst, -1, emitter_id)
+        shape_id = torch.where(is_inst, geom.obj_sid[oid], shape_id)
+    dp_du = _dp_du(uv0g, uv1g, uv2g, e1g, e2g)
+    if geom.has_instances:
+        dp_du = torch.where(is_inst[:, None], _dp_du(
+            geom.obj_uv0[oid], geom.obj_uv1[oid], geom.obj_uv2[oid], e1w,
+            e2w), dp_du)
     frame = m.Frame.from_normal_tangent(sh_n, dp_du)
     return Intersection(
         valid=valid,
@@ -474,36 +871,69 @@ def _shade(geom, ray, t, u, v, prim, valid) -> Intersection:
         dp_du=dp_du,
         wi=frame.to_local(-ray.d),
         prim_id=torch.where(valid, prim_raw, -1),
-        shape_id=torch.where(valid, ids[:, 2], -1),
-        material_id=torch.where(valid, ids[:, 0], -1),
-        emitter_id=torch.where(valid, ids[:, 1], -1),
+        shape_id=torch.where(valid, shape_id, -1),
+        material_id=torch.where(valid, material_id, -1),
+        emitter_id=torch.where(valid, emitter_id, -1),
     )
+
+
+def _dp_du(uv0, uv1, uv2, e1, e2):
+    """Parametric dp_du from the uv chart, e1 where it degenerates."""
+    duv1 = uv1 - uv0
+    duv2 = uv2 - uv0
+    det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    ok_uv = torch.abs(det_uv) > 1e-12
+    inv_det = 1.0 / torch.where(ok_uv, det_uv, 1.0)
+    return torch.where(
+        ok_uv[:, None],
+        (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * inv_det[:, None], e1)
+
+
+# ---------------------------------------------------------------------------
+# queries
+# ---------------------------------------------------------------------------
+
+def _closest(geom, ray, coherent):
+    """(t, u, v, prim, valid) of the backend's closest-hit query."""
+    if geom.backend == "bvh":
+        t, u, v, prim, valid = bp.bvh_closest(
+            geom.bvh_packed, geom.tri_packed, *_ray_args(ray))
+        return t, u, v, torch.where(valid, prim, 0), valid
+    if geom.backend != "cluster":
+        raise NotImplementedError(
+            "separate closest-hit queries on the brute backend need TPU "
+            "kernel #2, which is not ported (brute: ray_intersect_and_test)")
+    if geom.has_instances:
+        return _worklist_closest(geom, ray)
+    return _cluster_closest(geom, ray, coherent)
 
 
 def ray_intersect(geom: GeometryTables, ray: Ray,
                   coherent: bool = False) -> Intersection:
-    """Closest-hit query of the cluster backend -> Intersection.
+    """Closest-hit query of the bvh or cluster backend -> Intersection.
     coherent: camera-like wavefront; the exact cull then runs at the small
     coherent caps."""
-    if geom.backend != "cluster":
-        raise NotImplementedError(
-            "separate closest-hit queries are ported for the cluster "
-            "backend only (brute: ray_intersect_and_test)")
-    return _shade(geom, ray, *_cluster_closest(geom, ray, coherent))
+    return _shade(geom, ray, *_closest(geom, ray, coherent))
 
 
 def ray_test(geom: GeometryTables, ray: Ray):
-    """Any-hit (shadow ray) query of the cluster backend -> occluded."""
+    """Any-hit (shadow ray) query of the bvh or cluster backend ->
+    occluded."""
+    if geom.backend == "bvh":
+        return bp.bvh_any(geom.bvh_packed, geom.tri_packed, *_ray_args(ray))
     if geom.backend != "cluster":
         raise NotImplementedError(
-            "separate any-hit queries are ported for the cluster backend "
-            "only (brute: ray_intersect_and_test)")
-    ray = _cap_root_exit(geom, ray)
-    occ, lane_ovf = ep.exact_any(geom.ex_tables, ray.o, ray.d, ray.mint,
-                                 ray.maxt, caps=geom.ex_caps[0])
-    lane_ovf = lane_ovf & (ray.mint <= ray.maxt)
-    if bool(lane_ovf.any()):
-        occ, lane_ovf = _retier_any(geom, ray, occ, lane_ovf)
-    if bool(lane_ovf.any()):
-        occ = _fallback_any_stream(geom, ray, occ, lane_ovf)
-    return occ
+            "separate any-hit queries on the brute backend need TPU kernel "
+            "#3, which is not ported (brute: ray_intersect_and_test)")
+    if geom.has_instances:
+        return _worklist_any(geom, ray)
+    return _cluster_any(geom, ray)
+
+
+def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
+    """Closest hit (ray) and shadow any-hit (sray): one fused kernel on the
+    brute backend, two separate queries elsewhere (intersect.py:1484).
+    Returns (Intersection, occluded)."""
+    if geom.backend == "brute":
+        return _fused_brute(geom, ray, sray)
+    return ray_intersect(geom, ray), ray_test(geom, sray)

@@ -1,13 +1,15 @@
 """Scene container and builder (port of the parts of
-mitsuba_tpu/render/scene.py that build bench configs 1 and 3).
+mitsuba_tpu/render/scene.py that build bench configs 1 and 3 and
+instanced scenes).
 
 A `Scene` holds the geometry, material, emitter and texture tables and the
 camera, all on one device. `SceneBuilder` assembles them on the host;
 shapes bind lambertian or phong materials (optionally checkerboard-
-textured) and area emitters, and the builder's emitters may hold a
-Preetham sky. Every other scene feature of the reference (analytic shapes,
-media, instancing, other BSDFs, emitters and texture kinds) is not ported
-yet.
+textured) and area emitters, the builder's emitters may hold a Preetham
+sky, and groups of shapes may be placed as true instances (one shared
+copy of their triangles, cluster backend). Every other scene feature of
+the reference (analytic shapes, media, other BSDFs, emitters and texture
+kinds) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,11 +19,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mitsuba_tpu.render import mesh as mesh_mod  # numpy only, jax-free
 from mitsuba_tpu_torch.bsdfs import MaterialBuilder, MaterialTable
 from mitsuba_tpu_torch.core import transform as tf
 from mitsuba_tpu_torch.emitters import EmitterBuilder, EmitterTable
 from mitsuba_tpu_torch.render.camera import Camera, make_perspective
+from mitsuba_tpu_torch.render import mesh as mesh_mod
 from mitsuba_tpu_torch.render.intersect import GeometryTables, build_geometry
 from mitsuba_tpu_torch.render.texture import TextureBuilder, TextureTable
 
@@ -48,7 +50,7 @@ class Scene:
                 for f in dataclasses.fields(table)
                 if isinstance(getattr(table, f.name), torch.Tensor)})
 
-        return Scene(move(self.geom), move(self.materials),
+        return Scene(self.geom.to(device), move(self.materials),
                      move(self.emitters), move(self.camera),
                      move(self.textures), self.width, self.height)
 
@@ -61,12 +63,16 @@ class SceneBuilder:
         self.emitters = EmitterBuilder()
         self.textures = TextureBuilder()
         self._shapes = []     # (mesh, material_id, emitter_id, shape_id)
+        self._n_shapes = 0
+        self._inst_groups = []   # [[(mesh, material_id, shape_id), ...]]
+        self._instances = []     # [(group id, 4x4 to_world), ...]
         self.camera = None
         self.width = 256
         self.height = 256
 
     def add_shape(self, mesh, material_id, emitter_id=-1):
-        sid = len(self._shapes)
+        sid = self._n_shapes
+        self._n_shapes += 1
         self._shapes.append((mesh, material_id, emitter_id, sid))
         return sid
 
@@ -74,14 +80,41 @@ class SceneBuilder:
         eid = self.emitters.area(mesh, radiance)
         return self.add_shape(mesh, material_id, eid)
 
+    def add_instanced_group(self, meshes_with_mats) -> int:
+        """Register a group of [(TriMesh in object space, material_id),
+        ...] for true instancing; returns its id for add_instance. Its
+        instances share one copy of its triangles (cluster backend) and
+        cannot be emitters (reference scene.py:165)."""
+        items = []
+        for msh, mid in meshes_with_mats:
+            items.append((msh, int(mid), self._n_shapes))
+            self._n_shapes += 1
+        self._inst_groups.append(items)
+        return len(self._inst_groups) - 1
+
+    def add_instance(self, group_id: int, to_world):
+        """Place an instance of a registered group by a 4x4 to_world."""
+        self._instances.append((int(group_id),
+                                np.asarray(to_world, np.float64)))
+
     def set_camera(self, camera: Camera, width: int, height: int):
         self.camera = camera
         self.width, self.height = width, height
 
-    def build(self, backend: str = "brute", device="cpu") -> Scene:
+    def build(self, backend: str = "auto", device="cpu") -> Scene:
+        """backend: 'brute', 'bvh', 'cluster' or 'auto' (cluster above 64
+        triangles); a scene with instances needs 'cluster' or 'auto'."""
         if not self._shapes:
             raise ValueError("scene has no shapes")
-        geom = build_geometry(self._shapes, backend=backend)
+        instanced = None
+        if self._instances:
+            if backend not in ("cluster", "auto"):
+                raise ValueError(
+                    "true instancing requires the cluster backend")
+            backend = "cluster"
+            instanced = (self._inst_groups, self._instances)
+        geom = build_geometry(self._shapes, backend=backend,
+                              instanced=instanced)
         e1 = geom.e1.numpy()
         e2 = geom.e2.numpy()
         areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -147,7 +180,7 @@ def cornell_box(width=256, height=256, backend="brute", device="cpu") \
     return b.build(backend=backend, device=device)
 
 
-def textured_mesh_scene(width=256, height=256, backend="cluster",
+def textured_mesh_scene(width=256, height=256, backend="bvh",
                         device="cpu") -> Scene:
     """Bench config 3 (reference mitsuba_tpu/render/scene.py:435): a
     101,762-triangle mesh — the reference's fallback when its bunny mesh
@@ -170,3 +203,40 @@ def textured_mesh_scene(width=256, height=256, backend="cluster",
     )
     b.set_camera(cam, width, height)
     return b.build(backend=backend, device=device)
+
+
+# (x, y, z, scale) of the three instances of tests/test_instancing.py
+INSTANCE_PLACES = ((-2.0, 0.0, 1.0, 1.0), (2.0, 0.5, 1.2, 0.7),
+                   (0.0, 2.0, 0.8, 1.3))
+
+
+def instanced_scene(width=256, height=256, n_theta=160, n_phi=320,
+                    flatten=False, device="cpu") -> Scene:
+    """The layout of tests/test_instancing.py: a floor and an area light
+    under three placements of one n_theta x n_phi sphere, instances of
+    one group sharing one copy of its triangles (cluster backend) or,
+    with flatten, the same spheres baked into world space. The default
+    sphere is config 3's body, 101,760 triangles, so the instances hold
+    305,280 triangles."""
+    b = SceneBuilder()
+    white = b.materials.lambertian((0.7, 0.7, 0.7))
+    red = b.materials.lambertian((0.7, 0.2, 0.2))
+    b.add_shape(mesh_mod.make_quad([-6, -6, 0], [6, -6, 0], [6, 6, 0],
+                                   [-6, 6, 0]), white)
+    light_mat = b.materials.lambertian((0.0, 0.0, 0.0))
+    b.add_area_emitter_shape(
+        mesh_mod.make_quad([-2, -2, 8], [-2, 2, 8], [2, 2, 8], [2, -2, 8]),
+        light_mat, (25.0,) * 3)
+    b.set_camera(make_perspective(
+        tf.look_at([0, -7, 4], [0, 0, 1], [0, 0, 1]), 50, width / height),
+        width, height)
+    ball = mesh_mod.make_sphere_mesh([0, 0, 0], 1.0, n_theta, n_phi)
+    gid = None if flatten else b.add_instanced_group([(ball, red)])
+    for x, y, z, s in INSTANCE_PLACES:
+        m4 = np.diag([s, s, s, 1.0])
+        m4[:3, 3] = (x, y, z)
+        if flatten:
+            b.add_shape(ball.transformed(m4), red)
+        else:
+            b.add_instance(gid, m4)
+    return b.build(device=device)

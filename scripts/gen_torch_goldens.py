@@ -1,0 +1,90 @@
+"""Generate goldens of the PyTorch port: the JAX package's CPU renders,
+committed to tests/torch_goldens/. The instanced ones render the layout
+of tests/test_instancing.py (a floor, an area light, three instances of
+one sphere group).
+
+* instanced.npz: the group is bench config 3's body, a 160 x 320 sphere
+  (101,760 triangles; 305,280 through the instances), 64 x 64 px, 16 spp,
+  depth 5, seed 0 (scripts/gen_bench_goldens.py's recipe). chip_smoke.py
+  gates the port's render of the same scene on it.
+* instanced_32.npz: the 10 x 20 sphere of tests/test_instancing.py,
+  32 x 32 px, 2 spp, depth 3, seed 0. tests/test_torch_instancing.py
+  holds the port's CPU render to it per pixel.
+* bvh_16.npz: bench config 3's scene (`textured_mesh_scene`, the sphere
+  fallback) on the bvh backend, 16 x 16 px, 2 spp, depth 3, seed 0.
+  tests/test_torch_bvh.py holds the port's CPU render to it per pixel.
+
+Both store the image under "mean". Regenerate only after an intentional
+change of the JAX package's estimator:
+
+    python scripts/gen_torch_goldens.py
+"""
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np
+
+DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "torch_goldens")
+PLACES = ((-2.0, 0.0, 1.0, 1.0), (2.0, 0.5, 1.2, 0.7), (0.0, 2.0, 0.8, 1.3))
+GOLDENS = {
+    # name: (px, n_theta, n_phi, spp, depth); n_theta None: config 3 bvh
+    "instanced": (64, 160, 320, 16, 5),
+    "instanced_32": (32, 10, 20, 2, 3),
+    "bvh_16": (16, None, None, 2, 3),
+}
+
+
+def instanced_scene(res, n_theta, n_phi):
+    from mitsuba_tpu.core import transform as tf
+    from mitsuba_tpu.render import mesh as mesh_mod
+    from mitsuba_tpu.render.camera import make_perspective
+    from mitsuba_tpu.render.scene import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.materials.lambertian((0.7, 0.7, 0.7))
+    red = b.materials.lambertian((0.7, 0.2, 0.2))
+    b.add_shape(mesh_mod.make_quad([-6, -6, 0], [6, -6, 0], [6, 6, 0],
+                                   [-6, 6, 0]), white)
+    light_mat = b.materials.lambertian((0.0, 0.0, 0.0))
+    b.add_area_emitter_shape(
+        mesh_mod.make_quad([-2, -2, 8], [-2, 2, 8], [2, 2, 8], [2, -2, 8]),
+        light_mat, (25.0,) * 3)
+    b.set_camera(make_perspective(
+        tf.look_at([0, -7, 4], [0, 0, 1], [0, 0, 1]), 50, 1.0), res, res)
+    ball = mesh_mod.make_sphere_mesh([0, 0, 0], 1.0, n_theta, n_phi)
+    gid = b.add_instanced_group([(ball, red)])
+    for x, y, z, s in PLACES:
+        m4 = np.diag([s, s, s, 1.0])
+        m4[:3, 3] = (x, y, z)
+        b.add_instance(gid, m4)
+    return b.build(backend="cluster")
+
+
+def main():
+    from mitsuba_tpu.integrators.path import PathConfig, render
+
+    names = sys.argv[1:] or list(GOLDENS)
+    for name in names:
+        res, n_theta, n_phi, spp, depth = GOLDENS[name]
+        if n_theta is None:
+            from mitsuba_tpu.render.scene import textured_mesh_scene
+
+            scene = textured_mesh_scene(res, res, backend="bvh")
+        else:
+            scene = instanced_scene(res, n_theta, n_phi)
+        img, _ = render(scene, PathConfig(max_depth=depth, spp=spp,
+                                          remat=False), seed=0)
+        img = np.asarray(img)
+        np.savez_compressed(os.path.join(DIR, name + ".npz"), mean=img)
+        print(f"{name}: mean={img.mean():.6f} -> {name}.npz", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -120,7 +120,7 @@ def cluster():
     the last ragged) from above toward it, every 7th lane dead."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
-    from mitsuba_tpu.render.mesh import make_quad, make_sphere_mesh
+    from mitsuba_tpu_torch.render.mesh import make_quad, make_sphere_mesh
     from mitsuba_tpu_torch.ops.rows import pack_rays
     from mitsuba_tpu_torch.render.intersect import build_geometry
 
@@ -219,13 +219,148 @@ def test_cluster_render_on_the_card_goes_through_the_kernels(cluster):
     dev = cluster[0]
     cfg = PathConfig(max_depth=3, spp=2)
     before = dict(ep.LAUNCHES)
-    img, aux = render(textured_mesh_scene(32, 32, device=dev), cfg, seed=3)
+    img, aux = render(textured_mesh_scene(32, 32, backend="cluster",
+                                          device=dev), cfg, seed=3)
     torch.cuda.synchronize()
     for k in ("refine", "child_refine", "items"):
         assert ep.LAUNCHES[k] > before[k], k
-    ref, aux_ref = render(textured_mesh_scene(32, 32), cfg, seed=3)
+    ref, aux_ref = render(textured_mesh_scene(32, 32, backend="cluster"),
+                          cfg, seed=3)
     assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     # the same lanes draw the same numbers; transcendentals of the card
     # may differ from the CPU's in the last bit, which moves a few paths
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+
+
+# ---------------------------------------------------------------------------
+# the BVH kernel (#11) and the work-list kernel (#12)
+# ---------------------------------------------------------------------------
+
+def _scene_rays(n, seed, lo, hi, eye_lo, eye_hi):
+    """n rays from a box of eyes toward a box of targets; every 9th lane
+    dead, every 13th axis-parallel."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(eye_lo, eye_hi, (n, 3)).astype(np.float32)
+    d = rng.uniform(lo, hi, (n, 3)).astype(np.float32) - o
+    d[::13, :2] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mint = np.full(n, 1e-4, np.float32)
+    maxt = np.where(np.arange(n) % 9 == 0, -1.0, 1e30).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (o, d, mint, maxt)]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_kernel_matches_plain_version(cuda, any_hit):
+    """4,097 rays (a ragged last block) against a 2,210-triangle BVH."""
+    from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.render.mesh import make_quad, make_sphere_mesh
+    from mitsuba_tpu_torch.render.intersect import build_geometry
+
+    bp.build()
+    geom = build_geometry(
+        [(make_sphere_mesh([0, 0.8, 0], 0.8, 24, 48), 0, -1),
+         (make_quad([-6, 0, -6], [-6, 0, 6], [6, 0, 6], [6, 0, -6]), 1, -1)],
+        backend="bvh").to(cuda)
+    rays = [x.to(cuda) for x in _scene_rays(4097, 5, -1.0, 1.0,
+                                             [-3, 0.2, -3], [3, 3, 3])]
+    key = "bvh_any" if any_hit else "bvh_closest"
+    fn = bp.bvh_any if any_hit else bp.bvh_closest
+    # the kernel's own clamp of the slab reciprocals, and the reference
+    # walk's, which the instance walks use
+    for rcp_eps in (bp.RCP_EPS, 1e-20):
+        before = bp.LAUNCHES[key]
+        got = fn(geom.bvh_packed, geom.tri_packed, *rays, rcp_eps=rcp_eps)
+        assert bp.LAUNCHES[key] == before + 1
+        ref = bp.walk_ref(geom.bvh_packed, geom.tri_packed, *rays, any_hit,
+                          rcp_eps)
+        torch.cuda.synchronize()
+        if any_hit:
+            assert torch.equal(got, ref) and 100 < int(ref.sum())
+            continue
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert int(ref[4].sum()) > 1000
+
+
+@pytest.mark.parametrize("instanced", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_worklist_kernel_matches_plain_version(cuda, instanced, any_hit):
+    """2,000 rays (16 rows, the first 4 dead) of a flat cluster scene, or
+    of the instanced scene, through a list built with small beams so that
+    the live rows overflow."""
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.ops.rows import pack_rays
+    from mitsuba_tpu_torch.render.intersect import build_geometry
+    from mitsuba_tpu_torch.render.mesh import make_quad, make_sphere_mesh
+    from mitsuba_tpu_torch.render.scene import instanced_scene
+
+    wl.build()
+    if instanced:
+        geom = instanced_scene(32, 32, 24, 48).geom
+    else:
+        geom = build_geometry(
+            [(make_sphere_mesh([0, 0.8, 0], 0.8, 24, 48), 0, -1),
+             (make_quad([-6, 0, -6], [-6, 0, 6], [6, 0, 6], [6, 0, -6]), 1,
+              -1)], backend="cluster")
+    tab = {k: v.to(cuda) for k, v in geom.wl_tables.items()}
+    lo, hi = geom.bvh_min[0].numpy(), geom.bvh_max[0].numpy()
+    o, d, mint, maxt = _scene_rays(2000, 6, lo, hi, lo - 2, hi + 2)
+    # dead rows far above the scene, looking up: no candidates
+    o[:512], d[:512], maxt[:512] = 100.0, torch.tensor([0.0, 0, 1]), -1.0
+    rays = pack_rays(o, d, mint, maxt)[0].to(cuda)
+    items, _total, ovf = wl.build_worklist(
+        rays, tab["bmin"], tab["bmax"], tab["sc_bmin"], tab["sc_bmax"],
+        rays.shape[0] * 8, 4, 2)
+    seg = wl.row_segments(items, rays.shape[0])
+    args = (items, seg, tab["tri"], tab["tri_start"], rays,
+            tab.get("block_id"), tab.get("xform"), any_hit)
+    key = "wl_any" if any_hit else "wl_closest"
+    before = wl.LAUNCHES[key]
+    got = wl.wl_rows(*args)
+    assert wl.LAUNCHES[key] == before + 1
+    ref = wl.wl_rows_ref(*args)
+    torch.cuda.synchronize()
+    assert bool(ovf.any()) and not bool(ovf.all())
+    if any_hit:
+        assert torch.equal(got, ref) and 50 < int(ref.sum())
+        return
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((ref[3] >= 0).sum()) > 50
+
+
+def test_bvh_render_on_the_card_goes_through_the_kernel(cuda):
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.render.scene import textured_mesh_scene
+
+    cfg = PathConfig(max_depth=3, spp=2)
+    before = dict(bp.LAUNCHES)
+    img, aux = render(textured_mesh_scene(32, 32, device=cuda), cfg, seed=3)
+    torch.cuda.synchronize()
+    for k in ("bvh_closest", "bvh_any"):
+        assert bp.LAUNCHES[k] == before[k] + cfg.max_depth, k
+    ref, aux_ref = render(textured_mesh_scene(32, 32), cfg, seed=3)
+    assert img.shape == ref.shape and bool(torch.isfinite(img).all())
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+
+
+def test_instanced_render_on_the_card_goes_through_the_kernels(cuda):
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.render.scene import instanced_scene
+
+    cfg = PathConfig(max_depth=3, spp=4)
+    before = dict(wl.LAUNCHES)
+    scene = instanced_scene(32, 32, 10, 20)
+    img, aux = render(scene.to(cuda), cfg, seed=3)
+    torch.cuda.synchronize()
+    for k in ("wl_closest", "wl_any"):
+        assert wl.LAUNCHES[k] > before[k], k
+    ref, aux_ref = render(scene, cfg, seed=3)
+    assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
         ref.mean())

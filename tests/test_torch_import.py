@@ -1,10 +1,15 @@
-"""The port stands without JAX: importing every module of
-mitsuba_tpu_torch and rendering leaves `jax` out of sys.modules.
+"""The port stands without JAX and without the JAX package: importing
+every module of mitsuba_tpu_torch and rendering a brute and an instanced
+cluster scene (which builds BVHs with the port's own native builder)
+leaves `jax` and every `mitsuba_tpu` module out of sys.modules,
+and no source file of the port or chip_smoke.py imports the JAX package.
 
 This file's own process has jax loaded (tests/conftest.py imports it), so
 the checks run in fresh interpreters.
 """
+import glob
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -22,12 +27,16 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 from mitsuba_tpu_torch.integrators.path import PathConfig, render
-from mitsuba_tpu_torch.render.scene import cornell_box
-img, aux = render(cornell_box(4, 4), PathConfig(max_depth=3, spp=1))
-assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
-assert int(aux["rays_traced"]) > 16
+from mitsuba_tpu_torch.render.scene import cornell_box, instanced_scene
+for scene in (cornell_box(4, 4), instanced_scene(4, 4, 6, 12)):
+    img, aux = render(scene, PathConfig(max_depth=2, spp=1))
+    assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
+    assert int(aux["rays_traced"]) > 16
+assert scene.geom.backend == "cluster" and scene.geom.has_instances
+ref = sorted(m for m in sys.modules
+             if m == "mitsuba_tpu" or m.startswith("mitsuba_tpu."))
 print(len(names), "jax" in sys.modules,
-      sorted(m for m in sys.modules if m.startswith("jax")))
+      sorted(m for m in sys.modules if m.startswith("jax")) + ref)
 """
 
 
@@ -41,9 +50,34 @@ def _run(args, cwd, timeout=300):
 def test_port_imports_and_renders_without_jax():
     proc = _run(["-c", _PROBE, ROOT], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
-    n_modules, jax_loaded, jax_mods = proc.stdout.split(maxsplit=2)
+    n_modules, jax_loaded, loaded = proc.stdout.split(maxsplit=2)
     assert int(n_modules) >= 15
-    assert jax_loaded == "False", jax_mods
+    assert jax_loaded == "False" and loaded.strip() == "[]", loaded
+
+
+# `import mitsuba_tpu...` or `from mitsuba_tpu... import`, not the port
+_REF_IMPORT = re.compile(
+    r"^\s*(from\s+mitsuba_tpu(\.|\s)|import\s+mitsuba_tpu(\.|\s|,|$))",
+    re.MULTILINE)
+
+
+def test_no_source_of_the_port_imports_the_reference():
+    files = glob.glob(os.path.join(ROOT, "mitsuba_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(files) >= 20
+    offenders = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            src = f.read()
+        offenders += [f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}"
+                      for m in _REF_IMPORT.finditer(src)]
+        if re.search(r"^\s*(import|from)\s+jax\b", src, re.MULTILINE):
+            offenders.append(f"{os.path.relpath(path, ROOT)}: jax")
+    assert not offenders, offenders
+    # the pattern itself catches the reference's imports, not the port's
+    assert _REF_IMPORT.search("from mitsuba_tpu.render import mesh")
+    assert _REF_IMPORT.search("import mitsuba_tpu")
+    assert not _REF_IMPORT.search("from mitsuba_tpu_torch.ops import bvh")
 
 
 def test_chip_smoke_refuses_without_the_repo_or_a_card(tmp_path):

@@ -196,9 +196,14 @@ def test_mi_weight_matches():
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         from_jax_scene(cornell_box_specular(8, 8))   # analytic sphere
-    with pytest.raises(NotImplementedError):
-        cornell_box(8, 8, backend="bvh")
     scene = cornell_box(4, 4)
+    # separate queries on the brute backend need TPU kernels #2 and #3
+    from mitsuba_tpu_torch.render.intersect import ray_intersect, ray_test
+    from mitsuba_tpu_torch.render.records import Ray
+    ray = Ray.make(torch.zeros(2, 3), torch.tensor([[0.0, 0, 1]] * 2))
+    for query in (ray_intersect, ray_test):
+        with pytest.raises(NotImplementedError):
+            query(scene.geom, ray)
     for opt in ("sort_rays", "hit_prediction", "mip_filter", "remat",
                 "strict_normals", "skip_direct_emission", "aniso_filter"):
         with pytest.raises(NotImplementedError):
@@ -206,3 +211,42 @@ def test_unported_features_raise():
     for kw in (dict(pattern="stratified"), dict(rfilter="gaussian")):
         with pytest.raises(NotImplementedError):
             render(scene, PathConfig(max_depth=1, spp=1, **kw))
+
+
+@pytest.mark.parametrize("fn", ["textured_mesh_scene", "SceneBuilder.build",
+                                "build_geometry"])
+def test_scene_defaults_equal_reference(fn):
+    """The same call builds the same scene in both packages: the default
+    backends are the reference's ("bvh" for textured_mesh_scene, "auto"
+    elsewhere)."""
+    import inspect
+
+    import mitsuba_tpu.render.intersect as j_intersect
+    import mitsuba_tpu.render.scene as j_scene
+    import mitsuba_tpu_torch.render.intersect as t_intersect
+    import mitsuba_tpu_torch.render.scene as t_scene
+
+    def default(mod):
+        obj = mod
+        for part in fn.split("."):
+            obj = getattr(obj, part)
+        return inspect.signature(obj).parameters["backend"].default
+
+    jmod, tmod = ((j_intersect, t_intersect) if fn == "build_geometry"
+                  else (j_scene, t_scene))
+    assert default(tmod) == default(jmod)
+
+
+@pytest.mark.parametrize("n_tris", [64, 66])
+def test_auto_backend_rule_equals_reference(n_tris):
+    """"auto" is brute up to 64 triangles and cluster above, in both."""
+    from mitsuba_tpu.render.intersect import build_geometry as j_build
+    from mitsuba_tpu_torch.render.intersect import build_geometry
+
+    rng = np.random.default_rng(n_tris)
+    tri = rng.uniform(-1, 1, (n_tris, 3, 3)).astype(np.float32)
+    mesh = mesh_mod.TriMesh(tri.reshape(-1, 3),
+                            np.arange(3 * n_tris).reshape(-1, 3))
+    jg, tg = j_build([(mesh, 0, -1)]), build_geometry([(mesh, 0, -1)])
+    assert tg.backend == jg.backend == ("brute" if n_tris <= 64
+                                        else "cluster")
