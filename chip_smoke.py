@@ -2,14 +2,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths through
-mitsuba_tpu_torch.integrators.path.render: bench config 1 (the Cornell
+Drives the port's five main paths: through
+mitsuba_tpu_torch.integrators.path.render bench config 1 (the Cornell
 box, 256x256 px, 16 spp, depth 5, brute backend), bench config 3 (the
 101,762-triangle textured mesh under a sky, 512x512 px, 4 spp, depth 5,
 cluster backend), the same scene on the bvh backend (the JAX package's
 default for it), and an instanced scene (three instances of config 3's
 101,760-triangle sphere sharing one copy of its triangles, on a floor
-under an area light, 512x512 px, 4 spp, depth 5, cluster backend).
+under an area light, 512x512 px, 4 spp, depth 5, cluster backend); and
+through mitsuba_tpu_torch.integrators.volpath.render_volpath "fog", the
+config-1 Cornell box in a homogeneous HG medium (sigma_s 0.0015, sigma_a
+0.0003, g 0.4), 256x256 px, 16 spp, depth 5, whose bounces run the split
+brute kernels #2 and #3.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -28,7 +32,10 @@ Phases, each printing one JSON line:
      kernel, instanced and flat (on the same spheres baked into world
      space), on one row chunk of the instanced path's camera, bounce and
      shadow wavefronts; the BVH kernel as that path's overflow fallback,
-     on the static triangles and as the instance walks;
+     on the static triangles and as the instance walks; the split brute
+     kernels (#2 shaded, #3 any, #4 closest, which no render path of the
+     JAX package launches) on the second bounce of a full-size fog render
+     and its NEE shadow rays, 1,048,576 lanes each, held bit for bit;
   4. 64x64 renders gated (8x8-block relative RMSE <= 0.10, as bench.py)
      against tests/goldens/bench_cfg1.npz, against
      tests/torch_goldens/bench_cfg3_sphere.npz for config 3 on the
@@ -36,11 +43,16 @@ Phases, each printing one JSON line:
      tests/goldens/bench_cfg3.npz was rendered with the bunny mesh, which
      is absent, so both packages render its sphere fallback; the distance
      to the bunny golden is reported beside), and against
-     tests/torch_goldens/instanced.npz for the instanced scene;
+     tests/torch_goldens/instanced.npz for the instanced scene; config 1
+     with sorted bounces (`sort_rays`, the split kernels) against
+     tests/goldens/bench_cfg1.npz; fog at 1,024 spp against
+     tests/torch_goldens/volpath_fog.npz (at 16 spp the estimator's own
+     seed-to-seed distance, 0.22, is over the gate);
   5. renders of each path: one warm-up, then timed renders with every
      launch count set to 0 just before and read just after, then one
      profiled render; on the instanced path one more render timing the
-     parts of its overflow fallback.
+     parts of its overflow fallback. Fog counts as rays the lanes passed
+     to #2 and #3 (the JAX volpath counts none).
 
 Then a JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not
@@ -62,7 +74,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W1, H1, SPP1, DEPTH1 = 256, 256, 16, 5     # bench config 1
 W3, H3, SPP3, DEPTH3 = 512, 512, 4, 5      # bench config 3, bvh, instanced
-TIMED = {"config1": 2, "config3": 2, "bvh": 2, "instanced": 2}
+TIMED = {"config1": 2, "config3": 2, "bvh": 2, "instanced": 2, "volpath": 2}
+FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
+FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 # kernel vs plain: share of lanes whose ids must agree, and the tolerances
 # of the float outputs on lanes whose ids agree. Each kernel and its plain
 # version run the same IEEE float32 operations in the same order (no FMA
@@ -75,9 +89,11 @@ GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
 # bench.py expect_mean for configs 1 and 3 (bvh renders config 3's
 # scene); the instanced band is +-40% of the reference's 64x64 render of
 # its scene (tests/torch_goldens/instanced.npz, mean 0.5216), as wide as
-# config 3's band is around its golden
+# config 3's band is around its golden; the fog band the same +-40% of
+# its golden's mean (0.0427)
 MEAN_BAND = {"config1": (0.09, 0.21), "config3": (0.17, 0.41),
-             "bvh": (0.17, 0.41), "instanced": (0.31, 0.73)}
+             "bvh": (0.17, 0.41), "instanced": (0.31, 0.73),
+             "volpath": (0.0256, 0.0598)}
 # a plain version slower than this on the full wavefront is compared and
 # timed on its first PLAIN_CUT_ROWS rows instead (the phase says so)
 PLAIN_FULL_MAX_S = 1.0
@@ -125,8 +141,8 @@ def launch_counts():
     from mitsuba_tpu_torch.ops import stream as sp
     from mitsuba_tpu_torch.ops import worklist as wl
 
-    return dict(shaded_any=ip.LAUNCHES, **ep.LAUNCHES, stream=sp.LAUNCHES,
-                **bp.LAUNCHES, **wl.LAUNCHES)
+    return dict(shaded_any=ip.LAUNCHES, **ip.SPLIT_LAUNCHES, **ep.LAUNCHES,
+                stream=sp.LAUNCHES, **bp.LAUNCHES, **wl.LAUNCHES)
 
 
 def reset_launch_counts():
@@ -138,7 +154,7 @@ def reset_launch_counts():
 
     ip.LAUNCHES = 0
     sp.LAUNCHES = 0
-    for counts in (ep.LAUNCHES, bp.LAUNCHES, wl.LAUNCHES):
+    for counts in (ip.SPLIT_LAUNCHES, ep.LAUNCHES, bp.LAUNCHES, wl.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -606,16 +622,110 @@ def _live_lanes(args, n):
 
 
 # ---------------------------------------------------------------------------
+# fog: the split brute kernels #2, #3 and #4
+# ---------------------------------------------------------------------------
+
+def fog_wavefronts(scene, cfg):
+    """The arguments of the fog render's second-bounce launches of #2 and
+    #3: its bounce rays over the (T, 29) table and the NEE shadow rays
+    of the same bounce over the (T, 9) table."""
+    from mitsuba_tpu_torch.integrators.volpath import render_volpath
+    from mitsuba_tpu_torch.media import make_homogeneous
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    _res, calls = record_calls(
+        ip, ("closest_hit_shaded", "any_hit"),
+        lambda: render_volpath(scene, make_homogeneous(**FOG), cfg, seed=0))
+    return calls["closest_hit_shaded"][1], calls["any_hit"][1]
+
+
+def _tests_needed(table, o, d, mint, maxt, any_hit):
+    """Triangle tests these rays need: every triangle for a live closest
+    lane; for a live any-hit lane the triangles up to its first hit (all
+    when unoccluded); none for a dead lane (maxt < mint)."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    live = maxt >= mint
+    n_tris = table.shape[0]
+    if not any_hit:
+        return int(live.sum()) * n_tris
+    hit = ip._mt(table, o, d, mint, maxt)[3]
+    first = torch.where(hit.any(dim=1), hit.to(torch.int8).argmax(dim=1) + 1,
+                        n_tris)
+    return int(torch.where(live, first, 0).sum())
+
+
+def _fields(out):
+    """(name, tensor) pairs of a record dict, a tuple or one tensor."""
+    if isinstance(out, dict):
+        return list(out.items())
+    if isinstance(out, tuple):
+        return [(f"out{k}", x) for k, x in enumerate(out)]
+    return [("occ", out)]
+
+
+def check_exact(name, stage, kern, plain, args, any_hit):
+    """Hold kernel against plain version bit for bit on args (ids,
+    occlusion and floats all equal); time both; bound the work."""
+    ref = plain(*args)
+    got = kern(*args)
+    torch.cuda.synchronize()
+    mism, max_err = {}, 0.0
+    for (k, a), (_k, b) in zip(_fields(got), _fields(ref)):
+        mism[k] = int((a != b).sum())
+        if a.is_floating_point():
+            fin = torch.isfinite(b)
+            if bool(fin.any()):
+                max_err = max(max_err, float((a - b)[fin].abs().max()))
+    ms = cuda_ms(lambda: kern(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    n = args[1].shape[0]
+    tests = _tests_needed(*args, any_hit)
+    res = dict(kernel=name, stage=stage, lanes=n,
+               live_lanes=int((args[4] >= args[3]).sum()), tests=tests,
+               mismatches=mism, max_abs_err=max_err, ms=ms,
+               plain_ms=plain_ms, **bound(args, ref, tests * MT_OPS),
+               library_ms=None)
+    phase("kernel_vs_plain", **res)
+    bad = {k: c for k, c in mism.items() if c}
+    if bad:
+        raise AssertionError(f"{name} ({stage}): lanes differ in {bad}")
+    return res
+
+
+def compare_split_kernels(scene, cfg):
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    shaded_args, any_args = fog_wavefronts(scene, cfg)
+    g = scene.geom
+    tri = ip.make_tri_table(g.v0, g.e1, g.e2)
+    return {
+        "shaded": check_exact("shaded", "fog bounce 1 closest",
+                              ip.closest_hit_shaded, ip.closest_hit_shaded_ref,
+                              shaded_args, False),
+        "any": check_exact("any", "fog bounce 1 NEE shadow", ip.any_hit,
+                           ip.any_hit_ref, any_args, True),
+        "closest": check_exact("closest", "fog bounce 1 closest",
+                               ip.closest_hit, ip.closest_hit_ref,
+                               (tri,) + tuple(shaded_args[1:]), False),
+    }
+
+
+# ---------------------------------------------------------------------------
 # renders
 # ---------------------------------------------------------------------------
 
-def golden_gate(tag, scene, golden, also=None):
+def golden_gate(tag, scene, golden, also=None, cfg=None, render_fn=None,
+                band=None):
     """64x64, 16 spp, depth 5, seed 0 (bench.py validate_golden), gated
     on `golden` (a path under the repo); `also` is a second golden whose
-    distance is reported, not gated."""
+    distance is reported, not gated. cfg: another PathConfig; render_fn:
+    another renderer (scene, cfg, seed) -> (image, aux); band: the image
+    mean's band, gated when given."""
     from mitsuba_tpu_torch.integrators.path import PathConfig, render
 
-    img, _ = render(scene, PathConfig(max_depth=5, spp=16), seed=0)
+    cfg = cfg or PathConfig(max_depth=5, spp=16)
+    img, _ = (render_fn or render)(scene, cfg, seed=0)
     img = img.cpu().numpy()
 
     def blocks(a, b=8):
@@ -633,12 +743,16 @@ def golden_gate(tag, scene, golden, also=None):
     if also is not None:
         extra = dict(zip(("also_rel_rmse", "also_mean"), rel_rmse(also)),
                      also=also)
-    phase(tag, golden=golden, rel_rmse=rel, limit=GOLDEN_REL_RMSE_MAX,
-          mean=float(img.mean()), golden_mean=ref_mean,
+    mean = float(img.mean())
+    phase(tag, golden=golden, spp=cfg.spp, sort_rays=cfg.sort_rays,
+          rel_rmse=rel, limit=GOLDEN_REL_RMSE_MAX, mean=mean,
+          golden_mean=ref_mean, band=band,
           finite=bool(np.isfinite(img).all()), **extra)
     if not rel <= GOLDEN_REL_RMSE_MAX or not np.isfinite(img).all():
         raise AssertionError(f"{tag}: rel RMSE {rel} > "
                              f"{GOLDEN_REL_RMSE_MAX}")
+    if band is not None and not band[0] < mean < band[1]:
+        raise AssertionError(f"{tag}: mean {mean} outside {band}")
 
 
 def device_profile(fn):
@@ -697,28 +811,50 @@ def timed_calls(module, names, fn):
     return stats
 
 
-def render_phase(tag, scene, cfg, need):
+@contextlib.contextmanager
+def split_lanes():
+    """Count, within the block, the lanes passed to #2 and #3."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    count = [0]
+
+    def counter(_name, orig):
+        def call(table, o, *args):
+            count[0] += o.shape[0]
+            return orig(table, o, *args)
+        return call
+
+    with wrapped(ip, ("closest_hit_shaded", "any_hit"), counter):
+        yield count
+
+
+def render_phase(tag, scene, cfg, need, render_fn=None, forbid=()):
     """One warm-up render, then timed renders with every launch count set
     to 0 just before and read just after; then a profiled render and, on
-    an instanced scene, a render timing its fallback's parts."""
+    an instanced scene, a render timing its fallback's parts. render_fn:
+    another renderer (scene, cfg, seed) -> (image, aux), whose rays are
+    the lanes passed to #2 and #3; forbid: kernels that must not launch."""
     from mitsuba_tpu_torch.integrators.path import render
     from mitsuba_tpu_torch.render import intersect as ri
 
+    render_fn = render_fn or render
     band = MEAN_BAND[tag]
-    render(scene, cfg, seed=0)                  # warm-up
+    render_fn(scene, cfg, seed=0)               # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     secs, rays = [], []
     for seed in range(TIMED[tag]):
-        t0 = time.perf_counter()
-        img, aux = render(scene, cfg, seed=seed)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        rays.append(int(aux["rays_traced"]))
+        with split_lanes() as lanes:
+            t0 = time.perf_counter()
+            img, aux = render_fn(scene, cfg, seed=seed)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rays.append(int(aux["rays_traced"]) if "rays_traced" in aux
+                    else lanes[0])
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = device_profile(lambda: render(scene, cfg, seed=0))
+    prof = device_profile(lambda: render_fn(scene, cfg, seed=0))
     extra = {}
     if scene.geom.has_instances:
         # the fallback of overflowing rows: the BVH kernel on the static
@@ -727,7 +863,7 @@ def render_phase(tag, scene, cfg, need):
         t0 = time.perf_counter()
         extra["fallback_glue"] = timed_calls(
             ri, ("_fallback_closest", "_fallback_any", "_instances_closest",
-                 "_instances_any"), lambda: render(scene, cfg, seed=0))
+                 "_instances_any"), lambda: render_fn(scene, cfg, seed=0))
         extra["fallback_glue"]["render_seconds"] = time.perf_counter() - t0
     mean = float(img.mean())
     phase(tag, width=scene.width, height=scene.height, spp=cfg.spp,
@@ -744,7 +880,17 @@ def render_phase(tag, scene, cfg, need):
     for k in need:
         if launches[k] < 1:
             raise AssertionError(f"{tag}: kernel {k} was never launched")
+    for k in forbid:
+        if launches[k]:
+            raise AssertionError(f"{tag}: kernel {k} was launched")
     return launches
+
+
+def fog_render(scene, cfg, seed=0):
+    from mitsuba_tpu_torch.integrators.volpath import render_volpath
+    from mitsuba_tpu_torch.media import make_homogeneous
+
+    return render_volpath(scene, make_homogeneous(**FOG), cfg, seed=seed)
 
 
 def main():
@@ -805,6 +951,9 @@ def main():
                     clusters=scene_flat.geom.mt_start.shape[0]))
 
     brute = compare_kernel(cornell_box(W1, H1, device=device))
+    fog_cfg = PathConfig(max_depth=DEPTH1, spp=SPP1)
+    split = compare_split_kernels(cornell_box(W1, H1, device=device),
+                                  fog_cfg)
     cluster = compare_cluster_kernels(scene3)
     bvh = compare_bvh_kernels(scene_bvh)
     worklist = compare_worklist_kernels(scene_inst, scene_flat)
@@ -822,6 +971,14 @@ def main():
                     also="tests/goldens/bench_cfg3.npz")
     golden_gate("golden_64_instanced", instanced_scene(64, 64, device=device),
                 "tests/torch_goldens/instanced.npz")
+    golden_gate("golden_64_sorted_brute", cornell_box(64, 64, device=device),
+                "tests/goldens/bench_cfg1.npz",
+                cfg=PathConfig(max_depth=5, spp=16, sort_rays=True),
+                band=MEAN_BAND["config1"])
+    golden_gate("golden_64_volpath", cornell_box(64, 64, device=device),
+                "tests/torch_goldens/volpath_fog.npz",
+                cfg=PathConfig(max_depth=5, spp=FOG_GOLDEN_SPP),
+                render_fn=fog_render, band=MEAN_BAND["volpath"])
     cfg = PathConfig(max_depth=DEPTH3, spp=SPP3)
     l1 = render_phase("config1", cornell_box(W1, H1, device=device),
                       PathConfig(max_depth=DEPTH1, spp=SPP1),
@@ -830,14 +987,17 @@ def main():
                       ["refine", "child_refine", "items"])
     lb = render_phase("bvh", scene_bvh, cfg, ["bvh_closest", "bvh_any"])
     li = render_phase("instanced", scene_inst, cfg, ["wl_closest", "wl_any"])
+    lv = render_phase("volpath", cornell_box(W1, H1, device=device), fog_cfg,
+                      ["shaded", "any"], render_fn=fog_render,
+                      forbid=["shaded_any"])
 
-    def entry(kname, source, replaces, launches, r):
+    def entry(kname, source, replaces, launches, r, **extra):
         return {"name": kname, "route": "cuda",
                 "source": f"mitsuba_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None}
+                "bound_by": r["bound_by"], "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
         entry("shaded_any", "intersect_brute.cu",
@@ -863,6 +1023,18 @@ def main():
         entry("wl_any", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:458", li["wl_any"],
               worklist[("wl_any", "shadow", "instanced")]),
+        entry("shaded", "intersect_brute.cu",
+              "mitsuba_tpu/ops/intersect_pallas.py:202", lv["shaded"],
+              split["shaded"]),
+        entry("any", "intersect_brute.cu",
+              "mitsuba_tpu/ops/intersect_pallas.py:97", lv["any"],
+              split["any"]),
+        # no render path launches #4 (nor does the JAX package's): its
+        # check phase holds it against its plain version
+        entry("closest", "intersect_brute.cu",
+              "mitsuba_tpu/ops/intersect_pallas.py:59", lv["closest"],
+              split["closest"],
+              check_phase="kernel_vs_plain closest (fog bounce 1 closest)"),
     ]}), flush=True)
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import torch
 EPSILON = 1e-4          # ray epsilon, cf. reference Epsilon (mitsuba.h)
 INV_PI = 1.0 / math.pi
 INV_TWOPI = 1.0 / (2.0 * math.pi)
+INV_FOURPI = 1.0 / (4.0 * math.pi)
 
 
 def dot(a, b):

@@ -1,5 +1,5 @@
 """Square → distribution warps with their pdfs (port of the parts of
-mitsuba_tpu/core/warp.py that the path tracer uses).
+mitsuba_tpu/core/warp.py that the path tracers use).
 
 Samples are uniform in [0,1)^2 with a trailing axis of 2; pdfs are with
 respect to solid angle.
@@ -10,7 +10,19 @@ import math
 
 import torch
 
-from mitsuba_tpu_torch.core.math import INV_PI, safe_sqrt
+from mitsuba_tpu_torch.core.math import INV_FOURPI, INV_PI, safe_sqrt
+
+
+def square_to_uniform_sphere(sample):
+    z = 1.0 - 2.0 * sample[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * sample[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_sphere_pdf(d):
+    return torch.full(d.shape[:-1], INV_FOURPI, dtype=d.dtype,
+                      device=d.device)
 
 
 def square_to_uniform_disk_concentric(sample):

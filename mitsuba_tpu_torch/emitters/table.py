@@ -275,7 +275,9 @@ def eval_emitter_hit(em: EmitterTable, emitter_id, wi_world, n_hit):
 def eval_and_pdf_environment(em: EmitterTable, d_world):
     """Background radiance for escaped rays and the NEE pdf of having
     sampled their direction (emitters/table.py:587): zero without an
-    environment emitter."""
+    environment emitter. The reference's fused and separate functions
+    give the same bits; `eval_environment` and `pdf_environment` below
+    are its two halves."""
     shape = d_world.shape[:-1]
     if em.env_id < 0:
         return (torch.zeros(shape + (em.radiance.shape[-1],),
@@ -287,3 +289,15 @@ def eval_and_pdf_environment(em: EmitterTable, d_world):
     val, pdf = envmap.env_eval_pdf(em.env_image, em.env_pdf_img, d_world,
                                    em.env_to_env)
     return val, pmf_env * pdf
+
+
+def eval_environment(em: EmitterTable, d_world):
+    """Background radiance for escaped rays (emitters/table.py:575,
+    reference Scene::LeBackground)."""
+    return eval_and_pdf_environment(em, d_world)[0]
+
+
+def pdf_environment(em: EmitterTable, d_world):
+    """NEE solid-angle pdf of sampling direction d toward the environment
+    (emitters/table.py:608)."""
+    return eval_and_pdf_environment(em, d_world)[1]

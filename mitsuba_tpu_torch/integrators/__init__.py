@@ -1,3 +1,8 @@
+from mitsuba_tpu_torch.integrators.direct import direct_trace
 from mitsuba_tpu_torch.integrators.path import PathConfig, path_trace, render
+from mitsuba_tpu_torch.integrators.volpath import (
+    render_volpath, volpath_trace,
+)
 
-__all__ = ["PathConfig", "path_trace", "render"]
+__all__ = ["PathConfig", "direct_trace", "path_trace", "render",
+           "render_volpath", "volpath_trace"]

@@ -11,14 +11,16 @@ answered by the next bounce's queries.
 On the brute backend a bounce is one fused kernel launch for the closest
 hit and the pending shadow ray; on the bvh backend it is a closest-hit
 query and an any-hit query, each one launch of the BVH kernel, on lanes
-in scanline order (as in the reference, path.py:982). The cluster
-backend, instanced or not, sorts its rays
-(forced, as in the reference): `render` orders the camera lanes by pixel
-Morton code, the first bounce runs on them as they come, at the coherent
-cull caps and with no shadow query (there is no pending NEE yet), and
-every later bounce sorts its live rays by octant-major Morton keys before
-the closest-hit query and sorts the pending shadow rays the same way
-before the any-hit query, un-permuting both results.
+in scanline order (as in the reference, path.py:982). With sorted
+bounces (`sort_rays`, forced on the cluster backend, instanced or not, as
+in the reference) the first bounce runs on the camera lanes as they come,
+at the coherent cull caps and with no shadow query (there is no pending
+NEE yet), and every later bounce sorts its live rays by octant-major
+Morton keys before the closest-hit query and sorts the pending shadow
+rays the same way before the any-hit query, un-permuting both results
+(path.py:522-547). `render` orders the camera lanes by pixel Morton code
+on the cluster backend only; sorted brute bounces run the split kernels
+#2 and #3 on scanline lanes.
 
 Forward rendering only: no gradient flows through the intersector, and
 the options of the reference that the port does not implement raise
@@ -72,17 +74,13 @@ _UNPORTED = ("remat", "strict_normals", "hit_prediction", "mip_filter",
              "aniso_filter", "skip_direct_emission")
 
 
-def _check_config(cfg: PathConfig, backend: str):
+def _check_config(cfg: PathConfig):
     on = [name for name in _UNPORTED if getattr(cfg, name)]
     if on:
         raise NotImplementedError(f"PathConfig options not ported: {on}")
     if cfg.sort_mode != "full":
         raise NotImplementedError(
             f"sort_mode '{cfg.sort_mode}' is not ported (only 'full')")
-    if cfg.sort_rays and backend == "brute":
-        raise NotImplementedError(
-            "sorted bounces on the brute backend need separate queries "
-            "(TPU kernels #2 and #3, not ported)")
 
 
 def _morton_keys(o, d, bmin, bmax):
@@ -168,7 +166,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
     if scene.geom.backend == "cluster" and not cfg.sort_rays:
         # the cluster cull needs direction- and position-coherent rows
         cfg = replace(cfg, sort_rays=True)
-    _check_config(cfg, scene.geom.backend)
+    _check_config(cfg)
     n = ray.o.shape[0]
     dev = ray.o.device
     d_max = cfg.max_depth
@@ -292,17 +290,19 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
     return L, aux
 
 
-def camera_wavefront(scene, cfg: PathConfig, seed: int = 0):
+def camera_wavefront(scene, cfg: PathConfig, seed: int = 0, morton=None):
     """The camera rays and sampler of `render`: lane = pixel * spp +
-    sample, with pixels in Morton order on the cluster backend. Returns
-    (ray, sampler, inv_lane), inv_lane restoring scanline lane order (None
-    without Morton order)."""
+    sample, with pixels in Morton order if `morton` (default: on the
+    cluster backend). Returns (ray, sampler, inv_lane), inv_lane restoring
+    scanline lane order (None without Morton order)."""
     w, h, spp = scene.width, scene.height, cfg.spp
     n = w * h * spp
     dev = scene.device
     lane = torch.arange(n, dtype=torch.int32, device=dev)
     inv_lane = None
-    if scene.geom.backend == "cluster":
+    if morton is None:
+        morton = scene.geom.backend == "cluster"
+    if morton:
         perm_px = pixel_morton_perm(w, h)
         pixel_id = torch.as_tensor(perm_px.astype(np.int32),
                                    device=dev)[lane.long() // spp]

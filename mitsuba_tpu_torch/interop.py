@@ -4,7 +4,8 @@
 the brute, bvh or cluster backend, instanced or not, materials, textures,
 emitters with the baked sky's sampling tables, camera) and builds the
 port's tables from them, so that both packages render the same scene
-from the same arrays.
+from the same arrays; `from_jax_medium` does the same for an ambient
+medium.
 It needs no jax import of its own: `np.asarray` reads the reference's
 arrays. Every feature of the reference scene that the port does not
 implement raises NotImplementedError.
@@ -19,6 +20,8 @@ import torch
 from mitsuba_tpu_torch.bsdfs.table import MaterialTable, check_kinds
 from mitsuba_tpu_torch.emitters.table import EmitterTable
 from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
+from mitsuba_tpu_torch.media.medium import HOMOGENEOUS, MediumTable
+from mitsuba_tpu_torch.media.phase import MICROFLAKE_GAUSS
 from mitsuba_tpu_torch.render.camera import Camera
 from mitsuba_tpu_torch.render.intersect import GeometryTables
 from mitsuba_tpu_torch.render.scene import Scene
@@ -54,7 +57,8 @@ def _geometry(g) -> GeometryTables:
         _unported(f"intersection backend '{g.backend}'")
     if g.has_analytic or g.n_hair > 0:
         _unported("analytic or hair geometry")
-    geom = GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS})
+    geom = GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS},
+                          bvh_min=_t(g.bvh_min), bvh_max=_t(g.bvh_max))
     if g.backend == "brute":
         return geom
     fields = {k: _t(getattr(g, k)) for k in _BVH_FIELDS}
@@ -130,8 +134,9 @@ def _camera(cam) -> Camera:
     )
 
 
-def from_jax_scene(scene, device="cpu") -> Scene:
-    """The port's Scene for a `mitsuba_tpu.render.scene.Scene`."""
+def from_jax_scene(scene, device="cuda") -> Scene:
+    """The port's Scene for a `mitsuba_tpu.render.scene.Scene`, on
+    `device` (the card by default)."""
     if scene.media is not None or scene.subsurface is not None:
         _unported("participating media or subsurface scattering")
     return Scene(
@@ -143,3 +148,19 @@ def from_jax_scene(scene, device="cpu") -> Scene:
         height=scene.height,
         textures=_textures(scene.textures),
     ).to(device)
+
+
+def from_jax_medium(med) -> MediumTable:
+    """The port's MediumTable for a `mitsuba_tpu.media.MediumTable`, on
+    the host (the integrator moves it to the scene's device)."""
+    if med.enabled and med.kind != HOMOGENEOUS:
+        _unported("a heterogeneous medium")
+    if med.orientation is not None or med.flake_coeffs is not None \
+            or med.phase_kind == MICROFLAKE_GAUSS:
+        _unported("an oriented or Gaussian-flake medium")
+    return MediumTable(
+        sigma_s=_t(np.asarray(med.sigma_s, np.float32)),
+        sigma_a=_t(np.asarray(med.sigma_a, np.float32)),
+        phase_g=_t(np.asarray(med.phase_g, np.float32)),
+        kind=int(med.kind), phase_kind=int(med.phase_kind),
+        enabled=bool(med.enabled))

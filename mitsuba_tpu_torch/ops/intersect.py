@@ -1,12 +1,21 @@
-"""Brute-force fused intersector: the CUDA kernel and its plain version
-(port of mitsuba_tpu/ops/intersect_pallas.py:312-467).
+"""Brute-force intersectors: the CUDA kernels and their plain versions
+(port of mitsuba_tpu/ops/intersect_pallas.py).
 
-`closest_hit_shaded_and_any` answers, in one pass over the triangles, the
-closest hit with its interpolated shading record for the bounce rays and
-the any-hit occlusion of the shadow rays. On CUDA tensors it launches the
-hand-written kernel of `csrc/intersect_brute.cu`, built with nvcc at first
-use into `_build/` and bound with ctypes; on CPU tensors it runs the plain
-PyTorch version `closest_hit_shaded_and_any_ref`. Any other device raises.
+Four queries of N rays against every triangle of a brute scene:
+
+* `closest_hit_shaded_and_any` (#1, :432): closest hit with its
+  interpolated shading record for the bounce rays and any-hit occlusion
+  of the shadow rays, in one pass over the (T, 29) table;
+* `closest_hit_shaded` (#2, :281): the closest hit and its shading
+  record alone;
+* `any_hit` (#3, :165): occlusion over the (T, 9) `v0|e1|e2` table;
+* `closest_hit` (#4, :139): t, u, v and prim over the (T, 9) table.
+
+On CUDA tensors each launches its hand-written kernel of
+`csrc/intersect_brute.cu`, built with nvcc at first use into `_build/`
+and bound with ctypes; on CPU tensors it runs the plain PyTorch version
+(`*_ref`). Any other device raises. Each kernel has its own launch count:
+`LAUNCHES` for #1, `SPLIT_LAUNCHES` for the others.
 
 Triangle table layout (T, 29), as in the reference:
   [0:9]   v0 | e1 | e2
@@ -24,17 +33,20 @@ import torch
 from mitsuba_tpu_torch.ops import build as nv
 
 SHD_COLS = 29
+TRI_COLS = 9
 _DET_EPS = 1e-9
-# largest (N, Tc) intermediate of the plain version, in elements (128 MB
+# largest (N, Tc) intermediate of the plain versions, in elements (128 MB
 # of float32): 1M lanes x 32 triangles in one chunk
 _MAX_ELEMS = 1 << 25
 
 SOURCE = nv.source("intersect_brute.cu")
 
-# kernel launches since import (or since a caller reset it): a run shows
-# that it went through the kernel by reading this before and after
+# kernel launches since import (or since a caller reset them): a run shows
+# that it went through a kernel by reading its count before and after.
+# LAUNCHES counts #1; SPLIT_LAUNCHES #2 (shaded), #3 (any), #4 (closest)
 LAUNCHES = 0
-_LIB = None
+SPLIT_LAUNCHES = {"shaded": 0, "any": 0, "closest": 0}
+_LIB = {}
 
 
 def make_shading_table(geom):
@@ -54,8 +66,13 @@ def make_shading_table(geom):
     ).contiguous()
 
 
+def make_tri_table(v0, e1, e2):
+    """Pack triangle SoA into the (T, 9) `v0|e1|e2` layout (:182)."""
+    return torch.cat([v0, e1, e2], dim=1).to(torch.float32).contiguous()
+
+
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 def _mt(tri, o, d, mint, maxt):
@@ -84,26 +101,28 @@ def _mt(tri, o, d, mint, maxt):
     return t, u, v, hit
 
 
-def closest_hit_shaded_and_any_ref(table, o, d, mint, maxt, so, sd, smint,
-                                   smaxt):
-    """Plain version of the fused kernel: the same results, lane for lane.
-
-    The triangle loop becomes an (N, Tc) broadcast, chunked over T so that
-    no intermediate holds more than _MAX_ELEMS elements. The closest hit
-    is the first minimum (argmin keeps the lowest index, as the kernel's
-    strict t < t_best does); a later chunk wins only when strictly closer.
-    """
-    n, n_tris = o.shape[0], table.shape[0]
-    dev = o.device
-    inf = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-    t_b, u_b, v_b = inf, torch.zeros_like(inf), torch.zeros_like(inf)
-    p_b = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+def _chunks(n, n_tris):
+    """Triangle chunks [c0, c0 + step) keeping (N, step) <= _MAX_ELEMS."""
     step = max(1, min(n_tris, _MAX_ELEMS // max(n, 1)))
+    return range(0, n_tris, step), step
+
+
+def closest_hit_ref(table, o, d, mint, maxt):
+    """Plain version of #4 (and the closest half of #1 and #2): the
+    triangle loop becomes an (N, Tc) broadcast, chunked over T. The
+    closest hit is the first minimum (argmin keeps the lowest index, as
+    the kernel's strict t < t_best does); a later chunk wins only when
+    strictly closer. Returns (t, u, v, prim, valid): t = inf, u = v = 0
+    and prim = -1 on a miss."""
+    n = o.shape[0]
+    dev = o.device
+    t_b = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    u_b, v_b = torch.zeros_like(t_b), torch.zeros_like(t_b)
+    p_b = torch.full((n,), -1, dtype=torch.int64, device=dev)
     rows = torch.arange(n, device=dev)
-    for c0 in range(0, n_tris, step):
-        tri = table[c0:c0 + step]
-        t, u, v, hit = _mt(tri, o, d, mint, maxt)
+    starts, step = _chunks(n, table.shape[0])
+    for c0 in starts:
+        t, u, v, hit = _mt(table[c0:c0 + step], o, d, mint, maxt)
         t_masked = torch.where(hit, t, float("inf"))
         j = torch.argmin(t_masked, dim=1)
         t_j = t_masked[rows, j]
@@ -112,10 +131,23 @@ def closest_hit_shaded_and_any_ref(table, o, d, mint, maxt, so, sd, smint,
         u_b = torch.where(better, u[rows, j], u_b)
         v_b = torch.where(better, v[rows, j], v_b)
         p_b = torch.where(better, j + c0, p_b)
-        occ = occ | _mt(tri, so, sd, smint, smaxt)[3].any(dim=1)
+    return t_b, u_b, v_b, p_b.to(torch.int32), p_b >= 0
 
-    valid = p_b >= 0
-    r = table[torch.clamp(p_b, min=0)]
+
+def any_hit_ref(table, o, d, mint, maxt):
+    """Plain version of #3 (and the shadow half of #1): the OR over all
+    triangles of the hit test."""
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    starts, step = _chunks(o.shape[0], table.shape[0])
+    for c0 in starts:
+        occ = occ | _mt(table[c0:c0 + step], o, d, mint, maxt)[3].any(dim=1)
+    return occ
+
+
+def _shading_record(table, t_b, u_b, v_b, p_b, valid):
+    """The shading record of the winning rows, interpolated once (the
+    kernels' epilogue): on a miss prim and ids -1, normals (0, 0, 1)."""
+    r = table[torch.clamp(p_b, min=0).long()]
     e1x, e1y, e1z = r[:, 3], r[:, 4], r[:, 5]
     e2x, e2y, e2z = r[:, 6], r[:, 7], r[:, 8]
     w = 1.0 - u_b - v_b
@@ -142,34 +174,55 @@ def closest_hit_shaded_and_any_ref(table, o, d, mint, maxt, so, sd, smint,
     def ids(c):
         return torch.where(valid, r[:, c].to(torch.int32), -1)
 
-    rec = dict(
-        t=t_b, u=u_b, v=v_b, prim=p_b.to(torch.int32), valid=valid,
+    return dict(
+        t=t_b, u=u_b, v=v_b, prim=p_b, valid=valid,
         geo_n=unit(g), sh_n=unit(s), uv=torch.stack(uv, dim=-1),
         material_id=ids(24), emitter_id=ids(25), shape_id=ids(26),
     )
-    return rec, occ
+
+
+def closest_hit_shaded_ref(table, o, d, mint, maxt):
+    """Plain version of #2: #1's without the shadow half."""
+    return _shading_record(table, *closest_hit_ref(table, o, d, mint, maxt))
+
+
+def closest_hit_shaded_and_any_ref(table, o, d, mint, maxt, so, sd, smint,
+                                   smaxt):
+    """Plain version of the fused kernel #1: the same results, lane for
+    lane."""
+    return (closest_hit_shaded_ref(table, o, d, mint, maxt),
+            any_hit_ref(table, so, sd, smint, smaxt))
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: build, bind, launch
+# CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
 def build() -> str:
-    """Compile the kernel (at most once per source hash) and load it.
+    """Compile the kernels (at most once per source hash) and load them.
     Returns the compiler's output, empty when the library was cached."""
-    global _LIB
     log = nv.build_all([SOURCE])[SOURCE]
     p, i = ctypes.c_void_p, ctypes.c_int
-    _LIB = nv.bind(SOURCE, "mts_shaded_any",
-                   [p, i] + [p] * 8 + [i] + [p] * 17 + [p])
+    rays = [i, p, p, p, p, i]                  # n_tris, o, d, mint, maxt, n
+    _LIB.update(
+        shaded_any=nv.bind(SOURCE, "mts_shaded_any",
+                           [p, i] + [p] * 8 + [i] + [p] * 17 + [p]),
+        shaded=nv.bind(SOURCE, "mts_shaded", [p] + rays + [p] * 16 + [p]),
+        any=nv.bind(SOURCE, "mts_any", [p] + rays + [p] + [p]),
+        closest=nv.bind(SOURCE, "mts_closest", [p] + rays + [p] * 5 + [p]),
+    )
     return log
 
 
-def _check_inputs(table, o, d, mint, maxt, so, sd, smint, smaxt):
+def _check_inputs(table, cols, *rays):
+    """rays: (o, d, mint, maxt) groups of N rays, all float32, contiguous
+    and on one device, the CPU or a CUDA device, with the (T, cols)
+    table."""
+    o = rays[0]
     n = o.shape[0] if o.dim() == 2 else -1
-    shapes = ((table, (table.shape[0], SHD_COLS)),
-              (o, (n, 3)), (d, (n, 3)), (so, (n, 3)), (sd, (n, 3)),
-              (mint, (n,)), (maxt, (n,)), (smint, (n,)), (smaxt, (n,)))
+    shapes = [(table, (table.shape[0], cols))]
+    for k, x in enumerate(rays):
+        shapes.append((x, (n, 3) if k % 4 < 2 else (n,)))
     for x, shape in shapes:
         if x.dtype != torch.float32:
             raise TypeError(f"expected float32, got {x.dtype}")
@@ -181,53 +234,106 @@ def _check_inputs(table, o, d, mint, maxt, so, sd, smint, smaxt):
             raise ValueError(f"inputs on {x.device} and {o.device}")
     if table.shape[0] == 0:
         raise ValueError("empty triangle table")
+    if o.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no intersector for {o.device}")
 
 
 def closest_hit_shaded_and_any(table, o, d, mint, maxt, so, sd, smint,
                                smaxt):
-    """Fused closest hit + shading record for (o, d) and any-hit occlusion
-    for the shadow rays (so, sd). Returns (record dict, occluded bool)
-    with the reference's keys: t, u, v, prim, valid, geo_n, sh_n, uv,
-    material_id, emitter_id, shape_id."""
-    _check_inputs(table, o, d, mint, maxt, so, sd, smint, smaxt)
+    """#1: fused closest hit + shading record for (o, d) and any-hit
+    occlusion for the shadow rays (so, sd). Returns (record dict, occluded
+    bool) with the reference's keys: t, u, v, prim, valid, geo_n, sh_n,
+    uv, material_id, emitter_id, shape_id."""
+    _check_inputs(table, SHD_COLS, o, d, mint, maxt, so, sd, smint, smaxt)
     if o.device.type == "cpu":
         return closest_hit_shaded_and_any_ref(table, o, d, mint, maxt,
                                               so, sd, smint, smaxt)
-    if o.device.type != "cuda":
-        raise NotImplementedError(f"no intersector for {o.device}")
-    return _launch(table, o, d, mint, maxt, so, sd, smint, smaxt)
-
-
-def _launch(table, o, d, mint, maxt, so, sd, smint, smaxt):
     global LAUNCHES
-    if _LIB is None:
-        build()
     n = o.shape[0]
-    with torch.cuda.device(o.device):
-        f32 = [torch.empty(n, dtype=torch.float32, device=o.device)
-               for _ in range(11)]
-        i32 = [torch.empty(n, dtype=torch.int32, device=o.device)
-               for _ in range(6)]
-        t, u, v, gx, gy, gz, sx, sy, sz, tu, tv = f32
-        prim, hit, mid, eid, sid, occ = i32
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = _LIB(
-            table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
-            mint.data_ptr(), maxt.data_ptr(), so.data_ptr(), sd.data_ptr(),
-            smint.data_ptr(), smaxt.data_ptr(), n,
-            t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr(),
-            hit.data_ptr(), gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
-            sx.data_ptr(), sy.data_ptr(), sz.data_ptr(), tu.data_ptr(),
-            tv.data_ptr(), mid.data_ptr(), eid.data_ptr(), sid.data_ptr(),
-            occ.data_ptr(), stream)
-    nv.check(err, "intersect_brute")
+    out = _record_outputs(o)
+    occ = torch.empty(n, dtype=torch.int32, device=o.device)
+    _launch("shaded_any", o, table, table.shape[0], o, d, mint, maxt,
+            so, sd, smint, smaxt, n, *out, occ)
     if n > 0:
         LAUNCHES += 1
-    rec = dict(
+    return _record(out), occ.bool()
+
+
+def closest_hit_shaded(table, o, d, mint, maxt):
+    """#2: closest hit + shading record over the (T, 29) table, the record
+    of `closest_hit_shaded_and_any`."""
+    _check_inputs(table, SHD_COLS, o, d, mint, maxt)
+    if o.device.type == "cpu":
+        return closest_hit_shaded_ref(table, o, d, mint, maxt)
+    n = o.shape[0]
+    out = _record_outputs(o)
+    _launch("shaded", o, table, table.shape[0], o, d, mint, maxt, n, *out)
+    _count("shaded", n)
+    return _record(out)
+
+
+def any_hit(table, o, d, mint, maxt):
+    """#3: occlusion of N rays over the (T, 9) table -> bool (N,)."""
+    _check_inputs(table, TRI_COLS, o, d, mint, maxt)
+    if o.device.type == "cpu":
+        return any_hit_ref(table, o, d, mint, maxt)
+    n = o.shape[0]
+    occ = torch.empty(n, dtype=torch.int32, device=o.device)
+    _launch("any", o, table, table.shape[0], o, d, mint, maxt, n, occ)
+    _count("any", n)
+    return occ.bool()
+
+
+def closest_hit(table, o, d, mint, maxt):
+    """#4: closest hit over the (T, 9) table -> (t, u, v, prim, valid),
+    prim = -1 on a miss."""
+    _check_inputs(table, TRI_COLS, o, d, mint, maxt)
+    if o.device.type == "cpu":
+        return closest_hit_ref(table, o, d, mint, maxt)
+    n = o.shape[0]
+    f32 = [torch.empty(n, dtype=torch.float32, device=o.device)
+           for _ in range(3)]
+    prim, hit = (torch.empty(n, dtype=torch.int32, device=o.device)
+                 for _ in range(2))
+    _launch("closest", o, table, table.shape[0], o, d, mint, maxt, n,
+            *f32, prim, hit)
+    _count("closest", n)
+    return (*f32, prim, hit.bool())
+
+
+def _record_outputs(o):
+    """The record's output tensors, in the kernels' argument order."""
+    n = o.shape[0]
+    return tuple(torch.empty(n, dtype=dt, device=o.device) for dt in (
+        [torch.float32] * 3 + [torch.int32] * 2 + [torch.float32] * 8
+        + [torch.int32] * 3))
+
+
+def _record(out):
+    """The record dict of the kernels' outputs."""
+    (t, u, v, prim, hit, gx, gy, gz, sx, sy, sz, tu, tv, mid, eid,
+     sid) = out
+    return dict(
         t=t, u=u, v=v, prim=prim, valid=hit.bool(),
         geo_n=torch.stack([gx, gy, gz], dim=-1),
         sh_n=torch.stack([sx, sy, sz], dim=-1),
         uv=torch.stack([tu, tv], dim=-1),
         material_id=mid, emitter_id=eid, shape_id=sid,
     )
-    return rec, occ.bool()
+
+
+def _launch(name, o, *args):
+    """Launch kernel `name` on o's device and current stream: tensors pass
+    as pointers, ints as ints; raise on a refused launch."""
+    if not _LIB:
+        build()
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = _LIB[name](*[a.data_ptr() if isinstance(a, torch.Tensor)
+                           else a for a in args], stream)
+    nv.check(err, f"intersect_brute {name}")
+
+
+def _count(name, n):
+    if n > 0:
+        SPLIT_LAUNCHES[name] += 1

@@ -5,10 +5,14 @@ mitsuba_tpu/render/intersect.py, triangle scenes).
 Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
 
 * brute (the "auto" choice up to 64 triangles): the triangles in input
-  order; the path tracer's `ray_intersect_and_test` runs the fused kernel
-  of `ops/intersect.py` once per bounce and assembles the `Intersection`
-  as the reference's TPU kernel path does (intersect.py:1489-1518): the
-  shading frame is `Frame.from_normal(sh_n)`, `dp_du` its s axis.
+  order and, as in the reference, a one-leaf BVH whose root box is the
+  scene's bounds (intersect.py:261-271). The path tracer's
+  `ray_intersect_and_test` runs the fused kernel #1 of `ops/intersect.py`
+  once per bounce; `ray_intersect` runs #2 (closest hit with its shading
+  record) and `ray_test` #3 (any hit), as the reference's TPU branches do
+  (intersect.py:1266-1294, 1570-1575). The record is the kernel path's
+  (:1489-1518): the shading frame is `Frame.from_normal(sh_n)`, `dp_du`
+  its s axis.
 * bvh: the triangles in the order of a skip-link BVH (render/bvh.py); a
   closest query is one launch of the packet-BVH kernel's port
   (`ops/bvh.py`, bvh_closest), an any-hit query one of bvh_any
@@ -40,8 +44,7 @@ hit), `dp_du` from the uv chart, and the frame
 `Frame.from_normal_tangent(sh_n, dp_du)` — not the brute path's frame.
 
 Each `lax.cond` of the reference is a Python branch on a device-side
-`any()`. Separate closest and any-hit queries on the brute backend need
-TPU kernels #2 and #3, which are not ported; they raise.
+`any()`.
 """
 from __future__ import annotations
 
@@ -85,9 +88,10 @@ class GeometryTables:
     material_id: torch.Tensor  # (T,) int32
     emitter_id: torch.Tensor   # (T,) int32, -1 = not emissive
     shape_id: torch.Tensor     # (T,) int32
-    # bvh and cluster backends (None on brute): the flattened BVH
+    # the flattened BVH; brute: the root box alone (M = 1)
     bvh_min: torch.Tensor = None     # (M, 3) node boxes, row 0 = root
     bvh_max: torch.Tensor = None
+    # bvh and cluster backends (None on brute): the rest of the BVH
     bvh_first: torch.Tensor = None   # (M,) int32 leaf: first triangle
     bvh_count: torch.Tensor = None   # (M,) int32 leaf size, 0 = inner
     bvh_skip: torch.Tensor = None    # (M,) int32 next node after a miss
@@ -208,9 +212,10 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
                    instanced=None) -> GeometryTables:
     """Assemble GeometryTables from [(TriMesh, material_id, emitter_id
     [, shape_id]), ...]. backend: 'brute' keeps the input order and
-    builds no tree; 'bvh' orders the triangles by a BVH; 'cluster' also
-    builds the cluster tables; 'auto' is cluster above 64 triangles,
-    brute below (intersect.py:257). instanced: (groups, instances) for
+    builds no tree, only the root box; 'bvh' orders the triangles by a
+    BVH; 'cluster' also builds the cluster tables; 'auto' is cluster
+    above 64 triangles, brute below (intersect.py:257). instanced:
+    (groups, instances) for
     true instancing on the cluster backend, groups = [[(TriMesh in object
     space, material_id, shape_id), ...], ...] and instances = [(group
     index, 4x4 to_world), ...]. Host numpy, as in the reference."""
@@ -253,7 +258,9 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
     if instanced and instanced[1] and backend != "cluster":
         raise ValueError("true instancing requires the cluster backend")
 
-    tables = {}
+    # brute force needs no tree: a single leaf covering everything
+    tables = dict(bvh_min=v.min(axis=0, keepdims=True).astype(np.float32),
+                  bvh_max=v.max(axis=0, keepdims=True).astype(np.float32))
     if backend != "brute":
         bvh = build_bvh(v, f)
         p = bvh.perm
@@ -417,26 +424,18 @@ def _build_instanced(static, n_static_tris, groups, instances):
 
 
 # ---------------------------------------------------------------------------
-# brute backend: the fused kernel
+# brute backend: the kernels of ops/intersect.py
 # ---------------------------------------------------------------------------
 
-def _fused_brute(geom: GeometryTables, ray: Ray, sray: Ray):
-    """Closest hit (ray) and shadow any-hit (sray) on the brute backend:
-    one fused kernel launch with a shared triangle loop. Returns
-    (Intersection, occluded)."""
-    table = ip.make_shading_table(geom)
-    r, occ = ip.closest_hit_shaded_and_any(
-        table, ray.o.contiguous(), ray.d.contiguous(),
-        ray.mint.contiguous(), ray.maxt.contiguous(),
-        sray.o.contiguous(), sray.d.contiguous(),
-        sray.mint.contiguous(), sray.maxt.contiguous(),
-    )
+def _brute_record(ray: Ray, r) -> Intersection:
+    """The Intersection of a brute kernel's record dict, as the
+    reference's TPU branches build it (intersect.py:1266-1294,
+    1497-1517)."""
     valid = r["valid"]
     # finite position on a miss: inf positions would NaN the masked lanes
     p = ray.at(torch.where(valid, r["t"], 1.0))
     frame = m.Frame.from_normal(r["sh_n"])
-    wi = frame.to_local(-ray.d)
-    its = Intersection(
+    return Intersection(
         valid=valid,
         t=torch.where(valid, r["t"], float("inf")),
         p=p,
@@ -444,13 +443,21 @@ def _fused_brute(geom: GeometryTables, ray: Ray, sray: Ray):
         sh_n=r["sh_n"],
         uv=r["uv"],
         dp_du=frame.s,
-        wi=wi,
+        wi=frame.to_local(-ray.d),
         prim_id=torch.where(valid, r["prim"], -1),
         shape_id=torch.where(valid, r["shape_id"], -1),
         material_id=torch.where(valid, r["material_id"], -1),
         emitter_id=torch.where(valid, r["emitter_id"], -1),
     )
-    return its, occ
+
+
+def _fused_brute(geom: GeometryTables, ray: Ray, sray: Ray):
+    """Closest hit (ray) and shadow any-hit (sray) on the brute backend:
+    one launch of the fused kernel #1 with a shared triangle loop.
+    Returns (Intersection, occluded)."""
+    r, occ = ip.closest_hit_shaded_and_any(
+        ip.make_shading_table(geom), *_ray_args(ray), *_ray_args(sray))
+    return _brute_record(ray, r), occ
 
 
 def _ray_args(ray: Ray):
@@ -899,10 +906,6 @@ def _closest(geom, ray, coherent):
         t, u, v, prim, valid = bp.bvh_closest(
             geom.bvh_packed, geom.tri_packed, *_ray_args(ray))
         return t, u, v, torch.where(valid, prim, 0), valid
-    if geom.backend != "cluster":
-        raise NotImplementedError(
-            "separate closest-hit queries on the brute backend need TPU "
-            "kernel #2, which is not ported (brute: ray_intersect_and_test)")
     if geom.has_instances:
         return _worklist_closest(geom, ray)
     return _cluster_closest(geom, ray, coherent)
@@ -910,21 +913,21 @@ def _closest(geom, ray, coherent):
 
 def ray_intersect(geom: GeometryTables, ray: Ray,
                   coherent: bool = False) -> Intersection:
-    """Closest-hit query of the bvh or cluster backend -> Intersection.
-    coherent: camera-like wavefront; the exact cull then runs at the small
-    coherent caps."""
+    """Closest-hit query -> Intersection. coherent: camera-like
+    wavefront; the exact cull then runs at the small coherent caps."""
+    if geom.backend == "brute":
+        return _brute_record(ray, ip.closest_hit_shaded(
+            ip.make_shading_table(geom), *_ray_args(ray)))
     return _shade(geom, ray, *_closest(geom, ray, coherent))
 
 
 def ray_test(geom: GeometryTables, ray: Ray):
-    """Any-hit (shadow ray) query of the bvh or cluster backend ->
-    occluded."""
+    """Any-hit (shadow ray) query -> occluded."""
+    if geom.backend == "brute":
+        return ip.any_hit(ip.make_tri_table(geom.v0, geom.e1, geom.e2),
+                          *_ray_args(ray))
     if geom.backend == "bvh":
         return bp.bvh_any(geom.bvh_packed, geom.tri_packed, *_ray_args(ray))
-    if geom.backend != "cluster":
-        raise NotImplementedError(
-            "separate any-hit queries on the brute backend need TPU kernel "
-            "#3, which is not ported (brute: ray_intersect_and_test)")
     if geom.has_instances:
         return _worklist_any(geom, ray)
     return _cluster_any(geom, ray)

@@ -3,13 +3,16 @@ mitsuba_tpu/render/scene.py that build bench configs 1 and 3 and
 instanced scenes).
 
 A `Scene` holds the geometry, material, emitter and texture tables and the
-camera, all on one device. `SceneBuilder` assembles them on the host;
-shapes bind lambertian or phong materials (optionally checkerboard-
-textured) and area emitters, the builder's emitters may hold a Preetham
-sky, and groups of shapes may be placed as true instances (one shared
-copy of their triangles, cluster backend). Every other scene feature of
-the reference (analytic shapes, media, other BSDFs, emitters and texture
-kinds) is not ported yet.
+camera, all on one device: the card unless the caller passes
+`device="cpu"` (without a CUDA device any other request raises).
+`SceneBuilder` assembles them on the host; shapes bind lambertian or
+phong materials (optionally checkerboard-textured) and area emitters, the
+builder's emitters may hold a Preetham sky, and groups of shapes may be
+placed as true instances (one shared copy of their triangles, cluster
+backend). An ambient medium is not part of the scene: it is passed to
+the volumetric path tracer (`integrators/volpath.py`). Every other scene
+feature of the reference (analytic shapes, shape-interior media, other
+BSDFs, emitters and texture kinds) is not ported yet.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ class Scene:
 
     def to(self, device) -> "Scene":
         """The scene with every table moved to `device`."""
+        check_device(device)
         def move(table):
             return dataclasses.replace(table, **{
                 f.name: getattr(table, f.name).to(device)
@@ -53,6 +57,14 @@ class Scene:
         return Scene(self.geom.to(device), move(self.materials),
                      move(self.emitters), move(self.camera),
                      move(self.textures), self.width, self.height)
+
+
+def check_device(device):
+    """Raise for a CUDA device where there is none: the port never falls
+    back to the CPU unless the caller asks for it."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
 
 
 class SceneBuilder:
@@ -101,9 +113,11 @@ class SceneBuilder:
         self.camera = camera
         self.width, self.height = width, height
 
-    def build(self, backend: str = "auto", device="cpu") -> Scene:
+    def build(self, backend: str = "auto", device="cuda") -> Scene:
         """backend: 'brute', 'bvh', 'cluster' or 'auto' (cluster above 64
-        triangles); a scene with instances needs 'cluster' or 'auto'."""
+        triangles); a scene with instances needs 'cluster' or 'auto'.
+        device: where the scene's tables live, the card by default."""
+        check_device(device)
         if not self._shapes:
             raise ValueError("scene has no shapes")
         instanced = None
@@ -129,7 +143,7 @@ class SceneBuilder:
         return scene.to(device)
 
 
-def cornell_box(width=256, height=256, backend="brute", device="cpu") \
+def cornell_box(width=256, height=256, backend="brute", device="cuda") \
         -> Scene:
     """The Cornell box of bench config 1 (reference
     mitsuba_tpu/render/scene.py:328): 556 x 548.8 x 559.2 units, 32
@@ -181,7 +195,7 @@ def cornell_box(width=256, height=256, backend="brute", device="cpu") \
 
 
 def textured_mesh_scene(width=256, height=256, backend="bvh",
-                        device="cpu") -> Scene:
+                        device="cuda") -> Scene:
     """Bench config 3 (reference mitsuba_tpu/render/scene.py:435): a
     101,762-triangle mesh — the reference's fallback when its bunny mesh
     is absent, a 160 x 320 sphere — with a phong body on a checkerboard-
@@ -211,7 +225,7 @@ INSTANCE_PLACES = ((-2.0, 0.0, 1.0, 1.0), (2.0, 0.5, 1.2, 0.7),
 
 
 def instanced_scene(width=256, height=256, n_theta=160, n_phi=320,
-                    flatten=False, device="cpu") -> Scene:
+                    flatten=False, device="cuda") -> Scene:
     """The layout of tests/test_instancing.py: a floor and an area light
     under three placements of one n_theta x n_phi sphere, instances of
     one group sharing one copy of its triangles (cluster backend) or,

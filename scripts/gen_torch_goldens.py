@@ -13,8 +13,18 @@ one sphere group).
 * bvh_16.npz: bench config 3's scene (`textured_mesh_scene`, the sphere
   fallback) on the bvh backend, 16 x 16 px, 2 spp, depth 3, seed 0.
   tests/test_torch_bvh.py holds the port's CPU render to it per pixel.
+* volpath_fog.npz: "fog", the Cornell box of bench config 1 (brute) in the
+  homogeneous medium of tests/test_guiding.py (sigma_s 0.0015, sigma_a
+  0.0003, HG g = 0.4: optical depth ~1 across the box), rendered by
+  `render_volpath` (mis=True), 64 x 64 px, depth 5, seed 0, at 1,024 spp
+  under "mean" (chip_smoke.py gates the port's render at the same size on
+  it) and at 16 spp under "spp16" (the same lanes as the port's CPU render
+  in tests/test_torch_volpath.py). The script also renders seed 1 at 1,024
+  spp and prints the 8x8-block relative RMSE between the two seeds, the
+  noise floor of the gate (0.22 at 16 spp, 0.053 at 512, so "mean" has
+  1,024).
 
-Both store the image under "mean". Regenerate only after an intentional
+All store the image under "mean". Regenerate only after an intentional
 change of the JAX package's estimator:
 
     python scripts/gen_torch_goldens.py
@@ -34,11 +44,36 @@ DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "torch_goldens")
 PLACES = ((-2.0, 0.0, 1.0, 1.0), (2.0, 0.5, 1.2, 0.7), (0.0, 2.0, 0.8, 1.3))
 GOLDENS = {
-    # name: (px, n_theta, n_phi, spp, depth); n_theta None: config 3 bvh
+    # name: (px, n_theta, n_phi, spp, depth); n_theta None: config 3 bvh,
+    # "fog": the volumetric Cornell box
     "instanced": (64, 160, 320, 16, 5),
     "instanced_32": (32, 10, 20, 2, 3),
     "bvh_16": (16, None, None, 2, 3),
+    "volpath_fog": (64, "fog", None, 1024, 5),
 }
+FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
+
+
+def block_rel_rmse(img, ref, b=8):
+    """bench.py's gate: relative RMSE of the 8x8-block means."""
+    def blocks(a):
+        h, w, c = a.shape
+        return a.reshape(h // b, b, w // b, b, c).mean(axis=(1, 3))
+
+    rb, ib = blocks(ref), blocks(img)
+    return float(np.sqrt(np.mean((ib - rb) ** 2)) / rb.mean())
+
+
+def render_fog(res, spp, depth, seed):
+    from mitsuba_tpu.integrators.path import PathConfig
+    from mitsuba_tpu.integrators.volpath import render_volpath
+    from mitsuba_tpu.media import make_homogeneous
+    from mitsuba_tpu.render.scene import cornell_box
+
+    img, _ = render_volpath(
+        cornell_box(res, res, backend="brute"), make_homogeneous(**FOG),
+        PathConfig(max_depth=depth, spp=spp, remat=False), seed=seed)
+    return np.asarray(img)
 
 
 def instanced_scene(res, n_theta, n_phi):
@@ -73,6 +108,17 @@ def main():
     names = sys.argv[1:] or list(GOLDENS)
     for name in names:
         res, n_theta, n_phi, spp, depth = GOLDENS[name]
+        if n_theta == "fog":
+            img = render_fog(res, spp, depth, seed=0)
+            spread = block_rel_rmse(render_fog(res, spp, depth, seed=1), img)
+            img16 = render_fog(res, 16, depth, seed=0)
+            np.savez_compressed(os.path.join(DIR, name + ".npz"), mean=img,
+                                spp16=img16)
+            print(f"{name}: mean={img.mean():.6f} ({spp} spp), "
+                  f"{img16.mean():.6f} (16 spp); seed 1 vs seed 0 block rel "
+                  f"RMSE at {spp} spp {spread:.4f} -> {name}.npz",
+                  flush=True)
+            continue
         if n_theta is None:
             from mitsuba_tpu.render.scene import textured_mesh_scene
 

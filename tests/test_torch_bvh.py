@@ -52,7 +52,7 @@ SPP, DEPTH = 2, 3
 def _soup(case):
     """(vertices, faces) of the named triangle set."""
     if case == "cornell":
-        g = cornell_box(4, 4).geom
+        g = cornell_box(4, 4, device="cpu").geom
         v0 = g.v0.numpy()
         tri = np.stack([v0, v0 + g.e1.numpy(), v0 + g.e2.numpy()], 1)
         return tri.reshape(-1, 3), np.arange(tri.shape[0] * 3).reshape(-1, 3)
@@ -165,8 +165,8 @@ def test_walk_matches_tpu_kernel(walk_case, any_hit):
 def scenes():
     js = jax_tms(W, H)
     assert js.geom.backend == "bvh"
-    return js, {"builder": textured_mesh_scene(W, H),
-                "interop": from_jax_scene(js)}
+    return js, {"builder": textured_mesh_scene(W, H, device="cpu"),
+                "interop": from_jax_scene(js, device="cpu")}
 
 
 def test_builder_equals_interop_conversion(scenes):

@@ -60,7 +60,7 @@ def jax_scene():
 @pytest.fixture(scope="module")
 def scenes():
     js = jax_scene()
-    return js, from_jax_scene(js)
+    return js, from_jax_scene(js, device="cpu")
 
 
 def _lanes(xp):
@@ -162,7 +162,7 @@ def test_config3_scene_renders():
     render on the CPU, at a tiny size: finite, in bench.py's band."""
     from mitsuba_tpu_torch.render.scene import textured_mesh_scene
 
-    scene = textured_mesh_scene(8, 8, backend="cluster")
+    scene = textured_mesh_scene(8, 8, backend="cluster", device="cpu")
     assert scene.geom.n_tris == 101762
     img, aux = render(scene, PathConfig(max_depth=2, spp=1), seed=0)
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())

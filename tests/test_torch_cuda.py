@@ -84,6 +84,59 @@ def test_kernel_matches_plain_version(cuda, n_tris, n):
     assert 0 < int(occ.sum()) < n
 
 
+@pytest.mark.parametrize("n_tris,n", [(32, 1000), (300, 70001)])
+def test_split_kernels_match_plain_versions(cuda, n_tris, n):
+    """#2 (shaded), #3 (any) and #4 (closest) against their plain
+    versions, bit for bit, on the inputs of the fused kernel's test; #2
+    equals #1's closest half."""
+    args = _inputs(n_tris, n_tris, n, cuda)
+    table, rays = args[0], args[1:5]
+    tri = ip.make_tri_table(table[:, 0:3], table[:, 3:6], table[:, 6:9])
+    before = dict(ip.SPLIT_LAUNCHES)
+    rec = ip.closest_hit_shaded(table, *rays)
+    occ = ip.any_hit(tri, *args[5:9])
+    hit = ip.closest_hit(tri, *rays)
+    assert ip.SPLIT_LAUNCHES == {k: v + 1 for k, v in before.items()}
+    ref = ip.closest_hit_shaded_ref(table, *rays)
+    ref_occ = ip.any_hit_ref(tri, *args[5:9])
+    ref_hit = ip.closest_hit_ref(tri, *rays)
+    fused, fused_occ = ip.closest_hit_shaded_and_any(*args)
+    torch.cuda.synchronize()
+    for k in ref:
+        assert torch.equal(rec[k], ref[k]), k
+        assert torch.equal(rec[k], fused[k]), k
+    assert torch.equal(occ, ref_occ) and torch.equal(occ, fused_occ)
+    for a, b in zip(hit, ref_hit):
+        assert torch.equal(a, b)
+    assert torch.equal(hit[3], rec["prim"])
+    prim = rec["prim"].cpu().numpy()
+    assert (prim >= 0).mean() > 0.3 and not (prim == 5).any()
+    assert 0 < int(occ.sum()) < n
+
+
+def test_fog_render_on_the_card_goes_through_the_split_kernels(cuda):
+    """A volumetric render of the Cornell box in fog: per bounce one
+    launch each of #2 and #3, none of #1; the image as on the CPU."""
+    from mitsuba_tpu_torch.integrators import PathConfig, render_volpath
+    from mitsuba_tpu_torch.media import make_homogeneous
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    cfg = PathConfig(max_depth=5, spp=4)
+    med = make_homogeneous((0.0015,) * 3, (0.0003,) * 3, g=0.4)
+    before, before_fused = dict(ip.SPLIT_LAUNCHES), ip.LAUNCHES
+    img, _ = render_volpath(cornell_box(32, 32, device=cuda), med, cfg,
+                            seed=3)
+    torch.cuda.synchronize()
+    assert ip.SPLIT_LAUNCHES["shaded"] == before["shaded"] + cfg.max_depth
+    assert ip.SPLIT_LAUNCHES["any"] == before["any"] + cfg.max_depth
+    assert ip.LAUNCHES == before_fused
+    ref, _ = render_volpath(cornell_box(32, 32, device="cpu"), med, cfg,
+                            seed=3)
+    assert img.shape == ref.shape and bool(torch.isfinite(img).all())
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+
+
 def test_kernel_rejects_mixed_devices(cuda):
     args = _inputs(1, 16, 64, cuda)
     with pytest.raises(ValueError):
@@ -99,7 +152,7 @@ def test_render_on_the_card_goes_through_the_kernel(cuda):
     img, aux = render(cornell_box(32, 32, device=cuda), cfg, seed=3)
     torch.cuda.synchronize()
     assert ip.LAUNCHES == before + cfg.max_depth
-    ref, aux_ref = render(cornell_box(32, 32), cfg, seed=3)
+    ref, aux_ref = render(cornell_box(32, 32, device="cpu"), cfg, seed=3)
     # the same lanes draw the same numbers; sin/cos/sqrt of the card may
     # differ from the CPU's in the last bit, which moves a few paths
     assert img.shape == ref.shape
@@ -224,8 +277,8 @@ def test_cluster_render_on_the_card_goes_through_the_kernels(cluster):
     torch.cuda.synchronize()
     for k in ("refine", "child_refine", "items"):
         assert ep.LAUNCHES[k] > before[k], k
-    ref, aux_ref = render(textured_mesh_scene(32, 32, backend="cluster"),
-                          cfg, seed=3)
+    ref, aux_ref = render(textured_mesh_scene(32, 32, backend="cluster",
+                                              device="cpu"), cfg, seed=3)
     assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     # the same lanes draw the same numbers; transcendentals of the card
     # may differ from the CPU's in the last bit, which moves a few paths
@@ -298,7 +351,7 @@ def test_worklist_kernel_matches_plain_version(cuda, instanced, any_hit):
 
     wl.build()
     if instanced:
-        geom = instanced_scene(32, 32, 24, 48).geom
+        geom = instanced_scene(32, 32, 24, 48, device="cpu").geom
     else:
         geom = build_geometry(
             [(make_sphere_mesh([0, 0.8, 0], 0.8, 24, 48), 0, -1),
@@ -342,7 +395,8 @@ def test_bvh_render_on_the_card_goes_through_the_kernel(cuda):
     torch.cuda.synchronize()
     for k in ("bvh_closest", "bvh_any"):
         assert bp.LAUNCHES[k] == before[k] + cfg.max_depth, k
-    ref, aux_ref = render(textured_mesh_scene(32, 32), cfg, seed=3)
+    ref, aux_ref = render(textured_mesh_scene(32, 32, device="cpu"), cfg,
+                          seed=3)
     assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
         ref.mean())
@@ -355,7 +409,7 @@ def test_instanced_render_on_the_card_goes_through_the_kernels(cuda):
 
     cfg = PathConfig(max_depth=3, spp=4)
     before = dict(wl.LAUNCHES)
-    scene = instanced_scene(32, 32, 10, 20)
+    scene = instanced_scene(32, 32, 10, 20, device="cpu")
     img, aux = render(scene.to(cuda), cfg, seed=3)
     torch.cuda.synchronize()
     for k in ("wl_closest", "wl_any"):

@@ -1,7 +1,8 @@
 """The port stands without JAX and without the JAX package: importing
-every module of mitsuba_tpu_torch and rendering a brute and an instanced
-cluster scene (which builds BVHs with the port's own native builder)
-leaves `jax` and every `mitsuba_tpu` module out of sys.modules,
+every module of mitsuba_tpu_torch (media/ and the volumetric path tracer
+among them) and rendering a brute and an instanced cluster scene (which
+builds BVHs with the port's own native builder) and the brute scene in a
+medium leaves `jax` and every `mitsuba_tpu` module out of sys.modules,
 and no source file of the port or chip_smoke.py imports the JAX package.
 
 This file's own process has jax loaded (tests/conftest.py imports it), so
@@ -28,11 +29,21 @@ for name in names:
     importlib.import_module(name)
 from mitsuba_tpu_torch.integrators.path import PathConfig, render
 from mitsuba_tpu_torch.render.scene import cornell_box, instanced_scene
-for scene in (cornell_box(4, 4), instanced_scene(4, 4, 6, 12)):
+for scene in (cornell_box(4, 4, device="cpu"),
+              instanced_scene(4, 4, 6, 12, device="cpu")):
     img, aux = render(scene, PathConfig(max_depth=2, spp=1))
     assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
     assert int(aux["rays_traced"]) > 16
 assert scene.geom.backend == "cluster" and scene.geom.has_instances
+from mitsuba_tpu_torch.integrators.volpath import render_volpath
+from mitsuba_tpu_torch.media import make_homogeneous
+img, aux = render_volpath(cornell_box(4, 4, device="cpu"),
+                          make_homogeneous((0.002,) * 3, (0.0,) * 3, g=0.4),
+                          PathConfig(max_depth=3, spp=2))
+assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
+assert {"mitsuba_tpu_torch.media.medium", "mitsuba_tpu_torch.media.phase",
+        "mitsuba_tpu_torch.integrators.volpath",
+        "mitsuba_tpu_torch.integrators.direct"} <= set(names)
 ref = sorted(m for m in sys.modules
              if m == "mitsuba_tpu" or m.startswith("mitsuba_tpu."))
 print(len(names), "jax" in sys.modules,
@@ -51,7 +62,7 @@ def test_port_imports_and_renders_without_jax():
     proc = _run(["-c", _PROBE, ROOT], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     n_modules, jax_loaded, loaded = proc.stdout.split(maxsplit=2)
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 20
     assert jax_loaded == "False" and loaded.strip() == "[]", loaded
 
 

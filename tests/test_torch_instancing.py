@@ -59,8 +59,8 @@ _GROUP_TABLES = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
 def scenes():
     js = _instanced_scene()
     assert (js.width, js.height) == (W, H)
-    return js, {"builder": instanced_scene(W, H, 10, 20),
-                "interop": from_jax_scene(js)}
+    return js, {"builder": instanced_scene(W, H, 10, 20, device="cpu"),
+                "interop": from_jax_scene(js, device="cpu")}
 
 
 def _same(a, b):
@@ -162,8 +162,8 @@ def test_render_matches_reference_image(scenes, built_by):
 
 
 def test_instanced_matches_flattened_render():
-    si = instanced_scene(W, H, 10, 20)
-    sf = instanced_scene(W, H, 10, 20, flatten=True)
+    si = instanced_scene(W, H, 10, 20, device="cpu")
+    sf = instanced_scene(W, H, 10, 20, flatten=True, device="cpu")
     assert sf.geom.backend == "cluster" and not sf.geom.has_instances
     assert si.geom.mt_tri.shape[0] < sf.geom.mt_tri.shape[0]
     cfg = PathConfig(max_depth=DEPTH, spp=4)

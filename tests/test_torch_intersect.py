@@ -91,7 +91,8 @@ def _assert_records_match(rec, occ, ref, ref_occ):
 
 def test_shading_table_matches_reference():
     jscene = jax_cornell_box(8, 8)
-    port = ip.make_shading_table(from_jax_scene(jscene).geom)
+    port = ip.make_shading_table(
+        from_jax_scene(jscene, device="cpu").geom)
     ref = np.asarray(jip.make_shading_table(jscene.geom))
     assert port.shape == (32, ip.SHD_COLS)
     np.testing.assert_array_equal(port.numpy(), ref)

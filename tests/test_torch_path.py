@@ -65,7 +65,7 @@ def test_path_trace_matches_kernel_path_per_lane(monkeypatch):
     L_ref, rays_ref = jax_lanes(jscene)
     L_ref = np.asarray(L_ref)
 
-    scene = from_jax_scene(jscene)
+    scene = from_jax_scene(jscene, device="cpu")
     pid, sid, px, py = _lanes(w, h, spp, torch)
     sampler = Sampler(0, pid, sid)
     off = sampler.next_2d()
@@ -87,7 +87,8 @@ def test_path_trace_matches_kernel_path_per_lane(monkeypatch):
 
 def test_render_passes_bench_golden_gate():
     ref = np.load(GOLDEN)["mean"]
-    img, aux = render(cornell_box(64, 64), PathConfig(max_depth=5, spp=16),
+    img, aux = render(cornell_box(64, 64, device="cpu"),
+                      PathConfig(max_depth=5, spp=16),
                       seed=0)
     img = img.numpy()
     assert img.shape == ref.shape and np.isfinite(img).all()
@@ -103,7 +104,7 @@ def test_render_passes_bench_golden_gate():
 
 
 def test_render_is_deterministic():
-    scene = cornell_box(12, 8)
+    scene = cornell_box(12, 8, device="cpu")
     cfg = PathConfig(max_depth=4, spp=3)
     a, aux_a = render(scene, cfg, seed=7)
     b, aux_b = render(scene, cfg, seed=7)

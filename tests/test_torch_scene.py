@@ -50,12 +50,12 @@ def _unit(rng, n):
 @pytest.fixture(scope="module")
 def scenes():
     j = jax_cornell_box(16, 12)
-    return j, from_jax_scene(j)
+    return j, from_jax_scene(j, device="cpu")
 
 
 def test_cornell_box_equals_interop_conversion(scenes):
     jscene, conv = scenes
-    port = cornell_box(16, 12)
+    port = cornell_box(16, 12, device="cpu")
     assert (port.width, port.height) == (conv.width, conv.height) == (16, 12)
     for part in ("geom", "materials", "emitters"):
         a, b = getattr(port, part), getattr(conv, part)
@@ -142,7 +142,7 @@ def test_emitter_sampling_matches(scenes, which):
     jscene, port = scenes
     if which == "many_lights":
         jscene = _many_lights_scene()
-        port = from_jax_scene(jscene)
+        port = from_jax_scene(jscene, device="cpu")
         assert port.emitters.rec_pmf.shape[0] > 128
     rng = np.random.default_rng(2)
     n = 1000
@@ -195,20 +195,14 @@ def test_mi_weight_matches():
 
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
-        from_jax_scene(cornell_box_specular(8, 8))   # analytic sphere
-    scene = cornell_box(4, 4)
-    # separate queries on the brute backend need TPU kernels #2 and #3
-    from mitsuba_tpu_torch.render.intersect import ray_intersect, ray_test
-    from mitsuba_tpu_torch.render.records import Ray
-    ray = Ray.make(torch.zeros(2, 3), torch.tensor([[0.0, 0, 1]] * 2))
-    for query in (ray_intersect, ray_test):
-        with pytest.raises(NotImplementedError):
-            query(scene.geom, ray)
-    for opt in ("sort_rays", "hit_prediction", "mip_filter", "remat",
-                "strict_normals", "skip_direct_emission", "aniso_filter"):
+        from_jax_scene(cornell_box_specular(8, 8), device="cpu")  # sphere
+    scene = cornell_box(4, 4, device="cpu")
+    for opt in ("hit_prediction", "mip_filter", "remat", "strict_normals",
+                "skip_direct_emission", "aniso_filter"):
         with pytest.raises(NotImplementedError):
             render(scene, PathConfig(max_depth=1, spp=1, **{opt: True}))
-    for kw in (dict(pattern="stratified"), dict(rfilter="gaussian")):
+    for kw in (dict(pattern="stratified"), dict(rfilter="gaussian"),
+               dict(sort_rays=True, sort_mode="octant")):
         with pytest.raises(NotImplementedError):
             render(scene, PathConfig(max_depth=1, spp=1, **kw))
 

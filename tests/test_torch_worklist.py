@@ -50,7 +50,7 @@ def case(request):
         from mitsuba_tpu_torch.interop import from_jax_scene
 
         jg = _instanced_scene().geom
-        tg = from_jax_scene(_instanced_scene()).geom
+        tg = from_jax_scene(_instanced_scene(), device="cpu").geom
     lo, hi = np.asarray(jg.bvh_min[0]), np.asarray(jg.bvh_max[0])
     mid = 0.5 * (lo + hi)
     rng = np.random.default_rng(11)
