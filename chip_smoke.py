@@ -2,44 +2,51 @@
 
     python3 chip_smoke.py
 
-Drives the port's five main paths: through
+Drives the port's main paths: through
 mitsuba_tpu_torch.integrators.path.render bench config 1 (the Cornell
 box, 256x256 px, 16 spp, depth 5, brute backend), bench config 3 (the
 101,762-triangle textured mesh under a sky, 512x512 px, 4 spp, depth 5,
-cluster backend), the same scene on the bvh backend (the JAX package's
-default for it), and an instanced scene (three instances of config 3's
-101,760-triangle sphere sharing one copy of its triangles, on a floor
+cluster backend) with the card's default item walk (v6b, #9) and again
+with the v5 walk (#7, `ex_walk="v5"`) and the v6 walk (#8), the same
+scene on the bvh backend (the JAX package's default for it), and an
+instanced scene (three instances of config 3's 101,760-triangle sphere sharing one copy of its triangles, on a floor
 under an area light, 512x512 px, 4 spp, depth 5, cluster backend); and
 through mitsuba_tpu_torch.integrators.volpath.render_volpath "fog", the
 config-1 Cornell box in a homogeneous HG medium (sigma_s 0.0015, sigma_a
 0.0003, g 0.4), 256x256 px, 16 spp, depth 5, whose bounces run the split
-brute kernels #2 and #3.
+brute kernels #2 and #3; and through mitsuba_tpu_torch.ops.cluster's
+cluster_closest / cluster_any (the v1 cluster intersector, #14) config
+3's camera and shadow wavefronts against its triangles cut into
+128-triangle clusters by the port's BVH.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
   2. the build of every native source (one compiler per source, all at
      once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
      builder), with the compiler's ptxas lines;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes of its path, with the bound of the work these inputs need
-     (the larger of their bytes over 3.35 TB/s and their float32
-     operations over 67 TFLOP/s): the brute kernel on 1,048,576 config-1
-     camera rays; the refine (S1), child-refine (S2, S3) and item kernels
-     on the config-3 camera wavefront (coherent caps) and on a first
-     diffuse bounce wavefront with its shadow rays (diffuse caps); the
-     stream kernel on the bounce and shadow rows; the BVH kernel on the
-     bvh path's camera, bounce and shadow wavefronts; the work-list
-     kernel, instanced and flat (on the same spheres baked into world
-     space), on one row chunk of the instanced path's camera, bounce and
-     shadow wavefronts; the BVH kernel as that path's overflow fallback,
-     on the static triangles and as the instance walks; the split brute
-     kernels (#2 shaded, #3 any, #4 closest, which no render path of the
-     JAX package launches) on the second bounce of a full-size fog render
-     and its NEE shadow rays, 1,048,576 lanes each, held bit for bit;
+  3. each kernel against its plain PyTorch version on the card, bit for
+     bit (every field of every lane), at the shapes of its path, with the
+     bound of the work these inputs need (the larger of the bytes they
+     need over 3.35 TB/s and their float32 operations over 67 TFLOP/s):
+     the brute kernel on 1,048,576 config-1 camera rays; the refine (S1),
+     child-refine (S2, S3) and item kernels (#7 v5, #8 v6, #9 v6b) on the
+     config-3 camera wavefront (coherent caps) and on a first diffuse
+     bounce wavefront with its shadow rays (diffuse caps); the stream
+     kernel on the bounce and shadow rows; the v1 cluster kernel (#14) on
+     the camera and bounce wavefronts and the shadow rays; the BVH kernel
+     on the bvh path's camera, bounce and shadow wavefronts; the
+     work-list kernel, instanced and flat (on the same spheres baked into
+     world space), on one row chunk of the instanced path's camera,
+     bounce and shadow wavefronts; the BVH kernel as that path's overflow
+     fallback, on the static triangles and as the instance walks; the
+     split brute kernels (#2 shaded, #3 any, #4 closest, which no render
+     path of the JAX package launches) on the second bounce of a
+     full-size fog render and its NEE shadow rays, 1,048,576 lanes each;
   4. 64x64 renders gated (8x8-block relative RMSE <= 0.10, as bench.py)
      against tests/goldens/bench_cfg1.npz, against
      tests/torch_goldens/bench_cfg3_sphere.npz for config 3 on the
-     cluster and on the bvh backend (the committed
+     cluster backend with each item walk (v6b, v5, v6, each launching
+     its own walk kernel and no other) and on the bvh backend (the committed
      tests/goldens/bench_cfg3.npz was rendered with the bunny mesh, which
      is absent, so both packages render its sphere fallback; the distance
      to the bunny golden is reported beside), and against
@@ -48,11 +55,15 @@ Phases, each printing one JSON line:
      tests/goldens/bench_cfg1.npz; fog at 1,024 spp against
      tests/torch_goldens/volpath_fog.npz (at 16 spp the estimator's own
      seed-to-seed distance, 0.22, is over the gate);
-  5. renders of each path: one warm-up, then timed renders with every
-     launch count set to 0 just before and read just after, then one
-     profiled render; on the instanced path one more render timing the
-     parts of its overflow fallback. Fog counts as rays the lanes passed
-     to #2 and #3 (the JAX volpath counts none).
+  5. renders of each path: one warm-up (on the cluster backend counting
+     the lanes that reach the XL re-run and the stream fallback), then
+     timed renders with every launch count set to 0 just before and read
+     just after, then one profiled render; on the instanced path one more
+     render timing the parts of its overflow fallback. Fog counts as rays
+     the lanes passed to #2 and #3 (the JAX volpath counts none);
+  6. the v1 cluster entry points on config 3's camera and shadow
+     wavefronts, with the launch counts set to 0 just before and read just
+     after, held against the exact-cull path's hits.
 
 Then a JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not
@@ -62,6 +73,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -74,17 +86,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W1, H1, SPP1, DEPTH1 = 256, 256, 16, 5     # bench config 1
 W3, H3, SPP3, DEPTH3 = 512, 512, 4, 5      # bench config 3, bvh, instanced
-TIMED = {"config1": 2, "config3": 2, "bvh": 2, "instanced": 2, "volpath": 2}
+TIMED = {"config1": 2, "config3": 2, "config3_v5": 2, "config3_v6": 2,
+         "bvh": 2, "instanced": 2, "volpath": 2}
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
-# kernel vs plain: share of lanes whose ids must agree, and the tolerances
-# of the float outputs on lanes whose ids agree. Each kernel and its plain
-# version run the same IEEE float32 operations in the same order (no FMA
-# contraction), so they should agree bit for bit; the tolerances leave
-# room for nothing more than a last-ulp difference.
-ID_AGREE_MIN = 0.9999
-RTOL, ATOL_NORMAL = 1e-5, 1e-5
-ATOL_NEAR_ZERO = 1e-6          # u, v, uv of rays at an edge are near 0
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
 # bench.py expect_mean for configs 1 and 3 (bvh renders config 3's
 # scene); the instanced band is +-40% of the reference's 64x64 render of
@@ -92,19 +97,41 @@ GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
 # config 3's band is around its golden; the fog band the same +-40% of
 # its golden's mean (0.0427)
 MEAN_BAND = {"config1": (0.09, 0.21), "config3": (0.17, 0.41),
+             "config3_v5": (0.17, 0.41), "config3_v6": (0.17, 0.41),
              "bvh": (0.17, 0.41), "instanced": (0.31, 0.73),
              "volpath": (0.0256, 0.0598)}
-# a plain version slower than this on the full wavefront is compared and
-# timed on its first PLAIN_CUT_ROWS rows instead (the phase says so)
-PLAIN_FULL_MAX_S = 1.0
+# where a plain version takes over a second on the whole wavefront (the
+# script's own runs on the H100, PERF.md section 6), kernel and plain
+# version are compared and timed on its first PLAIN_CUT_ROWS rows (or
+# 128 times as many lanes) instead, and the phase says so; a plain version
+# slower than PLAIN_SLOW_S on the rows compared is timed over 3 runs, not 10
 PLAIN_CUT_ROWS = 1024
+PLAIN_CUT_LANES = PLAIN_CUT_ROWS * 128
+PLAIN_SLOW_S = 0.1
 # float32 operations per test as the kernels write them (no FMA): a
 # Moller-Trumbore triangle test (two cross products, three dot products
 # and a determinant, one division, the bound compares); a slab test of a
 # box with the ray's reciprocals at hand (per axis two subtractions, two
 # products, a min and a max, then the interval's reductions and compare);
-# a ray moved into object space (a 3x4 map on origin and direction)
-MT_OPS, BOX_OPS, XFORM_OPS = 53, 25, 21
+# a ray moved into object space (a 3x4 map on origin and direction); a
+# Pluecker triangle test of the v1 cluster kernel (four ordered 10-term
+# products, the sign and eligibility rules, one division, the t compares)
+MT_OPS, BOX_OPS, XFORM_OPS, PLUCKER_OPS = 53, 25, 21, 94
+# bytes a kernel needs of a table entry it reads, where the table's rows
+# are wider than what it reads: a K8 cluster of ex["tri"] (8 triangles of
+# 10 floats: v0, e1, e2 and the prim id, of 128-float rows); the 8 child
+# boxes of a parent in a child table ex["ct0"] or ex["ct1"] (6 floats
+# each, of 128); a v1 cluster (512 Pluecker rows of 10 floats, of 16); a
+# v1 cluster box (6 floats of aabb's 8)
+K8_BYTES, CHILD_BOX_BYTES = 8 * 10 * 4, 8 * 6 * 4
+V1_CLUSTER_BYTES, V1_BOX_BYTES = 512 * 10 * 4, 6 * 4
+# the v1 exact path check: lanes whose hit (or occlusion) must agree with
+# the exact-cull path's; the two test triangles in different forms, so a
+# ray through an edge may take the neighbour. Their t agree within
+# V1_T_RTOL: the Pluecker products cancel on small triangles away from
+# the origin (up to 4e-4 relative on config 3's sphere, CPU run of the
+# plain versions on a 96x96x4 camera wavefront)
+V1_AGREE_MIN, V1_T_RTOL = 0.999, 1e-3
 # H100 SXM (NVIDIA's data sheet, at its 700 W limit): float32 outside
 # the tensor cores, and HBM3
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -136,17 +163,20 @@ def cuda_ms(fn, reps=10):
 
 def launch_counts():
     from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.ops import cluster as cp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
     from mitsuba_tpu_torch.ops import stream as sp
     from mitsuba_tpu_torch.ops import worklist as wl
 
     return dict(shaded_any=ip.LAUNCHES, **ip.SPLIT_LAUNCHES, **ep.LAUNCHES,
-                stream=sp.LAUNCHES, **bp.LAUNCHES, **wl.LAUNCHES)
+                stream=sp.LAUNCHES, **bp.LAUNCHES, **wl.LAUNCHES,
+                **cp.LAUNCHES)
 
 
 def reset_launch_counts():
     from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.ops import cluster as cp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
     from mitsuba_tpu_torch.ops import stream as sp
@@ -154,7 +184,8 @@ def reset_launch_counts():
 
     ip.LAUNCHES = 0
     sp.LAUNCHES = 0
-    for counts in (ip.SPLIT_LAUNCHES, ep.LAUNCHES, bp.LAUNCHES, wl.LAUNCHES):
+    for counts in (ip.SPLIT_LAUNCHES, ep.LAUNCHES, bp.LAUNCHES, wl.LAUNCHES,
+                   cp.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -169,18 +200,51 @@ def _tensors(x):
     return []
 
 
-def bound(args, outs, ops):
+def _nbytes(x):
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def bound(args, outs, ops, tables=None):
     """The least time (ms) the card could take for this work: the larger
     of the bytes it must move (each input read once, each output written
     once) over the memory rate and its float32 operations over the peak
-    rate, with which of the two bounds it."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in _tensors(args) + _tensors(outs))
+    rate, with which of the two bounds it. tables: {argument index:
+    bytes} for the arguments the work reads only in part (the entries it
+    visits, of each only the floats it uses); the others count in full."""
+    tables = tables or {}
+    nbytes = _nbytes(outs) + sum(
+        tables[i] if i in tables else _nbytes(a) for i, a in enumerate(args))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32_OPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=int(ops))
+
+
+def _fields(out, name="out"):
+    """(name, tensor) pairs of a result: a tensor, or a dict or tuple of
+    results."""
+    if isinstance(out, torch.Tensor):
+        return [(name, out)]
+    items = out.items() if isinstance(out, dict) else (
+        (f"{name}{k}", x) for k, x in enumerate(out))
+    return [f for k, x in items for f in _fields(x, k)]
+
+
+def mismatches(got, ref):
+    """Bit-for-bit comparison of two results: per field the values that
+    differ (NaN equal to NaN), and the largest difference of the floats
+    finite in both."""
+    mism, max_err = {}, 0.0
+    for (k, a), (_k, b) in zip(_fields(got), _fields(ref)):
+        diff = a != b
+        if a.is_floating_point():
+            diff &= ~(torch.isnan(a) & torch.isnan(b))
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if bool(fin.any()):
+                max_err = max(max_err, float((a - b)[fin].abs().max()))
+        mism[k] = int(diff.sum())
+    return mism, max_err
 
 
 # ---------------------------------------------------------------------------
@@ -229,42 +293,14 @@ def kernel_inputs(scene):
 def compare_kernel(scene):
     from mitsuba_tpu_torch.ops import intersect as ip
 
-    args = kernel_inputs(scene)
-    rec_k, occ_k = ip.closest_hit_shaded_and_any(*args)
-    rec_p, occ_p = ip.closest_hit_shaded_and_any_ref(*args)
-    torch.cuda.synchronize()
-    n = occ_k.shape[0]
-    mism = {k: int((rec_k[k] != rec_p[k]).sum())
-            for k in ("prim", "material_id", "emitter_id", "shape_id")}
-    mism["occ"] = int((occ_k != occ_p).sum())
-    same = rec_k["prim"] == rec_p["prim"]
-    bad, max_err = {}, 0.0
-    for k in ("t", "u", "v", "uv", "geo_n", "sh_n"):
-        a, b = rec_k[k][same], rec_p[k][same]
-        if k in ("geo_n", "sh_n"):
-            ok = (a - b).abs() <= ATOL_NORMAL
-        else:
-            ok = torch.isclose(a, b, rtol=RTOL, atol=ATOL_NEAR_ZERO)
-        bad[k] = int((~ok).sum())
-        fin = torch.isfinite(b)
-        if bool(fin.any()):
-            max_err = max(max_err, float((a - b)[fin].abs().max()))
-    ms = cuda_ms(lambda: ip.closest_hit_shaded_and_any(*args))
-    plain_ms = cuda_ms(lambda: ip.closest_hit_shaded_and_any_ref(*args))
     # every lane tests every triangle, once for its bounce ray and once
     # for its shadow ray
-    bd = bound(args, (rec_p, occ_p), 2 * n * args[0].shape[0] * MT_OPS)
-    phase("kernel_vs_plain", kernel="shaded_any", lanes=n,
-          id_mismatches=mism, float_mismatches=bad, max_abs_err=max_err,
-          ms=ms, plain_ms=plain_ms, hit_lanes=int(rec_p["valid"].sum()),
-          occluded_lanes=int(occ_p.sum()), **bd, library_ms=None)
-    for k, c in mism.items():
-        if c > (1.0 - ID_AGREE_MIN) * n:
-            raise AssertionError(f"kernel vs plain: {c} lanes differ in {k}")
-    for k, c in bad.items():
-        if c:
-            raise AssertionError(f"kernel vs plain: {c} lanes differ in {k}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **bd)
+    return check_pair(
+        "shaded_any", "config-1 camera + shadow",
+        ip.closest_hit_shaded_and_any, ip.closest_hit_shaded_and_any_ref,
+        kernel_inputs(scene), tuple(range(1, 9)),
+        lambda a, _w: 2 * a[1].shape[0] * a[0].shape[0] * MT_OPS,
+        unit="lanes")
 
 
 # ---------------------------------------------------------------------------
@@ -367,68 +403,50 @@ def _cut(args, row_args, rows):
                  for i, a in enumerate(args))
 
 
-def check_pair(name, stage, kern, plain, args, row_args, out_kind, ops_of,
-               counted=False, cut=PLAIN_CUT_ROWS, cutter=None, unit="rows",
-               **extra):
-    """Hold kernel against plain version on args; time both; bound the
-    work. row_args: the arguments whose leading size is the rows (or
-    lanes) of the call; out_kind: 'keys' (one float tensor), 'hit' ((t, u,
-    v, prim, ...)) or 'occ'. ops_of(args, work) -> the float32 operations
-    these inputs need, where work is what the plain version counted on
-    them (if `counted`, it takes a `work` dict). A plain version slower
-    than PLAIN_FULL_MAX_S runs, and both are compared and timed, on the
-    first `cut` rows (cutter(args, cut), or the row_args cut); `unit`
-    names what the rows are; `extra` joins the phase's line."""
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def check_pair(name, stage, kern, plain, args, row_args, ops_of,
+               counted=False, cut=None, cutter=None, unit="rows",
+               tables=None, **extra):
+    """Hold kernel against plain version on args, bit for bit (every
+    field of every lane); time both; bound the work. row_args: the
+    arguments whose leading size is the rows (or lanes) of the call.
+    ops_of(args, work) -> the float32 operations these inputs need, and
+    tables(args, work) -> `bound`'s table bytes, where work is what the
+    plain version counted on them (if `counted`, it takes a `work` dict).
+    Both run on all rows, or with `cut` on the first `cut` rows
+    (cutter(args, cut), or the row_args cut). `unit` names what the rows
+    are; `extra` joins the phase's line."""
     n_rows = args[row_args[0]].shape[0]
     work = {}
     kw = {"work": work} if counted else {}
+    rows = n_rows if cut is None else min(cut, n_rows)
+    part = args if rows == n_rows else (
+        cutter(args, rows) if cutter else _cut(args, row_args, rows))
+    ref, plain_s = _timed(lambda: plain(*part, **kw))
+    got = kern(*part)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = plain(*args, **kw)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    rows = n_rows
-    if plain_s > PLAIN_FULL_MAX_S and n_rows > cut:
-        rows = cut
-        args = cutter(args, cut) if cutter else _cut(args, row_args, cut)
-        ref = plain(*args, **kw)
-    got = kern(*args)
-    torch.cuda.synchronize()
-    id_mism, float_mism, max_err, n = 0, 0, 0.0, 0
-    if out_kind == "keys":
-        n = ref.numel()
-        ok = torch.isclose(got, ref, rtol=RTOL, atol=ATOL_NEAR_ZERO)
-        float_mism = int((~ok).sum())
-        fin = ref < 1e30
-        if bool(fin.any()):
-            max_err = float((got - ref)[fin].abs().max())
-    elif out_kind == "occ":
-        n = ref.numel()
-        id_mism = int((got != ref).sum())
-    else:
-        n = ref[3].numel()
-        id_mism = int((got[3] != ref[3]).sum())
-        same = got[3] == ref[3]
-        for a, b in zip(got[:3], ref[:3]):
-            a, b = a[same], b[same]
-            float_mism += int((~torch.isclose(
-                a, b, rtol=RTOL, atol=ATOL_NEAR_ZERO)).sum())
-            fin = torch.isfinite(b)
-            if bool(fin.any()):
-                max_err = max(max_err, float((a - b)[fin].abs().max()))
-    ms = cuda_ms(lambda: kern(*args))
-    plain_ms = cuda_ms(lambda: plain(*args))
+    mism, max_err = mismatches(got, ref)
+    ms = cuda_ms(lambda: kern(*part))
+    plain_ms = cuda_ms(lambda: plain(*part),
+                       reps=3 if plain_s > PLAIN_SLOW_S else 10)
     res = dict(kernel=name, stage=stage, rows=rows, rows_of=n_rows,
-               unit=unit, values=n, id_mismatches=id_mism,
-               float_mismatches=float_mism, max_abs_err=max_err, ms=ms,
+               unit=unit, values=_fields(ref)[0][1].numel(),
+               mismatches=mism, max_abs_err=max_err, ms=ms,
                plain_ms=plain_ms, work=work,
-               **bound(args, ref, ops_of(args, work)), library_ms=None,
-               **extra)
+               **bound(part, ref, ops_of(part, work),
+                       tables(part, work) if tables else None),
+               library_ms=None, **extra)
     phase("kernel_vs_plain", **res)
-    if id_mism > (1.0 - ID_AGREE_MIN) * n:
-        raise AssertionError(f"{name} ({stage}): {id_mism} ids differ")
-    if float_mism:
-        raise AssertionError(f"{name} ({stage}): {float_mism} floats differ")
+    bad = {k: c for k, c in mism.items() if c}
+    if bad:
+        raise AssertionError(f"{name} ({stage}): values differ in {bad}")
     return res
 
 
@@ -450,6 +468,59 @@ def _items_ops(_args, work):
     return work["tri_tests"] * MT_OPS
 
 
+def _plucker_ops(_args, work):
+    return work["box_tests"] * BOX_OPS + work["tri_tests"] * PLUCKER_OPS
+
+
+def _child_refine_tables(args, _work):
+    # #6: the child boxes of the distinct live parents (argument 3)
+    pids, live_p = args[1], args[2]
+    live = torch.arange(pids.shape[1], device=pids.device) < live_p[:, None]
+    return {3: int(torch.unique(pids[live]).numel()) * CHILD_BOX_BYTES}
+
+
+def _k8_tables(_args, work):
+    # the triangles of the K8 clusters read, argument 0 of #7 and #9
+    return {0: work["clusters_read"] * K8_BYTES}
+
+
+def _l1_items_tables(_args, work):
+    # #8: also the child boxes of the L1 blocks read (argument 1)
+    return {0: work["clusters_read"] * K8_BYTES,
+            1: work["l1_read"] * CHILD_BOX_BYTES}
+
+
+def _v1_tables(_args, work):
+    # #14: G, aabb and tri_start (arguments 3-5)
+    return {3: work["clusters_read"] * V1_CLUSTER_BYTES,
+            4: work["superclusters_read"] * 8 * V1_BOX_BYTES,
+            5: work["clusters_read"] * 4}
+
+
+def compare_l1_walks(ex, rays, caps, wave, any_hit):
+    """#9 (v6b, at the module's step width) and #8 (v6) on the L1 lists
+    of `rays`; the plain versions of #9's any-hit walk and of #8 past the
+    camera rows take over a second on all rows."""
+    from mitsuba_tpu_torch.ops import exact as ep
+
+    l1_ids, l1_keys, ovf = ep.build_exact_l1(rays, ex, caps)
+    kind = "any" if any_hit else "closest"
+    common = dict(counted=True, overflow_rows=int(ovf.sum()), e2=caps[2])
+    blm = ep.step_width(caps[2], ep.V6B_BLM)
+    return {
+        ("l1_masked", wave, kind): check_pair(
+            "l1_masked", f"{wave} {kind}", ep.l1_masked, ep.l1_masked_ref,
+            (ex["tri"], rays, l1_ids, l1_keys, any_hit, blm), (1, 2, 3),
+            _items_ops, tables=_k8_tables, blm=blm,
+            cut=PLAIN_CUT_ROWS if any_hit else None, **common),
+        ("l1_items", wave, kind): check_pair(
+            "l1_items", f"{wave} {kind}", ep.l1_items, ep.l1_items_ref,
+            (ex["tri"], ex["ct0"], rays, l1_ids, l1_keys, any_hit),
+            (2, 3, 4), _walk_ops, tables=_l1_items_tables,
+            cut=None if wave == "camera" else PLAIN_CUT_ROWS, **common),
+    }
+
+
 def compare_cluster_kernels(scene):
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import stream as sp
@@ -465,23 +536,25 @@ def compare_cluster_kernels(scene):
         for stage, args in zip(("S1", "S2", "S3"), calls):
             if len(args) == 5:
                 r = check_pair("refine", f"{wave} S1", ep.refine,
-                               ep.refine_ref, args, (0, 1, 2), "keys",
-                               _refine_ops)
+                               ep.refine_ref, args, (0, 1, 2), _refine_ops)
             else:
                 r = check_pair("child_refine", f"{wave} {stage}",
                                ep.child_refine, ep.child_refine_ref, args,
-                               (0, 1, 2), "keys", _child_refine_ops)
+                               (0, 1, 2), _child_refine_ops,
+                               tables=_child_refine_tables)
             out[(r["kernel"], wave, stage)] = r
         r = check_pair("items", f"{wave} closest", ep.items, ep.items_ref,
                        (ex["tri"], rays, ids, blk_tn, False), (1, 2, 3),
-                       "hit", _items_ops, counted=True)
+                       _items_ops, counted=True, tables=_k8_tables)
         out[("items", wave, "closest")] = r
+        out.update(compare_l1_walks(ex, rays, caps, wave, False))
     rays = query_rows(geom, shadow)
     _calls, ids, blk_tn = record_build(rays, ex, dif)
     out[("items", "shadow", "any")] = check_pair(
         "items", "shadow any", ep.items, ep.items_ref,
-        (ex["tri"], rays, ids, blk_tn, True), (1, 2, 3), "occ", _items_ops,
-        counted=True)
+        (ex["tri"], rays, ids, blk_tn, True), (1, 2, 3), _items_ops,
+        counted=True, tables=_k8_tables)
+    out.update(compare_l1_walks(ex, rays, dif, "shadow", True))
     st = geom.st_tables
     for wave, ray, any_hit in (("bounce", bounce, False),
                                ("shadow", shadow, True)):
@@ -490,9 +563,86 @@ def compare_cluster_kernels(scene):
         out[("stream", wave, any_hit)] = check_pair(
             "stream", f"{wave} {'any' if any_hit else 'closest'}",
             sp.stream_rows, sp.stream_rows_ref,
-            (rays, lids, ltns, st["sc_tri"], any_hit), (0, 1, 2),
-            "occ" if any_hit else "hit", _walk_ops, counted=True)
+            (rays, lids, ltns, st["sc_tri"], any_hit), (0, 1, 2), _walk_ops,
+            counted=True, cut=PLAIN_CUT_ROWS)
     return out
+
+
+# ---------------------------------------------------------------------------
+# config 3's triangles through the v1 cluster intersector (#14)
+# ---------------------------------------------------------------------------
+
+def _cut_tiles(args, rows):
+    """The first `rows` rows (whole tiles) of a v1 launch."""
+    from mitsuba_tpu_torch.ops import cluster as cp
+
+    t = rows // cp.BM
+    return (args[0][:rows].contiguous(), args[1][:t].contiguous(),
+            args[2][:t].contiguous()) + args[3:]
+
+
+def compare_cluster_v1(cl, waves):
+    """#14, closest on the camera and bounce wavefronts and any on the
+    shadow rays, with the arguments cluster_closest and cluster_any
+    launch it with."""
+    from mitsuba_tpu_torch.ops import cluster as cp
+
+    out = {}
+    for wave, ray, any_hit in waves:
+        key = "cluster_any" if any_hit else "cluster_closest"
+        args, _n = cp.launch_args(cl, *_ray_args(ray), any_hit)
+        out[(key, wave)] = check_pair(
+            key, f"{wave} {'any' if any_hit else 'closest'}", cp.cluster_rows,
+            cp.cluster_rows_ref, args, (0,), _plucker_ops, counted=True,
+            cut=PLAIN_CUT_ROWS, cutter=_cut_tiles, tables=_v1_tables,
+            listed=float(args[2].float().mean()),
+            superclusters=int(cl["G"].shape[0]))
+    return out
+
+
+def cluster_v1_phase(scene, cl, cam, shadow):
+    """The v1 entry points on config 3's camera rays (closest) and shadow
+    rays (any), every launch count set to 0 just before and read just
+    after; their hits held against the exact-cull path's."""
+    from mitsuba_tpu_torch.ops import cluster as cp
+    from mitsuba_tpu_torch.render import intersect as ri
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t, _u, _v, prim, valid = cp.cluster_closest(cl, *_ray_args(cam))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    occ = cp.cluster_any(cl, *_ray_args(shadow))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = launch_counts()
+    te, _ue, _ve, pe, ve = ri._closest(scene.geom, cam, coherent=True)
+    occ_e = ri.ray_test(scene.geom, shadow)
+    n = valid.numel()
+    both = valid & ve
+    same = both & (prim == pe)
+    t_ok = same & torch.isclose(t, te, rtol=V1_T_RTOL, atol=1e-5)
+    res = dict(lanes=n, hit_lanes=int(valid.sum()),
+               valid_agree=float((valid == ve).float().mean()),
+               prim_agree=float(same.sum()) / max(1, int(both.sum())),
+               t_agree=float(t_ok.sum()) / max(1, int(same.sum())),
+               t_rtol=V1_T_RTOL,
+               occluded=int(occ.sum()),
+               occ_agree=float((occ == occ_e).float().mean()),
+               closest_seconds=t1 - t0, any_seconds=t2 - t1,
+               launches={k: launches[k] for k in cp.LAUNCHES},
+               superclusters=int(cl["G"].shape[0]))
+    phase("cluster_v1", **res)
+    if not (torch.isfinite(t[valid]).all() and bool((prim[valid] >= 0).all())):
+        raise AssertionError("cluster_v1: non-finite or negative hits")
+    for k in ("valid_agree", "prim_agree", "t_agree", "occ_agree"):
+        if not res[k] >= V1_AGREE_MIN:
+            raise AssertionError(f"cluster_v1: {k} {res[k]}")
+    for k, c in res["launches"].items():
+        if c < 1:
+            raise AssertionError(f"cluster_v1: kernel {k} was never launched")
+    return res["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -519,8 +669,7 @@ def compare_bvh_kernels(scene):
             key, f"{wave} {'any' if any_hit else 'closest'}",
             bp.bvh_any if any_hit else bp.bvh_closest,
             lambda *a, work=None, ah=any_hit: bp.walk_ref(*a, ah, work=work),
-            args, (2, 3, 4, 5), "occ" if any_hit else "hit", _walk_ops,
-            counted=True, cut=PLAIN_CUT_ROWS * 128, unit="lanes")
+            args, (2, 3, 4, 5), _walk_ops, counted=True, unit="lanes")
     return out
 
 
@@ -576,9 +725,9 @@ def compare_worklist_kernels(scene, flat):
             args, ovf = worklist_chunk(geom, ray)
             out[(key, wave, mode)] = check_pair(
                 key, f"{wave} {'any' if any_hit else 'closest'} {mode}",
-                wl.wl_rows, wl.wl_rows_ref, args + (any_hit,), (4,),
-                "occ" if any_hit else "hit", _wl_ops, counted=True,
-                cutter=_cut_chunk, overflow_rows=int(ovf.sum()))
+                wl.wl_rows, wl.wl_rows_ref, args + (any_hit,), (4,), _wl_ops,
+                counted=True, cut=PLAIN_CUT_ROWS, cutter=_cut_chunk,
+                overflow_rows=int(ovf.sum()))
     _res, calls = record_calls(bp, ("bvh_closest", "bvh_any"), lambda: (
         ri.ray_intersect(scene.geom, bounce), ri.ray_test(scene.geom, shadow)))
     # the static triangles' walk at the kernel's clamp, and the instance
@@ -598,9 +747,7 @@ def compare_worklist_kernels(scene, flat):
                 key, f"fallback {kind}", getattr(bp, key),
                 lambda *a, work=None, ah=any_hit: bp.walk_ref(
                     *a, ah, work=work),
-                args, (2, 3, 4, 5), "occ" if any_hit else "hit",
-                _walk_ops, counted=True, cut=PLAIN_CUT_ROWS * 128,
-                cutter=_live_lanes, unit="lanes")
+                args, (2, 3, 4, 5), _walk_ops, counted=True, unit="lanes")
         for args, kw in inst[key][:1]:
             eps = kw["rcp_eps"]
             out[(key, "instances")] = check_pair(
@@ -608,8 +755,8 @@ def compare_worklist_kernels(scene, flat):
                 lambda *a, k=key, e=eps: getattr(bp, k)(*a, rcp_eps=e),
                 lambda *a, work=None, ah=any_hit, e=eps: bp.walk_ref(
                     *a, ah, rcp_eps=e, work=work),
-                args, (2, 3, 4, 5), "occ" if any_hit else "hit",
-                _walk_ops, counted=True, cut=PLAIN_CUT_ROWS * 128,
+                args, (2, 3, 4, 5), _walk_ops, counted=True,
+                cut=None if any_hit else PLAIN_CUT_LANES,
                 cutter=_live_lanes, unit="lanes", rcp_eps=eps)
     return out
 
@@ -655,59 +802,28 @@ def _tests_needed(table, o, d, mint, maxt, any_hit):
     return int(torch.where(live, first, 0).sum())
 
 
-def _fields(out):
-    """(name, tensor) pairs of a record dict, a tuple or one tensor."""
-    if isinstance(out, dict):
-        return list(out.items())
-    if isinstance(out, tuple):
-        return [(f"out{k}", x) for k, x in enumerate(out)]
-    return [("occ", out)]
-
-
-def check_exact(name, stage, kern, plain, args, any_hit):
-    """Hold kernel against plain version bit for bit on args (ids,
-    occlusion and floats all equal); time both; bound the work."""
-    ref = plain(*args)
-    got = kern(*args)
-    torch.cuda.synchronize()
-    mism, max_err = {}, 0.0
-    for (k, a), (_k, b) in zip(_fields(got), _fields(ref)):
-        mism[k] = int((a != b).sum())
-        if a.is_floating_point():
-            fin = torch.isfinite(b)
-            if bool(fin.any()):
-                max_err = max(max_err, float((a - b)[fin].abs().max()))
-    ms = cuda_ms(lambda: kern(*args))
-    plain_ms = cuda_ms(lambda: plain(*args))
-    n = args[1].shape[0]
-    tests = _tests_needed(*args, any_hit)
-    res = dict(kernel=name, stage=stage, lanes=n,
-               live_lanes=int((args[4] >= args[3]).sum()), tests=tests,
-               mismatches=mism, max_abs_err=max_err, ms=ms,
-               plain_ms=plain_ms, **bound(args, ref, tests * MT_OPS),
-               library_ms=None)
-    phase("kernel_vs_plain", **res)
-    bad = {k: c for k, c in mism.items() if c}
-    if bad:
-        raise AssertionError(f"{name} ({stage}): lanes differ in {bad}")
-    return res
-
-
 def compare_split_kernels(scene, cfg):
     from mitsuba_tpu_torch.ops import intersect as ip
 
     shaded_args, any_args = fog_wavefronts(scene, cfg)
     g = scene.geom
     tri = ip.make_tri_table(g.v0, g.e1, g.e2)
+
+    def check(name, stage, kern, plain, args, any_hit):
+        return check_pair(
+            name, stage, kern, plain, args, (1, 2, 3, 4),
+            lambda a, _w: _tests_needed(*a, any_hit) * MT_OPS,
+            unit="lanes")
+
     return {
-        "shaded": check_exact("shaded", "fog bounce 1 closest",
-                              ip.closest_hit_shaded, ip.closest_hit_shaded_ref,
-                              shaded_args, False),
-        "any": check_exact("any", "fog bounce 1 NEE shadow", ip.any_hit,
-                           ip.any_hit_ref, any_args, True),
-        "closest": check_exact("closest", "fog bounce 1 closest",
-                               ip.closest_hit, ip.closest_hit_ref,
-                               (tri,) + tuple(shaded_args[1:]), False),
+        "shaded": check("shaded", "fog bounce 1 closest",
+                        ip.closest_hit_shaded, ip.closest_hit_shaded_ref,
+                        shaded_args, False),
+        "any": check("any", "fog bounce 1 NEE shadow", ip.any_hit,
+                     ip.any_hit_ref, any_args, True),
+        "closest": check("closest", "fog bounce 1 closest", ip.closest_hit,
+                         ip.closest_hit_ref, (tri,) + tuple(shaded_args[1:]),
+                         False),
     }
 
 
@@ -812,6 +928,26 @@ def timed_calls(module, names, fn):
 
 
 @contextlib.contextmanager
+def overflow_lanes():
+    """Count, within the block, the lanes that reach the cluster path's XL
+    re-run and its stream fallback (the overflow mask each is passed)."""
+    from mitsuba_tpu_torch.render import intersect as ri
+
+    names = ("_retier_closest", "_retier_any", "_fallback_closest_stream",
+             "_fallback_any_stream")
+    count = {k.lstrip("_"): 0 for k in names}
+
+    def counter(name, orig):
+        def call(*args):
+            count[name.lstrip("_")] += int(args[-1].sum())
+            return orig(*args)
+        return call
+
+    with wrapped(ri, names, counter):
+        yield count
+
+
+@contextlib.contextmanager
 def split_lanes():
     """Count, within the block, the lanes passed to #2 and #3."""
     from mitsuba_tpu_torch.ops import intersect as ip
@@ -839,8 +975,12 @@ def render_phase(tag, scene, cfg, need, render_fn=None, forbid=()):
 
     render_fn = render_fn or render
     band = MEAN_BAND[tag]
-    render_fn(scene, cfg, seed=0)               # warm-up
+    extra = {}
+    with overflow_lanes() as ovf:
+        render_fn(scene, cfg, seed=0)           # warm-up
     torch.cuda.synchronize()
+    if scene.geom.backend == "cluster" and not scene.geom.has_instances:
+        extra["overflow_lanes"] = ovf
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     secs, rays = [], []
@@ -855,7 +995,6 @@ def render_phase(tag, scene, cfg, need, render_fn=None, forbid=()):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = device_profile(lambda: render_fn(scene, cfg, seed=0))
-    extra = {}
     if scene.geom.has_instances:
         # the fallback of overflowing rows: the BVH kernel on the static
         # triangles plus the exact instance walks (the same kernel on each
@@ -902,6 +1041,7 @@ def main():
     from mitsuba_tpu_torch.integrators.path import PathConfig
     from mitsuba_tpu_torch.ops import build as nv
     from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.ops import cluster as cp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
     from mitsuba_tpu_torch.ops import stream as sp
@@ -922,7 +1062,7 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    mods = (ip, ep, sp, bp, wl, rb)
+    mods = (ip, ep, sp, bp, wl, cp, rb)
     logs = nv.build_all([mod.SOURCE for mod in mods])   # all at once
     for mod in mods:
         mod.build()                       # bind the built libraries
@@ -933,10 +1073,18 @@ def main():
 
     t0 = time.perf_counter()
     scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
+    scene3_v5, scene3_v6 = (dataclasses.replace(
+        scene3, geom=dataclasses.replace(scene3.geom, ex_walk=w))
+        for w in ("v5", "v6"))
+    cl = cp.table_dict(cp.geometry_tables(scene3.geom), device)
     scene_bvh = textured_mesh_scene(W3, H3, device=device)
     scene_inst = instanced_scene(W3, H3, device=device)
     scene_flat = instanced_scene(W3, H3, flatten=True, device=device)
     phase("scenes", seconds=time.perf_counter() - t0,
+          config3=dict(triangles=scene3.geom.n_tris,
+                       k8_clusters=scene3.geom.ex_tri.shape[0],
+                       caps=scene3.geom.ex_caps, v6b_blm=ep.V6B_BLM,
+                       v1_superclusters=int(cl["G"].shape[0])),
           bvh=dict(backend=scene_bvh.geom.backend,
                    triangles=scene_bvh.geom.n_tris,
                    nodes=scene_bvh.geom.bvh_packed.shape[0]),
@@ -955,6 +1103,10 @@ def main():
     split = compare_split_kernels(cornell_box(W1, H1, device=device),
                                   fog_cfg)
     cluster = compare_cluster_kernels(scene3)
+    cam3, bounce3, shadow3 = wavefronts(scene3)
+    v1 = compare_cluster_v1(cl, (("camera", cam3, False),
+                                 ("bounce", bounce3, False),
+                                 ("shadow", shadow3, True)))
     bvh = compare_bvh_kernels(scene_bvh)
     worklist = compare_worklist_kernels(scene_inst, scene_flat)
     del scene_flat
@@ -962,13 +1114,28 @@ def main():
                 "tests/goldens/bench_cfg1.npz")
     # tests/goldens/bench_cfg3.npz holds the bunny mesh, which is absent;
     # both packages render the sphere that replaces it, whose golden is
-    # the JAX package's own CPU render (tests/torch_goldens)
-    for tag, backend in (("golden_64_cfg3", "cluster"),
-                         ("golden_64_bvh", "bvh")):
-        golden_gate(tag, textured_mesh_scene(64, 64, backend=backend,
-                                             device=device),
-                    "tests/torch_goldens/bench_cfg3_sphere.npz",
-                    also="tests/goldens/bench_cfg3.npz")
+    # the JAX package's own CPU render (tests/torch_goldens). Config 3
+    # renders with each item walk, each launching its own walk kernel.
+    walk_launches = {}
+    for tag, backend, walk in (("golden_64_cfg3", "cluster", None),
+                               ("golden_64_cfg3_v5", "cluster", "v5"),
+                               ("golden_64_cfg3_v6", "cluster", "v6"),
+                               ("golden_64_bvh", "bvh", None)):
+        scene = textured_mesh_scene(64, 64, backend=backend, device=device,
+                                    ex_walk=walk)
+        reset_launch_counts()
+        golden_gate(tag, scene, "tests/torch_goldens/bench_cfg3_sphere.npz",
+                    also="tests/goldens/bench_cfg3.npz",
+                    band=MEAN_BAND["config3"])
+        walk_launches[tag] = launch_counts()
+    for tag, k in (("golden_64_cfg3", "l1_masked"),
+                   ("golden_64_cfg3_v5", "items"),
+                   ("golden_64_cfg3_v6", "l1_items")):
+        ran = {w: walk_launches[tag][w]
+               for w in ("items", "l1_items", "l1_masked")}
+        phase(f"{tag}_walk", launches=ran)
+        if ran[k] < 1 or sum(ran.values()) != ran[k]:
+            raise AssertionError(f"{tag}: item walks launched {ran}")
     golden_gate("golden_64_instanced", instanced_scene(64, 64, device=device),
                 "tests/torch_goldens/instanced.npz")
     golden_gate("golden_64_sorted_brute", cornell_box(64, 64, device=device),
@@ -984,12 +1151,20 @@ def main():
                       PathConfig(max_depth=DEPTH1, spp=SPP1),
                       ["shaded_any"])
     l3 = render_phase("config3", scene3, cfg,
-                      ["refine", "child_refine", "items"])
+                      ["refine", "child_refine", "l1_masked"],
+                      forbid=["items", "l1_items"])
+    l3v5 = render_phase("config3_v5", scene3_v5, cfg,
+                        ["refine", "child_refine", "items"],
+                        forbid=["l1_masked", "l1_items"])
+    l3v6 = render_phase("config3_v6", scene3_v6, cfg,
+                        ["refine", "child_refine", "l1_items"],
+                        forbid=["items", "l1_masked"])
     lb = render_phase("bvh", scene_bvh, cfg, ["bvh_closest", "bvh_any"])
     li = render_phase("instanced", scene_inst, cfg, ["wl_closest", "wl_any"])
     lv = render_phase("volpath", cornell_box(W1, H1, device=device), fog_cfg,
                       ["shaded", "any"], render_fn=fog_render,
                       forbid=["shaded_any"])
+    lc = cluster_v1_phase(scene3, cl, cam3, shadow3)
 
     def entry(kname, source, replaces, launches, r, **extra):
         return {"name": kname, "route": "cuda",
@@ -999,6 +1174,8 @@ def main():
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None, **extra}
 
+    # the stream fallback launches only where a lane overflows the XL caps
+    stream_path = "config3" if l3["stream"] else "config3_v5"
     print(json.dumps({"kernels": [
         entry("shaded_any", "intersect_brute.cu",
               "mitsuba_tpu/ops/intersect_pallas.py:337", l1["shaded_any"],
@@ -1009,10 +1186,20 @@ def main():
               "mitsuba_tpu/ops/exact_pallas.py:209", l3["child_refine"],
               cluster[("child_refine", "bounce", "S3")]),
         entry("items", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:531",
-              l3["items"], cluster[("items", "bounce", "closest")]),
+              l3v5["items"], cluster[("items", "bounce", "closest")],
+              path="config3_v5"),
+        # no default render path launches #8 (v6): its launches are the
+        # config-3 render's with ex_walk="v6"
+        entry("l1_items", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:666",
+              l3v6["l1_items"], cluster[("l1_items", "bounce", "closest")],
+              path="config3_v6",
+              check_phase="kernel_vs_plain l1_items (bounce closest)"),
+        entry("l1_masked", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:814",
+              l3["l1_masked"], cluster[("l1_masked", "bounce", "closest")]),
         entry("stream", "stream.cu",
-              "mitsuba_tpu/ops/stream_pallas.py:176", l3["stream"],
-              cluster[("stream", "bounce", False)]),
+              "mitsuba_tpu/ops/stream_pallas.py:176",
+              (l3 if stream_path == "config3" else l3v5)["stream"],
+              cluster[("stream", "bounce", False)], path=stream_path),
         entry("bvh_closest", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:169",
               lb["bvh_closest"], bvh[("bvh_closest", "bounce")]),
         entry("bvh_any", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:196",
@@ -1035,6 +1222,17 @@ def main():
               "mitsuba_tpu/ops/intersect_pallas.py:59", lv["closest"],
               split["closest"],
               check_phase="kernel_vs_plain closest (fog bounce 1 closest)"),
+        # #14 has its own entry points, off every render path: its
+        # launches are the cluster_v1 phase's
+        entry("cluster_closest", "cluster.cu",
+              "mitsuba_tpu/ops/cluster_pallas.py:169",
+              lc["cluster_closest"], v1[("cluster_closest", "bounce")],
+              path="cluster_v1",
+              check_phase="kernel_vs_plain cluster_closest (bounce closest)"),
+        entry("cluster_any", "cluster.cu",
+              "mitsuba_tpu/ops/cluster_pallas.py:227", lc["cluster_any"],
+              v1[("cluster_any", "shadow")], path="cluster_v1",
+              check_phase="kernel_vs_plain cluster_any (shadow any)"),
     ]}), flush=True)
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
-// Exact-cull intersector (work-list v5) for NVIDIA Hopper (sm_90a):
-// the three kernels of its path.
+// Exact-cull intersector for NVIDIA Hopper (sm_90a): the five kernels of
+// its cull and of its three item walks (v5, v6, v6b).
 //
 // Replaces the TPU kernels of mitsuba_tpu/ops/exact_pallas.py:
 //   refine_kernel        <- :114 `_refine_kernel`   (entry :163, call :187)
 //   child_refine_kernel  <- :209 `_child_refine_kernel` (:246, call :269)
 //   items_kernel         <- :531 `_make_item_kernel`    (:628, call :652)
+//   l1_items_kernel      <- :666 `_make_l1_kernel`      (:776, call :803)
+//   l1_masked_kernel     <- :814 `_make_l1_masked_kernel` (:910, call :940)
 // Wrapped by mitsuba_tpu_torch/ops/exact.py, whose `refine_ref`,
-// `child_refine_ref` and `items_ref` are the plain PyTorch versions these
-// kernels must agree with lane for lane.
+// `child_refine_ref`, `items_ref`, `l1_items_ref` and `l1_masked_ref` are
+// the plain PyTorch versions these kernels must agree with lane for lane.
 //
 // Layout: rays are (R, 8, 128) planes o.xyz | d.xyz | mint | maxt; one
 // thread block of 128 threads per ray row.
@@ -33,6 +35,24 @@
 // so the block skip prunes occluded rows (:561-587). Bound: the staged
 // loads and one block reduction per block of 16 clusters; the MT work is
 // ~40 flops per (triangle, lane).
+//
+// l1_items (v6) and l1_masked (v6b) walk each row's front-to-back list of
+// E2 L1 blocks (64 triangles: 8 consecutive K8 clusters of `tri`) without
+// the S3 stage. A "max over lanes >= key" skip is __syncthreads_or(key <=
+// my bound). v6 visits the L1s one by one: it stages the L1's 64
+// triangles, slab-tests its 8 K8 children (the `ct0` table) per lane
+// against [mint, maxt], and runs Moeller-Trumbore on all 128 lanes for
+// each child some lane admits (a second __syncthreads_or), merging child
+// by child (lowest sublane among the child's nearest hits, then strict <
+// against the lane's best; any-hit caps each child at mint once
+// occluded). v6b takes steps of blm L1s with one skip on the step's
+// first key and tests all blm * 64 triangles of the step, dead slots
+// (L1 id 0) included, in chunks of 128 staged in shared memory, capped by
+// the bound of the step's start; it keeps #7's running winner per sublane
+// across the whole step, then the lowest sublane, then strict < against
+// the lane's best (exact_pallas.py:877-901). Bound: the MT work, ~40
+// flops per (triangle, lane), of v6b's L1-granular tests; v6 trades a box
+// test per child and lane and a block-wide vote for skipping children.
 //
 // Rounding: compiled with --fmad=false and IEEE division; every
 // expression keeps the plain version's operation order.
@@ -235,6 +255,149 @@ items_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
   }
 }
 
+// the best-hit accumulator of the closest walks: (t, u, v, prim)
+struct Best {
+  float t, u, v;
+  int p;
+};
+
+__device__ __forceinline__ void store_hit(const Best& b, bool occ, int any_hit,
+                                          float* out_t, float* out_u,
+                                          float* out_v, int* out_p,
+                                          int* out_occ) {
+  const size_t at = (size_t)blockIdx.x * LANES + threadIdx.x;
+  if (any_hit) {
+    out_occ[at] = occ ? 1 : 0;
+  } else {
+    out_t[at] = b.t;
+    out_u[at] = b.u;
+    out_v[at] = b.v;
+    out_p[at] = b.p;
+  }
+}
+
+__device__ __forceinline__ void stage_tri(const float* src, Tri& dst) {
+  for (int k = 0; k < 9; ++k) dst.f[k] = src[k];
+  dst.prim = __float_as_int(src[15]);
+}
+
+__global__ void __launch_bounds__(LANES)
+l1_items_kernel(const float* __restrict__ rays, const int* __restrict__ l1_ids,
+                const float* __restrict__ l1_keys,
+                const float* __restrict__ tri, const float* __restrict__ ct0,
+                int E2, int any_hit, float* __restrict__ out_t,
+                float* __restrict__ out_u, float* __restrict__ out_v,
+                int* __restrict__ out_p, int* __restrict__ out_occ) {
+  __shared__ Tri st[64];
+  Row ry;
+  load_row(rays, ry);
+  const int r = blockIdx.x;
+  const int l = threadIdx.x;
+  Best best = {ry.mx, 0.0f, 0.0f, -1};
+  bool occ = false;
+  float t_bound = ry.mx;                    // any-hit: the skip bound
+  for (int s = 0; s < E2; ++s) {
+    const float key = l1_keys[(size_t)r * E2 + s];
+    if (!__syncthreads_or(key <= (any_hit ? t_bound : best.t))) continue;
+    const int id = l1_ids[(size_t)r * E2 + s];
+    if (l < 64) stage_tri(tri + ((size_t)id * 64 + l) * LANES, st[l]);
+    __syncthreads();
+    for (int c = 0; c < 8; ++c) {
+      // this lane's slab test of child c against [mint, maxt]
+      const float* b = ct0 + ((size_t)id * 8 + c) * LANES;
+      float tn = ry.mn, tf = ry.mx;
+      for (int j = 0; j < 3; ++j) {
+        const float t0 = (b[j] - ry.o[j]) * ry.inv[j];
+        const float t1 = (b[3 + j] - ry.o[j]) * ry.inv[j];
+        tn = fmaxf(tn, fminf(t0, t1));
+        tf = fminf(tf, fmaxf(t0, t1));
+      }
+      if (!__syncthreads_or(tn <= tf)) continue;
+      const Tri* ct = st + c * 8;
+      if (any_hit) {
+        const float cap = occ ? ry.mn : ry.mx;
+        bool hit = false;
+        for (int k = 0; k < 8; ++k) {
+          float t, u, v;
+          hit = mt_test(ct[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u, v) ||
+                hit;
+        }
+        occ = occ || hit;
+        t_bound = occ ? ry.mn - 1.0f : ry.mx;
+      } else {
+        Best h = {BIG, 0.0f, 0.0f, 0};
+        for (int k = 0; k < 8; ++k) {
+          float t, u, v;
+          if (mt_test(ct[k].f, ry.o, ry.d, ry.mn, best.t, DET_EPS, t, u, v) &&
+              t < h.t)
+            h = {t, u, v, ct[k].prim};
+        }
+        if (h.t < best.t) best = h;
+      }
+    }
+    __syncthreads();                         // before the next staging
+  }
+  store_hit(best, occ, any_hit, out_t, out_u, out_v, out_p, out_occ);
+}
+
+__global__ void __launch_bounds__(LANES)
+l1_masked_kernel(const float* __restrict__ rays,
+                 const int* __restrict__ l1_ids,
+                 const float* __restrict__ l1_keys,
+                 const float* __restrict__ tri, int E2, int blm, int any_hit,
+                 float* __restrict__ out_t, float* __restrict__ out_u,
+                 float* __restrict__ out_v, int* __restrict__ out_p,
+                 int* __restrict__ out_occ) {
+  __shared__ Tri st[LANES];
+  Row ry;
+  load_row(rays, ry);
+  const int r = blockIdx.x;
+  const int l = threadIdx.x;
+  const int n_tri = blm * 64;               // triangles per step
+  Best best = {ry.mx, 0.0f, 0.0f, -1};
+  bool occ = false;
+  float t_bound = ry.mx;                    // any-hit: the skip bound
+  for (int s = 0; s < E2; s += blm) {
+    const int* ids = l1_ids + (size_t)r * E2 + s;
+    const float key = l1_keys[(size_t)r * E2 + s];
+    if (!__syncthreads_or(key <= (any_hit ? t_bound : best.t))) continue;
+    // the step's cap and running winner: lexicographic (t, sublane,
+    // cluster) minimum == per-sublane running winner over the clusters
+    // (strict <), then the lowest sublane among equal t
+    const float cap = any_hit ? (occ ? ry.mn : ry.mx) : best.t;
+    Best h = {BIG, 0.0f, 0.0f, 0};
+    int hs = 8;
+    bool hit = false;
+    for (int c0 = 0; c0 < n_tri; c0 += LANES) {
+      const int m = c0 + l;                  // (L1, cluster, sublane)
+      if (m < n_tri)
+        stage_tri(tri + ((size_t)ids[m / 64] * 64 + m % 64) * LANES, st[l]);
+      __syncthreads();
+      const int nk = min(LANES, n_tri - c0);
+      for (int k = 0; k < nk; ++k) {
+        float t, u, v;
+        if (any_hit) {
+          hit = hit ||
+                mt_test(st[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u, v);
+        } else if (mt_test(st[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u,
+                           v) &&
+                   (t < h.t || (t == h.t && (k % 8) < hs))) {
+          h = {t, u, v, st[k].prim};
+          hs = k % 8;
+        }
+      }
+      __syncthreads();                       // before the next staging
+    }
+    if (any_hit) {
+      occ = occ || hit;
+      t_bound = occ ? ry.mn - 1.0f : ry.mx;
+    } else if (h.t < best.t) {
+      best = h;
+    }
+  }
+  store_hit(best, occ, any_hit, out_t, out_u, out_v, out_p, out_occ);
+}
+
 extern "C" int mts_refine(const float* rays, const int* ids, const int* live,
                           const float* blo, const float* bhi, int R, int E,
                           float* out, void* stream) {
@@ -262,5 +425,30 @@ extern "C" int mts_items(const float* rays, const int* ids,
   items_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
       rays, ids, blk_tn, tri, E3, any_hit, out_t, out_u, out_v, out_p,
       out_occ);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mts_l1_items(const float* rays, const int* l1_ids,
+                            const float* l1_keys, const float* tri,
+                            const float* ct0, int R, int E2, int any_hit,
+                            float* out_t, float* out_u, float* out_v,
+                            int* out_p, int* out_occ, void* stream) {
+  if (R <= 0) return 0;
+  l1_items_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
+      rays, l1_ids, l1_keys, tri, ct0, E2, any_hit, out_t, out_u, out_v,
+      out_p, out_occ);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mts_l1_masked(const float* rays, const int* l1_ids,
+                             const float* l1_keys, const float* tri, int R,
+                             int E2, int blm, int any_hit, float* out_t,
+                             float* out_u, float* out_v, int* out_p,
+                             int* out_occ, void* stream) {
+  if (R <= 0) return 0;
+  if (blm <= 0 || E2 % blm) return (int)cudaErrorInvalidValue;
+  l1_masked_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
+      rays, l1_ids, l1_keys, tri, E2, blm, any_hit, out_t, out_u, out_v,
+      out_p, out_occ);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ the brute, bvh or cluster backend, instanced or not, materials, textures,
 emitters with the baked sky's sampling tables, camera) and builds the
 port's tables from them, so that both packages render the same scene
 from the same arrays; `from_jax_medium` does the same for an ambient
-medium.
+medium, and `from_jax_cluster_tables` for the v1 cluster intersector's
+tables.
 It needs no jax import of its own: `np.asarray` reads the reference's
 arrays. Every feature of the reference scene that the port does not
 implement raises NotImplementedError.
@@ -23,6 +24,7 @@ from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
 from mitsuba_tpu_torch.media.medium import HOMOGENEOUS, MediumTable
 from mitsuba_tpu_torch.media.phase import MICROFLAKE_GAUSS
 from mitsuba_tpu_torch.render.camera import Camera
+from mitsuba_tpu_torch.render.clusters import ClusterTables
 from mitsuba_tpu_torch.render.intersect import GeometryTables
 from mitsuba_tpu_torch.render.scene import Scene
 from mitsuba_tpu_torch.render.texture import TextureTable
@@ -164,3 +166,12 @@ def from_jax_medium(med) -> MediumTable:
         phase_g=_t(np.asarray(med.phase_g, np.float32)),
         kind=int(med.kind), phase_kind=int(med.phase_kind),
         enabled=bool(med.enabled))
+
+
+def from_jax_cluster_tables(ct) -> ClusterTables:
+    """The port's ClusterTables for a
+    `mitsuba_tpu.render.clusters.ClusterTables` (numpy, copied)."""
+    return ClusterTables(
+        **{k: np.array(getattr(ct, k)) for k in (
+            "G", "aabb", "tri_start", "sc_bmin", "sc_bmax")},
+        n_super=int(ct.n_super))

@@ -1,6 +1,6 @@
-"""Triangle clusters of the work-list, exact-cull and stream intersectors
-(the port's own copy of the parts of mitsuba_tpu/render/clusters.py that
-it uses; host numpy).
+"""Triangle clusters of the work-list, exact-cull, stream and v1 cluster
+intersectors (the port's own copy of the parts of
+mitsuba_tpu/render/clusters.py that it uses; host numpy).
 
 Geometry in BVH order is cut into clusters of at most K spatially
 coherent triangles (contiguous BVH subtrees, `cut_clusters`); each cluster
@@ -9,7 +9,19 @@ is a (K, 16) block of v0 | e1 | e2 rows with its AABB in row 0, columns
 superclusters, the coarse cull level. `build_instanced_tables` adds true
 instancing: N instances of a group share one copy of its object-space
 blocks; per instance and cluster there is only a world AABB and a
-world->object transform.
+world->object transform. `build_cluster_tables` makes the v1 cluster
+intersector's tables (ops/cluster.py): per cluster of at most 128
+triangles, the Pluecker rows of each triangle, 4 x 128 rows of
+[o | d | o x d | 1] coefficients:
+
+  row A: [0, v1 x v2, v2 - v1, 0]   -> s12 (sign test)
+  row B: [0, v2 x v0, v0 - v2, 0]   -> s20 (-> barycentric u)
+  row C: [0, v0 x v1, v1 - v0, 0]   -> s01 (-> barycentric v)
+  row D: [-n, 0, 0, n . v0]          -> Q = n . v0 - n . o (t numerator)
+
+with n = e1 x e2: s12 + s20 + s01 = d . n = det, t = Q / det, u = s20 /
+det, v = s01 / det, and a ray crosses the triangle iff s12, s20 and s01
+share a sign.
 """
 from __future__ import annotations
 
@@ -19,6 +31,8 @@ import numpy as np
 
 CLUSTER_K = 128        # default largest cluster
 SC_GROUP = 8           # clusters per supercluster
+ROWS_PER_TRI = 4       # Pluecker rows A, B, C, D
+G_COLS = 16            # 10 used ([o | d | o x d | 1]), padded
 
 
 def cut_clusters(first: np.ndarray, count: np.ndarray, skip: np.ndarray,
@@ -51,6 +65,66 @@ def cut_clusters(first: np.ndarray, count: np.ndarray, skip: np.ndarray,
         else:
             i += 1
     return out
+
+
+@dataclass
+class ClusterTables:
+    """The v1 cluster intersector's tables (numpy)."""
+    G: np.ndarray          # (C_s, SC_GROUP*CLUSTER_K*4, G_COLS) f32
+    aabb: np.ndarray       # (C_s, SC_GROUP, 8) f32: bmin | bmax | pad
+    tri_start: np.ndarray  # (C_s*SC_GROUP,) i32 first tri of each cluster
+    sc_bmin: np.ndarray    # (C_s, 3) f32 supercluster bounds
+    sc_bmax: np.ndarray    # (C_s, 3) f32
+    n_super: int
+
+
+def build_cluster_tables(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
+                         ranges) -> ClusterTables:
+    """The Pluecker rows of each cluster, computed in float64 and stored
+    as float32 (byte-equal with mitsuba_tpu/render/clusters.py:92).
+    v0/e1/e2 (T, 3) of the soup in BVH order; ranges from cut_clusters().
+    Padding clusters keep zero rows (no triangle is eligible) and
+    inverted boxes."""
+    v0 = np.asarray(v0, np.float64)
+    v1 = v0 + np.asarray(e1, np.float64)
+    v2 = v0 + np.asarray(e2, np.float64)
+    t = v0.shape[0]
+    c = len(ranges)
+    c_s = max(1, -(-c // SC_GROUP))
+    rows_per_cluster = CLUSTER_K * ROWS_PER_TRI
+    G = np.zeros((c_s, SC_GROUP * rows_per_cluster, G_COLS), np.float32)
+    aabb = np.zeros((c_s, SC_GROUP, 8), np.float32)
+    aabb[:, :, 0:3] = 1e30
+    aabb[:, :, 3:6] = -1e30
+    tri_start = np.zeros(c_s * SC_GROUP, np.int32)
+    sc_bmin = np.full((c_s, 3), 1e30, np.float32)
+    sc_bmax = np.full((c_s, 3), -1e30, np.float32)
+    n_all = np.cross(v1 - v0, v2 - v0)
+    zeros3, zeros1 = np.zeros((t, 3)), np.zeros((t, 1))
+    rows = (
+        np.concatenate([zeros3, np.cross(v1, v2), v2 - v1, zeros1], axis=1),
+        np.concatenate([zeros3, np.cross(v2, v0), v0 - v2, zeros1], axis=1),
+        np.concatenate([zeros3, np.cross(v0, v1), v1 - v0, zeros1], axis=1),
+        np.concatenate([-n_all, np.zeros((t, 6)),
+                        np.sum(n_all * v0, axis=1, keepdims=True)], axis=1),
+    )
+    tmin = np.minimum(np.minimum(v0, v1), v2)
+    tmax = np.maximum(np.maximum(v0, v1), v2)
+    for ci, (start, cnt) in enumerate(ranges):
+        s, g = divmod(ci, SC_GROUP)
+        sl = slice(start, start + cnt)
+        for j, row in enumerate(rows):
+            base = g * rows_per_cluster + j * CLUSTER_K
+            G[s, base:base + cnt, :10] = row[sl]
+        bmin = tmin[sl].min(0)
+        bmax = tmax[sl].max(0)
+        aabb[s, g, 0:3] = bmin
+        aabb[s, g, 3:6] = bmax
+        tri_start[ci] = start
+        sc_bmin[s] = np.minimum(sc_bmin[s], bmin.astype(np.float32))
+        sc_bmax[s] = np.maximum(sc_bmax[s], bmax.astype(np.float32))
+    return ClusterTables(G=G, aabb=aabb, tri_start=tri_start,
+                         sc_bmin=sc_bmin, sc_bmax=sc_bmax, n_super=c_s)
 
 
 @dataclass

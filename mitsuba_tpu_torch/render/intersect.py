@@ -22,7 +22,8 @@ Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
   (`ops/exact.py`) and into 32-triangle clusters, in superclusters of 8,
   for the complete stream walk (`ops/stream.py`) and the work list
   (`ops/worklist.py`). A query (`ray_intersect`, `ray_test`) clamps maxt
-  to the root box, runs the exact cull at diffuse or coherent caps,
+  to the root box, runs the exact cull at diffuse or coherent caps with
+  the item walk `ex_walk` (by default v6b on the card, v5 on the CPU),
   re-runs rows that overflowed at the XL caps on a row-compacted subset,
   and resolves whatever still overflows through the stream kernel
   (intersect.py:1295-1319, 1523-1540).
@@ -120,6 +121,9 @@ class GeometryTables:
     ex_ct1: torch.Tensor = None      # (C8/64, 8, 128) L1-child box table
     ex_ct2: torch.Tensor = None      # (pad(C8/64)/8, 8, 128) root table
     ex_caps: tuple = None            # (diffuse, coherent, xl) caps
+    # the item walk of the exact cull: "v5", "v6", "v6b", or None for the
+    # device's default (v6b on the card, v5 on the CPU; ops/exact.py)
+    ex_walk: str = None
     # true instancing (cluster): virtual prims >= n_tris decode to
     # (cluster, local) and shade through the block-aligned obj_* tables
     mt_block_id: torch.Tensor = None   # (C,) int32 cluster -> shared block
@@ -209,7 +213,7 @@ def _dev(x):
 
 
 def build_geometry(meshes_with_ids, backend: str = "auto",
-                   instanced=None) -> GeometryTables:
+                   instanced=None, ex_walk=None) -> GeometryTables:
     """Assemble GeometryTables from [(TriMesh, material_id, emitter_id
     [, shape_id]), ...]. backend: 'brute' keeps the input order and
     builds no tree, only the root box; 'bvh' orders the triangles by a
@@ -218,7 +222,8 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
     (groups, instances) for
     true instancing on the cluster backend, groups = [[(TriMesh in object
     space, material_id, shape_id), ...], ...] and instances = [(group
-    index, 4x4 to_world), ...]. Host numpy, as in the reference."""
+    index, 4x4 to_world), ...]. ex_walk: the exact cull's item walk
+    (GeometryTables.ex_walk). Host numpy, as in the reference."""
     vs, fs, ns, uvs, mids, eids, sids = [], [], [], [], [], [], []
     voff = 0
     for k, item in enumerate(meshes_with_ids):
@@ -278,6 +283,7 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
         **{k: (_dev(x) if isinstance(x, np.ndarray) else x)
            for k, x in tables.items()},
         ex_caps=caps,
+        ex_walk=ex_walk,
         backend=backend,
         v0=_dev(tri[:, 0]),
         e1=_dev(tri[:, 1] - tri[:, 0]),
@@ -653,7 +659,7 @@ def _retier_closest(geom, ray, t, u, v, prim, valid, lane_ovf):
 
     t2, u2, v2, p2, ok2, ovf2 = ep.exact_closest(
         geom.ex_tables, g(ray.o), g(ray.d), g(ray.mint, 1.0), g(mx, -1.0),
-        caps=geom.ex_caps[2])
+        caps=geom.ex_caps[2], walk=geom.ex_walk)
     # lane i sits at rank inv[i]; ranks >= m_xl were not re-run
     rk = inv[:n]
     in_xl = rk < m_xl
@@ -685,7 +691,7 @@ def _retier_any(geom, ray, occ, lane_ovf):
 
     occ2, ovf2 = ep.exact_any(geom.ex_tables, g(ray.o), g(ray.d),
                               g(ray.mint, 1.0), g(mx, -1.0),
-                              caps=geom.ex_caps[2])
+                              caps=geom.ex_caps[2], walk=geom.ex_walk)
     rk = inv[:n]
     in_xl = rk < m_xl
     rkc = torch.clamp(rk, max=m_xl - 1)
@@ -753,7 +759,7 @@ def _cluster_closest(geom, ray, coherent):
     dif, coh, _xl = geom.ex_caps
     t, u, v, prim, valid, lane_ovf = ep.exact_closest(
         geom.ex_tables, ray.o, ray.d, ray.mint, ray.maxt,
-        caps=coh if coherent else dif)
+        caps=coh if coherent else dif, walk=geom.ex_walk)
     lane_ovf = lane_ovf & (ray.mint <= ray.maxt)
     if bool(lane_ovf.any()):
         t, u, v, prim, valid, lane_ovf = _retier_closest(
@@ -767,7 +773,8 @@ def _cluster_closest(geom, ray, coherent):
 def _cluster_any(geom, ray):
     ray = _cap_root_exit(geom, ray)
     occ, lane_ovf = ep.exact_any(geom.ex_tables, ray.o, ray.d, ray.mint,
-                                 ray.maxt, caps=geom.ex_caps[0])
+                                 ray.maxt, caps=geom.ex_caps[0],
+                                 walk=geom.ex_walk)
     lane_ovf = lane_ovf & (ray.mint <= ray.maxt)
     if bool(lane_ovf.any()):
         occ, lane_ovf = _retier_any(geom, ray, occ, lane_ovf)

@@ -113,10 +113,13 @@ class SceneBuilder:
         self.camera = camera
         self.width, self.height = width, height
 
-    def build(self, backend: str = "auto", device="cuda") -> Scene:
+    def build(self, backend: str = "auto", device="cuda",
+              ex_walk=None) -> Scene:
         """backend: 'brute', 'bvh', 'cluster' or 'auto' (cluster above 64
         triangles); a scene with instances needs 'cluster' or 'auto'.
-        device: where the scene's tables live, the card by default."""
+        device: where the scene's tables live, the card by default.
+        ex_walk: the cluster backend's exact item walk, 'v5', 'v6', 'v6b'
+        or None for the device's default (ops/exact.py)."""
         check_device(device)
         if not self._shapes:
             raise ValueError("scene has no shapes")
@@ -128,7 +131,7 @@ class SceneBuilder:
             backend = "cluster"
             instanced = (self._inst_groups, self._instances)
         geom = build_geometry(self._shapes, backend=backend,
-                              instanced=instanced)
+                              instanced=instanced, ex_walk=ex_walk)
         e1 = geom.e1.numpy()
         e2 = geom.e2.numpy()
         areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -195,11 +198,11 @@ def cornell_box(width=256, height=256, backend="brute", device="cuda") \
 
 
 def textured_mesh_scene(width=256, height=256, backend="bvh",
-                        device="cuda") -> Scene:
+                        device="cuda", ex_walk=None) -> Scene:
     """Bench config 3 (reference mitsuba_tpu/render/scene.py:435): a
     101,762-triangle mesh — the reference's fallback when its bunny mesh
     is absent, a 160 x 320 sphere — with a phong body on a checkerboard-
-    textured floor under a Preetham sky."""
+    textured floor under a Preetham sky. ex_walk: SceneBuilder.build."""
     b = SceneBuilder()
     tex = b.textures.checkerboard(bright=(0.7, 0.7, 0.7),
                                   dark=(0.2, 0.2, 0.25), uv_scale=(8.0, 8.0))
@@ -216,7 +219,7 @@ def textured_mesh_scene(width=256, height=256, backend="bvh",
         fov_deg=40.0, aspect=width / height,
     )
     b.set_camera(cam, width, height)
-    return b.build(backend=backend, device=device)
+    return b.build(backend=backend, device=device, ex_walk=ex_walk)
 
 
 # (x, y, z, scale) of the three instances of tests/test_instancing.py

@@ -265,23 +265,125 @@ def test_stream_kernel_matches_plain_version(cluster, any_hit):
     assert int((ref[3] >= 0).sum()) > 100
 
 
-def test_cluster_render_on_the_card_goes_through_the_kernels(cluster):
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("blm", [4, 16])
+def test_l1_walk_kernels_match_plain_versions(cluster, any_hit, blm):
+    """#8 (v6) and #9 (v6b, blm L1 blocks per step) on the L1 lists of
+    the cluster rows at caps whose E2 (48) leaves dead slots in some rows,
+    bit for bit."""
+    dev, rays, ex, _st = cluster
+    l1_ids, l1_keys, _ovf = ep.build_exact_l1(rays, ex, (128, 16, 48, 96))
+    assert bool((l1_keys >= 3e38).any()) and bool((l1_keys < 3e38).any())
+    before = dict(ep.LAUNCHES)
+    got6 = ep.l1_items(ex["tri"], ex["ct0"], rays, l1_ids, l1_keys, any_hit)
+    got6b = ep.l1_masked(ex["tri"], rays, l1_ids, l1_keys, any_hit, blm)
+    assert ep.LAUNCHES["l1_items"] == before["l1_items"] + 1
+    assert ep.LAUNCHES["l1_masked"] == before["l1_masked"] + 1
+    ref6 = ep.l1_items_ref(ex["tri"], ex["ct0"], rays, l1_ids, l1_keys,
+                           any_hit)
+    ref6b = ep.l1_masked_ref(ex["tri"], rays, l1_ids, l1_keys, any_hit, blm)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(got6, ref6) and torch.equal(got6b, ref6b)
+        assert 100 < int(ref6.sum())
+        return
+    for a, b in zip(got6 + got6b, ref6 + ref6b):
+        assert torch.equal(a, b)
+    assert int((ref6b[3] >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cluster_v1_kernel_matches_plain_version(cuda, any_hit):
+    """#14 on 3,000 rays (3 tiles, the last ragged) against 12 spheres cut
+    into 128-triangle clusters (more than one supercluster per list), bit
+    for bit; the entry points launch it once per query."""
+    from mitsuba_tpu_torch.ops import cluster as cp
+    from mitsuba_tpu_torch.render.bvh import build_bvh
+    from mitsuba_tpu_torch.render.clusters import cut_clusters
+    from mitsuba_tpu_torch.render.mesh import make_sphere_mesh
+
+    cp.build()
+    spheres = [make_sphere_mesh([2.5 * i, 0.0, 0.0], 1.0, 12, 24)
+               for i in range(12)]
+    base = np.cumsum([0] + [s.vertices.shape[0] for s in spheres])
+    v = np.concatenate([np.asarray(s.vertices, np.float32) for s in spheres])
+    f = np.concatenate([np.asarray(s.faces, np.int64) + b
+                        for s, b in zip(spheres, base)])
+    bvh = build_bvh(v, f)
+    tri = v[f[bvh.perm]]
+    ct = cp.build_cluster_tables(
+        tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0],
+        cut_clusters(bvh.first, bvh.count, bvh.skip, tri.shape[0]))
+    assert ct.n_super > 1
+    tab = cp.table_dict(ct, cuda)
+    o, d, mint, maxt = (x.to(cuda) for x in _scene_rays(
+        3000, 7, [0.0, -1.0, -1.0], [27.5, 1.0, 1.0], [-2, -3, -3],
+        [30, 3, 3]))
+    if any_hit:
+        maxt = torch.where(maxt > 0, 2.5, maxt)
+    args, _n = cp.launch_args(tab, o, d, mint, maxt, any_hit)
+    assert int(args[2].max()) > 1
+    key = "cluster_any" if any_hit else "cluster_closest"
+    before = cp.LAUNCHES[key]
+    got = cp.cluster_rows(*args)
+    assert cp.LAUNCHES[key] == before + 1
+    ref = cp.cluster_rows_ref(*args)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(got, ref) and 100 < int(ref.sum())
+        assert torch.equal(cp.cluster_any(tab, o, d, mint, maxt),
+                           ref.reshape(-1)[:3000])
+    else:
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert int((ref[3] >= 0).sum()) > 500
+        res = cp.cluster_closest(tab, o, d, mint, maxt)
+        assert torch.equal(res[3], ref[3].reshape(-1)[:3000])
+    assert cp.LAUNCHES[key] == before + 2
+
+
+def _cluster_render(dev, walk):
+    """A 32x32 config-3 render on the card with the item walk `walk`, the
+    launches of each exact-cull kernel in it, and the same on the CPU."""
     from mitsuba_tpu_torch.integrators.path import PathConfig, render
     from mitsuba_tpu_torch.render.scene import textured_mesh_scene
 
-    dev = cluster[0]
     cfg = PathConfig(max_depth=3, spp=2)
     before = dict(ep.LAUNCHES)
-    img, aux = render(textured_mesh_scene(32, 32, backend="cluster",
-                                          device=dev), cfg, seed=3)
+    img, _aux = render(textured_mesh_scene(32, 32, backend="cluster",
+                                           device=dev, ex_walk=walk),
+                       cfg, seed=3)
     torch.cuda.synchronize()
-    for k in ("refine", "child_refine", "items"):
-        assert ep.LAUNCHES[k] > before[k], k
-    ref, aux_ref = render(textured_mesh_scene(32, 32, backend="cluster",
-                                              device="cpu"), cfg, seed=3)
+    ran = {k: ep.LAUNCHES[k] - before[k] for k in before}
+    ref, _ = render(textured_mesh_scene(32, 32, backend="cluster",
+                                        device="cpu", ex_walk=walk),
+                    cfg, seed=3)
+    return img, ref, ran
+
+
+def test_cluster_render_on_the_card_goes_through_the_kernels(cluster):
+    """The card's default walk is v6b: every exact query launches #9 and
+    none #7 or #8."""
+    img, ref, ran = _cluster_render(cluster[0], None)
+    for k in ("refine", "child_refine", "l1_masked"):
+        assert ran[k] > 0, k
+    assert ran["items"] == 0 and ran["l1_items"] == 0
     assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     # the same lanes draw the same numbers; transcendentals of the card
     # may differ from the CPU's in the last bit, which moves a few paths
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+
+
+def test_cluster_render_with_the_v5_walk_goes_through_the_item_kernel(
+        cluster):
+    """ex_walk='v5' keeps #7 on the render path (and S3's child refine):
+    no L1 walk launches."""
+    img, ref, ran = _cluster_render(cluster[0], "v5")
+    for k in ("refine", "child_refine", "items"):
+        assert ran[k] > 0, k
+    assert ran["l1_masked"] == 0 and ran["l1_items"] == 0
+    assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
         ref.mean())
 

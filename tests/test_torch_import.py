@@ -43,7 +43,27 @@ img, aux = render_volpath(cornell_box(4, 4, device="cpu"),
 assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
 assert {"mitsuba_tpu_torch.media.medium", "mitsuba_tpu_torch.media.phase",
         "mitsuba_tpu_torch.integrators.volpath",
-        "mitsuba_tpu_torch.integrators.direct"} <= set(names)
+        "mitsuba_tpu_torch.integrators.direct",
+        "mitsuba_tpu_torch.ops.cluster"} <= set(names)
+# the exact cull's L1 walks and the v1 cluster intersector
+from mitsuba_tpu_torch.ops import cluster as cp
+from mitsuba_tpu_torch.ops import exact as ep
+from mitsuba_tpu_torch.render.intersect import build_geometry
+from mitsuba_tpu_torch.render.mesh import make_sphere_mesh
+geom = build_geometry([(make_sphere_mesh([0, 0, 0], 1.0, 12, 24), 0, -1)],
+                      backend="cluster")
+o = torch.tensor([[0.0, 0.0, -3.0], [0.0, 3.0, 0.0]])
+d = torch.tensor([[0.0, 0.0, 1.0], [0.0, -1.0, 0.0]])
+mint, maxt = torch.full((2,), 1e-4), torch.full((2,), 1e30)
+for walk in ep.WALKS:
+    hit = ep.exact_closest(geom.ex_tables, o, d, mint, maxt,
+                           geom.ex_caps[0], walk=walk)
+    assert bool(hit[4].all()) and torch.allclose(hit[0], torch.tensor(2.0),
+                                                 atol=0.02)
+hit = cp.cluster_closest(cp.table_dict(cp.geometry_tables(geom)), o, d,
+                         mint, maxt)
+assert bool(hit[4].all()) and torch.allclose(hit[0], torch.tensor(2.0),
+                                             atol=0.02)
 ref = sorted(m for m in sys.modules
              if m == "mitsuba_tpu" or m.startswith("mitsuba_tpu."))
 print(len(names), "jax" in sys.modules,
