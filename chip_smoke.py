@@ -17,7 +17,11 @@ config-1 Cornell box in a homogeneous HG medium (sigma_s 0.0015, sigma_a
 brute kernels #2 and #3; and through mitsuba_tpu_torch.ops.cluster's
 cluster_closest / cluster_any (the v1 cluster intersector, #14) config
 3's camera and shadow wavefronts against its triangles cut into
-128-triangle clusters by the port's BVH.
+128-triangle clusters by the port's BVH; and through the probe drivers of
+mitsuba_tpu_torch.probes (kernel_cost, r3_kernel, r3_mt, r3_refinebits,
+r5_megakernel) the cost probes of the card (csrc/probes.cu, #15), the
+work-list probe (#13) on config 3's work list and the refine kernel (#5)
+at the refine-bits script's sizes.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -63,7 +67,16 @@ Phases, each printing one JSON line:
      the lanes passed to #2 and #3 (the JAX volpath counts none);
   6. the v1 cluster entry points on config 3's camera and shadow
      wavefronts, with the launch counts set to 0 just before and read just
-     after, held against the exact-cull path's hits.
+     after, held against the exact-cull path's hits;
+  7. the probes: each probe kernel against its plain version on the card
+     (bit for bit, or within ops/probes.py's TOLERANCE for the tensor-core
+     products and the approximate reciprocals of V2 and V4) at step counts
+     where the plain version takes under a second, #13 on the first 1,024
+     rows of config 3's 1,048,576-lane work list; then, every launch count
+     set to 0 just before and read just after, the five probe drivers at
+     the scripts' sizes (a line per probe and form), and the library
+     yardsticks (torch.matmul on the products' shapes, table[idx] on the
+     gathers'), timed here only.
 
 Then a JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not
@@ -132,9 +145,13 @@ V1_CLUSTER_BYTES, V1_BOX_BYTES = 512 * 10 * 4, 6 * 4
 # the origin (up to 4e-4 relative on config 3's sphere, CPU run of the
 # plain versions on a 96x96x4 camera wavefront)
 V1_AGREE_MIN, V1_T_RTOL = 0.999, 1e-3
+# the probe checks' item lists, and the side of r3_kernel's camera grid
+PROBE_ITEMS = 512
+PROBE_SIDE = 1024
 # H100 SXM (NVIDIA's data sheet, at its 700 W limit): float32 outside
-# the tensor cores, and HBM3
+# the tensor cores, and HBM3; the dense tensor-core rates
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
+PEAK_TC_OPS = {"tf32": 495e12, "bf16": 989e12}
 
 
 _T0 = time.perf_counter()
@@ -147,18 +164,19 @@ def phase(tag, **kv):
 
 
 def cuda_ms(fn, reps=10):
-    """Median of `reps` CUDA-event timings of fn(), after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    """Median of `reps` CUDA-event timings of fn(), after one warm-up
+    (mitsuba_tpu_torch.probes.timed_ms)."""
+    from mitsuba_tpu_torch.probes import timed_ms
+
+    return timed_ms(fn, reps)
+
+
+def device_ms(fn, reps=10):
+    """Device time (ms) per call of fn, the host's share left out
+    (mitsuba_tpu_torch.probes.device_ms)."""
+    from mitsuba_tpu_torch.probes import device_ms as profiled
+
+    return profiled(fn, reps)
 
 
 def launch_counts():
@@ -166,12 +184,13 @@ def launch_counts():
     from mitsuba_tpu_torch.ops import cluster as cp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
+    from mitsuba_tpu_torch.ops import probes as pr
     from mitsuba_tpu_torch.ops import stream as sp
     from mitsuba_tpu_torch.ops import worklist as wl
 
     return dict(shaded_any=ip.LAUNCHES, **ip.SPLIT_LAUNCHES, **ep.LAUNCHES,
                 stream=sp.LAUNCHES, **bp.LAUNCHES, **wl.LAUNCHES,
-                **cp.LAUNCHES)
+                **cp.LAUNCHES, **pr.LAUNCHES)
 
 
 def reset_launch_counts():
@@ -179,13 +198,14 @@ def reset_launch_counts():
     from mitsuba_tpu_torch.ops import cluster as cp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
+    from mitsuba_tpu_torch.ops import probes as pr
     from mitsuba_tpu_torch.ops import stream as sp
     from mitsuba_tpu_torch.ops import worklist as wl
 
     ip.LAUNCHES = 0
     sp.LAUNCHES = 0
     for counts in (ip.SPLIT_LAUNCHES, ep.LAUNCHES, bp.LAUNCHES, wl.LAUNCHES,
-                   cp.LAUNCHES):
+                   cp.LAUNCHES, pr.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -204,18 +224,19 @@ def _nbytes(x):
     return sum(t.numel() * t.element_size() for t in _tensors(x))
 
 
-def bound(args, outs, ops, tables=None):
+def bound(args, outs, ops, tables=None, peak_ops=PEAK_FP32_OPS):
     """The least time (ms) the card could take for this work: the larger
     of the bytes it must move (each input read once, each output written
-    once) over the memory rate and its float32 operations over the peak
-    rate, with which of the two bounds it. tables: {argument index:
-    bytes} for the arguments the work reads only in part (the entries it
-    visits, of each only the floats it uses); the others count in full."""
+    once) over the memory rate and its operations over the peak rate of
+    their type (float32 unless peak_ops says otherwise), with which of the
+    two bounds it. tables: {argument index: bytes} for the arguments the
+    work reads only in part (the entries it visits, of each only the
+    floats it uses); the others count in full."""
     tables = tables or {}
     nbytes = _nbytes(outs) + sum(
         tables[i] if i in tables else _nbytes(a) for i, a in enumerate(args))
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_FP32_OPS * 1e3
+    t_ops = ops / peak_ops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=int(ops))
@@ -828,6 +849,273 @@ def compare_split_kernels(scene, cfg):
 
 
 # ---------------------------------------------------------------------------
+# the probes: #13 and the cost probes of csrc/probes.cu (#15)
+# ---------------------------------------------------------------------------
+
+def _probe_inputs(device):
+    """Seeded inputs of the probe checks, at the scripts' shapes."""
+    rng = np.random.default_rng(0)
+
+    def t(x, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype), device=device)
+
+    n = PROBE_ITEMS
+    return dict(
+        counter=torch.zeros(1, dtype=torch.int32, device=device),
+        ids=t(rng.integers(0, 64, n), np.int32),
+        flags=t(rng.integers(0, 2, n), np.int32),
+        g={kb: t(rng.standard_normal((64, kb * 16, 16))) for kb in (8, 32)},
+        tri_grid=t(rng.standard_normal((2048, 4, 128))),
+        grid_ids=t(rng.integers(0, 2048, n), np.int32),
+        fma_a=t(rng.random((8, 128)) * 0.1 + 0.9),
+        fma_b=t(rng.random((8, 128)) * 1e-6),
+        tri={k: t(rng.random((k, 16))) for k in (128, 32)},
+        rays=t(rng.random((8, 128))),
+        mm={(m, k): (t(rng.standard_normal((m, k))),
+                     t(rng.standard_normal((k, 128))))
+            for m, k in ((4096, 10), (512, 128))},
+        table=t(rng.random(32768)),
+        idx=t(rng.integers(0, 32768, 1 << 20), np.int32))
+
+
+def _distinct(ids, nbytes):
+    return int(torch.unique(ids).numel()) * nbytes
+
+
+def _cut_probe_list(args, rows):
+    items, seg, tri, rays = args
+    return (items[:int(seg[rows])].contiguous(), seg[:rows + 1].contiguous(),
+            tri, rays[:rows].contiguous())
+
+
+def _probe_list_work(args):
+    """#13's valid items and the distinct cluster blocks they fetch."""
+    from mitsuba_tpu_torch.ops import worklist as wl
+
+    items = args[0]
+    valid = items[(items & wl._VALID_BIT) != 0]
+    return int(valid.numel()), valid & (wl._FIRST_BIT - 1)
+
+
+def check_within(name, stage, kern, plain, args, ops, judge, peak_ops,
+                 **extra):
+    """Hold kernel against plain version within a tolerance: judge(got,
+    ref) -> {"ok": bool, ...the measures it gates}; time both, bound the
+    work at the operations' own peak rate."""
+    ref, plain_s = _timed(lambda: plain(*args))
+    got = kern(*args)
+    torch.cuda.synchronize()
+    verdict = judge(got, ref)
+    mism, max_err = mismatches(got, ref)
+    ms = cuda_ms(lambda: kern(*args))
+    plain_ms = cuda_ms(lambda: plain(*args),
+                       reps=3 if plain_s > PLAIN_SLOW_S else 10)
+    res = dict(kernel=name, stage=stage, mismatches=mism,
+               max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               **bound(args, ref, ops, peak_ops=peak_ops), library_ms=None,
+               **verdict, **extra)
+    phase("kernel_vs_plain", **res)
+    if not verdict["ok"]:
+        raise AssertionError(f"{name} ({stage}): outside its tolerance "
+                             f"{verdict}")
+    return res
+
+
+def _tc_judge(kind):
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    tol = pr.TOLERANCE[f"mm_{kind}"]
+
+    def judge(got, ref):
+        errs = [pr.rel_err(a, b.expand_as(a)) for a, b in zip(got, ref)]
+        return dict(ok=max(errs) <= tol, rel_err=errs, tolerance=tol)
+    return judge
+
+
+def _packed_judge(name):
+    """V4: accepts bit for bit, sums within TOLERANCE; V2: accepts on all
+    but V2_HITS_DIFFER_MAX of the entries, sums within TOLERANCE there."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    tol = pr.TOLERANCE[name]
+
+    def judge(got, ref):
+        same = got[1][0] == ref[1]
+        share = float(same.float().mean())
+        err = pr.rel_err(got[0][0][same], ref[0][same])
+        need = 1.0 if name == "v4" else 1.0 - pr.V2_HITS_DIFFER_MAX
+        return dict(ok=share >= need and err <= tol, accepts_equal=share,
+                    accepts_equal_min=need, rel_err=err, tolerance=tol)
+    return judge
+
+
+def compare_probes(device, case):
+    """Each probe kernel against its plain version on the card, at step
+    counts where the plain version takes well under a second; #13 on the
+    first 1,024 rows of config 3's work list (r3_kernel's list)."""
+    from mitsuba_tpu_torch.ops import probes as pr
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.ops.rows import pack_rays
+
+    x = _probe_inputs(device)
+    n, on = PROBE_ITEMS, int((x["flags"] > 0).sum())
+    out = {}
+
+    def exact(key, name, stage, kern, plain, args, ops, tables=None,
+              unit="items"):
+        out[key] = check_pair(name, stage, kern, plain, args, (0,),
+                              lambda _a, _w: ops,
+                              tables=(lambda _a, _w: tables) if tables
+                              else None, unit=unit)
+        out[key]["device_ms"] = device_ms(lambda: kern(*args))
+
+    exact("count", "count", "64 launches", pr.count, pr.count_ref,
+          (x["counter"], 64), 0, unit="launches")
+    exact("gate", "gate", f"{n} items, {on} open", pr.gate, pr.gate_ref,
+          (x["g"][32], x["ids"], x["flags"]), on * 8 * 16,
+          {0: _distinct(x["ids"][x["flags"] > 0], 8 * 16 * 4)})
+    for kb in (8, 32):
+        exact(("rotate", kb), "rotate", f"{n} items, {kb} KB", pr.rotate,
+              pr.rotate_ref, (x["g"][kb], x["ids"]), n * 8 * 16,
+              {0: _distinct(x["ids"], kb * 1024)})
+    for fetch in (False, True):
+        exact(("grid", fetch), "grid", f"{n} items, fetch {fetch}", pr.grid,
+              pr.grid_ref, (x["tri_grid"], x["grid_ids"], fetch), n * 128,
+              {0: _distinct(x["grid_ids"] if fetch else x["grid_ids"][:1],
+                            2048)})
+    exact("fma", "fma", "512 FMA x 1 step", pr.fma, pr.fma_ref,
+          (x["fma_a"], x["fma_b"], 512, 1), 2 * 512 * 1024, unit="rows")
+    exact("mt", "mt", "128 triangles x 2 steps", pr.mt, pr.mt_ref,
+          (x["tri"][128], x["rays"], 2), MT_OPS * 128 * 128 * 2)
+    exact("v0", "v0", "4 reps", pr.v0, pr.v0_ref, (x["rays"], 4),
+          2 * 8 * 4 * 8 * 128 * 4, unit="rows")
+    exact("v1", "v1", "32 triangles x 4 reps", pr.v1, pr.v1_ref,
+          (x["tri"][32], x["rays"], 4), MT_OPS * 32 * 128 * 4)
+    for name in ("v2", "v4"):
+        out[name] = check_within(
+            name, "32 triangles x 4 reps", getattr(pr, name),
+            lambda t, r, n_, d=name == "v4": pr.packed_ref(t, r, n_, d),
+            (x["tri"][32], x["rays"], 4), MT_OPS * 32 * 128 * 4,
+            _packed_judge(name), PEAK_FP32_OPS)
+        out[name]["device_ms"] = device_ms(
+            lambda n_=name: getattr(pr, n_)(x["tri"][32], x["rays"], 4))
+    G, M = x["mm"][(4096, 10)]
+    exact("mm_cuda", "mm_cuda", "(4096, 10) x (10, 128), 1 step",
+          pr.mm_cuda, pr.mm_cuda_ref, (G, M, 1), 2 * 4096 * 10 * 128,
+          unit="rows")
+    for (m, k), (G, M) in x["mm"].items():
+        for kind in ("tf32", "bf16"):
+            out[(f"mm_{kind}", m, k)] = check_within(
+                f"mm_{kind}", f"({m}, {k}) x ({k}, 128), 1 step",
+                lambda g_, m_, s_, kd=kind: pr.mm_tc(g_, m_, s_, kd),
+                lambda g_, m_, s_, kd=kind: pr.mm_tc_ref(g_, m_, s_, kd),
+                (G, M, 1), 2 * m * k * 128, _tc_judge(kind),
+                PEAK_TC_OPS[kind])
+            out[(f"mm_{kind}", m, k)]["device_ms"] = device_ms(
+                lambda g_=G, m_=M, kd=kind: pr.mm_tc(g_, m_, 1, kd))
+    for name in ("gather_smem", "gather_global"):
+        exact(name, name, "K 32,768, N 2^20", getattr(pr, name),
+              pr.gather_ref, (x["table"], x["idx"]), 0, unit="lanes")
+
+    tab, o, d, mint, maxt = case
+    rays = pack_rays(o, d, mint, torch.clamp(maxt, max=1e30))[0]
+    items, _total, ovf = wl.build_worklist(
+        rays, tab["bmin"], tab["bmax"], tab["sc_bmin"], tab["sc_bmax"],
+        rays.shape[0] * wl.PROBE_W_FACTOR, wl.PROBE_L_SC, wl.BEAM_S2)
+    k_cl = tab["tri"].shape[1]
+
+    def list_ops(args, _w):
+        return _probe_list_work(args)[0] * 128 * (BOX_OPS + 2)
+
+    def list_tables(args, _w):
+        return {2: _distinct(_probe_list_work(args)[1], k_cl * 16 * 4)}
+
+    args = (items, wl.row_segments(items, rays.shape[0]), tab["tri"], rays)
+    out["wl_probe"] = check_pair(
+        "wl_probe", "config 3 camera list", wl.wl_probe_rows,
+        wl.wl_probe_ref, args, (3,), list_ops, cut=PLAIN_CUT_ROWS,
+        cutter=_cut_probe_list, tables=list_tables,
+        overflow_rows=int(ovf.sum()))
+    part = _cut_probe_list(args, PLAIN_CUT_ROWS)
+    out["wl_probe"]["device_ms"] = device_ms(
+        lambda: wl.wl_probe_rows(*part))
+    phase("probe_device_ms", unit="ms per call, the checks' inputs",
+          **{str(k): r["device_ms"] for k, r in out.items()
+             if "device_ms" in r})
+    return out
+
+
+def probes_phase(device, case):
+    """The five probe drivers at the scripts' sizes, every launch count
+    set to 0 just before and read just after: one line per probe."""
+    from mitsuba_tpu_torch.ops import probes as pr
+    from mitsuba_tpu_torch.probes import (
+        kernel_cost, r3_kernel, r3_mt, r3_refinebits, r5_megakernel,
+    )
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lines = []
+    for mod, kw in ((kernel_cost, {}), (r3_kernel, {"case": case}),
+                    (r3_mt, {}), (r3_refinebits, {}), (r5_megakernel, {})):
+        lines += mod.run(device, **kw)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for ln in lines:
+        phase("probe", **ln)
+    phase("probes", seconds=time.perf_counter() - t0, lines=len(lines),
+          launches={k: launches[k]
+                    for k in list(pr.LAUNCHES) + ["wl_probe", "refine"]})
+    for k in list(pr.LAUNCHES) + ["wl_probe", "refine"]:
+        if launches[k] < 1:
+            raise AssertionError(f"probes: kernel {k} was never launched")
+    for ln in lines:
+        ms = ln.get("ms")
+        if ms is not None and not all(np.isfinite(v) and v > 0
+                                      for v in np.atleast_1d(ms)):
+            raise AssertionError(f"probes: bad times in {ln}")
+    return launches
+
+
+def library_phase(device):
+    """The library yardsticks, timed here only: one torch.matmul on each
+    product's shapes (float32, TF32, bf16) and table[idx] on the
+    gathers'."""
+    x = _probe_inputs(device)
+    res = {}
+
+    def both(key, fn):
+        res[key] = cuda_ms(fn)
+        res[f"{key}_device"] = device_ms(fn)
+
+    mm = dict(x["mm"])
+    mm[(512, 10)] = (x["mm"][(4096, 10)][0][:512].contiguous(),
+                     x["mm"][(4096, 10)][1])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for (m, k), (G, M) in mm.items():
+            torch.backends.cuda.matmul.allow_tf32 = False
+            both(f"matmul_fp32_{m}x{k}", lambda: torch.matmul(G, M))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            both(f"matmul_tf32_{m}x{k}", lambda: torch.matmul(G, M))
+            gb, mb = G.bfloat16(), M.bfloat16()
+            both(f"matmul_bf16_{m}x{k}", lambda: torch.matmul(gb, mb))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rng = np.random.default_rng(0)
+    for k in (512, 2048, 8192, 32768):
+        table = torch.as_tensor(rng.random(k).astype(np.float32),
+                                device=device)
+        idx = torch.as_tensor(rng.integers(0, k, 1 << 20).astype(np.int32),
+                              device=device)
+        both(f"gather_{k}", lambda: table[idx])
+    phase("library", unit="ms per call: CUDA events; _device: device time "
+          "(probes.device_ms)", **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # renders
 # ---------------------------------------------------------------------------
 
@@ -1044,8 +1332,10 @@ def main():
     from mitsuba_tpu_torch.ops import cluster as cp
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import intersect as ip
+    from mitsuba_tpu_torch.ops import probes as pr
     from mitsuba_tpu_torch.ops import stream as sp
     from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.probes import r3_kernel
     from mitsuba_tpu_torch.render import bvh as rb
     from mitsuba_tpu_torch.render.scene import (
         cornell_box, instanced_scene, textured_mesh_scene,
@@ -1062,7 +1352,7 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    mods = (ip, ep, sp, bp, wl, cp, rb)
+    mods = (ip, ep, sp, bp, wl, cp, rb, pr)
     logs = nv.build_all([mod.SOURCE for mod in mods])   # all at once
     for mod in mods:
         mod.build()                       # bind the built libraries
@@ -1165,14 +1455,34 @@ def main():
                       ["shaded", "any"], render_fn=fog_render,
                       forbid=["shaded_any"])
     lc = cluster_v1_phase(scene3, cl, cam3, shadow3)
+    t0 = time.perf_counter()
+    case = r3_kernel.worklist_case(device, PROBE_SIDE, scene3)
+    phase("probe_list", seconds=time.perf_counter() - t0,
+          clusters=int(case[0]["tri"].shape[0]), lanes=int(case[1].shape[0]))
+    pc = compare_probes(device, case)
+    lp = probes_phase(device, case)
+    lib = library_phase(device)
 
-    def entry(kname, source, replaces, launches, r, **extra):
+    def entry(kname, source, replaces, launches, r, library_ms=None,
+              **extra):
         return {"name": kname, "route": "cuda",
                 "source": f"mitsuba_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None, **extra}
+                "bound_by": r["bound_by"], "library_ms": library_ms,
+                **extra}
+
+    def probe(kname, replaces, key, source="probes.cu", library_ms=None):
+        # a probe kernel's ms is its device time at the check's inputs,
+        # the host's share left out; event_ms the CUDA events'
+        r = pc[key]
+        return entry(kname, source, replaces, lp[kname],
+                     dict(r, ms=r["device_ms"]), library_ms, path="probes",
+                     event_ms=r["ms"], check_phase=f"kernel_vs_plain "
+                     f"{kname} ({r['stage']})")
+
+    cost = "scripts/exp_kernel_cost.py"
 
     # the stream fallback launches only where a lane overflows the XL caps
     stream_path = "config3" if l3["stream"] else "config3_v5"
@@ -1233,6 +1543,30 @@ def main():
               "mitsuba_tpu/ops/cluster_pallas.py:227", lc["cluster_any"],
               v1[("cluster_any", "shadow")], path="cluster_v1",
               check_phase="kernel_vs_plain cluster_any (shadow any)"),
+        # #13 and #15 run on no render path: their launches are the
+        # probes phase's, through the probe drivers
+        probe("wl_probe", "mitsuba_tpu/ops/worklist_pallas.py:424",
+              "wl_probe", source="worklist.cu"),
+        probe("count", f"{cost}:228", "count"),
+        probe("gate", f"{cost}:228", "gate"),
+        probe("rotate", f"{cost}:270", ("rotate", 32)),
+        probe("grid", "scripts/exp_r3_kernel.py:70", ("grid", True)),
+        probe("fma", f"{cost}:111", "fma"),
+        probe("mt", f"{cost}:188", "mt"),
+        probe("v0", "scripts/exp_r3_mt.py:63", "v0"),
+        probe("v1", "scripts/exp_r3_mt.py:63", "v1"),
+        probe("v2", "scripts/exp_r3_mt.py:63", "v2"),
+        probe("v4", "scripts/exp_r3_mt.py:63", "v4"),
+        probe("mm_cuda", f"{cost}:71", "mm_cuda",
+              library_ms=lib["matmul_fp32_4096x10_device"]),
+        probe("mm_tf32", f"{cost}:71", ("mm_tf32", 4096, 10),
+              library_ms=lib["matmul_tf32_4096x10_device"]),
+        probe("mm_bf16", f"{cost}:71", ("mm_bf16", 4096, 10),
+              library_ms=lib["matmul_bf16_4096x10_device"]),
+        probe("gather_smem", "scripts/exp_r5_megakernel.py:72",
+              "gather_smem", library_ms=lib["gather_32768_device"]),
+        probe("gather_global", "scripts/exp_r5_megakernel.py:72",
+              "gather_global", library_ms=lib["gather_32768_device"]),
     ]}), flush=True)
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,842 @@
+// Cost probes of the H100, in the forms the port's kernels take, for
+// NVIDIA Hopper (sm_90a).
+//
+// Replace the TPU cost probes of scripts/ (each a pallas_call):
+//   count_kernel       <- the launch floor behind every grid step
+//   gate_kernel        <- exp_kernel_cost.py:228 `run_empty`
+//   rotate_kernel      <- exp_kernel_cost.py:270 `run_dma_rotate`
+//   grid_kernel        <- exp_r3_kernel.py:70 `bench_grid_floor`
+//   fma_kernel         <- exp_kernel_cost.py:111 `run_vpu_fma`
+//   mt_kernel          <- exp_kernel_cost.py:188 `run_vpu_mt`
+//   v0, v1, packed_kernel <- exp_r3_mt.py:63 `run_variant` (V0-V4; v1 also
+//                         exp_r3_kernel.py:112 `bench_mt_ceiling`)
+//   mm_cuda_kernel     <- exp_kernel_cost.py:71 `run_mm`, CUDA cores
+//   mm_tf32/bf16_kernel<- the same on the tensor cores (mma.sync)
+//   gather_*_kernel    <- exp_r5_megakernel.py:72 `pallas_gather`
+// Wrapped by mitsuba_tpu_torch/ops/probes.py, whose `*_ref` functions are
+// the plain PyTorch versions each kernel is held against.
+//
+// The TPU ran each probe as a sequential grid on one core. Here a probe
+// is one 128-thread block (the form of the port's item walks #7, #9, #12
+// and #14: a thread per lane, a loop over items or steps) launched as one
+// block or as many (8,192, the blocks of a 1,048,576-lane wavefront) that
+// all do the same work, each writing its own copy of the result. What
+// each probe costs is what it measures: a floor (launch, item loop,
+// staging), an issue rate (FMA, Moeller-Trumbore, products) or a memory
+// path (gather).
+//
+// A step whose inputs do not change from step to step reads its operands
+// at an offset `step & zero`, where `zero` is 0 at every call: the
+// compiler cannot see that, so it cannot hoist the step's work out of the
+// loop. The results do not change.
+//
+// Rounding: --fmad=false and IEEE division, so every expression has its
+// plain version's operation order; a fused multiply-add is written as
+// __fmaf_rn, an approximate reciprocal as rcp.approx.ftz.f32. The
+// tensor-core products sum in the hardware's order: their plain versions
+// agree within a tolerance (ops/probes.py).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mt.cuh"
+
+#define LANES 128
+#define ROWS 8
+#define ROW_COLS 16
+#define BIG 3e38f
+#define DET_EPS 1e-12f
+#define MAX_K 128
+#define MAX_STAGE 8192        // floats of a staged block: 32 KB
+#define GRID_FLOATS (4 * LANES)
+#define N_COEF 10
+#define PACKED_NONE 0x7F800000
+#define QNAN_BITS 0x7FC00000
+
+static int launched(void) { return (int)cudaGetLastError(); }
+
+// ---------------------------------------------------------------------------
+// Floors
+// ---------------------------------------------------------------------------
+
+// the launch floor: a kernel that only counts its launches
+__global__ void count_kernel(int* count) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) count[0] += 1;
+}
+
+// the 8 row sums of an item's (rows, 16) block, each an ordered 16-term
+// sum; thread r < 8 keeps row r's running total
+__device__ __forceinline__ float row_sum(const float* row) {
+  float s = row[0];
+#pragma unroll
+  for (int c = 1; c < ROW_COLS; ++c) s = s + row[c];
+  return s;
+}
+
+__device__ __forceinline__ void write_rows(float acc, float* out) {
+  __shared__ float sums[ROWS];
+  const int l = threadIdx.x;
+  if (l < ROWS) sums[l] = acc;
+  __syncthreads();
+  float* o = out + (size_t)blockIdx.x * ROWS * LANES;
+  for (int r = 0; r < ROWS; ++r) o[r * LANES + l] = sums[r];
+}
+
+// run_empty: an item loop gated per item by flags[i]; an open gate adds the
+// row sums of block ids[i] of g (B, rows, 16), read from device memory
+__global__ void __launch_bounds__(LANES)
+gate_kernel(const float* __restrict__ g, int rows,
+            const int* __restrict__ ids, const int* __restrict__ flags,
+            int n, float* __restrict__ out) {
+  const int l = threadIdx.x;
+  float acc = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    if (flags[i] > 0 && l < ROWS)
+      acc = acc + row_sum(g + ((size_t)ids[i] * rows + l) * ROW_COLS);
+  }
+  write_rows(acc, out);
+}
+
+// run_dma_rotate: per item the whole block ids[i] of g (B, block_floats)
+// staged in shared memory by the block's 128 threads (#12's staging), then
+// the row sums of its first 8 rows
+__global__ void __launch_bounds__(LANES)
+rotate_kernel(const float* __restrict__ g, int block_floats,
+              const int* __restrict__ ids, int n, float* __restrict__ out) {
+  __shared__ float blk[MAX_STAGE];
+  const int l = threadIdx.x;
+  float acc = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const float* src = g + (size_t)ids[i] * block_floats;
+    for (int k = l; k < block_floats; k += LANES) blk[k] = src[k];
+    __syncthreads();
+    if (l < ROWS) acc = acc + row_sum(blk + l * ROW_COLS);
+    __syncthreads();                            // before the next staging
+  }
+  write_rows(acc, out);
+}
+
+// bench_grid_floor: per item lane l adds row 0 of a (4, 128) block: block
+// ids[i] staged in shared memory (fetch), or block 0 in place
+__global__ void __launch_bounds__(LANES)
+grid_kernel(const float* __restrict__ tri, const int* __restrict__ ids, int n,
+            int fetch, float* __restrict__ out) {
+  __shared__ float blk[GRID_FLOATS];
+  const int l = threadIdx.x;
+  float acc = 0.0f;
+  if (fetch) {
+    for (int i = 0; i < n; ++i) {
+      const float* src = tri + (size_t)ids[i] * GRID_FLOATS;
+      for (int k = l; k < GRID_FLOATS; k += LANES) blk[k] = src[k];
+      __syncthreads();
+      acc = acc + blk[l];
+      __syncthreads();
+    }
+  } else {
+    const float v = tri[l];
+    for (int i = 0; i < n; ++i) acc = acc + v;
+  }
+  float* o = out + (size_t)blockIdx.x * ROWS * LANES;
+  o[l] = acc;
+  for (int r = 1; r < ROWS; ++r) o[r * LANES + l] = 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// FMA rate
+// ---------------------------------------------------------------------------
+
+// run_vpu_fma: per step n_ops dependent x = fma(x, 0.999999, b) on an
+// (8, 128) block; thread l runs the 8 chains of lane l
+__global__ void __launch_bounds__(LANES)
+fma_kernel(const float* __restrict__ a, const float* __restrict__ b,
+           int n_ops, int steps, float* __restrict__ out) {
+  const int l = threadIdx.x;
+  float x[ROWS], bb[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    x[r] = a[r * LANES + l];
+    bb[r] = b[r * LANES + l];
+  }
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll 4
+    for (int k = 0; k < n_ops; ++k) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) x[r] = __fmaf_rn(x[r], 0.999999f, bb[r]);
+    }
+  }
+  float* o = out + (size_t)blockIdx.x * ROWS * LANES;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) o[r * LANES + l] = x[r];
+}
+
+// ---------------------------------------------------------------------------
+// Moeller-Trumbore
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void stage(float* blk, const float* src, int n) {
+  for (int k = threadIdx.x; k < n; k += LANES) blk[k] = src[k];
+  __syncthreads();
+}
+
+// run_vpu_mt: mt.cuh's test of a resident K-triangle cluster (sublane s
+// holds triangles j * 8 + s) against lane l's ray, per step the running
+// nearest t of each sublane (from 1e9, t > 1e-4) and its chunk; then the
+// minimum t over sublanes and over steps, and the maximum chunk
+__global__ void __launch_bounds__(LANES)
+mt_kernel(const float* __restrict__ tri, int K, const float* __restrict__ rays,
+          int steps, int zero, float* __restrict__ out_t,
+          int* __restrict__ out_p) {
+  __shared__ float blk[MAX_K * ROW_COLS];
+  const int l = threadIdx.x;
+  stage(blk, tri, K * ROW_COLS);
+  float o[3], d[3];
+  for (int j = 0; j < 3; ++j) {
+    o[j] = rays[j * LANES + l];
+    d[j] = rays[(3 + j) * LANES + l];
+  }
+  float to = 1e9f;
+  int po = -1;
+  for (int step = 0; step < steps; ++step) {
+    const float* bs = blk + (step & zero);
+    float tm = 0.0f;
+    int km = -1;
+    for (int s = 0; s < ROWS; ++s) {
+      float tr = 1e9f;
+      int kr = -1;
+      for (int j = 0; j < K / ROWS; ++j) {
+        float t, u, v;
+        if (mt_test(bs + (j * ROWS + s) * ROW_COLS, o, d, 1e-4f, tr, DET_EPS,
+                    t, u, v)) {
+          tr = t;
+          kr = j;
+        }
+      }
+      tm = s ? fminf(tm, tr) : tr;
+      km = max(km, kr);
+    }
+    to = fminf(to, tm);
+    po = max(po, km);
+  }
+  out_t[(size_t)blockIdx.x * LANES + l] = to;
+  out_p[(size_t)blockIdx.x * LANES + l] = po;
+}
+
+// The variants of exp_r3_mt.py. Each iteration moves lane l's ray by
+// acc * 1e-30 (rows 0-5 of the (8, 128) accumulator: the chain from one
+// iteration to the next) and adds its result to acc; `hits` counts the
+// triangles each (sublane, lane) accepted over all iterations.
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void load_lane(const float* rays, float r8[ROWS]) {
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) r8[r] = rays[r * LANES + threadIdx.x];
+}
+
+__device__ __forceinline__ void moved_ray(const float r8[ROWS],
+                                          const float acc[ROWS], float o[3],
+                                          float d[3]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    o[j] = r8[j] + acc[j] * 1e-30f;
+    d[j] = r8[3 + j] + acc[3 + j] * 1e-30f;
+  }
+}
+
+__device__ __forceinline__ void write_acc(const float acc[ROWS],
+                                          const int hits[ROWS],
+                                          float* out, int* out_hits) {
+  const size_t base = (size_t)blockIdx.x * ROWS * LANES + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    out[base + r * LANES] = acc[r];
+    if (out_hits) out_hits[base + r * LANES] = hits[r];
+  }
+}
+
+// V0, the FMA ceiling: 8 chains acc + k, each 4 times a = fma(a, b, b),
+// summed in order, times 1e-6
+__global__ void __launch_bounds__(LANES)
+v0_kernel(const float* __restrict__ rays, int reps, float* __restrict__ out) {
+  float b[ROWS], acc[ROWS];
+  load_lane(rays, b);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
+  for (int it = 0; it < reps; ++it) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float a[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = acc[r] + (float)k;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) a[k] = __fmaf_rn(a[k], b[r], b[r]);
+      }
+      float s = a[0];
+#pragma unroll
+      for (int k = 1; k < 8; ++k) s = s + a[k];
+      acc[r] = s * 1e-6f;
+    }
+  }
+  write_acc(acc, nullptr, out, nullptr);
+}
+
+// V1, mt.cuh's test in the TPU's _mt_chunks form (worklist_pallas.py:261,
+// mnb 0, cap 3e38): per sublane the even and odd chunks keep running
+// nearest hits, the odd one taken when strictly nearer; acc += t_run
+// (+ u_run)
+__device__ __forceinline__ void v1_take(const float* f, const float o[3],
+                                        const float d[3], float& tg,
+                                        float& ug, int& hits) {
+  float t, u, v;
+  const bool ok = mt_test(f, o, d, 0.0f, BIG, DET_EPS, t, u, v);
+  hits += ok;
+  if (ok && t < tg) {
+    tg = t;
+    ug = u;
+  }
+}
+
+__global__ void __launch_bounds__(LANES)
+v1_kernel(const float* __restrict__ tri, int K, const float* __restrict__ rays,
+          int reps, int add_u, float* __restrict__ out,
+          int* __restrict__ out_hits) {
+  __shared__ float blk[MAX_K * ROW_COLS];
+  stage(blk, tri, K * ROW_COLS);
+  float r8[ROWS], acc[ROWS];
+  int hits[ROWS];
+  load_lane(rays, r8);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    acc[r] = 0.0f;
+    hits[r] = 0;
+  }
+  for (int it = 0; it < reps; ++it) {
+    float o[3], d[3];
+    moved_ray(r8, acc, o, d);
+#pragma unroll
+    for (int s = 0; s < ROWS; ++s) {
+      float t0 = BIG, t1 = BIG, u0 = 0.0f, u1 = 0.0f;
+      for (int j = 0; j < K / ROWS; j += 2) {
+        v1_take(blk + (j * ROWS + s) * ROW_COLS, o, d, t0, u0, hits[s]);
+        v1_take(blk + ((j + 1) * ROWS + s) * ROW_COLS, o, d, t1, u1,
+                hits[s]);
+      }
+      const bool odd = t1 < t0;
+      acc[s] = acc[s] + (odd ? t1 : t0);
+      if (add_u) acc[s] = acc[s] + (odd ? u1 : u0);
+    }
+  }
+  write_acc(acc, hits, out, out_hits);
+}
+
+// the packed candidate (t_bits << 2) | chunk of an accepted triangle
+__device__ __forceinline__ int packed(bool ok, float t, int j) {
+  return ok ? (int)(((uint32_t)__float_as_int(t) << 2) | (uint32_t)j)
+            : PACKED_NONE;
+}
+
+// V2 (and V3, the same on this card): the approximate reciprocal of det,
+// no det test
+__device__ __forceinline__ int v2_cand(const float* f, const float o[3],
+                                       const float d[3], int j, int& hits) {
+  const float px = d[1] * f[8] - d[2] * f[7];
+  const float py = d[2] * f[6] - d[0] * f[8];
+  const float pz = d[0] * f[7] - d[1] * f[6];
+  const float det = f[3] * px + f[4] * py + f[5] * pz;
+  const float sx = o[0] - f[0];
+  const float sy = o[1] - f[1];
+  const float sz = o[2] - f[2];
+  const float qx = sy * f[5] - sz * f[4];
+  const float qy = sz * f[3] - sx * f[5];
+  const float qz = sx * f[4] - sy * f[3];
+  const float inv = rcp_approx(det);
+  const float u = (sx * px + sy * py + sz * pz) * inv;
+  const float v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv;
+  const float t = (f[6] * qx + f[7] * qy + f[8] * qz) * inv;
+  const bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+                  (t > 0.0f) && (t < BIG);
+  hits += ok;
+  return packed(ok, t, j);
+}
+
+// V4: the division-free accept (everything times the sign of det, the
+// bounds against |det|), the approximate reciprocal only to form t
+__device__ __forceinline__ int v4_cand(const float* f, const float o[3],
+                                       const float d[3], int j, int& hits) {
+  const float px = d[1] * f[8] - d[2] * f[7];
+  const float py = d[2] * f[6] - d[0] * f[8];
+  const float pz = d[0] * f[7] - d[1] * f[6];
+  const float det = f[3] * px + f[4] * py + f[5] * pz;
+  const float sx = o[0] - f[0];
+  const float sy = o[1] - f[1];
+  const float sz = o[2] - f[2];
+  const float qx = sy * f[5] - sz * f[4];
+  const float qy = sz * f[3] - sx * f[5];
+  const float qz = sx * f[4] - sy * f[3];
+  const float sd = det >= 0.0f ? 1.0f : -1.0f;
+  const float ad = det * sd;
+  const float us = (sx * px + sy * py + sz * pz) * sd;
+  const float vs = (d[0] * qx + d[1] * qy + d[2] * qz) * sd;
+  const float ts = (f[6] * qx + f[7] * qy + f[8] * qz) * sd;
+  const float t = ts * rcp_approx(ad);
+  const bool ok = (us >= 0.0f) && (vs >= 0.0f) && (us + vs <= ad) &&
+                  (t > 0.0f) && (t < BIG);
+  hits += ok;
+  return packed(ok, t, j);
+}
+
+// V2 and V4: per sublane the packed minimum of the even and of the odd
+// chunks, then of the two; acc += float(packed) * 1e-9
+template <bool DIVFREE>
+__global__ void __launch_bounds__(LANES)
+packed_kernel(const float* __restrict__ tri, int K,
+              const float* __restrict__ rays, int reps,
+              float* __restrict__ out, int* __restrict__ out_hits) {
+  __shared__ float blk[MAX_K * ROW_COLS];
+  stage(blk, tri, K * ROW_COLS);
+  float r8[ROWS], acc[ROWS];
+  int hits[ROWS];
+  load_lane(rays, r8);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    acc[r] = 0.0f;
+    hits[r] = 0;
+  }
+  for (int it = 0; it < reps; ++it) {
+    float o[3], d[3];
+    moved_ray(r8, acc, o, d);
+#pragma unroll
+    for (int s = 0; s < ROWS; ++s) {
+      int p0 = PACKED_NONE, p1 = PACKED_NONE;
+      for (int j = 0; j < K / ROWS; j += 2) {
+        const float* f0 = blk + (j * ROWS + s) * ROW_COLS;
+        const float* f1 = f0 + ROWS * ROW_COLS;
+        p0 = min(p0, DIVFREE ? v4_cand(f0, o, d, j, hits[s])
+                             : v2_cand(f0, o, d, j, hits[s]));
+        p1 = min(p1, DIVFREE ? v4_cand(f1, o, d, j + 1, hits[s])
+                             : v2_cand(f1, o, d, j + 1, hits[s]));
+      }
+      acc[s] = acc[s] + (float)min(p0, p1) * 1e-9f;
+    }
+  }
+  write_acc(acc, hits, out, out_hits);
+}
+
+// ---------------------------------------------------------------------------
+// Pluecker products: sum over steps of (G @ M)[0:8], G (m, K), M (K, 128)
+// ---------------------------------------------------------------------------
+
+// the ordered 10-term sum g . m of csrc/cluster.cu
+__device__ __forceinline__ float dot10(const float* g, const float m[N_COEF]) {
+  float s = g[0] * m[0];
+#pragma unroll
+  for (int j = 1; j < N_COEF; ++j) s = s + g[j] * m[j];
+  return s;
+}
+
+// on the float32 pipes, as #14 computes them: lane l holds column l of M
+// in registers and reads G's rows from shared memory as broadcasts. Rows
+// 0-7 add into the sum; the other rows' products feed a running maximum
+// (out_max), so that every product is computed and checked
+__global__ void __launch_bounds__(LANES)
+mm_cuda_kernel(const float* __restrict__ G, int m,
+               const float* __restrict__ M, int steps, int zero,
+               float* __restrict__ out_sum, float* __restrict__ out_max) {
+  extern __shared__ float sg[];
+  const int l = threadIdx.x;
+  stage(sg, G, m * N_COEF);
+  float mk[N_COEF];
+#pragma unroll
+  for (int k = 0; k < N_COEF; ++k) mk[k] = M[k * LANES + l];
+  float acc[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
+  float mx = -INFINITY;
+  for (int step = 0; step < steps; ++step) {
+    const float* gs = sg + (step & zero);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) acc[r] = acc[r] + dot10(gs + r * N_COEF, mk);
+    for (int r = ROWS; r < m; ++r) mx = fmaxf(mx, dot10(gs + r * N_COEF, mk));
+  }
+  float* o = out_sum + (size_t)blockIdx.x * ROWS * LANES;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) o[r * LANES + l] = acc[r];
+  out_max[(size_t)blockIdx.x * LANES + l] = mx;
+}
+
+// On the tensor cores, mma.sync with float32 accumulators, K padded to a
+// multiple of 16. Warp w computes columns 32w..32w+31 (four 8-column
+// tiles) of every 16-row tile: B's fragments stay in registers, A's are
+// read per step from device memory (cached). Fragment layouts: PTX ISA,
+// mma.m16n8k8 (.tf32) and mma.m16n8k16 (.bf16); the accumulator of a
+// (16 x 8) tile gives thread (group g, index q) rows g and g + 8 of
+// columns 2q and 2q + 1.
+
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the tile's accumulators into the step's sum (rows 0-7 of tile 0) and the
+// running maximum (every other row)
+__device__ __forceinline__ void fold(const float d[4], bool first_tile,
+                                     float acc[2], float mx[2]) {
+  if (first_tile) {
+    acc[0] = acc[0] + d[0];
+    acc[1] = acc[1] + d[1];
+  } else {
+    mx[0] = fmaxf(mx[0], d[0]);
+    mx[1] = fmaxf(mx[1], d[1]);
+  }
+  mx[0] = fmaxf(mx[0], d[2]);
+  mx[1] = fmaxf(mx[1], d[3]);
+}
+
+__device__ __forceinline__ void write_mm(float acc[4][2], float mx[4][2],
+                                         float* out_sum, float* out_max) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int col0 = (threadIdx.x >> 5) * 32;
+  float* o = out_sum + (size_t)blockIdx.x * ROWS * LANES;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = col0 + nt * 8 + 2 * q + c;
+      o[g * LANES + col] = acc[nt][c];
+      float v = mx[nt][c];
+      for (int sh = 4; sh < 32; sh <<= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, sh));
+      if (g == 0) out_max[(size_t)blockIdx.x * LANES + col] = v;
+    }
+  }
+}
+
+// TF32: G (m, KP) and M (KP, 128) float32 holding TF32 values (rounded by
+// the wrapper)
+template <int KP>
+__global__ void __launch_bounds__(LANES)
+mm_tf32_kernel(const float* __restrict__ G, int m,
+               const float* __restrict__ M, int steps, int zero,
+               float* __restrict__ out_sum, float* __restrict__ out_max) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int col0 = (threadIdx.x >> 5) * 32;
+  uint32_t b[KP / 8][4][2];
+#pragma unroll
+  for (int ks = 0; ks < KP / 8; ++ks) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = col0 + nt * 8 + g;
+      b[ks][nt][0] = __float_as_uint(M[(ks * 8 + q) * LANES + col]);
+      b[ks][nt][1] = __float_as_uint(M[(ks * 8 + q + 4) * LANES + col]);
+    }
+  }
+  float acc[4][2], mx[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    acc[nt][0] = acc[nt][1] = 0.0f;
+    mx[nt][0] = mx[nt][1] = -INFINITY;
+  }
+  for (int step = 0; step < steps; ++step) {
+    const float* gs = G + (step & zero);
+    for (int mt = 0; mt < m / 16; ++mt) {
+      float d[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) d[nt][0] = d[nt][1] = d[nt][2] =
+          d[nt][3] = 0.0f;
+      const float* r0 = gs + (size_t)(mt * 16 + g) * KP;
+      const float* r1 = r0 + 8 * KP;
+#pragma unroll
+      for (int ks = 0; ks < KP / 8; ++ks) {
+        const uint32_t a[4] = {__float_as_uint(__ldg(r0 + ks * 8 + q)),
+                               __float_as_uint(__ldg(r1 + ks * 8 + q)),
+                               __float_as_uint(__ldg(r0 + ks * 8 + q + 4)),
+                               __float_as_uint(__ldg(r1 + ks * 8 + q + 4))};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(d[nt], a, b[ks][nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) fold(d[nt], mt == 0, acc[nt], mx[nt]);
+    }
+  }
+  write_mm(acc, mx, out_sum, out_max);
+}
+
+// bf16: G (m, KP) and M (KP, 128) as bfloat16 bits
+template <int KP>
+__global__ void __launch_bounds__(LANES)
+mm_bf16_kernel(const uint16_t* __restrict__ G, int m,
+               const uint16_t* __restrict__ M, int steps, int zero,
+               float* __restrict__ out_sum, float* __restrict__ out_max) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int col0 = (threadIdx.x >> 5) * 32;
+  uint32_t b[KP / 16][4][2];
+#pragma unroll
+  for (int ks = 0; ks < KP / 16; ++ks) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = col0 + nt * 8 + g;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = ks * 16 + 2 * q + 8 * h;
+        b[ks][nt][h] = (uint32_t)M[k * LANES + col] |
+                       ((uint32_t)M[(k + 1) * LANES + col] << 16);
+      }
+    }
+  }
+  float acc[4][2], mx[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    acc[nt][0] = acc[nt][1] = 0.0f;
+    mx[nt][0] = mx[nt][1] = -INFINITY;
+  }
+  const uint32_t* G2 = reinterpret_cast<const uint32_t*>(G);
+  for (int step = 0; step < steps; ++step) {
+    const uint32_t* gs = G2 + (step & zero);
+    for (int mt = 0; mt < m / 16; ++mt) {
+      float d[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) d[nt][0] = d[nt][1] = d[nt][2] =
+          d[nt][3] = 0.0f;
+      const uint32_t* r0 = gs + (size_t)(mt * 16 + g) * (KP / 2);
+      const uint32_t* r1 = r0 + 8 * (KP / 2);
+#pragma unroll
+      for (int ks = 0; ks < KP / 16; ++ks) {
+        const uint32_t a[4] = {__ldg(r0 + ks * 8 + q), __ldg(r1 + ks * 8 + q),
+                               __ldg(r0 + ks * 8 + q + 4),
+                               __ldg(r1 + ks * 8 + q + 4)};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(d[nt], a, b[ks][nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) fold(d[nt], mt == 0, acc[nt], mx[nt]);
+    }
+  }
+  write_mm(acc, mx, out_sum, out_max);
+}
+
+// ---------------------------------------------------------------------------
+// Gathers: out[i] = table[idx[i]] (NaN for an index outside [0, K))
+// ---------------------------------------------------------------------------
+
+// the table staged once per block in shared memory (up to 227 KB), then a
+// grid-stride gather from it
+__global__ void gather_smem_kernel(const float* __restrict__ table, int K,
+                                   const int* __restrict__ idx, int n,
+                                   float* __restrict__ out) {
+  extern __shared__ float tab[];
+  for (int k = threadIdx.x; k < K; k += blockDim.x) tab[k] = table[k];
+  __syncthreads();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int j = idx[i];
+    out[i] = (unsigned)j < (unsigned)K ? tab[j] : __int_as_float(QNAN_BITS);
+  }
+}
+
+// a thread per index, reading the table from device memory (cached)
+__global__ void gather_global_kernel(const float* __restrict__ table, int K,
+                                     const int* __restrict__ idx, int n,
+                                     float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int j = idx[i];
+  out[i] = (unsigned)j < (unsigned)K ? __ldg(table + j)
+                                     : __int_as_float(QNAN_BITS);
+}
+
+// ---------------------------------------------------------------------------
+// C entry points: each launches its kernel on `stream` and returns the CUDA
+// error code of the launch (0 when accepted)
+// ---------------------------------------------------------------------------
+
+#define STREAM (cudaStream_t)stream
+
+extern "C" int mts_probe_count(int* count, int n_launches, int blocks,
+                               void* stream) {
+  for (int i = 0; i < n_launches; ++i) {
+    count_kernel<<<blocks, LANES, 0, STREAM>>>(count);
+    const int err = launched();
+    if (err) return err;
+  }
+  return 0;
+}
+
+extern "C" int mts_probe_gate(const float* g, int rows, const int* ids,
+                              const int* flags, int n, int blocks, float* out,
+                              void* stream) {
+  if (rows < ROWS) return (int)cudaErrorInvalidValue;
+  gate_kernel<<<blocks, LANES, 0, STREAM>>>(g, rows, ids, flags, n, out);
+  return launched();
+}
+
+extern "C" int mts_probe_rotate(const float* g, int block_floats,
+                                const int* ids, int n, int blocks, float* out,
+                                void* stream) {
+  if (block_floats < ROWS * ROW_COLS || block_floats > MAX_STAGE)
+    return (int)cudaErrorInvalidValue;
+  rotate_kernel<<<blocks, LANES, 0, STREAM>>>(g, block_floats, ids, n, out);
+  return launched();
+}
+
+extern "C" int mts_probe_grid(const float* tri, const int* ids, int n,
+                              int fetch, int blocks, float* out,
+                              void* stream) {
+  grid_kernel<<<blocks, LANES, 0, STREAM>>>(tri, ids, n, fetch, out);
+  return launched();
+}
+
+extern "C" int mts_probe_fma(const float* a, const float* b, int n_ops,
+                             int steps, int blocks, float* out, void* stream) {
+  fma_kernel<<<blocks, LANES, 0, STREAM>>>(a, b, n_ops, steps, out);
+  return launched();
+}
+
+static bool bad_k(int K) { return K <= 0 || K > MAX_K || K % ROWS; }
+
+// the variants take chunks in even / odd pairs; the packed forms keep the
+// chunk in 2 bits
+static bool bad_pair_k(int K) { return K <= 0 || K > 4 * ROWS || K % 16; }
+
+extern "C" int mts_probe_mt(const float* tri, int K, const float* rays,
+                            int steps, int zero, int blocks, float* out_t,
+                            int* out_p, void* stream) {
+  if (bad_k(K)) return (int)cudaErrorInvalidValue;
+  mt_kernel<<<blocks, LANES, 0, STREAM>>>(tri, K, rays, steps, zero, out_t,
+                                          out_p);
+  return launched();
+}
+
+extern "C" int mts_probe_v0(const float* rays, int reps, int blocks,
+                            float* out, void* stream) {
+  v0_kernel<<<blocks, LANES, 0, STREAM>>>(rays, reps, out);
+  return launched();
+}
+
+extern "C" int mts_probe_v1(const float* tri, int K, const float* rays,
+                            int reps, int add_u, int blocks, float* out,
+                            int* out_hits, void* stream) {
+  if (bad_pair_k(K)) return (int)cudaErrorInvalidValue;
+  v1_kernel<<<blocks, LANES, 0, STREAM>>>(tri, K, rays, reps, add_u, out,
+                                          out_hits);
+  return launched();
+}
+
+extern "C" int mts_probe_v2(const float* tri, int K, const float* rays,
+                            int reps, int blocks, float* out, int* out_hits,
+                            void* stream) {
+  if (bad_pair_k(K)) return (int)cudaErrorInvalidValue;
+  packed_kernel<false><<<blocks, LANES, 0, STREAM>>>(tri, K, rays, reps, out,
+                                                     out_hits);
+  return launched();
+}
+
+extern "C" int mts_probe_v4(const float* tri, int K, const float* rays,
+                            int reps, int blocks, float* out, int* out_hits,
+                            void* stream) {
+  if (bad_pair_k(K)) return (int)cudaErrorInvalidValue;
+  packed_kernel<true><<<blocks, LANES, 0, STREAM>>>(tri, K, rays, reps, out,
+                                                    out_hits);
+  return launched();
+}
+
+extern "C" int mts_probe_mm_cuda(const float* G, int m, const float* M,
+                                 int steps, int zero, int blocks,
+                                 float* out_sum, float* out_max,
+                                 void* stream) {
+  const int smem = m * N_COEF * (int)sizeof(float);
+  if (m < ROWS) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mm_cuda_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  mm_cuda_kernel<<<blocks, LANES, smem, STREAM>>>(G, m, M, steps, zero,
+                                                  out_sum, out_max);
+  return launched();
+}
+
+extern "C" int mts_probe_mm_tf32(const float* G, int m, int kp, const float* M,
+                                 int steps, int zero, int blocks,
+                                 float* out_sum, float* out_max,
+                                 void* stream) {
+  if (m < 16 || m % 16) return (int)cudaErrorInvalidValue;
+  if (kp == 16)
+    mm_tf32_kernel<16><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
+                                                     out_sum, out_max);
+  else if (kp == 128)
+    mm_tf32_kernel<128><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
+                                                      out_sum, out_max);
+  else
+    return (int)cudaErrorInvalidValue;
+  return launched();
+}
+
+extern "C" int mts_probe_mm_bf16(const uint16_t* G, int m, int kp,
+                                 const uint16_t* M, int steps, int zero,
+                                 int blocks, float* out_sum, float* out_max,
+                                 void* stream) {
+  if (m < 16 || m % 16) return (int)cudaErrorInvalidValue;
+  if (kp == 16)
+    mm_bf16_kernel<16><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
+                                                     out_sum, out_max);
+  else if (kp == 128)
+    mm_bf16_kernel<128><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
+                                                      out_sum, out_max);
+  else
+    return (int)cudaErrorInvalidValue;
+  return launched();
+}
+
+#define GATHER_THREADS 1024
+
+extern "C" int mts_probe_gather_smem(const float* table, int K, const int* idx,
+                                     int n, float* out, void* stream) {
+  const int smem = K * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      gather_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, gather_smem_kernel, GATHER_THREADS, smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const int need = (n + GATHER_THREADS - 1) / GATHER_THREADS;
+  const int blocks = need < sms * per_sm ? need : sms * per_sm;
+  if (blocks < 1) return 0;
+  gather_smem_kernel<<<blocks, GATHER_THREADS, smem, STREAM>>>(table, K, idx,
+                                                               n, out);
+  return launched();
+}
+
+extern "C" int mts_probe_gather_global(const float* table, int K,
+                                       const int* idx, int n, float* out,
+                                       void* stream) {
+  if (n <= 0) return 0;
+  gather_global_kernel<<<(n + 255) / 256, 256, 0, STREAM>>>(table, K, idx, n,
+                                                            out);
+  return launched();
+}

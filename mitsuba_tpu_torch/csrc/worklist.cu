@@ -1,11 +1,13 @@
 // Work-list cluster intersector, closest and any hit, flat and instanced,
-// for NVIDIA Hopper (sm_90a).
+// and its fixed-cost probe, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernels mitsuba_tpu/ops/worklist_pallas.py:364
-// `_make_closest_kernel` and :458 `_make_any_kernel` (entry `_call_chunk`
-// :548, pallas_call at :570, via `wl_closest` :594 and `wl_any` :619).
-// Wrapped by mitsuba_tpu_torch/ops/worklist.py, whose `wl_rows_ref` is the
-// plain PyTorch version this kernel must agree with lane for lane.
+// `_make_closest_kernel`, :458 `_make_any_kernel` and :424
+// `_make_probe_kernel` (entry `_call_chunk` :548, pallas_call at :570, via
+// `wl_closest` :594, `wl_any` :619 and `wl_probe` :448). Wrapped by
+// mitsuba_tpu_torch/ops/worklist.py, whose `wl_rows_ref` and
+// `wl_probe_ref` are the plain PyTorch versions these kernels must agree
+// with lane for lane.
 //
 // One thread block of 128 threads per 128-lane ray row, one thread per
 // lane. The TPU kernel runs one grid step per work item and keeps the
@@ -169,6 +171,63 @@ worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
     out_v[at] = vb;
     out_p[at] = pb;
   }
+}
+
+// The probe: the closest kernel's walk without Moeller-Trumbore, the
+// fixed cost of a work item. Per valid item it stages the item's (K, 16)
+// block in shared memory as worklist_kernel does (that fetch is what the
+// probe costs, so it is not elided: every lane reads the block's first
+// float), then the per-lane slab test of the block's AABB against
+// [mint, maxt] (maxt, not a best t); acc = (acc + pass) + tri[cid, 0, 0].
+// A row the list never reaches reads 0.
+__global__ void __launch_bounds__(LANES)
+worklist_probe_kernel(const int* __restrict__ items,
+                      const int* __restrict__ seg,
+                      const float* __restrict__ tri,
+                      const float* __restrict__ rays, int K,
+                      float* __restrict__ out) {
+  __shared__ float blk[MAX_K * FIELDS];
+  const int r = blockIdx.x;
+  const int l = threadIdx.x;
+  const float* ry = rays + (size_t)r * 8 * LANES;
+  float o[3], d[3];
+  for (int j = 0; j < 3; ++j) {
+    o[j] = ry[j * LANES + l];
+    d[j] = ry[(3 + j) * LANES + l];
+  }
+  const float mnb = ry[6 * LANES + l];
+  const float mx = ry[7 * LANES + l];
+  float acc = 0.0f;
+  const int w_end = seg[r + 1];
+  for (int w = seg[r]; w < w_end; ++w) {
+    const int item = items[w];
+    if (!(item & VALID_BIT)) continue;          // uniform across the block
+    const float* src = tri + (size_t)(item & (FIRST_BIT - 1)) * K * FIELDS;
+    for (int i = l; i < K * FIELDS; i += LANES) blk[i] = src[i];
+    __syncthreads();
+    float tn = mnb, tf = mx;
+    for (int j = 0; j < 3; ++j) {
+      const float inv =
+          (d[j] >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(d[j]), 1e-12f);
+      const float t0 = (blk[9 + j] - o[j]) * inv;
+      const float t1 = (blk[12 + j] - o[j]) * inv;
+      tn = fmaxf(tn, fminf(t0, t1));
+      tf = fminf(tf, fmaxf(t0, t1));
+    }
+    acc = (acc + (tn <= tf ? 1.0f : 0.0f)) + blk[0];
+    __syncthreads();                            // before the next staging
+  }
+  out[(size_t)r * LANES + l] = acc;
+}
+
+extern "C" int mts_worklist_probe(const int* items, const int* seg,
+                                  const float* tri, const float* rays, int R,
+                                  int K, float* out, void* stream) {
+  if (R <= 0) return 0;
+  if (K <= 0 || K > MAX_K || K % 8) return (int)cudaErrorInvalidValue;
+  worklist_probe_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
+      items, seg, tri, rays, K, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int mts_worklist(const int* items, const int* seg,

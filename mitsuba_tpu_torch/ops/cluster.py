@@ -80,9 +80,10 @@ def geometry_tables(geom):
     return build_cluster_tables(v0, e1, e2, ranges)
 
 
-def table_dict(ct, device="cpu"):
+def table_dict(ct, device="cuda"):
     """ClusterTables as the dict the queries take (cluster_pallas.py:321),
-    on `device`."""
+    on `device`: the card unless the caller passes another, as the scene
+    entry points do."""
     return {k: torch.as_tensor(np.ascontiguousarray(getattr(ct, k))).to(
         device) for k in ("G", "aabb", "tri_start", "sc_bmin", "sc_bmax")}
 

@@ -1,0 +1,666 @@
+"""Cost probes of the card: the CUDA kernels of csrc/probes.cu, their
+wrappers and their plain versions (port of the TPU cost probes of
+scripts/: exp_kernel_cost.py:71,111,188,228,270, exp_r3_kernel.py:70,112,
+exp_r3_mt.py:63 and exp_r5_megakernel.py:72).
+
+Each probe computes what its TPU script's kernel body computes, in the
+form the port's kernels take: a 128-thread block, a thread per lane,
+looping over items or steps (see the source's note). `blocks` launches that
+many blocks, each doing the same work and writing its own copy of the
+result: 1 for the per-block form, 8,192 for the whole card.
+
+* floors: `count` (a kernel that only counts its launches), `gate`
+  (run_empty: an item loop gated per item, adding the 8 row sums of a
+  block read in place), `rotate` (run_dma_rotate: the same with each
+  item's block staged in shared memory, #12's staging), `grid`
+  (bench_grid_floor: row 0 of a 2 KB block per item, staged or in place);
+* `fma` (run_vpu_fma): dependent fused multiply-adds;
+* `mt` (run_vpu_mt): csrc/mt.cuh's test of a resident cluster, the
+  running nearest t and chunk per sublane;
+* `v0`, `v1`, `v2`, `v4` (exp_r3_mt.py's variants; `v1` without u is
+  bench_mt_ceiling): the FMA ceiling, mt.cuh's test in the TPU's
+  `_mt_chunks` form, and the approximate-reciprocal forms with a packed
+  (t_bits << 2) | chunk minimum (V3's explicit broadcast has no
+  counterpart on the card, where registers are per thread: it is V2);
+* `mm_cuda`, `mm_tf32`, `mm_bf16` (run_mm): the sum over steps of
+  (G @ M)[0:8], on the float32 pipes as #14 forms its Plücker products,
+  and on the tensor cores with K padded to 16 (or 128); the products of
+  the other rows feed a running maximum, so that all are computed;
+* `gather_smem`, `gather_global` (pallas_gather): table[idx], from the
+  table staged in shared memory or from device memory.
+
+On CUDA tensors each wrapper launches its kernel (or raises); on CPU
+tensors it runs the plain version. The plain versions repeat the kernels'
+float32 operations in order, so most results are equal bit for bit; the
+exceptions, each with its tolerance in `TOLERANCE`: the tensor-core sums
+(the hardware's summation order) and the approximate reciprocals of V2
+and V4 (the plain versions divide exactly; V4's accepts do not depend on
+the reciprocal and stay exact).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mitsuba_tpu_torch.ops import build as nv
+from mitsuba_tpu_torch.ops.rows import BIG, LANES
+from mitsuba_tpu_torch.ops.stream import mt as mt_plain
+
+SOURCE = nv.source("probes.cu")
+ROWS = 8
+ROW_COLS = 16
+N_COEF = 10
+DET_EPS = 1e-12
+MAX_K = 128
+MAX_STAGE = 8192          # floats of a staged block (32 KB)
+GRID_FLOATS = 4 * LANES   # bench_grid_floor's (4, 128) block, 2 KB
+PACKED_NONE = 0x7F800000
+FMA_C = 0.999999          # run_vpu_fma's multiplier, as float32
+# the largest difference allowed between a kernel and its plain version,
+# relative to the largest magnitude of the plain result; 0 means bit for
+# bit. Tensor cores: each product exact, the float32 sums in the
+# hardware's order (K terms, ~K * 2^-23 of their magnitude); V2 and V4:
+# t from rcp.approx (relative error under 2^-22) against an exact
+# division, moving the packed minimum by a few units of its ~2^30.
+TOLERANCE = {"mm_tf32": 1e-4, "mm_bf16": 1e-4, "v2": 1e-5, "v4": 1e-5}
+# V2's accepts also move with the reciprocal (u, v and t near a bound):
+# the share of (sublane, lane) accept counts allowed to differ
+V2_HITS_DIFFER_MAX = 0.01
+
+
+def rel_err(got, ref) -> float:
+    """The largest |got - ref| over the values finite in both, relative to
+    the largest |ref| there (0 where nothing is finite)."""
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    if not bool(fin.any()):
+        return 0.0
+    scale = float(ref[fin].abs().max())
+    return float((got - ref)[fin].abs().max()) / max(scale, 1e-30)
+
+
+# kernel launches since import, per probe (reset by callers that count)
+LAUNCHES = {k: 0 for k in (
+    "count", "gate", "rotate", "grid", "fma", "mt", "v0", "v1", "v2", "v4",
+    "mm_cuda", "mm_tf32", "mm_bf16", "gather_smem", "gather_global")}
+_FN = {}
+
+
+def build() -> str:
+    """Compile (once per source hash) and bind the probes; returns the
+    compiler's output, empty when cached."""
+    log = nv.build_all([SOURCE])[SOURCE]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    sigs = {
+        "count": [p, i, i], "gate": [p, i, p, p, i, i, p],
+        "rotate": [p, i, p, i, i, p], "grid": [p, p, i, i, i, p],
+        "fma": [p, p, i, i, i, p], "mt": [p, i, p, i, i, i, p, p],
+        "v0": [p, i, i, p], "v1": [p, i, p, i, i, i, p, p],
+        "v2": [p, i, p, i, i, p, p], "v4": [p, i, p, i, i, p, p],
+        "mm_cuda": [p, i, p, i, i, i, p, p],
+        "mm_tf32": [p, i, i, p, i, i, i, p, p],
+        "mm_bf16": [p, i, i, p, i, i, i, p, p],
+        "gather_smem": [p, i, p, i, p], "gather_global": [p, i, p, i, p],
+    }
+    for name, args in sigs.items():
+        _FN[name] = nv.bind(SOURCE, f"mts_probe_{name}", args + [p])
+    return log
+
+
+def _on_card(*xs) -> bool:
+    """True for CUDA tensors, False for CPU ones (all on one device,
+    contiguous); raises on anything else."""
+    dev = xs[0].device
+    for x in xs:
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError("inputs must be contiguous, on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no probe kernels for {dev}")
+    return dev.type == "cuda"
+
+
+def _launch(name, device, *args):
+    if name not in _FN:
+        build()
+    with torch.cuda.device(device):
+        err = _FN[name](*args, torch.cuda.current_stream(device).cuda_stream)
+    nv.check(err, f"probe {name}")
+
+
+def _copies(x, blocks):
+    """The plain result as the kernel returns it: one copy per block."""
+    return x[None].expand(blocks, *x.shape).contiguous()
+
+
+def _ptr(x):
+    return x.data_ptr()
+
+
+def _need(x, dtype, shape, what):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# float32 arithmetic of the kernels, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def fma32(a, b, c):
+    """float32 a * b + c rounded once, as __fmaf_rn. The product is exact
+    in float64; the float64 sum s is rounded once more to float32, which
+    can differ from one rounding only where s falls halfway between two
+    floats: there the exact remainder e of the sum (TwoSum) decides."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    z = s - p
+    e = (p - (s - z)) + (cd - z)
+    f = s.float()
+    fd = f.double()
+    side = torch.where(s > fd, float("inf"), float("-inf")).float()
+    other = torch.nextafter(f, side)
+    tie = (s != fd) & (s - fd == other.double() - s)
+    beyond = (e != 0) & ((e > 0) == (other > f))
+    return torch.where(tie & beyond, other, f)
+
+
+def round_tf32(x):
+    """float32 -> the nearest TF32 value (10-bit mantissa, ties away from
+    zero: cvt.rna.tf32.f32), kept as float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _row_sums(blk):
+    """(..., rows, 16) -> (..., 8): each of the first 8 rows summed in
+    order."""
+    s = blk[..., 0:ROWS, 0]
+    for c in range(1, ROW_COLS):
+        s = s + blk[..., 0:ROWS, c]
+    return s
+
+
+def _sequential_sum(terms, start):
+    """start + terms[0] + terms[1] + ..., in that order."""
+    acc = start
+    for k in range(terms.shape[0]):
+        acc = acc + terms[k]
+    return acc
+
+
+def _f32(v, like):
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Floors
+# ---------------------------------------------------------------------------
+
+def count_ref(count, n_launches: int):
+    return count + n_launches
+
+
+def count(counter, n_launches: int, blocks: int = 1):
+    """n_launches back-to-back launches of a kernel of `blocks` blocks
+    that adds one to counter[0] (int32 (1,)); returns the counter."""
+    _need(counter, torch.int32, (1,), "counter")
+    if not _on_card(counter):
+        counter.copy_(count_ref(counter, n_launches))
+        return counter
+    _launch("count", counter.device, _ptr(counter), n_launches, blocks)
+    LAUNCHES["count"] += n_launches
+    return counter
+
+
+def gate_ref(g, ids, flags):
+    """run_empty's sum: over the items whose flag is set, in order, the 8
+    row sums of block ids[i] of g (B, rows, 16); (8, 128)."""
+    on = (flags > 0).nonzero()[:, 0]
+    acc = _sequential_sum(_row_sums(g[ids[on].long()]),
+                          torch.zeros(ROWS, dtype=torch.float32,
+                                      device=g.device))
+    return acc[:, None].expand(ROWS, LANES).contiguous()
+
+
+def gate(g, ids, flags, blocks: int = 1):
+    """The gated item loop; (blocks, 8, 128)."""
+    _need(ids, torch.int32, (ids.shape[0],), "ids")
+    _need(flags, torch.int32, ids.shape, "flags")
+    if g.dim() != 3 or g.shape[1] < ROWS or g.shape[2] != ROW_COLS:
+        raise ValueError(f"g must be (B, rows >= 8, 16), got {tuple(g.shape)}")
+    if not _on_card(g, ids, flags):
+        return _copies(gate_ref(g, ids, flags), blocks)
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=g.device)
+    _launch("gate", g.device, _ptr(g), g.shape[1], _ptr(ids), _ptr(flags),
+            ids.shape[0], blocks, _ptr(out))
+    LAUNCHES["gate"] += 1
+    return out
+
+
+def rotate_ref(g, ids):
+    """run_dma_rotate's sum: every item's 8 row sums; (8, 128)."""
+    return gate_ref(g, ids, torch.ones_like(ids))
+
+
+def rotate(g, ids, blocks: int = 1):
+    """The item loop staging each item's whole block (rows * 16 floats,
+    at most 32 KB) in shared memory; (blocks, 8, 128)."""
+    _need(ids, torch.int32, (ids.shape[0],), "ids")
+    if g.dim() != 3 or g.shape[2] != ROW_COLS or not (
+            ROWS <= g.shape[1] and g.shape[1] * ROW_COLS <= MAX_STAGE):
+        raise ValueError(f"g must be (B, 8..512, 16), got {tuple(g.shape)}")
+    if not _on_card(g, ids):
+        return _copies(rotate_ref(g, ids), blocks)
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=g.device)
+    _launch("rotate", g.device, _ptr(g), g.shape[1] * ROW_COLS, _ptr(ids),
+            ids.shape[0], blocks, _ptr(out))
+    LAUNCHES["rotate"] += 1
+    return out
+
+
+def grid_ref(tri, ids, fetch: bool):
+    """bench_grid_floor's sum: row 0 of block ids[i] of tri (B, 4, 128)
+    (of block 0 without fetch) over the items, in order; rows 1-7 zero;
+    (8, 128)."""
+    rows = tri[ids.long(), 0] if fetch else tri[0, 0][None].expand(
+        ids.shape[0], LANES)
+    out = torch.zeros((ROWS, LANES), dtype=torch.float32, device=tri.device)
+    out[0] = _sequential_sum(rows, out[0])
+    return out
+
+
+def grid(tri, ids, fetch: bool, blocks: int = 1):
+    """The near-empty item loop, with (fetch) or without a 2 KB block
+    staged per item; (blocks, 8, 128)."""
+    _need(ids, torch.int32, (ids.shape[0],), "ids")
+    _need(tri, torch.float32, (tri.shape[0], 4, LANES), "tri")
+    if not _on_card(tri, ids):
+        return _copies(grid_ref(tri, ids, fetch), blocks)
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=tri.device)
+    _launch("grid", tri.device, _ptr(tri), _ptr(ids), ids.shape[0],
+            int(fetch), blocks, _ptr(out))
+    LAUNCHES["grid"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FMA rate
+# ---------------------------------------------------------------------------
+
+def fma_ref(a, b, n_ops: int, steps: int):
+    """run_vpu_fma: steps * n_ops dependent x = fma(x, 0.999999, b) from
+    x = a; (8, 128)."""
+    c = _f32(FMA_C, a)
+    x = a
+    for _ in range(steps * n_ops):
+        x = fma32(x, c, b)
+    return x
+
+
+def fma(a, b, n_ops: int, steps: int, blocks: int = 1):
+    """The FMA chain; (blocks, 8, 128)."""
+    _need(a, torch.float32, (ROWS, LANES), "a")
+    _need(b, torch.float32, (ROWS, LANES), "b")
+    if not _on_card(a, b):
+        return _copies(fma_ref(a, b, n_ops, steps), blocks)
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=a.device)
+    _launch("fma", a.device, _ptr(a), _ptr(b), n_ops, steps, blocks,
+            _ptr(out))
+    LAUNCHES["fma"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Möller–Trumbore
+# ---------------------------------------------------------------------------
+
+def _ray(rays8):
+    """Lane rays of an (8, 128) block as mt_plain's (1, 1, 128) planes."""
+    return ([rays8[j][None, None] for j in range(3)],
+            [rays8[3 + j][None, None] for j in range(3)])
+
+
+def mt_ref(tri, rays, steps: int):
+    """run_vpu_mt: per step, per sublane s the running nearest t (from
+    1e9, t > 1e-4) and chunk j over triangles j * 8 + s of tri (K, 16);
+    then the minimum t over sublanes and steps, the maximum chunk.
+    Returns (t (128,) f32, chunk (128,) int32)."""
+    o, d = _ray(rays)
+    dev = rays.device
+    to = torch.full((LANES,), 1e9, dtype=torch.float32, device=dev)
+    po = torch.full((LANES,), -1, dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        t_run = torch.full((ROWS, LANES), 1e9, dtype=torch.float32,
+                           device=dev)
+        k_run = torch.full((ROWS, LANES), -1, dtype=torch.int32, device=dev)
+        for j in range(tri.shape[0] // ROWS):
+            t, _u, _v, ok = mt_plain(tri[None, j * ROWS:(j + 1) * ROWS], o,
+                                     d, 1e-4, t_run[None], DET_EPS)
+            t_run = torch.where(ok[0], t[0], t_run)
+            k_run = torch.where(ok[0], j, k_run)
+        to = torch.minimum(to, t_run.amin(dim=0))
+        po = torch.maximum(po, k_run.amax(dim=0))
+    return to, po
+
+
+def _check_cluster(tri, rays, pairs=False):
+    _need(rays, torch.float32, (ROWS, LANES), "rays")
+    k = tri.shape[0]
+    bad = k % 16 or k > 32 if pairs else k % ROWS or k > MAX_K
+    if tri.dtype != torch.float32 or tri.shape[1:] != (ROW_COLS,) or not k \
+            or bad:
+        raise ValueError(f"tri must be float32 (K, 16), K a multiple of "
+                         f"{16 if pairs else 8} up to {32 if pairs else 128}"
+                         f", got {tri.dtype} {tuple(tri.shape)}")
+
+
+def mt(tri, rays, steps: int, blocks: int = 1):
+    """The cluster test; (t (blocks, 128), chunk (blocks, 128))."""
+    _check_cluster(tri, rays)
+    if not _on_card(tri, rays):
+        return tuple(_copies(x, blocks) for x in mt_ref(tri, rays, steps))
+    t = torch.empty((blocks, LANES), dtype=torch.float32, device=tri.device)
+    p = torch.empty((blocks, LANES), dtype=torch.int32, device=tri.device)
+    _launch("mt", tri.device, _ptr(tri), tri.shape[0], _ptr(rays), steps, 0,
+            blocks, _ptr(t), _ptr(p))
+    LAUNCHES["mt"] += 1
+    return t, p
+
+
+def v0_ref(rays, reps: int):
+    """V0: per iteration 8 chains acc + k, each 4 times a = fma(a, b, b)
+    with b = rays, summed in order, times 1e-6; (8, 128)."""
+    acc = torch.zeros_like(rays)
+    for _ in range(reps):
+        a = [acc + float(k) for k in range(8)]
+        for _q in range(4):
+            a = [fma32(x, rays, rays) for x in a]
+        s = a[0]
+        for x in a[1:]:
+            s = s + x
+        acc = s * _f32(1e-6, rays)
+    return acc
+
+
+def _moved(rays, acc):
+    """The iteration's ray planes: rays + acc * 1e-30."""
+    return rays + acc * _f32(1e-30, rays)
+
+
+def v1_ref(tri, rays, reps: int, add_u: bool = True):
+    """V1: mt.cuh's test in `_mt_chunks` form (mnb 0, cap 3e38, even and
+    odd chunks apart, the odd run taken where strictly nearer); acc +=
+    t_run (+ u_run). Returns (acc (8, 128), accepts (8, 128) int32)."""
+    acc = torch.zeros_like(rays)
+    hits = torch.zeros(rays.shape, dtype=torch.int32, device=rays.device)
+    for _ in range(reps):
+        o, d = _ray(_moved(rays, acc))
+        runs = [[torch.full_like(rays, BIG), torch.zeros_like(rays)]
+                for _g in range(2)]
+        for j in range(tri.shape[0] // ROWS):
+            t, u, _v, ok = mt_plain(tri[None, j * ROWS:(j + 1) * ROWS], o,
+                                    d, 0.0, BIG, DET_EPS)
+            t, u, ok = t[0], u[0], ok[0]
+            hits = hits + ok.to(torch.int32)
+            run = runs[j & 1]
+            take = ok & (t < run[0])
+            run[0] = torch.where(take, t, run[0])
+            run[1] = torch.where(take, u, run[1])
+        odd = runs[1][0] < runs[0][0]
+        acc = acc + torch.where(odd, runs[1][0], runs[0][0])
+        if add_u:
+            acc = acc + torch.where(odd, runs[1][1], runs[0][1])
+    return acc, hits
+
+
+def _packed_terms(tri, o, d, j, divfree):
+    """The V2 (divfree False) or V4 candidate of chunk j: (packed (8, 128)
+    int32, accepted (8, 128) bool), with an exact division standing in
+    for the kernels' approximate reciprocal."""
+    f = [tri[j * ROWS:(j + 1) * ROWS, c:c + 1] for c in range(9)]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f
+    ox, oy, oz = (x[0, 0][None] for x in o)
+    dx, dy, dz = (x[0, 0][None] for x in d)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    if divfree:
+        sd = torch.where(det >= 0, 1.0, -1.0)
+        ad = det * sd
+        us = (tvx * pvx + tvy * pvy + tvz * pvz) * sd
+        vs = (dx * qvx + dy * qvy + dz * qvz) * sd
+        ts = (e2x * qvx + e2y * qvy + e2z * qvz) * sd
+        t = ts * (1.0 / ad)
+        ok = (us >= 0.0) & (vs >= 0.0) & (us + vs <= ad) & (t > 0.0) & (
+            t < BIG)
+    else:
+        inv = 1.0 / det
+        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+        v = (dx * qvx + dy * qvy + dz * qvz) * inv
+        t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+        ok = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & (t < BIG)
+    cand = (t.view(torch.int32) << 2) | j
+    return torch.where(ok, cand, PACKED_NONE), ok
+
+
+def packed_ref(tri, rays, reps: int, divfree: bool):
+    """V2 (divfree False; also V3) and V4: per sublane the packed minimum
+    (t_bits << 2) | chunk of the even and of the odd chunks, then of the
+    two; acc += float(packed) * 1e-9. Returns (acc, accepts)."""
+    acc = torch.zeros_like(rays)
+    hits = torch.zeros(rays.shape, dtype=torch.int32, device=rays.device)
+    for _ in range(reps):
+        o, d = _ray(_moved(rays, acc))
+        p = [torch.full(rays.shape, PACKED_NONE, dtype=torch.int32,
+                        device=rays.device) for _g in range(2)]
+        for j in range(tri.shape[0] // ROWS):
+            cand, ok = _packed_terms(tri, o, d, j, divfree)
+            hits = hits + ok.to(torch.int32)
+            p[j & 1] = torch.minimum(p[j & 1], cand)
+        acc = acc + torch.minimum(p[0], p[1]).float() * _f32(1e-9, rays)
+    return acc, hits
+
+
+def v0(rays, reps: int, blocks: int = 1):
+    """V0; (blocks, 8, 128)."""
+    _need(rays, torch.float32, (ROWS, LANES), "rays")
+    if not _on_card(rays):
+        return _copies(v0_ref(rays, reps), blocks)
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=rays.device)
+    _launch("v0", rays.device, _ptr(rays), reps, blocks, _ptr(out))
+    LAUNCHES["v0"] += 1
+    return out
+
+
+def _variant(name, tri, rays, reps, blocks, extra=()):
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=rays.device)
+    hits = torch.empty((blocks, ROWS, LANES), dtype=torch.int32,
+                       device=rays.device)
+    _launch(name, rays.device, _ptr(tri), tri.shape[0], _ptr(rays), reps,
+            *extra, blocks, _ptr(out), _ptr(hits))
+    LAUNCHES[name] += 1
+    return out, hits
+
+
+def v1(tri, rays, reps: int, add_u: bool = True, blocks: int = 1):
+    """V1 (add_u False: bench_mt_ceiling); (acc, accepts), each (blocks,
+    8, 128)."""
+    _check_cluster(tri, rays, pairs=True)
+    if not _on_card(tri, rays):
+        return tuple(_copies(x, blocks)
+                     for x in v1_ref(tri, rays, reps, add_u))
+    return _variant("v1", tri, rays, reps, blocks, (int(add_u),))
+
+
+def v2(tri, rays, reps: int, blocks: int = 1):
+    """V2 (and V3); (acc, accepts), each (blocks, 8, 128)."""
+    _check_cluster(tri, rays, pairs=True)
+    if not _on_card(tri, rays):
+        return tuple(_copies(x, blocks)
+                     for x in packed_ref(tri, rays, reps, False))
+    return _variant("v2", tri, rays, reps, blocks)
+
+
+def v4(tri, rays, reps: int, blocks: int = 1):
+    """V4; (acc, accepts), each (blocks, 8, 128)."""
+    _check_cluster(tri, rays, pairs=True)
+    if not _on_card(tri, rays):
+        return tuple(_copies(x, blocks)
+                     for x in packed_ref(tri, rays, reps, True))
+    return _variant("v4", tri, rays, reps, blocks)
+
+
+# ---------------------------------------------------------------------------
+# Plücker products: the sum over steps of (G @ M)[0:8]
+# ---------------------------------------------------------------------------
+
+def _fold(s, steps):
+    """Rows 0-7 of the step's product summed over steps in order, and the
+    maximum of the other rows (-inf if none)."""
+    acc = torch.zeros((ROWS, LANES), dtype=torch.float32, device=s.device)
+    for _ in range(steps):
+        acc = acc + s[0:ROWS]
+    rest = s[ROWS:]
+    mx = rest.amax(dim=0) if rest.shape[0] else torch.full(
+        (LANES,), float("-inf"), device=s.device)
+    return acc, mx
+
+
+def mm_cuda_ref(G, M, steps: int):
+    """The float32 products as #14 forms them, each an ordered 10-term
+    sum; returns (sum (8, 128), max of rows 8.. (128,))."""
+    s = G[:, 0:1] * M[0:1]
+    for k in range(1, N_COEF):
+        s = s + G[:, k:k + 1] * M[k:k + 1]
+    return _fold(s, steps)
+
+
+def _padded(G, M):
+    """G (m, K), M (K, 128) with K zero-padded to 16 (K <= 16) or kept
+    (K = 128): the depths the tensor-core kernels take."""
+    k = G.shape[1]
+    kp = 16 if k <= 16 else k
+    if kp not in (16, 128):
+        raise ValueError(f"depth {k}: the tensor-core probes take K <= 16 "
+                         f"or K = 128")
+    if kp == k:
+        return G.contiguous(), M.contiguous()
+    gp = torch.zeros((G.shape[0], kp), dtype=G.dtype, device=G.device)
+    mp = torch.zeros((kp, M.shape[1]), dtype=M.dtype, device=M.device)
+    gp[:, :k] = G
+    mp[:k] = M
+    return gp, mp
+
+
+def _tc_inputs(G, M, kind):
+    gp, mp = _padded(G, M)
+    if kind == "tf32":
+        return round_tf32(gp), round_tf32(mp)
+    return gp.to(torch.bfloat16), mp.to(torch.bfloat16)
+
+
+def mm_tc_ref(G, M, steps: int, kind: str):
+    """The tensor-core products in plain PyTorch: the inputs rounded as
+    the kernel takes them (TF32: to nearest, ties away; bf16: to nearest
+    even), the exact products summed in float64 and rounded once."""
+    gq, mq = _tc_inputs(G, M, kind)
+    s = (gq.double() @ mq.double()).float()
+    return _fold(s, steps)
+
+
+def _check_mm(G, M):
+    m, k = G.shape
+    if G.dtype != torch.float32 or M.dtype != torch.float32 or \
+            tuple(M.shape) != (k, LANES):
+        raise ValueError("G (m, K) and M (K, 128) float32")
+    return m, k
+
+
+def mm_cuda(G, M, steps: int, blocks: int = 1):
+    """The products on the float32 pipes; K = 10. (sum (blocks, 8, 128),
+    max (blocks, 128))."""
+    m, k = _check_mm(G, M)
+    if k != N_COEF or m < ROWS:
+        raise ValueError(f"mm_cuda takes G (m >= 8, 10), got {(m, k)}")
+    if not _on_card(G, M):
+        return tuple(_copies(x, blocks) for x in mm_cuda_ref(G, M, steps))
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=G.device)
+    mx = torch.empty((blocks, LANES), dtype=torch.float32, device=G.device)
+    _launch("mm_cuda", G.device, _ptr(G), m, _ptr(M), steps, 0, blocks,
+            _ptr(out), _ptr(mx))
+    LAUNCHES["mm_cuda"] += 1
+    return out, mx
+
+
+def mm_tc(G, M, steps: int, kind: str, blocks: int = 1):
+    """The products on the tensor cores, kind "tf32" or "bf16", float32
+    accumulators; m a multiple of 16. (sum (blocks, 8, 128), max (blocks,
+    128))."""
+    m, _k = _check_mm(G, M)
+    if m % 16:
+        raise ValueError(f"m = {m} is not a multiple of 16")
+    if kind not in ("tf32", "bf16"):
+        raise ValueError(f"unknown tensor-core kind {kind!r}")
+    if not _on_card(G, M):
+        return tuple(_copies(x, blocks) for x in mm_tc_ref(G, M, steps, kind))
+    gq, mq = _tc_inputs(G, M, kind)
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=G.device)
+    mx = torch.empty((blocks, LANES), dtype=torch.float32, device=G.device)
+    name = f"mm_{kind}"
+    _launch(name, G.device, _ptr(gq), m, gq.shape[1], _ptr(mq), steps, 0,
+            blocks, _ptr(out), _ptr(mx))
+    LAUNCHES[name] += 1
+    return out, mx
+
+
+# ---------------------------------------------------------------------------
+# Gathers
+# ---------------------------------------------------------------------------
+
+def gather_ref(table, idx):
+    """table[idx], NaN where an index lies outside the table."""
+    ok = (idx >= 0) & (idx < table.shape[0])
+    val = table[torch.where(ok, idx, 0).long()]
+    return torch.where(ok, val, float("nan"))
+
+
+def _gather(name, table, idx):
+    _need(table, torch.float32, (table.shape[0],), "table")
+    _need(idx, torch.int32, (idx.shape[0],), "idx")
+    if not _on_card(table, idx):
+        return gather_ref(table, idx)
+    out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    _launch(name, idx.device, _ptr(table), table.shape[0], _ptr(idx),
+            idx.shape[0], _ptr(out))
+    LAUNCHES[name] += 1
+    return out
+
+
+def gather_smem(table, idx):
+    """The gather from the table staged in shared memory (up to 56,832
+    floats)."""
+    if table.shape[0] * 4 > 227 * 1024:
+        raise ValueError(f"a {table.shape[0]}-entry table exceeds shared "
+                         f"memory")
+    return _gather("gather_smem", table, idx)
+
+
+def gather_global(table, idx):
+    """The gather from device memory."""
+    return _gather("gather_global", table, idx)

@@ -1,7 +1,8 @@
-"""Work-list cluster intersector: the beam-cull build, the CUDA kernel and
-its plain version (port of mitsuba_tpu/ops/worklist_pallas.py, TPU kernels
-`_make_closest_kernel` :364 and `_make_any_kernel` :458, entry
-`_call_chunk` :548 via `wl_closest` :594 and `wl_any` :619).
+"""Work-list cluster intersector: the beam-cull build, the CUDA kernels and
+their plain versions (port of mitsuba_tpu/ops/worklist_pallas.py, TPU
+kernels `_make_closest_kernel` :364, `_make_any_kernel` :458 and
+`_make_probe_kernel` :424, entry `_call_chunk` :548 via `wl_closest` :594,
+`wl_any` :619 and `wl_probe` :448).
 
 A query packs its rays into 128-lane rows (ops/rows.py) and, per chunk of
 rows, builds one flat work list of (row, cluster) items by a three-level
@@ -28,8 +29,15 @@ The chunking exists on the TPU to bound its scalar memory; the card has no
 such bound, but the chunk size fixes `w_cap` and so which rows overflow,
 so the port keeps it, with the reference's default beams, as constants.
 
-On CUDA tensors `wl_rows` launches `csrc/worklist.cu`; on CPU tensors it
-runs `wl_rows_ref`, the same walk in plain PyTorch.
+The probe (`wl_probe`, a cost probe, on no render path) walks the same
+lists without Möller–Trumbore: per valid item it fetches the cluster block
+and slab-tests each lane against [mint, maxt], and each lane accumulates
+(acc + pass) + tri[cid, 0, 0], so that the fixed cost of an item can be
+set against its full cost (mitsuba_tpu_torch/probes/r3_kernel.py).
+
+On CUDA tensors `wl_rows` and `wl_probe_rows` launch `csrc/worklist.cu`;
+on CPU tensors they run `wl_rows_ref` and `wl_probe_ref`, the same walks
+in plain PyTorch.
 
 One deliberate difference from the reference: rays enter with maxt
 clamped to 1e30. With maxt = inf the reference's closest kernel takes its
@@ -66,17 +74,22 @@ MAX_ROWS = 1 << (31 - _ROW_SHIFT)
 MAX_K = 128         # the kernel stages at most (128, 16) floats per item
 
 # kernel launches since import, per query (reset by callers that count)
-LAUNCHES = {"wl_closest": 0, "wl_any": 0}
+LAUNCHES = {"wl_closest": 0, "wl_any": 0, "wl_probe": 0}
 _FN = None
+_PROBE_FN = None
+# the reference's defaults for the probe (worklist_pallas.py:448-449, 63)
+PROBE_W_FACTOR = 16
+PROBE_L_SC = 24
 
 
 def build() -> str:
     """Compile (once per source hash) and bind the kernel; returns the
     compiler's output, empty when cached."""
-    global _FN
+    global _FN, _PROBE_FN
     log = nv.build_all([SOURCE])[SOURCE]
     p, i = ctypes.c_void_p, ctypes.c_int
     _FN = nv.bind(SOURCE, "mts_worklist", [p] * 7 + [i] * 3 + [p] * 6)
+    _PROBE_FN = nv.bind(SOURCE, "mts_worklist_probe", [p] * 4 + [i, i, p, p])
     return log
 
 
@@ -297,18 +310,46 @@ def wl_rows_ref(items, seg, tri, tri_start, rays, block_id, xform,
     return tb, ub, vb, pb
 
 
+def wl_probe_ref(items, seg, tri, rays):
+    """Plain version of the probe kernel: each row walks its slots
+    seg[r]:seg[r + 1] in order, and for each valid item every lane adds
+    its slab pass of the item's block box (row 0, columns 9:15) against
+    [mint, maxt], then the block's first float: acc = (acc + pass) +
+    tri[cid, 0, 0] (worklist_pallas.py:438-441). (R, 128) float32; a row
+    without a valid item reads 0."""
+    n_rows = rays.shape[0]
+    lo = seg[:-1].to(torch.int64)
+    n_items = seg[1:].to(torch.int64) - lo
+    acc = torch.zeros((n_rows, LANES), dtype=torch.float32,
+                      device=rays.device)
+    for i in range(int(n_items.max()) if n_rows else 0):
+        sel = n_items > i
+        item = torch.where(sel, items[torch.clamp(lo + i, max=items.shape[0]
+                                                  - 1)], 0)
+        rows = torch.nonzero(sel & ((item & _VALID_BIT) != 0))[:, 0]
+        if rows.numel() == 0:
+            continue
+        blk = tri[(item[rows] & (_FIRST_BIT - 1)).long()]
+        ry = rays[rows]
+        can = slab(blk[:, 0, 9:15], [ry[:, j] for j in range(3)],
+                   [ry[:, 3 + j] for j in range(3)], ry[:, 6], ry[:, 7])
+        acc[rows] = (acc[rows] + can.to(torch.float32)) + blk[:, 0, 0:1]
+    return acc
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _check(items, seg, tri, tri_start, rays, block_id, xform):
     r = rays.shape[0]
-    c = tri_start.shape[0]
     specs = [(items, torch.int32, (items.shape[0],)),
              (seg, torch.int32, (r + 1,)),
              (tri, torch.float32, (tri.shape[0], tri.shape[1], 16)),
-             (tri_start, torch.int32, (c,)),
              (rays, torch.float32, (r, 8, LANES))]
+    if tri_start is not None:                   # the probe takes none
+        c = tri_start.shape[0]
+        specs.append((tri_start, torch.int32, (c,)))
     if (block_id is None) != (xform is None):
         raise ValueError("block_id and xform come together")
     if block_id is not None:
@@ -361,29 +402,57 @@ def wl_rows(items, seg, tri, tri_start, rays, block_id, xform,
     return t, u, v, p
 
 
-def _call(wl, o, d, mint, maxt, any_hit):
-    """Pack, then per chunk of rows build the list and walk it
-    (worklist_pallas.py:525-588), with the module's W_FACTOR, L_SC and
-    BEAM_S2 as they stand at the call. Returns (kernel output per row, n,
-    overflow (R,))."""
+def wl_probe_rows(items, seg, tri, rays):
+    """The probe kernel on CUDA tensors, its plain version on CPU ones;
+    (R, 128) float32."""
+    _check(items, seg, tri, None, rays, None, None)
+    if rays.device.type == "cpu":
+        return wl_probe_ref(items, seg, tri, rays)
+    if rays.device.type != "cuda":
+        raise NotImplementedError(f"no work-list kernel for {rays.device}")
+    if _PROBE_FN is None:
+        build()
+    r = rays.shape[0]
+    with torch.cuda.device(rays.device):
+        out = torch.empty((r, LANES), dtype=torch.float32, device=rays.device)
+        err = _PROBE_FN(items.data_ptr(), seg.data_ptr(), tri.data_ptr(),
+                        rays.data_ptr(), r, tri.shape[1], out.data_ptr(),
+                        torch.cuda.current_stream(rays.device).cuda_stream)
+    nv.check(err, "worklist probe")
+    if r > 0:
+        LAUNCHES["wl_probe"] += 1
+    return out
+
+
+def _call(wl, o, d, mint, maxt, walk, beams=None):
+    """Pack, then per chunk of rows build the list and walk it with
+    walk(items, seg, rows) (worklist_pallas.py:525-588). beams: (w_factor,
+    l_sc, beam_s2), by default the module's W_FACTOR, L_SC and BEAM_S2 as
+    they stand at the call. Returns (the walks' outputs joined over the
+    chunks, n, overflow (R,))."""
+    w_factor, l_sc, beam_s2 = beams or (W_FACTOR, L_SC, BEAM_S2)
     rays, n, n_rows = pack_rays(o, d, mint, torch.clamp(maxt, max=1e30))
-    chunk_rows = max(1, min(n_rows, MAX_ITEMS_PER_CALL // max(W_FACTOR, 1),
+    chunk_rows = max(1, min(n_rows, MAX_ITEMS_PER_CALL // max(w_factor, 1),
                             MAX_ROWS))
     outs, ovfs = [], []
     for r0 in range(0, n_rows, chunk_rows):
         ry = rays[r0:r0 + chunk_rows]
         items, _total, ovf = build_worklist(
             ry, wl["bmin"], wl["bmax"], wl["sc_bmin"], wl["sc_bmax"],
-            ry.shape[0] * W_FACTOR, L_SC, BEAM_S2)
-        outs.append(wl_rows(items, row_segments(items, ry.shape[0]),
-                            wl["tri"], wl["tri_start"], ry,
-                            wl.get("block_id"), wl.get("xform"), any_hit))
+            ry.shape[0] * w_factor, l_sc, beam_s2)
+        outs.append(walk(items, row_segments(items, ry.shape[0]), ry))
         ovfs.append(ovf)
-    if any_hit:
-        out = torch.cat(outs)
-    else:
+    if isinstance(outs[0], tuple):
         out = tuple(torch.cat(x) for x in zip(*outs))
+    else:
+        out = torch.cat(outs)
     return out, n, torch.cat(ovfs)
+
+
+def _rows_walk(wl, any_hit):
+    return lambda items, seg, ry: wl_rows(
+        items, seg, wl["tri"], wl["tri_start"], ry, wl.get("block_id"),
+        wl.get("xform"), any_hit)
 
 
 def wl_closest(wl, o, d, mint, maxt):
@@ -391,7 +460,8 @@ def wl_closest(wl, o, d, mint, maxt):
     sc_bmin/sc_bmax (C_s, 3) [, block_id (C,), xform (C, 16)]. Returns
     (t, u, v, prim, valid, overflow (R,)); lanes of overflowing rows hold
     a partial result."""
-    (t, u, v, p), n, ovf = _call(wl, o, d, mint, maxt, False)
+    (t, u, v, p), n, ovf = _call(wl, o, d, mint, maxt,
+                                 _rows_walk(wl, False))
     t, u, v, p = (x.reshape(-1)[:n] for x in (t, u, v, p))
     valid = p >= 0
     return torch.where(valid, t, float("inf")), u, v, p, valid, ovf
@@ -400,5 +470,24 @@ def wl_closest(wl, o, d, mint, maxt):
 def wl_any(wl, o, d, mint, maxt):
     """Any hit: (occluded, overflow (R,)); an occluded lane is occluded
     in an overflowing row too."""
-    occ, n, ovf = _call(wl, o, d, mint, maxt, True)
+    occ, n, ovf = _call(wl, o, d, mint, maxt, _rows_walk(wl, True))
     return occ.reshape(-1)[:n], ovf
+
+
+def wl_probe(wl, o, d, mint, maxt, w_factor: int = PROBE_W_FACTOR,
+             l_sc: int = PROBE_L_SC, beam_s2: int = BEAM_S2):
+    """The fixed-cost probe (worklist_pallas.py:448), with the reference's
+    beams by default. wl: flat work-list tables (no instances, as the
+    reference's probe). Returns (acc (n,), overflow (R,)): per lane the
+    count of the row's valid items whose box its ray passes within
+    [mint, maxt], plus tri[cid, 0, 0] of each, in list order. A row the
+    list never reaches (its items did not fit) reads 0 here; the
+    reference leaves that row's output unwritten (its `_init` runs only
+    on a row's first item)."""
+    if wl.get("block_id") is not None:
+        raise ValueError("the probe takes flat work-list tables")
+    acc, n, ovf = _call(
+        wl, o, d, mint, maxt,
+        lambda items, seg, ry: wl_probe_rows(items, seg, wl["tri"], ry),
+        (w_factor, l_sc, beam_s2))
+    return acc.reshape(-1)[:n], ovf

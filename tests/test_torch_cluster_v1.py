@@ -65,7 +65,7 @@ def case():
     tct = tcl.build_cluster_tables(v0, e1, e2, ranges)
     return dict(v0=v0, e1=e1, e2=e2, ranges=ranges, jct=jct, tct=tct,
                 jcl={k: jnp.asarray(getattr(jct, k)) for k in FIELDS},
-                tcl=cp.table_dict(tct))
+                tcl=cp.table_dict(tct, device="cpu"))
 
 
 def _torch(*xs):

@@ -520,3 +520,160 @@ def test_instanced_render_on_the_card_goes_through_the_kernels(cuda):
     assert img.shape == ref.shape and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
         ref.mean())
+
+
+# ---------------------------------------------------------------------------
+# the work-list probe (#13) and the cost probes of csrc/probes.cu
+# ---------------------------------------------------------------------------
+
+def test_worklist_probe_kernel_matches_plain_version(cuda):
+    """#13 on 2,000 rays (16 rows, the first 4 dead) of a flat cluster
+    scene, through a list small enough that rows overflow; bit for bit,
+    one launch; the entry point once per row chunk."""
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.ops.rows import pack_rays
+    from mitsuba_tpu_torch.render.intersect import build_geometry
+    from mitsuba_tpu_torch.render.mesh import make_quad, make_sphere_mesh
+
+    wl.build()
+    geom = build_geometry(
+        [(make_sphere_mesh([0, 0.8, 0], 0.8, 24, 48), 0, -1),
+         (make_quad([-6, 0, -6], [-6, 0, 6], [6, 0, 6], [6, 0, -6]), 1, -1)],
+        backend="cluster")
+    tab = {k: v.to(cuda) for k, v in geom.wl_tables.items()}
+    lo, hi = geom.bvh_min[0].numpy(), geom.bvh_max[0].numpy()
+    o, d, mint, maxt = _scene_rays(2000, 8, lo, hi, lo - 2, hi + 2)
+    o[:512], d[:512], maxt[:512] = 100.0, torch.tensor([0.0, 0, 1]), -1.0
+    rays = pack_rays(o, d, mint, maxt)[0].to(cuda)
+    items, _total, ovf = wl.build_worklist(
+        rays, tab["bmin"], tab["bmax"], tab["sc_bmin"], tab["sc_bmax"],
+        rays.shape[0] * 8, 4, 2)
+    seg = wl.row_segments(items, rays.shape[0])
+    before = wl.LAUNCHES["wl_probe"]
+    got = wl.wl_probe_rows(items, seg, tab["tri"], rays)
+    assert wl.LAUNCHES["wl_probe"] == before + 1
+    ref = wl.wl_probe_ref(items, seg, tab["tri"], rays)
+    torch.cuda.synchronize()
+    assert bool(ovf.any()) and torch.equal(got, ref)
+    assert torch.unique(ref).numel() > 5
+    acc, ovf2 = wl.wl_probe(tab, *(x.to(cuda) for x in (o, d, mint, maxt)))
+    assert wl.LAUNCHES["wl_probe"] == before + 2
+    assert acc.shape == (2000,) and ovf2.shape == (16,)
+
+
+def _probe_inputs(cuda, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(x, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype), device=cuda)
+    return rng, t
+
+
+def test_probe_floors_match_plain_versions(cuda):
+    """The launch counter, the gated loop (gate on and off per item), the
+    rotating staging at 8 and 32 KB and the grid loop with and without
+    fetch, on 3 blocks: every block bit for bit with the plain version."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    pr.build()
+    rng, t = _probe_inputs(cuda)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = pr.LAUNCHES["count"]
+    pr.count(counter, 17, blocks=3)
+    assert int(counter) == 17 and pr.LAUNCHES["count"] == before + 17
+    n = 301
+    ids = t(rng.integers(0, 64, n), np.int32)
+    flags = t(rng.integers(0, 2, n), np.int32)
+    g = t(rng.standard_normal((64, 512, 16)))
+    assert torch.equal(pr.gate(g, ids, flags, blocks=3),
+                       pr.gate_ref(g, ids, flags).expand(3, 8, 128))
+    for kb in (8, 32):
+        g = t(rng.standard_normal((64, kb * 16, 16)))
+        assert torch.equal(pr.rotate(g, ids, blocks=3),
+                           pr.rotate_ref(g, ids).expand(3, 8, 128))
+    tri = t(rng.standard_normal((2048, 4, 128)))
+    gids = t(rng.integers(0, 2048, n), np.int32)
+    for fetch in (False, True):
+        assert torch.equal(pr.grid(tri, gids, fetch, blocks=3),
+                           pr.grid_ref(tri, gids, fetch).expand(3, 8, 128))
+
+
+def test_probe_fma_chains_match_plain_versions(cuda):
+    """The FMA chain and V0 are fused multiply-adds: held bit for bit
+    against fma32, which rounds each once."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, 1)
+    a = t(rng.random((8, 128)) * 0.1 + 0.9)
+    b = t(rng.random((8, 128)) * 1e-6)
+    assert torch.equal(pr.fma(a, b, 16, 3, blocks=2),
+                       pr.fma_ref(a, b, 16, 3).expand(2, 8, 128))
+    rays = t(rng.random((8, 128)))
+    assert torch.equal(pr.v0(rays, 3, blocks=2),
+                       pr.v0_ref(rays, 3).expand(2, 8, 128))
+
+
+def test_probe_mt_kernels_match_plain_versions(cuda):
+    """The cluster test (128 and 32 triangles) and V1 bit for bit; V4's
+    accepts bit for bit and its sums, like V2's, within TOLERANCE."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, 2)
+    rays = t(rng.random((8, 128)))
+    for k in (128, 32):
+        tri = t(rng.random((k, 16)))
+        got = pr.mt(tri, rays, 2, blocks=2)
+        ref = pr.mt_ref(tri, rays, 2)
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r.expand_as(a))
+        assert int((ref[1] >= 0).sum()) > 10
+    tri = t(rng.random((32, 16)))
+    for add_u in (True, False):
+        got = pr.v1(tri, rays, 2, add_u=add_u, blocks=2)
+        ref = pr.v1_ref(tri, rays, 2, add_u)
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r.expand_as(a))
+    acc, hits = pr.v4(tri, rays, 2, blocks=2)
+    acc_r, hits_r = pr.packed_ref(tri, rays, 2, True)
+    assert torch.equal(hits, hits_r.expand_as(hits)) and int(hits_r.sum())
+    assert pr.rel_err(acc[1], acc_r) <= pr.TOLERANCE["v4"]
+    acc, hits = pr.v2(tri, rays, 2, blocks=2)
+    acc_r, hits_r = pr.packed_ref(tri, rays, 2, False)
+    same = hits[0] == hits_r
+    assert float(same.float().mean()) >= 1 - pr.V2_HITS_DIFFER_MAX
+    assert pr.rel_err(acc[0][same], acc_r[same]) <= pr.TOLERANCE["v2"]
+
+
+@pytest.mark.parametrize("m,k", [(512, 10), (4096, 10), (512, 128)])
+def test_probe_products_match_plain_versions(cuda, m, k):
+    """The (m, k) x (k, 128) products: on the float32 pipes bit for bit
+    (k = 10), on the tensor cores within TOLERANCE."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, m + k)
+    G, M = t(rng.standard_normal((m, k))), t(rng.standard_normal((k, 128)))
+    if k == 10:
+        got = pr.mm_cuda(G, M, 3, blocks=2)
+        for a, r in zip(got, pr.mm_cuda_ref(G, M, 3)):
+            assert torch.equal(a, r.expand_as(a))
+    for kind in ("tf32", "bf16"):
+        got = pr.mm_tc(G, M, 3, kind, blocks=2)
+        for a, r in zip(got, pr.mm_tc_ref(G, M, 3, kind)):
+            assert pr.rel_err(a, r.expand_as(a)) <= pr.TOLERANCE[f"mm_{kind}"]
+
+
+@pytest.mark.parametrize("k", [512, 32768])
+def test_probe_gathers_match_plain_version(cuda, k):
+    """Both gathers equal table[idx]; an index outside the table reads
+    NaN."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, k)
+    table = t(rng.random(k))
+    idx = rng.integers(0, k, 100_003).astype(np.int32)
+    idx[:2] = (-1, k)
+    idx = t(idx, np.int32)
+    ref = pr.gather_ref(table, idx)
+    for fn in (pr.gather_smem, pr.gather_global):
+        got = fn(table, idx)
+        assert torch.equal(got[2:], ref[2:]) and bool(got[:2].isnan().all())

@@ -1,9 +1,11 @@
 """The port stands without JAX and without the JAX package: importing
-every module of mitsuba_tpu_torch (media/ and the volumetric path tracer
-among them) and rendering a brute and an instanced cluster scene (which
-builds BVHs with the port's own native builder) and the brute scene in a
-medium leaves `jax` and every `mitsuba_tpu` module out of sys.modules,
-and no source file of the port or chip_smoke.py imports the JAX package.
+every module of mitsuba_tpu_torch (media/, the volumetric path tracer,
+ops/probes.py and the probe drivers of probes/ among them) and rendering
+a brute and an instanced cluster scene (which builds BVHs with the port's
+own native builder) and the brute scene in a medium leaves `jax`, every
+`mitsuba_tpu` module and the reference's `scripts` out of sys.modules,
+and no source file of the port or chip_smoke.py imports the JAX package
+or the reference's scripts.
 
 This file's own process has jax loaded (tests/conftest.py imports it), so
 the checks run in fresh interpreters.
@@ -44,7 +46,11 @@ assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
 assert {"mitsuba_tpu_torch.media.medium", "mitsuba_tpu_torch.media.phase",
         "mitsuba_tpu_torch.integrators.volpath",
         "mitsuba_tpu_torch.integrators.direct",
-        "mitsuba_tpu_torch.ops.cluster"} <= set(names)
+        "mitsuba_tpu_torch.ops.cluster", "mitsuba_tpu_torch.ops.probes",
+        "mitsuba_tpu_torch.probes.kernel_cost",
+        "mitsuba_tpu_torch.probes.r3_kernel", "mitsuba_tpu_torch.probes.r3_mt",
+        "mitsuba_tpu_torch.probes.r3_refinebits",
+        "mitsuba_tpu_torch.probes.r5_megakernel"} <= set(names)
 # the exact cull's L1 walks and the v1 cluster intersector
 from mitsuba_tpu_torch.ops import cluster as cp
 from mitsuba_tpu_torch.ops import exact as ep
@@ -60,12 +66,13 @@ for walk in ep.WALKS:
                            geom.ex_caps[0], walk=walk)
     assert bool(hit[4].all()) and torch.allclose(hit[0], torch.tensor(2.0),
                                                  atol=0.02)
-hit = cp.cluster_closest(cp.table_dict(cp.geometry_tables(geom)), o, d,
-                         mint, maxt)
+hit = cp.cluster_closest(cp.table_dict(cp.geometry_tables(geom), "cpu"), o,
+                         d, mint, maxt)
 assert bool(hit[4].all()) and torch.allclose(hit[0], torch.tensor(2.0),
                                              atol=0.02)
 ref = sorted(m for m in sys.modules
-             if m == "mitsuba_tpu" or m.startswith("mitsuba_tpu."))
+             if m in ("mitsuba_tpu", "scripts")
+             or m.startswith(("mitsuba_tpu.", "scripts.")))
 print(len(names), "jax" in sys.modules,
       sorted(m for m in sys.modules if m.startswith("jax")) + ref)
 """
@@ -104,6 +111,8 @@ def test_no_source_of_the_port_imports_the_reference():
                       for m in _REF_IMPORT.finditer(src)]
         if re.search(r"^\s*(import|from)\s+jax\b", src, re.MULTILINE):
             offenders.append(f"{os.path.relpath(path, ROOT)}: jax")
+        if re.search(r"^\s*(import|from)\s+scripts\b", src, re.MULTILINE):
+            offenders.append(f"{os.path.relpath(path, ROOT)}: scripts")
     assert not offenders, offenders
     # the pattern itself catches the reference's imports, not the port's
     assert _REF_IMPORT.search("from mitsuba_tpu.render import mesh")
