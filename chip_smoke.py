@@ -27,7 +27,9 @@ Phases, each printing one JSON line:
   1. the card's name and power limit (as nvidia-smi reports them);
   2. the build of every native source (one compiler per source, all at
      once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
-     builder), with the compiler's ptxas lines;
+     builder), with the compiler's ptxas lines, and the resources of the
+     v6b walk (#9) and the stream walk (#10): rows resident per SM,
+     registers, shared memory;
   3. each kernel against its plain PyTorch version on the card, bit for
      bit (every field of every lane), at the shapes of its path, with the
      bound of the work these inputs need (the larger of the bytes they
@@ -36,7 +38,11 @@ Phases, each printing one JSON line:
      child-refine (S2, S3) and item kernels (#7 v5, #8 v6, #9 v6b) on the
      config-3 camera wavefront (coherent caps) and on a first diffuse
      bounce wavefront with its shadow rays (diffuse caps); the stream
-     kernel on the bounce and shadow rows; the v1 cluster kernel (#14) on
+     kernel on the bounce and shadow rows; #9 also at the XL caps on the
+     bounce rows, and #9 and #10 on the corner cases of
+     tests/torch_walk_cases.py (whole warps dead, escaping or
+     occluded early, a dead row, planted exact ties; #9 at list widths
+     32, 384 and 768); the v1 cluster kernel (#14) on
      the camera and bounce wavefronts and the shadow rays; the BVH kernel
      on the bvh path's camera, bounce and shadow wavefronts; the
      work-list kernel, instanced and flat (on the same spheres baked into
@@ -64,7 +70,10 @@ Phases, each printing one JSON line:
      timed renders with every launch count set to 0 just before and read
      just after, then one profiled render; on the instanced path one more
      render timing the parts of its overflow fallback. Fog counts as rays
-     the lanes passed to #2 and #3 (the JAX volpath counts none);
+     the lanes passed to #2 and #3 (the JAX volpath counts none). The
+     profile gives each of the port's kernels its device ms per render.
+     After config 3, one more render records each launch of #9 and #10:
+     its rows, live lanes and share of warps with no live lane;
   6. the v1 cluster entry points on config 3's camera and shadow
      wavefronts, with the launch counts set to 0 just before and read just
      after, held against the exact-cull path's hits;
@@ -82,6 +91,12 @@ Then a JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not
 0; without a CUDA device the script exits 2 before doing anything. It
 imports nothing of JAX.
+
+    python3 chip_smoke.py --parent FILE
+
+also reports, in each kernel_vs_plain line, the time that another run's
+output FILE gives the same kernel at the same stage (`parent_ms`): run a `git archive` of the parent
+commit first, in the same call, and pass its output.
 """
 from __future__ import annotations
 
@@ -155,6 +170,24 @@ PEAK_TC_OPS = {"tf32": 495e12, "bf16": 989e12}
 
 
 _T0 = time.perf_counter()
+# {(kernel, stage): ms} of another tree's kernel_vs_plain lines
+# (--parent FILE), reported beside this tree's as parent_ms
+PARENT_MS = {}
+# each render phase's torch.profiler summary, by phase tag
+PROFILES = {}
+
+
+def read_parent(path):
+    """The kernel_vs_plain times of another run's output file."""
+    with open(path) as f:
+        for ln in f:
+            try:
+                rec = json.loads(ln)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and rec.get("phase") == \
+                    "kernel_vs_plain":
+                PARENT_MS[(rec["kernel"], rec["stage"])] = rec["ms"]
 
 
 def phase(tag, **kv):
@@ -460,6 +493,7 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     res = dict(kernel=name, stage=stage, rows=rows, rows_of=n_rows,
                unit=unit, values=_fields(ref)[0][1].numel(),
                mismatches=mism, max_abs_err=max_err, ms=ms,
+               parent_ms=PARENT_MS.get((name, stage)),
                plain_ms=plain_ms, work=work,
                **bound(part, ref, ops_of(part, work),
                        tables(part, work) if tables else None),
@@ -569,6 +603,17 @@ def compare_cluster_kernels(scene):
                        _items_ops, counted=True, tables=_k8_tables)
         out[("items", wave, "closest")] = r
         out.update(compare_l1_walks(ex, rays, caps, wave, False))
+        if wave == "bounce":
+            # #9 at the XL caps (E2 = 768, the re-run's list width)
+            l1_ids, l1_keys, ovf = ep.build_exact_l1(rays, ex, _xl)
+            blm = ep.step_width(_xl[2], ep.V6B_BLM)
+            out[("l1_masked", wave, "closest xl")] = check_pair(
+                "l1_masked", "bounce closest XL", ep.l1_masked,
+                ep.l1_masked_ref,
+                (ex["tri"], rays, l1_ids, l1_keys, False, blm), (1, 2, 3),
+                _items_ops, counted=True, tables=_k8_tables, blm=blm,
+                cut=PLAIN_CUT_ROWS, overflow_rows=int(ovf.sum()),
+                e2=_xl[2])
     rays = query_rows(geom, shadow)
     _calls, ids, blk_tn = record_build(rays, ex, dif)
     out[("items", "shadow", "any")] = check_pair(
@@ -587,6 +632,31 @@ def compare_cluster_kernels(scene):
             (rays, lids, ltns, st["sc_tri"], any_hit), (0, 1, 2), _walk_ops,
             counted=True, cut=PLAIN_CUT_ROWS)
     return out
+
+
+def compare_walk_cases(device):
+    """#9 at list widths 32, 384 and 768 and #10 at K = 32 on
+    tests/torch_walk_cases.py's rows (whole warps dead, escaping or occluded
+    early, a dead row, planted exact ties), closest and any."""
+    from mitsuba_tpu_torch.ops import exact as ep
+    from mitsuba_tpu_torch.ops import stream as sp
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_walk_cases as wc
+
+    for any_hit in (False, True):
+        kind = "any" if any_hit else "closest"
+        for e2 in (32, 384, 768):
+            blm = ep.step_width(e2, ep.V6B_BLM)
+            check_pair(
+                "l1_masked", f"cases E2 {e2} {kind}", ep.l1_masked,
+                ep.l1_masked_ref,
+                wc.v6b_case(e2, any_hit, device=device) + (any_hit, blm),
+                (1, 2, 3), _items_ops, counted=True, tables=_k8_tables,
+                blm=blm, e2=e2)
+        check_pair(
+            "stream", f"cases {kind}", sp.stream_rows, sp.stream_rows_ref,
+            wc.stream_case(any_hit, device=device) + (any_hit,), (0, 1, 2),
+            _walk_ops, counted=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1185,9 +1255,25 @@ def device_profile(fn):
             rows.append((dev_us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    # the port's own kernels (csrc/*.cu, in no namespace), by function
+    # name: their device ms and launches in this call, and a templated
+    # kernel's by instantiation (#9, #10: <false> closest, <true> any)
+    own = {}
+    for ms, k, c in rows:
+        name = k.replace("void ", "").split("(")[0].strip()
+        base = name.split("<")[0].strip()
+        if base.endswith("_kernel") and "::" not in base:
+            acc = own.setdefault(base, dict(ms=0.0, calls=0))
+            acc["ms"] += ms
+            acc["calls"] += c
+            if name != base:
+                inst = acc.setdefault("instances", {}).setdefault(
+                    name[len(base):], dict(ms=0.0, calls=0))
+                inst["ms"] += ms
+                inst["calls"] += c
     return dict(wall_ms=wall, device_busy_ms=busy,
                 busy_share=busy / wall if wall else 0.0,
-                kernels=sum(r[2] for r in rows),
+                kernels=sum(r[2] for r in rows), own=own,
                 top=[dict(name=k[:80], ms=ms, calls=c)
                      for ms, k, c in rows[:12]])
 
@@ -1283,6 +1369,7 @@ def render_phase(tag, scene, cfg, need, render_fn=None, forbid=()):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = device_profile(lambda: render_fn(scene, cfg, seed=0))
+    PROFILES[tag] = prof
     if scene.geom.has_instances:
         # the fallback of overflowing rows: the BVH kernel on the static
         # triangles plus the exact instance walks (the same kernel on each
@@ -1313,6 +1400,41 @@ def render_phase(tag, scene, cfg, need, render_fn=None, forbid=()):
     return launches
 
 
+def _liveness(kernel, rays, any_hit, **kv):
+    """Rows, live lanes (mint <= maxt) and the share of 32-lane warps
+    with no live lane of one walk launch."""
+    live = rays[:, 6] <= rays[:, 7]
+    warps = live.reshape(rays.shape[0], -1, 32).any(dim=2)
+    return dict(kernel=kernel, any_hit=bool(any_hit), rows=rays.shape[0],
+                live_lanes=int(live.sum()),
+                dead_warp_share=1.0 - float(warps.float().mean()), **kv)
+
+
+def walk_liveness(tag, scene, cfg):
+    """One render, recording each launch of #9 and #10: its rows, live
+    lanes and the share of warps with no live lane."""
+    from mitsuba_tpu_torch.integrators.path import render
+    from mitsuba_tpu_torch.ops import exact as ep
+    from mitsuba_tpu_torch.ops import stream as sp
+
+    calls = {"l1_masked": [], "stream_rows": []}
+
+    def recorder(name, orig):
+        def call(*args):
+            calls[name].append(args)
+            return orig(*args)
+        return call
+
+    with wrapped(ep, ("l1_masked",), recorder), \
+            wrapped(sp, ("stream_rows",), recorder):
+        render(scene, cfg, seed=0)
+    launches = [_liveness("l1_masked", a[1], a[4], e2=a[2].shape[1])
+                for a in calls["l1_masked"]]
+    launches += [_liveness("stream", a[0], a[4], list_width=a[1].shape[1])
+                 for a in calls["stream_rows"]]
+    phase("walk_liveness", path=tag, launches=launches)
+
+
 def fog_render(scene, cfg, seed=0):
     from mitsuba_tpu_torch.integrators.volpath import render_volpath
     from mitsuba_tpu_torch.media import make_homogeneous
@@ -1320,10 +1442,21 @@ def fog_render(scene, cfg, seed=0):
     return render_volpath(scene, make_homogeneous(**FOG), cfg, seed=seed)
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one NVIDIA GPU.")
+    ap.add_argument("--parent", metavar="FILE",
+                    help="the output of another tree's run (e.g. the "
+                    "parent commit's): its kernel_vs_plain times join "
+                    "this run's lines as parent_ms")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.parent:
+        read_parent(args.parent)
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from mitsuba_tpu_torch.integrators.path import PathConfig
@@ -1358,8 +1491,17 @@ def main():
         mod.build()                       # bind the built libraries
     phase("build", seconds=time.perf_counter() - t0,
           ptxas={os.path.basename(src): [
-              ln.strip() for ln in log.splitlines() if "ptxas" in ln]
+              ln.strip() for ln in log.splitlines()
+              if "ptxas" in ln or "stack frame" in ln]
               for src, log in logs.items()})
+    # the redesigned walks' resources: rows resident per SM, registers,
+    # shared memory per row (config 3's list widths; K = 32)
+    phase("walk_resources",
+          l1_masked={f"E2 {e2} {'any' if a else 'closest'}":
+                     ep.l1_masked_info(e2, ep.V6B_BLM, a)
+                     for e2 in (32, 384, 768) for a in (False, True)},
+          stream={"any" if a else "closest": sp.stream_info(32, a)
+                  for a in (False, True)})
 
     t0 = time.perf_counter()
     scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
@@ -1393,6 +1535,7 @@ def main():
     split = compare_split_kernels(cornell_box(W1, H1, device=device),
                                   fog_cfg)
     cluster = compare_cluster_kernels(scene3)
+    compare_walk_cases(device)
     cam3, bounce3, shadow3 = wavefronts(scene3)
     v1 = compare_cluster_v1(cl, (("camera", cam3, False),
                                  ("bounce", bounce3, False),
@@ -1443,6 +1586,7 @@ def main():
     l3 = render_phase("config3", scene3, cfg,
                       ["refine", "child_refine", "l1_masked"],
                       forbid=["items", "l1_items"])
+    walk_liveness("config3", scene3, cfg)
     l3v5 = render_phase("config3_v5", scene3_v5, cfg,
                         ["refine", "child_refine", "items"],
                         forbid=["l1_masked", "l1_items"])
@@ -1484,6 +1628,10 @@ def main():
 
     cost = "scripts/exp_kernel_cost.py"
 
+    def own_ms(tag, kname):
+        # device ms of one render of phase `tag` in kernel kname
+        return PROFILES[tag]["own"].get(kname, {}).get("ms")
+
     # the stream fallback launches only where a lane overflows the XL caps
     stream_path = "config3" if l3["stream"] else "config3_v5"
     print(json.dumps({"kernels": [
@@ -1505,11 +1653,13 @@ def main():
               path="config3_v6",
               check_phase="kernel_vs_plain l1_items (bounce closest)"),
         entry("l1_masked", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:814",
-              l3["l1_masked"], cluster[("l1_masked", "bounce", "closest")]),
+              l3["l1_masked"], cluster[("l1_masked", "bounce", "closest")],
+              device_ms_per_render=own_ms("config3", "l1_masked_kernel")),
         entry("stream", "stream.cu",
               "mitsuba_tpu/ops/stream_pallas.py:176",
               (l3 if stream_path == "config3" else l3v5)["stream"],
-              cluster[("stream", "bounce", False)], path=stream_path),
+              cluster[("stream", "bounce", False)], path=stream_path,
+              device_ms_per_render=own_ms(stream_path, "stream_kernel")),
         entry("bvh_closest", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:169",
               lb["bvh_closest"], bvh[("bvh_closest", "bounce")]),
         entry("bvh_any", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:196",

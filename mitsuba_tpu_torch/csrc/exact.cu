@@ -45,20 +45,37 @@
 // each child some lane admits (a second __syncthreads_or), merging child
 // by child (lowest sublane among the child's nearest hits, then strict <
 // against the lane's best; any-hit caps each child at mint once
-// occluded). v6b takes steps of blm L1s with one skip on the step's
-// first key and tests all blm * 64 triangles of the step, dead slots
-// (L1 id 0) included, in chunks of 128 staged in shared memory, capped by
-// the bound of the step's start; it keeps #7's running winner per sublane
-// across the whole step, then the lowest sublane, then strict < against
-// the lane's best (exact_pallas.py:877-901). Bound: the MT work, ~40
-// flops per (triangle, lane), of v6b's L1-granular tests; v6 trades a box
-// test per child and lane and a block-wide vote for skipping children.
+// occluded). v6 trades a box test per child and lane and a block-wide
+// vote for skipping children.
+//
+// v6b takes steps of blm L1s with one skip on the step's first key and
+// tests all blm * 64 triangles of the step, dead slots (L1 id 0)
+// included, capped by the bound of the step's start; it keeps #7's
+// running winner per sublane across the whole step, then the lowest
+// sublane, then strict < against the lane's best (exact_pallas.py:
+// 877-901). What bounds it on this card: the Moeller-Trumbore work, 53
+// float32 operations and an IEEE division per (triangle, lane); a row
+// per 4-warp block with two barriers and ten scalar shared loads per
+// test reached a third of `mt_test`'s measured card ceiling. The design:
+// one 128-thread block per row, 48-51 registers and 16-20 KB of shared
+// memory, so 9-10 rows stay resident per SM; the row's L1 ids and step
+// keys are staged once; a step's triangles come in chunks of 128 by
+// cp.async into two buffers, the next chunk loading while this one is
+// tested, behind one barrier a chunk; a triangle is its 64-byte record,
+// read as three 16-byte loads; a thread runs two tests at a time and
+// merges them in order. A warp none of whose lanes has mint < the step's
+// cap skips the step's tests, and an any-hit warp stops, at a cluster's
+// start, once each of its lanes has hit or cannot: no test of such a lane
+// can pass its cap, so no record changes. Exact: every other lane meets
+// the step's triangles in the plain version's order under the same cap,
+// and each step is skipped or tested on the same block-wide vote.
 //
 // Rounding: compiled with --fmad=false and IEEE division; every
 // expression keeps the plain version's operation order.
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "mt.cuh"
 
 #define LANES 128
@@ -340,62 +357,126 @@ l1_items_kernel(const float* __restrict__ rays, const int* __restrict__ l1_ids,
   store_hit(best, occ, any_hit, out_t, out_u, out_v, out_p, out_occ);
 }
 
-__global__ void __launch_bounds__(LANES)
+// ---------------------------------------------------------------------------
+// v6b (#9): steps of blm L1 blocks, staged in chunks of V6B_CHUNK triangles
+// ---------------------------------------------------------------------------
+
+#define V6B_CHUNK 128
+#define V6B_ROWS_PER_SM 8         // resident rows the register budget allows
+
+// one staged triangle: its 16-float record of `tri` (v0 | e1 | e2 in
+// fields 0-8, the prim's bits in field 15), read as float4s
+struct __align__(16) Rec {
+  float4 q[4];
+};
+
+// this thread's share of chunk c of a step: triangle m = (L1 m / 64,
+// cluster and sublane m % 64), one 64-byte record by four 16-byte copies
+__device__ __forceinline__ void stage_chunk(const float* tri, const int* ids,
+                                            int c, int n_tri, Rec* dst) {
+  const int m = c * V6B_CHUNK + threadIdx.x;
+  if (m < n_tri) {
+    const float* src = tri + ((size_t)ids[m >> 6] * 64 + (m & 63)) * LANES;
+    for (int i = 0; i < 4; ++i) cp_async16(&dst[threadIdx.x].q[i], src + 4 * i);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ bool mt_rec(const Rec& r, const Row& ry,
+                                       float cap, float& t, float& u,
+                                       float& v) {
+  return mt_test4(r.q[0], r.q[1], r.q[2], ry.o, ry.d, ry.mn, cap, DET_EPS, t,
+                  u, v);
+}
+
+// closest: take hit (t, u, v) of sublane s at the next position of the
+// step if it is the lexicographic (t, sublane, position) minimum so far
+__device__ __forceinline__ void take(bool ok, float t, float u, float v,
+                                     int s, const Rec& r, Best& h, int& hs) {
+  if (ok && (t < h.t || (t == h.t && s < hs))) {
+    h = {t, u, v, __float_as_int(r.q[3].w)};
+    hs = s;
+  }
+}
+
+// dynamic shared memory of the v6b walk: two chunk buffers, the row's L1
+// ids and its step keys
+__host__ __device__ __forceinline__ size_t v6b_smem(int E2, int blm) {
+  return 2 * V6B_CHUNK * sizeof(Rec) + (size_t)E2 * sizeof(int) +
+         (size_t)(E2 / blm) * sizeof(float);
+}
+
+template <bool ANY>
+__global__ void __launch_bounds__(LANES, V6B_ROWS_PER_SM)
 l1_masked_kernel(const float* __restrict__ rays,
                  const int* __restrict__ l1_ids,
                  const float* __restrict__ l1_keys,
-                 const float* __restrict__ tri, int E2, int blm, int any_hit,
+                 const float* __restrict__ tri, int E2, int blm,
                  float* __restrict__ out_t, float* __restrict__ out_u,
                  float* __restrict__ out_v, int* __restrict__ out_p,
                  int* __restrict__ out_occ) {
-  __shared__ Tri st[LANES];
-  Row ry;
-  load_row(rays, ry);
+  extern __shared__ __align__(16) unsigned char smem[];
+  Rec* buf = reinterpret_cast<Rec*>(smem);               // [2][V6B_CHUNK]
+  int* sid = reinterpret_cast<int*>(buf + 2 * V6B_CHUNK);  // [E2]
+  float* skey = reinterpret_cast<float*>(sid + E2);      // [E2 / blm]
   const int r = blockIdx.x;
   const int l = threadIdx.x;
+  const int n_steps = E2 / blm;
   const int n_tri = blm * 64;               // triangles per step
+  const int n_chunks = (n_tri + V6B_CHUNK - 1) / V6B_CHUNK;
+  for (int i = l; i < E2; i += LANES) sid[i] = l1_ids[(size_t)r * E2 + i];
+  for (int i = l; i < n_steps; i += LANES)
+    skey[i] = l1_keys[(size_t)r * E2 + (size_t)i * blm];
+  Row ry;
+  load_row(rays, ry);
   Best best = {ry.mx, 0.0f, 0.0f, -1};
   bool occ = false;
-  float t_bound = ry.mx;                    // any-hit: the skip bound
-  for (int s = 0; s < E2; s += blm) {
-    const int* ids = l1_ids + (size_t)r * E2 + s;
-    const float key = l1_keys[(size_t)r * E2 + s];
-    if (!__syncthreads_or(key <= (any_hit ? t_bound : best.t))) continue;
-    // the step's cap and running winner: lexicographic (t, sublane,
-    // cluster) minimum == per-sublane running winner over the clusters
-    // (strict <), then the lowest sublane among equal t
-    const float cap = any_hit ? (occ ? ry.mn : ry.mx) : best.t;
+  __syncthreads();
+  for (int s = 0; s < n_steps; ++s) {
+    // the ordered skip on the step's first key (any hit: mint - 1 once
+    // occluded, so an occluded row skips); a barrier too, after which
+    // every thread is done with the last chunk staged
+    const float bound = ANY ? (occ ? ry.mn - 1.0f : ry.mx) : best.t;
+    if (!__syncthreads_or(skey[s] <= bound)) continue;
+    const int* ids = sid + s * blm;
+    stage_chunk(tri, ids, 0, n_tri, buf);
+    // the step's cap; no test of a lane with mint >= cap can pass it
+    const float cap = ANY ? (occ ? ry.mn : ry.mx) : best.t;
+    const bool live = ry.mn < cap;
+    const bool warp_live = __any_sync(0xffffffffu, live);
     Best h = {BIG, 0.0f, 0.0f, 0};
     int hs = 8;
     bool hit = false;
-    for (int c0 = 0; c0 < n_tri; c0 += LANES) {
-      const int m = c0 + l;                  // (L1, cluster, sublane)
-      if (m < n_tri)
-        stage_tri(tri + ((size_t)ids[m / 64] * 64 + m % 64) * LANES, st[l]);
-      __syncthreads();
-      const int nk = min(LANES, n_tri - c0);
-      for (int k = 0; k < nk; ++k) {
-        float t, u, v;
-        if (any_hit) {
-          hit = hit ||
-                mt_test(st[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u, v);
-        } else if (mt_test(st[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u,
-                           v) &&
-                   (t < h.t || (t == h.t && (k % 8) < hs))) {
-          h = {t, u, v, st[k].prim};
-          hs = k % 8;
+    for (int c = 0; c < n_chunks; ++c) {
+      cp_async_wait_all();
+      __syncthreads();       // chunk c staged; chunk c - 1's buffer free
+      if (c + 1 < n_chunks)
+        stage_chunk(tri, ids, c + 1, n_tri, buf + ((c + 1) & 1) * V6B_CHUNK);
+      if (!warp_live) continue;
+      const Rec* st = buf + (c & 1) * V6B_CHUNK;
+      const int nk = min(V6B_CHUNK, n_tri - c * V6B_CHUNK);
+      for (int k0 = 0; k0 < nk; k0 += 8) {  // a K8 cluster, sublanes 0-7
+        if (ANY && __all_sync(0xffffffffu, hit || !live)) break;
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {    // two tests, then in order
+          float t0, u0, v0, t1, u1, v1;
+          const bool ok0 = mt_rec(st[k0 + j], ry, cap, t0, u0, v0);
+          const bool ok1 = mt_rec(st[k0 + j + 1], ry, cap, t1, u1, v1);
+          if (ANY) {
+            hit = hit || ok0 || ok1;
+          } else {
+            take(ok0, t0, u0, v0, j, st[k0 + j], h, hs);
+            take(ok1, t1, u1, v1, j + 1, st[k0 + j + 1], h, hs);
+          }
         }
       }
-      __syncthreads();                       // before the next staging
     }
-    if (any_hit) {
+    if (ANY)
       occ = occ || hit;
-      t_bound = occ ? ry.mn - 1.0f : ry.mx;
-    } else if (h.t < best.t) {
+    else if (h.t < best.t)
       best = h;
-    }
   }
-  store_hit(best, occ, any_hit, out_t, out_u, out_v, out_p, out_occ);
+  store_hit(best, occ, ANY, out_t, out_u, out_v, out_p, out_occ);
 }
 
 extern "C" int mts_refine(const float* rays, const int* ids, const int* live,
@@ -440,6 +521,26 @@ extern "C" int mts_l1_items(const float* rays, const int* l1_ids,
   return (int)cudaGetLastError();
 }
 
+// raise the v6b walk's dynamic shared memory limit on the current device
+// where a launch first needs more than 48 KB (the XL caps), once per
+// instantiation, device and size
+template <bool ANY>
+static cudaError_t v6b_prepare(size_t smem) {
+  constexpr int DEVICES = 64;
+  static size_t smem_limit[DEVICES];
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= DEVICES) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && smem > smem_limit[dev]) {
+    e = cudaFuncSetAttribute(l1_masked_kernel<ANY>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess) smem_limit[dev] = smem;
+  }
+  return e;
+}
+
 extern "C" int mts_l1_masked(const float* rays, const int* l1_ids,
                              const float* l1_keys, const float* tri, int R,
                              int E2, int blm, int any_hit, float* out_t,
@@ -447,8 +548,32 @@ extern "C" int mts_l1_masked(const float* rays, const int* l1_ids,
                              int* out_occ, void* stream) {
   if (R <= 0) return 0;
   if (blm <= 0 || E2 % blm) return (int)cudaErrorInvalidValue;
-  l1_masked_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
-      rays, l1_ids, l1_keys, tri, E2, blm, any_hit, out_t, out_u, out_v,
-      out_p, out_occ);
+  auto kern = any_hit ? l1_masked_kernel<true> : l1_masked_kernel<false>;
+  const size_t smem = v6b_smem(E2, blm);
+  const cudaError_t e = any_hit ? v6b_prepare<true>(smem)
+                                : v6b_prepare<false>(smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<R, LANES, smem, (cudaStream_t)stream>>>(
+      rays, l1_ids, l1_keys, tri, E2, blm, out_t, out_u, out_v, out_p,
+      out_occ);
   return (int)cudaGetLastError();
+}
+
+// the v6b walk's resources at list width E2 and step width blm: out[0]
+// resident rows per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// out[1] registers per thread, out[2] shared memory bytes per row
+extern "C" int mts_l1_masked_info(int E2, int blm, int any_hit, int* out) {
+  if (blm <= 0 || E2 % blm) return (int)cudaErrorInvalidValue;
+  auto kern = any_hit ? l1_masked_kernel<true> : l1_masked_kernel<false>;
+  const size_t smem = v6b_smem(E2, blm);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e == cudaSuccess)
+    e = any_hit ? v6b_prepare<true>(smem) : v6b_prepare<false>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, LANES,
+                                                      smem);
+  out[1] = attr.numRegs;
+  out[2] = (int)smem;
+  return (int)e;
 }

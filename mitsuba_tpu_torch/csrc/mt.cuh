@@ -8,7 +8,9 @@
 // hits, and its t, u and v are then meaningless. det_eps is the one of the
 // TPU kernel each kernel replaces: 1e-9 for the brute and BVH kernels,
 // 1e-12 for the cluster kernels; it is a constant at every call, so the
-// compiler folds it.
+// compiler folds it. `mt_test4` takes the nine floats as the leading
+// fields of three float4s (three 16-byte shared-memory loads) and runs
+// the same operations.
 
 #pragma once
 
@@ -33,4 +35,12 @@ __device__ __forceinline__ bool mt_test(const float* f, const float o[3],
   t = (f[6] * qx + f[7] * qy + f[8] * qz) * inv;
   return det_ok && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
          (t > mn) && (t < cap);
+}
+
+__device__ __forceinline__ bool mt_test4(float4 a, float4 b, float4 c,
+                                         const float o[3], const float d[3],
+                                         float mn, float cap, float det_eps,
+                                         float& t, float& u, float& v) {
+  const float f[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+  return mt_test(f, o, d, mn, cap, det_eps, t, u, v);
 }

@@ -5,20 +5,58 @@
 // Wrapped by mitsuba_tpu_torch/ops/stream.py, whose `stream_rows_ref` is
 // the plain PyTorch version this kernel must agree with lane for lane.
 //
-// One thread block of 128 threads per 128-lane ray row, one thread per
-// lane. The block walks the row's front-to-back supercluster list: it
-// stages the supercluster's (K, 128) triangle block (16 KB at K = 32) in
-// shared memory, then for each of its 8 clusters a per-lane slab test
-// against the lane's best t decides, by a block-wide OR, whether the
-// cluster is tested at all; Moeller-Trumbore runs per lane over the
-// cluster's K triangles. The walk stops when the next entry's
-// conservative entry distance exceeds every lane's best t (closest, a
-// block-wide max) or when every live lane is occluded (any-hit).
+// The walk: each 128-lane ray row follows its front-to-back supercluster
+// list (8 clusters of K triangles, a (K, 128) block of 16 KB at K = 32).
+// Closest: for each cluster in order, a per-lane slab test against the
+// lane's best t decides, OR-ed over the row, whether Moeller-Trumbore
+// runs over the cluster's K triangles for every lane; the row stops when
+// the next entry's conservative entry distance exceeds every lane's best
+// t. Any hit: every cluster is tested, capped at mint once a lane is
+// occluded; the row stops when every live lane is occluded.
 //
-// What bounds it: the list walk is sequential within a row, so latency of
-// the staged loads and of the per-cluster block reductions; each staged
-// block is read by all 128 threads from shared memory (broadcast reads).
-// Rows are independent, so 8,192 rows fill the 132 SMs many times over.
+// What bounds it on this card: the walk is sequential within a row, and
+// the cluster path launches it on a few hundred rows (1/16 of the
+// wavefront, 512 at 2^20 lanes) whose lanes are mostly dead (only the
+// lanes that overflowed the exact cull's XL caps are live: 60-92% of the
+// warps of config 3's launches have none). So the latency of each list
+// step bounds a row: the staging of the next block, the barriers of the
+// votes and the exit, and the tests one warp runs in sequence. An
+// any-hit row with a lane that stays unoccluded walks its whole list,
+// hundreds of superclusters of 256 triangles, and such rows bound an
+// any-hit launch, where the kernel spends most of its time.
+// Compacting the live lanes and giving each warp one cluster did not
+// shorten them, and lengthened the closest launches (PERF.md).
+//
+// The design: 256 threads per row, two groups of four warps, one thread
+// per lane in each (64 registers, 55.5 KB of shared memory: 4 rows per
+// SM, a 512-row launch in one wave). Under that register cap the closest
+// kernel spills (ptxas: 24 bytes of stack, 20 bytes of spill stores, 36
+// of loads); at 3 rows per SM it takes 76 registers without a spill and
+// times the same on an H100 (its closest launches 4% less a config-3
+// render, 6% more on 1,024 bounce rows; PERF.md), so 4 rows stay, and
+// with them one wave. The next supercluster is copied by
+// cp.async while the current one is tested. Closest, per step: (1) each
+// group computes for its four clusters the lanes' slab thresholds and a
+// vote under tb0, the lanes' best t at the step's start; (2) each group
+// runs Moeller-Trumbore on those of its clusters that the vote admits,
+// under cap tb0, and writes each lane's cluster winner to shared memory;
+// (3) one warp, four lanes a thread, replays the clusters in list order:
+// the vote with the lanes' true bound, then the strict < merge against
+// it. Three barriers a step (two whole-block, one per group). A warp
+// none of whose lanes has mint < tb0 skips its tests. Any hit: each
+// group tests its four clusters under maxt for the lanes not yet
+// occluded; a warp stops once each lane has hit or cannot; one thread
+// merges the groups' hit masks and decides the exit.
+//
+// Why it is exact: a lane's winner of a cluster is the lexicographic
+// minimum of its passing tests, so under the looser cap tb0 >= tb it is
+// the same triangle whenever its t is below tb, and is dropped at the
+// merge (t < tb fails) exactly when the walk's cluster had no passing
+// test; a slab test passing under tb also passes under tb0 (the
+// threshold is the same, the bound larger), so no cluster the walk
+// votes for is left untested; the votes and merges themselves run in
+// the walk's order with its bound. Any hit is an OR per lane: the order
+// of the tests within a step does not matter.
 //
 // Rounding: compiled with --fmad=false and IEEE division; every
 // expression has the plain version's operation order, and the tie order
@@ -29,6 +67,7 @@
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "mt.cuh"
 
 #define LANES 128
@@ -37,28 +76,113 @@
 #define BIG 3e38f
 #define DET_EPS 1e-12f
 #define PSEL_NONE (1 << 30)
+#define GROUPS 2                          // 128-thread groups per row
+#define THREADS (GROUPS * LANES)
+#define CL_PER_GROUP (SC_GROUP / GROUPS)  // clusters each group tests
+#define ROWS_PER_SM 4                     // the register budget: 64 a thread
+#define FULL 0xffffffffu
 
-__device__ __forceinline__ float block_max(float x, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  __syncthreads();
-  return m;
+// the row's state and scratch in dynamic shared memory, after the two
+// staged superclusters (2 x K x 128 floats)
+struct Scratch {
+  float thr[SC_GROUP][LANES];    // closest: slab threshold per cluster, lane
+  float rt[SC_GROUP][LANES];     // closest: each cluster's visit, per lane
+  float ru[SC_GROUP][LANES];
+  float rv[SC_GROUP][LANES];
+  int rp[SC_GROUP][LANES];
+  float bt[LANES], bu[LANES], bv[LANES];  // closest: the lanes' best hit
+  int bp[LANES];
+  unsigned vote[SC_GROUP][LANES / 32];  // closest: loose votes, per warp
+  unsigned hit[GROUPS][LANES / 32];     // any hit: hits, per group and warp
+  unsigned occ[LANES / 32];             // any hit: occluded lanes
+  unsigned live[LANES / 32];            // any hit: lanes with mint <= maxt
+  int cont;                             // walk on to the next entry
+};
+
+__host__ __device__ __forceinline__ size_t stream_smem(int K) {
+  return (size_t)2 * K * LANES * sizeof(float) + sizeof(Scratch);
 }
 
-__global__ void __launch_bounds__(LANES)
+// this thread's share of the copy of supercluster block src (K x 128
+// floats) into dst
+__device__ __forceinline__ void stage_sc(const float* src, float* dst,
+                                         int K) {
+  for (int c = threadIdx.x; c < K * LANES / 4; c += THREADS)
+    cp_async16(dst + 4 * c, src + 4 * c);
+  cp_async_commit();
+}
+
+__device__ __forceinline__ bool mt_row(const float* f, const float o[3],
+                                       const float d[3], float mnb,
+                                       float cap, float& t, float& u,
+                                       float& v) {
+  const float4* q = reinterpret_cast<const float4*>(f);
+  return mt_test4(q[0], q[1], q[2], o, d, mnb, cap, DET_EPS, t, u, v);
+}
+
+// the running minimum of one chunk parity of a sublane (strict <)
+struct Run {
+  float t, u, v;
+  int j;
+};
+
+__device__ __forceinline__ void run_take(bool ok, float t, float u, float v,
+                                         int j, Run& r) {
+  if (ok && t < r.t) r = {t, u, v, j};
+}
+
+// Moeller-Trumbore of one cluster (K rows from cl, row stride 128 floats)
+// under cap, with the TPU kernel's tie order: per sublane the even and
+// odd chunks' running minima, the odd one winning only when strictly
+// nearer; across sublanes the lowest candidate j * 8 + sublane among
+// equal t. Returns (t, u, v, candidate); t = BIG where nothing passed.
+__device__ __forceinline__ void visit(const float* cl, int K,
+                                      const float o[3], const float d[3],
+                                      float mnb, float cap, float& bt,
+                                      float& bu, float& bv, int& bp) {
+  bt = BIG;
+  bu = bv = 0.0f;
+  bp = PSEL_NONE;
+  const int nj = K / 8;
+  for (int s = 0; s < 8; ++s) {
+    Run r0 = {BIG, 0.0f, 0.0f, 0}, r1 = {BIG, 0.0f, 0.0f, 0};
+    for (int j = 0; j < nj; j += 2) {      // an even and an odd chunk
+      float t0, u0, v0, t1 = BIG, u1, v1;
+      const bool ok0 =
+          mt_row(cl + (j * 8 + s) * LANES, o, d, mnb, cap, t0, u0, v0);
+      const bool ok1 = j + 1 < nj &&
+          mt_row(cl + ((j + 1) * 8 + s) * LANES, o, d, mnb, cap, t1, u1, v1);
+      run_take(ok0, t0, u0, v0, j, r0);
+      run_take(ok1, t1, u1, v1, j + 1, r1);
+    }
+    if (r1.t < r0.t) r0 = r1;
+    const int pc = r0.j * 8 + s;
+    if (r0.t < bt || (r0.t == bt && pc < bp)) {
+      bt = r0.t;
+      bp = pc;
+      bu = r0.u;
+      bv = r0.v;
+    }
+  }
+}
+
+template <bool ANY>
+__global__ void __launch_bounds__(THREADS, ROWS_PER_SM)
 stream_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
               const float* __restrict__ tns,
-              const float* __restrict__ sc_tri, int L, int K, int any_hit,
+              const float* __restrict__ sc_tri, int L, int K,
               float* __restrict__ out_t, float* __restrict__ out_u,
               float* __restrict__ out_v, int* __restrict__ out_p,
               int* __restrict__ out_occ) {
-  extern __shared__ float blk[];            // (K, 128) staged supercluster
-  __shared__ float red[LANES / 32];
+  extern __shared__ __align__(16) float blk[];    // [2][K * 128]
+  const size_t blk_floats = (size_t)K * LANES;
+  Scratch& sh = *reinterpret_cast<Scratch*>(blk + 2 * blk_floats);
   const int r = blockIdx.x;
-  const int l = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int g = tid / LANES;               // group: clusters g*4 .. g*4+3
+  const int l = tid % LANES;               // lane
+  const int w = l / 32;                    // the lane's warp in its group
+  const int bit = l % 32;
   const float* ry = rays + (size_t)r * 8 * LANES;
   float o[3], d[3], sinv[3];
   for (int j = 0; j < 3; ++j) {
@@ -71,94 +195,195 @@ stream_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
   const int* rid = ids + (size_t)r * L;
   const float* rtn = tns + (size_t)r * L;
 
-  float tb = mx, ub = 0.0f, vb = 0.0f;
-  int pb = -1;
-  bool occ = false;
-  const bool live0 = mnb <= mx;
-  bool cont = rtn[0] < BIG;
-  int i = 0;
-  while (cont) {
-    const int sc = rid[i];
-    const float nxt = rtn[i + 1];
-    const bool has_next = nxt < BIG;
-    const float* src = sc_tri + (size_t)sc * K * LANES;
-    for (int row = 0; row < K; ++row)
-      blk[row * LANES + l] = src[row * LANES + l];
-    __syncthreads();
-    if (any_hit) {
-      for (int k = 0; k < SC_GROUP; ++k) {
-        const float cap = occ ? mnb : mx;
-        bool hit = false;
-        for (int row = 0; row < K; ++row) {
-          float t, u, v;
-          const bool ok = mt_test(blk + row * LANES + k * FIELDS, o, d, mnb,
-                                  cap, DET_EPS, t, u, v);
-          hit = hit || ok;
-        }
-        occ = occ || hit;
+  // the list runs ahead by one entry: sc is staged, nxt / nid come next
+  int sc = rid[0];
+  const bool first = rtn[0] < BIG;
+  if (first) stage_sc(sc_tri + (size_t)sc * blk_floats, blk, K);
+  float nxt = L > 1 ? rtn[1] : BIG;
+  int nid = L > 1 ? rid[1] : 0;
+  if (g == 0) {
+    if (ANY) {
+      const unsigned lv = __ballot_sync(FULL, mnb <= mx);
+      if (bit == 0) {
+        sh.live[w] = lv;
+        sh.occ[w] = 0u;
       }
-      const int done = __syncthreads_and(occ || !live0);
-      cont = has_next && !done;
     } else {
-      for (int k = 0; k < SC_GROUP; ++k) {
-        const float* box = blk + k * FIELDS + 9;    // sublane 0
-        float tn = mnb, tf = tb;
+      sh.bt[l] = mx;
+      sh.bu[l] = 0.0f;
+      sh.bv[l] = 0.0f;
+      sh.bp[l] = -1;
+    }
+  }
+  if (tid == 0) sh.cont = first;
+  for (int i = 0;; ++i) {
+    cp_async_wait_all();
+    __syncthreads();        // entry i staged; the state of entry i - 1 set
+    if (!sh.cont) break;
+    const float* cur = blk + (i & 1) * blk_floats;
+    const bool has_next = nxt < BIG;
+    float nxt2 = BIG;
+    int nid2 = 0;
+    if (has_next) {         // prefetch entry i + 1 while testing entry i
+      stage_sc(sc_tri + (size_t)nid * blk_floats,
+               blk + ((i + 1) & 1) * blk_floats, K);
+      if (i + 2 < L) {
+        nxt2 = rtn[i + 2];
+        nid2 = rid[i + 2];
+      }
+    }
+    if (ANY) {
+      // every cluster under maxt: a lane occluded before this entry, or
+      // with mint >= maxt, cannot change; a warp stops once each of its
+      // lanes has hit or cannot
+      const bool live = !((sh.occ[w] >> bit) & 1u) && mnb < mx;
+      bool hit = false;
+      if (__any_sync(FULL, live)) {
+        for (int k = g * CL_PER_GROUP; k < (g + 1) * CL_PER_GROUP; ++k) {
+          const float* cl = cur + k * FIELDS;
+          for (int row = 0; row < K; row += 8) {
+            if (__all_sync(FULL, hit || !live)) break;
+#pragma unroll
+            for (int j = 0; j < 8; j += 2) {
+              float t, u, v;
+              const bool ok0 =
+                  mt_row(cl + (row + j) * LANES, o, d, mnb, mx, t, u, v);
+              const bool ok1 =
+                  mt_row(cl + (row + j + 1) * LANES, o, d, mnb, mx, t, u, v);
+              hit = hit || ok0 || ok1;
+            }
+          }
+        }
+      }
+      const unsigned hb = __ballot_sync(FULL, hit);
+      if (bit == 0) sh.hit[g][w] = hb;
+      __syncthreads();
+      if (tid == 0) {       // merge the groups' hits; exit once all done
+        bool done = true;
+        for (int q = 0; q < LANES / 32; ++q) {
+          unsigned oc = sh.occ[q];
+          for (int gg = 0; gg < GROUPS; ++gg) oc |= sh.hit[gg][q];
+          sh.occ[q] = oc;
+          done = done && (oc | ~sh.live[q]) == FULL;
+        }
+        sh.cont = has_next && !done;
+      }
+    } else {
+      // 1. each group's clusters against the lanes' best t at the start
+      // of the entry (tb0, looser than the walk's bound): the slab
+      // threshold (the entry distance where the box is hit within
+      // [mint, tb] for every tb >= it, NaN where never) and a vote
+      const float tb0 = sh.bt[l];
+      for (int k = g * CL_PER_GROUP; k < (g + 1) * CL_PER_GROUP; ++k) {
+        const float* box = cur + k * FIELDS + 9;   // sublane 0, row 0
+        float tn = mnb, tf = __int_as_float(0x7f800000);   // +inf
         for (int j = 0; j < 3; ++j) {
-          float t0 = (box[j] - o[j]) * sinv[j];
-          float t1 = (box[3 + j] - o[j]) * sinv[j];
+          const float t0 = (box[j] - o[j]) * sinv[j];
+          const float t1 = (box[3 + j] - o[j]) * sinv[j];
           tn = fmaxf(tn, fminf(t0, t1));
           tf = fminf(tf, fmaxf(t0, t1));
         }
-        if (!__syncthreads_or(tn <= tf)) continue;
-        float bt = BIG, bu = 0.0f, bv = 0.0f;
-        int bp = PSEL_NONE;
-        for (int s = 0; s < 8; ++s) {
-          float tg[2] = {BIG, BIG}, ug[2] = {0.0f, 0.0f};
-          float vg[2] = {0.0f, 0.0f};
-          int jg[2] = {0, 0};
-          for (int j = 0; j < K / 8; ++j) {
-            float t, u, v;
-            const bool ok = mt_test(blk + (j * 8 + s) * LANES + k * FIELDS,
-                                    o, d, mnb, tb, DET_EPS, t, u, v);
-            const int g = j & 1;
-            if (ok && t < tg[g]) {
-              tg[g] = t;
-              jg[g] = j;
-              ug[g] = u;
-              vg[g] = v;
+        const float thr = tn <= tf ? tn : __int_as_float(0x7fffffff);
+        sh.thr[k][l] = thr;
+        const unsigned vb = __ballot_sync(FULL, thr <= tb0);
+        if (bit == 0) sh.vote[k][w] = vb;
+      }
+      named_barrier(1 + g, LANES);
+      // 2. Moeller-Trumbore of each cluster some lane may enter, under
+      // tb0; a warp none of whose lanes has mint < tb0 passes nothing
+      const bool warp_live = __any_sync(FULL, mnb < tb0);
+      for (int k = g * CL_PER_GROUP; k < (g + 1) * CL_PER_GROUP; ++k) {
+        if (!(sh.vote[k][0] | sh.vote[k][1] | sh.vote[k][2] |
+              sh.vote[k][3]))
+          continue;
+        float t = BIG, u = 0.0f, v = 0.0f;
+        int p = 0;
+        if (warp_live)
+          visit(cur + k * FIELDS, K, o, d, mnb, tb0, t, u, v, p);
+        sh.rt[k][l] = t;
+        sh.ru[k][l] = u;
+        sh.rv[k][l] = v;
+        sh.rp[k][l] = p;
+      }
+      __syncthreads();
+      // 3. one warp, four lanes a thread, replays the walk's cluster
+      // order: the vote with the lanes' true bound, then strict <
+      // against it; a hit under tb0 that is not below the true bound is
+      // dropped, so the record is the walk's
+      if (tid < 32) {
+        float tb[LANES / 32];
+        for (int q = 0; q < LANES / 32; ++q) tb[q] = sh.bt[tid + 32 * q];
+        for (int k = 0; k < SC_GROUP; ++k) {
+          if (!(sh.vote[k][0] | sh.vote[k][1] | sh.vote[k][2] |
+                sh.vote[k][3]))
+            continue;
+          bool pass = false;
+          for (int q = 0; q < LANES / 32; ++q)
+            pass = pass || sh.thr[k][tid + 32 * q] <= tb[q];
+          if (!__any_sync(FULL, pass)) continue;
+          for (int q = 0; q < LANES / 32; ++q) {
+            const int lq = tid + 32 * q;
+            const float t = sh.rt[k][lq];
+            if (t < tb[q]) {
+              tb[q] = t;
+              sh.bu[lq] = sh.ru[k][lq];
+              sh.bv[lq] = sh.rv[k][lq];
+              sh.bp[lq] = (sc * SC_GROUP + k) * K + sh.rp[k][lq];
             }
           }
-          const int sel = tg[1] < tg[0] ? 1 : 0;
-          const float ts = tg[sel];
-          const int pc = jg[sel] * 8 + s;
-          if (ts < bt || (ts == bt && pc < bp)) {
-            bt = ts;
-            bp = pc;
-            bu = ug[sel];
-            bv = vg[sel];
-          }
         }
-        if (bt < tb) {
-          tb = bt;
-          ub = bu;
-          vb = bv;
-          pb = (sc * SC_GROUP + k) * K + bp;
+        float m = tb[0];
+        for (int q = 0; q < LANES / 32; ++q) {
+          sh.bt[tid + 32 * q] = tb[q];
+          m = fmaxf(m, tb[q]);
         }
+        for (int off = 16; off > 0; off >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+        if (tid == 0) sh.cont = has_next && nxt <= m;
       }
-      cont = has_next && (nxt <= block_max(tb, red));
     }
-    __syncthreads();                         // before the next staging
-    ++i;
+    sc = nid;
+    nxt = nxt2;
+    nid = nid2;
   }
-  const size_t at = (size_t)r * LANES + l;
-  if (any_hit) {
-    out_occ[at] = occ ? 1 : 0;
-  } else {
-    out_t[at] = tb;
-    out_u[at] = ub;
-    out_v[at] = vb;
-    out_p[at] = pb;
+  if (g == 0) {
+    const size_t at = (size_t)r * LANES + l;
+    if (ANY) {
+      out_occ[at] = (int)((sh.occ[w] >> bit) & 1u);
+    } else {
+      out_t[at] = sh.bt[l];
+      out_u[at] = sh.bu[l];
+      out_v[at] = sh.bv[l];
+      out_p[at] = sh.bp[l];
+    }
   }
+}
+
+// the kernel's attributes on the current device, set once each: the
+// carveout on its first launch there, the dynamic shared memory limit
+// when a cluster size first needs more than the limit already set
+template <bool ANY>
+static cudaError_t prepare(int K, size_t& smem) {
+  constexpr int DEVICES = 64;
+  static bool carveout[DEVICES];
+  static size_t smem_limit[DEVICES];
+  smem = stream_smem(K);
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= DEVICES) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && !carveout[dev]) {
+    e = cudaFuncSetAttribute(
+        stream_kernel<ANY>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    carveout[dev] = e == cudaSuccess;
+  }
+  if (e == cudaSuccess && smem > 48 * 1024 && smem > smem_limit[dev]) {
+    e = cudaFuncSetAttribute(stream_kernel<ANY>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess) smem_limit[dev] = smem;
+  }
+  return e;
 }
 
 extern "C" int mts_stream(const float* rays, const int* ids,
@@ -167,9 +392,37 @@ extern "C" int mts_stream(const float* rays, const int* ids,
                           float* out_u, float* out_v, int* out_p,
                           int* out_occ, void* stream) {
   if (R <= 0) return 0;
-  stream_kernel<<<R, LANES, (size_t)K * LANES * sizeof(float),
-                  (cudaStream_t)stream>>>(rays, ids, tns, sc_tri, L, K,
-                                          any_hit, out_t, out_u, out_v,
-                                          out_p, out_occ);
+  if (K <= 0 || K % 8) return (int)cudaErrorInvalidValue;
+  size_t smem;
+  const cudaError_t e = any_hit ? prepare<true>(K, smem)
+                                : prepare<false>(K, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (any_hit)
+    stream_kernel<true><<<R, THREADS, smem, (cudaStream_t)stream>>>(
+        rays, ids, tns, sc_tri, L, K, out_t, out_u, out_v, out_p, out_occ);
+  else
+    stream_kernel<false><<<R, THREADS, smem, (cudaStream_t)stream>>>(
+        rays, ids, tns, sc_tri, L, K, out_t, out_u, out_v, out_p, out_occ);
   return (int)cudaGetLastError();
+}
+
+// the kernel's resources at cluster size K: out[0] resident rows per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers per
+// thread, out[2] shared memory bytes per row, out[3] threads per row
+extern "C" int mts_stream_info(int K, int any_hit, int* out) {
+  size_t smem;
+  cudaError_t e = any_hit ? prepare<true>(K, smem) : prepare<false>(K, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess)
+    e = any_hit ? cudaFuncGetAttributes(&attr, stream_kernel<true>)
+                : cudaFuncGetAttributes(&attr, stream_kernel<false>);
+  if (e == cudaSuccess)
+    e = any_hit ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &out[0], stream_kernel<true>, THREADS, smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &out[0], stream_kernel<false>, THREADS, smem);
+  out[1] = e == cudaSuccess ? attr.numRegs : 0;
+  out[2] = (int)smem;
+  out[3] = THREADS;
+  return (int)e;
 }

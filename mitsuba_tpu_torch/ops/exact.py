@@ -83,7 +83,21 @@ def build() -> str:
                               [p] * 5 + [i, i, i] + [p] * 6)
     _FN["l1_masked"] = nv.bind(SOURCE, "mts_l1_masked",
                                [p] * 4 + [i, i, i, i] + [p] * 6)
+    _FN["l1_masked_info"] = nv.bind(SOURCE, "mts_l1_masked_info",
+                                    [i, i, i, p])
     return log
+
+
+def l1_masked_info(e2: int, blm: int, any_hit: bool) -> dict:
+    """Kernel #9's resources on the current card at list width e2 and
+    step width step_width(e2, blm): resident rows per SM, registers per
+    thread, shared memory bytes per row."""
+    if "l1_masked_info" not in _FN:
+        build()
+    out = (ctypes.c_int * 3)()
+    nv.check(_FN["l1_masked_info"](e2, step_width(e2, blm), int(any_hit),
+                                   out), "l1_masked_info")
+    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2])
 
 
 def auto_caps(n_k8: int):
@@ -305,18 +319,22 @@ def l1_masked_ref(tri, rays, l1_ids, l1_keys, any_hit: bool, blm: int,
     lane: of a tested step, a live lane needs an L1's 64 triangles where
     the L1's key is within the lane's best t (closest), or its triangles
     up to the first hit where the key is within maxt and the lane is not
-    yet occluded (any hit); and `clusters_read`, the K8 clusters of the
-    distinct L1 blocks that some row tests."""
+    yet occluded (any hit); `clusters_read`, the K8 clusters of the
+    distinct L1 blocks that some row tests; and `walk_tests`, the tests
+    of all 128 lanes of each step tested, which the walk's contract
+    runs."""
     r, e2 = l1_ids.shape
     blm = step_width(e2, blm)
     live, occ, bound, tb, ub, vb, pb = _walk_state(rays)
     step = max(1, _MAX_ELEMS // (blm * 64 * LANES * 4))
     n_tri = torch.zeros((), dtype=torch.int64, device=rays.device)
+    n_walk = 0
     read = torch.zeros(tri.shape[0] // 8, dtype=torch.bool,
                        device=rays.device)
     for s in range(0, e2, blm):
         todo = torch.nonzero(
             l1_keys[:, s] <= (bound if any_hit else tb).amax(dim=1))[:, 0]
+        n_walk += todo.numel() * blm * 64 * LANES
         for c0 in range(0, todo.numel(), step):
             rows = todo[c0:c0 + step]
             if work is not None:
@@ -350,7 +368,8 @@ def l1_masked_ref(tri, rays, l1_ids, l1_keys, any_hit: bool, blm: int,
             vb[rows] = torch.where(improved, v, vb[rows])
             pb[rows] = torch.where(improved, p, pb[rows])
     if work is not None:
-        work.update(tri_tests=int(n_tri), clusters_read=8 * int(read.sum()))
+        work.update(tri_tests=int(n_tri), clusters_read=8 * int(read.sum()),
+                    walk_tests=n_walk)
     if any_hit:
         return occ
     return tb, ub, vb, pb

@@ -37,16 +37,30 @@ _PSEL_NONE = 2 ** 30
 # kernel launches since import (reset by callers that count a run)
 LAUNCHES = 0
 _FN = None
+_INFO = None
 
 
 def build() -> str:
     """Compile (once per source hash) and bind the kernel; returns the
     compiler's output, empty when cached."""
-    global _FN
+    global _FN, _INFO
     log = nv.build_all([SOURCE])[SOURCE]
     p, i = ctypes.c_void_p, ctypes.c_int
     _FN = nv.bind(SOURCE, "mts_stream", [p] * 4 + [i] * 4 + [p] * 6)
+    _INFO = nv.bind(SOURCE, "mts_stream_info", [i, i, p])
     return log
+
+
+def stream_info(k_cl: int, any_hit: bool) -> dict:
+    """The kernel's resources on the current card at cluster size k_cl:
+    resident rows per SM, registers per thread, shared memory bytes and
+    threads per row."""
+    if _INFO is None:
+        build()
+    out = (ctypes.c_int * 4)()
+    nv.check(_INFO(k_cl, int(any_hit), out), "stream_info")
+    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2],
+                threads=out[3])
 
 
 def build_sc_lists(rays, sc_bmin, sc_bmax):
@@ -168,7 +182,9 @@ def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool, work=None):
     given, receives the tests these inputs need, lane by lane: closest,
     a slab test per live lane and visited cluster and the K triangle
     tests of each lane whose slab test passed; any hit, the triangle
-    tests of each live, not yet occluded lane up to its first hit."""
+    tests of each live, not yet occluded lane up to its first hit; and
+    `walk_tests`, the triangle tests of all 128 lanes of each cluster the
+    walk tests (closest: those some lane's slab test admits)."""
     n_rows = rays.shape[0]
     dev = rays.device
     k_cl = sc_tri.shape[1]
@@ -185,6 +201,7 @@ def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool, work=None):
         pb = torch.full((n_rows, LANES), -1, dtype=torch.int32, device=dev)
     cont = tns[:, 0] < BIG
     n_box = n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    n_walk = 0
     i = 0
     while bool(cont.any()):
         rows = torch.nonzero(cont)[:, 0]
@@ -199,6 +216,7 @@ def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool, work=None):
         if any_hit:
             oc = occ[rows]
             mx = maxt[rows]
+            n_walk += rows.numel() * SC_GROUP * k_cl * LANES
             for k in range(SC_GROUP):
                 cap = torch.where(oc, mnb[:, 0], mx)[:, None]
                 _t, _u, _v, ok = mt(blocks[:, :, k], o, d, mnb, cap)
@@ -218,6 +236,7 @@ def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool, work=None):
                     n_box = n_box + live.sum()
                     n_tri = n_tri + can.sum() * k_cl
                 vis = torch.nonzero(can.any(dim=1))[:, 0]
+                n_walk += vis.numel() * k_cl * LANES
                 if vis.numel() == 0:
                     continue
                 tv = t_b[vis]
@@ -235,7 +254,8 @@ def stream_rows_ref(rays, ids, tns, sc_tri, any_hit: bool, work=None):
             cont[rows] = has_next & (nxt_t <= t_b.amax(dim=1))
         i += 1
     if work is not None:
-        work.update(box_tests=int(n_box), tri_tests=int(n_tri))
+        work.update(box_tests=int(n_box), tri_tests=int(n_tri),
+                    walk_tests=n_walk)
     if any_hit:
         return occ
     return tb, ub, vb, pb

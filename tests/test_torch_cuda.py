@@ -389,6 +389,78 @@ def test_cluster_render_with_the_v5_walk_goes_through_the_item_kernel(
 
 
 # ---------------------------------------------------------------------------
+# #9 and #10 on the corner cases of their schedules (tests/torch_walk_cases.py)
+# ---------------------------------------------------------------------------
+
+def _same(got, ref):
+    if isinstance(ref, torch.Tensor):
+        return torch.equal(got, ref)
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("e2,blm", [(32, 16), (32, 1), (384, 16),
+                                    (768, 16)])
+def test_v6b_kernel_matches_plain_version_on_corner_cases(cuda, e2, blm,
+                                                          any_hit):
+    """#9 at the coherent, diffuse and XL list widths (and one L1 block a
+    step: half a staged chunk) on rows with whole warps dead, escaping
+    or occluded in their first steps, a dead row, lists with dead slots
+    in their last tested step, and planted exact ties across L1 blocks,
+    clusters, sublanes and steps; bit for bit."""
+    import torch_walk_cases as wc
+
+    ep.build()
+    tri, rays, ids, keys = wc.v6b_case(e2, any_hit, device=cuda)
+    before = ep.LAUNCHES["l1_masked"]
+    got = ep.l1_masked(tri, rays, ids, keys, any_hit, blm)
+    assert ep.LAUNCHES["l1_masked"] == before + 1
+    ref = ep.l1_masked_ref(tri, rays, ids, keys, any_hit, blm)
+    torch.cuda.synchronize()
+    assert _same(got, ref)
+    if any_hit:
+        assert 0 < int(ref.sum()) < int((rays[:, 6] <= rays[:, 7]).sum())
+    elif blm > 1:
+        # a copy wins a tie within a step at a lower sublane; one L1 block
+        # a step puts every copy in a later step, where it never wins
+        assert int((ref[3] >= wc.PRIM_COPY).sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_kernel_matches_plain_version_on_corner_cases(cuda, any_hit,
+                                                             seed):
+    """#10 at K = 32 on the same kinds of rows, whose escaping lanes walk
+    their lists to the end, over superclusters of clusters drawn from the
+    whole table: exact ties across chunks, parities, sublanes, clusters
+    and superclusters, and far clusters after near ones (hits under the
+    looser cap dropped at the merge); bit for bit."""
+    import torch_walk_cases as wc
+
+    sp.build()
+    rays, ids, tns, sc_tri = wc.stream_case(any_hit, seed, device=cuda)
+    before = sp.LAUNCHES
+    got = sp.stream_rows(rays, ids, tns, sc_tri, any_hit)
+    assert sp.LAUNCHES == before + 1
+    ref = sp.stream_rows_ref(rays, ids, tns, sc_tri, any_hit)
+    torch.cuda.synchronize()
+    assert _same(got, ref)
+
+
+def test_walk_kernels_keep_rows_in_flight(cuda):
+    """#9 holds at least 8 rows per SM at every list width of config 3,
+    #10 at least 4 (a config-3 fallback launch of 512 rows in one wave)."""
+    ep.build()
+    sp.build()
+    for e2 in (32, 384, 768):
+        for any_hit in (False, True):
+            assert ep.l1_masked_info(e2, ep.V6B_BLM, any_hit)[
+                "rows_per_sm"] >= 8
+    for any_hit in (False, True):
+        assert sp.stream_info(32, any_hit)["rows_per_sm"] >= 4
+
+
+# ---------------------------------------------------------------------------
 # the BVH kernel (#11) and the work-list kernel (#12)
 # ---------------------------------------------------------------------------
 
