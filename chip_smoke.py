@@ -28,8 +28,9 @@ Phases, each printing one JSON line:
   2. the build of every native source (one compiler per source, all at
      once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
      builder), with the compiler's ptxas lines, and the resources of the
-     v6b walk (#9) and the stream walk (#10): rows resident per SM,
-     registers, shared memory;
+     v6b walk (#9), the stream walk (#10), the work-list walk (#12) and
+     the BVH walk (#11): rows (blocks) resident per SM, registers,
+     shared memory, spills;
   3. each kernel against its plain PyTorch version on the card, bit for
      bit (every field of every lane), at the shapes of its path, with the
      bound of the work these inputs need (the larger of the bytes they
@@ -42,12 +43,20 @@ Phases, each printing one JSON line:
      bounce rows, and #9 and #10 on the corner cases of
      tests/torch_walk_cases.py (whole warps dead, escaping or
      occluded early, a dead row, planted exact ties; #9 at list widths
-     32, 384 and 768); the v1 cluster kernel (#14) on
+     32, 384 and 768); #12 and #11 on the corner cases of
+     tests/torch_instanced_cases.py (dead, occluded and sentinel warps, a
+     dead row, a 540-slot row, planted ties, lists with an unused tail
+     and cut short; equal t in two leaves, a leaf past the last
+     triangle, a few lanes walking the whole tree); the v1 cluster
+     kernel (#14) on
      the camera and bounce wavefronts and the shadow rays; the BVH kernel
      on the bvh path's camera, bounce and shadow wavefronts; the
      work-list kernel, instanced and flat (on the same spheres baked into
      world space), on one row chunk of the instanced path's camera,
-     bounce and shadow wavefronts; the BVH kernel as that path's overflow
+     bounce and shadow wavefronts (its first 1,024 rows), and instanced
+     on the whole chunk, its last row included, on the segments that end
+     at the list's last used slot and on the untrimmed ones (timed both);
+     the BVH kernel as that path's overflow
      fallback, on the static triangles and as the instance walks; the
      split brute kernels (#2 shaded, #3 any, #4 closest, which no render
      path of the JAX package launches) on the second bounce of a
@@ -73,7 +82,13 @@ Phases, each printing one JSON line:
      the lanes passed to #2 and #3 (the JAX volpath counts none). The
      profile gives each of the port's kernels its device ms per render.
      After config 3, one more render records each launch of #9 and #10:
-     its rows, live lanes and share of warps with no live lane;
+     its rows, live lanes and share of warps with no live lane; after bvh
+     and instanced, one more render records each launch of #11 and #12
+     with its arguments, and each is replayed alone and timed: #11's
+     device ms a render split into its own walks, the static triangles'
+     fallback and the instance walks, #12's on trimmed and on untrimmed
+     segments (its unused-slot tail apart from its walk), and each
+     launch's rows or lanes, live lanes and dead-warp share;
   6. the v1 cluster entry points on config 3's camera and shadow
      wavefronts, with the launch counts set to 0 just before and read just
      after, held against the exact-cull path's hits;
@@ -467,7 +482,7 @@ def _timed(fn):
 
 def check_pair(name, stage, kern, plain, args, row_args, ops_of,
                counted=False, cut=None, cutter=None, unit="rows",
-               tables=None, **extra):
+               tables=None, time_plain=True, **extra):
     """Hold kernel against plain version on args, bit for bit (every
     field of every lane); time both; bound the work. row_args: the
     arguments whose leading size is the rows (or lanes) of the call.
@@ -476,7 +491,8 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     plain version counted on them (if `counted`, it takes a `work` dict).
     Both run on all rows, or with `cut` on the first `cut` rows
     (cutter(args, cut), or the row_args cut). `unit` names what the rows
-    are; `extra` joins the phase's line."""
+    are; `extra` joins the phase's line. time_plain=False: the plain
+    version's time is that of its one run for the comparison."""
     n_rows = args[row_args[0]].shape[0]
     work = {}
     kw = {"work": work} if counted else {}
@@ -489,7 +505,8 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     mism, max_err = mismatches(got, ref)
     ms = cuda_ms(lambda: kern(*part))
     plain_ms = cuda_ms(lambda: plain(*part),
-                       reps=3 if plain_s > PLAIN_SLOW_S else 10)
+                       reps=3 if plain_s > PLAIN_SLOW_S else 10) \
+        if time_plain else plain_s * 1e3
     res = dict(kernel=name, stage=stage, rows=rows, rows_of=n_rows,
                unit=unit, values=_fields(ref)[0][1].numel(),
                mismatches=mism, max_abs_err=max_err, ms=ms,
@@ -659,6 +676,53 @@ def compare_walk_cases(device):
             _walk_ops, counted=True)
 
 
+def compare_instanced_cases(device):
+    """#12 (flat and instanced, K = 32 and 8; the list's tail trimmed,
+    and cut short at w_cap) and #11 (both clamps) on
+    tests/torch_instanced_cases.py's inputs (dead, occluded and sentinel
+    warps, a dead row, a 540-slot row, planted ties; equal t in two
+    leaves, a leaf past the last triangle, zero direction components, a
+    few lanes walking the whole tree), closest and any; #12 also on the
+    untrimmed segments, bit for bit the same."""
+    from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.ops import worklist as wl
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_instanced_cases as ic
+
+    for any_hit in (False, True):
+        kind = "any" if any_hit else "closest"
+        key = "wl_any" if any_hit else "wl_closest"
+        for inst in (False, True):
+            for k in (32, 8):
+                for end in ("tail", "overflow"):
+                    c = ic.wl_case(inst, k, end, device=device)
+                    args = c[:7] + (any_hit,)
+                    mode = "instanced" if inst else "flat"
+                    res = check_pair(
+                        key, f"cases {kind} {mode} K {k} {end}", wl.wl_rows,
+                        wl.wl_rows_ref, args, (4,), _wl_ops, counted=True,
+                        time_plain=False)
+                    full = wl.wl_rows(args[0], c[8], *args[2:])
+                    if not all(torch.equal(a, b) for a, b in zip(
+                            _tensors(full), _tensors(wl.wl_rows(*args)))):
+                        raise AssertionError(
+                            f"{key} ({res['stage']}): untrimmed differs")
+        key = "bvh_any" if any_hit else "bvh_closest"
+        for name, (nodes, tris, *rays) in ic.bvh_cases(
+                device=device).items():
+            al = bp.align_tables(nodes, tris)
+            for eps in (bp.RCP_EPS, 1e-20):
+                check_pair(
+                    key, f"cases {kind} {name} rcp_eps {eps:g}",
+                    lambda *a, k_=key, e=eps, al_=al: getattr(bp, k_)(
+                        *a, rcp_eps=e, aligned=al_),
+                    lambda *a, work=None, ah=any_hit, e=eps: bp.walk_ref(
+                        *a, ah, rcp_eps=e, work=work),
+                    (nodes, tris, *rays), (2, 3, 4, 5), _walk_ops,
+                    counted=True, unit="lanes", time_plain=False,
+                    rcp_eps=eps)
+
+
 # ---------------------------------------------------------------------------
 # config 3's triangles through the v1 cluster intersector (#14)
 # ---------------------------------------------------------------------------
@@ -755,10 +819,11 @@ def compare_bvh_kernels(scene):
                                ("bounce", bounce, False),
                                ("shadow", shadow, True)):
         key = "bvh_any" if any_hit else "bvh_closest"
-        args = (g.bvh_packed, g.tri_packed) + _ray_args(ray)
+        tabs, kw = g.bvh_tables
+        args = tabs + _ray_args(ray)
         out[(key, wave)] = check_pair(
             key, f"{wave} {'any' if any_hit else 'closest'}",
-            bp.bvh_any if any_hit else bp.bvh_closest,
+            lambda *a, k_=key: getattr(bp, k_)(*a, **kw),
             lambda *a, work=None, ah=any_hit: bp.walk_ref(*a, ah, work=work),
             args, (2, 3, 4, 5), _walk_ops, counted=True, unit="lanes")
     return out
@@ -767,8 +832,9 @@ def compare_bvh_kernels(scene):
 def worklist_chunk(geom, ray):
     """The first row chunk of a work-list query of `ray`, as wl_closest
     and wl_any build it: the arguments of one kernel launch (items, row
-    segments, the blocks, the rays and, instanced, block ids and maps),
-    and the chunk's overflow flags."""
+    segments ending at the list's last used slot, the blocks, the rays
+    and, instanced, block ids and maps), the chunk's overflow flags, and
+    the untrimmed segments (the last row's run ending at w_cap)."""
     from mitsuba_tpu_torch.ops import worklist as wl
     from mitsuba_tpu_torch.ops.rows import pack_rays
 
@@ -776,11 +842,13 @@ def worklist_chunk(geom, ray):
                      torch.clamp(ray.maxt, max=1e30))[0]
     ry = rays[:wl.MAX_ITEMS_PER_CALL // wl.W_FACTOR].contiguous()
     tab = geom.wl_tables
-    items, _total, ovf = wl.build_worklist(
+    items, total, ovf = wl.build_worklist(
         ry, tab["bmin"], tab["bmax"], tab["sc_bmin"], tab["sc_bmax"],
         ry.shape[0] * wl.W_FACTOR, wl.L_SC, wl.BEAM_S2)
-    return (items, wl.row_segments(items, ry.shape[0]), tab["tri"],
-            tab["tri_start"], ry, tab.get("block_id"), tab.get("xform")), ovf
+    full = wl.row_segments(items, ry.shape[0])
+    return (items, wl.row_segments(items, ry.shape[0], total), tab["tri"],
+            tab["tri_start"], ry, tab.get("block_id"),
+            tab.get("xform")), ovf, full
 
 
 def _cut_chunk(args, rows):
@@ -813,7 +881,7 @@ def compare_worklist_kernels(scene, flat):
                                ("shadow", shadow, True)):
         key = "wl_any" if any_hit else "wl_closest"
         for mode, geom in (("instanced", scene.geom), ("flat", flat.geom)):
-            args, ovf = worklist_chunk(geom, ray)
+            args, ovf, _full = worklist_chunk(geom, ray)
             out[(key, wave, mode)] = check_pair(
                 key, f"{wave} {'any' if any_hit else 'closest'} {mode}",
                 wl.wl_rows, wl.wl_rows_ref, args + (any_hit,), (4,), _wl_ops,
@@ -823,9 +891,9 @@ def compare_worklist_kernels(scene, flat):
         ri.ray_intersect(scene.geom, bounce), ri.ray_test(scene.geom, shadow)))
     # the static triangles' walk at the kernel's clamp, and the instance
     # walks at the reference walk's (keyword rcp_eps)
-    static = {k: [c for c in v if not isinstance(c[1], dict)]
+    static = {k: [c for c in v if "rcp_eps" not in c[1]]
               for k, v in calls.items()}
-    inst = {k: [c for c in v if isinstance(c[1], dict)]
+    inst = {k: [c for c in v if "rcp_eps" in c[1]]
             for k, v in calls.items()}
     phase("fallback_calls", **{f"{k}_{w}": len(c[k])
                                for w, c in (("static", static),
@@ -833,9 +901,10 @@ def compare_worklist_kernels(scene, flat):
                                for k in c})
     for key, any_hit in (("bvh_closest", False), ("bvh_any", True)):
         kind = "any" if any_hit else "closest"
-        for args in static[key][:1]:
+        for args, kw in static[key][:1]:
             out[(key, "fallback")] = check_pair(
-                key, f"fallback {kind}", getattr(bp, key),
+                key, f"fallback {kind}",
+                lambda *a, k=key, kw_=kw: getattr(bp, k)(*a, **kw_),
                 lambda *a, work=None, ah=any_hit: bp.walk_ref(
                     *a, ah, work=work),
                 args, (2, 3, 4, 5), _walk_ops, counted=True, unit="lanes")
@@ -843,7 +912,7 @@ def compare_worklist_kernels(scene, flat):
             eps = kw["rcp_eps"]
             out[(key, "instances")] = check_pair(
                 key, f"instance walk {kind}",
-                lambda *a, k=key, e=eps: getattr(bp, k)(*a, rcp_eps=e),
+                lambda *a, k=key, kw_=kw: getattr(bp, k)(*a, **kw_),
                 lambda *a, work=None, ah=any_hit, e=eps: bp.walk_ref(
                     *a, ah, rcp_eps=e, work=work),
                 args, (2, 3, 4, 5), _walk_ops, counted=True,
@@ -857,6 +926,138 @@ def _live_lanes(args, n):
     overflow lanes; the others are dead."""
     idx = torch.nonzero(args[5] >= args[4])[:n, 0]
     return args[:2] + tuple(a[idx].contiguous() for a in args[2:])
+
+
+def compare_worklist_full_chunks(scene, waves):
+    """#12 on a whole row chunk of the instanced path's wavefronts, the
+    last row included: the kernel on the segments that end at the list's
+    last used slot, and again on the untrimmed ones (the last row's run
+    ending at w_cap), each bit for bit against the plain version on the
+    trimmed segments (the plain version walks the untrimmed tail slot by
+    slot, far too slowly: tests/test_torch_worklist_trim.py holds it
+    equal on both); the plain version run once, the kernel timed on
+    both."""
+    from mitsuba_tpu_torch.ops import worklist as wl
+
+    out = {}
+    for wave, ray, any_hit in waves:
+        key = "wl_any" if any_hit else "wl_closest"
+        kind = "any" if any_hit else "closest"
+        stage = f"{wave} {kind} instanced full chunk"
+        args, ovf, full = worklist_chunk(scene.geom, ray)
+        kargs = args + (any_hit,)
+        uargs = (args[0], full) + args[2:] + (any_hit,)
+        work = {}
+        ref, plain_s = _timed(lambda: wl.wl_rows_ref(*kargs, work=work))
+        got = wl.wl_rows(*kargs)
+        got_full = wl.wl_rows(*uargs)
+        torch.cuda.synchronize()
+        mism, max_err = mismatches(got, ref)
+        mism_full, _e = mismatches(got_full, ref)
+        n = args[4].shape[0]
+        res = dict(kernel=key, stage=stage, rows=n, rows_of=n, unit="rows",
+                   values=_fields(ref)[0][1].numel(), mismatches=mism,
+                   mismatches_untrimmed=mism_full, max_abs_err=max_err,
+                   ms=cuda_ms(lambda: wl.wl_rows(*kargs)),
+                   untrimmed_ms=cuda_ms(lambda: wl.wl_rows(*uargs)),
+                   parent_ms=PARENT_MS.get((key, stage)),
+                   plain_ms=plain_s * 1e3, plain_runs=1, work=work,
+                   slots=int(args[0].shape[0]),
+                   last_row_slots=int(args[1][-1] - args[1][-2]),
+                   last_row_slots_untrimmed=int(full[-1] - full[-2]),
+                   overflow_rows=int(ovf.sum()),
+                   **bound(kargs, ref, _wl_ops(kargs, work)),
+                   library_ms=None)
+        phase("kernel_vs_plain", **res)
+        bad = {k: c for m in (mism, mism_full) for k, c in m.items() if c}
+        if bad:
+            raise AssertionError(f"{key} ({stage}): values differ in {bad}")
+        out[(key, wave)] = res
+    return out
+
+
+def replay_launches(tag, scene, cfg, reps=5):
+    """One render recording each launch of #11 (static triangles, or the
+    instance walks: the reference walk's clamp, keyword rcp_eps) and of
+    #12 with its arguments and its list's `total`; then each launch
+    replayed alone on its arguments and timed (CUDA events, median of
+    `reps`): the device ms a render spends in each, and #12's on the
+    segments the render ran, trimmed at the list's last used slot and
+    untrimmed (bit for bit the same outputs), so that its unused-slot
+    tail is separated from its walk. Also each launch's rows or lanes,
+    live lanes and share of warps with no live lane."""
+    from mitsuba_tpu_torch.integrators.path import render
+    from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.ops import worklist as wl
+
+    calls = {"bvh_closest": [], "bvh_any": [], "wl_rows": [],
+             "build_worklist": []}
+
+    def recorder(name, orig):
+        def call(*args, **kw):
+            res = orig(*args, **kw)
+            calls[name].append((args, kw, res if name == "build_worklist"
+                                else None))
+            return res
+        return call
+
+    with wrapped(bp, ("bvh_closest", "bvh_any"), recorder), \
+            wrapped(wl, ("wl_rows", "build_worklist"), recorder):
+        render(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    sums, launches = {}, []
+
+    def add(cls, ms, **kv):
+        acc = sums.setdefault(cls, dict(launches=0, ms=0.0))
+        acc["launches"] += 1
+        acc["ms"] += ms
+        for k, x in kv.items():
+            acc[k] = acc.get(k, 0.0) + x
+
+    for name in ("bvh_closest", "bvh_any"):
+        fn = getattr(bp, name)
+        for args, kw, _ in calls[name]:
+            if args[2].shape[0] == 0:
+                continue
+            cls = f"{name} {'instance walk' if 'rcp_eps' in kw else 'walk'}"
+            ms = cuda_ms(lambda: fn(*args, **kw), reps)
+            add(cls, ms)
+            live = args[5] >= args[4]
+            warps = torch.cat([live, live.new_zeros((-live.numel()) % 32)]
+                              ).reshape(-1, 32).any(dim=1)
+            launches.append(dict(
+                kernel=cls, lanes=live.numel(), live_lanes=int(live.sum()),
+                dead_warp_share=1.0 - float(warps.float().mean()), ms=ms))
+    builds = [c[2] for c in calls["build_worklist"]]
+    for (args, _kw, _), (items, total, _ovf) in zip(calls["wl_rows"],
+                                                     builds):
+        any_hit = bool(args[7])
+        cls = "wl_any" if any_hit else "wl_closest"
+        rays = args[4]
+        full = wl.row_segments(items, rays.shape[0])
+        trim = wl.row_segments(items, rays.shape[0], total)
+        a_full = (items, full) + tuple(args[2:])
+        a_trim = (items, trim) + tuple(args[2:])
+        same = all(torch.equal(x, y) for x, y in zip(
+            _tensors(wl.wl_rows(*a_full)), _tensors(wl.wl_rows(*a_trim))))
+        if not same:
+            raise AssertionError(f"{tag}: {cls} differs on trimmed segments")
+        ms = cuda_ms(lambda: wl.wl_rows(*args), reps)
+        ms_full = cuda_ms(lambda: wl.wl_rows(*a_full), reps)
+        ms_trim = cuda_ms(lambda: wl.wl_rows(*a_trim), reps)
+        add(cls, ms, ms_untrimmed=ms_full, ms_trimmed=ms_trim,
+            tail_slots=int(full[-1] - trim[-1]))
+        live = rays[:, 6] <= rays[:, 7]
+        warps = live.reshape(rays.shape[0], -1, 32).any(dim=2)
+        launches.append(dict(
+            kernel=cls, rows=rays.shape[0], live_lanes=int(live.sum()),
+            dead_warp_share=1.0 - float(warps.float().mean()),
+            slots=int(items.shape[0]), total=int(total), ms=ms,
+            ms_untrimmed=ms_full, ms_trimmed=ms_trim))
+    phase("launch_replay", path=tag, unit="device ms per render (CUDA "
+          "events, each launch replayed alone)", reps=reps, per_render=sums,
+          launches=launches)
+    return sums
 
 
 # ---------------------------------------------------------------------------
@@ -1501,7 +1702,12 @@ def main(argv=None):
                      ep.l1_masked_info(e2, ep.V6B_BLM, a)
                      for e2 in (32, 384, 768) for a in (False, True)},
           stream={"any" if a else "closest": sp.stream_info(32, a)
-                  for a in (False, True)})
+                  for a in (False, True)},
+          worklist={f"{'any' if a else 'closest'} "
+                    f"{'instanced' if i else 'flat'}": wl.wl_info(32, a, i)
+                    for a in (False, True) for i in (False, True)},
+          bvh={"any" if a else "closest": bp.bvh_info(a)
+               for a in (False, True)})
 
     t0 = time.perf_counter()
     scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
@@ -1536,6 +1742,7 @@ def main(argv=None):
                                   fog_cfg)
     cluster = compare_cluster_kernels(scene3)
     compare_walk_cases(device)
+    compare_instanced_cases(device)
     cam3, bounce3, shadow3 = wavefronts(scene3)
     v1 = compare_cluster_v1(cl, (("camera", cam3, False),
                                  ("bounce", bounce3, False),
@@ -1543,6 +1750,11 @@ def main(argv=None):
     bvh = compare_bvh_kernels(scene_bvh)
     worklist = compare_worklist_kernels(scene_inst, scene_flat)
     del scene_flat
+    inst_waves = wavefronts(scene_inst)
+    compare_worklist_full_chunks(scene_inst, (
+        ("camera", inst_waves[0], False), ("bounce", inst_waves[1], False),
+        ("shadow", inst_waves[2], True)))
+    del inst_waves
     golden_gate("golden_64", cornell_box(64, 64, device=device),
                 "tests/goldens/bench_cfg1.npz")
     # tests/goldens/bench_cfg3.npz holds the bunny mesh, which is absent;
@@ -1594,7 +1806,9 @@ def main(argv=None):
                         ["refine", "child_refine", "l1_items"],
                         forbid=["items", "l1_masked"])
     lb = render_phase("bvh", scene_bvh, cfg, ["bvh_closest", "bvh_any"])
+    replay_launches("bvh", scene_bvh, cfg)
     li = render_phase("instanced", scene_inst, cfg, ["wl_closest", "wl_any"])
+    replay_launches("instanced", scene_inst, cfg)
     lv = render_phase("volpath", cornell_box(W1, H1, device=device), fog_cfg,
                       ["shaded", "any"], render_fn=fog_render,
                       forbid=["shaded_any"])
@@ -1660,13 +1874,19 @@ def main(argv=None):
               (l3 if stream_path == "config3" else l3v5)["stream"],
               cluster[("stream", "bounce", False)], path=stream_path,
               device_ms_per_render=own_ms(stream_path, "stream_kernel")),
+        # #11's device ms a render (both bodies), in the bvh render and
+        # in the instanced one (its overflow fallback and instance walks)
         entry("bvh_closest", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:169",
-              lb["bvh_closest"], bvh[("bvh_closest", "bounce")]),
+              lb["bvh_closest"], bvh[("bvh_closest", "bounce")],
+              device_ms_per_render=own_ms("bvh", "bvh_kernel"),
+              device_ms_per_render_instanced=own_ms("instanced",
+                                                    "bvh_kernel")),
         entry("bvh_any", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:196",
               lb["bvh_any"], bvh[("bvh_any", "shadow")]),
         entry("wl_closest", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:364", li["wl_closest"],
-              worklist[("wl_closest", "bounce", "instanced")]),
+              worklist[("wl_closest", "bounce", "instanced")],
+              device_ms_per_render=own_ms("instanced", "worklist_kernel")),
         entry("wl_any", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:458", li["wl_any"],
               worklist[("wl_any", "shadow", "instanced")]),

@@ -10,7 +10,9 @@
 // 1e-12 for the cluster kernels; it is a constant at every call, so the
 // compiler folds it. `mt_test4` takes the nine floats as the leading
 // fields of three float4s (three 16-byte shared-memory loads) and runs
-// the same operations.
+// the same operations; `mt_rec` loads them so from a 16-byte aligned
+// record. `mt_cluster` runs one cluster's triangles in the tie order of
+// the TPU's cluster kernels (the stream and work-list walks).
 
 #pragma once
 
@@ -43,4 +45,66 @@ __device__ __forceinline__ bool mt_test4(float4 a, float4 b, float4 c,
                                          float& t, float& u, float& v) {
   const float f[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
   return mt_test(f, o, d, mn, cap, det_eps, t, u, v);
+}
+
+__device__ __forceinline__ bool mt_rec(const float* f, const float o[3],
+                                       const float d[3], float mn, float cap,
+                                       float det_eps, float& t, float& u,
+                                       float& v) {
+  const float4* q = reinterpret_cast<const float4*>(f);
+  return mt_test4(q[0], q[1], q[2], o, d, mn, cap, det_eps, t, u, v);
+}
+
+// the running minimum of one chunk parity of a sublane (strict <)
+struct MtRun {
+  float t, u, v;
+  int j;
+};
+
+__device__ __forceinline__ void mt_run_take(bool ok, float t, float u,
+                                            float v, int j, MtRun& r) {
+  if (ok && t < r.t) r = {t, u, v, j};
+}
+
+// Moeller-Trumbore of one cluster of K triangles (K a multiple of 8;
+// triangle k at cl + k * stride floats) under cap, in the tie order of
+// the TPU's cluster kernels (stream_pallas.py:137-148,
+// worklist_pallas.py:273-314): triangle k is chunk j = k / 8 of sublane
+// s = k % 8; per sublane the even and odd chunks keep separate running
+// minima (strict <), the odd one winning only when strictly nearer;
+// across sublanes the lowest candidate j * 8 + s wins among equal t.
+// Returns (t, u, v, candidate); t = 3e38 and candidate 0 where nothing
+// passed. Two tests run at a time, an even and an odd chunk.
+__device__ __forceinline__ void mt_cluster(const float* cl, int stride,
+                                           int K, const float o[3],
+                                           const float d[3], float mn,
+                                           float cap, float det_eps,
+                                           float& bt, float& bu, float& bv,
+                                           int& bp) {
+  const float big = 3e38f;
+  bt = big;
+  bu = bv = 0.0f;
+  bp = 1 << 30;
+  const int nj = K / 8;
+  for (int s = 0; s < 8; ++s) {
+    MtRun r0 = {big, 0.0f, 0.0f, 0}, r1 = {big, 0.0f, 0.0f, 0};
+    for (int j = 0; j < nj; j += 2) {
+      float t0, u0, v0, t1 = big, u1, v1;
+      const bool ok0 = mt_rec(cl + (j * 8 + s) * stride, o, d, mn, cap,
+                              det_eps, t0, u0, v0);
+      const bool ok1 = j + 1 < nj &&
+          mt_rec(cl + ((j + 1) * 8 + s) * stride, o, d, mn, cap, det_eps,
+                 t1, u1, v1);
+      mt_run_take(ok0, t0, u0, v0, j, r0);
+      mt_run_take(ok1, t1, u1, v1, j + 1, r1);
+    }
+    if (r1.t < r0.t) r0 = r1;
+    const int pc = r0.j * 8 + s;
+    if (r0.t < bt || (r0.t == bt && pc < bp)) {
+      bt = r0.t;
+      bp = pc;
+      bu = r0.u;
+      bv = r0.v;
+    }
+  }
 }

@@ -75,7 +75,6 @@
 #define FIELDS 16
 #define BIG 3e38f
 #define DET_EPS 1e-12f
-#define PSEL_NONE (1 << 30)
 #define GROUPS 2                          // 128-thread groups per row
 #define THREADS (GROUPS * LANES)
 #define CL_PER_GROUP (SC_GROUP / GROUPS)  // clusters each group tests
@@ -110,60 +109,6 @@ __device__ __forceinline__ void stage_sc(const float* src, float* dst,
   for (int c = threadIdx.x; c < K * LANES / 4; c += THREADS)
     cp_async16(dst + 4 * c, src + 4 * c);
   cp_async_commit();
-}
-
-__device__ __forceinline__ bool mt_row(const float* f, const float o[3],
-                                       const float d[3], float mnb,
-                                       float cap, float& t, float& u,
-                                       float& v) {
-  const float4* q = reinterpret_cast<const float4*>(f);
-  return mt_test4(q[0], q[1], q[2], o, d, mnb, cap, DET_EPS, t, u, v);
-}
-
-// the running minimum of one chunk parity of a sublane (strict <)
-struct Run {
-  float t, u, v;
-  int j;
-};
-
-__device__ __forceinline__ void run_take(bool ok, float t, float u, float v,
-                                         int j, Run& r) {
-  if (ok && t < r.t) r = {t, u, v, j};
-}
-
-// Moeller-Trumbore of one cluster (K rows from cl, row stride 128 floats)
-// under cap, with the TPU kernel's tie order: per sublane the even and
-// odd chunks' running minima, the odd one winning only when strictly
-// nearer; across sublanes the lowest candidate j * 8 + sublane among
-// equal t. Returns (t, u, v, candidate); t = BIG where nothing passed.
-__device__ __forceinline__ void visit(const float* cl, int K,
-                                      const float o[3], const float d[3],
-                                      float mnb, float cap, float& bt,
-                                      float& bu, float& bv, int& bp) {
-  bt = BIG;
-  bu = bv = 0.0f;
-  bp = PSEL_NONE;
-  const int nj = K / 8;
-  for (int s = 0; s < 8; ++s) {
-    Run r0 = {BIG, 0.0f, 0.0f, 0}, r1 = {BIG, 0.0f, 0.0f, 0};
-    for (int j = 0; j < nj; j += 2) {      // an even and an odd chunk
-      float t0, u0, v0, t1 = BIG, u1, v1;
-      const bool ok0 =
-          mt_row(cl + (j * 8 + s) * LANES, o, d, mnb, cap, t0, u0, v0);
-      const bool ok1 = j + 1 < nj &&
-          mt_row(cl + ((j + 1) * 8 + s) * LANES, o, d, mnb, cap, t1, u1, v1);
-      run_take(ok0, t0, u0, v0, j, r0);
-      run_take(ok1, t1, u1, v1, j + 1, r1);
-    }
-    if (r1.t < r0.t) r0 = r1;
-    const int pc = r0.j * 8 + s;
-    if (r0.t < bt || (r0.t == bt && pc < bp)) {
-      bt = r0.t;
-      bp = pc;
-      bu = r0.u;
-      bv = r0.v;
-    }
-  }
 }
 
 template <bool ANY>
@@ -246,10 +191,10 @@ stream_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
 #pragma unroll
             for (int j = 0; j < 8; j += 2) {
               float t, u, v;
-              const bool ok0 =
-                  mt_row(cl + (row + j) * LANES, o, d, mnb, mx, t, u, v);
-              const bool ok1 =
-                  mt_row(cl + (row + j + 1) * LANES, o, d, mnb, mx, t, u, v);
+              const bool ok0 = mt_rec(cl + (row + j) * LANES, o, d, mnb, mx,
+                                      DET_EPS, t, u, v);
+              const bool ok1 = mt_rec(cl + (row + j + 1) * LANES, o, d, mnb,
+                                      mx, DET_EPS, t, u, v);
               hit = hit || ok0 || ok1;
             }
           }
@@ -299,7 +244,8 @@ stream_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
         float t = BIG, u = 0.0f, v = 0.0f;
         int p = 0;
         if (warp_live)
-          visit(cur + k * FIELDS, K, o, d, mnb, tb0, t, u, v, p);
+          mt_cluster(cur + k * FIELDS, LANES, K, o, d, mnb, tb0, DET_EPS, t,
+                     u, v, p);
         sh.rt[k][l] = t;
         sh.ru[k][l] = u;
         sh.rv[k][l] = v;

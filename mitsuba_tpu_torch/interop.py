@@ -23,6 +23,7 @@ from mitsuba_tpu_torch.emitters.table import EmitterTable
 from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
 from mitsuba_tpu_torch.media.medium import HOMOGENEOUS, MediumTable
 from mitsuba_tpu_torch.media.phase import MICROFLAKE_GAUSS
+from mitsuba_tpu_torch.ops import bvh as bp
 from mitsuba_tpu_torch.render.camera import Camera
 from mitsuba_tpu_torch.render.clusters import ClusterTables
 from mitsuba_tpu_torch.render.intersect import GeometryTables
@@ -64,6 +65,8 @@ def _geometry(g) -> GeometryTables:
     if g.backend == "brute":
         return geom
     fields = {k: _t(getattr(g, k)) for k in _BVH_FIELDS}
+    fields["bvh_aligned"], fields["tri_aligned"] = bp.align_tables(
+        fields["bvh_packed"], fields["tri_packed"])
     if g.backend == "cluster":
         fields.update({k: _t(getattr(g, k)) for k in _CLUSTER_FIELDS})
         if g.has_instances:

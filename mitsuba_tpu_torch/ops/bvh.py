@@ -23,6 +23,13 @@ tensors they run `walk_ref`, the same walk in plain PyTorch. Both take
 the clamp of the slab reciprocals as an argument: the TPU kernel's 1e-12
 by default, the 1e-20 of the reference's exact XLA walk for the instance
 walks (render/intersect.py).
+
+The kernel reads the same tables as 16-byte records (`align_tables`):
+nodes (M, 8) bmin | skip, bmax | first * 8 + count, the ints as int32
+bits, and triangles (T, 12) v0 | e1 | e2, each padded to four floats.
+The geometry builds them once, beside the (M, 9) and (T, 9) tables
+(render/intersect.py), and passes them as `aligned`; a caller without
+them gets them built for its call.
 """
 from __future__ import annotations
 
@@ -41,21 +48,65 @@ RCP_EPS = 1e-12
 # the plain walk checks for live lanes once every this many steps (each
 # check is a host sync; the steps between are no-ops on finished lanes)
 _CHECK_EVERY = 16
+# the packed leaf word first * 8 + count: counts up to 7, first below 2^28
+_COUNT_BITS = 3
 
 # kernel launches since import, per query (reset by callers that count)
 LAUNCHES = {"bvh_closest": 0, "bvh_any": 0}
 _FN = None
+_INFO = None
 
 
 def build() -> str:
     """Compile (once per source hash) and bind the kernel; returns the
     compiler's output, empty when cached."""
-    global _FN
+    global _FN, _INFO
     log = nv.build_all([SOURCE])[SOURCE]
     p, i = ctypes.c_void_p, ctypes.c_int
     _FN = nv.bind(SOURCE, "mts_bvh",
                   [p] * 6 + [i] * 4 + [ctypes.c_float] + [p] * 6)
+    _INFO = nv.bind(SOURCE, "mts_bvh_info", [i, p])
     return log
+
+
+def bvh_info(any_hit: bool) -> dict:
+    """The kernel's resources on the current card: resident 128-thread
+    blocks per SM, registers and local (spill) bytes per thread."""
+    if _INFO is None:
+        build()
+    out = (ctypes.c_int * 3)()
+    nv.check(_INFO(int(any_hit), out), "bvh_info")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2])
+
+
+# ---------------------------------------------------------------------------
+# The kernel's 16-byte tables
+# ---------------------------------------------------------------------------
+
+def align_tables(nodes, tris):
+    """The kernel's records of the (M, 9) node and (T, 9) triangle
+    tables: nodes (M, 8) bmin | skip, bmax | first * 8 + count (the ints
+    as int32 bits) and triangles (T, 12) v0 | 0 | e1 | 0 | e2 | 0.
+    Raises where an int of the node table is not one, or does not fit
+    the packing (count 0-7, first below 2^28, as every tree of
+    render/bvh.py has: leaves of at most 4)."""
+    ints = nodes[:, 6:9]
+    if not bool((ints == torch.trunc(ints)).all()):
+        raise ValueError("node table: first, count and skip must be ints")
+    first, count, skip = ints.to(torch.int64).unbind(1)
+    if bool(((count < 0) | (count >= 1 << _COUNT_BITS) | (first < 0)
+             | (first >= 1 << (31 - _COUNT_BITS))).any()):
+        raise ValueError("node table: counts must lie in 0-7 and first "
+                         "in [0, 2^28) for the kernel's packing")
+    leaf = ((first << _COUNT_BITS) | count).to(torch.int32)
+    na = torch.cat([nodes[:, 0:3], skip.to(torch.int32).view(torch.float32)
+                    [:, None], nodes[:, 3:6],
+                    leaf.view(torch.float32)[:, None]], dim=1)
+    ta = torch.zeros((tris.shape[0], 12), dtype=torch.float32,
+                     device=tris.device)
+    for j in range(3):
+        ta[:, 4 * j:4 * j + 3] = tris[:, 3 * j:3 * j + 3]
+    return na, ta
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +212,7 @@ def _check(nodes, tris, o, d, mint, maxt):
         raise ValueError("empty BVH tables")
 
 
-def _query(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps):
+def _query(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps, aligned):
     _check(nodes, tris, o, d, mint, maxt)
     if o.device.type == "cpu":
         return walk_ref(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps)
@@ -171,7 +222,14 @@ def _query(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps):
         build()
     n = o.shape[0]
     dev = o.device
-    args = [x.contiguous() for x in (nodes, tris, o, d, mint, maxt)]
+    na, ta = aligned if aligned is not None else align_tables(nodes, tris)
+    if tuple(na.shape) != (nodes.shape[0], 8) or tuple(ta.shape) != (
+            tris.shape[0], 12) or na.dtype != torch.float32 or \
+            ta.dtype != torch.float32 or na.device != dev or \
+            ta.device != dev:
+        raise ValueError("aligned tables: float32 (M, 8) and (T, 12) on "
+                         "the rays' device")
+    args = [x.contiguous() for x in (na, ta, o, d, mint, maxt)]
     with torch.cuda.device(dev):
         t = torch.empty(n, dtype=torch.float32, device=dev)
         u = torch.empty_like(t)
@@ -180,8 +238,7 @@ def _query(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps):
         hit = torch.empty(n, dtype=torch.int32, device=dev)
         err = _FN(*[x.data_ptr() for x in args], n, nodes.shape[0],
                   tris.shape[0], int(any_hit), rcp_eps, t.data_ptr(),
-                  u.data_ptr(),
-                  v.data_ptr(), p.data_ptr(), hit.data_ptr(),
+                  u.data_ptr(), v.data_ptr(), p.data_ptr(), hit.data_ptr(),
                   torch.cuda.current_stream(dev).cuda_stream)
     nv.check(err, "bvh")
     if n > 0:
@@ -191,14 +248,18 @@ def _query(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps):
     return t, u, v, p, hit.bool()
 
 
-def bvh_closest(nodes, tris, o, d, mint, maxt, rcp_eps: float = RCP_EPS):
+def bvh_closest(nodes, tris, o, d, mint, maxt, rcp_eps: float = RCP_EPS,
+                aligned=None):
     """Closest hit: (t, u, v, prim, hit); prim = -1 where hit is False.
     The kernel on CUDA tensors, its plain version on CPU ones. rcp_eps:
     the clamp of |d| in the slab reciprocals (the exact instance walks of
-    render/intersect.py pass the reference's 1e-20)."""
-    return _query(nodes, tris, o, d, mint, maxt, False, rcp_eps)
+    render/intersect.py pass the reference's 1e-20). aligned: the
+    kernel's tables, align_tables(nodes, tris), built here when not
+    given (the plain version reads nodes and tris)."""
+    return _query(nodes, tris, o, d, mint, maxt, False, rcp_eps, aligned)
 
 
-def bvh_any(nodes, tris, o, d, mint, maxt, rcp_eps: float = RCP_EPS):
+def bvh_any(nodes, tris, o, d, mint, maxt, rcp_eps: float = RCP_EPS,
+            aligned=None):
     """Any hit within (mint, maxt): the occlusion mask."""
-    return _query(nodes, tris, o, d, mint, maxt, True, rcp_eps)
+    return _query(nodes, tris, o, d, mint, maxt, True, rcp_eps, aligned)

@@ -35,6 +35,14 @@ and slab-tests each lane against [mint, maxt], and each lane accumulates
 (acc + pass) + tri[cid, 0, 0], so that the fixed cost of an item can be
 set against its full cost (mitsuba_tpu_torch/probes/r3_kernel.py).
 
+The list's slots past its `total` (or past w_cap, where the list
+overflowed) are padding, neither valid nor first, that the build gives
+to the last row. The TPU kernel's grid walks all `w_cap` slots; the port
+ends each row's run at the list's last used slot (`row_segments`' end,
+`total`), which changes no output: on the card the last row's block
+would otherwise walk tens of thousands of unused slots, one by one,
+after every other row has finished.
+
 On CUDA tensors `wl_rows` and `wl_probe_rows` launch `csrc/worklist.cu`;
 on CPU tensors they run `wl_rows_ref` and `wl_probe_ref`, the same walks
 in plain PyTorch.
@@ -77,6 +85,7 @@ MAX_K = 128         # the kernel stages at most (128, 16) floats per item
 LAUNCHES = {"wl_closest": 0, "wl_any": 0, "wl_probe": 0}
 _FN = None
 _PROBE_FN = None
+_INFO = None
 # the reference's defaults for the probe (worklist_pallas.py:448-449, 63)
 PROBE_W_FACTOR = 16
 PROBE_L_SC = 24
@@ -85,12 +94,25 @@ PROBE_L_SC = 24
 def build() -> str:
     """Compile (once per source hash) and bind the kernel; returns the
     compiler's output, empty when cached."""
-    global _FN, _PROBE_FN
+    global _FN, _PROBE_FN, _INFO
     log = nv.build_all([SOURCE])[SOURCE]
     p, i = ctypes.c_void_p, ctypes.c_int
     _FN = nv.bind(SOURCE, "mts_worklist", [p] * 7 + [i] * 3 + [p] * 6)
     _PROBE_FN = nv.bind(SOURCE, "mts_worklist_probe", [p] * 4 + [i, i, p, p])
+    _INFO = nv.bind(SOURCE, "mts_worklist_info", [i, i, i, p])
     return log
+
+
+def wl_info(k_cl: int, any_hit: bool, instanced: bool) -> dict:
+    """The kernel's resources on the current card at cluster size k_cl:
+    resident rows per SM, registers per thread, shared memory bytes per
+    row and local (spill) bytes per thread."""
+    if _INFO is None:
+        build()
+    out = (ctypes.c_int * 4)()
+    nv.check(_INFO(k_cl, int(any_hit), int(instanced), out), "wl_info")
+    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2],
+                local_bytes=out[3])
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +224,16 @@ def build_worklist(rays, cl_bmin, cl_bmax, sc_bmin, sc_bmax, w_cap: int,
     return items.to(torch.int32), total, overflow
 
 
-def row_segments(items, n_rows):
+def row_segments(items, n_rows, end=None):
     """(R + 1,) int32 bounds of each row's run of slots in the row-major
-    item list."""
-    item_row = (items >> _ROW_SHIFT).to(torch.int64)
+    item list. end: the list's `total` (build_worklist); the runs then end
+    at its last used slot, min(total, w_cap), and the padding slots past
+    it, neither valid nor first, fall out of the last row's run. Without
+    it the last row's run ends at w_cap, as the TPU kernel's grid does."""
+    # rows are non-decreasing along the list, so bounds searched among
+    # its first `end` slots are the full list's, capped at end
+    used = items if end is None else items[:int(end)]
+    item_row = (used >> _ROW_SHIFT).to(torch.int64)
     bounds = torch.arange(n_rows + 1, dtype=torch.int64, device=items.device)
     return torch.searchsorted(item_row, bounds).to(torch.int32)
 
@@ -378,6 +406,9 @@ def wl_rows(items, seg, tri, tri_start, rays, block_id, xform,
         raise NotImplementedError(f"no work-list kernel for {rays.device}")
     if _FN is None:
         build()
+    if tri.data_ptr() % 16 or (xform is not None and xform.data_ptr() % 16):
+        raise ValueError("the kernel stages tri and xform in 16-byte "
+                         "pieces: both must be 16-byte aligned")
     r = rays.shape[0]
     dev = rays.device
     inst = block_id is not None
@@ -437,10 +468,10 @@ def _call(wl, o, d, mint, maxt, walk, beams=None):
     outs, ovfs = [], []
     for r0 in range(0, n_rows, chunk_rows):
         ry = rays[r0:r0 + chunk_rows]
-        items, _total, ovf = build_worklist(
+        items, total, ovf = build_worklist(
             ry, wl["bmin"], wl["bmax"], wl["sc_bmin"], wl["sc_bmax"],
             ry.shape[0] * w_factor, l_sc, beam_s2)
-        outs.append(walk(items, row_segments(items, ry.shape[0]), ry))
+        outs.append(walk(items, row_segments(items, ry.shape[0], total), ry))
         ovfs.append(ovf)
     if isinstance(outs[0], tuple):
         out = tuple(torch.cat(x) for x in zip(*outs))

@@ -98,6 +98,10 @@ class GeometryTables:
     bvh_skip: torch.Tensor = None    # (M,) int32 next node after a miss
     bvh_packed: torch.Tensor = None  # (M, 9) bmin|bmax|first|count|skip
     tri_packed: torch.Tensor = None  # (T, 9) v0|e1|e2
+    # the same as the BVH kernel's 16-byte records (ops/bvh.py
+    # align_tables): (M, 8) bmin|skip|bmax|first*8+count, (T, 12)
+    bvh_aligned: torch.Tensor = None
+    tri_aligned: torch.Tensor = None
     # the shading record in one row: e1|e2|n0|n1|n2|uv0|uv1|uv2|
     # mid|eid|sid (ints bitcast to float32)
     shade_pack: torch.Tensor = None  # (T, 24)
@@ -159,6 +163,13 @@ class GeometryTables:
     @property
     def has_instances(self):
         return self.mt_block_id is not None
+
+    @property
+    def bvh_tables(self):
+        """The BVH queries' tables: (nodes, tris) and, as keywords, the
+        kernel's aligned copies."""
+        return ((self.bvh_packed, self.tri_packed),
+                dict(aligned=(self.bvh_aligned, self.tri_aligned)))
 
     @property
     def ex_tables(self):
@@ -313,12 +324,15 @@ def _bvh_tables(bvh, tri, nrm, uvc, mid, eid, sid):
          mid.astype(np.int32).view(np.float32)[:, None],
          eid.astype(np.int32).view(np.float32)[:, None],
          sid.astype(np.int32).view(np.float32)[:, None]], axis=1)
+    nodes = nodes.astype(np.float32)
+    tris = np.concatenate([tri[:, 0], e1, e2], axis=1).astype(np.float32)
+    aligned = bp.align_tables(torch.from_numpy(nodes),
+                              torch.from_numpy(tris))
     return dict(
         bvh_min=bvh.bounds_min, bvh_max=bvh.bounds_max,
         bvh_first=bvh.first, bvh_count=bvh.count, bvh_skip=bvh.skip,
-        bvh_packed=nodes.astype(np.float32),
-        tri_packed=np.concatenate([tri[:, 0], e1, e2],
-                                  axis=1).astype(np.float32),
+        bvh_packed=nodes, tri_packed=tris,
+        bvh_aligned=aligned[0].numpy(), tri_aligned=aligned[1].numpy(),
         shade_pack=shade)
 
 
@@ -482,8 +496,8 @@ def _walk(geom: GeometryTables, ray: Ray, any_hit: bool):
     through that kernel (its plain version on the CPU). Returns (t, u, v,
     prim, valid) (prim = -1 on a miss), or the occlusion mask."""
     fn = bp.bvh_any if any_hit else bp.bvh_closest
-    return fn(geom.bvh_packed, geom.tri_packed, *_ray_args(ray),
-              rcp_eps=_WALK_RCP_EPS)
+    tabs, kw = geom.bvh_tables
+    return fn(*tabs, *_ray_args(ray), rcp_eps=_WALK_RCP_EPS, **kw)
 
 
 def _xf_ray(ray: Ray, xf_row) -> Ray:
@@ -556,8 +570,8 @@ def _fallback_closest(geom, ray, t, u, v, prim, valid, lane_ovf):
     fb_maxt = torch.where(valid & torch.isfinite(t), t, ray.maxt)
     mx = torch.where(lane_ovf, fb_maxt, -1.0)
     fb = Ray(ray.o, ray.d, ray.mint, mx)
-    tf_, uf, vf, pf, okf = bp.bvh_closest(geom.bvh_packed, geom.tri_packed,
-                                          *_ray_args(fb))
+    tabs, kw = geom.bvh_tables
+    tf_, uf, vf, pf, okf = bp.bvh_closest(*tabs, *_ray_args(fb), **kw)
     if geom.has_instances:
         idx = torch.nonzero(lane_ovf)[:, 0]
         sub = Ray(fb.o[idx], fb.d[idx], fb.mint[idx], fb.maxt[idx])
@@ -576,7 +590,8 @@ def _fallback_any(geom, ray, occ, lane_ovf):
     lane_ovf = lane_ovf & ~occ
     mx = torch.where(lane_ovf, ray.maxt, -1.0)
     fb = Ray(ray.o, ray.d, ray.mint, mx)
-    hit = bp.bvh_any(geom.bvh_packed, geom.tri_packed, *_ray_args(fb))
+    tabs, kw = geom.bvh_tables
+    hit = bp.bvh_any(*tabs, *_ray_args(fb), **kw)
     if geom.has_instances:
         idx = torch.nonzero(lane_ovf)[:, 0]
         sub = Ray(fb.o[idx], fb.d[idx], fb.mint[idx], fb.maxt[idx])
@@ -910,8 +925,8 @@ def _dp_du(uv0, uv1, uv2, e1, e2):
 def _closest(geom, ray, coherent):
     """(t, u, v, prim, valid) of the backend's closest-hit query."""
     if geom.backend == "bvh":
-        t, u, v, prim, valid = bp.bvh_closest(
-            geom.bvh_packed, geom.tri_packed, *_ray_args(ray))
+        tabs, kw = geom.bvh_tables
+        t, u, v, prim, valid = bp.bvh_closest(*tabs, *_ray_args(ray), **kw)
         return t, u, v, torch.where(valid, prim, 0), valid
     if geom.has_instances:
         return _worklist_closest(geom, ray)
@@ -934,7 +949,8 @@ def ray_test(geom: GeometryTables, ray: Ray):
         return ip.any_hit(ip.make_tri_table(geom.v0, geom.e1, geom.e2),
                           *_ray_args(ray))
     if geom.backend == "bvh":
-        return bp.bvh_any(geom.bvh_packed, geom.tri_packed, *_ray_args(ray))
+        tabs, kw = geom.bvh_tables
+        return bp.bvh_any(*tabs, *_ray_args(ray), **kw)
     if geom.has_instances:
         return _worklist_any(geom, ray)
     return _cluster_any(geom, ray)

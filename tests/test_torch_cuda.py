@@ -558,6 +558,114 @@ def test_worklist_kernel_matches_plain_version(cuda, instanced, any_hit):
     assert int((ref[3] >= 0).sum()) > 50
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("list_end", ["tail", "overflow"])
+@pytest.mark.parametrize("k", [32, 8])
+@pytest.mark.parametrize("instanced", [False, True])
+def test_worklist_kernel_on_corner_cases(cuda, instanced, k, list_end,
+                                         any_hit):
+    """#12 on tests/torch_instanced_cases.py's rows (dead, occluded and
+    sentinel warps, a dead row, a 540-slot row, planted ties within a
+    block and across items), on the segments that end at the list's last
+    used slot and on the untrimmed ones (a tail of 1,200 unused slots, or
+    a list cut short at w_cap)."""
+    from mitsuba_tpu_torch.ops import worklist as wl
+    import torch_instanced_cases as ic
+
+    wl.build()
+    items, seg, tri, ts, rays, bid, xf, _total, full = ic.wl_case(
+        instanced, k, list_end, device=cuda)
+    key = "wl_any" if any_hit else "wl_closest"
+    before = wl.LAUNCHES[key]
+    got = wl.wl_rows(items, seg, tri, ts, rays, bid, xf, any_hit)
+    got_full = wl.wl_rows(items, full, tri, ts, rays, bid, xf, any_hit)
+    assert wl.LAUNCHES[key] == before + 2
+    ref = wl.wl_rows_ref(items, seg, tri, ts, rays, bid, xf, any_hit)
+    torch.cuda.synchronize()
+    assert _same(got, ref) and _same(got_full, ref)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_worklist_kernel_on_a_whole_chunk(cuda, any_hit):
+    """#12 on the whole list of the instanced scene's camera rays (64 x 64
+    px, 2 spp: 64 rows, 1,600 of 3,072 slots used) at the render path's
+    beams, its last row and that row's unused slots included, trimmed
+    and untrimmed."""
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, camera_wavefront,
+    )
+    from mitsuba_tpu_torch.ops import worklist as wl
+    from mitsuba_tpu_torch.ops.rows import pack_rays
+    from mitsuba_tpu_torch.render.scene import instanced_scene
+
+    wl.build()
+    scene = instanced_scene(64, 64, 24, 48, device="cpu")
+    tab = {k: v.to(cuda) for k, v in scene.geom.wl_tables.items()}
+    ray = camera_wavefront(scene, PathConfig(spp=2), 0)[0]
+    rays = pack_rays(ray.o, ray.d, ray.mint,
+                     torch.clamp(ray.maxt, max=1e30))[0].to(cuda)
+    items, total, _ovf = wl.build_worklist(
+        rays, tab["bmin"], tab["bmax"], tab["sc_bmin"], tab["sc_bmax"],
+        rays.shape[0] * wl.W_FACTOR, wl.L_SC, wl.BEAM_S2)
+    full = wl.row_segments(items, rays.shape[0])
+    seg = wl.row_segments(items, rays.shape[0], total)
+    assert int(seg[-1]) == total < int(full[-1])
+    args = (tab["tri"], tab["tri_start"], rays, tab["block_id"],
+            tab["xform"], any_hit)
+    got = wl.wl_rows(items, seg, *args)
+    got_full = wl.wl_rows(items, full, *args)
+    ref = wl.wl_rows_ref(items, seg, *args)
+    torch.cuda.synchronize()
+    assert _same(got, ref) and _same(got_full, ref)
+
+
+def test_worklist_kernel_keeps_rows_in_flight(cuda):
+    """#12 holds at least 8 rows per SM at K = 32, every body."""
+    from mitsuba_tpu_torch.ops import worklist as wl
+
+    wl.build()
+    for any_hit in (False, True):
+        for inst in (False, True):
+            info = wl.wl_info(32, any_hit, inst)
+            assert info["rows_per_sm"] >= 8, info
+
+
+@pytest.mark.parametrize("rcp_eps", [1e-12, 1e-20])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("name", ["leaves", "tail"])
+def test_bvh_kernel_on_corner_cases(cuda, name, any_hit, rcp_eps):
+    """#11 on tests/torch_instanced_cases.py's trees: equal t in two
+    leaves, a leaf past the last triangle, zero direction components,
+    and a few lanes walking the whole tree while the rest end within a
+    few nodes; with the geometry's aligned tables and without them."""
+    from mitsuba_tpu_torch.ops import bvh as bp
+    import torch_instanced_cases as ic
+
+    bp.build()
+    nodes, tris, o, d, mint, maxt = ic.bvh_cases(device=cuda)[name]
+    fn = bp.bvh_any if any_hit else bp.bvh_closest
+    aligned = bp.align_tables(nodes, tris)
+    got = fn(nodes, tris, o, d, mint, maxt, rcp_eps=rcp_eps,
+             aligned=aligned)
+    got2 = fn(nodes, tris, o, d, mint, maxt, rcp_eps=rcp_eps)
+    ref = bp.walk_ref(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps)
+    torch.cuda.synchronize()
+    assert _same(got, ref) and _same(got2, ref)
+    hits = ref if any_hit else ref[4]
+    assert 0 < int(hits.sum()) < hits.numel()
+
+
+def test_bvh_kernel_keeps_walks_in_flight(cuda):
+    """#11 holds at least 9 blocks of 128 walks per SM, without a
+    spill."""
+    from mitsuba_tpu_torch.ops import bvh as bp
+
+    bp.build()
+    for any_hit in (False, True):
+        info = bp.bvh_info(any_hit)
+        assert info["blocks_per_sm"] >= 9 and info["local_bytes"] == 0, info
+
+
 def test_bvh_render_on_the_card_goes_through_the_kernel(cuda):
     from mitsuba_tpu_torch.integrators.path import PathConfig, render
     from mitsuba_tpu_torch.ops import bvh as bp
