@@ -28,9 +28,9 @@ Phases, each printing one JSON line:
   2. the build of every native source (one compiler per source, all at
      once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
      builder), with the compiler's ptxas lines, and the resources of the
-     v6b walk (#9), the stream walk (#10), the work-list walk (#12) and
-     the BVH walk (#11): rows (blocks) resident per SM, registers,
-     shared memory, spills;
+     v6b walk (#9), the stream walk (#10), the work-list walk (#12), the
+     BVH walk (#11) and the refine kernels (#5, #6): rows (blocks)
+     resident per SM, registers, shared memory, spills;
   3. each kernel against its plain PyTorch version on the card, bit for
      bit (every field of every lane), at the shapes of its path, with the
      bound of the work these inputs need (the larger of the bytes they
@@ -38,7 +38,14 @@ Phases, each printing one JSON line:
      the brute kernel on 1,048,576 config-1 camera rays; the refine (S1),
      child-refine (S2, S3) and item kernels (#7 v5, #8 v6, #9 v6b) on the
      config-3 camera wavefront (coherent caps) and on a first diffuse
-     bounce wavefront with its shadow rays (diffuse caps); the stream
+     bounce wavefront with its shadow rays (diffuse caps), #5 and #6 by
+     the bits of every key and also at the XL caps, as each wavefront's
+     query re-runs its overflowing rows, with two bounds (the live lanes'
+     tests, and those of all 128 lanes of a row), and on the corner cases
+     of tests/torch_refine_cases.py (whole warps dead, a single live lane,
+     zero and tiny direction components, keys tied at -0.0 and +0.0,
+     live prefixes of 0, 1 and the whole list with garbage ids past them,
+     every cap width and the all-L2 root table); the stream
      kernel on the bounce and shadow rows; #9 also at the XL caps on the
      bounce rows, and #9 and #10 on the corner cases of
      tests/torch_walk_cases.py (whole warps dead, escaping or
@@ -82,7 +89,11 @@ Phases, each printing one JSON line:
      the lanes passed to #2 and #3 (the JAX volpath counts none). The
      profile gives each of the port's kernels its device ms per render.
      After config 3, one more render records each launch of #9 and #10:
-     its rows, live lanes and share of warps with no live lane; after bvh
+     its rows, live lanes and share of warps with no live lane, and of #5
+     and #6, labelled by their query (closest or any; coherent, diffuse or
+     XL caps), each replayed alone and timed, with its live entries; the
+     profiles of config 3 and config3_v5 give #5's and #6's device ms per
+     render in the kernels line; after bvh
      and instanced, one more render records each launch of #11 and #12
      with its arguments, and each is replayed alone and timed: #11's
      device ms a render split into its own walks, the static triangles'
@@ -300,14 +311,17 @@ def _fields(out, name="out"):
     return [f for k, x in items for f in _fields(x, k)]
 
 
-def mismatches(got, ref):
+def mismatches(got, ref, bitwise=False):
     """Bit-for-bit comparison of two results: per field the values that
-    differ (NaN equal to NaN), and the largest difference of the floats
+    differ (NaN equal to NaN; with `bitwise`, float32 fields by their bits,
+    so -0.0 differs from +0.0), and the largest difference of the floats
     finite in both."""
     mism, max_err = {}, 0.0
     for (k, a), (_k, b) in zip(_fields(got), _fields(ref)):
         diff = a != b
-        if a.is_floating_point():
+        if bitwise and a.dtype == torch.float32:
+            diff = a.view(torch.int32) != b.view(torch.int32)
+        elif a.is_floating_point():
             diff &= ~(torch.isnan(a) & torch.isnan(b))
             fin = torch.isfinite(a) & torch.isfinite(b)
             if bool(fin.any()):
@@ -482,7 +496,8 @@ def _timed(fn):
 
 def check_pair(name, stage, kern, plain, args, row_args, ops_of,
                counted=False, cut=None, cutter=None, unit="rows",
-               tables=None, time_plain=True, **extra):
+               tables=None, time_plain=True, bitwise=False, alt_ops=None,
+               **extra):
     """Hold kernel against plain version on args, bit for bit (every
     field of every lane); time both; bound the work. row_args: the
     arguments whose leading size is the rows (or lanes) of the call.
@@ -492,7 +507,10 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     Both run on all rows, or with `cut` on the first `cut` rows
     (cutter(args, cut), or the row_args cut). `unit` names what the rows
     are; `extra` joins the phase's line. time_plain=False: the plain
-    version's time is that of its one run for the comparison."""
+    version's time is that of its one run for the comparison. bitwise:
+    float32 fields compared by their bits (mismatches). alt_ops: another
+    count of the operations, reported beside as `ops_all_lanes` with its
+    `bound_ms_all_lanes`."""
     n_rows = args[row_args[0]].shape[0]
     work = {}
     kw = {"work": work} if counted else {}
@@ -502,7 +520,7 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     ref, plain_s = _timed(lambda: plain(*part, **kw))
     got = kern(*part)
     torch.cuda.synchronize()
-    mism, max_err = mismatches(got, ref)
+    mism, max_err = mismatches(got, ref, bitwise)
     ms = cuda_ms(lambda: kern(*part))
     plain_ms = cuda_ms(lambda: plain(*part),
                        reps=3 if plain_s > PLAIN_SLOW_S else 10) \
@@ -515,6 +533,11 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
                **bound(part, ref, ops_of(part, work),
                        tables(part, work) if tables else None),
                library_ms=None, **extra)
+    if alt_ops:
+        alt = bound(part, ref, alt_ops(part, work),
+                    tables(part, work) if tables else None)
+        res.update(ops_all_lanes=alt["ops"],
+                   bound_ms_all_lanes=alt["bound_ms"])
     phase("kernel_vs_plain", **res)
     bad = {k: c for k, c in mism.items() if c}
     if bad:
@@ -522,14 +545,46 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     return res
 
 
+def _live_lanes_per_row(rays):
+    # lanes that are not dead (maxt < mint): a dead lane's key is BIG
+    # whatever the box, so these inputs need no test of it
+    return (~(rays[:, 7] < rays[:, 6])).sum(dim=1)
+
+
 def _refine_ops(args, _work):
-    # a slab test of every lane against every live entry
+    # a slab test of each row's live lanes against its live entries
+    return int((_live_lanes_per_row(args[0]) * args[2]).sum()) * BOX_OPS
+
+
+def _refine_ops_all(args, _work):
+    # ... of all 128 lanes of a row (the count before dead lanes left it)
     return int(args[2].sum()) * 128 * BOX_OPS
 
 
 def _child_refine_ops(args, _work):
     # ... against the 8 children of every live parent
-    return int(args[2].sum()) * 8 * 128 * BOX_OPS
+    return 8 * _refine_ops(args, _work)
+
+
+def _child_refine_ops_all(args, _work):
+    return 8 * _refine_ops_all(args, _work)
+
+
+def check_refine(wave, stage, args, **kv):
+    """#5 (5 arguments) or #6 against its plain version on args, by the
+    bits of every key (so a zero's sign counts), with both op counts."""
+    from mitsuba_tpu_torch.ops import exact as ep
+
+    if len(args) == 5:
+        return check_pair("refine", f"{wave} {stage}", ep.refine,
+                          ep.refine_ref, args, (0, 1, 2), _refine_ops,
+                          bitwise=True, alt_ops=_refine_ops_all,
+                          width=args[1].shape[1], **kv)
+    return check_pair("child_refine", f"{wave} {stage}", ep.child_refine,
+                      ep.child_refine_ref, args, (0, 1, 2),
+                      _child_refine_ops, tables=_child_refine_tables,
+                      bitwise=True, alt_ops=_child_refine_ops_all,
+                      width=args[1].shape[1], **kv)
 
 
 def _walk_ops(_args, work):
@@ -593,9 +648,55 @@ def compare_l1_walks(ex, rays, caps, wave, any_hit):
     }
 
 
+def _check_build(wave, calls):
+    """#5 and #6 on the calls of one exact build (S1, S2, S3)."""
+    out = {}
+    for stage, args in zip(("S1", "S2", "S3"), calls):
+        r = check_refine(wave, stage, args)
+        out[(r["kernel"], wave, stage)] = r
+    return out
+
+
+def compare_refine_xl(geom, queries):
+    """#5 and #6 on the XL re-run's S1 and S2 as each query launches
+    them: the calls after the query's first S1 and S2 (the re-run takes
+    the query's overflowing rows, their other lanes dead, at the XL
+    caps)."""
+    from mitsuba_tpu_torch.ops import exact as ep
+
+    out = {}
+    for wave, query in queries:
+        _res, calls = record_calls(ep, ("refine", "child_refine"), query)
+        xl = calls["refine"][1:2] + calls["child_refine"][1:2]
+        for stage, args in zip(("XL S1", "XL S2"), xl):
+            r = check_refine(wave, stage, args)
+            out[(r["kernel"], wave, stage)] = r
+    return out
+
+
+def compare_refine_cases(device):
+    """#5 and #6 on tests/torch_refine_cases.py's inputs (whole warps
+    dead, a single live lane, zero and tiny direction components, keys
+    tied at -0.0 and +0.0 within and across warps, negative keys, live
+    prefixes of 0, 1 and the whole list with garbage ids past them, every
+    cap width and the all-L2 root table), by the bits of every key."""
+    from mitsuba_tpu_torch.ops import exact as ep
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_refine_cases as rc
+
+    for name, (kernel, args) in rc.cases(device=device).items():
+        ref = (ep.refine_ref if kernel == "refine" else
+               ep.child_refine_ref)(*args)
+        zero = ref == 0
+        check_refine("cases", name, args, time_plain=False,
+                     zero_keys=int(zero.sum()),
+                     negative_zero_keys=int((zero & torch.signbit(ref)).sum()))
+
+
 def compare_cluster_kernels(scene):
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import stream as sp
+    from mitsuba_tpu_torch.render import intersect as ri
 
     geom = scene.geom
     ex = geom.ex_tables
@@ -605,16 +706,7 @@ def compare_cluster_kernels(scene):
     for wave, ray, caps in (("camera", cam, coh), ("bounce", bounce, dif)):
         rays = query_rows(geom, ray)
         calls, ids, blk_tn = record_build(rays, ex, caps)
-        for stage, args in zip(("S1", "S2", "S3"), calls):
-            if len(args) == 5:
-                r = check_pair("refine", f"{wave} S1", ep.refine,
-                               ep.refine_ref, args, (0, 1, 2), _refine_ops)
-            else:
-                r = check_pair("child_refine", f"{wave} {stage}",
-                               ep.child_refine, ep.child_refine_ref, args,
-                               (0, 1, 2), _child_refine_ops,
-                               tables=_child_refine_tables)
-            out[(r["kernel"], wave, stage)] = r
+        out.update(_check_build(wave, calls))
         r = check_pair("items", f"{wave} closest", ep.items, ep.items_ref,
                        (ex["tri"], rays, ids, blk_tn, False), (1, 2, 3),
                        _items_ops, counted=True, tables=_k8_tables)
@@ -632,7 +724,12 @@ def compare_cluster_kernels(scene):
                 cut=PLAIN_CUT_ROWS, overflow_rows=int(ovf.sum()),
                 e2=_xl[2])
     rays = query_rows(geom, shadow)
-    _calls, ids, blk_tn = record_build(rays, ex, dif)
+    calls, ids, blk_tn = record_build(rays, ex, dif)
+    out.update(_check_build("shadow", calls))
+    out.update(compare_refine_xl(geom, (
+        ("camera", lambda: ri._cluster_closest(geom, cam, True)),
+        ("bounce", lambda: ri._cluster_closest(geom, bounce, False)),
+        ("shadow", lambda: ri._cluster_any(geom, shadow)))))
     out[("items", "shadow", "any")] = check_pair(
         "items", "shadow any", ep.items, ep.items_ref,
         (ex["tri"], rays, ids, blk_tn, True), (1, 2, 3), _items_ops,
@@ -1611,29 +1708,60 @@ def _liveness(kernel, rays, any_hit, **kv):
                 dead_warp_share=1.0 - float(warps.float().mean()), **kv)
 
 
-def walk_liveness(tag, scene, cfg):
+def walk_liveness(tag, scene, cfg, reps=5):
     """One render, recording each launch of #9 and #10: its rows, live
-    lanes and the share of warps with no live lane."""
+    lanes and the share of warps with no live lane; and of #5 and #6,
+    labelled by the query that runs them (closest or any, at the
+    coherent, diffuse or XL caps), with their live entries, each replayed
+    alone and timed (CUDA events, median of `reps`): their device ms a
+    render by label."""
     from mitsuba_tpu_torch.integrators.path import render
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import stream as sp
 
-    calls = {"l1_masked": [], "stream_rows": []}
+    calls = {"l1_masked": [], "stream_rows": [], "refine": [],
+             "child_refine": []}
+    names = dict(zip(scene.geom.ex_caps, ("diffuse", "coherent", "xl")))
+    query = [None]
 
     def recorder(name, orig):
         def call(*args):
-            calls[name].append(args)
+            calls[name].append((args, query[0]))
             return orig(*args)
         return call
 
+    def labeller(_name, orig):
+        def call(ex, rays, caps, any_hit, walk):
+            query[0] = f"{'any' if any_hit else 'closest'} " \
+                f"{names.get(tuple(caps), str(caps))}"
+            return orig(ex, rays, caps, any_hit, walk)
+        return call
+
     with wrapped(ep, ("l1_masked",), recorder), \
+            wrapped(ep, ("refine", "child_refine"), recorder), \
+            wrapped(ep, ("_walk",), labeller), \
             wrapped(sp, ("stream_rows",), recorder):
         render(scene, cfg, seed=0)
     launches = [_liveness("l1_masked", a[1], a[4], e2=a[2].shape[1])
-                for a in calls["l1_masked"]]
+                for a, _q in calls["l1_masked"]]
     launches += [_liveness("stream", a[0], a[4], list_width=a[1].shape[1])
-                 for a in calls["stream_rows"]]
-    phase("walk_liveness", path=tag, launches=launches)
+                 for a, _q in calls["stream_rows"]]
+    refine, sums = [], {}
+    for name in ("refine", "child_refine"):
+        fn = getattr(ep, name)
+        for args, q in calls[name]:
+            ms = cuda_ms(lambda: fn(*args), reps)
+            acc = sums.setdefault(f"{name} {q}", dict(launches=0, ms=0.0))
+            acc["launches"] += 1
+            acc["ms"] += ms
+            refine.append(_liveness(
+                name, args[0], q.startswith("any"), query=q,
+                width=args[1].shape[1], live_entries=int(args[2].sum()),
+                ms=ms))
+    phase("walk_liveness", path=tag, launches=launches,
+          refine_launches=refine, refine_per_render=sums,
+          refine_unit="device ms per render (CUDA events, each launch "
+          "replayed alone)")
 
 
 def fog_render(scene, cfg, seed=0):
@@ -1707,7 +1835,9 @@ def main(argv=None):
                     f"{'instanced' if i else 'flat'}": wl.wl_info(32, a, i)
                     for a in (False, True) for i in (False, True)},
           bvh={"any" if a else "closest": bp.bvh_info(a)
-               for a in (False, True)})
+               for a in (False, True)},
+          refine={"refine": ep.refine_info(False),
+                  "child_refine": ep.refine_info(True)})
 
     t0 = time.perf_counter()
     scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
@@ -1742,6 +1872,7 @@ def main(argv=None):
                                   fog_cfg)
     cluster = compare_cluster_kernels(scene3)
     compare_walk_cases(device)
+    compare_refine_cases(device)
     compare_instanced_cases(device)
     cam3, bounce3, shadow3 = wavefronts(scene3)
     v1 = compare_cluster_v1(cl, (("camera", cam3, False),
@@ -1852,11 +1983,20 @@ def main(argv=None):
         entry("shaded_any", "intersect_brute.cu",
               "mitsuba_tpu/ops/intersect_pallas.py:337", l1["shaded_any"],
               brute),
+        # #5 and #6: the device ms of a config-3 render at the card's
+        # default walk (v6b: S1 and S2) and under v5 (#6 also runs S3)
         entry("refine", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:114",
-              l3["refine"], cluster[("refine", "bounce", "S1")]),
+              l3["refine"], cluster[("refine", "bounce", "S1")],
+              device_ms_per_render=own_ms("config3", "refine_kernel"),
+              device_ms_per_render_v5=own_ms("config3_v5", "refine_kernel"),
+              check_phase="kernel_vs_plain refine (bounce S1)"),
         entry("child_refine", "exact.cu",
               "mitsuba_tpu/ops/exact_pallas.py:209", l3["child_refine"],
-              cluster[("child_refine", "bounce", "S3")]),
+              cluster[("child_refine", "bounce", "S2")],
+              device_ms_per_render=own_ms("config3", "child_refine_kernel"),
+              device_ms_per_render_v5=own_ms("config3_v5",
+                                             "child_refine_kernel"),
+              check_phase="kernel_vs_plain child_refine (bounce S2)"),
         entry("items", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:531",
               l3v5["items"], cluster[("items", "bounce", "closest")],
               path="config3_v5"),

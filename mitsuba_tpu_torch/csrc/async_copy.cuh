@@ -1,19 +1,28 @@
 // Asynchronous copies from device memory into shared memory (cp.async,
 // sm_80 and later), shared by the walks that stage their next block of
 // triangles while they test the current one (exact.cu's v6b walk,
-// stream.cu).
+// stream.cu) and by the refine kernels, which stage their next tile of
+// boxes (exact.cu).
 //
 // A thread issues its 16-byte copies, commits them as one group, and
 // waits for all of its groups before a barrier makes the staged block
 // visible to the whole thread block. Source and destination are 16-byte
 // aligned; the staged tables' rows are 128 floats and every record read
-// starts at a multiple of 4 floats.
+// starts at a multiple of 4 floats. cp_async4 copies one float, for
+// records packed at a 12-byte stride.
 
 #pragma once
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(gmem)
                : "memory");
 }

@@ -14,15 +14,32 @@
 // Layout: rays are (R, 8, 128) planes o.xyz | d.xyz | mint | maxt; one
 // thread block of 128 threads per ray row.
 //
-// refine / child_refine compute, for each listed box of a row, the
-// smallest slab entry distance over the row's 128 lanes (BIG where no lane
-// hits). The TPU kernel vectorised over lanes and reduced across them;
-// here each thread owns whole entries and loops over the row's 128 lanes,
-// read from shared memory as broadcasts, so the row-wide minimum needs no
-// reduction at all (a minimum is exact in any order). Only the live
-// prefix of each row's list is computed; the rest reads BIG and the
-// wrapper masks it. What bounds them: ~15 flops per (entry, lane) pair,
-// no FMA; up to 3,072 entries x 128 lanes per row at the S3 stage.
+// refine / child_refine compute, for each listed box of a row, the smallest
+// slab entry distance over the row's 128 lanes (BIG where no lane hits);
+// only the live prefix of each row's list is tested, the rest reads BIG
+// without a load. What bounds them on this card: issuing the slab tests,
+// 27 instructions a test with the bits fixed (12 adds and products, 12 min
+// / max, the compare and select, the lane's min), none a fused
+// multiply-add, so the bound's 67 TFLOP/s (two operations a lane and
+// clock) is out of their reach; loads from shared memory must not add to
+// them. The design: one 128-thread block per row, 6 rows per SM (80
+// registers); the row's live lanes (maxt < mint is dead) compacted, each
+// thread holding up to 4 of them in registers, so a box read once (two
+// broadcast 16-byte loads) serves 128 tests; the list's live entries
+// staged 128 at a time by cp.async into two buffers, the next tile loading
+// while this one is tested, one barrier a tile (#6: a child as two
+// 16-byte copies from its 512-byte table row; #5: six 4-byte copies from
+// blo and bhi); warp w tests entries w, w + 4, ..., two at a time, and
+// reduces each entry by one redux.sync.min.
+// Exact: every lane's key is the plain version's, operation for operation.
+// A dead lane's key is BIG for every box (tn >= mint > maxt >= tf), so
+// leaving it out changes no minimum; no NaN reaches the minimum (a NaN tn
+// fails tn <= tf and reads BIG in both versions). The minimum is taken over
+// integer codes, in any order: a key's bits where every lane has mint > 0
+// (every key is then positive), else a code in the keys' order that ties
+// -0.0 with +0.0 and breaks the tie by the lane's rank (`tie_rank`), so
+// that a tie of zeros keeps the zero torch.amin keeps on the card (held on
+// planted ties by tests/torch_refine_cases.py).
 //
 // items walks each row's front-to-back list of 8-triangle clusters in
 // blocks of 16 (BI): a block whose key exceeds every lane's best t (a
@@ -98,84 +115,261 @@ __device__ __forceinline__ void load_row(const float* rays, Row& ry) {
   ry.mx = p[7 * LANES];
 }
 
-// the row's rays in shared memory, planes o.xyz | inv.xyz | mint | maxt
-__device__ __forceinline__ void stage_row(const Row& ry, float* s) {
-  const int l = threadIdx.x;
+// ---------------------------------------------------------------------------
+// refine (#5) and child_refine (#6): a row a block, 4 lanes a thread
+// ---------------------------------------------------------------------------
+
+#define RF_TILE 128            // entries a tile: one staged per thread
+#define RF_ILP 2               // entries a warp tests at once
+#define RF_ROWS_PER_SM 6       // resident rows the register budget allows
+#define ZERO_BAND 256          // key codes of the zeros: [-255, 0]
+#define FULL_MASK 0xffffffffu
+
+// one staged box: a = lo.xyz | hi.x, b = hi.yz | two floats unused (the
+// child tables' lanes 0:8, or #5's lo and hi)
+struct __align__(16) Box {
+  float4 a, b;
+};
+
+// the row's live lanes, compacted: planes o.xyz | inv.xyz | mint | maxt
+// and each lane's index in the row
+struct Compact {
+  float ray[8][LANES];
+  int lane[LANES];
+};
+
+// the rank of a lane among those whose keys tie at a zero: the plain
+// version's torch.amin keeps the zero of the lane of highest rank. Its
+// reduction over 128 lanes (ATen/native/cuda/Reduce.cuh): thread t of a
+// warp folds lanes 4t..4t+3 in order, then a shuffle-down tree with
+// offsets 16, 8, 4, 2, 1 combines the threads, and each combine keeps its
+// second operand on a tie (`a < b ? a : b`): the thread's bit 0 weighs
+// most, then bits 1-4, then the lane's place in the thread's four.
+__device__ __forceinline__ int tie_rank(int lane) {
+  return (int)(__brev((unsigned)lane >> 2) >> 27) << 2 | (lane & 3);
+}
+
+// a key's code: an integer in the keys' order, -0.0 and +0.0 tied and
+// broken by zr = the lane's rank << 1: positive keys above ZERO_BAND,
+// negative ones below -ZERO_BAND, zeros in between, the highest rank
+// lowest
+__device__ __forceinline__ int key_code(float key, int zr) {
+  const int b = __float_as_int(key);
+  if ((b << 1) == 0) return -(zr | (int)((unsigned)b >> 31));
+  return b >= 0 ? b + ZERO_BAND : (b ^ 0x7fffffff) - ZERO_BAND;
+}
+
+__device__ __forceinline__ float code_key(int c) {
+  if (c > ZERO_BAND) return __int_as_float(c - ZERO_BAND);
+  if (c < -ZERO_BAND) return __int_as_float((c + ZERO_BAND) ^ 0x7fffffff);
+  return __int_as_float((int)((unsigned)(-c & 1) << 31));
+}
+
+// the row's compacted live lanes l, l + 32, ..., l + 32 (K - 1) that
+// lane l of every warp holds; past the live ones, dead lanes (mint 1 >
+// maxt -1)
+template <int K>
+struct Lanes {
+  float o[K][3], inv[K][3], mn[K], mx[K];
+  int zr[K];                   // tie_rank << 1
+};
+
+// this lane's slab entry distance of a box, BIG where its interval is
+// empty (the plain version's operation order)
+__device__ __forceinline__ float slab_key(const Box& bx, const float o[3],
+                                          const float inv[3], float mn,
+                                          float mx) {
+  const float lo[3] = {bx.a.x, bx.a.y, bx.a.z};
+  const float hi[3] = {bx.a.w, bx.b.x, bx.b.y};
+  float tn = mn, tf = mx;
+#pragma unroll
   for (int j = 0; j < 3; ++j) {
-    s[j * LANES + l] = ry.o[j];
-    s[(3 + j) * LANES + l] = ry.inv[j];
+    const float t0 = (lo[j] - o[j]) * inv[j];
+    const float t1 = (hi[j] - o[j]) * inv[j];
+    tn = fmaxf(tn, fminf(t0, t1));
+    tf = fminf(tf, fmaxf(t0, t1));
   }
-  s[6 * LANES + l] = ry.mn;
-  s[7 * LANES + l] = ry.mx;
+  return tn <= tf ? tn : BIG;
 }
 
-// min over the row's lanes of the slab entry distance of box lo/hi
-__device__ __forceinline__ float box_key(const float* s, const float lo[3],
-                                         const float hi[3]) {
-  float key = BIG;
-  for (int l = 0; l < LANES; ++l) {
-    float tn = s[6 * LANES + l];
-    float tf = s[7 * LANES + l];
-    for (int j = 0; j < 3; ++j) {
-      const float o = s[j * LANES + l];
-      const float inv = s[(3 + j) * LANES + l];
-      float t0 = (lo[j] - o) * inv;
-      float t1 = (hi[j] - o) * inv;
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
+// this thread's entry of the tile starting at t0: #6's child (e & 7) of
+// parent ids[e >> 3], lanes 0:8 of its 512-byte table row by two 16-byte
+// copies; #5's box ids[e], six 4-byte copies from blo and bhi
+template <bool CHILD>
+__device__ __forceinline__ void stage_tile(const int* ids, const float* blo,
+                                           const float* bhi, const float* tab,
+                                           int t0, int n, Box* buf) {
+  const int e = t0 + threadIdx.x;
+  if (e < n) {
+    Box& dst = buf[threadIdx.x];
+    if (CHILD) {
+      const float* src = tab + ((size_t)ids[e >> 3] * 8 + (e & 7)) * LANES;
+      cp_async16(&dst.a, src);
+      cp_async16(&dst.b, src + 4);
+    } else {
+      const size_t b = 3 * (size_t)ids[e];
+      float* d = reinterpret_cast<float*>(&dst);
+      for (int j = 0; j < 3; ++j) {
+        cp_async4(d + j, blo + b + j);
+        cp_async4(d + 3 + j, bhi + b + j);
+      }
     }
-    key = fminf(key, tn <= tf ? tn : BIG);
   }
-  return key;
+  cp_async_commit();
 }
 
-__global__ void __launch_bounds__(LANES)
+// the keys of a tile's nt entries: warp w takes entries w, w + 4, ...,
+// RF_ILP at a time (past nt it tests stale boxes of the tile's buffer and
+// drops their codes); an entry's code is the least over the thread's K
+// lanes, then over the warp's by one redux (the least of integers, in any
+// order), and lane j keeps that of the warp's j-th entry. FAST: every
+// lane has mint > 0, so every key is positive and its bits order it.
+template <int K, bool FAST>
+__device__ __forceinline__ void test_tile(const Box* bx, int nt,
+                                          const Lanes<K>& ln, float* out) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  constexpr int WARPS = LANES / 32;
+  int res = 0, j = 0;
+  for (int e = w; e < nt; e += WARPS * RF_ILP, j += RF_ILP) {
+    int c[RF_ILP];
+#pragma unroll
+    for (int q = 0; q < RF_ILP; ++q) {
+      const Box b = bx[min(e + WARPS * q, RF_TILE - 1)];
+      c[q] = 0x7fffffff;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float key = slab_key(b, ln.o[k], ln.inv[k], ln.mn[k], ln.mx[k]);
+        c[q] = min(c[q], FAST ? __float_as_int(key) : key_code(key, ln.zr[k]));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < RF_ILP; ++q) {
+      const int m = __reduce_min_sync(FULL_MASK, c[q]);
+      if (l == j + q) res = FAST ? m + ZERO_BAND : m;
+    }
+  }
+  const int mine = w + WARPS * l;            // this lane's entry
+  if (mine < nt) out[mine] = code_key(res);
+}
+
+// the tiles of a row whose live lanes (total of them) fill K slots of
+// every thread's; ids is the row's list, n its live prefix
+template <bool CHILD, int K>
+__device__ __forceinline__ void refine_tiles(const Compact& cmp, int total,
+                                             const int* ids, int n,
+                                             const float* blo,
+                                             const float* bhi,
+                                             const float* tab,
+                                             Box (*buf)[RF_TILE],
+                                             float* out) {
+  Lanes<K> ln;
+  bool pos = true;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = (threadIdx.x & 31) + 32 * k;
+    const bool live = c < total;
+    for (int j = 0; j < 3; ++j) {
+      ln.o[k][j] = live ? cmp.ray[j][c] : 0.0f;
+      ln.inv[k][j] = live ? cmp.ray[3 + j][c] : 0.0f;
+    }
+    ln.mn[k] = live ? cmp.ray[6][c] : 1.0f;
+    ln.mx[k] = live ? cmp.ray[7][c] : -1.0f;
+    ln.zr[k] = live ? tie_rank(cmp.lane[c]) << 1 : 0;
+    pos = pos && ln.mn[k] > 0.0f;
+  }
+  // every warp holds the same lanes: the choice is the block's
+  const bool fast = __all_sync(FULL_MASK, pos);
+  int i = 0;
+  for (int t0 = 0; t0 < n; t0 += RF_TILE, ++i) {
+    cp_async_wait_all();
+    __syncthreads();         // tile i staged; tile i - 1's boxes free
+    if (t0 + RF_TILE < n)
+      stage_tile<CHILD>(ids, blo, bhi, tab, t0 + RF_TILE, n,
+                        buf[(i + 1) & 1]);
+    const int nt = min(RF_TILE, n - t0);
+    if (fast)
+      test_tile<K, true>(buf[i & 1], nt, ln, out + t0);
+    else
+      test_tile<K, false>(buf[i & 1], nt, ln, out + t0);
+  }
+}
+
+// one row: the keys out[0:n_out] of its list, n the live prefix; ids is
+// the row's list (#5: box ids, #6: parent ids)
+template <bool CHILD>
+__device__ __forceinline__ void refine_row(const float* rays, const int* ids,
+                                           int n, const float* blo,
+                                           const float* bhi, const float* tab,
+                                           int n_out, float* out) {
+  __shared__ Box buf[2][RF_TILE];
+  __shared__ Compact cmp;
+  __shared__ int warp_count[LANES / 32];
+  const int t = threadIdx.x, w = t >> 5, l = t & 31;
+  n = max(0, min(n, n_out));
+  for (int e = n + t; e < n_out; e += LANES) out[e] = BIG;
+  if (n == 0) return;
+  // compact the live lanes: a lane with maxt < mint has tn >= mint > maxt
+  // >= tf for every box, so its key is BIG and it is left out
+  Row ry;
+  load_row(rays, ry);
+  const bool alive = !(ry.mx < ry.mn);
+  const unsigned ball = __ballot_sync(FULL_MASK, alive);
+  if (l == 0) warp_count[w] = __popc(ball);
+  __syncthreads();
+  int pos = __popc(ball & ((1u << l) - 1)), total = 0;
+  for (int i = 0; i < LANES / 32; ++i) {
+    pos += i < w ? warp_count[i] : 0;
+    total += warp_count[i];
+  }
+  if (total == 0) {                          // no live lane: every key BIG
+    for (int e = t; e < n; e += LANES) out[e] = BIG;
+    return;
+  }
+  if (alive) {
+    for (int j = 0; j < 3; ++j) {
+      cmp.ray[j][pos] = ry.o[j];
+      cmp.ray[3 + j][pos] = ry.inv[j];
+    }
+    cmp.ray[6][pos] = ry.mn;
+    cmp.ray[7][pos] = ry.mx;
+    cmp.lane[pos] = t;
+  }
+  stage_tile<CHILD>(ids, blo, bhi, tab, 0, n, buf[0]);
+  __syncthreads();
+  switch ((total + 31) >> 5) {              // live lanes a thread holds
+    case 1:
+      refine_tiles<CHILD, 1>(cmp, total, ids, n, blo, bhi, tab, buf, out);
+      break;
+    case 2:
+      refine_tiles<CHILD, 2>(cmp, total, ids, n, blo, bhi, tab, buf, out);
+      break;
+    case 3:
+      refine_tiles<CHILD, 3>(cmp, total, ids, n, blo, bhi, tab, buf, out);
+      break;
+    default:
+      refine_tiles<CHILD, 4>(cmp, total, ids, n, blo, bhi, tab, buf, out);
+  }
+}
+
+__global__ void __launch_bounds__(LANES, RF_ROWS_PER_SM)
 refine_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
               const int* __restrict__ live, const float* __restrict__ blo,
               const float* __restrict__ bhi, int E, float* __restrict__ out) {
-  __shared__ float s[8 * LANES];
-  Row ry;
-  load_row(rays, ry);
-  stage_row(ry, s);
-  __syncthreads();
-  const int r = blockIdx.x;
-  const int n = live[r];
-  for (int e = threadIdx.x; e < E; e += LANES) {
-    float key = BIG;
-    if (e < n) {
-      const int b = ids[(size_t)r * E + e];
-      const float lo[3] = {blo[3 * b], blo[3 * b + 1], blo[3 * b + 2]};
-      const float hi[3] = {bhi[3 * b], bhi[3 * b + 1], bhi[3 * b + 2]};
-      key = box_key(s, lo, hi);
-    }
-    out[(size_t)r * E + e] = key;
-  }
+  const size_t r = blockIdx.x;
+  refine_row<false>(rays, ids + r * E, live[r], blo, bhi, nullptr, E,
+                    out + r * E);
 }
 
-__global__ void __launch_bounds__(LANES)
+__global__ void __launch_bounds__(LANES, RF_ROWS_PER_SM)
 child_refine_kernel(const float* __restrict__ rays,
                     const int* __restrict__ pids,
                     const int* __restrict__ live_p,
                     const float* __restrict__ tab, int Ep,
                     float* __restrict__ out) {
-  __shared__ float s[8 * LANES];
-  Row ry;
-  load_row(rays, ry);
-  stage_row(ry, s);
-  __syncthreads();
-  const int r = blockIdx.x;
-  const int n = live_p[r] * 8;
-  for (int e = threadIdx.x; e < Ep * 8; e += LANES) {
-    float key = BIG;
-    if (e < n) {
-      const int p = pids[(size_t)r * Ep + e / 8];
-      const float* b = tab + ((size_t)p * 8 + e % 8) * LANES;
-      const float lo[3] = {b[0], b[1], b[2]};
-      const float hi[3] = {b[3], b[4], b[5]};
-      key = box_key(s, lo, hi);
-    }
-    out[(size_t)r * Ep * 8 + e] = key;
-  }
+  const size_t r = blockIdx.x;
+  const int np = max(0, min(live_p[r], Ep));
+  refine_row<true>(rays, pids + r * Ep, np * 8, nullptr, nullptr, tab,
+                   Ep * 8, out + r * Ep * 8);
 }
 
 __device__ __forceinline__ float block_max(float x, float* red) {
@@ -495,6 +689,22 @@ extern "C" int mts_child_refine(const float* rays, const int* pids,
   child_refine_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
       rays, pids, live_p, tab, Ep, out);
   return (int)cudaGetLastError();
+}
+
+// the refine kernels' resources: out[0] resident rows per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers per
+// thread, out[2] shared memory bytes per row; child: #6, else #5
+extern "C" int mts_refine_info(int child, int* out) {
+  const void* kern = child ? (const void*)child_refine_kernel
+                           : (const void*)refine_kernel;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, LANES,
+                                                      0);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.sharedSizeBytes;
+  return (int)e;
 }
 
 extern "C" int mts_items(const float* rays, const int* ids,

@@ -85,7 +85,18 @@ def build() -> str:
                                [p] * 4 + [i, i, i, i] + [p] * 6)
     _FN["l1_masked_info"] = nv.bind(SOURCE, "mts_l1_masked_info",
                                     [i, i, i, p])
+    _FN["refine_info"] = nv.bind(SOURCE, "mts_refine_info", [i, p])
     return log
+
+
+def refine_info(child: bool) -> dict:
+    """Kernel #6's (child) or #5's resources on the current card: resident
+    rows per SM, registers per thread, shared memory bytes per row."""
+    if "refine_info" not in _FN:
+        build()
+    out = (ctypes.c_int * 3)()
+    nv.check(_FN["refine_info"](int(child), out), "refine_info")
+    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2])
 
 
 def l1_masked_info(e2: int, blm: int, any_hit: bool) -> dict:

@@ -447,6 +447,40 @@ def test_stream_kernel_matches_plain_version_on_corner_cases(cuda, any_hit,
     assert _same(got, ref)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", [
+    "refine E 128", "refine E 256", "child Ep 16", "child Ep 160",
+    "child Ep 240", "child Ep 32", "child Ep 384", "child Ep 768",
+    "child root"])
+def test_refine_kernels_match_plain_versions_on_corner_cases(cuda, name,
+                                                             seed):
+    """#5 and #6 at every cap width and on the all-L2 root table, on rows
+    with whole warps dead, a single live lane, zero and tiny direction
+    components, negative keys and keys tied at -0.0 and +0.0 within and
+    across warps, live prefixes of 0, 1 and the whole list with garbage
+    ids past them: bit for bit, the zeros' signs included."""
+    import torch_refine_cases as rc
+
+    ep.build()
+    kernel, args = rc.case(name, seed, device=cuda)
+    before = ep.LAUNCHES[kernel]
+    got = getattr(ep, kernel)(*args)
+    assert ep.LAUNCHES[kernel] == before + 1
+    ref = getattr(ep, f"{kernel}_ref")(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    zero = ref == 0
+    assert 0 < int((zero & torch.signbit(ref)).sum()) < int(zero.sum())
+
+
+def test_refine_kernels_keep_rows_in_flight(cuda):
+    """#5 and #6 hold at least 6 rows per SM (csrc/exact.cu
+    RF_ROWS_PER_SM)."""
+    ep.build()
+    for child in (False, True):
+        assert ep.refine_info(child)["rows_per_sm"] >= 6
+
+
 def test_walk_kernels_keep_rows_in_flight(cuda):
     """#9 holds at least 8 rows per SM at every list width of config 3,
     #10 at least 4 (a config-3 fallback launch of 512 rows in one wave)."""
