@@ -29,13 +29,21 @@ Phases, each printing one JSON line:
      once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
      builder), with the compiler's ptxas lines, and the resources of the
      v6b walk (#9), the stream walk (#10), the work-list walk (#12), the
-     BVH walk (#11) and the refine kernels (#5, #6): rows (blocks)
-     resident per SM, registers, shared memory, spills;
+     BVH walk (#11), the refine kernels (#5, #6) and the shaded brute
+     kernels (#1, #2): rows (blocks) resident per SM, registers, shared
+     memory, spills;
   3. each kernel against its plain PyTorch version on the card, bit for
      bit (every field of every lane), at the shapes of its path, with the
      bound of the work these inputs need (the larger of the bytes they
      need over 3.35 TB/s and their float32 operations over 67 TFLOP/s):
-     the brute kernel on 1,048,576 config-1 camera rays; the refine (S1),
+     the brute kernel (#1) on 1,048,576 config-1 camera rays and their
+     shadow rays, and #1 and #2 on the corner cases of
+     tests/torch_brute_cases.py (whole warps and tiles dead, single live
+     lanes, every shadow lane dead, shadow rays occluded by the first and
+     by the last row, exact ties of duplicated rows, |det| at 1e-9 and an
+     ulp or two either side, zero and -0.0 direction components, T = 1 to
+     300, a ragged last warp), both by the bits of every field, bounded
+     by the live lanes' tests with all lanes' beside; the refine (S1),
      child-refine (S2, S3) and item kernels (#7 v5, #8 v6, #9 v6b) on the
      config-3 camera wavefront (coherent caps) and on a first diffuse
      bounce wavefront with its shadow rays (diffuse caps), #5 and #6 by
@@ -85,7 +93,12 @@ Phases, each printing one JSON line:
      the lanes that reach the XL re-run and the stream fallback), then
      timed renders with every launch count set to 0 just before and read
      just after, then one profiled render; on the instanced path one more
-     render timing the parts of its overflow fallback. Fog counts as rays
+     render timing the parts of its overflow fallback. After config 1 and
+     after fog, one more render records each launch of #1 (config 1) or
+     #2 (fog): each is replayed alone, held against its plain version bit
+     for bit and timed, with its lanes, live lanes and dead-warp share of
+     each ray set; the profiles of config 1 and fog give #1's, #2's and
+     #3's device ms per render in the kernels line. Fog counts as rays
      the lanes passed to #2 and #3 (the JAX volpath counts none). The
      profile gives each of the port's kernels its device ms per render.
      After config 3, one more render records each launch of #9 and #10:
@@ -197,8 +210,10 @@ PEAK_TC_OPS = {"tf32": 495e12, "bf16": 989e12}
 
 _T0 = time.perf_counter()
 # {(kernel, stage): ms} of another tree's kernel_vs_plain lines
-# (--parent FILE), reported beside this tree's as parent_ms
+# (--parent FILE), reported beside this tree's as parent_ms; and their
+# device_ms where they have it, as parent_device_ms
 PARENT_MS = {}
+PARENT_DEVICE_MS = {}
 # each render phase's torch.profiler summary, by phase tag
 PROFILES = {}
 
@@ -214,6 +229,9 @@ def read_parent(path):
             if isinstance(rec, dict) and rec.get("phase") == \
                     "kernel_vs_plain":
                 PARENT_MS[(rec["kernel"], rec["stage"])] = rec["ms"]
+                if rec.get("device_ms") is not None:
+                    PARENT_DEVICE_MS[(rec["kernel"], rec["stage"])] = \
+                        rec["device_ms"]
 
 
 def phase(tag, **kv):
@@ -373,17 +391,110 @@ def kernel_inputs(scene):
             eps.contiguous(), (dist * (1.0 - 1e-3)).contiguous())
 
 
-def compare_kernel(scene):
+def _brute_ops(args, _work):
+    # the tests these inputs need: every row for a live bounce lane, the
+    # rows up to its first hit for a live shadow lane (#1's nine
+    # arguments, or #2's five)
+    ops = _tests_needed(*args[:5], False)
+    if len(args) > 5:
+        ops += _tests_needed(args[0], *args[5:9], True)
+    return ops * MT_OPS
+
+
+def _brute_ops_all(args, _work):
+    # ... every row for every lane of each ray set
+    return len(args) // 4 * args[1].shape[0] * args[0].shape[0] * MT_OPS
+
+
+def check_brute(name, stage, args, **kv):
+    """#1 (name "shaded_any", nine arguments) or #2 ("shaded", five)
+    against its plain version, every field of every lane by its bits,
+    bounded by the live lanes' tests with all lanes' beside."""
     from mitsuba_tpu_torch.ops import intersect as ip
 
-    # every lane tests every triangle, once for its bounce ray and once
-    # for its shadow ray
-    return check_pair(
-        "shaded_any", "config-1 camera + shadow",
-        ip.closest_hit_shaded_and_any, ip.closest_hit_shaded_and_any_ref,
-        kernel_inputs(scene), tuple(range(1, 9)),
-        lambda a, _w: 2 * a[1].shape[0] * a[0].shape[0] * MT_OPS,
-        unit="lanes")
+    kern, plain = ((ip.closest_hit_shaded_and_any,
+                    ip.closest_hit_shaded_and_any_ref)
+                   if name == "shaded_any" else
+                   (ip.closest_hit_shaded, ip.closest_hit_shaded_ref))
+    return check_pair(name, stage, kern, plain, args,
+                      tuple(range(1, len(args))), _brute_ops, unit="lanes",
+                      bitwise=True, alt_ops=_brute_ops_all, device=True,
+                      **kv)
+
+
+def compare_kernel(scene):
+    return check_brute("shaded_any", "config-1 camera + shadow",
+                       kernel_inputs(scene))
+
+
+def compare_brute_cases(device):
+    """#1 and #2 on tests/torch_brute_cases.py's inputs (whole warps and
+    tiles dead, single live lanes, every shadow lane dead, shadow rays
+    occluded by the first and by the last row, exact ties of duplicated
+    rows, |det| at 1e-9 and an ulp or two either side, zero and -0.0
+    direction components, T = 1 to 300, a ragged last warp), every field
+    of every lane by its bits."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_brute_cases as bc
+
+    for name, args in bc.cases(device=device).items():
+        check_brute("shaded_any", f"case {name}", args, time_plain=False)
+        check_brute("shaded", f"case {name}", args[:5], time_plain=False)
+
+
+def _brute_liveness(args):
+    """Lanes, live lanes (mint < maxt) and the share of 32-lane warps
+    with no live lane of each ray set of a #1 or #2 launch, and the share
+    of warps that test once each block's live lanes are compacted (the
+    kernels' blocks of ip.THREADS lanes)."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    def one(mint, maxt):
+        live = mint < maxt
+        pad = torch.cat([live, live.new_zeros((-live.numel()) % ip.THREADS)])
+        warps = pad.reshape(-1, 32).any(dim=1)
+        run = (pad.reshape(-1, ip.THREADS).sum(dim=1) + 31) // 32
+        return dict(live=int(live.sum()),
+                    dead_warp_share=1.0 - float(warps.float().mean()),
+                    compacted_warp_share=float(run.sum()) / warps.numel())
+    res = dict(lanes=args[1].shape[0], bounce=one(args[3], args[4]))
+    if len(args) > 5:
+        res["shadow"] = one(args[7], args[8])
+    return res
+
+
+def brute_liveness(tag, scene, cfg, render_fn, name):
+    """One render of phase `tag`, recording each launch of #1 (name
+    "shaded_any") or #2 ("shaded") with its arguments; each is then
+    replayed alone, held against its plain version bit for bit and timed
+    (a kernel_vs_plain line a launch, with its lanes, live lanes and
+    dead-warp shares): the ms a render of the calls (CUDA events around
+    each) and of their device time alone (`device_ms`)."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    fn = ("closest_hit_shaded_and_any" if name == "shaded_any"
+          else "closest_hit_shaded")
+    _res, calls = record_calls(ip, (fn,),
+                               lambda: render_fn(scene, cfg, seed=0))
+    torch.cuda.synchronize()
+    sums = dict(launches=0, ms=0.0, device_ms=0.0, bound_ms=0.0,
+                bound_ms_all_lanes=0.0)
+    launches = []
+    for k, args in enumerate(calls[fn]):
+        live = _brute_liveness(args)
+        r = check_brute(name, f"{tag} launch {k}", args, time_plain=False,
+                        liveness=live)
+        sums["launches"] += 1
+        for key in ("ms", "device_ms", "bound_ms", "bound_ms_all_lanes"):
+            sums[key] += r[key]
+        launches.append(dict(live, ms=r["ms"], parent_ms=r["parent_ms"],
+                             device_ms=r["device_ms"],
+                             parent_device_ms=r["parent_device_ms"],
+                             bound_ms=r["bound_ms"]))
+    phase("brute_liveness", path=tag, kernel=name, launches=launches,
+          per_render=sums, unit="ms per render, each launch replayed alone: "
+          "ms CUDA events around each call, device_ms the device's time")
+    return sums
 
 
 # ---------------------------------------------------------------------------
@@ -497,7 +608,7 @@ def _timed(fn):
 def check_pair(name, stage, kern, plain, args, row_args, ops_of,
                counted=False, cut=None, cutter=None, unit="rows",
                tables=None, time_plain=True, bitwise=False, alt_ops=None,
-               **extra):
+               device=False, **extra):
     """Hold kernel against plain version on args, bit for bit (every
     field of every lane); time both; bound the work. row_args: the
     arguments whose leading size is the rows (or lanes) of the call.
@@ -510,7 +621,9 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     version's time is that of its one run for the comparison. bitwise:
     float32 fields compared by their bits (mismatches). alt_ops: another
     count of the operations, reported beside as `ops_all_lanes` with its
-    `bound_ms_all_lanes`."""
+    `bound_ms_all_lanes`. device: also the device time of a call, the
+    host's share left out (`device_ms`), for a kernel shorter than its
+    wrapper's host work, where the events time the host."""
     n_rows = args[row_args[0]].shape[0]
     work = {}
     kw = {"work": work} if counted else {}
@@ -538,6 +651,9 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
                     tables(part, work) if tables else None)
         res.update(ops_all_lanes=alt["ops"],
                    bound_ms_all_lanes=alt["bound_ms"])
+    if device:
+        res.update(device_ms=device_ms(lambda: kern(*part)),
+                   parent_device_ms=PARENT_DEVICE_MS.get((name, stage)))
     phase("kernel_vs_plain", **res)
     bad = {k: c for k, c in mism.items() if c}
     if bad:
@@ -1202,12 +1318,11 @@ def compare_split_kernels(scene, cfg):
         return check_pair(
             name, stage, kern, plain, args, (1, 2, 3, 4),
             lambda a, _w: _tests_needed(*a, any_hit) * MT_OPS,
-            unit="lanes")
+            unit="lanes", bitwise=True, alt_ops=_brute_ops_all, device=True)
 
     return {
-        "shaded": check("shaded", "fog bounce 1 closest",
-                        ip.closest_hit_shaded, ip.closest_hit_shaded_ref,
-                        shaded_args, False),
+        "shaded": check_brute("shaded", "fog bounce 1 closest",
+                              shaded_args),
         "any": check("any", "fog bounce 1 NEE shadow", ip.any_hit,
                      ip.any_hit_ref, any_args, True),
         "closest": check("closest", "fog bounce 1 closest", ip.closest_hit,
@@ -1788,7 +1903,7 @@ def main(argv=None):
         read_parent(args.parent)
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
-    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
     from mitsuba_tpu_torch.ops import build as nv
     from mitsuba_tpu_torch.ops import bvh as bp
     from mitsuba_tpu_torch.ops import cluster as cp
@@ -1837,7 +1952,9 @@ def main(argv=None):
           bvh={"any" if a else "closest": bp.bvh_info(a)
                for a in (False, True)},
           refine={"refine": ep.refine_info(False),
-                  "child_refine": ep.refine_info(True)})
+                  "child_refine": ep.refine_info(True)},
+          brute={"shaded_any": ip.brute_info(True),
+                 "shaded": ip.brute_info(False)})
 
     t0 = time.perf_counter()
     scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
@@ -1866,10 +1983,11 @@ def main(argv=None):
           flat=dict(triangles=scene_flat.geom.n_tris,
                     clusters=scene_flat.geom.mt_start.shape[0]))
 
-    brute = compare_kernel(cornell_box(W1, H1, device=device))
+    brute_check = compare_kernel(cornell_box(W1, H1, device=device))
     fog_cfg = PathConfig(max_depth=DEPTH1, spp=SPP1)
     split = compare_split_kernels(cornell_box(W1, H1, device=device),
                                   fog_cfg)
+    compare_brute_cases(device)
     cluster = compare_cluster_kernels(scene3)
     compare_walk_cases(device)
     compare_refine_cases(device)
@@ -1923,9 +2041,11 @@ def main(argv=None):
                 cfg=PathConfig(max_depth=5, spp=FOG_GOLDEN_SPP),
                 render_fn=fog_render, band=MEAN_BAND["volpath"])
     cfg = PathConfig(max_depth=DEPTH3, spp=SPP3)
-    l1 = render_phase("config1", cornell_box(W1, H1, device=device),
-                      PathConfig(max_depth=DEPTH1, spp=SPP1),
+    cfg1 = PathConfig(max_depth=DEPTH1, spp=SPP1)
+    l1 = render_phase("config1", cornell_box(W1, H1, device=device), cfg1,
                       ["shaded_any"])
+    live1 = brute_liveness("config1", cornell_box(W1, H1, device=device),
+                           cfg1, render, "shaded_any")
     l3 = render_phase("config3", scene3, cfg,
                       ["refine", "child_refine", "l1_masked"],
                       forbid=["items", "l1_items"])
@@ -1943,6 +2063,8 @@ def main(argv=None):
     lv = render_phase("volpath", cornell_box(W1, H1, device=device), fog_cfg,
                       ["shaded", "any"], render_fn=fog_render,
                       forbid=["shaded_any"])
+    live_fog = brute_liveness("volpath", cornell_box(W1, H1, device=device),
+                              fog_cfg, fog_render, "shaded")
     lc = cluster_v1_phase(scene3, cl, cam3, shadow3)
     t0 = time.perf_counter()
     case = r3_kernel.worklist_case(device, PROBE_SIDE, scene3)
@@ -1973,6 +2095,16 @@ def main(argv=None):
 
     cost = "scripts/exp_kernel_cost.py"
 
+    def brute(kname, replaces, launches, r, **extra):
+        # a brute kernel's ms is its device time at the check's inputs,
+        # the host's share left out (a call's host work outlasts the
+        # kernel); event_ms the CUDA events' around each call
+        return entry(kname, "intersect_brute.cu",
+                     f"mitsuba_tpu/ops/intersect_pallas.py:{replaces}",
+                     launches, dict(r, ms=r["device_ms"]), event_ms=r["ms"],
+                     check_phase=f"kernel_vs_plain {kname} ({r['stage']})",
+                     **extra)
+
     def own_ms(tag, kname):
         # device ms of one render of phase `tag` in kernel kname
         return PROFILES[tag]["own"].get(kname, {}).get("ms")
@@ -1980,9 +2112,14 @@ def main(argv=None):
     # the stream fallback launches only where a lane overflows the XL caps
     stream_path = "config3" if l3["stream"] else "config3_v5"
     print(json.dumps({"kernels": [
-        entry("shaded_any", "intersect_brute.cu",
-              "mitsuba_tpu/ops/intersect_pallas.py:337", l1["shaded_any"],
-              brute),
+        # #1 and #2 (shaded_any_kernel<true>, <false>): device ms of a
+        # config-1 and of a fog render (the profile's; each launches only
+        # its own), and of their launches replayed alone (the device's
+        # time, and the calls' by CUDA events)
+        brute("shaded_any", 337, l1["shaded_any"], brute_check,
+              device_ms_per_render=own_ms("config1", "shaded_any_kernel"),
+              replayed_device_ms_per_render=live1["device_ms"],
+              replayed_event_ms_per_render=live1["ms"]),
         # #5 and #6: the device ms of a config-3 render at the card's
         # default walk (v6b: S1 and S2) and under v5 (#6 also runs S3)
         entry("refine", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:114",
@@ -2030,18 +2167,15 @@ def main(argv=None):
         entry("wl_any", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:458", li["wl_any"],
               worklist[("wl_any", "shadow", "instanced")]),
-        entry("shaded", "intersect_brute.cu",
-              "mitsuba_tpu/ops/intersect_pallas.py:202", lv["shaded"],
-              split["shaded"]),
-        entry("any", "intersect_brute.cu",
-              "mitsuba_tpu/ops/intersect_pallas.py:97", lv["any"],
-              split["any"]),
+        brute("shaded", 202, lv["shaded"], split["shaded"], path="volpath",
+              device_ms_per_render=own_ms("volpath", "shaded_any_kernel"),
+              replayed_device_ms_per_render=live_fog["device_ms"],
+              replayed_event_ms_per_render=live_fog["ms"]),
+        brute("any", 97, lv["any"], split["any"], path="volpath",
+              device_ms_per_render=own_ms("volpath", "any_kernel")),
         # no render path launches #4 (nor does the JAX package's): its
         # check phase holds it against its plain version
-        entry("closest", "intersect_brute.cu",
-              "mitsuba_tpu/ops/intersect_pallas.py:59", lv["closest"],
-              split["closest"],
-              check_phase="kernel_vs_plain closest (fog bounce 1 closest)"),
+        brute("closest", 59, lv["closest"], split["closest"]),
         # #14 has its own entry points, off every render path: its
         # launches are the cluster_v1 phase's
         entry("cluster_closest", "cluster.cu",

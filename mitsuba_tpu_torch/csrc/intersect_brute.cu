@@ -6,15 +6,9 @@
 //   #2 shaded_any_kernel<false>  _shaded_kernel     :202 (closest_hit_shaded :281)
 //   #3 any_kernel                _any_kernel        :97  (any_hit :165)
 //   #4 closest_kernel            _closest_kernel    :59  (closest_hit :139)
-// They compute what those kernels compute, not how: one thread per lane.
-// The table ((T, 29) for #1 and #2, layout in
-// mitsuba_tpu_torch/ops/intersect.py; (T, 9) v0|e1|e2 for #3 and #4) is
-// staged into shared memory in chunks of kChunk rows; every thread of a
-// block reads the same row at the same time, a broadcast without bank
-// conflicts. Rays are read as the (N, 3) and (N,) tensors they are; the
-// ragged end is bounds-checked. #1 takes each lane's bounce ray and its
-// shadow ray through one loop, so each row is read once for two rays, as
-// on the TPU; #2 is the same body without the shadow half.
+// They compute what those kernels compute, not how. Wrapped by
+// mitsuba_tpu_torch/ops/intersect.py, whose `*_ref` functions are the
+// plain PyTorch versions they agree with lane for lane.
 //
 // Semantics kept from the reference, lane for lane:
 //   |det| > 1e-9, t > mint, t < maxt, and the strict t < t_best, so the
@@ -24,37 +18,57 @@
 //   padded) never hits; occlusion is the OR over all triangles.
 // The shading record is interpolated once, from the winning row, instead
 // of for every candidate: the same formula on the same inputs, so the
-// same value. An any-hit lane stops testing once it is occluded, and a
-// block stops staging chunks once none of its lanes needs them; the OR is
-// the same. Built with --fmad=false and IEEE division and square root,
-// each kernel rounds as its plain PyTorch version in ops/intersect.py.
+// same value. Built with --fmad=false and IEEE division and square root,
+// each kernel rounds as its plain PyTorch version.
 //
-// What bounds them: at T = 32 and 1M lanes a lane of #2 moves 24 words
-// (8 in, 16 out with the ids), ~100 MB per launch, against 32 x 53 flops,
-// ~1.8 GFLOP: near the card's balance point, so neither the 3.35 TB/s nor
-// the fp32 rate is saturated by this simple layout. #3 and #4 read the
-// same 8 words per lane and write 1 and 5. A warp-cooperative layout and
-// the table in registers or constant memory are later work.
+// #1 and #2 (shaded_any_kernel<kShadow>). What bounds them on this
+// card is the instruction rate of the Moeller-Trumbore tests: at T = 32
+// a lane moves ~126 bytes (its rays in, its record out) against 32 tests
+// of ~60 instructions for each of its rays, so at the card's instruction
+// rate the bytes take a fifth of the tests' time. The first form already
+// ran the tests near that rate (3.3e11 a second); the design runs fewer
+// of them and nothing else around them:
+//   * each block of kThreads lanes compacts the live lanes (mint < maxt)
+//     of each ray set in lane order (a ballot a warp, a prefix over the
+//     warps' counts): thread t tests the t-th live lane, so warps past the
+//     block's live count run no test, and a dead lane, which can never
+//     hit, gets the miss record (not occluded) without one;
+//   * the table's test columns (v0 | e1 | e2) are staged once per block,
+//     kRows rows a pass, as three 16-byte records a row (`mt_test4`):
+//     three broadcast loads a test, where the first form had 9 scalar
+//     ones. A table of more rows is staged in passes, in row order, so
+//     the strict t < t_best keeps the lowest index across passes;
+//   * a warp's shadow half stops once each of its live lanes is occluded
+//     (a vote every kGroup rows); the OR is the same;
+//   * the record is written in its final layout (geo_n and sh_n (N, 3),
+//     uv (N, 2), valid and occluded as bool bytes), so the wrapper
+//     launches nothing around the kernel.
+// Each half runs over all rows in turn. Tried and dropped (PERF.md): both
+// tests of a row in one loop, 2 and 4 lanes a thread, each warp
+// compacting its own lanes, a persistent grid.
+//
+// #3 and #4 keep their first form: one thread per lane, the (T, 9) table
+// staged in chunks of kChunk rows, every thread reading the same row at
+// the same time (a broadcast); #3 stops testing a lane once it is
+// occluded, and a block stops staging chunks once none of its lanes
+// needs them.
 
 #include <cuda_runtime.h>
 
 #include "mt.cuh"
 
-namespace {
-
 constexpr int kCols = 29;        // table row: v0|e1|e2|n0|n1|n2|uv0|uv1|uv2|mid|eid|sid|pad2
 constexpr int kTriCols = 9;      // v0|e1|e2
 constexpr int kThreads = 256;
-constexpr int kChunk = 128;      // rows staged per pass: 14.8 KB (29 cols), 4.6 KB (9)
+constexpr int kChunk = 128;      // #3, #4: rows staged per pass (4.6 KB)
 constexpr float kDetEps = 1e-9f;
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Outputs {
-  float* t; float* u; float* v; int* prim; int* hit;
-  float* gx; float* gy; float* gz;
-  float* sx; float* sy; float* sz;
-  float* uvx; float* uvy;
-  int* mid; int* eid; int* sid; int* occ;
-};
+// #1 and #2
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;    // blocks of kThreads resident on an SM
+constexpr int kRows = 256;       // test rows staged per pass: 12 KB
+constexpr int kGroup = 8;        // rows between the shadow half's votes
 
 // One lane's ray, or a dead ray (maxt = -1 < mint) past the end.
 struct LaneRay {
@@ -82,45 +96,68 @@ __device__ __forceinline__ void stage(float* tab,
     tab[k] = table[c0 * cols + k];
 }
 
-template <bool kShadow>
-__global__ void __launch_bounds__(kThreads)
-shaded_any_kernel(const float* __restrict__ table, int n_tris,
-                  const float* __restrict__ o, const float* __restrict__ d,
-                  const float* __restrict__ mint,
-                  const float* __restrict__ maxt,
-                  const float* __restrict__ so, const float* __restrict__ sd,
-                  const float* __restrict__ smint,
-                  const float* __restrict__ smaxt, int n, Outputs out) {
-  __shared__ float tab[kChunk * kCols];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const LaneRay r = load_ray(o, d, mint, maxt, i, live);
-  LaneRay s{};
-  if constexpr (kShadow) s = load_ray(so, sd, smint, smaxt, i, live);
+// ---------------------------------------------------------------------------
+// #1 and #2
+// ---------------------------------------------------------------------------
 
-  float t_b = __int_as_float(0x7f800000);  // +inf
-  float u_b = 0.f, v_b = 0.f;
-  int p_b = -1;
-  bool occ = false;
-  for (int c0 = 0; c0 < n_tris; c0 += kChunk) {
-    const int rows = min(kChunk, n_tris - c0);
-    __syncthreads();  // the previous chunk is no longer read
-    stage(tab, table, c0, rows, kCols);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < rows; ++j) {
-      const float* row = tab + j * kCols;
-      float t, u, v;
-      if (mt_test(row, r.o, r.d, r.mn, r.mx, kDetEps, t, u, v) && t < t_b) {
-        t_b = t; u_b = u; v_b = v; p_b = c0 + j;
-      }
-      if constexpr (kShadow) {
-        if (!occ) occ = mt_test(row, s.o, s.d, s.mn, s.mx, kDetEps, t, u, v);
-      }
-    }
+// N rays: o, d (N, 3), mint, maxt (N,)
+struct Rays {
+  const float* __restrict__ o;
+  const float* __restrict__ d;
+  const float* __restrict__ mint;
+  const float* __restrict__ maxt;
+};
+
+// the record in its final layout; valid and occ are bool bytes
+struct Record {
+  float* t; float* u; float* v; int* prim; unsigned char* valid;
+  float* geo_n; float* sh_n; float* uv;
+  int* mid; int* eid; int* sid; unsigned char* occ;
+};
+
+// Rows [c0, c0 + rows) of the (T, 29) table's test columns v0 | e1 | e2
+// into shared memory, three float4s a row (the last three floats unused).
+__device__ __forceinline__ void stage_tests(float4* tab,
+                                            const float* __restrict__ table,
+                                            int c0, int rows) {
+  float* f = reinterpret_cast<float*>(tab);
+  for (int k = threadIdx.x; k < rows * kTriCols; k += blockDim.x) {
+    const int r = k / kTriCols;
+    const int c = k - r * kTriCols;
+    f[r * 12 + c] = table[static_cast<size_t>(c0 + r) * kCols + c];
   }
-  if (!live) return;
+}
 
+// Compact the block's live lanes (mint < maxt, below n) of one ray set
+// in lane order: slots[s] is the s-th live lane of the block's kThreads
+// lanes from `first`. `counts` holds a count a warp. Returns the block's
+// count; `live` is whether this thread's own lane is live. Two barriers.
+__device__ __forceinline__ int compact(const Rays& r, int first, int n,
+                                       int* counts, int* slots, bool& live) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i = first + threadIdx.x;
+  live = i < n && r.mint[i] < r.maxt[i];
+  const unsigned m = __ballot_sync(kFull, live);
+  if (lane == 0) counts[warp] = __popc(m);
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    off += w < warp ? counts[w] : 0;
+    total += counts[w];
+  }
+  if (live) slots[off + __popc(m & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+  return total;
+}
+
+// Lane i's record from its winning row p (p < 0: the miss record), as the
+// plain version's `_shading_record` computes it.
+__device__ __forceinline__ void write_record(const Record& out,
+                                             const float* __restrict__ table,
+                                             int i, float t_b, float u_b,
+                                             float v_b, int p_b) {
   float gx = 0.f, gy = 0.f, gz = 1.f, sx = 0.f, sy = 0.f, sz = 1.f;
   float tu = 0.f, tv = 0.f;
   int mid = -1, eid = -1, sid = -1;
@@ -143,15 +180,112 @@ shaded_any_kernel(const float* __restrict__ table, int n_tris,
   }
   const float g_inv = 1.0f / sqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-20f));
   const float s_inv = 1.0f / sqrtf(fmaxf(sx * sx + sy * sy + sz * sz, 1e-20f));
-
   out.t[i] = t_b; out.u[i] = u_b; out.v[i] = v_b;
-  out.prim[i] = p_b; out.hit[i] = p_b >= 0 ? 1 : 0;
-  out.gx[i] = gx * g_inv; out.gy[i] = gy * g_inv; out.gz[i] = gz * g_inv;
-  out.sx[i] = sx * s_inv; out.sy[i] = sy * s_inv; out.sz[i] = sz * s_inv;
-  out.uvx[i] = tu; out.uvy[i] = tv;
+  out.prim[i] = p_b; out.valid[i] = p_b >= 0 ? 1 : 0;
+  out.geo_n[3 * i] = gx * g_inv;
+  out.geo_n[3 * i + 1] = gy * g_inv;
+  out.geo_n[3 * i + 2] = gz * g_inv;
+  out.sh_n[3 * i] = sx * s_inv;
+  out.sh_n[3 * i + 1] = sy * s_inv;
+  out.sh_n[3 * i + 2] = sz * s_inv;
+  out.uv[2 * i] = tu; out.uv[2 * i + 1] = tv;
   out.mid[i] = mid; out.eid[i] = eid; out.sid[i] = sid;
-  if constexpr (kShadow) out.occ[i] = occ ? 1 : 0;
 }
+
+// a closest hit so far: the first row of least t (strict <)
+struct Best {
+  float t, u, v;
+  int p;
+};
+
+// The bounce slot's closest hit over rows [0, rows) of the staged pass
+// from table row c0.
+__device__ __forceinline__ void closest_rows(const float4* tab, int rows,
+                                             int c0, const LaneRay& r,
+                                             Best& best) {
+  for (int j = 0; j < rows; ++j) {
+    float t, u, v;
+    const bool h = mt_test4(tab[3 * j], tab[3 * j + 1], tab[3 * j + 2], r.o,
+                            r.d, r.mn, r.mx, kDetEps, t, u, v);
+    if (h && t < best.t) best = {t, u, v, c0 + j};
+  }
+}
+
+// The shadow slot's occlusion over rows [0, rows) of the staged pass:
+// before each group of kGroup rows the warp votes, and stops once each
+// of its live slots is occluded (slots from ns on are not live).
+__device__ __forceinline__ void any_rows(const float4* tab, int rows,
+                                         const LaneRay& r, int q, int ns,
+                                         bool& oc) {
+  for (int j0 = 0; j0 < rows; j0 += kGroup) {
+    if (__all_sync(kFull, oc || q >= ns)) return;
+    const int j1 = min(j0 + kGroup, rows);
+    for (int j = j0; j < j1; ++j) {
+      float t, u, v;
+      const bool h = mt_test4(tab[3 * j], tab[3 * j + 1], tab[3 * j + 2],
+                              r.o, r.d, r.mn, r.mx, kDetEps, t, u, v);
+      oc = oc || h;
+    }
+  }
+}
+
+template <bool kShadow>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+shaded_any_kernel(const float* __restrict__ table, int n_tris, Rays br,
+                  Rays sr, int n, Record out) {
+  __shared__ float4 tab[kRows * 3];
+  __shared__ int slots[kShadow ? 2 : 1][kThreads];
+  __shared__ int counts[kShadow ? 2 : 1][kWarps];
+  const int first = blockIdx.x * kThreads;
+  const int q = threadIdx.x;          // this thread's slot
+  const int q_warp = q & ~31;         // its warp's first slot
+  const float inf = __int_as_float(0x7f800000);
+
+  // each ray set's live lanes, compacted over the block; a dead lane gets
+  // the miss record (not occluded) without a test
+  bool b_own, s_own = false;
+  const int nb = compact(br, first, n, counts[0], slots[0], b_own);
+  int ns = 0;
+  if constexpr (kShadow) ns = compact(sr, first, n, counts[1], slots[1], s_own);
+  const int i = first + threadIdx.x;
+  if (i < n && !b_own) write_record(out, table, i, inf, 0.f, 0.f, -1);
+  if constexpr (kShadow) {
+    if (i < n && !s_own) out.occ[i] = 0;
+  }
+
+  const LaneRay b = load_ray(br.o, br.d, br.mint, br.maxt,
+                             q < nb ? slots[0][q] : 0, q < nb);
+  LaneRay s{};
+  if constexpr (kShadow)
+    s = load_ray(sr.o, sr.d, sr.mint, sr.maxt, q < ns ? slots[1][q] : 0,
+                 q < ns);
+  Best best{inf, 0.f, 0.f, -1};
+  bool oc = false;
+
+  const int n_chunks = (n_tris + kRows - 1) / kRows;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int c0 = c * kRows;
+    const int rows = min(kRows, n_tris - c0);
+    __syncthreads();                    // the previous pass is read
+    stage_tests(tab, table, c0, rows);
+    __syncthreads();
+    // warp-uniform: a warp with no live slot runs no test
+    if (q_warp < nb) closest_rows(tab, rows, c0, b, best);
+    if constexpr (kShadow) {
+      if (q_warp < ns) any_rows(tab, rows, s, q, ns, oc);
+    }
+  }
+
+  if (q < nb) write_record(out, table, slots[0][q], best.t, best.u, best.v,
+                           best.p);
+  if constexpr (kShadow) {
+    if (q < ns) out.occ[slots[1][q]] = oc ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// #3 and #4
+// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 any_kernel(const float* __restrict__ table, int n_tris,
@@ -212,9 +346,20 @@ closest_kernel(const float* __restrict__ table, int n_tris,
   prim_out[i] = p_b; hit_out[i] = p_b >= 0 ? 1 : 0;
 }
 
-int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+static int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <bool kShadow>
+static int launch_shaded(const float* table, int n_tris, Rays br, Rays sr,
+                         int n, Record out, cudaStream_t stream) {
+  if (n > 0)
+    shaded_any_kernel<kShadow><<<blocks_for(n), kThreads, 0, stream>>>(
+        table, n_tris, br, sr, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Plain C entry points, bound with ctypes. Each launches on `stream` and
 // returns cudaGetLastError(), so a refused launch is reported.
@@ -222,34 +367,25 @@ extern "C" int mts_shaded_any(
     const float* table, int n_tris, const float* o, const float* d,
     const float* mint, const float* maxt, const float* so, const float* sd,
     const float* smint, const float* smaxt, int n, float* t, float* u,
-    float* v, int* prim, int* hit, float* gx, float* gy, float* gz,
-    float* sx, float* sy, float* sz, float* uvx, float* uvy, int* mid,
-    int* eid, int* sid, int* occ, void* stream) {
-  if (n > 0) {
-    const Outputs out{t, u, v, prim, hit, gx, gy, gz, sx, sy, sz,
-                      uvx, uvy, mid, eid, sid, occ};
-    shaded_any_kernel<true><<<blocks_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        table, n_tris, o, d, mint, maxt, so, sd, smint, smaxt, n, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+    float* v, int* prim, unsigned char* valid, float* geo_n, float* sh_n,
+    float* uv, int* mid, int* eid, int* sid, unsigned char* occ,
+    void* stream) {
+  const Record out{t, u, v, prim, valid, geo_n, sh_n, uv, mid, eid, sid, occ};
+  return launch_shaded<true>(table, n_tris, Rays{o, d, mint, maxt},
+                             Rays{so, sd, smint, smaxt}, n, out,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mts_shaded(
     const float* table, int n_tris, const float* o, const float* d,
     const float* mint, const float* maxt, int n, float* t, float* u,
-    float* v, int* prim, int* hit, float* gx, float* gy, float* gz,
-    float* sx, float* sy, float* sz, float* uvx, float* uvy, int* mid,
-    int* eid, int* sid, void* stream) {
-  if (n > 0) {
-    const Outputs out{t, u, v, prim, hit, gx, gy, gz, sx, sy, sz,
-                      uvx, uvy, mid, eid, sid, nullptr};
-    shaded_any_kernel<false><<<blocks_for(n), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        table, n_tris, o, d, mint, maxt, nullptr, nullptr, nullptr, nullptr,
-        n, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+    float* v, int* prim, unsigned char* valid, float* geo_n, float* sh_n,
+    float* uv, int* mid, int* eid, int* sid, void* stream) {
+  const Record out{t, u, v, prim, valid, geo_n, sh_n, uv, mid, eid, sid,
+                   nullptr};
+  return launch_shaded<false>(table, n_tris, Rays{o, d, mint, maxt},
+                              Rays{o, d, mint, maxt}, n, out,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mts_any(const float* table, int n_tris, const float* o,
@@ -273,4 +409,25 @@ extern "C" int mts_closest(const float* table, int n_tris, const float* o,
         table, n_tris, o, d, mint, maxt, n, t, u, v, prim, hit);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kShadow>
+static int info_k(int* out) {
+  const void* kern = (const void*)shaded_any_kernel<kShadow>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern,
+                                                      kThreads, 0);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(e);
+}
+
+// #1's (shadow) or #2's resources: out[0] resident blocks of kThreads per
+// SM, out[1] registers per thread, out[2] static shared memory bytes per
+// block, out[3] local memory bytes per thread (spills)
+extern "C" int mts_brute_info(int shadow, int* out) {
+  return shadow ? info_k<true>(out) : info_k<false>(out);
 }

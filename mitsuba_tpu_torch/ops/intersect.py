@@ -15,7 +15,9 @@ On CUDA tensors each launches its hand-written kernel of
 `csrc/intersect_brute.cu`, built with nvcc at first use into `_build/`
 and bound with ctypes; on CPU tensors it runs the plain PyTorch version
 (`*_ref`). Any other device raises. Each kernel has its own launch count:
-`LAUNCHES` for #1, `SPLIT_LAUNCHES` for the others.
+`LAUNCHES` for #1, `SPLIT_LAUNCHES` for the others. #1 and #2 write their
+record in its final layout, into views of three allocations
+(`_record_outputs`), so a call launches nothing but its kernel.
 
 Triangle table layout (T, 29), as in the reference:
   [0:9]   v0 | e1 | e2
@@ -47,6 +49,12 @@ SOURCE = nv.source("intersect_brute.cu")
 LAUNCHES = 0
 SPLIT_LAUNCHES = {"shaded": 0, "any": 0, "closest": 0}
 _LIB = {}
+# #1's and #2's schedule (csrc/intersect_brute.cu kRows, kGroup,
+# kThreads): test rows staged per pass, rows between the shadow half's
+# votes, threads a block
+STAGE_ROWS = 256
+SHADOW_GROUP = 8
+THREADS = 256
 
 
 def make_shading_table(geom):
@@ -206,12 +214,25 @@ def build() -> str:
     rays = [i, p, p, p, p, i]                  # n_tris, o, d, mint, maxt, n
     _LIB.update(
         shaded_any=nv.bind(SOURCE, "mts_shaded_any",
-                           [p, i] + [p] * 8 + [i] + [p] * 17 + [p]),
-        shaded=nv.bind(SOURCE, "mts_shaded", [p] + rays + [p] * 16 + [p]),
+                           [p, i] + [p] * 8 + [i] + [p] * 12 + [p]),
+        shaded=nv.bind(SOURCE, "mts_shaded", [p] + rays + [p] * 11 + [p]),
         any=nv.bind(SOURCE, "mts_any", [p] + rays + [p] + [p]),
         closest=nv.bind(SOURCE, "mts_closest", [p] + rays + [p] * 5 + [p]),
+        info=nv.bind(SOURCE, "mts_brute_info", [i, p]),
     )
     return log
+
+
+def brute_info(shadow: bool) -> dict:
+    """#1's (shadow) or #2's resources on the current card: resident
+    blocks of THREADS per SM, registers per thread, static shared memory
+    per block, local (spill) bytes per thread."""
+    if "info" not in _LIB:
+        build()
+    out = (ctypes.c_int * 4)()
+    nv.check(_LIB["info"](int(shadow), out), "brute_info")
+    return dict(zip(("blocks_per_sm", "registers", "smem_bytes",
+                     "local_bytes"), out))
 
 
 def _check_inputs(table, cols, *rays):
@@ -250,13 +271,12 @@ def closest_hit_shaded_and_any(table, o, d, mint, maxt, so, sd, smint,
                                               so, sd, smint, smaxt)
     global LAUNCHES
     n = o.shape[0]
-    out = _record_outputs(o)
-    occ = torch.empty(n, dtype=torch.int32, device=o.device)
+    rec, occ = _record_outputs(n, o.device, shadow=True)
     _launch("shaded_any", o, table, table.shape[0], o, d, mint, maxt,
-            so, sd, smint, smaxt, n, *out, occ)
+            so, sd, smint, smaxt, n, *rec.values(), occ)
     if n > 0:
         LAUNCHES += 1
-    return _record(out), occ.bool()
+    return rec, occ
 
 
 def closest_hit_shaded(table, o, d, mint, maxt):
@@ -266,10 +286,11 @@ def closest_hit_shaded(table, o, d, mint, maxt):
     if o.device.type == "cpu":
         return closest_hit_shaded_ref(table, o, d, mint, maxt)
     n = o.shape[0]
-    out = _record_outputs(o)
-    _launch("shaded", o, table, table.shape[0], o, d, mint, maxt, n, *out)
+    rec, _ = _record_outputs(n, o.device, shadow=False)
+    _launch("shaded", o, table, table.shape[0], o, d, mint, maxt, n,
+            *rec.values())
     _count("shaded", n)
-    return _record(out)
+    return rec
 
 
 def any_hit(table, o, d, mint, maxt):
@@ -301,25 +322,21 @@ def closest_hit(table, o, d, mint, maxt):
     return (*f32, prim, hit.bool())
 
 
-def _record_outputs(o):
-    """The record's output tensors, in the kernels' argument order."""
-    n = o.shape[0]
-    return tuple(torch.empty(n, dtype=dt, device=o.device) for dt in (
-        [torch.float32] * 3 + [torch.int32] * 2 + [torch.float32] * 8
-        + [torch.int32] * 3))
-
-
-def _record(out):
-    """The record dict of the kernels' outputs."""
-    (t, u, v, prim, hit, gx, gy, gz, sx, sy, sz, tu, tv, mid, eid,
-     sid) = out
-    return dict(
-        t=t, u=u, v=v, prim=prim, valid=hit.bool(),
-        geo_n=torch.stack([gx, gy, gz], dim=-1),
-        sh_n=torch.stack([sx, sy, sz], dim=-1),
-        uv=torch.stack([tu, tv], dim=-1),
-        material_id=mid, emitter_id=eid, shape_id=sid,
+def _record_outputs(n, device, shadow):
+    """The record of #1 and #2 in its final layout, in the kernels'
+    argument order (the reference's key order), and #1's occlusion mask:
+    views of one float32, one int32 and one bool allocation."""
+    f = torch.empty(11 * n, dtype=torch.float32, device=device)
+    i = torch.empty(4 * n, dtype=torch.int32, device=device)
+    b = torch.empty((2 if shadow else 1) * n, dtype=torch.bool,
+                    device=device)
+    rec = dict(
+        t=f[:n], u=f[n:2 * n], v=f[2 * n:3 * n], prim=i[:n], valid=b[:n],
+        geo_n=f[3 * n:6 * n].view(n, 3), sh_n=f[6 * n:9 * n].view(n, 3),
+        uv=f[9 * n:].view(n, 2), material_id=i[n:2 * n],
+        emitter_id=i[2 * n:3 * n], shape_id=i[3 * n:],
     )
+    return rec, (b[n:] if shadow else None)
 
 
 def _launch(name, o, *args):

@@ -6,8 +6,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel and its plain version run the same IEEE float32 operations in
-the same order (nvcc --fmad=false, no fast math), so ids, occlusion, keys
-and t, u, v must be equal; normals and uv are held to 1e-6 absolute.
+the same order (nvcc --fmad=false, no fast math), so every field of every
+lane must be equal: ids, occlusion, keys, t, u, v, normals and uv.
 """
 import numpy as np
 import pytest
@@ -77,7 +77,7 @@ def test_kernel_matches_plain_version(cuda, n_tris, n):
         assert torch.equal(rec[k], ref[k]), k
     assert torch.equal(occ, ref_occ)
     for k in ("geo_n", "sh_n", "uv"):
-        assert torch.allclose(rec[k], ref[k], rtol=0, atol=1e-6), k
+        assert torch.equal(rec[k], ref[k]), k
     prim = rec["prim"].cpu().numpy()
     assert (prim >= 0).mean() > 0.3 and not (prim == 5).any()
     assert not (prim == 6).any()
@@ -112,6 +112,70 @@ def test_split_kernels_match_plain_versions(cuda, n_tris, n):
     prim = rec["prim"].cpu().numpy()
     assert (prim >= 0).mean() > 0.3 and not (prim == 5).any()
     assert 0 < int(occ.sum()) < n
+
+
+def _same_record(got, ref):
+    """Every field of every lane, float32 fields by their bits (so -0.0
+    differs from +0.0), with the reference's keys, dtypes and shapes."""
+    assert list(got) == list(ref)
+    for k in ref:
+        a, b = got[k], ref[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["T1", "T32", "T64", "T65", "T300",
+                                  "shadow_dead", "warps_dead"])
+def test_shaded_kernels_match_plain_versions_on_corner_cases(cuda, name,
+                                                             seed):
+    """#1 and #2 on tests/torch_brute_cases.py's inputs (whole warps and
+    tiles dead, single live lanes, every shadow lane dead, shadow rays
+    occluded by the first and by the last row, exact ties of duplicated
+    rows within and across staging passes, |det| at 1e-9 and an ulp or
+    two either side, zero and -0.0 direction components, T = 1 to 300, a
+    ragged last warp): every field of every lane, bit for bit."""
+    import torch_brute_cases as bc
+
+    args = bc.cases(seed, device=cuda)[name]
+    before, before_split = ip.LAUNCHES, ip.SPLIT_LAUNCHES["shaded"]
+    rec, occ = ip.closest_hit_shaded_and_any(*args)
+    alone = ip.closest_hit_shaded(*args[:5])
+    assert ip.LAUNCHES == before + 1
+    assert ip.SPLIT_LAUNCHES["shaded"] == before_split + 1
+    ref, ref_occ = ip.closest_hit_shaded_and_any_ref(*args)
+    torch.cuda.synchronize()
+    _same_record(rec, ref)
+    _same_record(alone, ref)
+    assert occ.dtype == torch.bool and torch.equal(occ, ref_occ)
+    if name == "shadow_dead":
+        assert not bool(ref_occ.any())
+
+
+@pytest.mark.parametrize("n_tris,n", [(32, 1_000_003), (300, 400_001)])
+def test_shaded_kernels_stride_over_many_tiles(cuda, n_tris, n):
+    """More lanes than the persistent grid holds at once: every block
+    strides over several tiles (and, at T = 300, restages the table for
+    each), with a dead lane in every 11 and a ragged end; bit for bit."""
+    args = _inputs(n_tris + 1, n_tris, n, cuda)
+    rec, occ = ip.closest_hit_shaded_and_any(*args)
+    alone = ip.closest_hit_shaded(*args[:5])
+    ref, ref_occ = ip.closest_hit_shaded_and_any_ref(*args)
+    torch.cuda.synchronize()
+    _same_record(rec, ref)
+    _same_record(alone, ref)
+    assert torch.equal(occ, ref_occ)
+
+
+def test_shaded_kernels_keep_blocks_in_flight(cuda):
+    """#1 and #2 hold at least four 256-thread blocks per SM (their launch
+    bounds), without spilling registers."""
+    for shadow in (False, True):
+        info = ip.brute_info(shadow)
+        assert info["blocks_per_sm"] >= 4, info
+        assert info["local_bytes"] == 0, info
 
 
 def test_fog_render_on_the_card_goes_through_the_split_kernels(cuda):

@@ -4,8 +4,9 @@ ops/probes.py and the probe drivers of probes/ among them) and rendering
 a brute and an instanced cluster scene (which builds BVHs with the port's
 own native builder) and the brute scene in a medium leaves `jax`, every
 `mitsuba_tpu` module and the reference's `scripts` out of sys.modules,
-and no source file of the port or chip_smoke.py imports the JAX package
-or the reference's scripts.
+and no source file of the port, chip_smoke.py or the case inputs it
+loads (tests/torch_*_cases.py) imports the JAX package or the
+reference's scripts.
 
 This file's own process has jax loaded (tests/conftest.py imports it), so
 the checks run in fresh interpreters.
@@ -100,8 +101,10 @@ _REF_IMPORT = re.compile(
 
 
 def test_no_source_of_the_port_imports_the_reference():
+    # the port, chip_smoke.py and the case inputs chip_smoke.py loads
     files = glob.glob(os.path.join(ROOT, "mitsuba_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    files += glob.glob(os.path.join(ROOT, "tests", "torch_*_cases.py"))
     assert len(files) >= 20
     offenders = []
     for path in files:
