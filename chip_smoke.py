@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
   2. the build of every native source (one compiler per source, all at
      once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
      builder), with the compiler's ptxas lines, and the resources of the
-     v6b walk (#9), the stream walk (#10), the work-list walk (#12), the
+     item walks (#9 v6b, #8 v6 and #7 v5, at config 3's list widths),
+     the stream walk (#10), the work-list walk (#12), the
      BVH walk (#11), the refine kernels (#5, #6) and the shaded brute
      kernels (#1, #2): rows (blocks) resident per SM, registers, shared
      memory, spills;
@@ -55,10 +56,11 @@ Phases, each printing one JSON line:
      live prefixes of 0, 1 and the whole list with garbage ids past them,
      every cap width and the all-L2 root table); the stream
      kernel on the bounce and shadow rows; #9 also at the XL caps on the
-     bounce rows, and #9 and #10 on the corner cases of
+     bounce rows, and #7-#10 on the corner cases of
      tests/torch_walk_cases.py (whole warps dead, escaping or
-     occluded early, a dead row, planted exact ties; #9 at list widths
-     32, 384 and 768); #12 and #11 on the corner cases of
+     occluded early, a dead row, planted exact ties; #9 and #8 at list
+     widths 32, 384 and 768, #7 at 96, 512 and 1,024); #12 and #11 on
+     the corner cases of
      tests/torch_instanced_cases.py (dead, occluded and sentinel warps, a
      dead row, a 540-slot row, planted ties, lists with an unused tail
      and cut short; equal t in two leaves, a leaf past the last
@@ -106,6 +108,12 @@ Phases, each printing one JSON line:
      and #6, labelled by their query (closest or any; coherent, diffuse or
      XL caps), each replayed alone and timed, with its live entries; the
      profiles of config 3 and config3_v5 give #5's and #6's device ms per
+     render in the kernels line. After config3_v5 and config3_v6, one more
+     render records each launch of #7 or #8: each is replayed alone, held
+     against its plain version bit for bit and timed, with its rows, live
+     lanes, dead-warp share and the steps or L1 blocks it tests (#8 also
+     the children admitted per tested L1 block, by the row and by each
+     lane's own slab); their profiles give #7's and #8's device ms per
      render in the kernels line; after bvh
      and instanced, one more render records each launch of #11 and #12
      with its arguments, and each is replayed alone and timed: #11's
@@ -865,9 +873,10 @@ def compare_cluster_kernels(scene):
 
 
 def compare_walk_cases(device):
-    """#9 at list widths 32, 384 and 768 and #10 at K = 32 on
-    tests/torch_walk_cases.py's rows (whole warps dead, escaping or occluded
-    early, a dead row, planted exact ties), closest and any."""
+    """#9 and #8 at list widths 32, 384 and 768, #7 at 96, 512 and 1,024
+    and #10 at K = 32 on tests/torch_walk_cases.py's rows (whole warps
+    dead, escaping or occluded early, a dead row, planted exact ties),
+    closest and any."""
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import stream as sp
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -883,6 +892,18 @@ def compare_walk_cases(device):
                 wc.v6b_case(e2, any_hit, device=device) + (any_hit, blm),
                 (1, 2, 3), _items_ops, counted=True, tables=_k8_tables,
                 blm=blm, e2=e2)
+            check_pair(
+                "l1_items", f"cases E2 {e2} {kind}", ep.l1_items,
+                ep.l1_items_ref,
+                wc.l1_case(e2, any_hit, device=device) + (any_hit,),
+                (2, 3, 4), _walk_ops, counted=True,
+                tables=_l1_items_tables, e2=e2)
+        for e3 in (96, 512, 1024):
+            check_pair(
+                "items", f"cases E3 {e3} {kind}", ep.items, ep.items_ref,
+                wc.items_case(e3, any_hit, device=device) + (any_hit,),
+                (1, 2, 3), _items_ops, counted=True, tables=_k8_tables,
+                e3=e3)
         check_pair(
             "stream", f"cases {kind}", sp.stream_rows, sp.stream_rows_ref,
             wc.stream_case(any_hit, device=device) + (any_hit,), (0, 1, 2),
@@ -1823,19 +1844,50 @@ def _liveness(kernel, rays, any_hit, **kv):
                 dead_warp_share=1.0 - float(warps.float().mean()), **kv)
 
 
-def walk_liveness(tag, scene, cfg, reps=5):
+def _item_walk_launch(tag, k, name, args, query):
+    """Launch k of #7 (name "items") or #8 ("l1_items") of a render,
+    replayed alone: held against its plain version bit for bit and timed
+    (a kernel_vs_plain line), with its liveness and the steps (#7) or L1
+    blocks (#8) it tests; #8 also the children admitted per tested L1
+    block, by the row (each tested on all 128 lanes) and by each live
+    lane's own slab."""
+    from mitsuba_tpu_torch.ops import exact as ep
+
+    any_hit = args[-1]
+    if name == "items":
+        r = check_pair("items", f"{tag} launch {k}", ep.items, ep.items_ref,
+                       args, (1, 2, 3), _items_ops, counted=True,
+                       tables=_k8_tables, time_plain=False, query=query)
+        return _liveness("items", args[1], any_hit, query=query,
+                         width=args[2].shape[1],
+                         steps_tested=r["work"]["steps_tested"], ms=r["ms"],
+                         parent_ms=r["parent_ms"], bound_ms=r["bound_ms"])
+    r = check_pair("l1_items", f"{tag} launch {k}", ep.l1_items,
+                   ep.l1_items_ref, args, (2, 3, 4), _walk_ops, counted=True,
+                   tables=_l1_items_tables, time_plain=False, query=query)
+    w = r["work"]
+    return _liveness(
+        "l1_items", args[2], any_hit, query=query, width=args[3].shape[1],
+        l1_tested=w["l1_tested"],
+        children_per_l1_row=w["children_row"] / max(1, w["l1_tested"]),
+        children_per_l1_lane=w["children_lane"] / max(1, w["lane_l1s"]),
+        ms=r["ms"], parent_ms=r["parent_ms"], bound_ms=r["bound_ms"])
+
+
+def walk_liveness(tag, scene, cfg, reps=5, replay_refine=True):
     """One render, recording each launch of #9 and #10: its rows, live
-    lanes and the share of warps with no live lane; and of #5 and #6,
-    labelled by the query that runs them (closest or any, at the
-    coherent, diffuse or XL caps), with their live entries, each replayed
-    alone and timed (CUDA events, median of `reps`): their device ms a
-    render by label."""
+    lanes and the share of warps with no live lane; each launch of #7 and
+    #8, replayed alone (`_item_walk_launch`): their ms a render; and, with
+    replay_refine, each of #5 and #6, labelled by the query that runs
+    them (closest or any, at the coherent, diffuse or XL caps), with
+    their live entries, each replayed alone and timed (CUDA events,
+    median of `reps`): their device ms a render by label."""
     from mitsuba_tpu_torch.integrators.path import render
     from mitsuba_tpu_torch.ops import exact as ep
     from mitsuba_tpu_torch.ops import stream as sp
 
-    calls = {"l1_masked": [], "stream_rows": [], "refine": [],
-             "child_refine": []}
+    calls = {"l1_masked": [], "items": [], "l1_items": [], "stream_rows": [],
+             "refine": [], "child_refine": []}
     names = dict(zip(scene.geom.ex_caps, ("diffuse", "coherent", "xl")))
     query = [None]
 
@@ -1852,7 +1904,7 @@ def walk_liveness(tag, scene, cfg, reps=5):
             return orig(ex, rays, caps, any_hit, walk)
         return call
 
-    with wrapped(ep, ("l1_masked",), recorder), \
+    with wrapped(ep, ("l1_masked", "items", "l1_items"), recorder), \
             wrapped(ep, ("refine", "child_refine"), recorder), \
             wrapped(ep, ("_walk",), labeller), \
             wrapped(sp, ("stream_rows",), recorder):
@@ -1861,8 +1913,18 @@ def walk_liveness(tag, scene, cfg, reps=5):
                 for a, _q in calls["l1_masked"]]
     launches += [_liveness("stream", a[0], a[4], list_width=a[1].shape[1])
                  for a, _q in calls["stream_rows"]]
+    walks = {}
+    for name in ("items", "l1_items"):
+        for k, (args, q) in enumerate(calls[name]):
+            rec = _item_walk_launch(tag, k, name, args, q)
+            launches.append(rec)
+            acc = walks.setdefault(name, dict(launches=0, ms=0.0,
+                                              bound_ms=0.0))
+            acc["launches"] += 1
+            acc["ms"] += rec["ms"]
+            acc["bound_ms"] += rec["bound_ms"]
     refine, sums = [], {}
-    for name in ("refine", "child_refine"):
+    for name in ("refine", "child_refine") if replay_refine else ():
         fn = getattr(ep, name)
         for args, q in calls[name]:
             ms = cuda_ms(lambda: fn(*args), reps)
@@ -1874,9 +1936,11 @@ def walk_liveness(tag, scene, cfg, reps=5):
                 width=args[1].shape[1], live_entries=int(args[2].sum()),
                 ms=ms))
     phase("walk_liveness", path=tag, launches=launches,
-          refine_launches=refine, refine_per_render=sums,
+          walk_per_render=walks, refine_launches=refine,
+          refine_per_render=sums,
           refine_unit="device ms per render (CUDA events, each launch "
           "replayed alone)")
+    return walks
 
 
 def fog_render(scene, cfg, seed=0):
@@ -1951,6 +2015,12 @@ def main(argv=None):
                     for a in (False, True) for i in (False, True)},
           bvh={"any" if a else "closest": bp.bvh_info(a)
                for a in (False, True)},
+          items={f"E3 {e3} {'any' if a else 'closest'}":
+                 ep.items_info(e3, a)
+                 for e3 in (96, 512, 1024) for a in (False, True)},
+          l1_items={f"E2 {e2} {'any' if a else 'closest'}":
+                    ep.l1_items_info(e2, a)
+                    for e2 in (32, 384, 768) for a in (False, True)},
           refine={"refine": ep.refine_info(False),
                   "child_refine": ep.refine_info(True)},
           brute={"shaded_any": ip.brute_info(True),
@@ -2053,9 +2123,13 @@ def main(argv=None):
     l3v5 = render_phase("config3_v5", scene3_v5, cfg,
                         ["refine", "child_refine", "items"],
                         forbid=["l1_masked", "l1_items"])
+    live_v5 = walk_liveness("config3_v5", scene3_v5, cfg,
+                            replay_refine=False)["items"]
     l3v6 = render_phase("config3_v6", scene3_v6, cfg,
                         ["refine", "child_refine", "l1_items"],
                         forbid=["items", "l1_masked"])
+    live_v6 = walk_liveness("config3_v6", scene3_v6, cfg,
+                            replay_refine=False)["l1_items"]
     lb = render_phase("bvh", scene_bvh, cfg, ["bvh_closest", "bvh_any"])
     replay_launches("bvh", scene_bvh, cfg)
     li = render_phase("instanced", scene_inst, cfg, ["wl_closest", "wl_any"])
@@ -2134,14 +2208,21 @@ def main(argv=None):
               device_ms_per_render_v5=own_ms("config3_v5",
                                              "child_refine_kernel"),
               check_phase="kernel_vs_plain child_refine (bounce S2)"),
+        # no default render path launches #7 (v5) or #8 (v6): their
+        # launches and device ms a render are the config-3 render's with
+        # ex_walk="v5" or "v6", beside the ms of those launches replayed
+        # alone (CUDA events)
         entry("items", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:531",
               l3v5["items"], cluster[("items", "bounce", "closest")],
-              path="config3_v5"),
-        # no default render path launches #8 (v6): its launches are the
-        # config-3 render's with ex_walk="v6"
+              path="config3_v5",
+              device_ms_per_render=own_ms("config3_v5", "items_kernel"),
+              replayed_ms_per_render=live_v5["ms"],
+              check_phase="kernel_vs_plain items (bounce closest)"),
         entry("l1_items", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:666",
               l3v6["l1_items"], cluster[("l1_items", "bounce", "closest")],
               path="config3_v6",
+              device_ms_per_render=own_ms("config3_v6", "l1_items_kernel"),
+              replayed_ms_per_render=live_v6["ms"],
               check_phase="kernel_vs_plain l1_items (bounce closest)"),
         entry("l1_masked", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:814",
               l3["l1_masked"], cluster[("l1_masked", "bounce", "closest")],

@@ -41,51 +41,57 @@
 // that a tie of zeros keeps the zero torch.amin keeps on the card (held on
 // planted ties by tests/torch_refine_cases.py).
 //
-// items walks each row's front-to-back list of 8-triangle clusters in
-// blocks of 16 (BI): a block whose key exceeds every lane's best t (a
-// block-wide max) is skipped; otherwise its 16 x 8 triangles are staged in
-// shared memory (one per thread) and every lane runs Moeller-Trumbore on
-// all of them. Tie order is the TPU kernel's (exact_pallas.py:600-619): a
-// running winner per sublane across the block's items (strict <), then
-// the lowest sublane among equal t, then across blocks strict <. The
-// any-hit mode collapses a lane's bound to mint - 1 once it is occluded,
-// so the block skip prunes occluded rows (:561-587). Bound: the staged
-// loads and one block reduction per block of 16 clusters; the MT work is
-// ~40 flops per (triangle, lane).
+// The item walks. #7 (v5) walks each row's front-to-back list of E3 K8
+// clusters (8 triangles) in steps of 16 (BI), keyed by blk_tn; #9 (v6b)
+// its list of E2 L1 blocks (64 triangles: 8 consecutive K8 clusters of
+// `tri`) in steps of blm, keyed by each step's first L1. Both test all of
+// a tested step's triangles, dead slots (id 0) included, under the bound
+// of the step's start, and keep a running winner per sublane across the
+// step (strict <), then the lowest sublane among equal t, then strict <
+// against the lane's best (exact_pallas.py:600-619, 877-901): one walk,
+// `step_walk`, over groups of 8 or 64 records. #8 (v6) visits the L1
+// blocks one at a time, slab-tests each lane's 8 K8 children (the `ct0`
+// table) against [mint, maxt], and runs Moeller-Trumbore on all 128 lanes
+// for each child some lane of the row admits, merging child by child (the
+// lowest sublane among the child's nearest hits, then strict < against
+// the lane's best). Every walk skips a step whose key exceeds every lane's
+// bound: its best t (closest), or maxt, and mint - 1 once occluded (any
+// hit, so that an occluded row skips; :561-587).
 //
-// l1_items (v6) and l1_masked (v6b) walk each row's front-to-back list of
-// E2 L1 blocks (64 triangles: 8 consecutive K8 clusters of `tri`) without
-// the S3 stage. A "max over lanes >= key" skip is __syncthreads_or(key <=
-// my bound). v6 visits the L1s one by one: it stages the L1's 64
-// triangles, slab-tests its 8 K8 children (the `ct0` table) per lane
-// against [mint, maxt], and runs Moeller-Trumbore on all 128 lanes for
-// each child some lane admits (a second __syncthreads_or), merging child
-// by child (lowest sublane among the child's nearest hits, then strict <
-// against the lane's best; any-hit caps each child at mint once
-// occluded). v6 trades a box test per child and lane and a block-wide
-// vote for skipping children.
-//
-// v6b takes steps of blm L1s with one skip on the step's first key and
-// tests all blm * 64 triangles of the step, dead slots (L1 id 0)
-// included, capped by the bound of the step's start; it keeps #7's
-// running winner per sublane across the whole step, then the lowest
-// sublane, then strict < against the lane's best (exact_pallas.py:
-// 877-901). What bounds it on this card: the Moeller-Trumbore work, 53
-// float32 operations and an IEEE division per (triangle, lane); a row
-// per 4-warp block with two barriers and ten scalar shared loads per
-// test reached a third of `mt_test`'s measured card ceiling. The design:
-// one 128-thread block per row, 48-51 registers and 16-20 KB of shared
-// memory, so 9-10 rows stay resident per SM; the row's L1 ids and step
-// keys are staged once; a step's triangles come in chunks of 128 by
-// cp.async into two buffers, the next chunk loading while this one is
-// tested, behind one barrier a chunk; a triangle is its 64-byte record,
-// read as three 16-byte loads; a thread runs two tests at a time and
-// merges them in order. A warp none of whose lanes has mint < the step's
-// cap skips the step's tests, and an any-hit warp stops, at a cluster's
-// start, once each of its lanes has hit or cannot: no test of such a lane
-// can pass its cap, so no record changes. Exact: every other lane meets
-// the step's triangles in the plain version's order under the same cap,
-// and each step is skipped or tested on the same block-wide vote.
+// What bounds them on this card: the Moeller-Trumbore work, 53 float32
+// operations and an IEEE division per (triangle, lane), and for #8 also
+// the box tests, 25 a child and lane. #8 tests about one child (8
+// triangles) a tested L1 block, on all 128 lanes of the row, some thirty
+// times what the lanes' own slabs admit; its steps are short, so what a
+// step costs beyond its tests weighs too. The first versions of #7
+// and #8 spent it on two to eleven block barriers a step (a block max,
+// staging, a vote a child), ten scalar loads to stage a triangle and nine
+// to read it, one chain of tests a thread, and tests of lanes that could
+// no longer change a record. The design: one 128-thread block per row, 8
+// rows resident per SM; the row's ids and step keys staged once into
+// shared memory; a step's 64-byte records staged by cp.async into two
+// buffers, the next chunk loading while this one is tested: the step's
+// next, or the next step's first (#8: the next L1 block's records, and
+// its child boxes into each warp's own copy), which is the step tested
+// next unless the bound skips it; #7's and #9's records are also kept in
+// L1, where neighbouring camera rows of an SM find them; one barrier a
+// chunk, the last one of a step also carrying each warp's largest bound
+// (#8: and each warp's OR of its lanes' 8-bit admission masks of the next
+// L1 block, computed from its copy once this one is tested, with no
+// barrier of its own), from which every warp finds the next step to
+// test with ballots over 32 keys at a time, so a step the bound skips
+// costs no barrier; a test reads its record as three 16-byte loads, and
+// a thread runs two tests at a time and merges them in order. A warp none
+// of whose lanes has mint < its cap skips the tests (#8: child by child,
+// its caps only shrinking), and an any-hit warp stops at a cluster's (#8: a
+// child's) start once each of its lanes has hit or cannot: no test of
+// such a lane can pass its cap, so no record changes. Exact: every other
+// lane meets the step's triangles in the plain version's order under the
+// same cap (#8: its current cap, which only refuses hits that the strict
+// merge would refuse), each step is tested on the plain version's vote
+// `key <= max over lanes of bound` (fmaxf leaves out a NaN bound, as the
+// vote does), and #8 tests the children the row admits, not those of the
+// warp's own lanes: a lane outside a child's slab still meets its hits.
 //
 // Rounding: compiled with --fmad=false and IEEE division; every
 // expression keeps the plain version's operation order.
@@ -372,99 +378,21 @@ child_refine_kernel(const float* __restrict__ rays,
                    Ep * 8, out + r * Ep * 8);
 }
 
-__device__ __forceinline__ float block_max(float x, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  __syncthreads();
-  return m;
-}
+// ---------------------------------------------------------------------------
+// The item walks: #7 (v5) and #9 (v6b), steps of whole groups of records
+// in chunks of WALK_CHUNK; #8 (v6), an L1 block a step, its children
+// admitted row-wide
+// ---------------------------------------------------------------------------
 
-// one staged triangle: v0 | e1 | e2 | prim
-struct Tri {
-  float f[9];
-  int prim;
+#define WALK_CHUNK 128            // records a chunk: one staged per thread
+#define WALK_ROWS_PER_SM 8        // resident rows the register budget allows
+#define L1_RECS 64                // records of an L1 block
+
+// one staged triangle: its 16-float record of `tri` (v0 | e1 | e2 in
+// fields 0-8, the prim's bits in field 15), read as float4s
+struct __align__(16) Rec {
+  float4 q[4];
 };
-
-__global__ void __launch_bounds__(LANES)
-items_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
-             const float* __restrict__ blk_tn,
-             const float* __restrict__ tri, int E3, int any_hit,
-             float* __restrict__ out_t, float* __restrict__ out_u,
-             float* __restrict__ out_v, int* __restrict__ out_p,
-             int* __restrict__ out_occ) {
-  __shared__ Tri st[BI * 8];
-  __shared__ float red[LANES / 32];
-  Row ry;
-  load_row(rays, ry);
-  const int r = blockIdx.x;
-  const int l = threadIdx.x;
-  const int nb = E3 / BI;
-  float tb = ry.mx, ub = 0.0f, vb = 0.0f;    // closest: best hit
-  int pb = -1;
-  bool occ = false;
-  float t_bound = ry.mx;                    // any-hit: the skip bound
-  for (int b = 0; b < nb; ++b) {
-    const float blk_t = blk_tn[(size_t)r * nb + b];
-    if (!(blk_t <= block_max(any_hit ? t_bound : tb, red))) continue;
-    {   // stage the block's 16 clusters x 8 triangles, one per thread
-      const int item = l / 8, sub = l % 8;
-      const int cid = ids[(size_t)r * E3 + b * BI + item];
-      const float* src = tri + ((size_t)cid * 8 + sub) * LANES;
-      for (int k = 0; k < 9; ++k) st[l].f[k] = src[k];
-      st[l].prim = __float_as_int(src[15]);
-    }
-    __syncthreads();
-    if (any_hit) {
-      const float cap = occ ? ry.mn : ry.mx;
-      bool hit = false;
-      for (int k = 0; k < BI * 8; ++k) {
-        float t, u, v;
-        hit = mt_test(st[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u, v) ||
-              hit;
-      }
-      occ = occ || hit;
-      t_bound = occ ? ry.mn - 1.0f : ry.mx;
-    } else {
-      // lexicographic (t, sublane, item) minimum == per-sublane running
-      // winner over the items, then the lowest sublane among equal t
-      float bt = BIG, bu = 0.0f, bv = 0.0f;
-      int bs = 8, bp = 0;
-      for (int item = 0; item < BI; ++item) {
-        for (int sub = 0; sub < 8; ++sub) {
-          float t, u, v;
-          const Tri& tr = st[item * 8 + sub];
-          if (mt_test(tr.f, ry.o, ry.d, ry.mn, tb, DET_EPS, t, u, v) &&
-              (t < bt || (t == bt && sub < bs))) {
-            bt = t;
-            bs = sub;
-            bu = u;
-            bv = v;
-            bp = tr.prim;
-          }
-        }
-      }
-      if (bt < tb) {
-        tb = bt;
-        ub = bu;
-        vb = bv;
-        pb = bp;
-      }
-    }
-    __syncthreads();                         // before the next staging
-  }
-  const size_t at = (size_t)r * LANES + l;
-  if (any_hit) {
-    out_occ[at] = occ ? 1 : 0;
-  } else {
-    out_t[at] = tb;
-    out_u[at] = ub;
-    out_v[at] = vb;
-    out_p[at] = pb;
-  }
-}
 
 // the best-hit accumulator of the closest walks: (t, u, v, prim)
 struct Best {
@@ -487,91 +415,19 @@ __device__ __forceinline__ void store_hit(const Best& b, bool occ, int any_hit,
   }
 }
 
-__device__ __forceinline__ void stage_tri(const float* src, Tri& dst) {
-  for (int k = 0; k < 9; ++k) dst.f[k] = src[k];
-  dst.prim = __float_as_int(src[15]);
-}
-
-__global__ void __launch_bounds__(LANES)
-l1_items_kernel(const float* __restrict__ rays, const int* __restrict__ l1_ids,
-                const float* __restrict__ l1_keys,
-                const float* __restrict__ tri, const float* __restrict__ ct0,
-                int E2, int any_hit, float* __restrict__ out_t,
-                float* __restrict__ out_u, float* __restrict__ out_v,
-                int* __restrict__ out_p, int* __restrict__ out_occ) {
-  __shared__ Tri st[64];
-  Row ry;
-  load_row(rays, ry);
-  const int r = blockIdx.x;
-  const int l = threadIdx.x;
-  Best best = {ry.mx, 0.0f, 0.0f, -1};
-  bool occ = false;
-  float t_bound = ry.mx;                    // any-hit: the skip bound
-  for (int s = 0; s < E2; ++s) {
-    const float key = l1_keys[(size_t)r * E2 + s];
-    if (!__syncthreads_or(key <= (any_hit ? t_bound : best.t))) continue;
-    const int id = l1_ids[(size_t)r * E2 + s];
-    if (l < 64) stage_tri(tri + ((size_t)id * 64 + l) * LANES, st[l]);
-    __syncthreads();
-    for (int c = 0; c < 8; ++c) {
-      // this lane's slab test of child c against [mint, maxt]
-      const float* b = ct0 + ((size_t)id * 8 + c) * LANES;
-      float tn = ry.mn, tf = ry.mx;
-      for (int j = 0; j < 3; ++j) {
-        const float t0 = (b[j] - ry.o[j]) * ry.inv[j];
-        const float t1 = (b[3 + j] - ry.o[j]) * ry.inv[j];
-        tn = fmaxf(tn, fminf(t0, t1));
-        tf = fminf(tf, fmaxf(t0, t1));
-      }
-      if (!__syncthreads_or(tn <= tf)) continue;
-      const Tri* ct = st + c * 8;
-      if (any_hit) {
-        const float cap = occ ? ry.mn : ry.mx;
-        bool hit = false;
-        for (int k = 0; k < 8; ++k) {
-          float t, u, v;
-          hit = mt_test(ct[k].f, ry.o, ry.d, ry.mn, cap, DET_EPS, t, u, v) ||
-                hit;
-        }
-        occ = occ || hit;
-        t_bound = occ ? ry.mn - 1.0f : ry.mx;
-      } else {
-        Best h = {BIG, 0.0f, 0.0f, 0};
-        for (int k = 0; k < 8; ++k) {
-          float t, u, v;
-          if (mt_test(ct[k].f, ry.o, ry.d, ry.mn, best.t, DET_EPS, t, u, v) &&
-              t < h.t)
-            h = {t, u, v, ct[k].prim};
-        }
-        if (h.t < best.t) best = h;
-      }
-    }
-    __syncthreads();                         // before the next staging
-  }
-  store_hit(best, occ, any_hit, out_t, out_u, out_v, out_p, out_occ);
-}
-
-// ---------------------------------------------------------------------------
-// v6b (#9): steps of blm L1 blocks, staged in chunks of V6B_CHUNK triangles
-// ---------------------------------------------------------------------------
-
-#define V6B_CHUNK 128
-#define V6B_ROWS_PER_SM 8         // resident rows the register budget allows
-
-// one staged triangle: its 16-float record of `tri` (v0 | e1 | e2 in
-// fields 0-8, the prim's bits in field 15), read as float4s
-struct __align__(16) Rec {
-  float4 q[4];
-};
-
-// this thread's share of chunk c of a step: triangle m = (L1 m / 64,
-// cluster and sublane m % 64), one 64-byte record by four 16-byte copies
+// this thread's share of chunk c of a step whose groups are ids[0:]:
+// triangle m is record m % G of group ids[m / G], G consecutive records
+// of `tri` (G = 8: a K8 cluster; 64: an L1 block), one 64-byte record by
+// four 16-byte copies, kept in L1 for the SM's other rows (neighbouring
+// camera rows read the same clusters)
+template <int G>
 __device__ __forceinline__ void stage_chunk(const float* tri, const int* ids,
                                             int c, int n_tri, Rec* dst) {
-  const int m = c * V6B_CHUNK + threadIdx.x;
+  const int m = c * WALK_CHUNK + threadIdx.x;
   if (m < n_tri) {
-    const float* src = tri + ((size_t)ids[m >> 6] * 64 + (m & 63)) * LANES;
-    for (int i = 0; i < 4; ++i) cp_async16(&dst[threadIdx.x].q[i], src + 4 * i);
+    const float* src = tri + ((size_t)ids[m / G] * G + m % G) * LANES;
+    for (int i = 0; i < 4; ++i)
+      cp_async16_ca(&dst[threadIdx.x].q[i], src + 4 * i);
   }
   cp_async_commit();
 }
@@ -593,64 +449,106 @@ __device__ __forceinline__ void take(bool ok, float t, float u, float v,
   }
 }
 
-// dynamic shared memory of the v6b walk: two chunk buffers, the row's L1
-// ids and its step keys
-__host__ __device__ __forceinline__ size_t v6b_smem(int E2, int blm) {
-  return 2 * V6B_CHUNK * sizeof(Rec) + (size_t)E2 * sizeof(int) +
-         (size_t)(E2 / blm) * sizeof(float);
+// the largest bound of this warp's lanes, kept by its first lane in
+// red[warp] (fmaxf leaves a NaN bound out, as the vote `key <= bound`
+// does)
+__device__ __forceinline__ void warp_max(float x, float* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
 }
 
-template <bool ANY>
-__global__ void __launch_bounds__(LANES, V6B_ROWS_PER_SM)
-l1_masked_kernel(const float* __restrict__ rays,
-                 const int* __restrict__ l1_ids,
-                 const float* __restrict__ l1_keys,
-                 const float* __restrict__ tri, int E2, int blm,
-                 float* __restrict__ out_t, float* __restrict__ out_u,
-                 float* __restrict__ out_v, int* __restrict__ out_p,
-                 int* __restrict__ out_occ) {
+// the row's largest bound, once a barrier follows every warp's warp_max
+__device__ __forceinline__ float row_max(const float* red) {
+  return fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+}
+
+// the first step s of [from, n) whose key is within bmax, else n: the
+// block-wide vote "key <= some lane's bound" of each step from `from` on
+// while the bounds stay as they are; a warp scans 32 keys at once, and
+// every warp reads the same keys and bmax, so all find the same step
+__device__ __forceinline__ int next_step(const float* skey, int from, int n,
+                                         float bmax) {
+  const int l = threadIdx.x & 31;
+  for (int b = from; b < n; b += 32) {
+    const unsigned ok =
+        __ballot_sync(FULL_MASK, b + l < n && skey[b + l] <= bmax);
+    if (ok) return b + __ffs(ok) - 1;
+  }
+  return n;
+}
+
+// dynamic shared memory of #7 and #9: two chunk buffers, the row's list
+// of E group ids and its n_steps step keys
+__host__ __device__ __forceinline__ size_t walk_smem(int E, int n_steps) {
+  return 2 * WALK_CHUNK * sizeof(Rec) + (size_t)E * sizeof(int) +
+         (size_t)n_steps * sizeof(float);
+}
+
+// #7 and #9: a row walks its list ids[r * E:] of groups of G records in
+// steps of blm groups; step s's key is keys[r * key_row + s * key_step]
+template <int G, bool ANY>
+__device__ __forceinline__ void step_walk(const float* rays, const int* ids,
+                                          int E, const float* keys,
+                                          int key_row, int key_step,
+                                          const float* tri, int blm,
+                                          float* out_t, float* out_u,
+                                          float* out_v, int* out_p,
+                                          int* out_occ) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Rec* buf = reinterpret_cast<Rec*>(smem);               // [2][V6B_CHUNK]
-  int* sid = reinterpret_cast<int*>(buf + 2 * V6B_CHUNK);  // [E2]
-  float* skey = reinterpret_cast<float*>(sid + E2);      // [E2 / blm]
+  __shared__ float red[2][LANES / 32];
+  Rec* buf = reinterpret_cast<Rec*>(smem);                 // [2][WALK_CHUNK]
+  int* sid = reinterpret_cast<int*>(buf + 2 * WALK_CHUNK);  // [E]
+  const int n_steps = E / blm;
+  float* skey = reinterpret_cast<float*>(sid + E);         // [n_steps]
   const int r = blockIdx.x;
   const int l = threadIdx.x;
-  const int n_steps = E2 / blm;
-  const int n_tri = blm * 64;               // triangles per step
-  const int n_chunks = (n_tri + V6B_CHUNK - 1) / V6B_CHUNK;
-  for (int i = l; i < E2; i += LANES) sid[i] = l1_ids[(size_t)r * E2 + i];
+  const int n_tri = blm * G;                // records a step
+  const int n_chunks = (n_tri + WALK_CHUNK - 1) / WALK_CHUNK;
+  for (int i = l; i < E; i += LANES) sid[i] = ids[(size_t)r * E + i];
   for (int i = l; i < n_steps; i += LANES)
-    skey[i] = l1_keys[(size_t)r * E2 + (size_t)i * blm];
+    skey[i] = keys[(size_t)r * key_row + (size_t)i * key_step];
   Row ry;
   load_row(rays, ry);
   Best best = {ry.mx, 0.0f, 0.0f, -1};
   bool occ = false;
+  // the first step tested: the ordered skip on each step's key against
+  // the row's bound (maxt at the start)
+  warp_max(ry.mx, red[0]);
   __syncthreads();
-  for (int s = 0; s < n_steps; ++s) {
-    // the ordered skip on the step's first key (any hit: mint - 1 once
-    // occluded, so an occluded row skips); a barrier too, after which
-    // every thread is done with the last chunk staged
-    const float bound = ANY ? (occ ? ry.mn - 1.0f : ry.mx) : best.t;
-    if (!__syncthreads_or(skey[s] <= bound)) continue;
-    const int* ids = sid + s * blm;
-    stage_chunk(tri, ids, 0, n_tri, buf);
+  int s = next_step(skey, 0, n_steps, row_max(red[0]));
+  int p = 1;                    // red[p]: the next bound's maxima
+  int cur = 0;                  // the buffer of the next chunk tested
+  bool ready = false;           // chunk 0 of step s staged and visible
+  if (s < n_steps) stage_chunk<G>(tri, sid + s * blm, 0, n_tri, buf);
+  while (s < n_steps) {
+    const int* gids = sid + s * blm;
     // the step's cap; no test of a lane with mint >= cap can pass it
     const float cap = ANY ? (occ ? ry.mn : ry.mx) : best.t;
     const bool live = ry.mn < cap;
-    const bool warp_live = __any_sync(0xffffffffu, live);
+    const bool warp_live = __any_sync(FULL_MASK, live);
     Best h = {BIG, 0.0f, 0.0f, 0};
     int hs = 8;
     bool hit = false;
     for (int c = 0; c < n_chunks; ++c) {
-      cp_async_wait_all();
-      __syncthreads();       // chunk c staged; chunk c - 1's buffer free
+      if (c > 0 || !ready) {
+        cp_async_wait_all();
+        __syncthreads();     // chunk c staged; the other buffer free
+      }
+      // the next chunk loads while this one is tested: this step's, or
+      // the next step's first (the step it tests unless the bound skips
+      // it)
+      Rec* nxt = buf + (cur ^ 1) * WALK_CHUNK;
       if (c + 1 < n_chunks)
-        stage_chunk(tri, ids, c + 1, n_tri, buf + ((c + 1) & 1) * V6B_CHUNK);
+        stage_chunk<G>(tri, gids, c + 1, n_tri, nxt);
+      else if (s + 1 < n_steps)
+        stage_chunk<G>(tri, gids + blm, 0, n_tri, nxt);
+      const Rec* st = buf + cur * WALK_CHUNK;
+      cur ^= 1;
       if (!warp_live) continue;
-      const Rec* st = buf + (c & 1) * V6B_CHUNK;
-      const int nk = min(V6B_CHUNK, n_tri - c * V6B_CHUNK);
+      const int nk = min(WALK_CHUNK, n_tri - c * WALK_CHUNK);
       for (int k0 = 0; k0 < nk; k0 += 8) {  // a K8 cluster, sublanes 0-7
-        if (ANY && __all_sync(0xffffffffu, hit || !live)) break;
+        if (ANY && __all_sync(FULL_MASK, hit || !live)) break;
 #pragma unroll
         for (int j = 0; j < 8; j += 2) {    // two tests, then in order
           float t0, u0, v0, t1, u1, v1;
@@ -669,6 +567,199 @@ l1_masked_kernel(const float* __restrict__ rays,
       occ = occ || hit;
     else if (h.t < best.t)
       best = h;
+    // the next step tested, behind one barrier, after which the next
+    // step's first chunk is visible too (any hit: the bound is mint - 1
+    // once occluded, so an occluded row skips)
+    warp_max(ANY ? (occ ? ry.mn - 1.0f : ry.mx) : best.t, red[p]);
+    cp_async_wait_all();
+    __syncthreads();
+    const int ns = next_step(skey, s + 1, n_steps, row_max(red[p]));
+    p ^= 1;
+    ready = ns == s + 1;
+    if (!ready && ns < n_steps)  // a skip: stage the step tested instead
+      stage_chunk<G>(tri, sid + ns * blm, 0, n_tri, buf + cur * WALK_CHUNK);
+    s = ns;
+  }
+  store_hit(best, occ, ANY, out_t, out_u, out_v, out_p, out_occ);
+}
+
+template <bool ANY>
+__global__ void __launch_bounds__(LANES, WALK_ROWS_PER_SM)
+items_kernel(const float* __restrict__ rays, const int* __restrict__ ids,
+             const float* __restrict__ blk_tn,
+             const float* __restrict__ tri, int E3, float* __restrict__ out_t,
+             float* __restrict__ out_u, float* __restrict__ out_v,
+             int* __restrict__ out_p, int* __restrict__ out_occ) {
+  step_walk<8, ANY>(rays, ids, E3, blk_tn, E3 / BI, 1, tri, BI, out_t, out_u,
+                    out_v, out_p, out_occ);
+}
+
+template <bool ANY>
+__global__ void __launch_bounds__(LANES, WALK_ROWS_PER_SM)
+l1_masked_kernel(const float* __restrict__ rays,
+                 const int* __restrict__ l1_ids,
+                 const float* __restrict__ l1_keys,
+                 const float* __restrict__ tri, int E2, int blm,
+                 float* __restrict__ out_t, float* __restrict__ out_u,
+                 float* __restrict__ out_v, int* __restrict__ out_p,
+                 int* __restrict__ out_occ) {
+  step_walk<64, ANY>(rays, l1_ids, E2, l1_keys, E2, blm, tri, blm, out_t,
+                     out_u, out_v, out_p, out_occ);
+}
+
+// #8: a warp's copy of an L1 block's 8 child boxes (ct0 lanes 0:8 of each
+// child's row, two float4s)
+struct __align__(16) Boxes {
+  float4 q[16];
+};
+
+// #8: stage L1 block id: lanes 0-15 of each warp copy its 8 child boxes
+// into the warp's own copy, one group; then threads 0-63 its 64 records,
+// one each by four 16-byte copies, another group
+__device__ __forceinline__ void stage_l1(const float* tri, const float* ct0,
+                                         int id, Rec* dst, Boxes* box) {
+  const int l = threadIdx.x, k = l & 31;
+  if (k < 16)
+    cp_async16(&box[l >> 5].q[k],
+               ct0 + ((size_t)id * 8 + (k >> 1)) * LANES + 4 * (k & 1));
+  cp_async_commit();
+  if (l < L1_RECS) {
+    const float* src = tri + ((size_t)id * L1_RECS + l) * LANES;
+    for (int i = 0; i < 4; ++i) cp_async16(&dst[l].q[i], src + 4 * i);
+  }
+  cp_async_commit();
+}
+
+// #8: this lane's slab admission of the 8 children of its warp's staged
+// boxes (lo.xyz | hi.x, hi.yz | -) against [mint, maxt], as bits 0-7, in
+// the plain version's operation order; OR-ed over the warp into
+// adm[warp]. The boxes' group must be complete in each lane of the warp
+// (cp_async_wait): the warp's barrier makes its copies visible.
+__device__ __forceinline__ void child_mask(const Boxes& bx, const Row& ry,
+                                           unsigned* adm) {
+  __syncwarp();
+  unsigned m = 0;
+#pragma unroll 2
+  for (int c = 0; c < 8; ++c) {
+    const float4 a = bx.q[2 * c], e = bx.q[2 * c + 1];
+    const float lo[3] = {a.x, a.y, a.z};
+    const float hi[3] = {a.w, e.x, e.y};
+    float tn = ry.mn, tf = ry.mx;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float t0 = (lo[j] - ry.o[j]) * ry.inv[j];
+      const float t1 = (hi[j] - ry.o[j]) * ry.inv[j];
+      tn = fmaxf(tn, fminf(t0, t1));
+      tf = fminf(tf, fmaxf(t0, t1));
+    }
+    m |= (unsigned)(tn <= tf) << c;
+  }
+  m = __reduce_or_sync(FULL_MASK, m);
+  if ((threadIdx.x & 31) == 0) adm[threadIdx.x >> 5] = m;
+}
+
+// dynamic shared memory of #8: two L1 buffers, the row's L1 ids and keys
+__host__ __device__ __forceinline__ size_t l1_smem(int E2) {
+  return 2 * L1_RECS * sizeof(Rec) + (size_t)E2 * (sizeof(int) + sizeof(float));
+}
+
+template <bool ANY>
+__global__ void __launch_bounds__(LANES, WALK_ROWS_PER_SM)
+l1_items_kernel(const float* __restrict__ rays, const int* __restrict__ l1_ids,
+                const float* __restrict__ l1_keys,
+                const float* __restrict__ tri, const float* __restrict__ ct0,
+                int E2, float* __restrict__ out_t, float* __restrict__ out_u,
+                float* __restrict__ out_v, int* __restrict__ out_p,
+                int* __restrict__ out_occ) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][LANES / 32];
+  __shared__ unsigned adm[2][LANES / 32];    // per buffer: warps' masks
+  __shared__ Boxes box[2][LANES / 32];       // per buffer: warps' copies
+  Rec* buf = reinterpret_cast<Rec*>(smem);                // [2][L1_RECS]
+  int* sid = reinterpret_cast<int*>(buf + 2 * L1_RECS);   // [E2]
+  float* skey = reinterpret_cast<float*>(sid + E2);       // [E2]
+  const int r = blockIdx.x;
+  const int l = threadIdx.x;
+  for (int i = l; i < E2; i += LANES) {
+    sid[i] = l1_ids[(size_t)r * E2 + i];
+    skey[i] = l1_keys[(size_t)r * E2 + i];
+  }
+  Row ry;
+  load_row(rays, ry);
+  Best best = {ry.mx, 0.0f, 0.0f, -1};
+  bool occ = false;
+  const bool can = ry.mn < ry.mx;           // any hit: a test can pass maxt
+  warp_max(ry.mx, red[0]);
+  __syncthreads();
+  int s = next_step(skey, 0, E2, row_max(red[0]));
+  int p = 1;                    // red[p]: the next bound's maxima
+  int cur = 0;                  // buf[cur], adm[cur]: L1 s
+  const int w = l >> 5;
+  if (s < E2) {
+    stage_l1(tri, ct0, sid[s], buf, box[0]);
+    cp_async_wait_all();
+    child_mask(box[0][w], ry, adm[0]);
+    __syncthreads();
+  }
+  while (s < E2) {
+    // the children some lane of the row admits; every lane tests each
+    const unsigned mask = adm[cur][0] | adm[cur][1] | adm[cur][2] |
+                          adm[cur][3];
+    const bool more = s + 1 < E2;
+    // L1 s + 1 loads while L1 s is tested (the L1 tested next unless the
+    // bound skips it)
+    if (more)
+      stage_l1(tri, ct0, sid[s + 1], buf + (cur ^ 1) * L1_RECS, box[cur ^ 1]);
+    const Rec* st = buf + cur * L1_RECS;
+    for (unsigned m = mask; m; m &= m - 1) {
+      const Rec* ct = st + (__ffs(m) - 1) * 8;
+      if (ANY) {
+        // a lane that is occluded, or cannot hit, changes nothing more
+        if (__all_sync(FULL_MASK, occ || !can)) break;
+        bool hit = false;
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          float t0, u0, v0, t1, u1, v1;
+          const bool ok0 = mt_rec(ct[j], ry, ry.mx, t0, u0, v0);
+          const bool ok1 = mt_rec(ct[j + 1], ry, ry.mx, t1, u1, v1);
+          hit = hit || ok0 || ok1;
+        }
+        occ = occ || hit;
+      } else {
+        // the caps only shrink: a warp with no lane below its cap is done
+        if (!__any_sync(FULL_MASK, ry.mn < best.t)) break;
+        Best h = {BIG, 0.0f, 0.0f, 0};     // the child's nearest, lowest
+#pragma unroll                             // sublane first
+        for (int j = 0; j < 8; j += 2) {
+          float t0, u0, v0, t1, u1, v1;
+          const bool ok0 = mt_rec(ct[j], ry, best.t, t0, u0, v0);
+          const bool ok1 = mt_rec(ct[j + 1], ry, best.t, t1, u1, v1);
+          if (ok0 && t0 < h.t) h = {t0, u0, v0, __float_as_int(ct[j].q[3].w)};
+          if (ok1 && t1 < h.t)
+            h = {t1, u1, v1, __float_as_int(ct[j + 1].q[3].w)};
+        }
+        if (h.t < best.t) best = h;
+      }
+    }
+    // the next L1 tested and its children, behind one barrier, after
+    // which its records are visible too
+    if (more) {
+      cp_async_wait<1>();                    // its boxes, not its records
+      child_mask(box[cur ^ 1][w], ry, adm[cur ^ 1]);
+    }
+    warp_max(ANY ? (occ ? ry.mn - 1.0f : ry.mx) : best.t, red[p]);
+    cp_async_wait_all();
+    __syncthreads();
+    const int ns = next_step(skey, s + 1, E2, row_max(red[p]));
+    p ^= 1;
+    cur ^= 1;
+    if (ns != s + 1 && ns < E2) {   // a skip: stage and admit L1 ns instead
+      stage_l1(tri, ct0, sid[ns], buf + cur * L1_RECS, box[cur]);
+      cp_async_wait_all();
+      child_mask(box[cur][w], ry, adm[cur]);
+      __syncthreads();
+    }
+    s = ns;
   }
   store_hit(best, occ, ANY, out_t, out_u, out_v, out_p, out_occ);
 }
@@ -691,20 +782,58 @@ extern "C" int mts_child_refine(const float* rays, const int* pids,
   return (int)cudaGetLastError();
 }
 
-// the refine kernels' resources: out[0] resident rows per SM
+// a kernel's resources: out[0] resident rows per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers per
-// thread, out[2] shared memory bytes per row; child: #6, else #5
-extern "C" int mts_refine_info(int child, int* out) {
-  const void* kern = child ? (const void*)child_refine_kernel
-                           : (const void*)refine_kernel;
+// thread, out[2] shared memory bytes per row (static and dynamic)
+static int kernel_info(const void* kern, size_t smem, int* out) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kern);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, LANES,
-                                                      0);
+                                                      smem);
   out[1] = attr.numRegs;
-  out[2] = (int)attr.sharedSizeBytes;
+  out[2] = (int)(attr.sharedSizeBytes + smem);
   return (int)e;
+}
+
+// the refine kernels' resources (kernel_info); child: #6, else #5
+extern "C" int mts_refine_info(int child, int* out) {
+  return kernel_info(child ? (const void*)child_refine_kernel
+                           : (const void*)refine_kernel, 0, out);
+}
+
+// raise a walk's dynamic shared memory limit on the current device where
+// a launch first needs more than the default allows (the static shared
+// memory counts against the same 48 KB), once per kernel, device and size
+template <auto KERN>
+static cudaError_t smem_prepare(size_t smem) {
+  constexpr int DEVICES = 64;
+  static size_t smem_limit[DEVICES];
+  if (smem <= 40 * 1024) return cudaSuccess;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= DEVICES) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && smem > smem_limit[dev]) {
+    e = cudaFuncSetAttribute(KERN, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess) smem_limit[dev] = smem;
+  }
+  return e;
+}
+
+template <auto KERN, typename... Args>
+static int launch_walk(int R, size_t smem, void* stream, Args... args) {
+  const cudaError_t e = smem_prepare<KERN>(smem);
+  if (e != cudaSuccess) return (int)e;
+  KERN<<<R, LANES, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <auto KERN>
+static int walk_info(size_t smem, int* out) {
+  const cudaError_t e = smem_prepare<KERN>(smem);
+  if (e != cudaSuccess) return (int)e;
+  return kernel_info((const void*)KERN, smem, out);
 }
 
 extern "C" int mts_items(const float* rays, const int* ids,
@@ -713,10 +842,15 @@ extern "C" int mts_items(const float* rays, const int* ids,
                          float* out_v, int* out_p, int* out_occ,
                          void* stream) {
   if (R <= 0) return 0;
-  items_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
-      rays, ids, blk_tn, tri, E3, any_hit, out_t, out_u, out_v, out_p,
-      out_occ);
-  return (int)cudaGetLastError();
+  if (E3 % BI) return (int)cudaErrorInvalidValue;
+  const size_t smem = walk_smem(E3, E3 / BI);
+  if (any_hit)
+    return launch_walk<items_kernel<true>>(R, smem, stream, rays, ids, blk_tn,
+                                           tri, E3, out_t, out_u, out_v,
+                                           out_p, out_occ);
+  return launch_walk<items_kernel<false>>(R, smem, stream, rays, ids, blk_tn,
+                                          tri, E3, out_t, out_u, out_v, out_p,
+                                          out_occ);
 }
 
 extern "C" int mts_l1_items(const float* rays, const int* l1_ids,
@@ -725,30 +859,14 @@ extern "C" int mts_l1_items(const float* rays, const int* l1_ids,
                             float* out_t, float* out_u, float* out_v,
                             int* out_p, int* out_occ, void* stream) {
   if (R <= 0) return 0;
-  l1_items_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
-      rays, l1_ids, l1_keys, tri, ct0, E2, any_hit, out_t, out_u, out_v,
-      out_p, out_occ);
-  return (int)cudaGetLastError();
-}
-
-// raise the v6b walk's dynamic shared memory limit on the current device
-// where a launch first needs more than 48 KB (the XL caps), once per
-// instantiation, device and size
-template <bool ANY>
-static cudaError_t v6b_prepare(size_t smem) {
-  constexpr int DEVICES = 64;
-  static size_t smem_limit[DEVICES];
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev >= DEVICES) e = cudaErrorInvalidDevice;
-  if (e == cudaSuccess && smem > smem_limit[dev]) {
-    e = cudaFuncSetAttribute(l1_masked_kernel<ANY>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e == cudaSuccess) smem_limit[dev] = smem;
-  }
-  return e;
+  const size_t smem = l1_smem(E2);
+  if (any_hit)
+    return launch_walk<l1_items_kernel<true>>(R, smem, stream, rays, l1_ids,
+                                              l1_keys, tri, ct0, E2, out_t,
+                                              out_u, out_v, out_p, out_occ);
+  return launch_walk<l1_items_kernel<false>>(R, smem, stream, rays, l1_ids,
+                                             l1_keys, tri, ct0, E2, out_t,
+                                             out_u, out_v, out_p, out_occ);
 }
 
 extern "C" int mts_l1_masked(const float* rays, const int* l1_ids,
@@ -758,32 +876,34 @@ extern "C" int mts_l1_masked(const float* rays, const int* l1_ids,
                              int* out_occ, void* stream) {
   if (R <= 0) return 0;
   if (blm <= 0 || E2 % blm) return (int)cudaErrorInvalidValue;
-  auto kern = any_hit ? l1_masked_kernel<true> : l1_masked_kernel<false>;
-  const size_t smem = v6b_smem(E2, blm);
-  const cudaError_t e = any_hit ? v6b_prepare<true>(smem)
-                                : v6b_prepare<false>(smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<R, LANES, smem, (cudaStream_t)stream>>>(
-      rays, l1_ids, l1_keys, tri, E2, blm, out_t, out_u, out_v, out_p,
-      out_occ);
-  return (int)cudaGetLastError();
+  const size_t smem = walk_smem(E2, E2 / blm);
+  if (any_hit)
+    return launch_walk<l1_masked_kernel<true>>(R, smem, stream, rays, l1_ids,
+                                               l1_keys, tri, E2, blm, out_t,
+                                               out_u, out_v, out_p, out_occ);
+  return launch_walk<l1_masked_kernel<false>>(R, smem, stream, rays, l1_ids,
+                                              l1_keys, tri, E2, blm, out_t,
+                                              out_u, out_v, out_p, out_occ);
 }
 
-// the v6b walk's resources at list width E2 and step width blm: out[0]
-// resident rows per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// out[1] registers per thread, out[2] shared memory bytes per row
+// the walks' resources (kernel_info) at list width E3 (#7) or E2 (#8,
+// and #9 at step width blm)
+extern "C" int mts_items_info(int E3, int any_hit, int* out) {
+  if (E3 % BI) return (int)cudaErrorInvalidValue;
+  const size_t smem = walk_smem(E3, E3 / BI);
+  return any_hit ? walk_info<items_kernel<true>>(smem, out)
+                 : walk_info<items_kernel<false>>(smem, out);
+}
+
+extern "C" int mts_l1_items_info(int E2, int any_hit, int* out) {
+  const size_t smem = l1_smem(E2);
+  return any_hit ? walk_info<l1_items_kernel<true>>(smem, out)
+                 : walk_info<l1_items_kernel<false>>(smem, out);
+}
+
 extern "C" int mts_l1_masked_info(int E2, int blm, int any_hit, int* out) {
   if (blm <= 0 || E2 % blm) return (int)cudaErrorInvalidValue;
-  auto kern = any_hit ? l1_masked_kernel<true> : l1_masked_kernel<false>;
-  const size_t smem = v6b_smem(E2, blm);
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
-  if (e == cudaSuccess)
-    e = any_hit ? v6b_prepare<true>(smem) : v6b_prepare<false>(smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, LANES,
-                                                      smem);
-  out[1] = attr.numRegs;
-  out[2] = (int)smem;
-  return (int)e;
+  const size_t smem = walk_smem(E2, E2 / blm);
+  return any_hit ? walk_info<l1_masked_kernel<true>>(smem, out)
+                 : walk_info<l1_masked_kernel<false>>(smem, out);
 }

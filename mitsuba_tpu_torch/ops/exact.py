@@ -86,16 +86,22 @@ def build() -> str:
     _FN["l1_masked_info"] = nv.bind(SOURCE, "mts_l1_masked_info",
                                     [i, i, i, p])
     _FN["refine_info"] = nv.bind(SOURCE, "mts_refine_info", [i, p])
+    _FN["items_info"] = nv.bind(SOURCE, "mts_items_info", [i, i, p])
+    _FN["l1_items_info"] = nv.bind(SOURCE, "mts_l1_items_info", [i, i, p])
     return log
 
 
 def refine_info(child: bool) -> dict:
     """Kernel #6's (child) or #5's resources on the current card: resident
     rows per SM, registers per thread, shared memory bytes per row."""
-    if "refine_info" not in _FN:
+    return _info("refine_info", int(child))
+
+
+def _info(name, *args) -> dict:
+    if name not in _FN:
         build()
     out = (ctypes.c_int * 3)()
-    nv.check(_FN["refine_info"](int(child), out), "refine_info")
+    nv.check(_FN[name](*args, out), name)
     return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2])
 
 
@@ -103,12 +109,19 @@ def l1_masked_info(e2: int, blm: int, any_hit: bool) -> dict:
     """Kernel #9's resources on the current card at list width e2 and
     step width step_width(e2, blm): resident rows per SM, registers per
     thread, shared memory bytes per row."""
-    if "l1_masked_info" not in _FN:
-        build()
-    out = (ctypes.c_int * 3)()
-    nv.check(_FN["l1_masked_info"](e2, step_width(e2, blm), int(any_hit),
-                                   out), "l1_masked_info")
-    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2])
+    return _info("l1_masked_info", e2, step_width(e2, blm), int(any_hit))
+
+
+def items_info(e3: int, any_hit: bool) -> dict:
+    """Kernel #7's resources on the current card at list width e3, as
+    l1_masked_info."""
+    return _info("items_info", e3, int(any_hit))
+
+
+def l1_items_info(e2: int, any_hit: bool) -> dict:
+    """Kernel #8's resources on the current card at list width e2, as
+    l1_masked_info."""
+    return _info("l1_items_info", e2, int(any_hit))
 
 
 def auto_caps(n_k8: int):
@@ -240,18 +253,21 @@ def items_ref(tri, rays, ids, blk_tn, any_hit: bool, work=None):
     clusters from below, so of a tested block a live lane needs its 128
     triangles where the key is within the lane's best t (closest), or its
     triangles up to the first hit where the key is within maxt and the
-    lane is not yet occluded (any hit); and `clusters_read`, the distinct
-    K8 clusters of tri that some row tests."""
+    lane is not yet occluded (any hit); `clusters_read`, the distinct
+    K8 clusters of tri that some row tests; and `steps_tested`, the
+    (row, block) pairs tested."""
     nb = ids.shape[1] // BI
     dev = rays.device
     live, occ, bound, tb, ub, vb, pb = _walk_state(rays)
     # rows per step: (rows, 128 triangles, 128 lanes) intermediates
     step = max(1, _MAX_ELEMS // (BI * 8 * LANES * 4))
     n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    n_steps = 0
     read = torch.zeros(tri.shape[0], dtype=torch.bool, device=dev)
     for b in range(nb):
         todo = torch.nonzero(
             blk_tn[:, b] <= (bound if any_hit else tb).amax(dim=1))[:, 0]
+        n_steps += todo.numel()
         for c0 in range(0, todo.numel(), step):
             rows = todo[c0:c0 + step]
             cid = ids[rows, b * BI:(b + 1) * BI].long()
@@ -281,7 +297,8 @@ def items_ref(tri, rays, ids, blk_tn, any_hit: bool, work=None):
             vb[rows] = torch.where(improved, v, vb[rows])
             pb[rows] = torch.where(improved, p, pb[rows])
     if work is not None:
-        work.update(tri_tests=int(n_tri), clusters_read=int(read.sum()))
+        work.update(tri_tests=int(n_tri), clusters_read=int(read.sum()),
+                    steps_tested=n_steps)
     if any_hit:
         return occ
     return tb, ub, vb, pb
@@ -418,11 +435,17 @@ def l1_items_ref(tri, ct0, rays, l1_ids, l1_keys, any_hit: bool,
     of each child the lane's own slab admits; any: up to the first hit of
     such children while not yet occluded); `l1_read`, the distinct L1
     blocks whose child boxes some row tests, and `clusters_read`, the
-    distinct children some row tests."""
+    distinct children some row tests; `l1_tested`, the (row, L1) pairs
+    tested, with `children_row`, the children their rows admit (each
+    tested on all 128 lanes), and `children_lane`, those each live lane's
+    own slab admits, over `lane_l1s`, the live lanes of those pairs."""
     r, e2 = l1_ids.shape
     live, occ, bound, tb, ub, vb, pb = _walk_state(rays)
     step = max(1, _MAX_ELEMS // (64 * LANES * 4))
     n_box = n_tri = torch.zeros((), dtype=torch.int64, device=rays.device)
+    n_row = n_lane = n_lanes = torch.zeros((), dtype=torch.int64,
+                                           device=rays.device)
+    n_l1 = 0
     read = torch.zeros((ct0.shape[0], 8), dtype=torch.bool,
                        device=rays.device)
     l1_read = torch.zeros(ct0.shape[0], dtype=torch.bool, device=rays.device)
@@ -443,6 +466,10 @@ def l1_items_ref(tri, ct0, rays, l1_ids, l1_keys, any_hit: bool,
                 read.view(-1)[(ids.long() * 8 + sub[:, :, 0])[row_adm]] = True
                 n_box = n_box + (lv & ~occ[rows] if any_hit
                                  else lv).sum() * 8
+                n_l1 += rows.numel()
+                n_row = n_row + row_adm.sum()
+                n_lane = n_lane + (adm & lv[:, None]).sum()
+                n_lanes = n_lanes + lv.sum()
             if any_hit:
                 oc = occ[rows]
                 ok = _mt_items(blk, ry, torch.where(oc, ry[:, 6],
@@ -484,7 +511,9 @@ def l1_items_ref(tri, ct0, rays, l1_ids, l1_keys, any_hit: bool,
                                                       p_rows)
     if work is not None:
         work.update(box_tests=int(n_box), tri_tests=int(n_tri),
-                    l1_read=int(l1_read.sum()), clusters_read=int(read.sum()))
+                    l1_read=int(l1_read.sum()), clusters_read=int(read.sum()),
+                    l1_tested=n_l1, children_row=int(n_row),
+                    children_lane=int(n_lane), lane_l1s=int(n_lanes))
     if any_hit:
         return occ
     return tb, ub, vb, pb

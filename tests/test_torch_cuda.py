@@ -453,7 +453,7 @@ def test_cluster_render_with_the_v5_walk_goes_through_the_item_kernel(
 
 
 # ---------------------------------------------------------------------------
-# #9 and #10 on the corner cases of their schedules (tests/torch_walk_cases.py)
+# #7-#10 on the corner cases of their schedules (tests/torch_walk_cases.py)
 # ---------------------------------------------------------------------------
 
 def _same(got, ref):
@@ -488,6 +488,56 @@ def test_v6b_kernel_matches_plain_version_on_corner_cases(cuda, e2, blm,
         # a copy wins a tie within a step at a lower sublane; one L1 block
         # a step puts every copy in a later step, where it never wins
         assert int((ref[3] >= wc.PRIM_COPY).sum()) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("e3", [96, 512, 1024])
+def test_items_kernel_matches_plain_version_on_corner_cases(cuda, e3,
+                                                            any_hit):
+    """#7 at the coherent, diffuse and XL list widths on the same kinds of
+    rows, with a copy of each K8 cluster listed after the next cluster of
+    its original (exact ties across sublanes, clusters and steps) and
+    dead slots past each row's live entries; bit for bit."""
+    import torch_walk_cases as wc
+
+    ep.build()
+    tri, rays, ids, blk_tn = wc.items_case(e3, any_hit, device=cuda)
+    before = ep.LAUNCHES["items"]
+    got = ep.items(tri, rays, ids, blk_tn, any_hit)
+    assert ep.LAUNCHES["items"] == before + 1
+    ref = ep.items_ref(tri, rays, ids, blk_tn, any_hit)
+    torch.cuda.synchronize()
+    assert _same(got, ref)
+    if any_hit:
+        assert 0 < int(ref.sum()) < int((rays[:, 6] <= rays[:, 7]).sum())
+    else:
+        # a copy wins a tie within a step at a lower sublane
+        assert int((ref[3] >= wc.PRIM_COPY).sum()) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("e2", [32, 384, 768])
+def test_l1_items_kernel_matches_plain_version_on_corner_cases(cuda, e2,
+                                                               any_hit):
+    """#8 on #9's corner cases, the copied L1 blocks with child boxes of
+    their own triangles: children that some lanes of a row admit and
+    others do not, copies that tie their originals (and never win: the
+    merge against the lane's best is strict); bit for bit."""
+    import torch_walk_cases as wc
+
+    ep.build()
+    case = wc.l1_case(e2, any_hit, device=cuda)
+    before = ep.LAUNCHES["l1_items"]
+    got = ep.l1_items(*case, any_hit)
+    assert ep.LAUNCHES["l1_items"] == before + 1
+    ref = ep.l1_items_ref(*case, any_hit)
+    torch.cuda.synchronize()
+    assert _same(got, ref)
+    rays = case[2]
+    if any_hit:
+        assert 0 < int(ref.sum()) < int((rays[:, 6] <= rays[:, 7]).sum())
+    else:
+        assert int((ref[3] >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -546,14 +596,17 @@ def test_refine_kernels_keep_rows_in_flight(cuda):
 
 
 def test_walk_kernels_keep_rows_in_flight(cuda):
-    """#9 holds at least 8 rows per SM at every list width of config 3,
-    #10 at least 4 (a config-3 fallback launch of 512 rows in one wave)."""
+    """#9, #8 and #7 hold at least 8 rows per SM at every list width of
+    config 3 (csrc/exact.cu WALK_ROWS_PER_SM), #10 at least 4 (a config-3
+    fallback launch of 512 rows in one wave)."""
     ep.build()
     sp.build()
-    for e2 in (32, 384, 768):
+    for e2, e3 in ((32, 96), (384, 512), (768, 1024)):
         for any_hit in (False, True):
             assert ep.l1_masked_info(e2, ep.V6B_BLM, any_hit)[
                 "rows_per_sm"] >= 8
+            assert ep.l1_items_info(e2, any_hit)["rows_per_sm"] >= 8
+            assert ep.items_info(e3, any_hit)["rows_per_sm"] >= 8
     for any_hit in (False, True):
         assert sp.stream_info(32, any_hit)["rows_per_sm"] >= 4
 

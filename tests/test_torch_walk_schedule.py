@@ -1,7 +1,8 @@
-"""The schedules of the v6b walk (#9, csrc/exact.cu `l1_masked_kernel`)
-and of the stream kernel (#10, csrc/stream.cu `stream_kernel`), emulated
-here in plain PyTorch, against the unchanged plain versions
-`l1_masked_ref` and `stream_rows_ref`, exactly.
+"""The schedules of the item walks (#7 `items_kernel`, #8
+`l1_items_kernel`, #9 `l1_masked_kernel` of csrc/exact.cu) and of the
+stream kernel (#10, csrc/stream.cu `stream_kernel`), emulated here in
+plain PyTorch, against the unchanged plain versions `items_ref`,
+`l1_items_ref`, `l1_masked_ref` and `stream_rows_ref`, exactly.
 
 The kernels run the walks' tests in another order than the plain
 versions, and skip some; on the CPU the wrappers run the plain versions,
@@ -19,13 +20,30 @@ so these emulations stand for the kernels' order:
   skip their tests; an any-hit warp stops once each of its lanes has hit
   or cannot.
 
+* #7 and #9 (`step_walk`): after a tested step, one barrier gives every
+  warp the row's largest bound, and each warp finds the next step to
+  test among the keys; the next step's first chunk loads meanwhile.
+* #8: an L1 block at a time; its children are those some lane of the row
+  admits (the OR of the warps' 8-bit masks, not a warp's own), each
+  tested on every lane under the lane's current cap and merged child by
+  child; a closest warp with no lane below its cap and an any-hit warp
+  whose lanes have each hit or cannot stop at a child's start.
+
 The inputs are tests/torch_walk_cases.py's (numpy, fixed seed): rows with dead,
 escaping and occluded warps and planted exact ties. Each emulation also
 counts the events it must have met, so a case that stops exercising its
-schedule fails. torch.set_num_threads(1); each case takes under 5 s.
+schedule fails. The emulations of #7 and #8 are also held against the JAX
+package's interpreted kernels on the first rows of a case (prims and
+occlusion equal; t, u and v within 1e-5, as tests/test_torch_l1_walk.py:
+XLA may contract the kernel's float32 operations).
+torch.set_num_threads(1); each case takes under 5 s.
 """
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+
+from mitsuba_tpu.ops import exact_pallas as jep
 
 from mitsuba_tpu_torch.ops import exact as ep
 from mitsuba_tpu_torch.ops import stream as sp
@@ -55,28 +73,34 @@ def _per_warp(x):
     return x.reshape(WARPS, 32).any(dim=1).repeat_interleave(32)
 
 
-def v6b_schedule(tri, rays, l1_ids, l1_keys, any_hit, blm, seen):
-    """#9's order, row by row. seen: counts of skipped warps, stopped
-    warps and tied picks."""
-    r, e2 = l1_ids.shape
-    blm = ep.step_width(e2, blm)
-    n_tri = blm * 64
-    recs_all = tri.reshape(-1, 64, LANES)[:, :, :16]
+def _next_step(keys, frm, bmax):
+    """The kernels' next step tested: the first of keys[frm:] within the
+    row's largest bound, else len(keys)."""
+    ok = torch.nonzero(keys[frm:] <= bmax)
+    return frm + int(ok[0, 0]) if ok.numel() else keys.numel()
+
+
+def step_schedule(steps, rays, any_hit, seen):
+    """#7's and #9's order (csrc/exact.cu `step_walk`), row by row.
+    steps(row) -> (the row's step keys (n,), recs(s) -> step s's records
+    (n_tri, 16) in list order). seen: counts of skipped warps, stopped
+    warps, tied picks and steps the bound skips."""
     outs = []
-    for row in range(r):
+    for row in range(rays.shape[0]):
         o, d, mn, mx = _lanes(rays[row])
+        keys, recs_of = steps(row)
         best = [mx.clone(), torch.zeros_like(mx), torch.zeros_like(mx),
                 torch.full((LANES,), -1, dtype=torch.int32)]
         occ = torch.zeros(LANES, dtype=torch.bool)
-        for s in range(0, e2, blm):
-            bound = torch.where(occ, mn - 1.0, mx) if any_hit else best[0]
-            if not bool((l1_keys[row, s] <= bound).any()):
-                continue
+        s = _next_step(keys, 0, float(mx.max()))
+        seen["steps_skipped"] += s
+        while s < keys.numel():
             cap = torch.where(occ, mn, mx) if any_hit else best[0]
             live = mn < cap
             warp_live = _per_warp(live)
             seen["warps_skipped"] += int((~warp_live).sum()) // 32
-            recs = recs_all[l1_ids[row, s:s + blm].long()].reshape(n_tri, 16)
+            recs = recs_of(s)
+            n_tri = recs.shape[0]
             t, u, v, ok = _mt(recs, o, d, mn, cap)
             prim = recs[:, 15].contiguous().view(torch.int32)
             if any_hit:
@@ -90,24 +114,121 @@ def v6b_schedule(tri, rays, l1_ids, l1_keys, any_hit, blm, seen):
                         (warp_live & ~go).sum()) // 32
                     hit = hit | (go & ok[k0:k0 + 8].any(dim=0))
                 occ = occ | hit
-                continue
-            ht = torch.full((LANES,), BIG)
-            hu, hv = torch.zeros(LANES), torch.zeros(LANES)
-            hp = torch.zeros(LANES, dtype=torch.int32)
-            hs = torch.full((LANES,), 8)
-            for m in range(n_tri):          # pairs, merged in order
-                sub = m % 8
-                okm = ok[m] & warp_live
-                seen["ties"] += int((okm & (t[m] == ht)).sum())
-                take = okm & ((t[m] < ht) | ((t[m] == ht) & (sub < hs)))
-                ht = torch.where(take, t[m], ht)
-                hu = torch.where(take, u[m], hu)
-                hv = torch.where(take, v[m], hv)
-                hp = torch.where(take, prim[m], hp)
-                hs = torch.where(take, sub, hs)
-            imp = ht < best[0]
-            best = [torch.where(imp, a, b) for a, b in
-                    zip((ht, hu, hv, hp), best)]
+            else:
+                ht = torch.full((LANES,), BIG)
+                hu, hv = torch.zeros(LANES), torch.zeros(LANES)
+                hp = torch.zeros(LANES, dtype=torch.int32)
+                hs = torch.full((LANES,), 8)
+                for m in range(n_tri):          # pairs, merged in order
+                    sub = m % 8
+                    okm = ok[m] & warp_live
+                    seen["ties"] += int((okm & (t[m] == ht)).sum())
+                    take = okm & ((t[m] < ht) | ((t[m] == ht) & (sub < hs)))
+                    ht = torch.where(take, t[m], ht)
+                    hu = torch.where(take, u[m], hu)
+                    hv = torch.where(take, v[m], hv)
+                    hp = torch.where(take, prim[m], hp)
+                    hs = torch.where(take, sub, hs)
+                imp = ht < best[0]
+                best = [torch.where(imp, a, b) for a, b in
+                        zip((ht, hu, hv, hp), best)]
+            # one barrier: every warp's largest bound, then the next step
+            bound = torch.where(occ, mn - 1.0, mx) if any_hit else best[0]
+            ns = _next_step(keys, s + 1, float(bound.max()))
+            seen["steps_skipped"] += ns - s - 1
+            s = ns
+        outs.append(occ if any_hit else best)
+    if any_hit:
+        return torch.stack(outs)
+    return tuple(torch.stack([o[k] for o in outs]) for k in range(4))
+
+
+def v6b_schedule(tri, rays, l1_ids, l1_keys, any_hit, blm, seen):
+    """#9's order: steps of blm L1 blocks, keyed by their first's key."""
+    e2 = l1_ids.shape[1]
+    blm = ep.step_width(e2, blm)
+    recs_all = tri.reshape(-1, 64, LANES)[:, :, :16]
+
+    def steps(row):
+        return (l1_keys[row, ::blm], lambda s: recs_all[
+            l1_ids[row, s * blm:(s + 1) * blm].long()].reshape(-1, 16))
+    return step_schedule(steps, rays, any_hit, seen)
+
+
+def items_schedule(tri, rays, ids, blk_tn, any_hit, seen):
+    """#7's order: steps of 16 K8 clusters, keyed by blk_tn."""
+    recs_all = tri[:, :, :16]
+
+    def steps(row):
+        return (blk_tn[row], lambda s: recs_all[
+            ids[row, s * ep.BI:(s + 1) * ep.BI].long()].reshape(-1, 16))
+    return step_schedule(steps, rays, any_hit, seen)
+
+
+def l1_schedule(tri, ct0, rays, l1_ids, l1_keys, any_hit, seen):
+    """#8's order (csrc/exact.cu `l1_items_kernel`), row by row: an L1
+    block at a time, its children those the row's lanes admit (the OR of
+    the warps' 8-bit masks), each tested on every lane under the lane's
+    current cap and merged child by child. seen: skipped and stopped
+    warps, ties at the merge, tests of lanes outside the child's own slab
+    (`outside`), children a warp's own vote would drop (`warp_dropped`),
+    steps the bound skips."""
+    recs_all = tri.reshape(-1, 64, LANES)[:, :, :16]
+    outs = []
+    for row in range(rays.shape[0]):
+        ry = rays[row]
+        o, d, mn, mx = _lanes(ry)
+        keys = l1_keys[row]
+        best = [mx.clone(), torch.zeros_like(mx), torch.zeros_like(mx),
+                torch.full((LANES,), -1, dtype=torch.int32)]
+        occ = torch.zeros(LANES, dtype=torch.bool)
+        can = mn < mx
+        s = _next_step(keys, 0, float(mx.max()))
+        seen["steps_skipped"] += s
+        while s < keys.numel():
+            lid = int(l1_ids[row, s])
+            adm = ep._child_admit(ry[None], ct0[lid][None, :, :6])[0]
+            warp_adm = adm.reshape(8, WARPS, 32).any(dim=2)     # (8, 4)
+            mask = warp_adm.any(dim=1)
+            seen["warp_dropped"] += int((mask[:, None] & ~warp_adm).sum())
+            recs = recs_all[lid]
+            for c in torch.nonzero(mask)[:, 0].tolist():
+                ct = recs[c * 8:(c + 1) * 8]
+                if any_hit:
+                    go = ~(occ | ~can).reshape(WARPS, 32).all(
+                        dim=1).repeat_interleave(32)
+                    seen["warps_stopped"] += int((~go).sum()) // 32
+                    ok = _mt(ct, o, d, mn, mx)[3]
+                    seen["outside"] += int((go & ~adm[c] & ok.any(0)).sum())
+                    occ = occ | (go & ok.any(dim=0))
+                    continue
+                go = _per_warp(mn < best[0])
+                seen["warps_skipped"] += int((~go).sum()) // 32
+                t, u, v, ok = _mt(ct, o, d, mn, best[0])
+                prim = ct[:, 15].contiguous().view(torch.int32)
+                ht = torch.full((LANES,), BIG)
+                hu, hv = torch.zeros(LANES), torch.zeros(LANES)
+                hp = torch.zeros(LANES, dtype=torch.int32)
+                # a copy's triangle at its original's t: the strict cap
+                # refuses it
+                t_all, _u, _v, ok_all = _mt(ct, o, d, mn,
+                                           torch.full_like(mn, BIG))
+                seen["ties"] += int((go & (ok_all & (t_all == best[0])).any(
+                    dim=0)).sum())
+                for j in range(8):          # pairs, merged in order
+                    take = go & ok[j] & (t[j] < ht)
+                    ht = torch.where(take, t[j], ht)
+                    hu = torch.where(take, u[j], hu)
+                    hv = torch.where(take, v[j], hv)
+                    hp = torch.where(take, prim[j], hp)
+                seen["outside"] += int((go & ~adm[c] & ok.any(0)).sum())
+                imp = ht < best[0]
+                best = [torch.where(imp, a, b) for a, b in
+                        zip((ht, hu, hv, hp), best)]
+            bound = torch.where(occ, mn - 1.0, mx) if any_hit else best[0]
+            ns = _next_step(keys, s + 1, float(bound.max()))
+            seen["steps_skipped"] += ns - s - 1
+            s = ns
         outs.append(occ if any_hit else best)
     if any_hit:
         return torch.stack(outs)
@@ -220,7 +341,8 @@ def _equal(got, ref):
 
 def _seen():
     return dict(warps_skipped=0, warps_stopped=0, ties=0,
-                loose_votes_refused=0, looser_hits_dropped=0, list_ends=0)
+                loose_votes_refused=0, looser_hits_dropped=0, list_ends=0,
+                steps_skipped=0, outside=0, warp_dropped=0)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -237,6 +359,89 @@ def test_v6b_schedule_gives_the_plain_walk(e2, any_hit):
     else:
         assert seen["ties"] > 0
         assert int((ref[3] >= wc.PRIM_COPY).sum()) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("e3", [96, 512, 1024])
+def test_items_schedule_gives_the_plain_walk(e3, any_hit):
+    tri, rays, ids, blk_tn = wc.items_case(e3, any_hit)
+    seen = _seen()
+    got = items_schedule(tri, rays, ids, blk_tn, any_hit, seen)
+    ref = ep.items_ref(tri, rays, ids, blk_tn, any_hit)
+    assert _equal(got, ref)
+    assert seen["warps_skipped"] > 0 and seen["steps_skipped"] > 0
+    if any_hit:
+        assert seen["warps_stopped"] > 0 and 0 < int(ref.sum())
+    else:
+        assert seen["ties"] > 0
+        assert int((ref[3] >= wc.PRIM_COPY).sum()) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("e2", [32, 384, 768])
+def test_l1_schedule_gives_the_plain_walk(e2, any_hit):
+    case = wc.l1_case(e2, any_hit)
+    seen = _seen()
+    got = l1_schedule(*case, any_hit, seen)
+    ref = ep.l1_items_ref(*case, any_hit)
+    assert _equal(got, ref)
+    # a child some warp admits and another refuses is tested on all lanes
+    assert seen["warp_dropped"] > 0 and seen["steps_skipped"] > 0
+    if any_hit:
+        assert seen["warps_stopped"] > 0 and 0 < int(ref.sum())
+    else:
+        # copies meet the best of their originals, tested first, and
+        # never win
+        assert seen["warps_skipped"] > 0 and seen["ties"] > 0
+        assert int((ref[3] >= 0).sum()) > 0
+        assert int((ref[3] >= wc.PRIM_COPY).sum()) == 0
+
+
+# the first rows of a case, and its dead last row
+_FEW = [0, 1, wc.ROWS - 1]
+
+
+def _same_as_tpu(got, out, any_hit):
+    """got: an emulation's (t, u, v, prim) or occlusion; out: the
+    interpreted TPU kernel's (R, 8, 128) output."""
+    out = np.asarray(out)
+    if any_hit:
+        assert np.array_equal(got.numpy(), out[:, 0] > 0.5)
+        assert 0 < int(got.sum())
+        return
+    prim_r = out[:, 3].view(np.int32)
+    assert np.array_equal(got[3].numpy(), prim_r)
+    hit = prim_r >= 0
+    assert hit.sum() > 50
+    for a, k in zip(got[:3], range(3)):
+        np.testing.assert_allclose(a.numpy()[hit], out[:, k][hit],
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_items_schedule_matches_tpu_kernel(any_hit):
+    """#7's order against `_call_items`, interpreted, on items_case's
+    rows at E3 = 96, cut to their first two steps."""
+    tri, rays, ids, blk_tn = wc.items_case(96, any_hit)
+    case = (tri, rays[_FEW], ids[_FEW, :2 * ep.BI].contiguous(),
+            blk_tn[_FEW, :2].contiguous())
+    got = items_schedule(*case, any_hit, _seen())
+    out = jep._call_items(*(jnp.asarray(x.numpy()) for x in case), any_hit,
+                          True)
+    _same_as_tpu(got, out, any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_l1_schedule_matches_tpu_kernel(any_hit, monkeypatch):
+    """#8's order against `_call_l1_items`, interpreted one L1 block a
+    grid step, on l1_case's rows at E2 = 32."""
+    monkeypatch.setattr(jep, "BL", 1)
+    case = [x[_FEW] if i > 1 else x
+            for i, x in enumerate(wc.l1_case(32, any_hit))]
+    got = l1_schedule(*case, any_hit, _seen())
+    out = jep._call_l1_items(*(jnp.asarray(x.numpy()) for x in case),
+                             any_hit, True)
+    _same_as_tpu(got, out, any_hit)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

@@ -1,6 +1,7 @@
-"""Inputs that drive the v6b walk (#9, ops/exact.py `l1_masked`) and the
-stream kernel (#10, ops/stream.py `stream_rows`) through the corner cases
-of their schedules, made by numpy from a seed.
+"""Inputs that drive the item walks (ops/exact.py: #7 `items`, #8
+`l1_items`, #9 `l1_masked`) and the stream kernel (#10, ops/stream.py
+`stream_rows`) through the corner cases of their schedules, made by numpy
+from a seed.
 
 The scene is a 24 x 48 sphere on a floor quad (2,210 triangles, 384 K8
 clusters in 48 L1 blocks, 32-triangle stream clusters). Each 32-lane warp
@@ -17,11 +18,16 @@ and the last row is dead as a whole. Closest rays reach 1e30; any-hit
 rays end beyond their target (sphere and floor warps are occluded within
 their first steps), escape rays at 10.
 
-Both cases plant exact ties. `v6b_case` appends to the K8 table a copy of
+Every case plants exact ties. `v6b_case` appends to the K8 table a copy of
 each L1 block whose 64 records are drawn, with replacement, from the
 block's own (prims offset by PRIM_COPY), and lists each copy right after
 the next block of its original, so one triangle sits in two L1 blocks,
-clusters and sublanes of a step, or in two steps. `stream_case` puts
+clusters and sublanes of a step, or in two steps; `l1_case` (#8) adds
+the copies' child boxes, each bounding its cluster's own triangles.
+`items_case` (#7) does the same with K8 clusters: a copy of each, drawn
+from its own 8 records, listed right after the next cluster of its
+original, so one triangle sits in two sublanes, clusters and 16-cluster
+steps. `stream_case` puts
 before the table as many superclusters whose 8 clusters are drawn from
 the whole table, with replacement, each with its K rows drawn from the
 cluster's own (the box kept in row 0), so one triangle sits in two
@@ -124,8 +130,11 @@ def _interleave(ids, keys, n_l1, e2):
     live = keys < BIG
     nxt = torch.cat([keys[:, 1:], keys[:, -1:]], dim=1)
     nxt = torch.where(nxt < BIG, nxt, keys)
-    key_c = torch.cat([keys, torch.where(live, nxt, BIG)], dim=1)
-    id_c = torch.cat([ids, torch.where(live, ids + n_l1, 0)], dim=1)
+    pad = max(0, e2 - 2 * keys.shape[1])
+    key_c = torch.cat([keys, torch.where(live, nxt, BIG),
+                       keys.new_full((keys.shape[0], pad), BIG)], dim=1)
+    id_c = torch.cat([ids, torch.where(live, ids + n_l1, 0),
+                      ids.new_zeros((ids.shape[0], pad))], dim=1)
     key_s, order = torch.sort(key_c, dim=1, stable=True)
     id_s = torch.gather(id_c, 1, order)[:, :e2]
     key_s = key_s[:, :e2]
@@ -143,6 +152,57 @@ def v6b_case(e2: int, any_hit: bool, seed: int = 0, device="cpu"):
     tri, n_l1 = _copy_l1_blocks(ex["tri"], np.random.default_rng(seed + 1))
     ids, keys = _interleave(ids, keys, n_l1, e2)
     return tuple(x.to(device) for x in (tri, rays, ids, keys))
+
+
+def _copy_clusters(tri, rng):
+    """tri (C8, 8, 128) with a resampled, prim-offset copy of each K8
+    cluster appended: cluster c8 + c copies cluster c."""
+    c8 = tri.shape[0]
+    pick = torch.from_numpy(rng.integers(0, 8, (c8, 8)))
+    copy = torch.gather(tri, 1, pick[:, :, None].expand(-1, -1, LANES))
+    prim = copy[:, :, 15].contiguous().view(torch.int32) + PRIM_COPY
+    copy[:, :, 15] = prim.view(torch.float32)
+    return torch.cat([tri, copy]).contiguous(), c8
+
+
+def items_case(e3: int, any_hit: bool, seed: int = 0, device="cpu"):
+    """(tri, rays, ids, blk_tn) of #7 at list width e3 (96, 512 and 1,024
+    are config 3's coherent, diffuse and XL caps): the case rays' K8
+    lists, every cluster of the scene a candidate (caps E0, E1, 48, e3),
+    each entry followed by the copy of the entry before it."""
+    ex = geometry().ex_tables
+    rays = case_rays(any_hit, seed)
+    ids64, key2, _ovf = ep._cull_l1(rays, ex, (E0, E1, 48, e3))
+    ids2, key2s, live2, _n2 = ep._sorted_prefix(key2, ids64, 48)
+    key3 = ep.child_refine(rays, ids2, live2, ex["ct0"])
+    key3 = torch.where((key2s < BIG).repeat_interleave(8, dim=1), key3, BIG)
+    tri, c8 = _copy_clusters(ex["tri"], np.random.default_rng(seed + 1))
+    ids, keys = _interleave(ep._children(ids2), key3, c8, e3)
+    blk_tn = keys.reshape(keys.shape[0], -1, ep.BI)[:, :, 0].contiguous()
+    return tuple(x.to(device) for x in (tri, rays, ids, blk_tn))
+
+
+def _copy_boxes(tri, n_l1):
+    """The child boxes (ct0 rows) of the L1 blocks n_l1 onward of tri,
+    each the bounds of its K8 cluster's own 8 triangles."""
+    rec = tri.reshape(-1, 8, 8, LANES)[n_l1:, :, :, :9]
+    v0 = rec[..., 0:3]
+    pts = torch.stack([v0, v0 + rec[..., 3:6], v0 + rec[..., 6:9]], dim=3)
+    ct = torch.zeros((rec.shape[0], 8, LANES))
+    ct[:, :, 0:3] = pts.amin(dim=(2, 3))
+    ct[:, :, 3:6] = pts.amax(dim=(2, 3))
+    return ct
+
+
+def l1_case(e2: int, any_hit: bool, seed: int = 0, device="cpu"):
+    """(tri, ct0, rays, l1_ids, l1_keys) of #8 at list width e2:
+    v6b_case's lists, with ct0 rows for the copied L1 blocks made from
+    their own triangles, so that a lane's slab admits what each child
+    holds."""
+    tri, rays, ids, keys = v6b_case(e2, any_hit, seed)
+    ct0 = geometry().ex_tables["ct0"]
+    ct0 = torch.cat([ct0, _copy_boxes(tri, ct0.shape[0])]).contiguous()
+    return tuple(x.to(device) for x in (tri, ct0, rays, ids, keys))
 
 
 def _mixed_superclusters(sc_tri, rng):
