@@ -30,20 +30,21 @@ Phases, each printing one JSON line:
      builder), with the compiler's ptxas lines, and the resources of the
      item walks (#9 v6b, #8 v6 and #7 v5, at config 3's list widths),
      the stream walk (#10), the work-list walk (#12), the
-     BVH walk (#11), the refine kernels (#5, #6) and the shaded brute
-     kernels (#1, #2): rows (blocks) resident per SM, registers, shared
-     memory, spills;
+     BVH walk (#11), the refine kernels (#5, #6) and the brute kernel's
+     four instances (#1-#4): rows (blocks) resident per SM, registers,
+     shared memory, spills;
   3. each kernel against its plain PyTorch version on the card, bit for
      bit (every field of every lane), at the shapes of its path, with the
      bound of the work these inputs need (the larger of the bytes they
      need over 3.35 TB/s and their float32 operations over 67 TFLOP/s):
      the brute kernel (#1) on 1,048,576 config-1 camera rays and their
-     shadow rays, and #1 and #2 on the corner cases of
+     shadow rays, and #1-#4 on the corner cases of
      tests/torch_brute_cases.py (whole warps and tiles dead, single live
      lanes, every shadow lane dead, shadow rays occluded by the first and
      by the last row, exact ties of duplicated rows, |det| at 1e-9 and an
-     ulp or two either side, zero and -0.0 direction components, T = 1 to
-     300, a ragged last warp), both by the bits of every field, bounded
+     ulp or two either side, zero and -0.0 direction components, live
+     lanes with a zero direction, T = 1 to 300, a ragged last warp), both
+     by the bits of every field, bounded
      by the live lanes' tests with all lanes' beside; the refine (S1),
      child-refine (S2, S3) and item kernels (#7 v5, #8 v6, #9 v6b) on the
      config-3 camera wavefront (coherent caps) and on a first diffuse
@@ -77,7 +78,8 @@ Phases, each printing one JSON line:
      fallback, on the static triangles and as the instance walks; the
      split brute kernels (#2 shaded, #3 any, #4 closest, which no render
      path of the JAX package launches) on the second bounce of a
-     full-size fog render and its NEE shadow rays, 1,048,576 lanes each;
+     full-size fog render and its NEE shadow rays, 1,048,576 lanes each,
+     with their lanes, live lanes and tests (needed and issued);
   4. 64x64 renders gated (8x8-block relative RMSE <= 0.10, as bench.py)
      against tests/goldens/bench_cfg1.npz, against
      tests/torch_goldens/bench_cfg3_sphere.npz for config 3 on the
@@ -96,11 +98,13 @@ Phases, each printing one JSON line:
      timed renders with every launch count set to 0 just before and read
      just after, then one profiled render; on the instanced path one more
      render timing the parts of its overflow fallback. After config 1 and
-     after fog, one more render records each launch of #1 (config 1) or
-     #2 (fog): each is replayed alone, held against its plain version bit
-     for bit and timed, with its lanes, live lanes and dead-warp share of
+     after fog, one more render records each launch of #1 (config 1), or
+     of #2 and, in another render, of #3 (fog): each is replayed alone,
+     held against its plain version bit for bit and timed, with its
+     lanes, live lanes, dead-warp share and tests (needed and issued) of
      each ray set; the profiles of config 1 and fog give #1's, #2's and
-     #3's device ms per render in the kernels line. Fog counts as rays
+     #3's device ms per render in the kernels line (the profile's
+     brute_kernel split by instance). Fog counts as rays
      the lanes passed to #2 and #3 (the JAX volpath counts none). The
      profile gives each of the port's kernels its device ms per render.
      After config 3, one more render records each launch of #9 and #10:
@@ -214,6 +218,12 @@ PROBE_SIDE = 1024
 # the tensor cores, and HBM3; the dense tensor-core rates
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
 PEAK_TC_OPS = {"tf32": 495e12, "bf16": 989e12}
+# each brute kernel's instance of csrc/intersect_brute.cu's brute_kernel
+# <kClosest, kShade, kAny, kStride, kStill>, as the profile names it
+BRUTE_INSTANCE = {"shaded_any": "<true, true, true, 29, false>",
+                  "shaded": "<true, true, false, 29, false>",
+                  "any": "<false, false, true, 9, true>",
+                  "closest": "<true, false, false, 9, false>"}
 
 
 _T0 = time.perf_counter()
@@ -399,14 +409,37 @@ def kernel_inputs(scene):
             eps.contiguous(), (dist * (1.0 - 1e-3)).contiguous())
 
 
-def _brute_ops(args, _work):
-    # the tests these inputs need: every row for a live bounce lane, the
-    # rows up to its first hit for a live shadow lane (#1's nine
-    # arguments, or #2's five)
-    ops = _tests_needed(*args[:5], False)
-    if len(args) > 5:
-        ops += _tests_needed(args[0], *args[5:9], True)
-    return ops * MT_OPS
+def _brute_kernel(name):
+    """A brute kernel's wrapper, plain version, the name of the
+    ops.intersect function a render calls it by, and whether each of its
+    ray sets is an any-hit set (#1: bounce, then shadow)."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    return {
+        "shaded_any": (ip.closest_hit_shaded_and_any,
+                       ip.closest_hit_shaded_and_any_ref,
+                       "closest_hit_shaded_and_any", (False, True)),
+        "shaded": (ip.closest_hit_shaded, ip.closest_hit_shaded_ref,
+                   "closest_hit_shaded", (False,)),
+        "any": (ip.any_hit, ip.any_hit_ref, "any_hit", (True,)),
+        "closest": (ip.closest_hit, ip.closest_hit_ref, "closest_hit",
+                    (False,)),
+    }[name]
+
+
+def _ray_sets(name, args):
+    """(o, d, mint, maxt, any_hit) of each ray set of a brute call."""
+    return [(*args[1 + 4 * k:5 + 4 * k], a)
+            for k, a in enumerate(_brute_kernel(name)[3])]
+
+
+def _brute_ops(name):
+    # the tests these inputs need: every row for a live closest lane, the
+    # rows up to its first hit for a live any-hit lane
+    def ops(args, _work):
+        return sum(_tests_needed(args[0], *rays)
+                   for rays in _ray_sets(name, args)) * MT_OPS
+    return ops
 
 
 def _brute_ops_all(args, _work):
@@ -415,19 +448,15 @@ def _brute_ops_all(args, _work):
 
 
 def check_brute(name, stage, args, **kv):
-    """#1 (name "shaded_any", nine arguments) or #2 ("shaded", five)
-    against its plain version, every field of every lane by its bits,
-    bounded by the live lanes' tests with all lanes' beside."""
-    from mitsuba_tpu_torch.ops import intersect as ip
-
-    kern, plain = ((ip.closest_hit_shaded_and_any,
-                    ip.closest_hit_shaded_and_any_ref)
-                   if name == "shaded_any" else
-                   (ip.closest_hit_shaded, ip.closest_hit_shaded_ref))
+    """#1 (name "shaded_any", nine arguments), #2 ("shaded"), #3 ("any")
+    or #4 ("closest", five each) against its plain version, every field of
+    every lane by its bits, bounded by the live lanes' tests with all
+    lanes' beside."""
+    kern, plain = _brute_kernel(name)[:2]
     return check_pair(name, stage, kern, plain, args,
-                      tuple(range(1, len(args))), _brute_ops, unit="lanes",
-                      bitwise=True, alt_ops=_brute_ops_all, device=True,
-                      **kv)
+                      tuple(range(1, len(args))), _brute_ops(name),
+                      unit="lanes", bitwise=True, alt_ops=_brute_ops_all,
+                      device=True, **kv)
 
 
 def compare_kernel(scene):
@@ -436,52 +465,112 @@ def compare_kernel(scene):
 
 
 def compare_brute_cases(device):
-    """#1 and #2 on tests/torch_brute_cases.py's inputs (whole warps and
+    """#1-#4 on tests/torch_brute_cases.py's inputs (whole warps and
     tiles dead, single live lanes, every shadow lane dead, shadow rays
     occluded by the first and by the last row, exact ties of duplicated
     rows, |det| at 1e-9 and an ulp or two either side, zero and -0.0
-    direction components, T = 1 to 300, a ragged last warp), every field
-    of every lane by its bits."""
+    direction components, live lanes with a zero direction, T = 1 to 300,
+    a ragged last warp), every field of every lane by its bits: #3 on the
+    shadow rays and #4 on the bounce rays, over the (T, 9) table of the
+    case's first 9 columns."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_brute_cases as bc
 
     for name, args in bc.cases(device=device).items():
+        tri = args[0][:, :9].contiguous()
         check_brute("shaded_any", f"case {name}", args, time_plain=False)
         check_brute("shaded", f"case {name}", args[:5], time_plain=False)
+        check_brute("any", f"case {name}", (tri,) + args[5:9],
+                    time_plain=False)
+        check_brute("closest", f"case {name}", (tri,) + args[1:5],
+                    time_plain=False)
 
 
-def _brute_liveness(args):
-    """Lanes, live lanes (mint < maxt) and the share of 32-lane warps
-    with no live lane of each ray set of a #1 or #2 launch, and the share
-    of warps that test once each block's live lanes are compacted (the
-    kernels' blocks of ip.THREADS lanes)."""
+def _lane_live(d, mint, maxt, still=True):
+    """The lanes that need tests: mint < maxt and a direction other than
+    zero (det is 0 for every row of a zero direction). still=False: the
+    lanes a brute kernel without kStill tests, mint < maxt alone."""
+    live = mint < maxt
+    return live & (d != 0).any(dim=1) if still else live
+
+
+def _rows_to_first_hit(table, o, d, mint, maxt):
+    """Per lane the rows an any-hit test needs: up to its first hit, all
+    when it is not occluded (a dead lane is never occluded)."""
     from mitsuba_tpu_torch.ops import intersect as ip
 
-    def one(mint, maxt):
-        live = mint < maxt
+    n_tris = table.shape[0]
+    hit = ip._mt(table, o, d, mint, maxt)[3]
+    return torch.where(hit.any(dim=1),
+                       hit.to(torch.int8).argmax(dim=1) + 1, n_tris)
+
+
+def _tests_issued(table, o, d, mint, maxt, any_hit, still):
+    """The lane tests a launch issues, 32 a warp and row it runs, by the
+    kernels' schedule: each block of ip.THREADS lanes compacts its live
+    lanes (`_lane_live`, `still` its kStill) in lane order, a warp runs
+    only where the block has a live lane
+    at its first slot or beyond, a closest warp tests every row, and an
+    any-hit warp stops at the vote before a group of ip.SHADOW_GROUP rows
+    once each of its live slots is occluded."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    n_tris = table.shape[0]
+    rows = (_rows_to_first_hit(table, o, d, mint, maxt) if any_hit
+            else torch.full_like(mint, n_tris, dtype=torch.long))
+    live = _lane_live(d, mint, maxt, still)
+    pad = (-live.numel()) % ip.THREADS
+    live = torch.cat([live, live.new_zeros(pad)]).view(-1, ip.THREADS)
+    rows = torch.cat([rows, rows.new_zeros(pad)]).view(-1, ip.THREADS)
+    # slot of each live lane in its block, and so its warp of slots
+    warp = (live.long().cumsum(dim=1) - 1) // 32 + ip.THREADS // 32 * \
+        torch.arange(live.shape[0], device=live.device)[:, None]
+    per_warp = torch.zeros(live.numel() // 32, dtype=torch.long,
+                           device=live.device)
+    per_warp.scatter_reduce_(0, warp[live], rows[live].long(), "amax")
+    g = ip.SHADOW_GROUP
+    return 32 * int(torch.clamp((per_warp + g - 1) // g * g,
+                                max=n_tris).sum())
+
+
+def _brute_liveness(name, args):
+    """Lanes, live lanes (the kernel's, `_lane_live`) and the share of
+    32-lane warps with no live lane of each ray set of a brute launch, the
+    share of warps that test once each block's live lanes are compacted
+    (the kernels' blocks of ip.THREADS lanes), and the tests the ray set
+    needs (`_tests_needed`) beside those the schedule issues."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    still = name == "any"         # #3, the instance with kStill
+
+    def one(o, d, mint, maxt, any_hit):
+        live = _lane_live(d, mint, maxt, still)
         pad = torch.cat([live, live.new_zeros((-live.numel()) % ip.THREADS)])
         warps = pad.reshape(-1, 32).any(dim=1)
         run = (pad.reshape(-1, ip.THREADS).sum(dim=1) + 31) // 32
         return dict(live=int(live.sum()),
                     dead_warp_share=1.0 - float(warps.float().mean()),
-                    compacted_warp_share=float(run.sum()) / warps.numel())
-    res = dict(lanes=args[1].shape[0], bounce=one(args[3], args[4]))
-    if len(args) > 5:
-        res["shadow"] = one(args[7], args[8])
+                    compacted_warp_share=float(run.sum()) / warps.numel(),
+                    tests_needed=_tests_needed(args[0], o, d, mint, maxt,
+                                               any_hit),
+                    tests_issued=_tests_issued(args[0], o, d, mint, maxt,
+                                               any_hit, still))
+    res = dict(lanes=args[1].shape[0])
+    for rays in _ray_sets(name, args):
+        res["shadow" if rays[-1] else "bounce"] = one(*rays)
     return res
 
 
 def brute_liveness(tag, scene, cfg, render_fn, name):
     """One render of phase `tag`, recording each launch of #1 (name
-    "shaded_any") or #2 ("shaded") with its arguments; each is then
-    replayed alone, held against its plain version bit for bit and timed
-    (a kernel_vs_plain line a launch, with its lanes, live lanes and
-    dead-warp shares): the ms a render of the calls (CUDA events around
-    each) and of their device time alone (`device_ms`)."""
+    "shaded_any"), #2 ("shaded") or #3 ("any") with its arguments; each
+    is then replayed alone, held against its plain version bit for bit and
+    timed (a kernel_vs_plain line a launch, with its lanes, live lanes,
+    dead-warp shares and tests): the ms a render of the calls (CUDA events
+    around each) and of their device time alone (`device_ms`)."""
     from mitsuba_tpu_torch.ops import intersect as ip
 
-    fn = ("closest_hit_shaded_and_any" if name == "shaded_any"
-          else "closest_hit_shaded")
+    fn = _brute_kernel(name)[2]
     _res, calls = record_calls(ip, (fn,),
                                lambda: render_fn(scene, cfg, seed=0))
     torch.cuda.synchronize()
@@ -489,7 +578,7 @@ def brute_liveness(tag, scene, cfg, render_fn, name):
                 bound_ms_all_lanes=0.0)
     launches = []
     for k, args in enumerate(calls[fn]):
-        live = _brute_liveness(args)
+        live = _brute_liveness(name, args)
         r = check_brute(name, f"{tag} launch {k}", args, time_plain=False,
                         liveness=live)
         sums["launches"] += 1
@@ -1315,41 +1404,27 @@ def fog_wavefronts(scene, cfg):
 def _tests_needed(table, o, d, mint, maxt, any_hit):
     """Triangle tests these rays need: every triangle for a live closest
     lane; for a live any-hit lane the triangles up to its first hit (all
-    when unoccluded); none for a dead lane (maxt < mint)."""
-    from mitsuba_tpu_torch.ops import intersect as ip
-
-    live = maxt >= mint
-    n_tris = table.shape[0]
+    when unoccluded); none for a lane that can never hit (maxt <= mint:
+    no t lies between; a zero direction: det is 0 for every row)."""
+    live = _lane_live(d, mint, maxt)
     if not any_hit:
-        return int(live.sum()) * n_tris
-    hit = ip._mt(table, o, d, mint, maxt)[3]
-    first = torch.where(hit.any(dim=1), hit.to(torch.int8).argmax(dim=1) + 1,
-                        n_tris)
-    return int(torch.where(live, first, 0).sum())
+        return int(live.sum()) * table.shape[0]
+    return int(torch.where(
+        live, _rows_to_first_hit(table, o, d, mint, maxt), 0).sum())
 
 
 def compare_split_kernels(scene, cfg):
-    from mitsuba_tpu_torch.ops import intersect as ip
-
+    """#2, #3 and #4 on the fog render's second bounce: #2 and #4 on its
+    bounce rays, #3 on its NEE shadow rays, with their lanes, live lanes
+    and tests."""
     shaded_args, any_args = fog_wavefronts(scene, cfg)
-    g = scene.geom
-    tri = ip.make_tri_table(g.v0, g.e1, g.e2)
-
-    def check(name, stage, kern, plain, args, any_hit):
-        return check_pair(
-            name, stage, kern, plain, args, (1, 2, 3, 4),
-            lambda a, _w: _tests_needed(*a, any_hit) * MT_OPS,
-            unit="lanes", bitwise=True, alt_ops=_brute_ops_all, device=True)
-
-    return {
-        "shaded": check_brute("shaded", "fog bounce 1 closest",
-                              shaded_args),
-        "any": check("any", "fog bounce 1 NEE shadow", ip.any_hit,
-                     ip.any_hit_ref, any_args, True),
-        "closest": check("closest", "fog bounce 1 closest", ip.closest_hit,
-                         ip.closest_hit_ref, (tri,) + tuple(shaded_args[1:]),
-                         False),
-    }
+    closest_args = (scene.geom.brute_tables[1],) + tuple(shaded_args[1:])
+    return {name: check_brute(name, stage, args,
+                              liveness=_brute_liveness(name, args))
+            for name, stage, args in (
+                ("shaded", "fog bounce 1 closest", shaded_args),
+                ("any", "fog bounce 1 NEE shadow", any_args),
+                ("closest", "fog bounce 1 closest", closest_args))}
 
 
 # ---------------------------------------------------------------------------
@@ -2023,8 +2098,7 @@ def main(argv=None):
                     for e2 in (32, 384, 768) for a in (False, True)},
           refine={"refine": ep.refine_info(False),
                   "child_refine": ep.refine_info(True)},
-          brute={"shaded_any": ip.brute_info(True),
-                 "shaded": ip.brute_info(False)})
+          brute={k: ip.brute_info(k) for k in ip.BRUTE_KERNELS})
 
     t0 = time.perf_counter()
     scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
@@ -2139,6 +2213,9 @@ def main(argv=None):
                       forbid=["shaded_any"])
     live_fog = brute_liveness("volpath", cornell_box(W1, H1, device=device),
                               fog_cfg, fog_render, "shaded")
+    live_fog_any = brute_liveness("volpath",
+                                  cornell_box(W1, H1, device=device),
+                                  fog_cfg, fog_render, "any")
     lc = cluster_v1_phase(scene3, cl, cam3, shadow3)
     t0 = time.perf_counter()
     case = r3_kernel.worklist_case(device, PROBE_SIDE, scene3)
@@ -2183,15 +2260,20 @@ def main(argv=None):
         # device ms of one render of phase `tag` in kernel kname
         return PROFILES[tag]["own"].get(kname, {}).get("ms")
 
+    def brute_ms(tag, kname):
+        # ... in brute kernel kname, its instance of brute_kernel
+        return PROFILES[tag]["own"].get("brute_kernel", {}).get(
+            "instances", {}).get(BRUTE_INSTANCE[kname], {}).get("ms")
+
     # the stream fallback launches only where a lane overflows the XL caps
     stream_path = "config3" if l3["stream"] else "config3_v5"
     print(json.dumps({"kernels": [
-        # #1 and #2 (shaded_any_kernel<true>, <false>): device ms of a
-        # config-1 and of a fog render (the profile's; each launches only
-        # its own), and of their launches replayed alone (the device's
-        # time, and the calls' by CUDA events)
+        # #1 and #2 (brute_kernel's instances): device ms of a config-1
+        # and of a fog render (the profile's), and of their launches
+        # replayed alone (the device's time, and the calls' by CUDA
+        # events); the same for #3 in fog
         brute("shaded_any", 337, l1["shaded_any"], brute_check,
-              device_ms_per_render=own_ms("config1", "shaded_any_kernel"),
+              device_ms_per_render=brute_ms("config1", "shaded_any"),
               replayed_device_ms_per_render=live1["device_ms"],
               replayed_event_ms_per_render=live1["ms"]),
         # #5 and #6: the device ms of a config-3 render at the card's
@@ -2249,11 +2331,13 @@ def main(argv=None):
               "mitsuba_tpu/ops/worklist_pallas.py:458", li["wl_any"],
               worklist[("wl_any", "shadow", "instanced")]),
         brute("shaded", 202, lv["shaded"], split["shaded"], path="volpath",
-              device_ms_per_render=own_ms("volpath", "shaded_any_kernel"),
+              device_ms_per_render=brute_ms("volpath", "shaded"),
               replayed_device_ms_per_render=live_fog["device_ms"],
               replayed_event_ms_per_render=live_fog["ms"]),
         brute("any", 97, lv["any"], split["any"], path="volpath",
-              device_ms_per_render=own_ms("volpath", "any_kernel")),
+              device_ms_per_render=brute_ms("volpath", "any"),
+              replayed_device_ms_per_render=live_fog_any["device_ms"],
+              replayed_event_ms_per_render=live_fog_any["ms"]),
         # no render path launches #4 (nor does the JAX package's): its
         # check phase holds it against its plain version
         brute("closest", 59, lv["closest"], split["closest"]),

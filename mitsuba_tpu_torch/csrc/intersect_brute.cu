@@ -1,12 +1,20 @@
 // Brute-force intersectors for Hopper (sm_90a): every ray of a wavefront
 // against every triangle of a small scene.
 //
-// Replaces the TPU kernels of mitsuba_tpu/ops/intersect_pallas.py:
-//   #1 shaded_any_kernel<true>   _shaded_any_kernel :337 (closest_hit_shaded_and_any :432)
-//   #2 shaded_any_kernel<false>  _shaded_kernel     :202 (closest_hit_shaded :281)
-//   #3 any_kernel                _any_kernel        :97  (any_hit :165)
-//   #4 closest_kernel            _closest_kernel    :59  (closest_hit :139)
-// They compute what those kernels compute, not how. Wrapped by
+// Replaces the TPU kernels of mitsuba_tpu/ops/intersect_pallas.py with
+// four instances of one kernel, brute_kernel<kClosest, kShade, kAny,
+// kStride, kStill>:
+//   #1 <true, true, true, 29, false>    _shaded_any_kernel :337 (closest_hit_shaded_and_any :432)
+//   #2 <true, true, false, 29, false>   _shaded_kernel     :202 (closest_hit_shaded :281)
+//   #3 <false, false, true, 9, true>    _any_kernel        :97  (any_hit :165)
+//   #4 <true, false, false, 9, false>   _closest_kernel    :59  (closest_hit :139)
+// kClosest and kAny: the halves an instance runs, the closest hit of one
+// ray set and the any-hit occlusion of another; kShade: whether the
+// closest half writes the shading record or only t, u, v, prim and
+// valid; kStride: the table's row stride, 29 for the (T, 29) shading
+// table, 9 for the (T, 9) v0 | e1 | e2 table; kStill: whether the
+// compaction also drops a lane whose direction is zero (below). They
+// compute what those kernels compute, not how. Wrapped by
 // mitsuba_tpu_torch/ops/intersect.py, whose `*_ref` functions are the
 // plain PyTorch versions they agree with lane for lane.
 //
@@ -14,44 +22,46 @@
 //   |det| > 1e-9, t > mint, t < maxt, and the strict t < t_best, so the
 //   lowest index wins a tie; on a miss t = inf, u = v = 0, prim = -1,
 //   ids = -1 and both normals (0, 0, 1); the normals are renormalised once
-//   at the end with the 1e-20 floor; a lane with maxt < mint (dead or
-//   padded) never hits; occlusion is the OR over all triangles.
+//   at the end with the 1e-20 floor; a lane with maxt <= mint (dead or
+//   padded) or a zero direction never hits; occlusion is the OR over all
+//   triangles.
 // The shading record is interpolated once, from the winning row, instead
 // of for every candidate: the same formula on the same inputs, so the
 // same value. Built with --fmad=false and IEEE division and square root,
-// each kernel rounds as its plain PyTorch version.
+// each instance rounds as its plain PyTorch version.
 //
-// #1 and #2 (shaded_any_kernel<kShadow>). What bounds them on this
-// card is the instruction rate of the Moeller-Trumbore tests: at T = 32
-// a lane moves ~126 bytes (its rays in, its record out) against 32 tests
-// of ~60 instructions for each of its rays, so at the card's instruction
-// rate the bytes take a fifth of the tests' time. The first form already
-// ran the tests near that rate (3.3e11 a second); the design runs fewer
-// of them and nothing else around them:
-//   * each block of kThreads lanes compacts the live lanes (mint < maxt)
-//     of each ray set in lane order (a ballot a warp, a prefix over the
-//     warps' counts): thread t tests the t-th live lane, so warps past the
+// What bounds them on this card is the instruction rate of the
+// Moeller-Trumbore tests: at T = 32 a lane moves ~126 bytes (its rays in,
+// its record out) against 32 tests of ~60 instructions for each of its
+// rays, so at the card's instruction rate the bytes take a fifth of the
+// tests' time. The design runs fewer tests and nothing else around them:
+//   * each block of kThreads lanes compacts the live lanes of each ray
+//     set in lane order (a ballot a warp, a prefix over the warps'
+//     counts): thread t tests the t-th live lane, so warps past the
 //     block's live count run no test, and a dead lane, which can never
-//     hit, gets the miss record (not occluded) without one;
+//     hit, gets the miss record (not occluded) without one. A lane is
+//     live where mint < maxt and, with kStill, its direction is not
+//     zero: a zero direction makes det 0 for every row, whose reciprocal
+//     takes the IEEE division's slow path (the compiler divides before
+//     it selects). The fog path traces its ended paths' NEE rays so
+//     (#3's caller, 15-30% of a later bounce's lanes); where no lane has
+//     a zero direction, the direction loads before the compaction's
+//     barrier cost #1 and #2 1.5-2.6% (PERF.md), so they go without;
 //   * the table's test columns (v0 | e1 | e2) are staged once per block,
 //     kRows rows a pass, as three 16-byte records a row (`mt_test4`):
-//     three broadcast loads a test, where the first form had 9 scalar
-//     ones. A table of more rows is staged in passes, in row order, so
-//     the strict t < t_best keeps the lowest index across passes;
-//   * a warp's shadow half stops once each of its live lanes is occluded
+//     three broadcast loads a test, where a thread reading the row's
+//     floats would issue 9. A table of more rows is staged in passes, in
+//     row order, so the strict t < t_best keeps the lowest index across
+//     passes;
+//   * a warp's any-hit half stops once each of its live lanes is occluded
 //     (a vote every kGroup rows); the OR is the same;
-//   * the record is written in its final layout (geo_n and sh_n (N, 3),
-//     uv (N, 2), valid and occluded as bool bytes), so the wrapper
-//     launches nothing around the kernel.
+//   * the outputs are written in their final layout (t, u, v, prim; geo_n
+//     and sh_n (N, 3), uv (N, 2) and the ids where shaded; valid and
+//     occluded as bool bytes), so a wrapper launches nothing around its
+//     instance.
 // Each half runs over all rows in turn. Tried and dropped (PERF.md): both
 // tests of a row in one loop, 2 and 4 lanes a thread, each warp
 // compacting its own lanes, a persistent grid.
-//
-// #3 and #4 keep their first form: one thread per lane, the (T, 9) table
-// staged in chunks of kChunk rows, every thread reading the same row at
-// the same time (a broadcast); #3 stops testing a lane once it is
-// occluded, and a block stops staging chunks once none of its lanes
-// needs them.
 
 #include <cuda_runtime.h>
 
@@ -60,15 +70,12 @@
 constexpr int kCols = 29;        // table row: v0|e1|e2|n0|n1|n2|uv0|uv1|uv2|mid|eid|sid|pad2
 constexpr int kTriCols = 9;      // v0|e1|e2
 constexpr int kThreads = 256;
-constexpr int kChunk = 128;      // #3, #4: rows staged per pass (4.6 KB)
 constexpr float kDetEps = 1e-9f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// #1 and #2
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 4;    // blocks of kThreads resident on an SM
 constexpr int kRows = 256;       // test rows staged per pass: 12 KB
-constexpr int kGroup = 8;        // rows between the shadow half's votes
+constexpr int kGroup = 8;        // rows between the any-hit half's votes
 
 // One lane's ray, or a dead ray (maxt = -1 < mint) past the end.
 struct LaneRay {
@@ -88,18 +95,6 @@ __device__ __forceinline__ LaneRay load_ray(
   return r;
 }
 
-// Copy rows [c0, c0 + rows) of a (T, cols) table into shared memory.
-__device__ __forceinline__ void stage(float* tab,
-                                      const float* __restrict__ table,
-                                      int c0, int rows, int cols) {
-  for (int k = threadIdx.x; k < rows * cols; k += blockDim.x)
-    tab[k] = table[c0 * cols + k];
-}
-
-// ---------------------------------------------------------------------------
-// #1 and #2
-// ---------------------------------------------------------------------------
-
 // N rays: o, d (N, 3), mint, maxt (N,)
 struct Rays {
   const float* __restrict__ o;
@@ -108,15 +103,18 @@ struct Rays {
   const float* __restrict__ maxt;
 };
 
-// the record in its final layout; valid and occ are bool bytes
+// the outputs in their final layout; valid and occ are bool bytes. An
+// instance writes t, u, v, prim and valid if it has a closest half, the
+// rest of the shading record if kShade, occ if it has an any-hit half
 struct Record {
   float* t; float* u; float* v; int* prim; unsigned char* valid;
   float* geo_n; float* sh_n; float* uv;
   int* mid; int* eid; int* sid; unsigned char* occ;
 };
 
-// Rows [c0, c0 + rows) of the (T, 29) table's test columns v0 | e1 | e2
+// Rows [c0, c0 + rows) of a (T, cols) table's test columns v0 | e1 | e2
 // into shared memory, three float4s a row (the last three floats unused).
+template <int cols>
 __device__ __forceinline__ void stage_tests(float4* tab,
                                             const float* __restrict__ table,
                                             int c0, int rows) {
@@ -124,20 +122,25 @@ __device__ __forceinline__ void stage_tests(float4* tab,
   for (int k = threadIdx.x; k < rows * kTriCols; k += blockDim.x) {
     const int r = k / kTriCols;
     const int c = k - r * kTriCols;
-    f[r * 12 + c] = table[static_cast<size_t>(c0 + r) * kCols + c];
+    f[r * 12 + c] = table[static_cast<size_t>(c0 + r) * cols + c];
   }
 }
 
-// Compact the block's live lanes (mint < maxt, below n) of one ray set
-// in lane order: slots[s] is the s-th live lane of the block's kThreads
-// lanes from `first`. `counts` holds a count a warp. Returns the block's
-// count; `live` is whether this thread's own lane is live. Two barriers.
+// Compact the block's live lanes (below n, mint < maxt and, with kStill,
+// a direction other than zero) of one ray set in lane order: slots[s] is
+// the s-th live lane of the block's kThreads lanes from `first`.
+// `counts` holds a count a warp. Returns the block's count; `live` is
+// whether this thread's own lane is live. Two barriers.
+template <bool kStill>
 __device__ __forceinline__ int compact(const Rays& r, int first, int n,
                                        int* counts, int* slots, bool& live) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int i = first + threadIdx.x;
   live = i < n && r.mint[i] < r.maxt[i];
+  if constexpr (kStill)
+    live = live && (r.d[3 * i] != 0.f || r.d[3 * i + 1] != 0.f ||
+                    r.d[3 * i + 2] != 0.f);
   const unsigned m = __ballot_sync(kFull, live);
   if (lane == 0) counts[warp] = __popc(m);
   __syncthreads();
@@ -150,6 +153,14 @@ __device__ __forceinline__ int compact(const Rays& r, int first, int n,
   if (live) slots[off + __popc(m & ((1u << lane) - 1u))] = i;
   __syncthreads();
   return total;
+}
+
+// Lane i's t, u, v, prim and valid from its winning row p (p < 0: a
+// miss), as the plain version's `closest_hit_ref` returns them.
+__device__ __forceinline__ void write_hit(const Record& out, int i, float t_b,
+                                          float u_b, float v_b, int p_b) {
+  out.t[i] = t_b; out.u[i] = u_b; out.v[i] = v_b;
+  out.prim[i] = p_b; out.valid[i] = p_b >= 0 ? 1 : 0;
 }
 
 // Lane i's record from its winning row p (p < 0: the miss record), as the
@@ -180,8 +191,7 @@ __device__ __forceinline__ void write_record(const Record& out,
   }
   const float g_inv = 1.0f / sqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-20f));
   const float s_inv = 1.0f / sqrtf(fmaxf(sx * sx + sy * sy + sz * sz, 1e-20f));
-  out.t[i] = t_b; out.u[i] = u_b; out.v[i] = v_b;
-  out.prim[i] = p_b; out.valid[i] = p_b >= 0 ? 1 : 0;
+  write_hit(out, i, t_b, u_b, v_b, p_b);
   out.geo_n[3 * i] = gx * g_inv;
   out.geo_n[3 * i + 1] = gy * g_inv;
   out.geo_n[3 * i + 2] = gz * g_inv;
@@ -198,8 +208,8 @@ struct Best {
   int p;
 };
 
-// The bounce slot's closest hit over rows [0, rows) of the staged pass
-// from table row c0.
+// A closest slot's hit over rows [0, rows) of the staged pass from
+// table row c0.
 __device__ __forceinline__ void closest_rows(const float4* tab, int rows,
                                              int c0, const LaneRay& r,
                                              Best& best) {
@@ -211,7 +221,7 @@ __device__ __forceinline__ void closest_rows(const float4* tab, int rows,
   }
 }
 
-// The shadow slot's occlusion over rows [0, rows) of the staged pass:
+// An any-hit slot's occlusion over rows [0, rows) of the staged pass:
 // before each group of kGroup rows the warp votes, and stops once each
 // of its live slots is occluded (slots from ns on are not live).
 __device__ __forceinline__ void any_rows(const float4* tab, int rows,
@@ -229,37 +239,58 @@ __device__ __forceinline__ void any_rows(const float4* tab, int rows,
   }
 }
 
-template <bool kShadow>
+template <bool kShade>
+__device__ __forceinline__ void write_closest(const Record& out,
+                                              const float* __restrict__ table,
+                                              int i, const Best& b) {
+  if constexpr (kShade)
+    write_record(out, table, i, b.t, b.u, b.v, b.p);
+  else
+    write_hit(out, i, b.t, b.u, b.v, b.p);
+}
+
+template <bool kClosest, bool kShade, bool kAny, int kStride, bool kStill>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-shaded_any_kernel(const float* __restrict__ table, int n_tris, Rays br,
-                  Rays sr, int n, Record out) {
+brute_kernel(const float* __restrict__ table, int n_tris, Rays br, Rays sr,
+             int n, Record out) {
+  static_assert(kClosest || kAny, "an instance runs at least one half");
+  static_assert(!kShade || (kClosest && kStride == kCols),
+                "the shading record needs the (T, 29) table");
+  constexpr int kSets = (kClosest ? 1 : 0) + (kAny ? 1 : 0);
+  constexpr int kA = kClosest ? 1 : 0;   // the any-hit set's index
   __shared__ float4 tab[kRows * 3];
-  __shared__ int slots[kShadow ? 2 : 1][kThreads];
-  __shared__ int counts[kShadow ? 2 : 1][kWarps];
+  __shared__ int slots[kSets][kThreads];
+  __shared__ int counts[kSets][kWarps];
   const int first = blockIdx.x * kThreads;
   const int q = threadIdx.x;          // this thread's slot
   const int q_warp = q & ~31;         // its warp's first slot
   const float inf = __int_as_float(0x7f800000);
+  const Best miss{inf, 0.f, 0.f, -1};
 
   // each ray set's live lanes, compacted over the block; a dead lane gets
   // the miss record (not occluded) without a test
-  bool b_own, s_own = false;
-  const int nb = compact(br, first, n, counts[0], slots[0], b_own);
-  int ns = 0;
-  if constexpr (kShadow) ns = compact(sr, first, n, counts[1], slots[1], s_own);
+  bool b_own = false, s_own = false;
+  int nb = 0, ns = 0;
+  if constexpr (kClosest)
+    nb = compact<kStill>(br, first, n, counts[0], slots[0], b_own);
+  if constexpr (kAny)
+    ns = compact<kStill>(sr, first, n, counts[kA], slots[kA], s_own);
   const int i = first + threadIdx.x;
-  if (i < n && !b_own) write_record(out, table, i, inf, 0.f, 0.f, -1);
-  if constexpr (kShadow) {
+  if constexpr (kClosest) {
+    if (i < n && !b_own) write_closest<kShade>(out, table, i, miss);
+  }
+  if constexpr (kAny) {
     if (i < n && !s_own) out.occ[i] = 0;
   }
 
-  const LaneRay b = load_ray(br.o, br.d, br.mint, br.maxt,
-                             q < nb ? slots[0][q] : 0, q < nb);
-  LaneRay s{};
-  if constexpr (kShadow)
-    s = load_ray(sr.o, sr.d, sr.mint, sr.maxt, q < ns ? slots[1][q] : 0,
+  LaneRay b{}, s{};
+  if constexpr (kClosest)
+    b = load_ray(br.o, br.d, br.mint, br.maxt, q < nb ? slots[0][q] : 0,
+                 q < nb);
+  if constexpr (kAny)
+    s = load_ray(sr.o, sr.d, sr.mint, sr.maxt, q < ns ? slots[kA][q] : 0,
                  q < ns);
-  Best best{inf, 0.f, 0.f, -1};
+  Best best = miss;
   bool oc = false;
 
   const int n_chunks = (n_tris + kRows - 1) / kRows;
@@ -267,83 +298,23 @@ shaded_any_kernel(const float* __restrict__ table, int n_tris, Rays br,
     const int c0 = c * kRows;
     const int rows = min(kRows, n_tris - c0);
     __syncthreads();                    // the previous pass is read
-    stage_tests(tab, table, c0, rows);
+    stage_tests<kStride>(tab, table, c0, rows);
     __syncthreads();
     // warp-uniform: a warp with no live slot runs no test
-    if (q_warp < nb) closest_rows(tab, rows, c0, b, best);
-    if constexpr (kShadow) {
+    if constexpr (kClosest) {
+      if (q_warp < nb) closest_rows(tab, rows, c0, b, best);
+    }
+    if constexpr (kAny) {
       if (q_warp < ns) any_rows(tab, rows, s, q, ns, oc);
     }
   }
 
-  if (q < nb) write_record(out, table, slots[0][q], best.t, best.u, best.v,
-                           best.p);
-  if constexpr (kShadow) {
-    if (q < ns) out.occ[slots[1][q]] = oc ? 1 : 0;
+  if constexpr (kClosest) {
+    if (q < nb) write_closest<kShade>(out, table, slots[0][q], best);
   }
-}
-
-// ---------------------------------------------------------------------------
-// #3 and #4
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-any_kernel(const float* __restrict__ table, int n_tris,
-           const float* __restrict__ o, const float* __restrict__ d,
-           const float* __restrict__ mint, const float* __restrict__ maxt,
-           int n, int* __restrict__ occ_out) {
-  __shared__ float tab[kChunk * kTriCols];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const LaneRay r = load_ray(o, d, mint, maxt, i, live);
-  bool occ = false;
-  for (int c0 = 0; c0 < n_tris; c0 += kChunk) {
-    // a barrier like __syncthreads (the previous chunk is no longer
-    // read), and the block stops once no lane needs another chunk
-    if (!__syncthreads_or(live && !occ && r.mx >= r.mn)) break;
-    const int rows = min(kChunk, n_tris - c0);
-    stage(tab, table, c0, rows, kTriCols);
-    __syncthreads();
-    for (int j = 0; j < rows && !occ; ++j) {
-      float t, u, v;
-      occ = mt_test(tab + j * kTriCols, r.o, r.d, r.mn, r.mx, kDetEps, t, u,
-                    v);
-    }
+  if constexpr (kAny) {
+    if (q < ns) out.occ[slots[kA][q]] = oc ? 1 : 0;
   }
-  if (live) occ_out[i] = occ ? 1 : 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-closest_kernel(const float* __restrict__ table, int n_tris,
-               const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ mint,
-               const float* __restrict__ maxt, int n, float* __restrict__ t_out,
-               float* __restrict__ u_out, float* __restrict__ v_out,
-               int* __restrict__ prim_out, int* __restrict__ hit_out) {
-  __shared__ float tab[kChunk * kTriCols];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const LaneRay r = load_ray(o, d, mint, maxt, i, live);
-  float t_b = __int_as_float(0x7f800000);  // +inf
-  float u_b = 0.f, v_b = 0.f;
-  int p_b = -1;
-  for (int c0 = 0; c0 < n_tris; c0 += kChunk) {
-    const int rows = min(kChunk, n_tris - c0);
-    __syncthreads();  // the previous chunk is no longer read
-    stage(tab, table, c0, rows, kTriCols);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < rows; ++j) {
-      float t, u, v;
-      if (mt_test(tab + j * kTriCols, r.o, r.d, r.mn, r.mx, kDetEps, t, u,
-                  v) && t < t_b) {
-        t_b = t; u_b = u; v_b = v; p_b = c0 + j;
-      }
-    }
-  }
-  if (!live) return;
-  t_out[i] = t_b; u_out[i] = u_b; v_out[i] = v_b;
-  prim_out[i] = p_b; hit_out[i] = p_b >= 0 ? 1 : 0;
 }
 
 static int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -352,12 +323,13 @@ static int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 // launchers
 // ---------------------------------------------------------------------------
 
-template <bool kShadow>
-static int launch_shaded(const float* table, int n_tris, Rays br, Rays sr,
-                         int n, Record out, cudaStream_t stream) {
+template <bool kClosest, bool kShade, bool kAny, int kStride, bool kStill>
+static int launch(const float* table, int n_tris, Rays br, Rays sr, int n,
+                  Record out, void* stream) {
   if (n > 0)
-    shaded_any_kernel<kShadow><<<blocks_for(n), kThreads, 0, stream>>>(
-        table, n_tris, br, sr, n, out);
+    brute_kernel<kClosest, kShade, kAny, kStride, kStill>
+        <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            table, n_tris, br, sr, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -371,9 +343,9 @@ extern "C" int mts_shaded_any(
     float* uv, int* mid, int* eid, int* sid, unsigned char* occ,
     void* stream) {
   const Record out{t, u, v, prim, valid, geo_n, sh_n, uv, mid, eid, sid, occ};
-  return launch_shaded<true>(table, n_tris, Rays{o, d, mint, maxt},
-                             Rays{so, sd, smint, smaxt}, n, out,
-                             static_cast<cudaStream_t>(stream));
+  return launch<true, true, true, kCols, false>(
+      table, n_tris, Rays{o, d, mint, maxt}, Rays{so, sd, smint, smaxt}, n,
+      out, stream);
 }
 
 extern "C" int mts_shaded(
@@ -383,37 +355,34 @@ extern "C" int mts_shaded(
     float* uv, int* mid, int* eid, int* sid, void* stream) {
   const Record out{t, u, v, prim, valid, geo_n, sh_n, uv, mid, eid, sid,
                    nullptr};
-  return launch_shaded<false>(table, n_tris, Rays{o, d, mint, maxt},
-                              Rays{o, d, mint, maxt}, n, out,
-                              static_cast<cudaStream_t>(stream));
+  const Rays r{o, d, mint, maxt};
+  return launch<true, true, false, kCols, false>(table, n_tris, r, r, n,
+                                                 out, stream);
 }
 
 extern "C" int mts_any(const float* table, int n_tris, const float* o,
                        const float* d, const float* mint, const float* maxt,
-                       int n, int* occ, void* stream) {
-  if (n > 0) {
-    any_kernel<<<blocks_for(n), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-        table, n_tris, o, d, mint, maxt, n, occ);
-  }
-  return static_cast<int>(cudaGetLastError());
+                       int n, unsigned char* occ, void* stream) {
+  Record out{};
+  out.occ = occ;
+  const Rays r{o, d, mint, maxt};
+  return launch<false, false, true, kTriCols, true>(table, n_tris, r, r,
+                                                    n, out, stream);
 }
 
 extern "C" int mts_closest(const float* table, int n_tris, const float* o,
                            const float* d, const float* mint,
                            const float* maxt, int n, float* t, float* u,
-                           float* v, int* prim, int* hit, void* stream) {
-  if (n > 0) {
-    closest_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        table, n_tris, o, d, mint, maxt, n, t, u, v, prim, hit);
-  }
-  return static_cast<int>(cudaGetLastError());
+                           float* v, int* prim, unsigned char* hit,
+                           void* stream) {
+  Record out{};
+  out.t = t; out.u = u; out.v = v; out.prim = prim; out.valid = hit;
+  const Rays r{o, d, mint, maxt};
+  return launch<true, false, false, kTriCols, false>(table, n_tris, r, r,
+                                                     n, out, stream);
 }
 
-template <bool kShadow>
-static int info_k(int* out) {
-  const void* kern = (const void*)shaded_any_kernel<kShadow>;
+static int info_of(const void* kern, int* out) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kern);
   if (e == cudaSuccess)
@@ -425,9 +394,16 @@ static int info_k(int* out) {
   return static_cast<int>(e);
 }
 
-// #1's (shadow) or #2's resources: out[0] resident blocks of kThreads per
-// SM, out[1] registers per thread, out[2] static shared memory bytes per
-// block, out[3] local memory bytes per thread (spills)
-extern "C" int mts_brute_info(int shadow, int* out) {
-  return shadow ? info_k<true>(out) : info_k<false>(out);
+// The resources of kernel `kind` (0 #2, 1 #1, 2 #3, 3 #4): out[0]
+// resident blocks of kThreads per SM, out[1] registers per thread, out[2]
+// static shared memory bytes per block, out[3] local memory bytes per
+// thread (spills)
+extern "C" int mts_brute_info(int kind, int* out) {
+  const void* kerns[] = {
+      (const void*)brute_kernel<true, true, false, kCols, false>,
+      (const void*)brute_kernel<true, true, true, kCols, false>,
+      (const void*)brute_kernel<false, false, true, kTriCols, true>,
+      (const void*)brute_kernel<true, false, false, kTriCols, false>};
+  if (kind < 0 || kind > 3) return static_cast<int>(cudaErrorInvalidValue);
+  return info_of(kerns[kind], out);
 }

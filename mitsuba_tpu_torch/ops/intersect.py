@@ -14,10 +14,12 @@ Four queries of N rays against every triangle of a brute scene:
 On CUDA tensors each launches its hand-written kernel of
 `csrc/intersect_brute.cu`, built with nvcc at first use into `_build/`
 and bound with ctypes; on CPU tensors it runs the plain PyTorch version
-(`*_ref`). Any other device raises. Each kernel has its own launch count:
-`LAUNCHES` for #1, `SPLIT_LAUNCHES` for the others. #1 and #2 write their
-record in its final layout, into views of three allocations
-(`_record_outputs`), so a call launches nothing but its kernel.
+(`*_ref`). Any other device raises. The four kernels are instances of
+one, `brute_kernel`. Each has its own launch count: `LAUNCHES` for #1,
+`SPLIT_LAUNCHES` for the others. Each writes its outputs in their final
+layout, bool masks included, into views of one allocation a dtype
+(`_record_outputs`, `_hit_outputs`), so a call launches nothing but its
+kernel.
 
 Triangle table layout (T, 29), as in the reference:
   [0:9]   v0 | e1 | e2
@@ -49,12 +51,14 @@ SOURCE = nv.source("intersect_brute.cu")
 LAUNCHES = 0
 SPLIT_LAUNCHES = {"shaded": 0, "any": 0, "closest": 0}
 _LIB = {}
-# #1's and #2's schedule (csrc/intersect_brute.cu kRows, kGroup,
-# kThreads): test rows staged per pass, rows between the shadow half's
+# the kernels' schedule (csrc/intersect_brute.cu kRows, kGroup,
+# kThreads): test rows staged per pass, rows between the any-hit half's
 # votes, threads a block
 STAGE_ROWS = 256
 SHADOW_GROUP = 8
 THREADS = 256
+# the brute kernels by the index `mts_brute_info` takes: #2, #1, #3, #4
+BRUTE_KERNELS = ("shaded", "shaded_any", "any", "closest")
 
 
 def make_shading_table(geom):
@@ -223,14 +227,17 @@ def build() -> str:
     return log
 
 
-def brute_info(shadow: bool) -> dict:
-    """#1's (shadow) or #2's resources on the current card: resident
-    blocks of THREADS per SM, registers per thread, static shared memory
-    per block, local (spill) bytes per thread."""
+def brute_info(kernel) -> dict:
+    """The resources of a brute kernel on the current card, by its name
+    in BRUTE_KERNELS or its index there (so True is #1, False #2):
+    resident blocks of THREADS per SM, registers per thread, static shared
+    memory per block, local (spill) bytes per thread."""
     if "info" not in _LIB:
         build()
+    kind = BRUTE_KERNELS.index(kernel) if isinstance(kernel, str) \
+        else int(kernel)
     out = (ctypes.c_int * 4)()
-    nv.check(_LIB["info"](int(shadow), out), "brute_info")
+    nv.check(_LIB["info"](kind, out), "brute_info")
     return dict(zip(("blocks_per_sm", "registers", "smem_bytes",
                      "local_bytes"), out))
 
@@ -299,10 +306,10 @@ def any_hit(table, o, d, mint, maxt):
     if o.device.type == "cpu":
         return any_hit_ref(table, o, d, mint, maxt)
     n = o.shape[0]
-    occ = torch.empty(n, dtype=torch.int32, device=o.device)
+    occ = torch.empty(n, dtype=torch.bool, device=o.device)
     _launch("any", o, table, table.shape[0], o, d, mint, maxt, n, occ)
     _count("any", n)
-    return occ.bool()
+    return occ
 
 
 def closest_hit(table, o, d, mint, maxt):
@@ -312,14 +319,10 @@ def closest_hit(table, o, d, mint, maxt):
     if o.device.type == "cpu":
         return closest_hit_ref(table, o, d, mint, maxt)
     n = o.shape[0]
-    f32 = [torch.empty(n, dtype=torch.float32, device=o.device)
-           for _ in range(3)]
-    prim, hit = (torch.empty(n, dtype=torch.int32, device=o.device)
-                 for _ in range(2))
-    _launch("closest", o, table, table.shape[0], o, d, mint, maxt, n,
-            *f32, prim, hit)
+    out = _hit_outputs(n, o.device)
+    _launch("closest", o, table, table.shape[0], o, d, mint, maxt, n, *out)
     _count("closest", n)
-    return (*f32, prim, hit.bool())
+    return out
 
 
 def _record_outputs(n, device, shadow):
@@ -337,6 +340,15 @@ def _record_outputs(n, device, shadow):
         emitter_id=i[2 * n:3 * n], shape_id=i[3 * n:],
     )
     return rec, (b[n:] if shadow else None)
+
+
+def _hit_outputs(n, device):
+    """#4's (t, u, v, prim, valid): views of one float32, one int32 and
+    one bool allocation."""
+    f = torch.empty(3 * n, dtype=torch.float32, device=device)
+    return (f[:n], f[n:2 * n], f[2 * n:],
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty(n, dtype=torch.bool, device=device))
 
 
 def _launch(name, o, *args):

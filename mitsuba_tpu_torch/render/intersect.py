@@ -10,7 +10,9 @@ Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
   `ray_intersect_and_test` runs the fused kernel #1 of `ops/intersect.py`
   once per bounce; `ray_intersect` runs #2 (closest hit with its shading
   record) and `ray_test` #3 (any hit), as the reference's TPU branches do
-  (intersect.py:1266-1294, 1570-1575). The record is the kernel path's
+  (intersect.py:1266-1294, 1570-1575). Their tables, the (T, 29)
+  shading table of #1 and #2 and the (T, 9) table of #3, are built once
+  per `GeometryTables` (`brute_tables`). The record is the kernel path's
   (:1489-1518): the shading frame is `Frame.from_normal(sh_n)`, `dp_du`
   its s axis.
 * bvh: the triangles in the order of a skip-link BVH (render/bvh.py); a
@@ -50,6 +52,7 @@ Each `lax.cond` of the reference is a Python branch on a device-side
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -170,6 +173,14 @@ class GeometryTables:
         kernel's aligned copies."""
         return ((self.bvh_packed, self.tri_packed),
                 dict(aligned=(self.bvh_aligned, self.tri_aligned)))
+
+    @functools.cached_property
+    def brute_tables(self):
+        """The brute kernels' tables, built at the first query and kept
+        with these tables: the (T, 29) shading table of #1 and #2 and the
+        (T, 9) `v0|e1|e2` table of #3."""
+        return (ip.make_shading_table(self),
+                ip.make_tri_table(self.v0, self.e1, self.e2))
 
     @property
     def ex_tables(self):
@@ -476,7 +487,7 @@ def _fused_brute(geom: GeometryTables, ray: Ray, sray: Ray):
     one launch of the fused kernel #1 with a shared triangle loop.
     Returns (Intersection, occluded)."""
     r, occ = ip.closest_hit_shaded_and_any(
-        ip.make_shading_table(geom), *_ray_args(ray), *_ray_args(sray))
+        geom.brute_tables[0], *_ray_args(ray), *_ray_args(sray))
     return _brute_record(ray, r), occ
 
 
@@ -939,15 +950,14 @@ def ray_intersect(geom: GeometryTables, ray: Ray,
     wavefront; the exact cull then runs at the small coherent caps."""
     if geom.backend == "brute":
         return _brute_record(ray, ip.closest_hit_shaded(
-            ip.make_shading_table(geom), *_ray_args(ray)))
+            geom.brute_tables[0], *_ray_args(ray)))
     return _shade(geom, ray, *_closest(geom, ray, coherent))
 
 
 def ray_test(geom: GeometryTables, ray: Ray):
     """Any-hit (shadow ray) query -> occluded."""
     if geom.backend == "brute":
-        return ip.any_hit(ip.make_tri_table(geom.v0, geom.e1, geom.e2),
-                          *_ray_args(ray))
+        return ip.any_hit(geom.brute_tables[1], *_ray_args(ray))
     if geom.backend == "bvh":
         tabs, kw = geom.bvh_tables
         return bp.bvh_any(*tabs, *_ray_args(ray), **kw)

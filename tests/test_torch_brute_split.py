@@ -261,3 +261,34 @@ def test_split_wrappers_reject_what_the_kernels_do_not_take():
         with pytest.raises(NotImplementedError):
             fn(table.to("meta"), *[a.to("meta") for a in args])
     assert ip.SPLIT_LAUNCHES == before    # the CPU path never counts one
+
+
+def test_brute_tables_are_built_once_per_geometry(monkeypatch):
+    """The brute queries' tables, the (T, 29) shading table and the
+    (T, 9) table, equal the reference's and are built once per
+    GeometryTables: a render's queries reuse them, and tables moved to
+    another device (a new GeometryTables) build their own."""
+    js = jax_cornell_box(8, 8)
+    geom = from_jax_scene(js, device="cpu").geom
+    built = []
+    for name in ("make_shading_table", "make_tri_table"):
+        orig = getattr(ip, name)
+        monkeypatch.setattr(ip, name, lambda *a, _f=orig, _n=name: (
+            built.append(_n), _f(*a))[1])
+    shd, tri = geom.brute_tables
+    np.testing.assert_array_equal(
+        shd.numpy(), np.asarray(jip.make_shading_table(js.geom)))
+    np.testing.assert_array_equal(tri.numpy(), np.asarray(
+        jip.make_tri_table(js.geom.v0, js.geom.e1, js.geom.e2)))
+    _geom, rays = _case("camera")
+    ray = Ray(*map(_t, rays))
+    for _ in range(2):
+        ri.ray_intersect(geom, ray)
+        ri.ray_test(geom, ray)
+        ri.ray_intersect_and_test(geom, ray, ray)
+    assert built == ["make_shading_table", "make_tri_table"]
+    assert geom.brute_tables[0] is shd and geom.brute_tables[1] is tri
+    moved = geom.to("cpu")
+    assert moved.brute_tables[0] is not shd
+    assert torch.equal(moved.brute_tables[0], shd)
+    assert built == ["make_shading_table", "make_tri_table"] * 2

@@ -128,7 +128,7 @@ def _same_record(got, ref):
 
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("name", ["T1", "T32", "T64", "T65", "T300",
-                                  "shadow_dead", "warps_dead"])
+                                  "shadow_dead", "warps_dead", "still_dirs"])
 def test_shaded_kernels_match_plain_versions_on_corner_cases(cuda, name,
                                                              seed):
     """#1 and #2 on tests/torch_brute_cases.py's inputs (whole warps and
@@ -176,6 +176,81 @@ def test_shaded_kernels_keep_blocks_in_flight(cuda):
         info = ip.brute_info(shadow)
         assert info["blocks_per_sm"] >= 4, info
         assert info["local_bytes"] == 0, info
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["T1", "T32", "T64", "T65", "T300",
+                                  "shadow_dead", "warps_dead", "still_dirs"])
+def test_split_kernels_match_plain_versions_on_corner_cases(cuda, name,
+                                                            seed):
+    """#3 (any hit) on the shadow rays and #4 (closest, unshaded) on the
+    bounce rays of tests/torch_brute_cases.py's inputs, over the (T, 9)
+    table of the case's first 9 columns: every field of every lane, bit
+    for bit, the outputs already bool."""
+    import torch_brute_cases as bc
+
+    args = bc.cases(seed, device=cuda)[name]
+    tri = args[0][:, :9].contiguous()
+    before = dict(ip.SPLIT_LAUNCHES)
+    occ = ip.any_hit(tri, *args[5:9])
+    hit = ip.closest_hit(tri, *args[1:5])
+    assert ip.SPLIT_LAUNCHES["any"] == before["any"] + 1
+    assert ip.SPLIT_LAUNCHES["closest"] == before["closest"] + 1
+    ref_occ = ip.any_hit_ref(tri, *args[5:9])
+    ref_hit = ip.closest_hit_ref(tri, *args[1:5])
+    torch.cuda.synchronize()
+    assert occ.dtype == torch.bool and torch.equal(occ, ref_occ)
+    for a, b in zip(hit, ref_hit):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    # #1's halves on the same rays over the (T, 29) table agree
+    rec, fused_occ = ip.closest_hit_shaded_and_any(*args)
+    assert torch.equal(occ, fused_occ)
+    assert torch.equal(hit[3], rec["prim"])
+    if name == "shadow_dead":
+        assert not bool(occ.any())
+
+
+def _kernels_launched(fn):
+    """The names of the CUDA kernels fn() launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            for _ in range(e.count)
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def test_brute_wrappers_launch_their_kernel_alone(cuda):
+    """Each brute wrapper launches one kernel a call, its instance of
+    brute_kernel, and nothing around it (no cast, no re-pack)."""
+    args = _inputs(3, 32, 5000, cuda)
+    table, rays, shadow = args[0], args[1:5], args[5:9]
+    tri = table[:, :9].contiguous()
+    for call in (lambda: ip.closest_hit_shaded_and_any(*args),
+                 lambda: ip.closest_hit_shaded(table, *rays),
+                 lambda: ip.any_hit(tri, *shadow),
+                 lambda: ip.closest_hit(tri, *rays)):
+        call()                                     # built and warm
+        names = _kernels_launched(call)
+        assert len(names) == 1 and "brute_kernel" in names[0], names
+    assert ip.any_hit(tri, *shadow).dtype == torch.bool
+    assert ip.closest_hit(tri, *rays)[4].dtype == torch.bool
+
+
+def test_brute_instances_keep_blocks_in_flight(cuda):
+    """All four instances hold at least four 256-thread blocks per SM
+    (their launch bounds), without spilling registers."""
+    for name in ip.BRUTE_KERNELS:
+        info = ip.brute_info(name)
+        assert info["blocks_per_sm"] >= 4, (name, info)
+        assert info["local_bytes"] == 0, (name, info)
 
 
 def test_fog_render_on_the_card_goes_through_the_split_kernels(cuda):

@@ -21,7 +21,11 @@ pattern:
           or one or two ulps either side of it, of both signs (rows
           1-6), when T >= 16: a ray hits exactly where |det| > 1e-9;
   zero    axis directions (0, 0, +-1) with +0.0 and -0.0 components,
-          from below and from above the cloud.
+          from below and from above the cloud;
+  still   `hit` lanes, about half of them with a zero direction (+0.0
+          and -0.0 components) and mint < maxt, as the fog path's NEE
+          rays of ended paths: det is 0 for every row, so they never hit
+          (#3's compaction drops them; the other kernels test them).
 
 Below T = 16 the special rows do not exist: `tie` and `det` lanes are
 `hit` lanes and `first` and `last` aim at rows 0 and T - 1 of the cloud.
@@ -35,7 +39,7 @@ warp starts a block of its own.
 Cases: T = 1, 32, 64, 65 and 300 under those patterns; `shadow_dead`,
 every shadow lane dead as in a render's first launch of #1
 (`Ray.make(..., maxt=-1.0)`); `warps_dead`, nearly every warp dead and
-single live lanes.
+single live lanes; `still_dirs`, every third warp `still`.
 
 Used by tests/test_torch_brute_schedule.py, tests/test_torch_cuda.py and
 chip_smoke.py's kernel checks.
@@ -205,6 +209,11 @@ def make_rays(table, kinds, shadow, seed):
             o[lanes, 1] = (30 + 2 * r).astype(np.float32) + np.float32(0.25)
             o[lanes, 2] = 0.0
             d[lanes] = (0.0, 0.0, 1.0)
+        elif kind == "still":
+            hit(lanes)
+            still = lanes[rng.random(32) < 0.5]
+            d[still] = np.where(rng.random((len(still), 3)) < 0.5, 0.0,
+                                -0.0)
         elif kind == "zero":
             hit(lanes)
             src = rng.uniform(-1, 1, (32, 3)).astype(np.float32)
@@ -238,6 +247,10 @@ def case_specs():
     sparse = tuple("single" if w % 5 == 2 else "dead"
                    for w in range(len(BOUNCE_WARPS)))
     specs["warps_dead"] = (32, sparse, sparse[::-1])
+    specs["still_dirs"] = tuple(
+        (32, *(tuple("still" if w % 3 == k else kind
+                     for w, kind in enumerate(warps))
+               for k, warps in ((0, BOUNCE_WARPS), (1, SHADOW_WARPS)))))
     return specs
 
 
