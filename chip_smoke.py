@@ -29,10 +29,10 @@ Phases, each printing one JSON line:
      once: nvcc for csrc/*.cu, sm_90a; the host c++ for the BVH
      builder), with the compiler's ptxas lines, and the resources of the
      item walks (#9 v6b, #8 v6 and #7 v5, at config 3's list widths),
-     the stream walk (#10), the work-list walk (#12), the
-     BVH walk (#11), the refine kernels (#5, #6) and the brute kernel's
-     four instances (#1-#4): rows (blocks) resident per SM, registers,
-     shared memory, spills;
+     the stream walk (#10), the work-list walk (#12) and its probe (#13),
+     the BVH walk (#11), the refine kernels (#5, #6), the brute kernel's
+     four instances (#1-#4) and the v1 cluster intersector (#14): rows
+     (blocks) resident per SM, registers, shared memory, spills;
   3. each kernel against its plain PyTorch version on the card, bit for
      bit (every field of every lane), at the shapes of its path, with the
      bound of the work these inputs need (the larger of the bytes they
@@ -67,7 +67,12 @@ Phases, each printing one JSON line:
      and cut short; equal t in two leaves, a leaf past the last
      triangle, a few lanes walking the whole tree); the v1 cluster
      kernel (#14) on
-     the camera and bounce wavefronts and the shadow rays; the BVH kernel
+     the camera and bounce wavefronts and the shadow rays, bounded also by
+     the row-wide tests (every live lane of a row that votes for a
+     cluster), with the live lanes compared, and on the corner cases of
+     tests/torch_v1_cases.py (six superclusters, rows of a tile voting
+     differently, dead and occluded rows, empty and full lists, ties
+     within and across clusters, maxt = inf, the miss sentinel); the BVH kernel
      on the bvh path's camera, bounce and shadow wavefronts; the
      work-list kernel, instanced and flat (on the same spheres baked into
      world space), on one row chunk of the instanced path's camera,
@@ -132,7 +137,8 @@ Phases, each printing one JSON line:
      (bit for bit, or within ops/probes.py's TOLERANCE for the tensor-core
      products and the approximate reciprocals of V2 and V4) at step counts
      where the plain version takes under a second, #13 on the first 1,024
-     rows of config 3's 1,048,576-lane work list; then, every launch count
+     rows of config 3's 1,048,576-lane work list and on the flat lists of
+     tests/torch_instanced_cases.py; then, every launch count
      set to 0 just before and read just after, the five probe drivers at
      the scripts' sizes (a line per probe and form), and the library
      yardsticks (torch.matmul on the products' shapes, table[idx] on the
@@ -193,9 +199,15 @@ PLAIN_SLOW_S = 0.1
 # box with the ray's reciprocals at hand (per axis two subtractions, two
 # products, a min and a max, then the interval's reductions and compare);
 # a ray moved into object space (a 3x4 map on origin and direction); a
-# Pluecker triangle test of the v1 cluster kernel (four ordered 10-term
-# products, the sign and eligibility rules, one division, the t compares)
-MT_OPS, BOX_OPS, XFORM_OPS, PLUCKER_OPS = 53, 25, 21, 94
+# Pluecker triangle test of the v1 cluster kernel: of its four ordered
+# 10-term sums the terms with the table's fixed +0.0 columns do not
+# depend on the triangle (a lane takes them once, csrc/cluster.cu
+# `Zeros`), so every test needs rows A, B and C at 13 operations each
+# and the sign and eligibility rules (PLUCKER_OPS, 52), and an eligible
+# one also row D (8), the division, t and its compares (PLUCKER_ELIG_OPS,
+# 13): 65 in all, not the 94 of four whole sums
+MT_OPS, BOX_OPS, XFORM_OPS = 53, 25, 21
+PLUCKER_OPS, PLUCKER_ELIG_OPS = 52, 13
 # bytes a kernel needs of a table entry it reads, where the table's rows
 # are wider than what it reads: a K8 cluster of ex["tri"] (8 triangles of
 # 10 floats: v0, e1, e2 and the prim id, of 128-float rows); the 8 child
@@ -705,7 +717,7 @@ def _timed(fn):
 def check_pair(name, stage, kern, plain, args, row_args, ops_of,
                counted=False, cut=None, cutter=None, unit="rows",
                tables=None, time_plain=True, bitwise=False, alt_ops=None,
-               device=False, **extra):
+               alt_name="all_lanes", device=False, **extra):
     """Hold kernel against plain version on args, bit for bit (every
     field of every lane); time both; bound the work. row_args: the
     arguments whose leading size is the rows (or lanes) of the call.
@@ -717,8 +729,8 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     are; `extra` joins the phase's line. time_plain=False: the plain
     version's time is that of its one run for the comparison. bitwise:
     float32 fields compared by their bits (mismatches). alt_ops: another
-    count of the operations, reported beside as `ops_all_lanes` with its
-    `bound_ms_all_lanes`. device: also the device time of a call, the
+    count of the operations, reported beside as `ops_<alt_name>` with its
+    `bound_ms_<alt_name>`. device: also the device time of a call, the
     host's share left out (`device_ms`), for a kernel shorter than its
     wrapper's host work, where the events time the host."""
     n_rows = args[row_args[0]].shape[0]
@@ -746,8 +758,8 @@ def check_pair(name, stage, kern, plain, args, row_args, ops_of,
     if alt_ops:
         alt = bound(part, ref, alt_ops(part, work),
                     tables(part, work) if tables else None)
-        res.update(ops_all_lanes=alt["ops"],
-                   bound_ms_all_lanes=alt["bound_ms"])
+        res.update({f"ops_{alt_name}": alt["ops"],
+                    f"bound_ms_{alt_name}": alt["bound_ms"]})
     if device:
         res.update(device_ms=device_ms(lambda: kern(*part)),
                    parent_device_ms=PARENT_DEVICE_MS.get((name, stage)))
@@ -809,7 +821,15 @@ def _items_ops(_args, work):
 
 
 def _plucker_ops(_args, work):
-    return work["box_tests"] * BOX_OPS + work["tri_tests"] * PLUCKER_OPS
+    return (work["box_tests"] * BOX_OPS + work["tri_tests"] * PLUCKER_OPS
+            + work["tri_eligible"] * PLUCKER_ELIG_OPS)
+
+
+def _plucker_row_ops(_args, work):
+    # ... with the tests of the row-wide rule: every live lane of a row
+    # that votes for a cluster (#14's plain version's semantics)
+    return (work["box_tests"] * BOX_OPS + work["row_tests"] * PLUCKER_OPS
+            + work["row_eligible"] * PLUCKER_ELIG_OPS)
 
 
 def _child_refine_tables(args, _work):
@@ -1059,23 +1079,66 @@ def _cut_tiles(args, rows):
             args[2][:t].contiguous()) + args[3:]
 
 
+def _v1_check(key, stage, args, **kv):
+    """#14 against its plain version on args, by the bits of every field,
+    bounded by the tests of lanes whose own slab passes and, beside, by
+    the row-wide tests (`bound_ms_row_tests`). Built with --fmad=false,
+    each operation issues alone, and PEAK_FP32_OPS counts a fused
+    multiply-add as two: the float32 pipe's instruction rate caps the
+    kernel at twice either bound."""
+    from mitsuba_tpu_torch.ops import cluster as cp
+
+    rec = cp.plucker_records(args[3])      # as table_dict holds them
+
+    def kern(*a):
+        return cp.cluster_rows(*a, rec=rec)
+    return check_pair(key, stage, kern, cp.cluster_rows_ref,
+                      args, (0,), _plucker_ops, counted=True,
+                      cutter=_cut_tiles, tables=_v1_tables, bitwise=True,
+                      alt_ops=_plucker_row_ops, alt_name="row_tests",
+                      **kv)
+
+
 def compare_cluster_v1(cl, waves):
     """#14, closest on the camera and bounce wavefronts and any on the
     shadow rays, with the arguments cluster_closest and cluster_any
-    launch it with."""
+    launch it with (the first PLAIN_CUT_ROWS rows), with the live lanes
+    of the rows compared."""
     from mitsuba_tpu_torch.ops import cluster as cp
 
     out = {}
     for wave, ray, any_hit in waves:
         key = "cluster_any" if any_hit else "cluster_closest"
+        stage = f"{wave} {'any' if any_hit else 'closest'}"
         args, _n = cp.launch_args(cl, *_ray_args(ray), any_hit)
-        out[(key, wave)] = check_pair(
-            key, f"{wave} {'any' if any_hit else 'closest'}", cp.cluster_rows,
-            cp.cluster_rows_ref, args, (0,), _plucker_ops, counted=True,
-            cut=PLAIN_CUT_ROWS, cutter=_cut_tiles, tables=_v1_tables,
+        part = _cut_tiles(args, PLAIN_CUT_ROWS)
+        out[(key, wave)] = _v1_check(
+            key, stage, args, cut=PLAIN_CUT_ROWS,
+            live_lanes=int(_live_lanes_per_row(part[0]).sum()),
             listed=float(args[2].float().mean()),
             superclusters=int(cl["G"].shape[0]))
     return out
+
+
+def compare_v1_cases(device):
+    """#14 on tests/torch_v1_cases.py's inputs (six superclusters, rows of
+    one tile voting differently, dead and occluded rows, lists of length
+    0 and C_s, ties within and across clusters, maxt = inf through
+    launch_args, the miss sentinel), closest and any, bit for bit."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_v1_cases as vc
+
+    for any_hit, variant in ((False, {}), (True, {}),
+                             (False, {"inf": True}), (True, {"inf": True}),
+                             (False, {"sentinel": True}),
+                             (False, {"seed": 1}), (True, {"seed": 1})):
+        key = "cluster_any" if any_hit else "cluster_closest"
+        stage = "cases {} {}".format(
+            "any" if any_hit else "closest",
+            " ".join(f"{k} {v}" for k, v in variant.items()) or "seed 0")
+        args = vc.args(any_hit=any_hit, device=device, **variant)
+        _v1_check(key, stage, args, time_plain=False,
+                  live_lanes=int(_live_lanes_per_row(args[0]).sum()))
 
 
 def cluster_v1_phase(scene, cl, cam, shadow):
@@ -1618,6 +1681,23 @@ def compare_probes(device, case):
     part = _cut_probe_list(args, PLAIN_CUT_ROWS)
     out["wl_probe"]["device_ms"] = device_ms(
         lambda: wl.wl_probe_rows(*part))
+    # #13 on tests/torch_instanced_cases.py's flat lists (a dead row, a
+    # row with no valid item, a 540-slot row with an invalid slot, lists
+    # with an unused tail and cut short), and on the untrimmed segments
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_instanced_cases as ic
+
+    for k in (32, 8):
+        for end in ("tail", "overflow"):
+            c = ic.wl_case(False, k, end, device=device)
+            check_pair("wl_probe", f"cases flat K {k} {end}",
+                       wl.wl_probe_rows, wl.wl_probe_ref,
+                       (c[0], c[1], c[2], c[4]), (3,), list_ops,
+                       time_plain=False, bitwise=True)
+            if not torch.equal(wl.wl_probe_rows(c[0], c[8], c[2], c[4]),
+                               wl.wl_probe_rows(c[0], c[1], c[2], c[4])):
+                raise AssertionError(f"wl_probe (K {k} {end}): untrimmed "
+                                     "differs")
     phase("probe_device_ms", unit="ms per call, the checks' inputs",
           **{str(k): r["device_ms"] for k, r in out.items()
              if "device_ms" in r})
@@ -2098,7 +2178,10 @@ def main(argv=None):
                     for e2 in (32, 384, 768) for a in (False, True)},
           refine={"refine": ep.refine_info(False),
                   "child_refine": ep.refine_info(True)},
-          brute={k: ip.brute_info(k) for k in ip.BRUTE_KERNELS})
+          brute={k: ip.brute_info(k) for k in ip.BRUTE_KERNELS},
+          cluster={"any" if a else "closest": cp.cluster_info(a)
+                   for a in (False, True)},
+          wl_probe=wl.wl_probe_info(32))
 
     t0 = time.perf_counter()
     scene3 = textured_mesh_scene(W3, H3, backend="cluster", device=device)
@@ -2136,6 +2219,7 @@ def main(argv=None):
     compare_walk_cases(device)
     compare_refine_cases(device)
     compare_instanced_cases(device)
+    compare_v1_cases(device)
     cam3, bounce3, shadow3 = wavefronts(scene3)
     v1 = compare_cluster_v1(cl, (("camera", cam3, False),
                                  ("bounce", bounce3, False),
@@ -2343,14 +2427,19 @@ def main(argv=None):
         brute("closest", 59, lv["closest"], split["closest"]),
         # #14 has its own entry points, off every render path: its
         # launches are the cluster_v1 phase's
+        # beside the bound of the lanes' own-slab tests, that of the
+        # row-wide tests the plain version's rule makes
         entry("cluster_closest", "cluster.cu",
               "mitsuba_tpu/ops/cluster_pallas.py:169",
               lc["cluster_closest"], v1[("cluster_closest", "bounce")],
-              path="cluster_v1",
+              path="cluster_v1", bound_ms_row_tests=v1[(
+                  "cluster_closest", "bounce")]["bound_ms_row_tests"],
               check_phase="kernel_vs_plain cluster_closest (bounce closest)"),
         entry("cluster_any", "cluster.cu",
               "mitsuba_tpu/ops/cluster_pallas.py:227", lc["cluster_any"],
               v1[("cluster_any", "shadow")], path="cluster_v1",
+              bound_ms_row_tests=v1[("cluster_any", "shadow")][
+                  "bound_ms_row_tests"],
               check_phase="kernel_vs_plain cluster_any (shadow any)"),
         # #13 and #15 run on no render path: their launches are the
         # probes phase's, through the probe drivers

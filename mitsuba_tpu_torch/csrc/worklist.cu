@@ -1,5 +1,6 @@
 // Work-list cluster intersector, closest and any hit, flat and instanced,
-// and its fixed-cost probe, for NVIDIA Hopper (sm_90a).
+// and its fixed-cost probe, for NVIDIA Hopper (sm_90a): one walk,
+// `worklist_kernel<ANY, INST, PROBE>`.
 //
 // Replaces the TPU kernels mitsuba_tpu/ops/worklist_pallas.py:364
 // `_make_closest_kernel`, :458 `_make_any_kernel` and :424
@@ -46,6 +47,16 @@
 // is three 16-byte shared loads (a broadcast); the closest tests run two
 // chunks of a sublane at a time. A warp none of whose lanes can change
 // its record skips the item's tests but joins every barrier and vote.
+//
+// The probe (#13, `worklist_kernel<false, false, true>`) is this walk
+// without Moeller-Trumbore, the fixed cost of a work item as #12 pays it:
+// the same window compaction, the same three-deep staging of each item's
+// K x 16 block (that fetch is what the probe costs, so every lane reads
+// the block's first float), and one barrier per item, with no vote and no
+// stop. Per valid item in list order each lane adds its slab test of the
+// block's box against [mint, maxt] (maxt, not a best t), then the block's
+// first float: acc = (acc + pass) + tri[cid, 0, 0]; a row with no valid
+// item reads 0 (worklist_pallas.py:424-444).
 //
 // Why it is exact: the vote, the caps and the tie order are the plain
 // version's. Closest: per sublane the even and odd chunks keep separate
@@ -120,7 +131,7 @@ __device__ __forceinline__ float slab_rcp(float d) {
   return (d >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(d), 1e-12f);
 }
 
-template <bool ANY, bool INST>
+template <bool ANY, bool INST, bool PROBE = false>
 __global__ void __launch_bounds__(LANES, ROWS_PER_SM)
 worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
                 const float* __restrict__ tri,
@@ -153,11 +164,13 @@ worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
   float tb = mx, ub = 0.0f, vb = 0.0f;
   int pb = -1;
   bool occ = false;
+  float acc = 0.0f;                   // the probe's sum
   const int w_end = seg[r + 1];
   // a row none of whose lanes can change its record walks nothing: no
   // test can pass where mint < maxt fails, and closest, no miss sentinel
-  // where maxt < BIG
-  bool done = !__syncthreads_or(ANY ? mnb < mx : (mnb < mx || BIG < mx));
+  // where maxt < BIG; the probe walks every row
+  bool done = !PROBE && !__syncthreads_or(ANY ? mnb < mx
+                                              : (mnb < mx || BIG < mx));
   for (int base = seg[r]; base < w_end && !done; base += WIN) {
     // compact the window's valid items, in list order
     int it[CHUNKS];
@@ -179,7 +192,7 @@ worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
           const int cid = it[q] & (FIRST_BIT - 1);
           sh.cid[pos] = cid;
           sh.blk[pos] = INST ? block_id[cid] : cid;
-          sh.start[pos] = tri_start[cid];
+          if (!PROBE) sh.start[pos] = tri_start[cid];
         }
         n += sh.cnt[q * WARPS + wq];
       }
@@ -204,7 +217,10 @@ worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
       }
       bool go;
       cp_async_wait_all();    // this thread's copies of item i + 1
-      if (ANY) {
+      if (PROBE) {
+        __syncthreads();      // item i + 1 staged
+        go = true;
+      } else if (ANY) {
         // the row stops once no lane can change: each is occluded or
         // has mint >= maxt
         if (__syncthreads_and(occ || !(mnb < mx))) {
@@ -227,6 +243,17 @@ worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
       if (i + 2 < n)
         stage_item<INST>(sh, i + 2, tri, xform, K,
                          smem + ((i + 2) % STAGES) * sf);
+      if (PROBE) {
+        float tn = mnb, tf = mx;
+        for (int j = 0; j < 3; ++j) {
+          const float t0 = (cur[9 + j] - o[j]) * inv[j];
+          const float t1 = (cur[12 + j] - o[j]) * inv[j];
+          tn = fmaxf(tn, fminf(t0, t1));
+          tf = fminf(tf, fmaxf(t0, t1));
+        }
+        acc = (acc + (tn <= tf ? 1.0f : 0.0f)) + cur[0];
+        continue;
+      }
       if (!go) continue;
       if (ANY) {
         const bool can = !occ && mnb < mx;
@@ -262,7 +289,9 @@ worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
     }
   }
   const size_t at = (size_t)r * LANES + l;
-  if (ANY) {
+  if (PROBE) {
+    out_t[at] = acc;
+  } else if (ANY) {
     out_occ[at] = occ ? 1 : 0;
   } else {
     out_t[at] = tb;
@@ -272,65 +301,7 @@ worklist_kernel(const int* __restrict__ items, const int* __restrict__ seg,
   }
 }
 
-// The probe: the TPU kernel's closest walk without Moeller-Trumbore, the
-// fixed cost of a work item, walking every slot of the row's run. Per
-// valid item it stages the item's (K, 16) block in shared memory with
-// synchronous loads (that fetch is what the probe costs, so it is not
-// elided: every lane reads the block's first float), then the per-lane
-// slab test of the block's AABB against [mint, maxt] (maxt, not a best
-// t); acc = (acc + pass) + tri[cid, 0, 0]. A row the list never reaches
-// reads 0.
-__global__ void __launch_bounds__(LANES)
-worklist_probe_kernel(const int* __restrict__ items,
-                      const int* __restrict__ seg,
-                      const float* __restrict__ tri,
-                      const float* __restrict__ rays, int K,
-                      float* __restrict__ out) {
-  __shared__ float blk[MAX_K * FIELDS];
-  const int r = blockIdx.x;
-  const int l = threadIdx.x;
-  const float* ry = rays + (size_t)r * 8 * LANES;
-  float o[3], d[3];
-  for (int j = 0; j < 3; ++j) {
-    o[j] = ry[j * LANES + l];
-    d[j] = ry[(3 + j) * LANES + l];
-  }
-  const float mnb = ry[6 * LANES + l];
-  const float mx = ry[7 * LANES + l];
-  float acc = 0.0f;
-  const int w_end = seg[r + 1];
-  for (int w = seg[r]; w < w_end; ++w) {
-    const int item = items[w];
-    if (!(item & VALID_BIT)) continue;          // uniform across the block
-    const float* src = tri + (size_t)(item & (FIRST_BIT - 1)) * K * FIELDS;
-    for (int i = l; i < K * FIELDS; i += LANES) blk[i] = src[i];
-    __syncthreads();
-    float tn = mnb, tf = mx;
-    for (int j = 0; j < 3; ++j) {
-      const float inv =
-          (d[j] >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(d[j]), 1e-12f);
-      const float t0 = (blk[9 + j] - o[j]) * inv;
-      const float t1 = (blk[12 + j] - o[j]) * inv;
-      tn = fmaxf(tn, fminf(t0, t1));
-      tf = fminf(tf, fmaxf(t0, t1));
-    }
-    acc = (acc + (tn <= tf ? 1.0f : 0.0f)) + blk[0];
-    __syncthreads();                            // before the next staging
-  }
-  out[(size_t)r * LANES + l] = acc;
-}
-
-extern "C" int mts_worklist_probe(const int* items, const int* seg,
-                                  const float* tri, const float* rays, int R,
-                                  int K, float* out, void* stream) {
-  if (R <= 0) return 0;
-  if (K <= 0 || K > MAX_K || K % 8) return (int)cudaErrorInvalidValue;
-  worklist_probe_kernel<<<R, LANES, 0, (cudaStream_t)stream>>>(
-      items, seg, tri, rays, K, out);
-  return (int)cudaGetLastError();
-}
-
-template <bool ANY, bool INST>
+template <bool ANY, bool INST, bool PROBE = false>
 static cudaError_t wl_prepare() {
   constexpr int DEVICES = 64;
   static bool carveout[DEVICES];
@@ -338,7 +309,7 @@ static cudaError_t wl_prepare() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess && dev >= DEVICES) e = cudaErrorInvalidDevice;
   if (e == cudaSuccess && !carveout[dev]) {
-    e = cudaFuncSetAttribute(worklist_kernel<ANY, INST>,
+    e = cudaFuncSetAttribute(worklist_kernel<ANY, INST, PROBE>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
     carveout[dev] = e == cudaSuccess;
@@ -346,15 +317,15 @@ static cudaError_t wl_prepare() {
   return e;
 }
 
-template <bool ANY, bool INST>
+template <bool ANY, bool INST, bool PROBE = false>
 static int wl_launch(const int* items, const int* seg, const float* tri,
                      const int* tri_start, const int* block_id,
                      const float* xform, const float* rays, int R, int K,
                      float* out_t, float* out_u, float* out_v, int* out_p,
                      int* out_occ, cudaStream_t stream) {
-  const cudaError_t e = wl_prepare<ANY, INST>();
+  const cudaError_t e = wl_prepare<ANY, INST, PROBE>();
   if (e != cudaSuccess) return (int)e;
-  worklist_kernel<ANY, INST><<<R, LANES, wl_smem(K), stream>>>(
+  worklist_kernel<ANY, INST, PROBE><<<R, LANES, wl_smem(K), stream>>>(
       items, seg, tri, tri_start, block_id, xform, rays, K, out_t, out_u,
       out_v, out_p, out_occ);
   return (int)cudaGetLastError();
@@ -388,15 +359,28 @@ extern "C" int mts_worklist(const int* items, const int* seg,
                                         out_v, out_p, out_occ, s);
 }
 
-template <bool ANY, bool INST>
+// the probe: per lane its sum over the row's valid items (out, R x 128)
+extern "C" int mts_worklist_probe(const int* items, const int* seg,
+                                  const float* tri, const float* rays, int R,
+                                  int K, float* out, void* stream) {
+  if (R <= 0) return 0;
+  if (K <= 0 || K > MAX_K || K % 8) return (int)cudaErrorInvalidValue;
+  if ((size_t)tri % 16) return (int)cudaErrorMisalignedAddress;
+  return wl_launch<false, false, true>(items, seg, tri, nullptr, nullptr,
+                                       nullptr, rays, R, K, out, nullptr,
+                                       nullptr, nullptr, nullptr,
+                                       (cudaStream_t)stream);
+}
+
+template <bool ANY, bool INST, bool PROBE = false>
 static cudaError_t wl_info(int K, int* out) {
-  cudaError_t e = wl_prepare<ANY, INST>();
+  cudaError_t e = wl_prepare<ANY, INST, PROBE>();
   cudaFuncAttributes attr;
   if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&attr, worklist_kernel<ANY, INST>);
+    e = cudaFuncGetAttributes(&attr, worklist_kernel<ANY, INST, PROBE>);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], worklist_kernel<ANY, INST>, LANES, wl_smem(K));
+        &out[0], worklist_kernel<ANY, INST, PROBE>, LANES, wl_smem(K));
   out[1] = e == cudaSuccess ? attr.numRegs : 0;
   out[2] = (int)wl_smem(K);
   out[3] = e == cudaSuccess ? (int)attr.localSizeBytes : 0;
@@ -413,4 +397,10 @@ extern "C" int mts_worklist_info(int K, int any_hit, int inst, int* out) {
                                : wl_info<true, false>(K, out))
                        : (inst ? wl_info<false, true>(K, out)
                                : wl_info<false, false>(K, out)));
+}
+
+// the probe's resources at cluster size K, as mts_worklist_info's
+extern "C" int mts_worklist_probe_info(int K, int* out) {
+  if (K <= 0 || K > MAX_K || K % 8) return (int)cudaErrorInvalidValue;
+  return (int)wl_info<false, false, true>(K, out);
 }

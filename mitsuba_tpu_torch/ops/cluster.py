@@ -20,7 +20,10 @@ tri_start + k). The lists are complete, so the result is exact.
 
 On CUDA tensors `cluster_rows` launches `csrc/cluster.cu`; on CPU tensors
 it runs `cluster_rows_ref`, the same walk in plain PyTorch with the same
-summation order, so the two agree bit for bit. The TPU kernel takes the
+summation order, so the two agree bit for bit. The kernel reads the
+Pluecker rows as 96-byte triangle records (`plucker_records`) of the
+columns that are not the table's fixed zeros, which `table_dict` builds
+once beside G (`rec`); G itself is the reference's layout. The TPU kernel takes the
 products on its matrix unit at HIGHEST precision, whose summation order
 is its own: against it the port agrees within float32 tolerance.
 
@@ -58,16 +61,53 @@ _MAX_ELEMS = 1 << 26
 # kernel launches since import, per mode (reset by callers that count)
 LAUNCHES = {"cluster_closest": 0, "cluster_any": 0}
 _FN = None
+_INFO = None
 
 
 def build() -> str:
     """Compile (once per source hash) and bind the kernel; returns the
     compiler's output, empty when cached."""
-    global _FN
+    global _FN, _INFO
     log = nv.build_all([SOURCE])[SOURCE]
     p, i = ctypes.c_void_p, ctypes.c_int
-    _FN = nv.bind(SOURCE, "mts_cluster", [p] * 6 + [i, i, i] + [p] * 5)
+    _FN = nv.bind(SOURCE, "mts_cluster", [p] * 6 + [i] * 3 + [p] * 6)
+    _INFO = nv.bind(SOURCE, "mts_cluster_info", [i, p])
     return log
+
+
+def cluster_info(any_hit: bool) -> dict:
+    """The kernel's resources on the current card: rows (blocks) resident
+    per SM, registers per thread, shared memory bytes per row and local
+    (spill) bytes per thread."""
+    if _INFO is None:
+        build()
+    out = (ctypes.c_int * 4)()
+    nv.check(_INFO(int(any_hit), out), "cluster_info")
+    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2],
+                local_bytes=out[3])
+
+
+def plucker_records(G):
+    """The kernel's view of G (C_s, 8 * 512, 16): (C_s * 8, 128, 24), per
+    triangle k of a cluster the columns of its Pluecker rows k, 128 + k,
+    256 + k (A, B, C: columns 3-8) and 384 + k (D: columns 0-2 and 9),
+    then two zeros, so that a triangle is 96 contiguous bytes. The other
+    columns are +0.0 in every table build_cluster_tables makes (A, B, C
+    have no o term nor constant, D no d or o x d term); the kernel takes
+    their products with the ray once per lane, so this raises on a G
+    where they are not."""
+    c_s = G.shape[0]
+    g = G[:, :, :N_COEF].reshape(c_s * SC_GROUP, ROWS_PER_TRI, CLUSTER_K,
+                                 N_COEF)
+    outer = torch.tensor([0, 1, 2, 9], device=G.device)
+    zeros = torch.cat([g[:, :3][..., outer].reshape(-1),
+                       g[:, 3, :, 3:9].reshape(-1)])
+    if bool((zeros.view(torch.int32) != 0).any()):
+        raise ValueError("G's Pluecker rows must hold +0.0 where "
+                         "build_cluster_tables puts it")
+    return torch.cat([g[:, :3, :, 3:9].transpose(1, 2).reshape(
+        c_s * SC_GROUP, CLUSTER_K, 18), g[:, 3][..., outer],
+        g.new_zeros((c_s * SC_GROUP, CLUSTER_K, 2))], dim=2).contiguous()
 
 
 def geometry_tables(geom):
@@ -83,9 +123,11 @@ def geometry_tables(geom):
 def table_dict(ct, device="cuda"):
     """ClusterTables as the dict the queries take (cluster_pallas.py:321),
     on `device`: the card unless the caller passes another, as the scene
-    entry points do."""
-    return {k: torch.as_tensor(np.ascontiguousarray(getattr(ct, k))).to(
+    entry points do; with `rec`, the kernel's records of G."""
+    tab = {k: torch.as_tensor(np.ascontiguousarray(getattr(ct, k))).to(
         device) for k in ("G", "aabb", "tri_start", "sc_bmin", "sc_bmax")}
+    tab["rec"] = plucker_records(tab["G"])
+    return tab
 
 
 def pack_tiles(o, d, mint, maxt):
@@ -173,7 +215,13 @@ def cluster_rows_ref(rays, ids, counts, G, aabb, tri_start, any_hit: bool,
     slab test passed; any hit, those of each such lane not yet occluded
     up to its first hit; `superclusters_read`, the distinct superclusters
     whose boxes some row tests, and `clusters_read`, the distinct clusters
-    whose Pluecker rows some row reads."""
+    whose Pluecker rows some row reads; `row_tests`, the tests the
+    row-wide rule makes: closest, the 128 of each live lane of a row that
+    votes for a cluster, its own slab passing or not; any hit, each such
+    lane's not yet occluded, up to its first hit; `tri_eligible` and
+    `row_eligible`, those of `tri_tests` and `row_tests` whose triangle
+    is eligible (the lane's three edge signs agree, |det| > 1e-12), the
+    only ones that need the fourth product, the division and t."""
     n_rows = rays.shape[0]
     dev = rays.device
     tile = torch.arange(n_rows, device=dev) // BM
@@ -191,7 +239,8 @@ def cluster_rows_ref(rays, ids, counts, G, aabb, tri_start, any_hit: bool,
     krow = torch.arange(CLUSTER_K, dtype=torch.int32, device=dev)[
         None, :, None]
     step = max(1, _MAX_ELEMS // (RPC * LANES))
-    n_box = n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    n_box = n_tri = n_row = n_tri_el = n_row_el = torch.zeros(
+        (), dtype=torch.int64, device=dev)
     sc_read = torch.zeros(G.shape[0], dtype=torch.bool, device=dev)
     cl_read = torch.zeros(G.shape[0] * SC_GROUP, dtype=torch.bool,
                           device=dev)
@@ -225,11 +274,21 @@ def cluster_rows_ref(rays, ids, counts, G, aabb, tri_start, any_hit: bool,
                     if work is not None:
                         n_tri = n_tri + tests_to_first_hit(
                             hit, need[sel] & adm[sel])
+                        n_row = n_row + tests_to_first_hit(hit, need[sel])
+                        # the tests up to and with each lane's first hit
+                        made = elig & (torch.cumsum(hit, dim=1) <= hit)
+                        n_tri_el = n_tri_el + (
+                            made & (need[sel] & adm[sel])[:, None]).sum()
+                        n_row_el = n_row_el + (made & need[sel][:, None]).sum()
                     occ[r] = occ[r] | hit.any(dim=1)
                     continue
                 t_r = tb[r]
                 if work is not None:
                     n_tri = n_tri + (need[sel] & adm[sel]).sum() * CLUSTER_K
+                    n_row = n_row + need[sel].sum() * CLUSTER_K
+                    n_tri_el = n_tri_el + (
+                        elig & (need[sel] & adm[sel])[:, None]).sum()
+                    n_row_el = n_row_el + (elig & need[sel][:, None]).sum()
                 hit = elig & (t > mn) & (t < t_r[:, None])
                 tm = torch.where(hit, t, BIG)
                 tmin = tm.amin(dim=1)
@@ -249,6 +308,8 @@ def cluster_rows_ref(rays, ids, counts, G, aabb, tri_start, any_hit: bool,
                 pb[r] = torch.where(improved, start + k, pb[r])
     if work is not None:
         work.update(box_tests=int(n_box), tri_tests=int(n_tri),
+                    row_tests=int(n_row), tri_eligible=int(n_tri_el),
+                    row_eligible=int(n_row_el),
                     superclusters_read=int(sc_read.sum()),
                     clusters_read=int(cl_read.sum()))
     if any_hit:
@@ -278,16 +339,29 @@ def _check(rays, ids, counts, G, aabb, tri_start):
         raise ValueError("rows must fill whole tiles of 8")
 
 
-def cluster_rows(rays, ids, counts, G, aabb, tri_start, any_hit: bool):
-    """The v1 kernel on CUDA tensors, its plain version on CPU ones."""
+def cluster_rows(rays, ids, counts, G, aabb, tri_start, any_hit: bool,
+                 rec=None):
+    """The v1 kernel on CUDA tensors, its plain version on CPU ones. rec:
+    plucker_records(G), as table_dict holds it; made from G when not
+    given."""
     _check(rays, ids, counts, G, aabb, tri_start)
     if rays.device.type == "cpu":
         return cluster_rows_ref(rays, ids, counts, G, aabb, tri_start,
                                 any_hit)
     if rays.device.type != "cuda":
         raise NotImplementedError(f"no cluster kernel for {rays.device}")
+    if rec is None:
+        rec = plucker_records(G)
+    c_s = G.shape[0]
+    if (rec.dtype != torch.float32 or rec.device != rays.device
+            or tuple(rec.shape) != (c_s * SC_GROUP, CLUSTER_K, 24)
+            or not rec.is_contiguous()):
+        raise ValueError("rec must be plucker_records(G)")
     if _FN is None:
         build()
+    if aabb.data_ptr() % 16:
+        raise ValueError("the kernel stages aabb in 16-byte pieces: it must "
+                         "be 16-byte aligned")
     r = rays.shape[0]
     dev = rays.device
     with torch.cuda.device(dev):
@@ -297,8 +371,9 @@ def cluster_rows(rays, ids, counts, G, aabb, tri_start, any_hit: bool):
         p = torch.empty((r, LANES), dtype=torch.int32, device=dev)
         occ = torch.empty((r, LANES), dtype=torch.int32, device=dev)
         err = _FN(rays.data_ptr(), ids.data_ptr(), counts.data_ptr(),
-                  G.data_ptr(), aabb.data_ptr(), tri_start.data_ptr(), r,
-                  G.shape[0], int(any_hit), t.data_ptr(), u.data_ptr(),
+                  rec.data_ptr(), aabb.data_ptr(),
+                  tri_start.data_ptr(), r, G.shape[0], int(any_hit),
+                  t.data_ptr(), u.data_ptr(),
                   v.data_ptr(), p.data_ptr(), occ.data_ptr(),
                   torch.cuda.current_stream(dev).cuda_stream)
     nv.check(err, "cluster")
@@ -331,7 +406,8 @@ def cluster_closest(cl, o, d, mint, maxt):
     ClusterTables. Returns (t, u, v, prim, valid); complete lists, no
     overflow."""
     args, n = launch_args(cl, o, d, mint, maxt, any_hit=False)
-    t, u, v, p = (x.reshape(-1)[:n] for x in cluster_rows(*args))
+    t, u, v, p = (x.reshape(-1)[:n]
+                  for x in cluster_rows(*args, rec=cl["rec"]))
     valid = p >= 0
     return torch.where(valid, t, float("inf")), u, v, p, valid
 
@@ -339,4 +415,4 @@ def cluster_closest(cl, o, d, mint, maxt):
 def cluster_any(cl, o, d, mint, maxt):
     """Any-hit / shadow query through the v1 kernel; the occlusion mask."""
     args, n = launch_args(cl, o, d, mint, maxt, any_hit=True)
-    return cluster_rows(*args).reshape(-1)[:n]
+    return cluster_rows(*args, rec=cl["rec"]).reshape(-1)[:n]

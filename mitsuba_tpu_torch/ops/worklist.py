@@ -33,7 +33,9 @@ The probe (`wl_probe`, a cost probe, on no render path) walks the same
 lists without Möller–Trumbore: per valid item it fetches the cluster block
 and slab-tests each lane against [mint, maxt], and each lane accumulates
 (acc + pass) + tri[cid, 0, 0], so that the fixed cost of an item can be
-set against its full cost (mitsuba_tpu_torch/probes/r3_kernel.py).
+set against its full cost (mitsuba_tpu_torch/probes/r3_kernel.py). On the
+card it is an instance of the intersector's own walk (its compaction,
+staging and one barrier per item), with the tests left out.
 
 The list's slots past its `total` (or past w_cap, where the list
 overflowed) are padding, neither valid nor first, that the build gives
@@ -86,6 +88,7 @@ LAUNCHES = {"wl_closest": 0, "wl_any": 0, "wl_probe": 0}
 _FN = None
 _PROBE_FN = None
 _INFO = None
+_PROBE_INFO = None
 # the reference's defaults for the probe (worklist_pallas.py:448-449, 63)
 PROBE_W_FACTOR = 16
 PROBE_L_SC = 24
@@ -94,13 +97,19 @@ PROBE_L_SC = 24
 def build() -> str:
     """Compile (once per source hash) and bind the kernel; returns the
     compiler's output, empty when cached."""
-    global _FN, _PROBE_FN, _INFO
+    global _FN, _PROBE_FN, _INFO, _PROBE_INFO
     log = nv.build_all([SOURCE])[SOURCE]
     p, i = ctypes.c_void_p, ctypes.c_int
     _FN = nv.bind(SOURCE, "mts_worklist", [p] * 7 + [i] * 3 + [p] * 6)
     _PROBE_FN = nv.bind(SOURCE, "mts_worklist_probe", [p] * 4 + [i, i, p, p])
     _INFO = nv.bind(SOURCE, "mts_worklist_info", [i, i, i, p])
+    _PROBE_INFO = nv.bind(SOURCE, "mts_worklist_probe_info", [i, p])
     return log
+
+
+def _resources(out) -> dict:
+    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2],
+                local_bytes=out[3])
 
 
 def wl_info(k_cl: int, any_hit: bool, instanced: bool) -> dict:
@@ -111,8 +120,16 @@ def wl_info(k_cl: int, any_hit: bool, instanced: bool) -> dict:
         build()
     out = (ctypes.c_int * 4)()
     nv.check(_INFO(k_cl, int(any_hit), int(instanced), out), "wl_info")
-    return dict(rows_per_sm=out[0], registers=out[1], smem_bytes=out[2],
-                local_bytes=out[3])
+    return _resources(out)
+
+
+def wl_probe_info(k_cl: int) -> dict:
+    """wl_info of the probe's instance of the walk (flat, closest)."""
+    if _PROBE_INFO is None:
+        build()
+    out = (ctypes.c_int * 4)()
+    nv.check(_PROBE_INFO(k_cl, out), "wl_probe_info")
+    return _resources(out)
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +460,9 @@ def wl_probe_rows(items, seg, tri, rays):
         raise NotImplementedError(f"no work-list kernel for {rays.device}")
     if _PROBE_FN is None:
         build()
+    if tri.data_ptr() % 16:
+        raise ValueError("the kernel stages tri in 16-byte pieces: it must "
+                         "be 16-byte aligned")
     r = rays.shape[0]
     with torch.cuda.device(rays.device):
         out = torch.empty((r, LANES), dtype=torch.float32, device=rays.device)

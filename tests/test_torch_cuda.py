@@ -464,7 +464,7 @@ def test_cluster_v1_kernel_matches_plain_version(cuda, any_hit):
     assert int(args[2].max()) > 1
     key = "cluster_any" if any_hit else "cluster_closest"
     before = cp.LAUNCHES[key]
-    got = cp.cluster_rows(*args)
+    got = cp.cluster_rows(*args, rec=tab["rec"])
     assert cp.LAUNCHES[key] == before + 1
     ref = cp.cluster_rows_ref(*args)
     torch.cuda.synchronize()
@@ -479,6 +479,50 @@ def test_cluster_v1_kernel_matches_plain_version(cuda, any_hit):
         res = cp.cluster_closest(tab, o, d, mint, maxt)
         assert torch.equal(res[3], ref[3].reshape(-1)[:3000])
     assert cp.LAUNCHES[key] == before + 2
+
+
+def test_cluster_v1_kernel_keeps_rows_in_flight(cuda):
+    """#14 holds at least 6 rows per SM, closest and any, with no spill
+    (csrc/cluster.cu: 80 registers a thread at most)."""
+    from mitsuba_tpu_torch.ops import cluster as cp
+
+    cp.build()
+    for any_hit in (False, True):
+        info = cp.cluster_info(any_hit)
+        assert info["rows_per_sm"] >= 6 and info["local_bytes"] == 0, info
+
+
+def _fields_of(res):
+    return [res] if isinstance(res, torch.Tensor) else list(res)
+
+
+@pytest.mark.parametrize("variant", ["closest", "any", "closest inf",
+                                     "any inf", "closest sentinel",
+                                     "closest seed 1", "any seed 1"])
+def test_cluster_v1_kernel_on_corner_cases(cuda, variant):
+    """#14 on tests/torch_v1_cases.py's inputs: six superclusters, rows of
+    one tile voting differently, dead and occluded rows, lists of length
+    0 and C_s, ties within and across clusters, maxt = inf through
+    launch_args, the miss sentinel; every field by its bits, one launch."""
+    import torch_v1_cases as vc
+    from mitsuba_tpu_torch.ops import cluster as cp
+
+    cp.build()
+    words = variant.split()
+    any_hit = words[0] == "any"
+    args = vc.args(seed=1 if "seed" in words else 0, any_hit=any_hit,
+                   inf="inf" in words, sentinel="sentinel" in words,
+                   device=cuda)
+    key = "cluster_any" if any_hit else "cluster_closest"
+    before = cp.LAUNCHES[key]
+    got = cp.cluster_rows(*args)
+    assert cp.LAUNCHES[key] == before + 1
+    ref = cp.cluster_rows_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(_fields_of(got), _fields_of(ref)):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
 
 
 def _cluster_render(dev, walk):
@@ -965,6 +1009,31 @@ def test_worklist_probe_kernel_matches_plain_version(cuda):
     acc, ovf2 = wl.wl_probe(tab, *(x.to(cuda) for x in (o, d, mint, maxt)))
     assert wl.LAUNCHES["wl_probe"] == before + 2
     assert acc.shape == (2000,) and ovf2.shape == (16,)
+
+
+@pytest.mark.parametrize("list_end", ["tail", "overflow"])
+@pytest.mark.parametrize("k", [32, 8])
+def test_worklist_probe_kernel_on_corner_cases(cuda, k, list_end):
+    """#13 on tests/torch_instanced_cases.py's flat lists (a dead row, a
+    row with no valid item, a 540-slot row with an invalid slot, an
+    unused tail, a list cut short), trimmed and untrimmed: bit for bit,
+    one launch each; its instance of #12's walk keeps 8 rows per SM."""
+    import torch_instanced_cases as ic
+    from mitsuba_tpu_torch.ops import worklist as wl
+
+    wl.build()
+    items, seg, tri, _ts, rays, _b, _x, _total, full = ic.wl_case(
+        False, k, list_end, device=cuda)
+    before = wl.LAUNCHES["wl_probe"]
+    got = wl.wl_probe_rows(items, seg, tri, rays)
+    got_full = wl.wl_probe_rows(items, full, tri, rays)
+    assert wl.LAUNCHES["wl_probe"] == before + 2
+    ref = wl.wl_probe_ref(items, seg, tri, rays)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got_full.view(torch.int32), ref.view(torch.int32))
+    info = wl.wl_probe_info(k)
+    assert info["rows_per_sm"] >= 8 and info["local_bytes"] == 0, info
 
 
 def _probe_inputs(cuda, seed=0):

@@ -154,3 +154,52 @@ def test_items_match_tpu_kernel(case, ref_build, any_hit):
     for a, k in ((t, 0), (u, 1), (v, 2)):
         np.testing.assert_allclose(a[hit], out[:, k][hit], rtol=1e-5,
                                    atol=1e-5)
+
+
+def zero_key_rays(n=256, seed=3):
+    """Rays from inside the scene's boxes (above the floor, beside the
+    sphere), so that a box holding a lane's origin keys that lane at its
+    mint: +0.0 on even lanes and -0.0 on odd ones, ties of the two zeros
+    within every row (tests/torch_refine_cases.py's `zero` warps, through
+    a whole query); every 7th lane dead."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.1, 1.4, n)
+    tgt = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    tgt[:, 1] = rng.uniform(-0.5, 1.2, n)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mint = np.where(np.arange(n) % 2 == 0, 0.0, -0.0).astype(np.float32)
+    maxt = np.where(np.arange(n) % 7 == 0, -1.0, 1e30).astype(np.float32)
+    return o, d, mint, maxt
+
+
+def test_zero_key_ties_give_the_reference_hits(case):
+    """ROADMAP C's zero-key item: on rays with mint = +0.0 and -0.0 the
+    refine keys of the boxes around their origins tie at the two zeros
+    (#5 and #6 break that tie by the card's torch.amin, csrc/exact.cu
+    `tie_rank`, the reference by its own order). The whole exact-cull
+    closest query, through the port's plain versions and through the JAX
+    package's kernels in interpret mode, gives the same hit records:
+    prim, valid and overflow equal, t, u, v within 1e-5 as above. Only
+    the lists' order could carry a zero's sign, and a sort orders -0.0
+    and +0.0 as equal. (About 13 s, most of it the reference's
+    interpreted compile.)"""
+    o, d, mint, maxt = zero_key_rays()
+    caps = (128, 32, 96, 256)               # wide enough that no row overflows
+    rays = pack_rays(*[torch.from_numpy(x) for x in (o, d, mint, maxt)])[0]
+    _ids, blk, _ovf = ep.build_exact_items(rays, case["tex"], caps)
+    assert bool((blk == 0).any())           # item blocks keyed at a zero
+    ref = [np.asarray(x) for x in jep.exact_closest(
+        case["jex"], *[jnp.asarray(x) for x in (o, d, mint, maxt)],
+        caps=caps, interpret=True)]
+    got = [x.numpy() for x in ep.exact_closest(
+        case["tex"], *[torch.from_numpy(x) for x in (o, d, mint, maxt)],
+        caps)]
+    for k in (3, 4, 5):                     # prim, valid, overflow
+        assert np.array_equal(got[k], ref[k]), k
+    hit = ref[4]
+    assert hit.sum() > 100 and not ref[5].any()
+    for k in (0, 1, 2):
+        np.testing.assert_allclose(got[k][hit], ref[k][hit], rtol=1e-5,
+                                   atol=1e-5)

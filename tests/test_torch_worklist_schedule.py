@@ -22,6 +22,15 @@ the plain version, so this emulation stands for the kernel's order:
   item, and stops, every 8 triangles, once each of its lanes has hit or
   cannot.
 
+The probe (#13, `worklist_kernel<false, false, true>`) is the same walk
+with the tests left out, emulated by `probe_schedule`: the row's slots
+read 512 a window, the valid ones compacted in list order, and per item,
+with no vote and no stop, acc = (acc + pass) + the block's first float,
+pass the lane's slab test against [mint, maxt]; a row with no valid item
+reads 0. It is held to `wl_probe_ref` bit for bit, and on a few rows to
+the reference's probe kernel in interpret mode (equal, as
+tests/test_torch_probes.py holds the plain version).
+
 The inputs are tests/torch_instanced_cases.py's (numpy, fixed seed): rows
 with dead, occluded and sentinel warps, a dead row, a row of 540 slots,
 planted exact ties within a block and across items, flat and instanced,
@@ -29,17 +38,27 @@ at K = 32 and K = 8. The emulation counts the events it must have met,
 so a case that stops exercising the schedule fails.
 torch.set_num_threads(1); each case takes under 5 s.
 """
+from collections import Counter
+
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 import torch_instanced_cases as ic
+from mitsuba_tpu.ops import worklist_pallas as jwp
+from mitsuba_tpu.render import intersect as jri
 from mitsuba_tpu_torch.ops import stream as sp
 from mitsuba_tpu_torch.ops import worklist as wl
-from mitsuba_tpu_torch.ops.rows import BIG, LANES
+from mitsuba_tpu_torch.ops.rows import BIG, LANES, pack_rays
+from mitsuba_tpu_torch.render import intersect as ri
+from test_torch_bvh import _meshes
+from test_torch_worklist import _reached_rows
 
 torch.set_num_threads(1)
 WARPS = LANES // 32
 PSEL_NONE = 1 << 30
+WIN = 512                     # slots a window (csrc/worklist.cu)
 
 
 def _object_rays(ow, dw, xf):
@@ -208,3 +227,88 @@ def test_worklist_schedule_gives_the_plain_walk(instanced, k, any_hit):
         # warp 3 of row 0 takes the miss sentinel (mint = maxt = inf)
         assert bool((ref[0][0, 96:] == BIG).all())
     assert seen["rows_skipped"] == 1 and seen["warps_skipped"] > 0
+
+
+def probe_schedule(items, seg, tri, rays, seen):
+    """#13's order, row by row (module docstring): (R, 128) float32 as
+    wl_probe_ref returns it. seen: windows read, invalid slots dropped by
+    the compaction, items walked, rows with no valid item."""
+    out = []
+    for r in range(rays.shape[0]):
+        ry = rays[r]
+        o = [ry[j][None] for j in range(3)]
+        d = [ry[3 + j][None] for j in range(3)]
+        acc = torch.zeros(LANES)
+        lo, hi = int(seg[r]), int(seg[r + 1])
+        walked = 0
+        for base in range(lo, hi, WIN):
+            run = items[base:min(hi, base + WIN)].long()
+            valid = (run & ic.VALID_BIT) != 0
+            seen["windows"] += 1
+            seen["dropped"] += int((~valid).sum())
+            for cid in (run[valid] & (ic.FIRST_BIT - 1)).tolist():
+                blk = tri[cid]
+                ok = sp.slab(blk[None, 0, 9:15], o, d, ry[6][None],
+                             ry[7][None])[0]
+                acc = (acc + ok.to(torch.float32)) + blk[0, 0]
+                walked += 1
+        seen["items"] += walked
+        seen["rows_empty"] += walked == 0
+        out.append(acc)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("list_end", ["tail", "overflow"])
+@pytest.mark.parametrize("k", [32, 8])
+def test_probe_schedule_gives_the_plain_probe(k, list_end):
+    """The flat cases: a dead row (it still sums the blocks' first
+    floats), a row with no valid item, a 540-slot row (two windows) with
+    an invalid slot, the list's unused tail, untrimmed too."""
+    items, seg, tri, _ts, rays, _bid, _xf, _total, full = ic.wl_case(
+        False, k, list_end)
+    seen = Counter()
+    got = probe_schedule(items, seg, tri, rays, seen)
+    ref = wl.wl_probe_ref(items, seg, tri, rays)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(probe_schedule(items, full, tri, rays, Counter()),
+                       ref)
+    assert seen["rows_empty"] == 1 and bool((ref[4] == 0).all())
+    assert seen["windows"] > ic.ROWS and seen["dropped"] >= 1
+    assert bool((ref[2] != 0).all())        # the dead row
+    assert torch.unique(ref).numel() > 5
+
+
+def test_probe_schedule_matches_tpu_kernel():
+    """Three rows of tests/test_torch_probes.py's flat scene and rays,
+    through the port's list build and the emulated walk, and through the
+    JAX package's probe in interpret mode: equal on the rows its list
+    reaches."""
+    jg = jri.build_geometry(_meshes(), backend="cluster")
+    tg = ri.build_geometry(_meshes(), backend="cluster")
+    lo, hi = np.asarray(jg.bvh_min[0]), np.asarray(jg.bvh_max[0])
+    mid = 0.5 * (lo + hi)
+    rng = np.random.default_rng(11)
+    n = 300
+    o = (mid + rng.uniform(-1, 1, (n, 3)) * (hi - lo) * 0.8).astype(
+        np.float32)
+    o[:, 1] += 3.0
+    d = (mid + rng.normal(scale=0.3, size=(n, 3)) * (hi - lo)).astype(
+        np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mint = np.full(n, 1e-4, np.float32)
+    maxt = rng.uniform(5.0, 50.0, n).astype(np.float32)
+    maxt[::9] = -1.0
+    beams = dict(w_factor=8, l_sc=8, beam_s2=4)
+    ref, _ovf = jwp.wl_probe(jg.wl_tables, *[jnp.asarray(x) for x in (
+        o, d, mint, maxt)], interpret=True, **beams)
+    tt = tg.wl_tables
+    rays = pack_rays(*[torch.from_numpy(x) for x in (o, d, mint, maxt)])[0]
+    items, total, _ = wl.build_worklist(
+        rays, tt["bmin"], tt["bmax"], tt["sc_bmin"], tt["sc_bmax"],
+        rays.shape[0] * beams["w_factor"], beams["l_sc"], beams["beam_s2"])
+    seen = Counter()
+    got = probe_schedule(items, wl.row_segments(items, rays.shape[0], total),
+                         tt["tri"], rays, seen).reshape(-1)[:n].numpy()
+    lanes = np.repeat(_reached_rows(items.numpy(), rays.shape[0]), LANES)[:n]
+    assert lanes.mean() > 0.5 and seen["items"] > 10
+    assert np.array_equal(got[lanes], np.asarray(ref)[lanes])
