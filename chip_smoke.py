@@ -4,7 +4,12 @@
 
 Drives the port's main paths: through
 mitsuba_tpu_torch.integrators.path.render bench config 1 (the Cornell
-box, 256x256 px, 16 spp, depth 5, brute backend), bench config 3 (the
+box, 256x256 px, 16 spp, depth 5, brute backend), bench config 2 (the
+Cornell box with a rough-conductor block, a mirror block and an analytic
+glass sphere, 512x512 px, 4 spp, depth 5, brute backend, camera lanes in
+pixel-Morton order), bench config 4 (config 1's loss, the mean of the
+path tracer's radiance, and its gradient with respect to the material
+reflectance, one checkpoint a bounce), bench config 3 (the
 101,762-triangle textured mesh under a sky, 512x512 px, 4 spp, depth 5,
 cluster backend) with the card's default item walk (v6b, #9) and again
 with the v5 walk (#7, `ex_walk="v5"`) and the v6 walk (#8), the same
@@ -95,7 +100,9 @@ Phases, each printing one JSON line:
      to the bunny golden is reported beside), and against
      tests/torch_goldens/instanced.npz for the instanced scene; config 1
      with sorted bounces (`sort_rays`, the split kernels) against
-     tests/goldens/bench_cfg1.npz; fog at 1,024 spp against
+     tests/goldens/bench_cfg1.npz; config 2 against
+     tests/goldens/bench_cfg2.npz with bench.py's 16x16 blocks, limit
+     0.15 and mean band (0.09, 0.21); fog at 1,024 spp against
      tests/torch_goldens/volpath_fog.npz (at 16 spp the estimator's own
      seed-to-seed distance, 0.22, is over the gate);
   5. renders of each path: one warm-up (on the cluster backend counting
@@ -129,7 +136,17 @@ Phases, each printing one JSON line:
      device ms a render split into its own walks, the static triangles'
      fallback and the instance walks, #12's on trimmed and on untrimmed
      segments (its unused-slot tail apart from its walk), and each
-     launch's rows or lanes, live lanes and dead-warp share;
+     launch's rows or lanes, live lanes and dead-warp share. Config 2
+     renders as config 1 does, its lanes in pixel-Morton order. Config 4
+     (bench.py bench_backward): the forward and the value-and-gradient
+     step, best of 3 each with the card synchronised before each clock
+     read, their ratio, spp/s, the step's peak memory, #1's launches
+     in the forward and in the backward (the recompute) apart, and a
+     profile of each (device busy time, kernels); then at
+     32x32 px the gradient against central differences, its linearity
+     in emitter radiance, the step with a checkpoint a bounce against
+     the one without, the card's gradient against the CPU's, and the
+     brute wrappers' refusal of a ray that requires grad;
   6. the v1 cluster entry points on config 3's camera and shadow
      wavefronts, with the launch counts set to 0 just before and read just
      after, held against the exact-cull path's hits;
@@ -171,17 +188,24 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W1, H1, SPP1, DEPTH1 = 256, 256, 16, 5     # bench config 1
 W3, H3, SPP3, DEPTH3 = 512, 512, 4, 5      # bench config 3, bvh, instanced
-TIMED = {"config1": 2, "config3": 2, "config3_v5": 2, "config3_v6": 2,
+W2, H2, SPP2, DEPTH2 = 512, 512, 4, 5      # bench config 2
+W4, H4, SPP4, DEPTH4 = 256, 256, 16, 5     # bench config 4 (gradient)
+TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
+         "config3_v6": 2,
          "bvh": 2, "instanced": 2, "volpath": 2}
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
+# bench.py's gate for config 2: specular paths carry a ray's rounding
+# into its whole contribution, so 16x16 blocks and a wider limit
+CFG2_BLOCK, CFG2_REL_RMSE_MAX = 16, 0.15
 # bench.py expect_mean for configs 1 and 3 (bvh renders config 3's
 # scene); the instanced band is +-40% of the reference's 64x64 render of
 # its scene (tests/torch_goldens/instanced.npz, mean 0.5216), as wide as
 # config 3's band is around its golden; the fog band the same +-40% of
 # its golden's mean (0.0427)
-MEAN_BAND = {"config1": (0.09, 0.21), "config3": (0.17, 0.41),
+MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
+             "config3": (0.17, 0.41),
              "config3_v5": (0.17, 0.41), "config3_v6": (0.17, 0.41),
              "bvh": (0.17, 0.41), "instanced": (0.31, 0.73),
              "volpath": (0.0256, 0.0598)}
@@ -1779,9 +1803,10 @@ def library_phase(device):
 # ---------------------------------------------------------------------------
 
 def golden_gate(tag, scene, golden, also=None, cfg=None, render_fn=None,
-                band=None):
+                band=None, block=8, limit=GOLDEN_REL_RMSE_MAX):
     """64x64, 16 spp, depth 5, seed 0 (bench.py validate_golden), gated
-    on `golden` (a path under the repo); `also` is a second golden whose
+    on `golden` (a path under the repo): the relative RMSE of the
+    block x block means at most `limit`; `also` is a second golden whose
     distance is reported, not gated. cfg: another PathConfig; render_fn:
     another renderer (scene, cfg, seed) -> (image, aux); band: the image
     mean's band, gated when given."""
@@ -1791,9 +1816,10 @@ def golden_gate(tag, scene, golden, also=None, cfg=None, render_fn=None,
     img, _ = (render_fn or render)(scene, cfg, seed=0)
     img = img.cpu().numpy()
 
-    def blocks(a, b=8):
+    def blocks(a):
         h, w, c = a.shape
-        return a.reshape(h // b, b, w // b, b, c).mean(axis=(1, 3))
+        return a.reshape(h // block, block, w // block, block,
+                         c).mean(axis=(1, 3))
 
     def rel_rmse(path):
         ref = np.load(os.path.join(ROOT, path))["mean"]
@@ -1808,12 +1834,11 @@ def golden_gate(tag, scene, golden, also=None, cfg=None, render_fn=None,
                      also=also)
     mean = float(img.mean())
     phase(tag, golden=golden, spp=cfg.spp, sort_rays=cfg.sort_rays,
-          rel_rmse=rel, limit=GOLDEN_REL_RMSE_MAX, mean=mean,
+          block=block, rel_rmse=rel, limit=limit, mean=mean,
           golden_mean=ref_mean, band=band,
           finite=bool(np.isfinite(img).all()), **extra)
-    if not rel <= GOLDEN_REL_RMSE_MAX or not np.isfinite(img).all():
-        raise AssertionError(f"{tag}: rel RMSE {rel} > "
-                             f"{GOLDEN_REL_RMSE_MAX}")
+    if not rel <= limit or not np.isfinite(img).all():
+        raise AssertionError(f"{tag}: rel RMSE {rel} > {limit}")
     if band is not None and not band[0] < mean < band[1]:
         raise AssertionError(f"{tag}: mean {mean} outside {band}")
 
@@ -2105,6 +2130,197 @@ def fog_render(scene, cfg, seed=0):
     return render_volpath(scene, make_homogeneous(**FOG), cfg, seed=seed)
 
 
+def morton_render(scene, cfg, seed=0):
+    """render() with the camera lanes in pixel-Morton order, as bench.py
+    runs configs 2 and 3 (bench_scene(..., morton=True))."""
+    from mitsuba_tpu_torch.integrators.path import (
+        camera_wavefront, path_trace,
+    )
+    from mitsuba_tpu_torch.render.film import develop
+
+    ray, sampler, inv_lane = camera_wavefront(scene, cfg, seed, morton=True)
+    L, aux = path_trace(scene, ray, sampler, cfg)
+    return develop(L[inv_lane], cfg.spp, scene.height, scene.width,
+                   cfg.rfilter), aux
+
+
+def _with(scene, table, **fields):
+    return dataclasses.replace(scene, **{table: dataclasses.replace(
+        getattr(scene, table), **fields)})
+
+
+def _mean_L(scene, cfg, seed=0):
+    """bench.py bench_backward's loss: the mean of the path tracer's L over
+    the render's lanes."""
+    from mitsuba_tpu_torch.integrators.path import (
+        camera_wavefront, path_trace,
+    )
+
+    ray, sampler, _ = camera_wavefront(scene, cfg, seed)
+    return path_trace(scene, ray, sampler, cfg)[0].mean()
+
+
+def _value_and_grad(scene, cfg, field="reflectance", table="materials",
+                    seed=0):
+    x = getattr(getattr(scene, table), field).detach().clone() \
+        .requires_grad_(True)
+    loss = _mean_L(_with(scene, table, **{field: x}), cfg, seed)
+    loss.backward()
+    return float(loss), x.grad
+
+
+def config4_phase(scene, cfg, rounds=3):
+    """Bench config 4 (bench.py bench_backward): the forward render's
+    loss against its value and gradient with respect to the material
+    reflectance, one checkpoint a bounce; best of `rounds` each, the card
+    synchronised before each clock read. Counts #1's launches in the
+    forward and in the backward (the bounces' recompute) apart, and the
+    peak memory of the gradient step."""
+    from mitsuba_tpu_torch.ops import intersect as ip
+
+    refl = scene.materials.reflectance
+
+    def fwd():
+        return float(_mean_L(scene, cfg))
+
+    def vgrad():
+        return _value_and_grad(scene, cfg)
+
+    def best(fn):
+        fn()                                    # warm-up
+        secs = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return min(secs), secs
+
+    t_fwd, fwd_secs = best(fwd)
+    t_grad, grad_secs = best(vgrad)
+    # one more gradient step: launches of #1 in the forward and in the
+    # backward apart, and the step's peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    x = refl.detach().clone().requires_grad_(True)
+    loss = _mean_L(_with(scene, "materials", reflectance=x), cfg)
+    torch.cuda.synchronize()
+    fwd_launches = launch_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    all_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    fwd()
+    peak_fwd = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(forward=fwd_launches["shaded_any"],
+                    backward=all_launches["shaded_any"]
+                    - fwd_launches["shaded_any"])
+    g = x.grad
+    # where the step's time goes: device busy time and kernel counts of
+    # the forward and of the step
+    PROFILES["config4_forward"] = device_profile(fwd)
+    PROFILES["config4"] = device_profile(vgrad)
+    res = dict(width=scene.width, height=scene.height, spp=cfg.spp,
+               depth=cfg.max_depth, remat=cfg.remat, forward_s=t_fwd,
+               value_and_grad_s=t_grad, forward_seconds=fwd_secs,
+               value_and_grad_seconds=grad_secs,
+               bwd_fwd_ratio=t_grad / t_fwd, spp_per_s=cfg.spp / t_grad,
+               loss=float(loss), grad_abs_max=float(g.abs().max()),
+               peak_mem_gib=peak, peak_mem_forward_gib=peak_fwd,
+               launches_shaded_any=launches,
+               other_launches={k: v for k, v in all_launches.items()
+                               if v and k != "shaded_any"},
+               profile_forward=PROFILES["config4_forward"],
+               profile=PROFILES["config4"])
+    phase("config4", **res)
+    if not bool(torch.isfinite(g).all()) or not g.abs().max() > 0:
+        raise AssertionError("config4: the gradient is not finite or zero")
+    if launches["forward"] < 1 or launches["backward"] < 1:
+        raise AssertionError(f"config4: #1 launched {launches}")
+    return res
+
+
+def grad_checks(device, res=32):
+    """The gradient on the card at res x res: central differences on
+    three reflectance entries (tests/test_grad.py:38-45, 2e-2 relative),
+    linearity in emitter radiance (rtol 1e-4), a checkpoint a bounce
+    against none (1e-5 relative of each entry: not bit for bit, the
+    backward of an index gather accumulates with atomics), and the card's
+    gradient against the CPU's (the plain versions); and every kernel
+    wrapper's refusal of a ray that requires grad."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.ops import intersect as ip
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    scene = cornell_box(res, res, device=device)
+    cfg = PathConfig(max_depth=5, spp=4, remat=True)
+    out = {}
+    _, g = _value_and_grad(scene, cfg)
+    refl = scene.materials.reflectance
+    eps = 2e-3
+    fd = []
+    with torch.no_grad():
+        for idx in ((0, 0), (1, 1), (2, 2)):
+            e = torch.zeros_like(refl)
+            e[idx] = 1.0
+            lp = float(_mean_L(_with(scene, "materials",
+                                     reflectance=refl + eps * e), cfg))
+            lm = float(_mean_L(_with(scene, "materials",
+                                     reflectance=refl - eps * e), cfg))
+            f, a = (lp - lm) / (2 * eps), float(g[idx])
+            fd.append(dict(entry=idx, fd=f, grad=a,
+                           rel=abs(f - a) / max(abs(f), abs(a), 1e-6)))
+    out["fd"] = fd
+    lin_cfg = PathConfig(max_depth=5, spp=2, remat=True)
+    l0, g_rad = _value_and_grad(scene, lin_cfg, "radiance", "emitters",
+                                seed=1)
+    pred = float((g_rad * scene.emitters.radiance).sum())
+    out["linearity"] = dict(loss=l0, predicted=pred,
+                            rel=abs(pred - l0) / abs(l0))
+    _, g_plain = _value_and_grad(scene, dataclasses.replace(cfg,
+                                                            remat=False))
+    diff = (g - g_plain).abs()
+    out["remat"] = dict(max_abs=float(diff.max()), max_rel=float(
+        (diff / g_plain.abs().clamp(min=1e-30)).max()))
+    _, g_cpu = _value_and_grad(scene.to("cpu"), cfg)
+    out["cpu"] = dict(max_abs=float((g.cpu() - g_cpu).abs().max()),
+                      rel_to_max=float((g.cpu() - g_cpu).abs().max()
+                                       / g_cpu.abs().max()))
+    # a ray that requires grad: the kernel's wrapper refuses it on the
+    # card as on the CPU
+    o = torch.zeros((64, 3), device=device, requires_grad=True)
+    d = torch.ones((64, 3), device=device)
+    t = torch.ones(64, device=device)
+    refused = []
+    for name, call in (
+            ("shaded_any", lambda: ip.closest_hit_shaded_and_any(
+                scene.geom.brute_tables[0], o, d, t * 0, t, o, d, t * 0, t)),
+            ("any", lambda: ip.any_hit(scene.geom.brute_tables[1], o, d,
+                                       t * 0, t))):
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(name)
+    out["refused"] = refused
+    phase("config4_checks", width=res, height=res, spp=cfg.spp,
+          depth=cfg.max_depth, **out)
+    bad = [r for r in fd if not r["rel"] < 2e-2]
+    if bad:
+        raise AssertionError(f"config4_checks: central differences {bad}")
+    if not out["linearity"]["rel"] <= 1e-4:
+        raise AssertionError(f"config4_checks: linearity {out['linearity']}")
+    if not bool(torch.allclose(g, g_plain, rtol=1e-5, atol=0)):
+        raise AssertionError(f"config4_checks: remat {out['remat']}")
+    if not out["cpu"]["rel_to_max"] <= 1e-3:
+        raise AssertionError(f"config4_checks: card vs CPU {out['cpu']}")
+    if len(refused) != 2:
+        raise AssertionError(f"config4_checks: refused only {refused}")
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -2134,7 +2350,8 @@ def main(argv=None):
     from mitsuba_tpu_torch.probes import r3_kernel
     from mitsuba_tpu_torch.render import bvh as rb
     from mitsuba_tpu_torch.render.scene import (
-        cornell_box, instanced_scene, textured_mesh_scene,
+        cornell_box, cornell_box_specular, instanced_scene,
+        textured_mesh_scene,
     )
 
     device = torch.device("cuda", 0)
@@ -2264,6 +2481,10 @@ def main(argv=None):
                 "tests/goldens/bench_cfg1.npz",
                 cfg=PathConfig(max_depth=5, spp=16, sort_rays=True),
                 band=MEAN_BAND["config1"])
+    golden_gate("golden_64_cfg2",
+                cornell_box_specular(64, 64, backend="auto", device=device),
+                "tests/goldens/bench_cfg2.npz", band=MEAN_BAND["config2"],
+                block=CFG2_BLOCK, limit=CFG2_REL_RMSE_MAX)
     golden_gate("golden_64_volpath", cornell_box(64, 64, device=device),
                 "tests/torch_goldens/volpath_fog.npz",
                 cfg=PathConfig(max_depth=5, spp=FOG_GOLDEN_SPP),
@@ -2274,6 +2495,22 @@ def main(argv=None):
                       ["shaded_any"])
     live1 = brute_liveness("config1", cornell_box(W1, H1, device=device),
                            cfg1, render, "shaded_any")
+    # config 2: the brute kernel (#1) with the glass sphere merged after
+    # it, camera lanes in pixel-Morton order as bench.py runs it
+    l2 = render_phase("config2", cornell_box_specular(
+        W2, H2, backend="auto", device=device),
+        PathConfig(max_depth=DEPTH2, spp=SPP2), ["shaded_any"],
+        render_fn=morton_render, forbid=["shaded", "any"])
+    # config 4: the gradient of config 1's loss, a checkpoint a bounce
+    l4 = config4_phase(cornell_box(W4, H4, device=device),
+                       PathConfig(max_depth=DEPTH4, spp=SPP4, remat=True))
+    if l4["launches_shaded_any"]["forward"] * TIMED["config1"] \
+            != l1["shaded_any"]:
+        raise AssertionError("config4: the forward launched #1 "
+                             f"{l4['launches_shaded_any']['forward']} "
+                             "times, a config-1 render "
+                             f"{l1['shaded_any'] / TIMED['config1']}")
+    grad_checks(device)
     l3 = render_phase("config3", scene3, cfg,
                       ["refine", "child_refine", "l1_masked"],
                       forbid=["items", "l1_items"])
@@ -2357,7 +2594,11 @@ def main(argv=None):
         # replayed alone (the device's time, and the calls' by CUDA
         # events); the same for #3 in fog
         brute("shaded_any", 337, l1["shaded_any"], brute_check,
+              launches_config2=l2["shaded_any"],
+              launches_config4=l4["launches_shaded_any"],
               device_ms_per_render=brute_ms("config1", "shaded_any"),
+              device_ms_per_render_config2=brute_ms("config2",
+                                                    "shaded_any"),
               replayed_device_ms_per_render=live1["device_ms"],
               replayed_event_ms_per_render=live1["ms"]),
         # #5 and #6: the device ms of a config-3 render at the card's

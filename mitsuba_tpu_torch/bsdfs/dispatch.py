@@ -1,22 +1,32 @@
 """Wavefront BSDF dispatch (port of mitsuba_tpu/bsdfs/dispatch.py without
 composites and opacity masks).
 
-Each BSDF kind present in the scene is evaluated on all lanes and the
-result selected by material mask. The `twosided` adapter
-(src/bsdfs/twosided.cpp) mirrors the local frame for lanes whose material
-has the flag and wi.z < 0.
+Each (kind, microfacet distribution) pair present in the scene is
+evaluated on all lanes and the result selected by material mask. The
+`twosided` adapter (src/bsdfs/twosided.cpp) mirrors the local frame for
+lanes whose material has the flag and wi.z < 0, except for the dielectric,
+which is two-sided already.
 """
 from __future__ import annotations
 
 import torch
 
 from mitsuba_tpu_torch.bsdfs import models as md
-from mitsuba_tpu_torch.bsdfs.table import LAMBERTIAN, PHONG, MaterialTable
+from mitsuba_tpu_torch.bsdfs.table import (
+    DIELECTRIC, LAMBERTIAN, MIRROR, PHONG, ROUGH_CONDUCTOR, MaterialTable,
+)
 
 _MODELS = {
     LAMBERTIAN: (md.lambertian_eval, md.lambertian_pdf, md.lambertian_sample),
+    MIRROR: (md.mirror_eval, md.mirror_pdf, md.mirror_sample),
+    DIELECTRIC: (md.dielectric_eval, md.dielectric_pdf,
+                 md.dielectric_sample),
+    ROUGH_CONDUCTOR: (md.rough_conductor_eval, md.rough_conductor_pdf,
+                      md.rough_conductor_sample),
     PHONG: (md.phong_eval, md.phong_pdf, md.phong_sample),
 }
+
+_NO_FLIP_KINDS = (DIELECTRIC,)          # two-sided already
 
 
 def _flip_mask(p, wi):
@@ -34,6 +44,17 @@ def _resolve(p, albedo=None):
     return p
 
 
+def _kinds(table, p):
+    """(kind, lane mask, per-kind parameters) for each (kind, distribution)
+    pair of the table; a rough lobe's lanes are those of its distribution
+    (dispatch.py:115)."""
+    for kind, dist in table.kinds_present:
+        mask = p["kind"] == kind
+        if kind == ROUGH_CONDUCTOR:
+            mask = mask & (p["dist_type"] == dist)
+        yield kind, mask, dict(p, _dist_static=dist)
+
+
 def bsdf_eval(table: MaterialTable, material_id, wi, wo, albedo=None):
     """fCos for every lane (reference BSDF::fCos)."""
     p = _resolve(table.gather(material_id), albedo)
@@ -41,10 +62,10 @@ def bsdf_eval(table: MaterialTable, material_id, wi, wo, albedo=None):
     wi_f, wo_f = _flip(wi, fl), _flip(wo, fl)
     out = torch.zeros(wi.shape[:-1] + (table.reflectance.shape[-1],),
                       device=wi.device)
-    for kind in table.kinds_present:
-        mask = p["kind"] == kind
-        out = torch.where(mask[..., None], _MODELS[kind][0](p, wi_f, wo_f),
-                          out)
+    for kind, mask, pk in _kinds(table, p):
+        flip = kind not in _NO_FLIP_KINDS
+        val = _MODELS[kind][0](pk, wi_f if flip else wi, wo_f if flip else wo)
+        out = torch.where(mask[..., None], val, out)
     return out
 
 
@@ -54,9 +75,10 @@ def bsdf_pdf(table: MaterialTable, material_id, wi, wo):
     fl = _flip_mask(p, wi)
     wi_f, wo_f = _flip(wi, fl), _flip(wo, fl)
     out = torch.zeros(wi.shape[:-1], device=wi.device)
-    for kind in table.kinds_present:
-        mask = p["kind"] == kind
-        out = torch.where(mask, _MODELS[kind][1](p, wi_f, wo_f), out)
+    for kind, mask, pk in _kinds(table, p):
+        flip = kind not in _NO_FLIP_KINDS
+        val = _MODELS[kind][1](pk, wi_f if flip else wi, wo_f if flip else wo)
+        out = torch.where(mask, val, out)
     return out
 
 
@@ -67,10 +89,12 @@ def bsdf_sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
     fl = _flip_mask(p, wi)
     wi_f = _flip(wi, fl)
     out = md.zero_sample(wi, p["reflectance"].shape[-1])
-    for kind in table.kinds_present:
-        mask = p["kind"] == kind
-        s = _MODELS[kind][2](p, wi_f, u2, u1)
-        s = dict(s, wo=_flip(s["wo"], fl))
+    for kind, mask, pk in _kinds(table, p):
+        if kind in _NO_FLIP_KINDS:
+            s = _MODELS[kind][2](pk, wi, u2, u1)
+        else:
+            s = _MODELS[kind][2](pk, wi_f, u2, u1)
+            s = dict(s, wo=_flip(s["wo"], fl))
         for key in out:
             sel = mask[..., None] if out[key].ndim > mask.ndim else mask
             out[key] = torch.where(sel, s[key], out[key])

@@ -90,9 +90,23 @@ def cos_theta(w):
     return w[..., 2]
 
 
+def sin_theta(w):
+    return torch.sqrt(torch.clamp(1.0 - w[..., 2] * w[..., 2], min=0.0))
+
+
+def tan_theta(w):
+    return sin_theta(w) / torch.where(w[..., 2] == 0, 1e-20, w[..., 2])
+
+
 def reflect_local(w):
     """Mirror reflection in the local frame: (x, y, z) -> (-x, -y, z)."""
     return torch.stack([-w[..., 0], -w[..., 1], w[..., 2]], dim=-1)
+
+
+def reflect(w, n):
+    """Reflect w about the normal n; both point away from the surface
+    (reference util.cpp reflect up to the wi convention)."""
+    return 2.0 * dot(w, n)[..., None] * n - w
 
 
 def spherical_direction(theta, phi):

@@ -16,7 +16,10 @@ queries of a bounce are kernels #2 (`ray_intersect`) and #3 (`ray_test`).
 The estimator follows the reference line for line: the draw order of its
 seven stacked fields, its Russian-roulette albedo (the throughput ratio,
 not the path tracer's BSDF weight), its image as the plain mean of the
-spp samples of a pixel. Path guiding (`guide`, `learn_guide`,
+spp samples of a pixel. Gradients flow as in the path tracer
+(`integrators/path.py`): the samples, the scatter pdf and the roulette
+albedo are detached, and with `cfg.remat` each bounce is a checkpoint
+where a scene or medium tensor requires grad (volpath.py:265). Path guiding (`guide`, `learn_guide`,
 `guide_sampling`) and shape-interior media are not ported: the former
 raise, the latter are not part of a port `Scene`.
 """
@@ -31,7 +34,7 @@ from mitsuba_tpu_torch.emitters import (
     sample_direct,
 )
 from mitsuba_tpu_torch.integrators.path import (
-    PathConfig, camera_wavefront, mi_weight,
+    PathConfig, camera_wavefront, mi_weight, requires_grad, run_bounce,
 )
 from mitsuba_tpu_torch.media import (
     medium_transmittance, phase_eval, phase_pdf, phase_sample,
@@ -70,23 +73,18 @@ def volpath_trace(scene, medium, ray: Ray, sampler: Sampler, cfg: PathConfig,
     u_scatter = sampler.next_stacked_2d(d_max)
     u_lobe = sampler.next_stacked_1d(d_max)
     u_rr = sampler.next_stacked_1d(d_max)
-
-    L = torch.zeros((n, 3), device=dev)
-    throughput = torch.ones((n, 3), device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    prev_pdf = torch.zeros(n, device=dev)
-    prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
-    depth_count = torch.zeros(n, dtype=torch.int32, device=dev)
     kind, g = medium.phase_kind, medium.phase_g
 
-    for depth in range(d_max):
+    def bounce(depth, xs, L, throughput, o, d, mint, maxt, active, prev_pdf,
+               prev_delta, depth_count):
+        u_ch, u_dist, u_nee_sel, u_nee_pos, u_scatter, u_lobe, u_rr = xs
+        ray = Ray(o, d, mint, maxt)
         is_last = depth + 1 >= d_max
         do_rr = depth >= cfg.rr_depth
         its = ray_intersect(geom, ray)
         t_surf = torch.where(its.valid, its.t, _FAR)
 
-        md = sample_distance(medium, ray.o, ray.d, t_surf, u_ch[depth],
-                             u_dist[depth])
+        md = sample_distance(medium, ray.o, ray.d, t_surf, u_ch, u_dist)
         in_medium = active & md["valid"]
         at_surface = active & ~md["valid"] & its.valid
         escaped = active & ~md["valid"] & ~its.valid
@@ -116,8 +114,7 @@ def volpath_trace(scene, medium, ray: Ray, sampler: Sampler, cfg: PathConfig,
 
         # NEE: one emitter sample, from the scatter point of each lane
         p_scatter = torch.where(in_medium[:, None], md["p"], its.p)
-        ds = sample_direct(em, geom, p_scatter, u_nee_sel[depth],
-                           u_nee_pos[depth])
+        ds = sample_direct(em, geom, p_scatter, u_nee_sel, u_nee_pos)
         ph_val = phase_eval(kind, g, ray.d, ds.d)
         ph_pdf = phase_pdf(kind, g, ray.d, ds.d) if mis \
             else torch.zeros(n, device=dev)
@@ -142,9 +139,8 @@ def volpath_trace(scene, medium, ray: Ray, sampler: Sampler, cfg: PathConfig,
         L = L + torch.where(nee_ok[:, None], contrib, 0.0)
 
         # scatter: phase sample (medium) or BSDF sample (surface)
-        wo_phase, phase_p = phase_sample(kind, g, ray.d, u_scatter[depth])
-        bs = bsdf_sample(mats, its.material_id, its.wi, u_scatter[depth],
-                         u_lobe[depth])
+        wo_phase, phase_p = phase_sample(kind, g, ray.d, u_scatter)
+        bs = bsdf_sample(mats, its.material_id, its.wi, u_scatter, u_lobe)
         wo_world = torch.where(in_medium[:, None], wo_phase,
                                its.to_world(bs["wo"]))
         next_pdf = torch.where(in_medium, phase_p if mis else 0.0, bs["pdf"])
@@ -154,12 +150,13 @@ def volpath_trace(scene, medium, ray: Ray, sampler: Sampler, cfg: PathConfig,
         new_thr = torch.where(in_medium[:, None], thr_med,
                               thr_surf * bs["weight"])
 
-        # Russian roulette on the throughput's growth (volpath.py:246)
+        # Russian roulette on the detached throughput's growth
+        # (volpath.py:246)
         albedo = torch.clamp(
-            new_thr.amax(dim=-1)
-            / torch.clamp(throughput.amax(dim=-1), min=1e-8),
+            new_thr.detach().amax(dim=-1)
+            / torch.clamp(throughput.detach().amax(dim=-1), min=1e-8),
             min=0.05, max=0.9)
-        kill = do_rr & (u_rr[depth] > albedo) & ~bs["transmission"]
+        kill = do_rr & (u_rr > albedo) & ~bs["transmission"]
         rr_scale = torch.where(do_rr & ~bs["transmission"],
                                1.0 / torch.clamp(albedo, min=1e-3), 1.0)
         active = active & ~kill
@@ -171,7 +168,24 @@ def volpath_trace(scene, medium, ray: Ray, sampler: Sampler, cfg: PathConfig,
         ray = Ray.make(torch.where(active[:, None], origin, ray.o),
                        torch.where(active[:, None], wo_world, ray.d),
                        mint=eps)
-        prev_pdf, prev_delta = next_pdf, next_delta
+        return (L, throughput, ray.o, ray.d, ray.mint, ray.maxt, active,
+                next_pdf.detach(), next_delta, depth_count)
+
+    state = (
+        torch.zeros((n, 3), device=dev),                # L
+        torch.ones((n, 3), device=dev),                 # throughput
+        ray.o, ray.d, ray.mint, ray.maxt,
+        torch.ones(n, dtype=torch.bool, device=dev),    # active
+        torch.zeros(n, device=dev),                     # prev_pdf
+        torch.ones(n, dtype=torch.bool, device=dev),    # prev_delta
+        torch.zeros(n, dtype=torch.int32, device=dev),  # depth_count
+    )
+    xs = (u_ch, u_dist, u_nee_sel, u_nee_pos, u_scatter, u_lobe, u_rr)
+    remat = cfg.remat and requires_grad(
+        geom, mats, em, scene.textures, scene.camera, medium, ray)
+    for depth in range(d_max):
+        state = run_bounce(bounce, depth, state, xs, remat)
+    L, depth_count = state[0], state[9]
 
     return L, {"avg_path_length": depth_count.to(torch.float32).mean()}
 

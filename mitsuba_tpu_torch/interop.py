@@ -1,7 +1,8 @@
 """Conversion of a scene of the JAX package into the port's `Scene`.
 
 `from_jax_scene` reads the reference scene's arrays as numpy (geometry on
-the brute, bvh or cluster backend, instanced or not, materials, textures,
+the brute, bvh or cluster backend, instanced or not, with or without
+analytic spheres, materials, textures,
 emitters with the baked sky's sampling tables, camera) and builds the
 port's tables from them, so that both packages render the same scene
 from the same arrays; `from_jax_medium` does the same for an ambient
@@ -18,7 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from mitsuba_tpu_torch.bsdfs.table import MaterialTable, check_kinds
+from mitsuba_tpu_torch.bsdfs.table import (
+    ROUGH_CONDUCTOR, MaterialTable, check_kinds,
+)
+from mitsuba_tpu_torch.core import microfacet as mf
 from mitsuba_tpu_torch.emitters.table import EmitterTable
 from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
 from mitsuba_tpu_torch.media.medium import HOMOGENEOUS, MediumTable
@@ -33,6 +37,10 @@ from mitsuba_tpu_torch.render.texture import check_kinds as check_textures
 
 _GEOM_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                 "material_id", "emitter_id", "shape_id")
+_SPHERE_FIELDS = ("sph_c", "sph_r", "sph_mid", "sph_eid", "sph_sid")
+_MATERIAL_FIELDS = ("kind", "reflectance", "two_sided", "specular",
+                    "exponent", "tex_id", "transmittance", "eta", "cond_eta",
+                    "cond_k", "alpha_u", "alpha_v", "dist_type")
 _BVH_FIELDS = ("bvh_min", "bvh_max", "bvh_first", "bvh_count", "bvh_skip",
                "bvh_packed", "tri_packed", "shade_pack")
 _CLUSTER_FIELDS = ("mt_tri", "mt_start", "mt_bmin", "mt_bmax", "cl_sc_bmin",
@@ -58,10 +66,16 @@ def _t(x):
 def _geometry(g) -> GeometryTables:
     if g.backend not in ("brute", "bvh", "cluster"):
         _unported(f"intersection backend '{g.backend}'")
-    if g.has_analytic or g.n_hair > 0:
-        _unported("analytic or hair geometry")
+    if g.n_cylinders > 0 or g.n_hair > 0:
+        _unported("cylinder or hair geometry")
+    spheres = {}
+    if g.n_spheres > 0:
+        if np.any(np.asarray(g.sph_eid) >= 0):
+            _unported("a sphere emitter")
+        spheres = {k: _t(getattr(g, k)) for k in _SPHERE_FIELDS}
     geom = GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS},
-                          bvh_min=_t(g.bvh_min), bvh_max=_t(g.bvh_max))
+                          bvh_min=_t(g.bvh_min), bvh_max=_t(g.bvh_max),
+                          **spheres)
     if g.backend == "brute":
         return geom
     fields = {k: _t(getattr(g, k)) for k in _BVH_FIELDS}
@@ -93,14 +107,12 @@ def _materials(mt) -> MaterialTable:
         _unported("composite or cloth BSDFs")
     if np.any(np.asarray(mt.opacity) < 1.0):
         _unported("opacity masks")
+    if any(k == ROUGH_CONDUCTOR and d not in (mf.BECKMANN, mf.GGX)
+           for k, d in mt.kinds_present):
+        _unported("the Phong microfacet distribution")
     return MaterialTable(
-        kind=_t(kinds),
-        reflectance=_t(mt.reflectance),
-        two_sided=_t(mt.two_sided),
-        specular=_t(mt.specular),
-        exponent=_t(mt.exponent),
-        tex_id=_t(mt.tex_id),
-        kinds_present=tuple(sorted({int(k) for k, _ in mt.kinds_present})),
+        **{k: _t(getattr(mt, k)) for k in _MATERIAL_FIELDS},
+        kinds_present=tuple((int(k), int(d)) for k, d in mt.kinds_present),
     )
 
 

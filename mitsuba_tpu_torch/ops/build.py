@@ -12,6 +12,11 @@ plain C interface, named by a hash of the source and the flags, into
 `build_all` starts one compiler per source at once and waits for all of
 them, so a fresh checkout builds in the time of its slowest file. A
 failed build raises. Nothing here runs when a module is imported.
+
+`refuse_grad` is every wrapper's gate for autograd: a kernel has no
+backward, so its outputs are constants, and a float input that requires
+grad raises on the CPU (whose plain version autograd could differentiate)
+as on the card, so that the two never disagree.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -31,6 +38,16 @@ HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 HOST_FLAGS_PORTABLE = ("-O3", "-shared", "-fPIC")
 
 _LIBS = {}          # source path -> (library path, ctypes.CDLL)
+
+
+def refuse_grad(*xs):
+    """Raise NotImplementedError where grad is enabled and a float input
+    requires grad: no kernel has a backward."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise NotImplementedError(
+            "no gradient through the intersection kernels: an input that "
+            "requires grad (a ray or the geometry) would get none")
 
 
 def source(name: str) -> str:

@@ -210,6 +210,7 @@ def _check(nodes, tris, o, d, mint, maxt):
             raise ValueError("inputs must be on one device")
     if nodes.shape[0] < 1 or tris.shape[0] < 1:
         raise ValueError("empty BVH tables")
+    nv.refuse_grad(nodes, tris, o, d, mint, maxt)
 
 
 def _query(nodes, tris, o, d, mint, maxt, any_hit, rcp_eps, aligned):

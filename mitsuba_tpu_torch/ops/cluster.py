@@ -337,6 +337,7 @@ def _check(rays, ids, counts, G, aabb, tri_start):
             raise ValueError("inputs must be contiguous, on one device")
     if r % BM:
         raise ValueError("rows must fill whole tiles of 8")
+    nv.refuse_grad(rays, G, aabb)
 
 
 def cluster_rows(rays, ids, counts, G, aabb, tri_start, any_hit: bool,

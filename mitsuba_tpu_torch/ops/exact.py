@@ -537,6 +537,7 @@ def _check(*specs):
             raise ValueError("inputs must be contiguous, on one device")
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no exact-cull kernels for {dev}")
+    nv.refuse_grad(*(x for x, _, _ in specs))
     return dev.type == "cuda"
 
 

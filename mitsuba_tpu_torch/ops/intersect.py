@@ -264,6 +264,7 @@ def _check_inputs(table, cols, *rays):
         raise ValueError("empty triangle table")
     if o.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no intersector for {o.device}")
+    nv.refuse_grad(table, *rays)
 
 
 def closest_hit_shaded_and_any(table, o, d, mint, maxt, so, sd, smint,

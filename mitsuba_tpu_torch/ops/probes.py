@@ -116,6 +116,7 @@ def _on_card(*xs) -> bool:
             raise ValueError("inputs must be contiguous, on one device")
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no probe kernels for {dev}")
+    nv.refuse_grad(*xs)
     return dev.type == "cuda"
 
 

@@ -280,6 +280,7 @@ def _check(rays, ids, tns, sc_tri):
             raise ValueError("inputs must be contiguous, on one device")
     if sc_tri.shape[1] % 8:
         raise ValueError("cluster size must be a multiple of 8")
+    nv.refuse_grad(rays, tns, sc_tri)
 
 
 def stream_rows(rays, ids, tns, sc_tri, any_hit: bool):

@@ -409,6 +409,7 @@ def _check(items, seg, tri, tri_start, rays, block_id, xform):
     if tri.shape[1] % 8 or not 0 < tri.shape[1] <= MAX_K:
         raise ValueError(f"cluster size must be a multiple of 8 up to "
                          f"{MAX_K}")
+    nv.refuse_grad(tri, rays, xform)
 
 
 def wl_rows(items, seg, tri, tri_start, rays, block_id, xform,

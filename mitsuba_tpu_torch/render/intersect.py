@@ -1,6 +1,6 @@
 """Ray–scene intersection on the brute, bvh and cluster backends, with
-true instancing on the cluster backend (port of
-mitsuba_tpu/render/intersect.py, triangle scenes).
+true instancing on the cluster backend and analytic spheres (port of
+mitsuba_tpu/render/intersect.py, triangle and sphere scenes).
 
 Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
 
@@ -39,6 +39,11 @@ Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
   reciprocal clamp (intersect.py:1329-1342, 1547-1556, 928-1000).
   Instanced hits carry virtual prim ids >= n_tris, which decode to the
   shared blocks.
+
+Analytic spheres (`sph_*`, prim ids [T, T+S) after the T triangles) are
+intersected in plain PyTorch against every ray after the triangles'
+query, on any backend, and merged into its record where nearer; a shadow
+ray is also occluded by a sphere (intersect.py:1579-1612, 1827-1941).
 
 Off the brute backend the hit record comes from the reference's generic
 tail (intersect.py:1359-1481): one packed `shade_pack` row per hit (the
@@ -156,6 +161,13 @@ class GeometryTables:
     inst_gid: tuple = ()
     inst_vp_base: tuple = ()
     n_static_clusters: int = 0
+    # analytic spheres (reference src/shapes/sphere.cpp: exact quadratic
+    # intersection, not tessellated); prim ids [T, T+S) are spheres
+    sph_c: torch.Tensor = None         # (S, 3) centres
+    sph_r: torch.Tensor = None         # (S,) radii
+    sph_mid: torch.Tensor = None       # (S,) int32 material ids
+    sph_eid: torch.Tensor = None       # (S,) int32 emitter ids, -1 = none
+    sph_sid: torch.Tensor = None       # (S,) int32 shape ids
     mt_k: int = MT_K
     backend: str = "brute"
 
@@ -166,6 +178,10 @@ class GeometryTables:
     @property
     def has_instances(self):
         return self.mt_block_id is not None
+
+    @property
+    def n_spheres(self):
+        return 0 if self.sph_r is None else self.sph_r.shape[0]
 
     @property
     def bvh_tables(self):
@@ -235,12 +251,15 @@ def _dev(x):
 
 
 def build_geometry(meshes_with_ids, backend: str = "auto",
-                   instanced=None, ex_walk=None) -> GeometryTables:
+                   instanced=None, ex_walk=None,
+                   spheres=()) -> GeometryTables:
     """Assemble GeometryTables from [(TriMesh, material_id, emitter_id
     [, shape_id]), ...]. backend: 'brute' keeps the input order and
     builds no tree, only the root box; 'bvh' orders the triangles by a
     BVH; 'cluster' also builds the cluster tables; 'auto' is cluster
-    above 64 triangles, brute below (intersect.py:257). instanced:
+    above 64 triangles, brute below (intersect.py:257); the analytic
+    spheres [(centre, radius, material_id, emitter_id, shape_id), ...]
+    count for neither choice nor box. instanced:
     (groups, instances) for
     true instancing on the cluster backend, groups = [[(TriMesh in object
     space, material_id, shape_id), ...], ...] and instances = [(group
@@ -301,6 +320,13 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
         if inst is not None:
             tables.update(_build_instanced(tables, tri.shape[0], *inst))
     caps = tables.pop("ex_caps", None)
+    if spheres:
+        tables.update(
+            sph_c=np.asarray([x[0] for x in spheres], np.float32),
+            sph_r=np.asarray([x[1] for x in spheres], np.float32),
+            sph_mid=np.asarray([x[2] for x in spheres], np.int32),
+            sph_eid=np.asarray([x[3] for x in spheres], np.int32),
+            sph_sid=np.asarray([x[4] for x in spheres], np.int32))
     return GeometryTables(
         **{k: (_dev(x) if isinstance(x, np.ndarray) else x)
            for k, x in tables.items()},
@@ -930,6 +956,77 @@ def _dp_du(uv0, uv1, uv2, e1, e2):
 
 
 # ---------------------------------------------------------------------------
+# analytic spheres: intersected in plain PyTorch against every ray (S is
+# small) and merged with the triangle result, outside the kernels
+# (intersect.py:1579-1612, 1827-1873)
+# ---------------------------------------------------------------------------
+
+def _sphere_closest(geom: GeometryTables, ray: Ray):
+    """(t, sphere index, valid) of the nearest sphere hit: a loop over the
+    spheres, each nearer hit taking over (intersect.py:1584)."""
+    n = ray.o.shape[0]
+    t_best = torch.full((n,), float("inf"), device=ray.o.device)
+    idx = torch.zeros(n, dtype=torch.int64, device=ray.o.device)
+    for si in range(geom.n_spheres):
+        r = geom.sph_r[si]
+        oc = ray.o - geom.sph_c[si][None]
+        b = m.dot(oc, ray.d)
+        cq = m.dot(oc, oc) - r * r
+        disc = b * b - cq
+        ok = disc >= 0.0
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t0 = -b - sq
+        t1 = -b + sq
+        t = torch.where(ok & (t0 > ray.mint), t0,
+                        torch.where(ok & (t1 > ray.mint), t1, float("inf")))
+        t = torch.where(t < ray.maxt, t, float("inf"))
+        better = t < t_best
+        t_best = torch.where(better, t, t_best)
+        idx = torch.where(better, si, idx)
+    return t_best, idx, torch.isfinite(t_best)
+
+
+def _analytic_any(geom: GeometryTables, ray: Ray):
+    """Occlusion by any sphere (intersect.py:1827)."""
+    return _sphere_closest(geom, ray)[2]
+
+
+def _merge_analytic(geom: GeometryTables, ray: Ray,
+                    its: Intersection) -> Intersection:
+    """The triangle record with each lane whose nearest sphere is nearer
+    taking the sphere's record: the spherical uv of sphere.cpp and the
+    frame from the normal and dp/du (intersect.py:1838)."""
+    t, i, v = _sphere_closest(geom, ray)
+    closer = v & (t < its.t)
+    p = ray.at(torch.where(closer, t, 1.0))
+    n = m.normalize(p - geom.sph_c[i])
+    phi = torch.atan2(n[:, 1], n[:, 0])
+    theta = torch.arccos(torch.clamp(n[:, 2], -1.0, 1.0))
+    uv = torch.stack([phi * (0.5 / np.pi) + 0.5, theta / np.pi], -1)
+    dpdu = m.normalize(torch.stack(
+        [-n[:, 1], n[:, 0], torch.zeros_like(n[:, 0])], -1) + 1e-12)
+    wi = m.Frame.from_normal_tangent(n, dpdu).to_local(-ray.d)
+
+    def pick(a, b):
+        return torch.where(closer[:, None] if b.dim() > 1 else closer, a, b)
+
+    return Intersection(
+        valid=its.valid | closer,
+        t=pick(t, its.t),
+        p=pick(p, its.p),
+        geo_n=pick(n, its.geo_n),
+        sh_n=pick(n, its.sh_n),
+        uv=pick(uv, its.uv),
+        dp_du=pick(dpdu, its.dp_du),
+        wi=pick(wi, its.wi),
+        prim_id=pick(geom.n_tris + i.to(its.prim_id.dtype), its.prim_id),
+        shape_id=pick(geom.sph_sid[i], its.shape_id),
+        material_id=pick(geom.sph_mid[i], its.material_id),
+        emitter_id=pick(geom.sph_eid[i], its.emitter_id),
+    )
+
+
+# ---------------------------------------------------------------------------
 # queries
 # ---------------------------------------------------------------------------
 
@@ -944,18 +1041,14 @@ def _closest(geom, ray, coherent):
     return _cluster_closest(geom, ray, coherent)
 
 
-def ray_intersect(geom: GeometryTables, ray: Ray,
-                  coherent: bool = False) -> Intersection:
-    """Closest-hit query -> Intersection. coherent: camera-like
-    wavefront; the exact cull then runs at the small coherent caps."""
+def _intersect_tri(geom: GeometryTables, ray: Ray, coherent: bool):
     if geom.backend == "brute":
         return _brute_record(ray, ip.closest_hit_shaded(
             geom.brute_tables[0], *_ray_args(ray)))
     return _shade(geom, ray, *_closest(geom, ray, coherent))
 
 
-def ray_test(geom: GeometryTables, ray: Ray):
-    """Any-hit (shadow ray) query -> occluded."""
+def _test_tri(geom: GeometryTables, ray: Ray):
     if geom.backend == "brute":
         return ip.any_hit(geom.brute_tables[1], *_ray_args(ray))
     if geom.backend == "bvh":
@@ -966,10 +1059,34 @@ def ray_test(geom: GeometryTables, ray: Ray):
     return _cluster_any(geom, ray)
 
 
+def ray_intersect(geom: GeometryTables, ray: Ray,
+                  coherent: bool = False) -> Intersection:
+    """Closest-hit query -> Intersection, spheres merged after the
+    triangles (intersect.py:1911). coherent: camera-like wavefront; the
+    exact cull then runs at the small coherent caps."""
+    its = _intersect_tri(geom, ray, coherent)
+    if geom.n_spheres:
+        its = _merge_analytic(geom, ray, its)
+    return its
+
+
+def ray_test(geom: GeometryTables, ray: Ray):
+    """Any-hit (shadow ray) query -> occluded (intersect.py:1922)."""
+    occ = _test_tri(geom, ray)
+    if geom.n_spheres:
+        occ = occ | _analytic_any(geom, ray)
+    return occ
+
+
 def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
     """Closest hit (ray) and shadow any-hit (sray): one fused kernel on the
-    brute backend, two separate queries elsewhere (intersect.py:1484).
-    Returns (Intersection, occluded)."""
+    brute backend, two separate queries elsewhere, spheres merged after
+    either (intersect.py:1932). Returns (Intersection, occluded)."""
     if geom.backend == "brute":
-        return _fused_brute(geom, ray, sray)
-    return ray_intersect(geom, ray), ray_test(geom, sray)
+        its, occ = _fused_brute(geom, ray, sray)
+    else:
+        its, occ = _intersect_tri(geom, ray, False), _test_tri(geom, sray)
+    if geom.n_spheres:
+        its = _merge_analytic(geom, ray, its)
+        occ = occ | _analytic_any(geom, sray)
+    return its, occ

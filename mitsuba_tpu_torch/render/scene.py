@@ -1,18 +1,25 @@
 """Scene container and builder (port of the parts of
-mitsuba_tpu/render/scene.py that build bench configs 1 and 3 and
+mitsuba_tpu/render/scene.py that build bench configs 1, 2 and 3 and
 instanced scenes).
 
 A `Scene` holds the geometry, material, emitter and texture tables and the
 camera, all on one device: the card unless the caller passes
 `device="cpu"` (without a CUDA device any other request raises).
-`SceneBuilder` assembles them on the host; shapes bind lambertian or
-phong materials (optionally checkerboard-textured) and area emitters, the
-builder's emitters may hold a Preetham sky, and groups of shapes may be
-placed as true instances (one shared copy of their triangles, cluster
-backend). An ambient medium is not part of the scene: it is passed to
-the volumetric path tracer (`integrators/volpath.py`). Every other scene
-feature of the reference (analytic shapes, shape-interior media, other
-BSDFs, emitters and texture kinds) is not ported yet.
+`SceneBuilder` assembles them on the host; triangle shapes and analytic
+spheres bind lambertian, mirror, dielectric, rough-conductor or phong
+materials (lambertian and phong optionally checkerboard-textured),
+triangle shapes also area emitters, the builder's emitters may hold a
+Preetham sky, and groups of shapes may be placed as true instances (one
+shared copy of their triangles, cluster backend). An ambient medium is
+not part of the scene: it is passed to the volumetric path tracer
+(`integrators/volpath.py`). Every other scene feature of the reference
+(cylinders, hair, sphere emitters, shape-interior media, other BSDFs,
+emitters and texture kinds) is not ported yet.
+
+A scene's tensors may require grad: `integrators/path.py` then
+differentiates a render with respect to them (materials and emitter
+radiance; a tensor that moves a ray, such as the geometry, is refused by
+the kernels' wrappers).
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from mitsuba_tpu_torch.bsdfs import MaterialBuilder, MaterialTable
+from mitsuba_tpu_torch.core import microfacet as mf
 from mitsuba_tpu_torch.core import transform as tf
 from mitsuba_tpu_torch.emitters import EmitterBuilder, EmitterTable
 from mitsuba_tpu_torch.render.camera import Camera, make_perspective
@@ -75,7 +83,8 @@ class SceneBuilder:
         self.emitters = EmitterBuilder()
         self.textures = TextureBuilder()
         self._shapes = []     # (mesh, material_id, emitter_id, shape_id)
-        self._n_shapes = 0
+        self._spheres = []    # (centre, radius, material_id, -1, shape_id)
+        self._n_shapes = 0    # shared id space: meshes and spheres
         self._inst_groups = []   # [[(mesh, material_id, shape_id), ...]]
         self._instances = []     # [(group id, 4x4 to_world), ...]
         self.camera = None
@@ -86,6 +95,20 @@ class SceneBuilder:
         sid = self._n_shapes
         self._n_shapes += 1
         self._shapes.append((mesh, material_id, emitter_id, sid))
+        return sid
+
+    def add_sphere(self, center, radius, material_id, emitter_id=-1,
+                   interior_medium: int = -1):
+        """An analytic sphere (reference src/shapes/sphere.cpp: exact
+        quadratic intersection, not tessellated; scene.py:121). Sphere
+        emitters and interior media are not ported."""
+        if emitter_id != -1 or interior_medium != -1:
+            raise NotImplementedError(
+                "sphere emitters and shape-interior media are not ported")
+        sid = self._n_shapes
+        self._n_shapes += 1
+        self._spheres.append((tuple(center), float(radius),
+                              int(material_id), -1, sid))
         return sid
 
     def add_area_emitter_shape(self, mesh, material_id, radiance):
@@ -131,7 +154,8 @@ class SceneBuilder:
             backend = "cluster"
             instanced = (self._inst_groups, self._instances)
         geom = build_geometry(self._shapes, backend=backend,
-                              instanced=instanced, ex_walk=ex_walk)
+                              instanced=instanced, ex_walk=ex_walk,
+                              spheres=self._spheres)
         e1 = geom.e1.numpy()
         e2 = geom.e2.numpy()
         areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -192,6 +216,60 @@ def cornell_box(width=256, height=256, backend="brute", device="cuda") \
         tf.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]),
         fov_deg=39.3077,
         aspect=width / height,
+    )
+    b.set_camera(cam, width, height)
+    return b.build(backend=backend, device=device)
+
+
+def cornell_box_specular(width=256, height=256, backend="brute",
+                         device="cuda") -> Scene:
+    """Bench config 2 (reference mitsuba_tpu/render/scene.py:380): the
+    Cornell box with a rough-conductor (GGX) short block, a mirror tall
+    block and an analytic glass sphere; 32 triangles, so `auto` keeps it
+    on the brute backend."""
+    b = SceneBuilder()
+    white = b.materials.lambertian((0.725, 0.71, 0.68))
+    red = b.materials.lambertian((0.63, 0.065, 0.05))
+    green = b.materials.lambertian((0.14, 0.45, 0.091))
+    mirror = b.materials.mirror((0.95, 0.95, 0.95))
+    glass = b.materials.dielectric(int_ior=1.5)
+    metal = b.materials.rough_conductor(alpha=0.15, dist=mf.GGX)
+    light_mat = b.materials.lambertian((0.0, 0.0, 0.0))
+
+    mq = mesh_mod.make_quad
+    b.add_shape(mq([552.8, 0, 0], [0, 0, 0], [0, 0, 559.2], [549.6, 0, 559.2]), white)
+    b.add_shape(mq([556, 548.8, 0], [556, 548.8, 559.2], [0, 548.8, 559.2], [0, 548.8, 0]), white)
+    b.add_shape(mq([549.6, 0, 559.2], [0, 0, 559.2], [0, 548.8, 559.2], [556, 548.8, 559.2]), white)
+    b.add_shape(mq([0, 0, 559.2], [0, 0, 0], [0, 548.8, 0], [0, 548.8, 559.2]), green)
+    b.add_shape(mq([552.8, 0, 0], [549.6, 0, 559.2], [556, 548.8, 559.2], [556, 548.8, 0]), red)
+
+    # rough-metal short block
+    for q in [
+        mq([130, 165, 65], [82, 165, 225], [240, 165, 272], [290, 165, 114]),
+        mq([290, 0, 114], [290, 165, 114], [240, 165, 272], [240, 0, 272]),
+        mq([130, 0, 65], [130, 165, 65], [290, 165, 114], [290, 0, 114]),
+        mq([82, 0, 225], [82, 165, 225], [130, 165, 65], [130, 0, 65]),
+        mq([240, 0, 272], [240, 165, 272], [82, 165, 225], [82, 0, 225]),
+    ]:
+        b.add_shape(q, metal)
+    # mirror tall block
+    for q in [
+        mq([423, 330, 247], [265, 330, 296], [314, 330, 456], [472, 330, 406]),
+        mq([423, 0, 247], [423, 330, 247], [472, 330, 406], [472, 0, 406]),
+        mq([472, 0, 406], [472, 330, 406], [314, 330, 456], [314, 0, 456]),
+        mq([314, 0, 456], [314, 330, 456], [265, 330, 296], [265, 0, 296]),
+        mq([265, 0, 296], [265, 330, 296], [423, 330, 247], [423, 0, 247]),
+    ]:
+        b.add_shape(q, mirror)
+    # the glass sphere between the blocks, analytic
+    b.add_sphere([160, 280, 170], 70.0, glass)
+
+    light = mq([343, 548.7, 227], [343, 548.7, 332], [213, 548.7, 332], [213, 548.7, 227])
+    b.add_area_emitter_shape(light, light_mat, (18.4, 15.6, 8.0))
+
+    cam = make_perspective(
+        tf.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]),
+        fov_deg=39.3077, aspect=width / height,
     )
     b.set_camera(cam, width, height)
     return b.build(backend=backend, device=device)

@@ -21,13 +21,13 @@ from mitsuba_tpu.integrators.path import mi_weight as j_mi_weight
 from mitsuba_tpu.render import mesh as mesh_mod
 from mitsuba_tpu.render.scene import SceneBuilder as JaxSceneBuilder
 from mitsuba_tpu.render.scene import cornell_box as jax_cornell_box
-from mitsuba_tpu.render.scene import cornell_box_specular
 from mitsuba_tpu_torch.bsdfs import bsdf_eval, bsdf_pdf, bsdf_sample
 from mitsuba_tpu_torch.emitters import (
     eval_emitter_hit, pdf_direct_area, sample_direct,
 )
 from mitsuba_tpu_torch.integrators.path import PathConfig, mi_weight, render
 from mitsuba_tpu_torch.interop import from_jax_scene
+from mitsuba_tpu_torch.render.scene import SceneBuilder as TorchSceneBuilder
 from mitsuba_tpu_torch.render.scene import cornell_box
 
 torch.set_num_threads(1)
@@ -194,10 +194,22 @@ def test_mi_weight_matches():
 
 
 def test_unported_features_raise():
+    jb = JaxSceneBuilder()
+    jb.add_shape(mesh_mod.make_quad([0, 0, 0], [1, 0, 0], [1, 1, 0],
+                                    [0, 1, 0]), jb.materials.lambertian())
+    jb.add_cylinder([0, 0, 1], [0, 0, 2], 0.5, 0)
     with pytest.raises(NotImplementedError):
-        from_jax_scene(cornell_box_specular(8, 8), device="cpu")  # sphere
+        from_jax_scene(jb.build(backend="brute"), device="cpu")  # cylinder
+    jb = JaxSceneBuilder()
+    jb.add_area_emitter_shape(mesh_mod.make_quad(
+        [0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]),
+        jb.materials.rough_conductor(dist=2), (1.0, 1.0, 1.0))
+    with pytest.raises(NotImplementedError):     # Phong microfacets
+        from_jax_scene(jb.build(backend="brute"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        TorchSceneBuilder().add_sphere([0, 0, 0], 1.0, 0, emitter_id=0)
     scene = cornell_box(4, 4, device="cpu")
-    for opt in ("hit_prediction", "mip_filter", "remat", "strict_normals",
+    for opt in ("hit_prediction", "mip_filter", "strict_normals",
                 "skip_direct_emission", "aniso_filter"):
         with pytest.raises(NotImplementedError):
             render(scene, PathConfig(max_depth=1, spp=1, **{opt: True}))
