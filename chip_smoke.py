@@ -26,7 +26,13 @@ cluster_closest / cluster_any (the v1 cluster intersector, #14) config
 mitsuba_tpu_torch.probes (kernel_cost, r3_kernel, r3_mt, r3_refinebits,
 r5_megakernel) the cost probes of the card (csrc/probes.cu, #15), the
 work-list probe (#13) on config 3's work list and the refine kernel (#5)
-at the refine-bits script's sizes.
+at the refine-bits script's sizes; and through the scene-file front end
+(mitsuba_tpu_torch.io.xml, io.bitmap, cli) the README's command,
+`python -m mitsuba_tpu_torch scenes/cornell.xml -D depth=5 -D spp=64 -D
+width=512 -D height=512 -o cornell.exr` (cli.main on the card: 16,777,216
+lanes in one wavefront, #1), and an XML twin of config 3 written as
+binary PLY files (tests/torch_xml_cases.py) on the cluster backend under
+`auto` and on the bvh backend.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -104,7 +110,12 @@ Phases, each printing one JSON line:
      tests/goldens/bench_cfg2.npz with bench.py's 16x16 blocks, limit
      0.15 and mean band (0.09, 0.21); fog at 1,024 spp against
      tests/torch_goldens/volpath_fog.npz (at 16 spp the estimator's own
-     seed-to-seed distance, 0.22, is over the gate);
+     seed-to-seed distance, 0.22, is over the gate); scenes/cornell.xml
+     loaded by the port at 48x48, depth 4, 128 spp, seed 777 against the
+     reference's 256-spp tests/goldens/cornell.npz by
+     tests/test_goldens.py's per-pixel Welch t-test (a pixel fails at
+     |t| > 3.9, the image at 1%); the config-3 twin at 64x64 on each
+     backend against bench_cfg3_sphere.npz, as config 3 and bvh are;
   5. renders of each path: one warm-up (on the cluster backend counting
      the lanes that reach the XL re-run and the stream fallback), then
      timed renders with every launch count set to 0 just before and read
@@ -147,6 +158,18 @@ Phases, each printing one JSON line:
      in emitter radiance, the step with a checkpoint a bounce against
      the one without, the card's gradient against the CPU's, and the
      brute wrappers' refusal of a ray that requires grad;
+  5b. the front end: after config 1, the README's command through
+     cli.main (launch counts set to 0 just before and read just after),
+     then the same file through io.xml.load_scene (timed) and render,
+     twice timed (s/render, Mrays/s, #1's launches, peak memory) and once
+     profiled (device busy share); the EXR the CLI wrote, read back by
+     io.bitmap.read_exr, must equal the seed-0 render bit for bit. After
+     config 3, the twin's files written and loaded (timed), its tables
+     against config 3's (torch.equal on each; the loader orders the two
+     material rows by first use, so config 3's are compared permuted),
+     its 512x512x4 renders as a render phase, launching #5, #6, #9 and
+     #10 as config 3 does, then one render of the same files on the bvh
+     backend, #11 5 + 5 times;
   6. the v1 cluster entry points on config 3's camera and shadow
      wavefronts, with the launch counts set to 0 just before and read just
      after, held against the exact-cull path's hits;
@@ -180,6 +203,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -192,7 +216,15 @@ W2, H2, SPP2, DEPTH2 = 512, 512, 4, 5      # bench config 2
 W4, H4, SPP4, DEPTH4 = 256, 256, 16, 5     # bench config 4 (gradient)
 TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
          "config3_v6": 2,
-         "bvh": 2, "instanced": 2, "volpath": 2}
+         "bvh": 2, "instanced": 2, "volpath": 2, "xml_config3": 2}
+# the README's command: scenes/cornell.xml, 512x512 px, 64 spp, depth 5
+# (16,777,216 lanes in one wavefront, as the reference renders it)
+CLI_W, CLI_H, CLI_SPP, CLI_DEPTH = 512, 512, 64, 5
+# tests/test_goldens.py's gate of scenes/cornell.xml against the
+# reference's 256-spp render tests/goldens/cornell.npz: 48x48 px, depth
+# 4, 128 spp, seed 777; a pixel fails at |t| > 3.9, the image at 1%
+GOLD_RES, GOLD_DEPTH, GOLD_SPP, GOLD_SEED = 48, 4, 128, 777
+GOLD_CRIT, GOLD_FAIL_MAX = 3.9, 0.01
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
@@ -208,7 +240,8 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              "config3": (0.17, 0.41),
              "config3_v5": (0.17, 0.41), "config3_v6": (0.17, 0.41),
              "bvh": (0.17, 0.41), "instanced": (0.31, 0.73),
-             "volpath": (0.0256, 0.0598)}
+             "volpath": (0.0256, 0.0598), "cli_cornell": (0.09, 0.21),
+             "xml_config3": (0.17, 0.41), "xml_config3_bvh": (0.17, 0.41)}
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -2321,6 +2354,195 @@ def grad_checks(device, res=32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the scene-file front end: io.xml, io.bitmap, cli
+# ---------------------------------------------------------------------------
+
+def cli_cornell_phase(device, tmp, w=CLI_W, h=CLI_H, spp=CLI_SPP,
+                      depth=CLI_DEPTH):
+    """The README's command through mitsuba_tpu_torch.cli.main, launch
+    counts set to 0 just before and read just after; then the same scene
+    loaded by io.xml.load_scene and rendered by render twice (timed, launch
+    counts and peak memory) and once under the profiler (device busy
+    share). The EXR the CLI wrote, read back by io.bitmap.read_exr, must
+    equal the seed-0 render bit for bit."""
+    from mitsuba_tpu_torch.cli import main as cli_main
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.io.bitmap import read_exr
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    xml = os.path.join(ROOT, "scenes", "cornell.xml")
+    out = os.path.join(tmp, "cornell.exr")
+    defs = dict(depth=depth, spp=spp, width=w, height=h)
+    argv = [xml] + [a for k, v in defs.items() for a in ("-D", f"{k}={v}")]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if cli_main(argv + ["-o", out]) != 0:
+        raise AssertionError("cli_cornell: the CLI exited non-zero")
+    cli_s = time.perf_counter() - t0
+    cli_launches = launch_counts()
+    t0 = time.perf_counter()
+    scene, cfg = load_scene(xml, params=defs, device=device)
+    load_s = time.perf_counter() - t0
+    pc = PathConfig(max_depth=cfg["maxDepth"], spp=cfg["sampleCount"],
+                    remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, rays, launches, means = [], [], [], []
+    for seed in (0, 1):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        img, aux = render(scene, pc, seed=seed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(launch_counts()["shaded_any"])
+        rays.append(int(aux["rays_traced"]))
+        means.append(float(img.mean()))
+        if seed == 0:
+            exr = read_exr(out)
+            ref = img.cpu().numpy()
+            same = bool(np.array_equal(exr, ref))
+            finite = bool(np.isfinite(ref).all())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_profile(lambda: render(scene, pc, seed=0))
+    band = MEAN_BAND["cli_cornell"]
+    phase("cli_cornell", command=["python", "-m", "mitsuba_tpu_torch",
+                                  "scenes/cornell.xml"] + argv[1:]
+          + ["-o", "cornell.exr"], width=w, height=h, spp=spp, depth=depth,
+          lanes=w * h * spp, backend=scene.geom.backend,
+          triangles=scene.geom.n_tris, cli_seconds=cli_s,
+          cli_launches_shaded_any=cli_launches["shaded_any"],
+          load_seconds=load_s, seconds=secs, rays_traced=rays,
+          mrays_per_s=[r / t / 1e6 for r, t in zip(rays, secs)],
+          launches_shaded_any=launches, means=means, band=band,
+          peak_mem_gib=peak, exr_equals_render=same,
+          device_busy_ms=prof["device_busy_ms"],
+          busy_share=prof["busy_share"], profile_wall_ms=prof["wall_ms"],
+          kernels=prof["kernels"],
+          own_ms=prof["own"].get("brute_kernel", {}).get("ms"))
+    if not same or not finite:
+        raise AssertionError("cli_cornell: the EXR differs from the render "
+                             "or is not finite")
+    if cli_launches["shaded_any"] != depth or launches != [depth, depth]:
+        raise AssertionError(f"cli_cornell: #1 launched "
+                             f"{cli_launches['shaded_any']}, {launches}")
+    if not all(band[0] < m < band[1] for m in means):
+        raise AssertionError(f"cli_cornell: means {means} outside {band}")
+    return dict(cli=cli_launches["shaded_any"], render=launches[0])
+
+
+def golden_cornell_xml(device, res=GOLD_RES, spp=GOLD_SPP):
+    """tests/test_goldens.py's gate on scenes/cornell.xml loaded by the
+    port: per-pixel mean and variance over spp samples (lanes in scanline
+    order, seed 777) against tests/goldens/cornell.npz, the reference's
+    256-spp render of the same box built in Python (tests/golden_scenes.py
+    scene_cornell; the XML box differs from it only in shape and material
+    order, so the two agree only statistically). The gate is the test's
+    own |t| rule, not utils.ttest.welch_ttest_images: that function's
+    p-values (a copy of the reference's) are wrong (ROADMAP C)."""
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, camera_wavefront, path_trace,
+    )
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    scene, _ = load_scene(os.path.join(ROOT, "scenes", "cornell.xml"),
+                          params=dict(depth=GOLD_DEPTH, spp=spp, width=res,
+                                      height=res), device=device)
+    cfg = PathConfig(max_depth=GOLD_DEPTH, spp=spp, remat=False)
+    ray, sampler, _ = camera_wavefront(scene, cfg, GOLD_SEED, morton=False)
+    L, _ = path_trace(scene, ray, sampler, cfg)
+    Ls = L.reshape(res, res, spp, 3).double()
+    mean = Ls.mean(dim=2).cpu().numpy()
+    var = Ls.var(dim=2, unbiased=True).cpu().numpy()
+    g = np.load(os.path.join(ROOT, "tests", "goldens", "cornell.npz"))
+    se = np.sqrt(var / spp + g["var"] / int(g["spp"]))
+    t = (mean - g["mean"]) / np.maximum(se, 1e-6)
+    frac = float((np.abs(t) > GOLD_CRIT).any(axis=-1).mean())
+    phase("golden_cornell_xml", golden="tests/goldens/cornell.npz",
+          width=res, height=res, spp=spp, depth=GOLD_DEPTH, seed=GOLD_SEED,
+          golden_spp=int(g["spp"]), fail_fraction=frac,
+          limit=GOLD_FAIL_MAX, crit=GOLD_CRIT, mean=float(mean.mean()),
+          golden_mean=float(g["mean"].mean()),
+          finite=bool(np.isfinite(mean).all()))
+    if not frac < GOLD_FAIL_MAX or not np.isfinite(mean).all():
+        raise AssertionError(f"golden_cornell_xml: fail fraction {frac}")
+
+
+def xml_config3_phase(device, tmp, ref3, l3, w=W3, h=H3):
+    """tests/torch_xml_cases.py's XML twin of config 3, written as files
+    (binary PLY) and loaded by io.xml.load_scene under backend 'auto'
+    (the CLI's -d auto): the cluster backend, config 3's tables (`ref3`,
+    textured_mesh_scene(backend="cluster")) with the material rows in the
+    loader's order; gated at 64x64 as config 3 is; its 512x512x4 renders
+    (render_phase) launching #9 and #10 as config 3's (`l3`) do; then the
+    same files under backend 'bvh' (-d bvh), gated as the bvh phase is,
+    and one 512x512x4 render through #11."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_xml_cases as xc
+
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    t0 = time.perf_counter()
+    path = xc.write_config3_twin(tmp)
+    write_s = time.perf_counter() - t0
+    defs = dict(depth=DEPTH3, spp=SPP3, width=w, height=h)
+    t0 = time.perf_counter()
+    twin, _ = load_scene(path, params=defs, backend="auto", device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    raw = xc.table_diffs(twin, ref3)
+    left = xc.table_diffs(twin, xc.with_material_order(ref3))
+    phase("xml_config3_load", files=sorted(os.listdir(tmp)),
+          write_seconds=write_s, load_seconds=load_s,
+          backend=twin.geom.backend, triangles=twin.geom.n_tris,
+          differs_from_config3=raw, material_order=xc.MATERIAL_ORDER,
+          differs_after_reorder=left)
+    if twin.geom.backend != "cluster" or left:
+        raise AssertionError(f"xml_config3: backend {twin.geom.backend}, "
+                             f"tables differ in {left}")
+    golden_gate("golden_64_xml_config3",
+                dataclasses.replace(twin, width=64, height=64),
+                "tests/torch_goldens/bench_cfg3_sphere.npz",
+                band=MEAN_BAND["config3"])
+    cfg = PathConfig(max_depth=DEPTH3, spp=SPP3)
+    lx = render_phase("xml_config3", twin, cfg,
+                      ["refine", "child_refine", "l1_masked"],
+                      forbid=["items", "l1_items"])
+    for k in ("l1_masked", "stream", "refine", "child_refine"):
+        if lx[k] != l3[k]:
+            raise AssertionError(f"xml_config3: {k} launched {lx[k]}, "
+                                 f"config 3 {l3[k]}")
+    del twin
+    t0 = time.perf_counter()
+    twin_bvh, _ = load_scene(path, params=defs, backend="bvh", device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    golden_gate("golden_64_xml_config3_bvh",
+                dataclasses.replace(twin_bvh, width=64, height=64),
+                "tests/torch_goldens/bench_cfg3_sphere.npz",
+                band=MEAN_BAND["config3"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    img, aux = render(twin_bvh, cfg, seed=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lb = launch_counts()
+    mean = float(img.mean())
+    band = MEAN_BAND["xml_config3_bvh"]
+    phase("xml_config3_bvh", load_seconds=load_s,
+          backend=twin_bvh.geom.backend, seconds=secs,
+          rays_traced=int(aux["rays_traced"]),
+          mrays_per_s=int(aux["rays_traced"]) / secs / 1e6,
+          launches={k: v for k, v in lb.items() if v}, mean=mean, band=band)
+    if lb["bvh_closest"] != DEPTH3 or lb["bvh_any"] != DEPTH3 \
+            or not band[0] < mean < band[1]:
+        raise AssertionError(f"xml_config3_bvh: #11 launched "
+                             f"{lb['bvh_closest']} + {lb['bvh_any']}, "
+                             f"mean {mean}")
+    return dict(cluster=lx, bvh=lb)
+
+
 def main(argv=None):
     import argparse
 
@@ -2489,12 +2711,17 @@ def main(argv=None):
                 "tests/torch_goldens/volpath_fog.npz",
                 cfg=PathConfig(max_depth=5, spp=FOG_GOLDEN_SPP),
                 render_fn=fog_render, band=MEAN_BAND["volpath"])
+    golden_cornell_xml(device)
     cfg = PathConfig(max_depth=DEPTH3, spp=SPP3)
     cfg1 = PathConfig(max_depth=DEPTH1, spp=SPP1)
     l1 = render_phase("config1", cornell_box(W1, H1, device=device), cfg1,
                       ["shaded_any"])
     live1 = brute_liveness("config1", cornell_box(W1, H1, device=device),
                            cfg1, render, "shaded_any")
+    # the README's command through the CLI, and the same scene file
+    # through io.xml.load_scene + render
+    tmp = tempfile.TemporaryDirectory()
+    lcli = cli_cornell_phase(device, tmp.name)
     # config 2: the brute kernel (#1) with the glass sphere merged after
     # it, camera lanes in pixel-Morton order as bench.py runs it
     l2 = render_phase("config2", cornell_box_specular(
@@ -2515,6 +2742,11 @@ def main(argv=None):
                       ["refine", "child_refine", "l1_masked"],
                       forbid=["items", "l1_items"])
     walk_liveness("config3", scene3, cfg)
+    # config 3 as scene files: the cluster backend under auto, then bvh
+    twin_dir = os.path.join(tmp.name, "config3")
+    os.mkdir(twin_dir)
+    lxml = xml_config3_phase(device, twin_dir, scene3, l3)
+    tmp.cleanup()
     l3v5 = render_phase("config3_v5", scene3_v5, cfg,
                         ["refine", "child_refine", "items"],
                         forbid=["l1_masked", "l1_items"])
@@ -2595,6 +2827,7 @@ def main(argv=None):
         # events); the same for #3 in fog
         brute("shaded_any", 337, l1["shaded_any"], brute_check,
               launches_config2=l2["shaded_any"],
+              launches_cli_cornell=lcli,
               launches_config4=l4["launches_shaded_any"],
               device_ms_per_render=brute_ms("config1", "shaded_any"),
               device_ms_per_render_config2=brute_ms("config2",
@@ -2605,12 +2838,14 @@ def main(argv=None):
         # default walk (v6b: S1 and S2) and under v5 (#6 also runs S3)
         entry("refine", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:114",
               l3["refine"], cluster[("refine", "bounce", "S1")],
+              launches_xml_config3=lxml["cluster"]["refine"],
               device_ms_per_render=own_ms("config3", "refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5", "refine_kernel"),
               check_phase="kernel_vs_plain refine (bounce S1)"),
         entry("child_refine", "exact.cu",
               "mitsuba_tpu/ops/exact_pallas.py:209", l3["child_refine"],
               cluster[("child_refine", "bounce", "S2")],
+              launches_xml_config3=lxml["cluster"]["child_refine"],
               device_ms_per_render=own_ms("config3", "child_refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5",
                                              "child_refine_kernel"),
@@ -2633,21 +2868,27 @@ def main(argv=None):
               check_phase="kernel_vs_plain l1_items (bounce closest)"),
         entry("l1_masked", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:814",
               l3["l1_masked"], cluster[("l1_masked", "bounce", "closest")],
-              device_ms_per_render=own_ms("config3", "l1_masked_kernel")),
+              device_ms_per_render=own_ms("config3", "l1_masked_kernel"),
+              launches_xml_config3=lxml["cluster"]["l1_masked"],
+              device_ms_per_render_xml_config3=own_ms("xml_config3",
+                                                      "l1_masked_kernel")),
         entry("stream", "stream.cu",
               "mitsuba_tpu/ops/stream_pallas.py:176",
               (l3 if stream_path == "config3" else l3v5)["stream"],
               cluster[("stream", "bounce", False)], path=stream_path,
-              device_ms_per_render=own_ms(stream_path, "stream_kernel")),
+              device_ms_per_render=own_ms(stream_path, "stream_kernel"),
+              launches_xml_config3=lxml["cluster"]["stream"]),
         # #11's device ms a render (both bodies), in the bvh render and
         # in the instanced one (its overflow fallback and instance walks)
         entry("bvh_closest", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:169",
               lb["bvh_closest"], bvh[("bvh_closest", "bounce")],
+              launches_xml_config3_bvh=lxml["bvh"]["bvh_closest"],
               device_ms_per_render=own_ms("bvh", "bvh_kernel"),
               device_ms_per_render_instanced=own_ms("instanced",
                                                     "bvh_kernel")),
         entry("bvh_any", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:196",
-              lb["bvh_any"], bvh[("bvh_any", "shadow")]),
+              lb["bvh_any"], bvh[("bvh_any", "shadow")],
+              launches_xml_config3_bvh=lxml["bvh"]["bvh_any"]),
         entry("wl_closest", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:364", li["wl_closest"],
               worklist[("wl_closest", "bounce", "instanced")],

@@ -1,5 +1,7 @@
 """Perspective pinhole camera (port of the aperture-free perspective path of
-mitsuba_tpu/render/camera.py; reference src/cameras/perspective.cpp)."""
+mitsuba_tpu/render/camera.py; reference src/cameras/perspective.cpp), and
+the camera plugins of the XML loader: `perspective`; `orthographic`, a
+thin-lens aperture and an open shutter raise NotImplementedError."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,6 +11,7 @@ import torch
 
 from mitsuba_tpu_torch.core import math as m
 from mitsuba_tpu_torch.core import transform as tf
+from mitsuba_tpu_torch.core.registry import register_plugin
 from mitsuba_tpu_torch.render.records import Ray
 
 
@@ -57,3 +60,30 @@ def make_perspective(to_world, fov_deg: float, aspect: float,
         tan_half_fov_x=_f32(tx),
         tan_half_fov_y=_f32(ty),
     )
+
+
+@register_plugin("camera", "perspective")
+def _make_perspective_plugin(props, aspect=1.0):
+    """The XML `perspective` camera (reference camera.py:123)."""
+    aperture = float(props.get("apertureRadius", 0.0))
+    shutter = float(props.get("shutterClose", 0.0)) \
+        - float(props.get("shutterOpen", 0.0))
+    if aperture != 0.0:
+        raise NotImplementedError(
+            "a thin-lens aperture is not ported (ROADMAP A.11)")
+    if shutter != 0.0:
+        raise NotImplementedError(
+            "an open shutter (motion blur, render_motion) is not ported "
+            "(ROADMAP A.11, A.12)")
+    return make_perspective(
+        to_world=props.get("toWorld", tf.identity()),
+        fov_deg=float(props.get("fov", 49.13)),
+        aspect=float(props.get("aspect", aspect)),
+        fov_axis=props.get("fovAxis", "x"),
+    )
+
+
+@register_plugin("camera", "orthographic")
+def _make_ortho_plugin(props, aspect=1.0):
+    raise NotImplementedError(
+        "the orthographic camera is not ported (ROADMAP A.11)")

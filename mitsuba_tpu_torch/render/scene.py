@@ -144,8 +144,15 @@ class SceneBuilder:
         ex_walk: the cluster backend's exact item walk, 'v5', 'v6', 'v6b'
         or None for the device's default (ops/exact.py)."""
         check_device(device)
-        if not self._shapes:
+        if not self._shapes and not self._spheres:
             raise ValueError("scene has no shapes")
+        shapes = self._shapes
+        if not shapes:
+            # spheres only: the triangle tables still need a row, a
+            # degenerate far-away triangle that is never hit (as the
+            # reference's builder adds, scene.py:263)
+            far = mesh_mod.make_quad(*[(1e8, 1e8, 1e8)] * 4)
+            shapes = [(far, 0, -1, self._n_shapes)]
         instanced = None
         if self._instances:
             if backend not in ("cluster", "auto"):
@@ -153,7 +160,7 @@ class SceneBuilder:
                     "true instancing requires the cluster backend")
             backend = "cluster"
             instanced = (self._inst_groups, self._instances)
-        geom = build_geometry(self._shapes, backend=backend,
+        geom = build_geometry(shapes, backend=backend,
                               instanced=instanced, ex_walk=ex_walk,
                               spheres=self._spheres)
         e1 = geom.e1.numpy()

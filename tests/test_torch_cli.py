@@ -1,0 +1,157 @@
+"""The port's command-line renderer (`mitsuba_tpu_torch.cli`, `python -m
+mitsuba_tpu_torch`) on the CPU (`--cpu`): the file it writes equals the
+library's render of the same scene and seed (`io.xml.load_scene` +
+`render` or `render_volpath`) bit for bit, EXR and PFM exactly, LDR
+formats through the same sRGB curve; `-x` skips a file that exists; each
+flag of the reference's CLI that is not ported raises
+NotImplementedError.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from mitsuba_tpu_torch.cli import main
+from mitsuba_tpu_torch.core.spectrum import to_srgb
+from mitsuba_tpu_torch.integrators import PathConfig, render, render_volpath
+from mitsuba_tpu_torch.io import bitmap
+from mitsuba_tpu_torch.io.xml import load_scene
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORNELL = os.path.join(REPO, "scenes", "cornell.xml")
+DEFS = ["-D", "depth=3", "-D", "spp=2", "-D", "width=12", "-D", "height=8"]
+PARAMS = dict(depth=3, spp=2, width=12, height=8)
+
+
+def _library(seed=0, backend="auto"):
+    scene, cfg = load_scene(CORNELL, params=PARAMS, backend=backend,
+                            device="cpu")
+    img, _ = render(scene, PathConfig(max_depth=cfg["maxDepth"],
+                                      spp=cfg["sampleCount"], remat=False),
+                    seed=seed)
+    return img.numpy()
+
+
+@pytest.mark.parametrize("args", [[], ["-s", "3"], ["-d", "bvh"]],
+                         ids=["seed0", "seed3", "bvh"])
+def test_exr_equals_library_render(tmp_path, args):
+    out = str(tmp_path / "c.exr")
+    assert main(["--cpu", "-q", CORNELL, *DEFS, "-o", out, *args]) == 0
+    seed = int(args[1]) if args[:1] == ["-s"] else 0
+    backend = args[1] if args[:1] == ["-d"] else "auto"
+    ref = _library(seed=seed, backend=backend)
+    got = bitmap.read_exr(out)
+    assert got.shape == (8, 12, 3) and float(ref.mean()) > 0
+    assert np.array_equal(got, ref)
+
+
+def test_other_formats_equal_library_render(tmp_path):
+    ref = _library()
+    main(["--cpu", "-q", CORNELL, *DEFS, "-o", str(tmp_path / "c.pfm")])
+    assert np.array_equal(bitmap.read_pfm(str(tmp_path / "c.pfm")), ref)
+    main(["--cpu", "-q", CORNELL, *DEFS, "-o", str(tmp_path / "c.png")])
+    ldr = (to_srgb(ref) * 255 + 0.5).astype(np.uint8)
+    assert np.array_equal(bitmap.read_png(str(tmp_path / "c.png")), ldr)
+    main(["--cpu", "-q", CORNELL, *DEFS, "-o", str(tmp_path / "c.m")])
+    np.testing.assert_allclose(
+        bitmap.read_mfilm(str(tmp_path / "c.m"))["pixels"], ref, rtol=1e-7)
+
+
+def test_default_output_and_overrides(tmp_path, capsys):
+    scene = tmp_path / "box.xml"
+    with open(CORNELL) as f:
+        scene.write_text(f.read().replace("meshes/",
+                                          os.path.join(REPO, "scenes",
+                                                       "meshes") + "/"))
+    assert main(["--cpu", str(scene), *DEFS, "--spp", "1", "--depth", "2",
+                 "--size", "6x4"]) == 0
+    assert "spp=1 depth=2" in capsys.readouterr().out
+    got = bitmap.read_exr(str(tmp_path / "box.exr"))
+    assert got.shape == (4, 6, 3)
+
+
+def test_skip_existing(tmp_path, capsys):
+    out = tmp_path / "c.exr"
+    out.write_bytes(b"kept")
+    assert main(["--cpu", CORNELL, *DEFS, "-o", str(out), "-x"]) == 0
+    assert out.read_bytes() == b"kept"
+    assert "skipping" in capsys.readouterr().out
+
+
+FOG = """<scene>
+ <integrator type="{integ}"><integer name="maxDepth" value="3"/></integrator>
+ <camera type="perspective">
+  <transform name="toWorld"><lookAt ox="278" oy="273" oz="-800" tx="278"
+   ty="273" tz="0" ux="0" uy="1" uz="0"/></transform>
+  <float name="fov" value="39.3077"/>
+  <sampler type="independent"><integer name="sampleCount" value="2"/></sampler>
+  <film type="exrfilm"><integer name="width" value="10"/>
+   <integer name="height" value="10"/></film>
+ </camera>
+ {medium}
+ <shape type="obj"><string name="filename" value="{meshes}/cbox_walls.obj"/>
+  <boolean name="faceNormals" value="true"/></shape>
+ <shape type="obj"><string name="filename" value="{meshes}/cbox_light.obj"/>
+  <luminaire type="area"><rgb name="intensity" value="18.4 15.6 8"/>
+  </luminaire></shape>
+</scene>"""
+_MED = ('<medium type="homogeneous"><rgb name="sigmaS" value="0.0015"/>'
+        '<rgb name="sigmaA" value="0.0003"/><phase type="hg">'
+        '<float name="g" value="0.4"/></phase></medium>')
+
+
+@pytest.mark.parametrize("integ,medium,mis", [
+    ("path", True, True), ("volpath", True, True),
+    ("volpath_simple", True, False), ("volpath", False, True)],
+    ids=["medium", "volpath", "volpath_simple", "volpath_no_medium"])
+def test_volpath_routes_equal_library_render(tmp_path, integ, medium, mis):
+    xml = tmp_path / "fog.xml"
+    xml.write_text(FOG.format(integ=integ, medium=_MED if medium else "",
+                              meshes=os.path.join(REPO, "scenes", "meshes")))
+    out = str(tmp_path / "fog.exr")
+    assert main(["--cpu", "-q", str(xml), "-o", out]) == 0
+    scene, cfg = load_scene(str(xml), device="cpu")
+    from mitsuba_tpu_torch.media import no_medium
+
+    ref, _ = render_volpath(scene, cfg.get("medium", no_medium()),
+                            PathConfig(max_depth=3, spp=2, remat=False),
+                            seed=0, mis=mis)
+    assert float(ref.mean()) > 0
+    assert np.array_equal(bitmap.read_exr(out), ref.numpy())
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--server"], "A.10"), (["--listen-stdio"], "A.10"),
+    (["--gui"], "A.13"), (["--guided"], "A.8")])
+def test_unported_flags_raise(tmp_path, flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        main(["--cpu", CORNELL, *DEFS, "-o", str(tmp_path / "x.exr"),
+              *flags])
+
+
+@pytest.mark.parametrize("case", ["stratified", "gaussian", "jpg"])
+def test_unported_options_raise(tmp_path, case):
+    args = ["--cpu", "-q", *DEFS, "-o", str(tmp_path / "x.exr")]
+    scene = CORNELL
+    if case == "jpg":
+        args[-1] = str(tmp_path / "x.jpg")
+    else:
+        text = open(CORNELL).read().replace(
+            "meshes/", os.path.join(REPO, "scenes", "meshes") + "/")
+        text = text.replace('type="independent"', 'type="stratified"') \
+            if case == "stratified" else text.replace(
+                '<rfilter type="box"/>', '<rfilter type="gaussian"/>')
+        scene = str(tmp_path / "s.xml")
+        with open(scene, "w") as f:
+            f.write(text)
+    with pytest.raises(NotImplementedError):
+        main([scene, *args])
+
+
+def test_runs_on_the_card_unless_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-q", CORNELL, *DEFS, "-o", str(tmp_path / "x.exr")])

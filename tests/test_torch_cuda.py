@@ -1210,3 +1210,47 @@ def test_wrapper_refuses_a_ray_that_requires_grad_on_the_card(cuda):
         ip.closest_hit_shaded_and_any(*args)
     with torch.no_grad():
         ip.closest_hit_shaded_and_any(*args)
+
+
+def test_cli_on_the_card_equals_the_library_render(cuda, tmp_path):
+    """`python -m mitsuba_tpu_torch scenes/cornell.xml` without --cpu runs
+    on the card, through #1, and writes the library render's bits."""
+    import os
+
+    from mitsuba_tpu_torch.cli import main
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.io.bitmap import read_exr
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    xml = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "cornell.xml")
+    out = str(tmp_path / "cornell.exr")
+    ip.LAUNCHES = 0
+    assert main([xml, "-q", "-D", "depth=5", "-D", "spp=4", "-D", "width=32",
+                 "-D", "height=32", "-o", out]) == 0
+    assert ip.LAUNCHES == 5
+    scene, cfg = load_scene(xml, params=dict(depth=5, spp=4, width=32,
+                                             height=32))
+    assert scene.device.type == "cuda" and scene.geom.backend == "brute"
+    img, _ = render(scene, PathConfig(max_depth=5, spp=4, remat=False))
+    assert np.array_equal(read_exr(out), img.cpu().numpy())
+
+
+def test_config3_twin_on_the_card_equals_textured_mesh_scene(cuda, tmp_path):
+    """tests/torch_xml_cases.py's XML twin of config 3 (101,760-triangle
+    body as binary PLY) loads on the cluster backend under `auto` with
+    config 3's tables, its two material rows in the other order."""
+    import torch_xml_cases as xc
+
+    from mitsuba_tpu_torch.io.xml import load_scene
+    from mitsuba_tpu_torch.render.scene import textured_mesh_scene
+
+    twin, _ = load_scene(xc.write_config3_twin(str(tmp_path)),
+                         params=dict(depth=5, spp=4, width=64, height=64))
+    ref = textured_mesh_scene(64, 64, backend="cluster", device=cuda)
+    assert twin.geom.backend == "cluster" and twin.geom.n_tris == 101762
+    assert set(xc.table_diffs(twin, ref)) <= {
+        "geom.material_id", "geom.shade_pack", "materials.kind",
+        "materials.reflectance", "materials.specular", "materials.exponent",
+        "materials.tex_id"}
+    assert xc.table_diffs(twin, xc.with_material_order(ref)) == []

@@ -2,7 +2,8 @@
 every module of mitsuba_tpu_torch (media/, the volumetric path tracer,
 ops/probes.py and the probe drivers of probes/ among them) and rendering
 a brute and an instanced cluster scene (which builds BVHs with the port's
-own native builder) and the brute scene in a medium leaves `jax`, every
+own native builder) and the brute scene in a medium, and rendering
+scenes/cornell.xml through `python -m mitsuba_tpu_torch`, leave `jax`, every
 `mitsuba_tpu` module and the reference's `scripts` out of sys.modules,
 and no source file of the port, chip_smoke.py or the case inputs it
 loads (tests/torch_*_cases.py) imports the JAX package or the
@@ -121,6 +122,23 @@ def test_no_source_of_the_port_imports_the_reference():
     assert _REF_IMPORT.search("from mitsuba_tpu.render import mesh")
     assert _REF_IMPORT.search("import mitsuba_tpu")
     assert not _REF_IMPORT.search("from mitsuba_tpu_torch.ops import bvh")
+
+
+def test_cli_renders_a_scene_file_without_jax(tmp_path):
+    """`python -m mitsuba_tpu_torch --cpu scenes/cornell.xml` at 8x8x1, as
+    a user runs it; `-X importtime` lists every module it imports."""
+    out = tmp_path / "cornell.exr"
+    proc = _run(["-X", "importtime", "-m", "mitsuba_tpu_torch", "--cpu",
+                 "scenes/cornell.xml", "-D", "depth=2", "-D", "spp=1", "-D",
+                 "width=8", "-D", "height=8", "-o", str(out)], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "wrote" in proc.stdout and out.stat().st_size > 0
+    imported = {ln.rsplit("|", 1)[-1].strip()
+                for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:")}
+    assert "mitsuba_tpu_torch.io.xml" in imported
+    assert not {m for m in imported if m.split(".")[0] in (
+        "jax", "mitsuba_tpu", "scripts")}
 
 
 def test_chip_smoke_refuses_without_the_repo_or_a_card(tmp_path):
