@@ -32,7 +32,18 @@ at the refine-bits script's sizes; and through the scene-file front end
 width=512 -D height=512 -o cornell.exr` (cli.main on the card: 16,777,216
 lanes in one wavefront, #1), and an XML twin of config 3 written as
 binary PLY files (tests/torch_xml_cases.py) on the cluster backend under
-`auto` and on the bvh backend.
+`auto` and on the bvh backend; and participating media (#2 and #3):
+through io.xml.load_scene and render_volpath "hetero_xml", the box of
+scenes/cornell.xml under `volpath` in a heterogeneous medium read from a
+256³ float32 .vol of band-limited noise (64 MiB, written from seed 0 by
+tests/torch_media_cases.py), 256x256 px, 16 spp, depth 5; "flake",
+config 1's box in an oriented Gaussian-flake medium (64³ density and
+fiber fields, stddev 0.3), the same size; through render_volpath_guided
+"guided", fog at that size (8 learning + 8 guided spp, res 16); and
+through render_volpath_media "tank", the volumetric tank of
+tests/golden_scenes.py:118 rebuilt with the port's SceneBuilder (16
+triangles, an index-matched glass box holding a homogeneous medium),
+512x512 px, 4 spp, depth 6, and "tank_het", its interior a 128³ grid.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -170,6 +181,21 @@ Phases, each printing one JSON line:
      its 512x512x4 renders as a render phase, launching #5, #6, #9 and
      #10 as config 3 does, then one render of the same files on the bvh
      backend, #11 5 + 5 times;
+  5c. the media: gates at 64x64, 1,024 spp, depth 5 against
+     tests/torch_goldens/volpath_fog.npz with fog's 0.10 block gate and
+     band: a heterogeneous medium of constant density 1 over a grid
+     covering +-1e5 with fog's coefficients (`golden_64_hetero_const`:
+     Woodcock tracking's analog weight is exact for a gray medium) and
+     render_volpath_guided on fog (`golden_64_guided`); the tank at
+     48x48 px, 128 spp, depth 6, seed 777 against
+     tests/goldens/volumetric_tank.npz by the Welch |t| rule
+     (`golden_tank`); the interior sigma_a's and sigma_s's gradients
+     against central differences (`tank_grad`: tests/test_grad.py:76-97's
+     tank at 32x32 px, 32 spp, h 0.02, seeds 20-31, within 8%) and
+     against the CPU's; the five media paths as render phases (#2's and
+     #3's launches and device ms a render; the .vol's load timed); and
+     hetero_xml, flake and tank_het at 32x32 px, 4 spp on the card
+     against the CPU (the mean's distance, the lanes that differ);
   6. the v1 cluster entry points on config 3's camera and shadow
      wavefronts, with the launch counts set to 0 just before and read just
      after, held against the exact-cull path's hits;
@@ -216,7 +242,30 @@ W2, H2, SPP2, DEPTH2 = 512, 512, 4, 5      # bench config 2
 W4, H4, SPP4, DEPTH4 = 256, 256, 16, 5     # bench config 4 (gradient)
 TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
          "config3_v6": 2,
-         "bvh": 2, "instanced": 2, "volpath": 2, "xml_config3": 2}
+         "bvh": 2, "instanced": 2, "volpath": 2, "xml_config3": 2,
+         "hetero_xml": 2, "flake": 2, "guided": 2, "tank": 2,
+         "tank_het": 2}
+# participating media: hetero_xml (scenes/cornell.xml's box in a grid
+# medium read from a HX_GRID³ float32 .vol, 64 MiB), flake (config 1's
+# box in an oriented Gaussian-flake medium, FLAKE_GRID³ density and
+# fiber fields) and guided (fog through render_volpath_guided, res 16) at
+# config 1's size; the volumetric tank of tests/golden_scenes.py:118 at
+# TANK_RES, homogeneous and (tank_het) a TANK_GRID³ grid (8 MiB)
+HX_GRID, HX_SIGMA_T, HX_ALBEDO, HX_G = 256, 0.005, 0.8, 0.4
+FLAKE_GRID, FLAKE_STDDEV = 64, 0.3
+FLAKE_SIGMA = dict(sigma_s=(0.003,) * 3, sigma_a=(0.001,) * 3)
+TANK_RES, TANK_SPP, TANK_DEPTH, TANK_GRID = 512, 4, 6, 128
+# tests/test_goldens.py's gate on the tank (48x48 px, 128 spp, depth 6,
+# seed 777) against tests/goldens/volumetric_tank.npz
+TANK_GOLD_RES, TANK_GOLD_SPP, TANK_GOLD_SEED = 48, 128, 777
+# tests/test_grad.py:76-97's gate on the interior sigma: central
+# differences, h 0.02, seeds 20-31, within 8%, here at 32x32 px
+GRAD_RES, GRAD_SPP, GRAD_H, GRAD_SEEDS, GRAD_REL = 32, 32, 0.02, \
+    range(20, 32), 0.08
+# card against CPU: 32x32 px, 4 spp (Woodcock decisions within an ulp and
+# the libraries' exp, log and erfinv may flip lanes: the means within
+# MEDIA_CPU_REL)
+MEDIA_CPU_RES, MEDIA_CPU_REL = 32, 0.03
 # the README's command: scenes/cornell.xml, 512x512 px, 64 spp, depth 5
 # (16,777,216 lanes in one wavefront, as the reference renders it)
 CLI_W, CLI_H, CLI_SPP, CLI_DEPTH = 512, 512, 64, 5
@@ -241,7 +290,13 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              "config3_v5": (0.17, 0.41), "config3_v6": (0.17, 0.41),
              "bvh": (0.17, 0.41), "instanced": (0.31, 0.73),
              "volpath": (0.0256, 0.0598), "cli_cornell": (0.09, 0.21),
-             "xml_config3": (0.17, 0.41), "xml_config3_bvh": (0.17, 0.41)}
+             "xml_config3": (0.17, 0.41), "xml_config3_bvh": (0.17, 0.41),
+             # +-40% of the CPU's 32x32x4 renders of each scene (PR 17:
+             # 0.1107, 0.1064, 0.0861), of the fog golden's mean for
+             # guided, of tests/goldens/volumetric_tank.npz's (0.1214)
+             "hetero_xml": (0.066, 0.155), "flake": (0.064, 0.149),
+             "guided": (0.0256, 0.0598), "tank": (0.073, 0.170),
+             "tank_het": (0.052, 0.121)}
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -2543,6 +2598,249 @@ def xml_config3_phase(device, tmp, ref3, l3, w=W3, h=H3):
     return dict(cluster=lx, bvh=lb)
 
 
+# ---------------------------------------------------------------------------
+# participating media: grid, Gaussian-flake and guided volpath, and
+# shape-interior media (ROADMAP A.7, A.8)
+# ---------------------------------------------------------------------------
+
+def _media_cases():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_media_cases as mc
+
+    return mc
+
+
+def flake_medium(n=FLAKE_GRID):
+    """An oriented Gaussian-flake medium over the Cornell box: n³ density
+    and fiber fields (the reference's density + orientation pair)."""
+    from mitsuba_tpu_torch.media import make_heterogeneous
+
+    mc = _media_cases()
+    grid = mc.noise_grid(n, 5)
+    return make_heterogeneous(grid, mc.grid_to_box(grid.shape),
+                              orientation=mc.fiber_field(n),
+                              flake_stddev=FLAKE_STDDEV, **FLAKE_SIGMA)
+
+
+def _medium_render(medium):
+    def run(scene, cfg, seed=0):
+        from mitsuba_tpu_torch.integrators.volpath import render_volpath
+
+        return render_volpath(scene, medium, cfg, seed=seed)
+    return run
+
+
+def guided_render(scene, cfg, seed=0):
+    from mitsuba_tpu_torch.integrators.volpath import render_volpath_guided
+    from mitsuba_tpu_torch.media import make_homogeneous
+
+    return render_volpath_guided(scene, make_homogeneous(**FOG), cfg,
+                                 seed=seed)
+
+
+def media_render(scene, cfg, seed=0):
+    from mitsuba_tpu_torch.integrators.volpath import render_volpath_media
+
+    return render_volpath_media(scene, cfg, seed=seed)
+
+
+def golden_tank(device, res=TANK_GOLD_RES, spp=TANK_GOLD_SPP):
+    """tests/test_goldens.py's gate on the volumetric tank (the port's
+    SceneBuilder twin of tests/golden_scenes.py:118): per-pixel mean and
+    variance of volpath_media_trace over spp samples (scanline lanes,
+    seed 777) against the reference's 256-spp golden, a pixel failing at
+    |t| > 3.9, the image at 1%."""
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, camera_wavefront,
+    )
+    from mitsuba_tpu_torch.integrators.volpath import volpath_media_trace
+
+    mc = _media_cases()
+    scene = mc.tank_scene(res, device=device)
+    cfg = PathConfig(max_depth=TANK_DEPTH, spp=spp, remat=False)
+    ray, sampler, _ = camera_wavefront(scene, cfg, TANK_GOLD_SEED,
+                                       morton=False)
+    L, _ = volpath_media_trace(scene, ray, sampler, cfg)
+    Ls = L.reshape(res, res, spp, 3).double()
+    mean = Ls.mean(dim=2).cpu().numpy()
+    var = Ls.var(dim=2, unbiased=True).cpu().numpy()
+    g = np.load(os.path.join(ROOT, "tests", "goldens",
+                             "volumetric_tank.npz"))
+    se = np.sqrt(var / spp + g["var"] / int(g["spp"]))
+    t = (mean - g["mean"]) / np.maximum(se, 1e-6)
+    frac = float((np.abs(t) > GOLD_CRIT).any(axis=-1).mean())
+    phase("golden_tank", golden="tests/goldens/volumetric_tank.npz",
+          width=res, height=res, spp=spp, depth=TANK_DEPTH,
+          seed=TANK_GOLD_SEED, golden_spp=int(g["spp"]), fail_fraction=frac,
+          limit=GOLD_FAIL_MAX, crit=GOLD_CRIT, mean=float(mean.mean()),
+          golden_mean=float(g["mean"].mean()),
+          finite=bool(np.isfinite(mean).all()))
+    if not frac < GOLD_FAIL_MAX or not np.isfinite(mean).all():
+        raise AssertionError(f"golden_tank: fail fraction {frac}")
+
+
+def tank_grad(device, res=GRAD_RES):
+    """The interior sigma's gradient (tests/test_grad.py:76-97) on the
+    card: the image mean's central differences, seed by seed, against
+    the reverse-mode gradient through stack_params' gather, averaged over
+    seeds 20-31, within 8%; and the card's gradient against the CPU's at
+    seed 20."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.integrators.volpath import render_volpath_media
+
+    mc = _media_cases()
+    cfg = PathConfig(max_depth=TANK_DEPTH, spp=GRAD_SPP, remat=False)
+    out = {}
+    for field, base in (("sigma_a", 0.5), ("sigma_s", 0.4)):
+        def mean(scene, v, seed):
+            media = dataclasses.replace(scene.media,
+                                        **{field: v.expand(1, 3)})
+            img, _ = render_volpath_media(
+                dataclasses.replace(scene, media=media), cfg, seed=seed)
+            return img.mean()
+
+        def grad(scene, seed):
+            v = torch.tensor(base, device=scene.device, requires_grad=True)
+            mean(scene, v, seed).backward()
+            return float(v.grad)
+
+        scene = mc.fd_tank_scene(res, device=device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fd = [(float(mean(scene, torch.tensor(base + GRAD_H,
+                                                  device=device), s))
+                   - float(mean(scene, torch.tensor(base - GRAD_H,
+                                                    device=device), s)))
+                  / (2 * GRAD_H) for s in GRAD_SEEDS]
+        ad = [grad(scene, s) for s in GRAD_SEEDS]
+        fd_m, ad_m = float(np.mean(fd)), float(np.mean(ad))
+        cpu = grad(mc.fd_tank_scene(res, device="cpu"), GRAD_SEEDS[0])
+        out[field] = dict(fd=fd_m, grad=ad_m,
+                          rel=abs(ad_m - fd_m) / max(abs(fd_m), 1e-6),
+                          grad_seed20=ad[0], grad_seed20_cpu=cpu,
+                          cpu_rel=abs(ad[0] - cpu) / max(abs(cpu), 1e-12),
+                          seconds=time.perf_counter() - t0)
+    phase("tank_grad", width=res, height=res, spp=cfg.spp,
+          depth=cfg.max_depth, h=GRAD_H, seeds=list(GRAD_SEEDS),
+          limit=GRAD_REL, **out)
+    for field, r in out.items():
+        if not r["rel"] < GRAD_REL or not np.isfinite(r["grad"]):
+            raise AssertionError(f"tank_grad {field}: {r}")
+        if not r["cpu_rel"] <= 1e-3:
+            raise AssertionError(f"tank_grad {field}: card vs CPU {r}")
+    return out
+
+
+def media_vs_cpu(tag, device, scene_fn, trace_fn, res=MEDIA_CPU_RES):
+    """A media path's lanes at res x res x 4 on the card and on the CPU
+    (the same lanes, the same draws): the mean's distance, the share of
+    lanes that differ beyond rtol 1e-4 (a Woodcock decision within an ulp,
+    or the libraries' exp, log and erfinv, may send a lane another way)."""
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, camera_wavefront,
+    )
+
+    cfg = PathConfig(max_depth=5, spp=4, remat=False)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        scene = scene_fn(res, dev)
+        ray, sampler, _ = camera_wavefront(scene, cfg, 0, morton=False)
+        out.append(trace_fn(scene, ray, sampler, cfg).cpu())
+    card, cpu = out
+    rel = abs(float(card.mean()) - float(cpu.mean())) / max(
+        float(cpu.mean()), 1e-12)
+    differ = float((~torch.isclose(card, cpu, rtol=1e-4, atol=1e-6)).any(
+        dim=-1).float().mean())
+    phase("media_vs_cpu", path=tag, width=res, height=res, spp=cfg.spp,
+          depth=cfg.max_depth, mean=float(card.mean()),
+          mean_cpu=float(cpu.mean()), mean_rel=rel, lanes_differ=differ,
+          limit=MEDIA_CPU_REL, finite=bool(torch.isfinite(card).all()))
+    if not rel <= MEDIA_CPU_REL or not bool(torch.isfinite(card).all()):
+        raise AssertionError(f"media_vs_cpu {tag}: mean {rel}")
+
+
+def media_phases(device, tmp):
+    """The media paths: the gates at 64x64 (a constant-density grid
+    against fog's golden, guided fog against it, the tank against its
+    Welch golden), the interior sigma's gradient, the five render phases
+    (launch counts set to 0 just before the timed renders and read just
+    after), and the card against the CPU. Returns each render phase's
+    launch counts."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.integrators.volpath import (
+        volpath_media_trace, volpath_trace,
+    )
+    from mitsuba_tpu_torch.io.xml import load_scene
+    from mitsuba_tpu_torch.media import make_heterogeneous
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    mc = _media_cases()
+    grid, w2g = mc.const_grid_transform()
+    const = make_heterogeneous(grid, w2g, FOG["sigma_s"], FOG["sigma_a"],
+                               g=FOG["g"])
+    gold = PathConfig(max_depth=5, spp=FOG_GOLDEN_SPP)
+    golden_gate("golden_64_hetero_const", cornell_box(64, 64, device=device),
+                "tests/torch_goldens/volpath_fog.npz", cfg=gold,
+                render_fn=_medium_render(const), band=MEAN_BAND["volpath"])
+    golden_gate("golden_64_guided", cornell_box(64, 64, device=device),
+                "tests/torch_goldens/volpath_fog.npz", cfg=gold,
+                render_fn=guided_render, band=MEAN_BAND["volpath"])
+    golden_tank(device)
+    tank_grad(device)
+
+    cfg = PathConfig(max_depth=DEPTH1, spp=SPP1)
+    t0 = time.perf_counter()
+    xml = mc.hetero_cornell_xml(tmp, n=HX_GRID, sigma_t=HX_SIGMA_T,
+                                albedo=HX_ALBEDO, g=HX_G)
+    write_s = time.perf_counter() - t0
+    params = dict(depth=DEPTH1, spp=SPP1, width=W1, height=H1)
+    t0 = time.perf_counter()
+    scene, xcfg = load_scene(xml, params=params, device=device)
+    load_s = time.perf_counter() - t0
+    med = xcfg["medium"]
+    phase("hetero_xml_load", grid=list(med.density.shape),
+          vol_bytes=os.path.getsize(os.path.join(tmp, "density.vol")),
+          write_seconds=write_s, load_seconds=load_s,
+          integrator=xcfg["integrator"],
+          max_density=float(med.max_density))
+    out = {}
+    out["hetero_xml"] = render_phase(
+        "hetero_xml", scene, cfg, ["shaded", "any"],
+        render_fn=_medium_render(med), forbid=["shaded_any"])
+    out["flake"] = render_phase(
+        "flake", cornell_box(W1, H1, device=device), cfg, ["shaded", "any"],
+        render_fn=_medium_render(flake_medium()), forbid=["shaded_any"])
+    out["guided"] = render_phase(
+        "guided", cornell_box(W1, H1, device=device), cfg,
+        ["shaded", "any"], render_fn=guided_render, forbid=["shaded_any"])
+    tcfg = PathConfig(max_depth=TANK_DEPTH, spp=TANK_SPP)
+    out["tank"] = render_phase(
+        "tank", mc.tank_scene(TANK_RES, device=device), tcfg, ["shaded"],
+        render_fn=media_render, forbid=["shaded_any", "any"])
+    out["tank_het"] = render_phase(
+        "tank_het", mc.tank_scene(TANK_RES, mc.noise_grid(TANK_GRID, 6),
+                                  device=device), tcfg, ["shaded"],
+        render_fn=media_render, forbid=["shaded_any", "any"])
+
+    def hetero_scene(res, dev):
+        sc, _ = load_scene(xml, params=dict(params, width=res, height=res),
+                           device=dev)
+        return sc
+
+    media_vs_cpu("hetero_xml", device, hetero_scene,
+                 lambda sc, ray, smp, c: volpath_trace(
+                     sc, med, ray, smp, c)[0])
+    flake = flake_medium()
+    media_vs_cpu("flake", device,
+                 lambda res, dev: cornell_box(res, res, device=dev),
+                 lambda sc, ray, smp, c: volpath_trace(
+                     sc, flake, ray, smp, c)[0])
+    media_vs_cpu("tank_het", device, lambda res, dev: mc.tank_scene(
+        res, mc.noise_grid(TANK_GRID, 6), device=dev),
+        lambda sc, ray, smp, c: volpath_media_trace(sc, ray, smp, c)[0])
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -2769,6 +3067,10 @@ def main(argv=None):
     live_fog_any = brute_liveness("volpath",
                                   cornell_box(W1, H1, device=device),
                                   fog_cfg, fog_render, "any")
+    # participating media: grid, flake and guided volpath (#2 and #3),
+    # shape-interior media (#2 alone)
+    with tempfile.TemporaryDirectory() as media_tmp:
+        lmed = media_phases(device, media_tmp)
     lc = cluster_v1_phase(scene3, cl, cam3, shadow3)
     t0 = time.perf_counter()
     case = r3_kernel.worklist_case(device, PROBE_SIDE, scene3)
@@ -2817,6 +3119,12 @@ def main(argv=None):
         # ... in brute kernel kname, its instance of brute_kernel
         return PROFILES[tag]["own"].get("brute_kernel", {}).get(
             "instances", {}).get(BRUTE_INSTANCE[kname], {}).get("ms")
+
+    def media_entry(lmed, kname):
+        return {f"{w}_{tag}": v for tag, counts in lmed.items()
+                for w, v in (("launches", counts[kname]),
+                             ("device_ms_per_render",
+                              brute_ms(tag, kname)))}
 
     # the stream fallback launches only where a lane overflows the XL caps
     stream_path = "config3" if l3["stream"] else "config3_v5"
@@ -2896,14 +3204,18 @@ def main(argv=None):
         entry("wl_any", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:458", li["wl_any"],
               worklist[("wl_any", "shadow", "instanced")]),
+        # #2 and #3 also on the media paths: launches (their timed
+        # renders') and device ms of a render, by path
         brute("shaded", 202, lv["shaded"], split["shaded"], path="volpath",
               device_ms_per_render=brute_ms("volpath", "shaded"),
               replayed_device_ms_per_render=live_fog["device_ms"],
-              replayed_event_ms_per_render=live_fog["ms"]),
+              replayed_event_ms_per_render=live_fog["ms"],
+              **media_entry(lmed, "shaded")),
         brute("any", 97, lv["any"], split["any"], path="volpath",
               device_ms_per_render=brute_ms("volpath", "any"),
               replayed_device_ms_per_render=live_fog_any["device_ms"],
-              replayed_event_ms_per_render=live_fog_any["ms"]),
+              replayed_event_ms_per_render=live_fog_any["ms"],
+              **media_entry(lmed, "any")),
         # no render path launches #4 (nor does the JAX package's): its
         # check phase holds it against its plain version
         brute("closest", 59, lv["closest"], split["closest"]),

@@ -1,5 +1,5 @@
 """Wavefront BSDF dispatch (port of mitsuba_tpu/bsdfs/dispatch.py without
-composites and opacity masks).
+composites).
 
 Each (kind, microfacet distribution) pair present in the scene is
 evaluated on all lanes and the result selected by material mask. The
@@ -84,7 +84,28 @@ def bsdf_pdf(table: MaterialTable, material_id, wi, wo):
 
 def bsdf_sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
     """Sample wo ~ BSDF; returns the merged per-lane sample dict
-    (reference BSDF::sampleCos)."""
+    (reference BSDF::sampleCos). Opacity masks (reference mask.cpp,
+    dispatch.py:162-183): with probability 1 - opacity the surface is
+    passed straight through (a delta transmission of weight 1), and u1 is
+    rescaled for the lobe decision of the lanes that stay."""
+    if table.has_mask:
+        i = torch.clamp(material_id, 0, table.n_materials - 1).long()
+        opacity = table.opacity[i]
+        pass_through = u1 >= opacity
+        u1 = torch.clamp(u1 / torch.clamp(opacity, min=1e-6), 0.0,
+                         1.0 - 1e-7)
+    s = _sample(table, material_id, wi, u2, u1, albedo)
+    if table.has_mask:
+        sel = pass_through[:, None]
+        s["wo"] = torch.where(sel, -wi, s["wo"])
+        s["weight"] = torch.where(sel, 1.0, s["weight"])
+        s["pdf"] = torch.where(pass_through, 1.0, s["pdf"])
+        for key in ("delta", "transmission", "valid"):
+            s[key] = s[key] | pass_through
+    return s
+
+
+def _sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
     p = _resolve(table.gather(material_id), albedo)
     fl = _flip_mask(p, wi)
     wi_f = _flip(wi, fl)

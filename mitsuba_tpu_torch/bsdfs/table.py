@@ -1,5 +1,6 @@
 """SoA material table (port of mitsuba_tpu/bsdfs/table.py: lambertian,
-mirror, dielectric, rough-conductor and phong rows).
+mirror, dielectric, rough-conductor and phong rows, and the opacity
+column of the mask adapter that `null()` sets to 0).
 
 The reference gathers small tables with a one-hot matmul for the TPU's
 matrix unit; here `gather` is a plain index gather, which is exact.
@@ -44,9 +45,13 @@ class MaterialTable:
     alpha_u: torch.Tensor      # (M,) microfacet roughness
     alpha_v: torch.Tensor      # (M,)
     dist_type: torch.Tensor    # (M,) int32 microfacet distribution
+    opacity: torch.Tensor = None  # (M,) mask adapter, 1 = opaque
     # the (kind, distribution) pairs present: the distribution is a static
     # choice, so each pair is dispatched on its own (as in the reference)
     kinds_present: tuple = ((LAMBERTIAN, mf.BECKMANN),)
+    # a row with opacity < 0.999, decided on the host when the table is
+    # built (dispatch.py:168 _np_min_opacity), never by a device sync
+    has_mask: bool = False
 
     @property
     def n_materials(self):
@@ -82,7 +87,8 @@ class MaterialBuilder:
                    specular=(1.0, 1.0, 1.0), transmittance=(1.0, 1.0, 1.0),
                    eta=1.5, cond_eta=(0.2, 0.9, 1.4), cond_k=(3.9, 2.5, 2.1),
                    alpha_u=0.1, alpha_v=0.1, exponent=30.0,
-                   dist_type=mf.BECKMANN, tex_id=-1, two_sided=False)
+                   dist_type=mf.BECKMANN, tex_id=-1, two_sided=False,
+                   opacity=1.0)
         row.update(kw)
         self.rows.append(row)
         return len(self.rows) - 1
@@ -91,6 +97,15 @@ class MaterialBuilder:
                    tex_id=-1):
         return self._add(kind=LAMBERTIAN, reflectance=reflectance,
                          two_sided=two_sided, tex_id=tex_id)
+
+    def null(self):
+        """An index-matched pass-through boundary (reference: a shape
+        without a BSDF is no occluder, Shape::isOccluder), for shapes that
+        only bound a medium: an opacity-0 mask over a black lambertian
+        (table.py:176). Sampling passes straight through with weight 1,
+        and shadow walks cross it."""
+        return self._add(kind=LAMBERTIAN, reflectance=(0.0, 0.0, 0.0),
+                         opacity=0.0)
 
     def mirror(self, specular=(1.0, 1.0, 1.0)):
         return self._add(kind=MIRROR, specular=specular)
@@ -134,6 +149,8 @@ class MaterialBuilder:
             alpha_u=col("alpha_u", np.float32),
             alpha_v=col("alpha_v", np.float32),
             dist_type=col("dist_type", np.int32),
+            opacity=col("opacity", np.float32),
+            has_mask=min(r["opacity"] for r in self.rows) < 0.999,
             kinds_present=tuple(sorted(
                 {(int(r["kind"]), int(r["dist_type"])) for r in self.rows})),
         )

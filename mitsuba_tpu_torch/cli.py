@@ -14,10 +14,13 @@
         -j/-p/-c/-b/-r accepted for compatibility, no-ops
 
 `volpath` and `volpath_simple` integrators and a scene-level <medium>
-render through `render_volpath`, everything else through `render`. Not
-ported, each raising NotImplementedError: --server and --listen-stdio
-(ROADMAP A.10), --gui (A.13), --guided and an integrator's `guiding`
-(A.8).
+render through `render_volpath`, or with --guided or an integrator's
+`guiding` through `render_volpath_guided`; everything else through
+`render`. Shapes' interior media are routed as the reference routes them
+(cli.py:148-170): by the integrator, never to `render_volpath_media`.
+Not ported, each raising NotImplementedError: --server and
+--listen-stdio (ROADMAP A.10), --gui (A.13), and --guided or `guiding`
+without a medium, which is surface path guiding (A.12).
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ def main(argv=None):
     ap.add_argument("--gui", action="store_true",
                     help="interactive preview (not ported)")
     ap.add_argument("--guided", action="store_true",
-                    help="path-guided rendering (not ported)")
+                    help="path-guided rendering (volumetric: the medium's "
+                    "scatter directions)")
     ap.add_argument("--gui-port", type=int, default=8555)
     ap.add_argument("--cpu", action="store_true",
                     help="render on the host CPU instead of the card")
@@ -73,9 +77,6 @@ def main(argv=None):
             "the render server is not ported (ROADMAP A.10)")
     if args.gui:
         raise NotImplementedError("the GUI is not ported (ROADMAP A.13)")
-    if args.guided:
-        raise NotImplementedError(
-            "guided rendering is not ported (ROADMAP A.8)")
     if not args.scenes:
         ap.error("scene XML file(s) required")
 
@@ -110,9 +111,7 @@ def main(argv=None):
                                 backend=args.backend, device=device)
         if args.size:
             scene = dataclasses.replace(scene, width=w, height=h)
-        if cfg.get("guiding"):
-            raise NotImplementedError(
-                "guided rendering is not ported (ROADMAP A.8)")
+        guided = args.guided or cfg.get("guiding")
         max_depth = args.depth or (cfg["maxDepth"] if cfg["maxDepth"] > 0
                                    else 12)
         pcfg = PathConfig(
@@ -134,13 +133,19 @@ def main(argv=None):
             )
         if cfg["integrator"] in ("volpath", "volpath_simple") \
                 or "medium" in cfg:
-            from mitsuba_tpu_torch.integrators.volpath import render_volpath
+            from mitsuba_tpu_torch.integrators.volpath import (
+                render_volpath, render_volpath_guided,
+            )
             from mitsuba_tpu_torch.media import no_medium
 
-            img, aux = render_volpath(
+            vol_render = render_volpath_guided if guided else render_volpath
+            img, aux = vol_render(
                 scene, cfg.get("medium", no_medium()), pcfg, seed=args.seed,
                 mis=cfg["integrator"] != "volpath_simple",
             )
+        elif guided:
+            raise NotImplementedError(
+                "surface path guiding is not ported (ROADMAP A.12)")
         else:
             img, aux = render(scene, pcfg, seed=args.seed)
         img = img.detach().cpu().numpy()

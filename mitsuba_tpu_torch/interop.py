@@ -2,12 +2,13 @@
 
 `from_jax_scene` reads the reference scene's arrays as numpy (geometry on
 the brute, bvh or cluster backend, instanced or not, with or without
-analytic spheres, materials, textures,
-emitters with the baked sky's sampling tables, camera) and builds the
-port's tables from them, so that both packages render the same scene
-from the same arrays; `from_jax_medium` does the same for an ambient
-medium, and `from_jax_cluster_tables` for the v1 cluster intersector's
-tables.
+analytic spheres, materials with their opacity column, textures,
+emitters with the baked sky's sampling tables, camera, shape-interior
+media) and builds the port's tables from them, so that both packages
+render the same scene from the same arrays; `from_jax_medium` does the
+same for an ambient medium (homogeneous or a grid, oriented or a
+Gaussian flake), `from_jax_guide` for a path-guiding grid, and
+`from_jax_cluster_tables` for the v1 cluster intersector's tables.
 It needs no jax import of its own: `np.asarray` reads the reference's
 arrays. Every feature of the reference scene that the port does not
 implement raises NotImplementedError.
@@ -25,13 +26,13 @@ from mitsuba_tpu_torch.bsdfs.table import (
 from mitsuba_tpu_torch.core import microfacet as mf
 from mitsuba_tpu_torch.emitters.table import EmitterTable
 from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
-from mitsuba_tpu_torch.media.medium import HOMOGENEOUS, MediumTable
-from mitsuba_tpu_torch.media.phase import MICROFLAKE_GAUSS
+from mitsuba_tpu_torch.integrators.guiding import GuideGrid
+from mitsuba_tpu_torch.media.medium import MediumStack, MediumTable
 from mitsuba_tpu_torch.ops import bvh as bp
 from mitsuba_tpu_torch.render.camera import Camera
 from mitsuba_tpu_torch.render.clusters import ClusterTables
 from mitsuba_tpu_torch.render.intersect import GeometryTables
-from mitsuba_tpu_torch.render.scene import Scene
+from mitsuba_tpu_torch.render.scene import Scene, check_device
 from mitsuba_tpu_torch.render.texture import TextureTable
 from mitsuba_tpu_torch.render.texture import check_kinds as check_textures
 
@@ -105,13 +106,13 @@ def _materials(mt) -> MaterialTable:
     check_kinds(kinds)
     if mt.has_composite or mt.cloth is not None:
         _unported("composite or cloth BSDFs")
-    if np.any(np.asarray(mt.opacity) < 1.0):
-        _unported("opacity masks")
     if any(k == ROUGH_CONDUCTOR and d not in (mf.BECKMANN, mf.GGX)
            for k, d in mt.kinds_present):
         _unported("the Phong microfacet distribution")
+    opacity = np.asarray(mt.opacity, np.float32)
     return MaterialTable(
         **{k: _t(getattr(mt, k)) for k in _MATERIAL_FIELDS},
+        opacity=_t(opacity), has_mask=bool(opacity.min() < 0.999),
         kinds_present=tuple((int(k), int(d)) for k, d in mt.kinds_present),
     )
 
@@ -151,11 +152,19 @@ def _camera(cam) -> Camera:
     )
 
 
+def _media(st) -> MediumStack:
+    fields = {k: _t(getattr(st, k)) for k in (
+        "sigma_s", "sigma_a", "phase_g", "grid_id", "grids", "grid_dims",
+        "world_to_grid", "density_scale", "max_density")
+        if getattr(st, k) is not None}
+    return MediumStack(**fields, has_hetero=bool(st.has_hetero))
+
+
 def from_jax_scene(scene, device="cuda") -> Scene:
     """The port's Scene for a `mitsuba_tpu.render.scene.Scene`, on
     `device` (the card by default)."""
-    if scene.media is not None or scene.subsurface is not None:
-        _unported("participating media or subsurface scattering")
+    if scene.subsurface is not None:
+        _unported("subsurface scattering")
     return Scene(
         geom=_geometry(scene.geom),
         materials=_materials(scene.materials),
@@ -164,23 +173,34 @@ def from_jax_scene(scene, device="cuda") -> Scene:
         width=scene.width,
         height=scene.height,
         textures=_textures(scene.textures),
+        media=None if scene.media is None else _media(scene.media),
+        shape_interior=None if scene.shape_interior is None
+        else _t(scene.shape_interior),
     ).to(device)
 
 
 def from_jax_medium(med) -> MediumTable:
-    """The port's MediumTable for a `mitsuba_tpu.media.MediumTable`, on
-    the host (the integrator moves it to the scene's device)."""
-    if med.enabled and med.kind != HOMOGENEOUS:
-        _unported("a heterogeneous medium")
-    if med.orientation is not None or med.flake_coeffs is not None \
-            or med.phase_kind == MICROFLAKE_GAUSS:
-        _unported("an oriented or Gaussian-flake medium")
+    """The port's MediumTable for a `mitsuba_tpu.media.MediumTable`
+    (homogeneous or a grid, with its orientation field and flake
+    coefficients), on the host (the integrator moves it to the scene's
+    device)."""
+    opt = {k: _t(getattr(med, k)) for k in (
+        "density", "world_to_grid", "density_scale", "max_density",
+        "orientation", "flake_coeffs") if getattr(med, k) is not None}
     return MediumTable(
         sigma_s=_t(np.asarray(med.sigma_s, np.float32)),
         sigma_a=_t(np.asarray(med.sigma_a, np.float32)),
-        phase_g=_t(np.asarray(med.phase_g, np.float32)),
+        phase_g=_t(np.asarray(med.phase_g, np.float32)), **opt,
         kind=int(med.kind), phase_kind=int(med.phase_kind),
         enabled=bool(med.enabled))
+
+
+def from_jax_guide(guide, device="cuda") -> GuideGrid:
+    """The port's GuideGrid for a `mitsuba_tpu.integrators.guiding
+    .GuideGrid`, on `device` (the card by default)."""
+    check_device(device)
+    return GuideGrid(mass=_t(guide.mass), bmin=_t(guide.bmin),
+                     bmax=_t(guide.bmax), res=int(guide.res)).to(device)
 
 
 def from_jax_cluster_tables(ct) -> ClusterTables:

@@ -10,10 +10,16 @@ the plugin registry and SceneBuilder, on the card unless the caller
 passes device="cpu". Materials, emitters and shapes are added in the
 reference's order, so a file gives the same tables in both packages.
 
+A scene-level <medium> (homogeneous, or heterogeneous from a
+`gridvolume` density and an optional orientation volume, with an hg,
+isotropic, kkay or microflake phase, a `stddev` making it the Gaussian
+flake) is carried in the config as a MediumTable; a shape's interior
+<medium> joins the scene's MediumStack (io/xml_shapes.py).
+
 Not ported, each raising NotImplementedError: <blackbody> values
-(ROADMAP A.12), heterogeneous media and the Gaussian microflake (A.8),
-and what the shape, BSDF, texture, luminaire and camera plugins refuse
-(io/xml_shapes.py, bsdfs/xml_plugins.py, render/camera.py).
+(ROADMAP A.12), and what the shape, BSDF, texture, luminaire and camera
+plugins refuse (io/xml_shapes.py, bsdfs/xml_plugins.py,
+render/camera.py).
 """
 from __future__ import annotations
 
@@ -310,7 +316,7 @@ def build_scene(parsed, base_dir: str, backend: str = "auto",
     # the scene-level ambient medium, carried in the config
     med_node = _find_child(parsed, "medium")
     if med_node is not None:
-        config["medium"] = _build_medium(med_node)
+        config["medium"] = _build_medium(med_node, base_dir)
 
     for shape in _find_children(parsed, "shape"):
         xml_shapes.add_shape(builder, shape, base_dir, mat_cache,
@@ -320,34 +326,25 @@ def build_scene(parsed, base_dir: str, backend: str = "auto",
     return scene, config
 
 
-def _build_medium(node):
-    """<medium type="homogeneous"> -> MediumTable (reference
-    src/medium/homogeneous.cpp: sigmaS/sigmaA or sigmaT + albedo; a nested
-    <phase type="hg"><float name="g" .../>). A heterogeneous medium and
-    the Gaussian microflake (a `stddev`) raise."""
+def _build_medium(node, base_dir):
+    """<medium type="homogeneous|heterogeneous"> -> MediumTable (reference
+    src/medium/: sigmaS/sigmaA or sigmaT + albedo, homogeneous.cpp;
+    densityMultiplier and a gridvolume child, heterogeneous.cpp; a nested
+    <phase type="hg"><float name="g" .../>)."""
+    from mitsuba_tpu_torch.io.volio import (
+        load_heterogeneous_from_vol, load_vol,
+    )
+    from mitsuba_tpu_torch.io.xml_shapes import medium_sigmas
     from mitsuba_tpu_torch.media import make_homogeneous
     from mitsuba_tpu_torch.media.phase import (
         HG, ISOTROPIC, KAJIYA_KAY, MICROFLAKE,
     )
 
     p = node["props"]
-
-    def spec(name, default):
-        v = p.get(name, default)
-        if isinstance(v, (int, float)):
-            return (float(v),) * 3
-        return tuple(v)
-
-    if "sigmaT" in p or "albedo" in p:
-        st = spec("sigmaT", 1.0)
-        al = spec("albedo", 0.5)
-        sigma_s = tuple(t * a for t, a in zip(st, al))
-        sigma_a = tuple(t - s_ for t, s_ in zip(st, sigma_s))
-    else:
-        sigma_s = spec("sigmaS", 1.0)
-        sigma_a = spec("sigmaA", 0.1)
+    sigma_s, sigma_a = medium_sigmas(p)
     g = 0.0
     phase_kind = None
+    flake_stddev = None
     for c in node["children"]:
         if c["category"] == "phase":
             t = c["type"]
@@ -359,12 +356,37 @@ def _build_medium(node):
             elif t == "kkay":
                 phase_kind = KAJIYA_KAY
             elif t == "microflake":
+                # microflake.cpp takes a Gaussian fiber stddev; without one
+                # the sin²-lobe stands in for it
                 if "stddev" in c["props"]:
-                    raise NotImplementedError(
-                        "the Gaussian microflake phase is not ported "
-                        "(ROADMAP A.8)")
-                phase_kind = MICROFLAKE
+                    flake_stddev = float(c["props"]["stddev"])
+                else:
+                    phase_kind = MICROFLAKE
     if node["type"] == "heterogeneous":
-        raise NotImplementedError(
-            "heterogeneous media are not ported (ROADMAP A.8)")
-    return make_homogeneous(sigma_s, sigma_a, g=g, phase_kind=phase_kind)
+        vol = orient_vol = None
+        for c in node["children"]:
+            if c["category"] == "volume" and c.get("name") in ("density",
+                                                               None):
+                vol = c
+            elif c["category"] == "volume" and c.get("name") in (
+                    "orientation", "orientations"):
+                orient_vol = c
+        if vol is None or "filename" not in vol["props"]:
+            raise SceneParseError(
+                "heterogeneous medium needs a gridvolume density")
+        orientation = None
+        if orient_vol is not None:
+            ogrid, _bmin, _bmax = load_vol(
+                os.path.join(base_dir, orient_vol["props"]["filename"]))
+            if ogrid.shape[-1] != 3:
+                raise SceneParseError(
+                    "orientation volume must have 3 channels")
+            orientation = ogrid
+        return load_heterogeneous_from_vol(
+            os.path.join(base_dir, vol["props"]["filename"]),
+            sigma_s, sigma_a,
+            density_scale=float(p.get("densityMultiplier", 1.0)), g=g,
+            orientation=orientation, flake_stddev=flake_stddev,
+            phase_kind=phase_kind)
+    return make_homogeneous(sigma_s, sigma_a, g=g, phase_kind=phase_kind,
+                            flake_stddev=flake_stddev)

@@ -5,10 +5,13 @@ Shapes (reference src/shapes/): obj, ply and serialized file meshes, the
 analytic sphere, and `shapegroup` / `instance`, flattened into
 transformed copies as the reference flattens them. An inverted sphere is
 tessellated. An area `<luminaire>` binds to a triangle shape; a scene-
-level `sky` is the Preetham sky. Everything else raises
+level `sky` is the Preetham sky. A shape's <medium name="interior">
+(homogeneous, or heterogeneous from a gridvolume) joins the scene's
+media, and a shape with an interior but neither BSDF nor luminaire gets
+the pass-through `null()` material. Everything else raises
 NotImplementedError naming its ROADMAP item: cylinder, hair and hspan
-shapes, animated instances, shape-interior media, subsurface, sphere
-emitters, and point, spot, directional, constant and envmap luminaires.
+shapes, animated instances, subsurface, sphere emitters, and point,
+spot, directional, constant and envmap luminaires.
 """
 from __future__ import annotations
 
@@ -118,9 +121,6 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
         return
     if _find(shape_node, "subsurface") is not None:
         _unported("subsurface scattering", "A.12")
-    for c in shape_node["children"]:
-        if c["category"] == "medium":
-            _unported("a shape-interior medium", "A.7")
     # the analytic sphere (reference sphere.cpp intersects exactly) skips
     # tessellation unless inverted
     props0 = shape_node["props"]
@@ -140,8 +140,16 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
         mesh = load_shape_mesh(shape_node, base_dir)
     bsdf = _find(shape_node, "bsdf")
     lum = _find(shape_node, "luminaire")
+    interior = -1
+    for c in shape_node["children"]:
+        if c["category"] == "medium" and c.get("name") in ("interior", None):
+            interior = _interior_medium(builder, c, base_dir)
     if bsdf is not None:
         mid = material_fn(builder, bsdf, mat_cache)
+    elif interior >= 0 and lum is None:
+        # a shape with an interior medium and no BSDF is an index-matched
+        # boundary that occludes nothing (Shape::isOccluder false)
+        mid = mat_cache.setdefault("__null__", builder.materials.null())
     else:
         # reference default: lambertian 0.5 when a shape has no BSDF but
         # is not a pure emitter (a row is added either way, as in the
@@ -154,16 +162,60 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
     if analytic is not None:
         if lum is not None:
             _unported("a sphere emitter", "A.11")
-        builder.add_sphere(analytic[0], analytic[1], mid)
+        builder.add_sphere(analytic[0], analytic[1], mid,
+                           interior_medium=interior)
         return
     if lum is not None:
         if lum["type"] not in ("area", ""):
             raise ValueError("only area luminaires can be attached to shapes")
         radiance = _spec(lum["props"], "intensity", 1.0)
         eid = builder.emitters.area(mesh, radiance)
-        builder.add_shape(mesh, mid, eid)
+        builder.add_shape(mesh, mid, eid, interior_medium=interior)
     else:
-        builder.add_shape(mesh, mid)
+        builder.add_shape(mesh, mid, interior_medium=interior)
+
+
+def medium_sigmas(props):
+    """A <medium>'s (sigma_s, sigma_a): sigmaS and sigmaA, or sigmaT and
+    albedo (reference homogeneous.cpp)."""
+    if "sigmaT" in props or "albedo" in props:
+        st = _spec(props, "sigmaT", 1.0)
+        al = _spec(props, "albedo", 0.5)
+        ss = tuple(t_ * a_ for t_, a_ in zip(st, al))
+        return ss, tuple(t_ - s_ for t_, s_ in zip(st, ss))
+    return _spec(props, "sigmaS", 1.0), _spec(props, "sigmaA", 0.1)
+
+
+def _interior_medium(builder, node, base_dir) -> int:
+    """A shape's interior <medium> -> its index in the builder's media
+    (xml_shapes.py:226-265): its sigmas, an hg phase's g, and for a
+    heterogeneous one a gridvolume density."""
+    mp = node["props"]
+    ss, sa = medium_sigmas(mp)
+    g = 0.0
+    for pc in node["children"]:
+        if pc["category"] == "phase" and pc["type"] == "hg":
+            g = float(pc["props"].get("g", 0.8))
+    if node["type"] != "heterogeneous":
+        return builder.add_medium(ss, sa, g=g)
+    from mitsuba_tpu_torch.io.volio import (
+        grid_world_to_index_transform, load_vol,
+    )
+
+    vol = None
+    for pc in node["children"]:
+        if pc["category"] == "volume" and pc.get("name") in ("density",
+                                                             None):
+            vol = pc
+    if vol is None or "filename" not in vol["props"]:
+        raise ValueError("heterogeneous interior needs a gridvolume density")
+    data, bmin_v, bmax_v = load_vol(_resolve(base_dir,
+                                             vol["props"]["filename"]))
+    density = data[..., 0]
+    w2g = grid_world_to_index_transform(bmin_v, bmax_v, density.shape)
+    return builder.add_medium(
+        ss, sa, g=g, density=density, world_to_grid=w2g,
+        density_scale=float(mp.get("densityMultiplier", 1.0)))
 
 
 _UNPORTED_LUMINAIRES = ("point", "spot", "directional", "constant",

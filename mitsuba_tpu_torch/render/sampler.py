@@ -11,9 +11,19 @@ maps the result into [0, 1) through the float mantissa.
 uint32 arithmetic is emulated in int64 tensors (masked after every add
 and shift), since PyTorch has no full uint32 arithmetic on all devices.
 There is no global RNG: a `Sampler` is the explicit generator.
+
+The single keys that media draw from (`jax.random.key`, `split`,
+`key_data`, `wrap_key_data`; medium.py:322,574, volpath.py:76,419) are
+pairs of Python ints, derived on the host with the same threefry, so a
+Woodcock loop costs no device launch to step its key; `uniform_keys`
+draws several such keys' counters on the device at once, and `uniform`
+any shape per tensor key.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -51,16 +61,67 @@ def _bits_to_unit_float(bits):
     return f - 1.0
 
 
-def uniform(k1, k2, size: int):
+def uniform(k1, k2, size, start: int = 0):
     """jax.random.uniform(key, (size,)) per key: (..., size) float32, or
-    (...) for size 0 (a scalar draw)."""
+    (...) for size 0 (a scalar draw). A tuple `size` is a shape: its
+    counters run over the flattened shape, as jax's 2-D iota does
+    (prng.py iota_2x32_shape), giving (..., *size). With `start`, the
+    elements from flat index `start` on of a longer such draw."""
     if size == 0:
         counts = torch.zeros((), dtype=torch.int64, device=k1.device)
         b1, b2 = threefry2x32(k1, k2, counts, counts)
         return _bits_to_unit_float(b1 ^ b2)
-    hi = torch.zeros(size, dtype=torch.int64, device=k1.device)
-    lo = torch.arange(size, dtype=torch.int64, device=k1.device)
-    b1, b2 = threefry2x32(k1[..., None], k2[..., None], hi, lo)
+    shape = tuple(size) if isinstance(size, (tuple, list)) else (size,)
+    count = math.prod(shape)
+    lo = torch.arange(start, start + count, dtype=torch.int64,
+                      device=k1.device)
+    b1, b2 = threefry2x32(k1[..., None], k2[..., None], 0, lo)
+    return _bits_to_unit_float(b1 ^ b2).reshape(k1.shape + shape)
+
+
+def key(seed: int):
+    """jax.random.key(seed): the pair (0, seed) (seeds in [0, 2^31))."""
+    if not 0 <= int(seed) < 2 ** 31:
+        raise NotImplementedError(
+            "seeds outside [0, 2^31) take another key derivation path "
+            "in jax.random.key")
+    return (0, int(seed))
+
+
+def fold_in_key(k, data: int):
+    """jax.random.fold_in of one host key and an int."""
+    return threefry2x32(k[0], k[1], 0, int(data) & _MASK)
+
+
+def split(k, n: int):
+    """jax.random.split(k, n) under jax_threefry_partitionable: key i is
+    the hash of the counter pair (0, i) (prng.py
+    _threefry_split_foldlike); a list of n host keys."""
+    return [threefry2x32(k[0], k[1], 0, i) for i in range(n)]
+
+
+def key_data(keys) -> np.ndarray:
+    """jax.random.key_data: a key, or a list of keys, as uint32 (..., 2)."""
+    return np.asarray(keys, np.uint32)
+
+
+def wrap_key_data(data):
+    """jax.random.wrap_key_data: uint32 (2,) -> a key, (n, 2) -> a list."""
+    a = np.asarray(data, np.uint32)
+    if a.ndim == 1:
+        return (int(a[0]), int(a[1]))
+    return [(int(x), int(y)) for x, y in a.reshape(-1, 2)]
+
+
+def uniform_keys(keys, n: int, device=None):
+    """jax.random.uniform(k, (n,)) for each host key of `keys`, in one
+    threefry pass over the (K, n) counters: (K, n) float32."""
+    k1 = torch.tensor([k[0] for k in keys], dtype=torch.int64,
+                      device=device)[:, None]
+    k2 = torch.tensor([k[1] for k in keys], dtype=torch.int64,
+                      device=device)[:, None]
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k1, k2, 0, lo)
     return _bits_to_unit_float(b1 ^ b2)
 
 

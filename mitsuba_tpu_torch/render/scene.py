@@ -1,20 +1,23 @@
 """Scene container and builder (port of the parts of
 mitsuba_tpu/render/scene.py that build bench configs 1, 2 and 3 and
-instanced scenes).
+instanced scenes, and shape-interior media).
 
 A `Scene` holds the geometry, material, emitter and texture tables and the
 camera, all on one device: the card unless the caller passes
 `device="cpu"` (without a CUDA device any other request raises).
 `SceneBuilder` assembles them on the host; triangle shapes and analytic
-spheres bind lambertian, mirror, dielectric, rough-conductor or phong
-materials (lambertian and phong optionally checkerboard-textured),
-triangle shapes also area emitters, the builder's emitters may hold a
-Preetham sky, and groups of shapes may be placed as true instances (one
-shared copy of their triangles, cluster backend). An ambient medium is
-not part of the scene: it is passed to the volumetric path tracer
-(`integrators/volpath.py`). Every other scene feature of the reference
-(cylinders, hair, sphere emitters, shape-interior media, other BSDFs,
-emitters and texture kinds) is not ported yet.
+spheres bind lambertian, mirror, dielectric, rough-conductor, phong or
+null (pass-through) materials (lambertian and phong optionally
+checkerboard-textured), triangle shapes also area emitters, the
+builder's emitters may hold a Preetham sky, and groups of shapes may be
+placed as true instances (one shared copy of their triangles, cluster
+backend). Triangle shapes and spheres may bound an interior medium
+(`add_medium`, homogeneous or a density grid): the scene then carries a
+`media.medium.MediumStack` and each shape's medium index, which
+`integrators/volpath.py` `render_volpath_media` renders. An ambient
+medium is not part of the scene: it is passed to `render_volpath`. Every
+other scene feature of the reference (cylinders, hair, sphere emitters,
+other BSDFs, emitters and texture kinds) is not ported yet.
 
 A scene's tensors may require grad: `integrators/path.py` then
 differentiates a render with respect to them (materials and emitter
@@ -48,6 +51,10 @@ class Scene:
     textures: TextureTable
     width: int = 256
     height: int = 256
+    # shape-interior media: the stack, and each shape's medium index
+    # (S,) int32, -1 = none; both None when no shape has a medium
+    media: object = None
+    shape_interior: torch.Tensor = None
 
     @property
     def device(self) -> torch.device:
@@ -64,7 +71,10 @@ class Scene:
 
         return Scene(self.geom.to(device), move(self.materials),
                      move(self.emitters), move(self.camera),
-                     move(self.textures), self.width, self.height)
+                     move(self.textures), self.width, self.height,
+                     None if self.media is None else self.media.to(device),
+                     None if self.shape_interior is None
+                     else self.shape_interior.to(device))
 
 
 def check_device(device):
@@ -87,28 +97,47 @@ class SceneBuilder:
         self._n_shapes = 0    # shared id space: meshes and spheres
         self._inst_groups = []   # [[(mesh, material_id, shape_id), ...]]
         self._instances = []     # [(group id, 4x4 to_world), ...]
+        self._shape_interior = []   # per shape id: medium index or -1
+        self._media = []            # (sigma_s, sigma_a, g) or grid dicts
         self.camera = None
         self.width = 256
         self.height = 256
 
-    def add_shape(self, mesh, material_id, emitter_id=-1):
+    def add_medium(self, sigma_s, sigma_a, g: float = 0.0, density=None,
+                   world_to_grid=None, density_scale: float = 1.0) -> int:
+        """Register a medium; returns its index for add_shape's and
+        add_sphere's `interior_medium` (scene.py:75). density (D, H, W)
+        and world_to_grid make it a grid medium (heterogeneous.cpp:79-96)."""
+        if density is None:
+            self._media.append((tuple(sigma_s), tuple(sigma_a), float(g)))
+        else:
+            self._media.append(dict(
+                sigma_s=tuple(sigma_s), sigma_a=tuple(sigma_a), g=float(g),
+                density=density, world_to_grid=world_to_grid,
+                density_scale=float(density_scale)))
+        return len(self._media) - 1
+
+    def add_shape(self, mesh, material_id, emitter_id=-1,
+                  interior_medium: int = -1):
         sid = self._n_shapes
         self._n_shapes += 1
         self._shapes.append((mesh, material_id, emitter_id, sid))
+        self._shape_interior.append(int(interior_medium))
         return sid
 
     def add_sphere(self, center, radius, material_id, emitter_id=-1,
                    interior_medium: int = -1):
         """An analytic sphere (reference src/shapes/sphere.cpp: exact
         quadratic intersection, not tessellated; scene.py:121). Sphere
-        emitters and interior media are not ported."""
-        if emitter_id != -1 or interior_medium != -1:
+        emitters are not ported."""
+        if emitter_id != -1:
             raise NotImplementedError(
-                "sphere emitters and shape-interior media are not ported")
+                "sphere emitters are not ported (ROADMAP A.11)")
         sid = self._n_shapes
         self._n_shapes += 1
         self._spheres.append((tuple(center), float(radius),
                               int(material_id), -1, sid))
+        self._shape_interior.append(int(interior_medium))
         return sid
 
     def add_area_emitter_shape(self, mesh, material_id, radiance):
@@ -124,6 +153,7 @@ class SceneBuilder:
         for msh, mid in meshes_with_mats:
             items.append((msh, int(mid), self._n_shapes))
             self._n_shapes += 1
+            self._shape_interior.append(-1)
         self._inst_groups.append(items)
         return len(self._inst_groups) - 1
 
@@ -147,12 +177,14 @@ class SceneBuilder:
         if not self._shapes and not self._spheres:
             raise ValueError("scene has no shapes")
         shapes = self._shapes
+        interior = list(self._shape_interior)
         if not shapes:
             # spheres only: the triangle tables still need a row, a
             # degenerate far-away triangle that is never hit (as the
             # reference's builder adds, scene.py:263)
             far = mesh_mod.make_quad(*[(1e8, 1e8, 1e8)] * 4)
             shapes = [(far, 0, -1, self._n_shapes)]
+            interior.append(-1)
         instanced = None
         if self._instances:
             if backend not in ("cluster", "auto"):
@@ -170,10 +202,17 @@ class SceneBuilder:
         cam = self.camera
         if cam is None:
             cam = make_perspective(np.eye(4), 45.0, self.width / self.height)
+        media = shape_interior = None
+        if self._media:
+            from mitsuba_tpu_torch.media.medium import make_medium_stack
+
+            media = make_medium_stack(self._media)
+            shape_interior = torch.as_tensor(np.asarray(interior, np.int32))
         scene = Scene(geom=geom, materials=self.materials.build(),
                       emitters=em, camera=cam,
                       width=self.width, height=self.height,
-                      textures=self.textures.build())
+                      textures=self.textures.build(), media=media,
+                      shape_interior=shape_interior)
         return scene.to(device)
 
 

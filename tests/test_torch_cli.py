@@ -102,29 +102,37 @@ _MED = ('<medium type="homogeneous"><rgb name="sigmaS" value="0.0015"/>'
         '<float name="g" value="0.4"/></phase></medium>')
 
 
-@pytest.mark.parametrize("integ,medium,mis", [
-    ("path", True, True), ("volpath", True, True),
-    ("volpath_simple", True, False), ("volpath", False, True)],
-    ids=["medium", "volpath", "volpath_simple", "volpath_no_medium"])
-def test_volpath_routes_equal_library_render(tmp_path, integ, medium, mis):
+@pytest.mark.parametrize("integ,medium,mis,guided", [
+    ("path", True, True, False), ("volpath", True, True, False),
+    ("volpath_simple", True, False, False), ("volpath", False, True, False),
+    ("volpath", True, True, True)],
+    ids=["medium", "volpath", "volpath_simple", "volpath_no_medium",
+         "volpath_guided"])
+def test_volpath_routes_equal_library_render(tmp_path, integ, medium, mis,
+                                             guided):
+    """A medium scene and the volpath integrators render through
+    render_volpath, with --guided through render_volpath_guided
+    (mitsuba_tpu/cli.py:148-158)."""
     xml = tmp_path / "fog.xml"
     xml.write_text(FOG.format(integ=integ, medium=_MED if medium else "",
                               meshes=os.path.join(REPO, "scenes", "meshes")))
     out = str(tmp_path / "fog.exr")
-    assert main(["--cpu", "-q", str(xml), "-o", out]) == 0
+    assert main(["--cpu", "-q", str(xml), "-o", out]
+                + (["--guided"] if guided else [])) == 0
     scene, cfg = load_scene(str(xml), device="cpu")
+    from mitsuba_tpu_torch.integrators import render_volpath_guided
     from mitsuba_tpu_torch.media import no_medium
 
-    ref, _ = render_volpath(scene, cfg.get("medium", no_medium()),
-                            PathConfig(max_depth=3, spp=2, remat=False),
-                            seed=0, mis=mis)
+    ref, _ = (render_volpath_guided if guided else render_volpath)(
+        scene, cfg.get("medium", no_medium()),
+        PathConfig(max_depth=3, spp=2, remat=False), seed=0, mis=mis)
     assert float(ref.mean()) > 0
     assert np.array_equal(bitmap.read_exr(out), ref.numpy())
 
 
 @pytest.mark.parametrize("flags,item", [
     (["--server"], "A.10"), (["--listen-stdio"], "A.10"),
-    (["--gui"], "A.13"), (["--guided"], "A.8")])
+    (["--gui"], "A.13"), (["--guided"], "A.12")])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--cpu", CORNELL, *DEFS, "-o", str(tmp_path / "x.exr"),

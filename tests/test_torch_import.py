@@ -1,8 +1,10 @@
 """The port stands without JAX and without the JAX package: importing
 every module of mitsuba_tpu_torch (media/, the volumetric path tracer,
-ops/probes.py and the probe drivers of probes/ among them) and rendering
-a brute and an instanced cluster scene (which builds BVHs with the port's
-own native builder) and the brute scene in a medium, and rendering
+guiding, io/volio.py, ops/probes.py and the probe drivers of probes/
+among them) and rendering a brute and an instanced cluster scene (which
+builds BVHs with the port's own native builder) and the brute scene in a
+medium; rendering, guided, in a Gaussian-flake grid medium and a grid
+medium inside a shape; and rendering
 scenes/cornell.xml through `python -m mitsuba_tpu_torch`, leave `jax`, every
 `mitsuba_tpu` module and the reference's `scripts` out of sys.modules,
 and no source file of the port, chip_smoke.py or the case inputs it
@@ -46,6 +48,7 @@ img, aux = render_volpath(cornell_box(4, 4, device="cpu"),
                           PathConfig(max_depth=3, spp=2))
 assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
 assert {"mitsuba_tpu_torch.media.medium", "mitsuba_tpu_torch.media.phase",
+        "mitsuba_tpu_torch.integrators.guiding", "mitsuba_tpu_torch.io.volio",
         "mitsuba_tpu_torch.integrators.volpath",
         "mitsuba_tpu_torch.integrators.direct",
         "mitsuba_tpu_torch.ops.cluster", "mitsuba_tpu_torch.ops.probes",
@@ -80,6 +83,41 @@ print(len(names), "jax" in sys.modules,
 """
 
 
+_MEDIA_PROBE = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from mitsuba_tpu_torch.integrators.path import PathConfig
+from mitsuba_tpu_torch.integrators.volpath import (
+    render_volpath_guided, render_volpath_media)
+from mitsuba_tpu_torch.media import make_heterogeneous
+from mitsuba_tpu_torch.render import mesh as mesh_mod
+from mitsuba_tpu_torch.render.scene import SceneBuilder, cornell_box
+grid = np.ones((2, 2, 2), np.float32)
+med = make_heterogeneous(grid, np.eye(4) * 1e-3, (0.002,) * 3, (0.0,) * 3,
+                         flake_stddev=0.3)
+img, _ = render_volpath_guided(cornell_box(2, 2, device="cpu"), med,
+                               PathConfig(max_depth=2, spp=2), res=2)
+assert bool(torch.isfinite(img).all())
+b = SceneBuilder()
+b.width = b.height = 4
+m = b.add_medium((0.5,) * 3, (0.1,) * 3, density=grid,
+                 world_to_grid=np.eye(4))
+b.add_shape(mesh_mod.make_box([-1, -1, -1], [1, 1, 1]), b.materials.null(),
+            interior_medium=m)
+b.add_area_emitter_shape(mesh_mod.make_quad([-1, 3, -1], [1, 3, -1],
+                                            [1, 3, 1], [-1, 3, 1]),
+                         b.materials.lambertian((0.0,) * 3), (5.0,) * 3)
+img, _ = render_volpath_media(b.build(device="cpu"),
+                              PathConfig(max_depth=2, spp=2))
+assert bool(torch.isfinite(img).all())
+print(sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "mitsuba_tpu", "scripts")))
+"""
+
+
 def _run(args, cwd, timeout=300):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -93,6 +131,14 @@ def test_port_imports_and_renders_without_jax():
     n_modules, jax_loaded, loaded = proc.stdout.split(maxsplit=2)
     assert int(n_modules) >= 20
     assert jax_loaded == "False" and loaded.strip() == "[]", loaded
+
+
+def test_media_render_without_jax():
+    """A guided render in a Gaussian-flake grid medium and a grid medium
+    inside a shape, in a fresh interpreter: no JAX module is loaded."""
+    proc = _run(["-c", _MEDIA_PROBE, ROOT], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 # `import mitsuba_tpu...` or `from mitsuba_tpu... import`, not the port

@@ -186,17 +186,27 @@ def test_render_volpath_is_deterministic_and_simple_differs():
 
 
 def test_volpath_unported_options_raise():
+    """The guide options run now (tests/test_torch_guiding.py holds them
+    against the reference): without a guide, learn_guide and
+    guide_sampling are no-ops, as in the reference (volpath.py:68-70). A
+    phase kind the medium cannot evaluate raises: MICROFLAKE_GAUSS without
+    its fitted coefficients, and an unknown kind."""
+    from mitsuba_tpu_torch.integrators.volpath import scene_guide
+
     scene = cornell_box_cpu(4)
     med = make_homogeneous(**FOG)
     cfg = PathConfig(max_depth=2, spp=1)
-    for kw in (dict(guide=object()), dict(learn_guide=True),
-               dict(guide_sampling=True)):
-        with pytest.raises(NotImplementedError):
-            render_volpath(scene, med, cfg, **kw)
+    plain, _ = render_volpath(scene, med, cfg)
+    for kw in (dict(learn_guide=True), dict(guide_sampling=True)):
+        assert torch.equal(render_volpath(scene, med, cfg, **kw)[0], plain)
+    _, aux = render_volpath(scene, med, cfg, guide=scene_guide(scene, 4),
+                            learn_guide=True)
+    img, _ = render_volpath(scene, med, cfg, guide=aux["guide"])
+    assert bool(torch.isfinite(img).all())
     for kind in (4, 9):               # MICROFLAKE_GAUSS, unknown
         bad = make_homogeneous(**FOG)
         bad.phase_kind = kind
-        with pytest.raises((NotImplementedError, ValueError)):
+        with pytest.raises(ValueError):
             render_volpath(scene, bad, cfg)
 
 

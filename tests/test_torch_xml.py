@@ -407,8 +407,6 @@ UNPORTED = {
     "animatedinstance": '<shape type="animatedinstance"/>',
     "sphere_emitter": '<shape type="sphere"><luminaire type="area"/>'
                       '</shape>',
-    "interior_medium": '<shape type="sphere"><medium type="homogeneous" '
-                       'name="interior"/></shape>',
     "subsurface": '<shape type="sphere"><subsurface type="dipole"/>'
                   '</shape>',
     "roughglass": '<shape type="sphere"><bsdf type="roughglass"/></shape>',
@@ -429,7 +427,6 @@ UNPORTED = {
               'value="e.exr"/></luminaire>' + _SPH,
     "blackbody": '<shape type="sphere"><luminaire type="area"><blackbody '
                  'name="intensity" temperature="3000"/></luminaire></shape>',
-    "heterogeneous": '<medium type="heterogeneous"/>' + _SPH,
     "orthographic": '<camera type="orthographic"/>' + _SPH,
     "aperture": '<camera type="perspective"><float name="apertureRadius" '
                 'value="0.1"/></camera>' + _SPH,
@@ -441,12 +438,12 @@ UNPORTED = {
 
 # the ROADMAP item each unported feature's error names
 ITEM = {"cylinder": "A.11", "hair": "A.12", "animatedinstance": "A.12",
-        "sphere_emitter": "A.11", "interior_medium": "A.7",
+        "sphere_emitter": "A.11",
         "subsurface": "A.12", "roughglass": "A.11", "ward": "A.11",
         "mask": "A.11", "phong_distribution": "A.11", "bitmap": "A.11",
         "point": "A.11", "spot": "A.11", "directional": "A.11",
         "constant": "A.11", "envmap": "A.11", "blackbody": "A.12",
-        "heterogeneous": "A.8", "orthographic": "A.11",
+        "orthographic": "A.11",
         "aperture": "A.11", "shutter": "A.12",
         "no_emitter": "without emitters"}
 
@@ -458,6 +455,39 @@ def test_unported_features_raise(feature):
     with pytest.raises(NotImplementedError, match=ITEM[feature]):
         txml.load_scene_string(f"<scene>{light}{body}</scene>",
                                device="cpu")
+
+
+# features that raised until they were ported (ROADMAP A.7 and A.8): each
+# scene body, now with the file it names, loads as the reference loads it
+PORTED_MEDIA = {
+    "interior_medium": '<shape type="sphere"><medium type="homogeneous" '
+                       'name="interior"/></shape>',
+    "heterogeneous": '<medium type="heterogeneous"><volume type="gridvolume"'
+                     ' name="density"><string name="filename" value="d.vol"'
+                     '/></volume></medium>' + _SPH,
+}
+
+
+@pytest.mark.parametrize("feature", sorted(PORTED_MEDIA))
+def test_ported_media_features_equal_reference(tmp_path, feature):
+    from mitsuba_tpu_torch.io import volio
+
+    volio.save_vol(str(tmp_path / "d.vol"), np.linspace(
+        0, 1, 27, dtype=np.float32).reshape(3, 3, 3), (-1,) * 3, (1,) * 3)
+    src = f"<scene>{_SKY}{PORTED_MEDIA[feature]}</scene>"
+    scene, cfg = txml.load_scene_string(src, base_dir=str(tmp_path),
+                                        device="cpu")
+    jscene, jcfg = jxml.load_scene_string(src, base_dir=str(tmp_path))
+    _same_scene(scene, from_jax_scene(jscene, device="cpu"), feature)
+    if feature == "heterogeneous":
+        _same(cfg["medium"], from_jax_medium(jcfg["medium"]), "medium")
+        assert cfg["medium"].kind == 1
+    else:
+        # the sphere's medium, and none for the far triangle that a
+        # spheres-only scene's tables get (scene.py:263)
+        assert scene.shape_interior.tolist() == [0, -1]
+        # an interior and no BSDF: the pass-through null() material
+        assert scene.materials.opacity.tolist() == [0.0]
 
 
 def test_snow_scene_names_what_it_lacks():
