@@ -43,7 +43,16 @@ fiber fields, stddev 0.3), the same size; through render_volpath_guided
 through render_volpath_media "tank", the volumetric tank of
 tests/golden_scenes.py:118 rebuilt with the port's SceneBuilder (16
 triangles, an index-matched glass box holding a homogeneous medium),
-512x512 px, 4 spp, depth 6, and "tank_het", its interior a 128³ grid.
+512x512 px, 4 spp, depth 6, and "tank_het", its interior a 128³ grid;
+and the materials (#1, the spheres merged after it): through cli.main
+"snow_xml", the repo's showcase `python -m mitsuba_tpu_torch
+scenes/snow.xml -D depth=5 -D spp=64 -D width=512 -D height=512` (the
+Wiscombe snow BRDF on four analytic spheres under the sky, its
+ldsampler pattern and gaussian filter; 16,777,216 lanes), and through
+render "bsdf_zoo" (tests/torch_bsdf_cases.py: Ward, rough glass under
+Beckmann, GGX and Phong, a Phong rough conductor, a diffuse
+transmitter, Wiscombe, Hanrahan-Krueger, a composite, a mask and
+twosided Ward, brute), 512x512 px, 16 spp, depth 5.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -181,6 +190,19 @@ Phases, each printing one JSON line:
      its 512x512x4 renders as a render phase, launching #5, #6, #9 and
      #10 as config 3 does, then one render of the same files on the bvh
      backend, #11 5 + 5 times;
+  5a. the materials, after the README's command: snow_xml through
+     cli.main as that command is (its own pattern and filter in the
+     library's renders too); the |t| > 3.9 rule at 48x48 px, 128 spp,
+     seed 777, box-developed with per-pixel variance
+     (render.film.develop_with_variance), on snow.xml (`golden_snow`,
+     its ldsampler pattern), on tests/golden_scenes.py:51's Ward / Phong
+     / rough-glass spheres (`golden_ward_spheres`) and on the zoo
+     (`golden_bsdf_zoo`), against the JAX package's 256-spp CPU renders
+     tests/torch_goldens/snow.npz, tests/goldens/ward_spheres.npz and
+     tests/torch_goldens/bsdf_zoo.npz; bsdf_zoo as a render phase; the
+     zoo's first bounce at 32x32 px, 4 spp on the card against the CPU
+     (`bsdf_zoo_vs_cpu`: material ids, wo, weight, pdf, the delta and
+     transmission flags, the largest difference);
   5c. the media: gates at 64x64, 1,024 spp, depth 5 against
      tests/torch_goldens/volpath_fog.npz with fog's 0.10 block gate and
      band: a heterogeneous medium of constant density 1 over a grid
@@ -244,7 +266,7 @@ TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
          "config3_v6": 2,
          "bvh": 2, "instanced": 2, "volpath": 2, "xml_config3": 2,
          "hetero_xml": 2, "flake": 2, "guided": 2, "tank": 2,
-         "tank_het": 2}
+         "tank_het": 2, "bsdf_zoo": 2}
 # participating media: hetero_xml (scenes/cornell.xml's box in a grid
 # medium read from a HX_GRID³ float32 .vol, 64 MiB), flake (config 1's
 # box in an oriented Gaussian-flake medium, FLAKE_GRID³ density and
@@ -267,13 +289,28 @@ GRAD_RES, GRAD_SPP, GRAD_H, GRAD_SEEDS, GRAD_REL = 32, 32, 0.02, \
 # MEDIA_CPU_REL)
 MEDIA_CPU_RES, MEDIA_CPU_REL = 32, 0.03
 # the README's command: scenes/cornell.xml, 512x512 px, 64 spp, depth 5
-# (16,777,216 lanes in one wavefront, as the reference renders it)
+# (16,777,216 lanes in one wavefront, as the reference renders it); the
+# repo's showcase, scenes/snow.xml (the Wiscombe snow BRDF, four analytic
+# spheres, the sky, its ldsampler pattern and gaussian filter), the same
 CLI_W, CLI_H, CLI_SPP, CLI_DEPTH = 512, 512, 64, 5
+# the materials slice: tests/torch_bsdf_cases.py's bsdf_zoo (every BSDF
+# kind and option the port has, brute, spheres merged after #1) at
+# 512x512 px, 16 spp, depth 5; its first bounce on the card against the
+# port on the CPU at ZOO_CPU_RES, ZOO_CPU_SPP
+ZOO_RES, ZOO_SPP, ZOO_DEPTH = 512, 16, 5
+ZOO_CPU_RES, ZOO_CPU_SPP = 32, 4
 # tests/test_goldens.py's gate of scenes/cornell.xml against the
 # reference's 256-spp render tests/goldens/cornell.npz: 48x48 px, depth
 # 4, 128 spp, seed 777; a pixel fails at |t| > 3.9, the image at 1%
 GOLD_RES, GOLD_DEPTH, GOLD_SPP, GOLD_SEED = 48, 4, 128, 777
 GOLD_CRIT, GOLD_FAIL_MAX = 3.9, 0.01
+# the same rule on the JAX package's 256-spp CPU renders of snow.xml
+# and bsdf_zoo (tests/torch_goldens, scripts/gen_torch_goldens.py) and
+# on tests/goldens/ward_spheres.npz (tests/golden_scenes.py:51), each at
+# its golden's size and depth, 128 spp, seed 777
+STATS_GOLDENS = {"golden_snow": "tests/torch_goldens/snow.npz",
+                 "golden_ward_spheres": "tests/goldens/ward_spheres.npz",
+                 "golden_bsdf_zoo": "tests/torch_goldens/bsdf_zoo.npz"}
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
@@ -296,7 +333,10 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              # guided, of tests/goldens/volumetric_tank.npz's (0.1214)
              "hetero_xml": (0.066, 0.155), "flake": (0.064, 0.149),
              "guided": (0.0256, 0.0598), "tank": (0.073, 0.170),
-             "tank_het": (0.052, 0.121)}
+             "tank_het": (0.052, 0.121),
+             # +-40% of the JAX package's 48x48 renders (snow 1.3541,
+             # bsdf_zoo 0.2576; tests/torch_goldens)
+             "snow_xml": (0.812, 1.896), "bsdf_zoo": (0.155, 0.361)}
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -2222,14 +2262,16 @@ def morton_render(scene, cfg, seed=0):
     """render() with the camera lanes in pixel-Morton order, as bench.py
     runs configs 2 and 3 (bench_scene(..., morton=True))."""
     from mitsuba_tpu_torch.integrators.path import (
-        camera_wavefront, path_trace,
+        camera_samples, path_trace,
     )
     from mitsuba_tpu_torch.render.film import develop
+    from mitsuba_tpu_torch.render.rfilter import make_rfilter
 
-    ray, sampler, inv_lane = camera_wavefront(scene, cfg, seed, morton=True)
+    ray, sampler, offset, inv_lane = camera_samples(scene, cfg, seed,
+                                                    morton=True)
     L, aux = path_trace(scene, ray, sampler, cfg)
-    return develop(L[inv_lane], cfg.spp, scene.height, scene.width,
-                   cfg.rfilter), aux
+    return develop(L[inv_lane], offset[inv_lane], cfg.spp, scene.height,
+                   scene.width, make_rfilter(cfg.rfilter)), aux
 
 
 def _with(scene, table, **fields):
@@ -2413,21 +2455,22 @@ def grad_checks(device, res=32):
 # the scene-file front end: io.xml, io.bitmap, cli
 # ---------------------------------------------------------------------------
 
-def cli_cornell_phase(device, tmp, w=CLI_W, h=CLI_H, spp=CLI_SPP,
-                      depth=CLI_DEPTH):
-    """The README's command through mitsuba_tpu_torch.cli.main, launch
-    counts set to 0 just before and read just after; then the same scene
-    loaded by io.xml.load_scene and rendered by render twice (timed, launch
-    counts and peak memory) and once under the profiler (device busy
-    share). The EXR the CLI wrote, read back by io.bitmap.read_exr, must
-    equal the seed-0 render bit for bit."""
+def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
+              depth=CLI_DEPTH):
+    """`python -m mitsuba_tpu_torch scenes/<name>.xml` through
+    mitsuba_tpu_torch.cli.main, launch counts set to 0 just before and
+    read just after; then the same scene loaded by io.xml.load_scene and
+    rendered by render, with the file's pattern and filter, twice (timed,
+    launch counts and peak memory) and once under the profiler (device
+    busy share). The EXR the CLI wrote, read back by io.bitmap.read_exr,
+    must equal the seed-0 render bit for bit."""
     from mitsuba_tpu_torch.cli import main as cli_main
     from mitsuba_tpu_torch.integrators.path import PathConfig, render
     from mitsuba_tpu_torch.io.bitmap import read_exr
     from mitsuba_tpu_torch.io.xml import load_scene
 
-    xml = os.path.join(ROOT, "scenes", "cornell.xml")
-    out = os.path.join(tmp, "cornell.exr")
+    xml = os.path.join(ROOT, "scenes", f"{name}.xml")
+    out = os.path.join(tmp, f"{name}.exr")
     defs = dict(depth=depth, spp=spp, width=w, height=h)
     argv = [xml] + [a for k, v in defs.items() for a in ("-D", f"{k}={v}")]
     reset_launch_counts()
@@ -2440,6 +2483,7 @@ def cli_cornell_phase(device, tmp, w=CLI_W, h=CLI_H, spp=CLI_SPP,
     scene, cfg = load_scene(xml, params=defs, device=device)
     load_s = time.perf_counter() - t0
     pc = PathConfig(max_depth=cfg["maxDepth"], spp=cfg["sampleCount"],
+                    pattern=cfg["pattern"], rfilter=cfg["rfilter"],
                     remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2460,12 +2504,13 @@ def cli_cornell_phase(device, tmp, w=CLI_W, h=CLI_H, spp=CLI_SPP,
             finite = bool(np.isfinite(ref).all())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = device_profile(lambda: render(scene, pc, seed=0))
-    band = MEAN_BAND["cli_cornell"]
-    phase("cli_cornell", command=["python", "-m", "mitsuba_tpu_torch",
-                                  "scenes/cornell.xml"] + argv[1:]
-          + ["-o", "cornell.exr"], width=w, height=h, spp=spp, depth=depth,
-          lanes=w * h * spp, backend=scene.geom.backend,
-          triangles=scene.geom.n_tris, cli_seconds=cli_s,
+    band = MEAN_BAND[tag]
+    phase(tag, command=["python", "-m", "mitsuba_tpu_torch",
+                        f"scenes/{name}.xml"] + argv[1:]
+          + ["-o", f"{name}.exr"], width=w, height=h, spp=spp, depth=depth,
+          lanes=w * h * spp, pattern=pc.pattern, rfilter=pc.rfilter,
+          backend=scene.geom.backend, triangles=scene.geom.n_tris,
+          spheres=scene.geom.n_spheres, cli_seconds=cli_s,
           cli_launches_shaded_any=cli_launches["shaded_any"],
           load_seconds=load_s, seconds=secs, rays_traced=rays,
           mrays_per_s=[r / t / 1e6 for r, t in zip(rays, secs)],
@@ -2474,15 +2519,17 @@ def cli_cornell_phase(device, tmp, w=CLI_W, h=CLI_H, spp=CLI_SPP,
           device_busy_ms=prof["device_busy_ms"],
           busy_share=prof["busy_share"], profile_wall_ms=prof["wall_ms"],
           kernels=prof["kernels"],
-          own_ms=prof["own"].get("brute_kernel", {}).get("ms"))
+          own_ms=prof["own"].get("brute_kernel", {}).get("ms"),
+          top=prof["top"])
     if not same or not finite:
-        raise AssertionError("cli_cornell: the EXR differs from the render "
+        raise AssertionError(f"{tag}: the EXR differs from the render "
                              "or is not finite")
     if cli_launches["shaded_any"] != depth or launches != [depth, depth]:
-        raise AssertionError(f"cli_cornell: #1 launched "
+        raise AssertionError(f"{tag}: #1 launched "
                              f"{cli_launches['shaded_any']}, {launches}")
     if not all(band[0] < m < band[1] for m in means):
-        raise AssertionError(f"cli_cornell: means {means} outside {band}")
+        raise AssertionError(f"{tag}: means {means} outside {band}")
+    PROFILES[tag] = prof
     return dict(cli=cli_launches["shaded_any"], render=launches[0])
 
 
@@ -2521,6 +2568,124 @@ def golden_cornell_xml(device, res=GOLD_RES, spp=GOLD_SPP):
           finite=bool(np.isfinite(mean).all()))
     if not frac < GOLD_FAIL_MAX or not np.isfinite(mean).all():
         raise AssertionError(f"golden_cornell_xml: fail fraction {frac}")
+
+
+def golden_stats(tag, scene, depth, spp=GOLD_SPP, seed=GOLD_SEED,
+                 pattern="independent"):
+    """tests/test_goldens.py's gate of a render against the golden
+    STATS_GOLDENS[tag]: per-pixel mean and variance of spp samples (lanes
+    in scanline order, box-developed by render.film.develop_with_variance),
+    a pixel failing at |t| > GOLD_CRIT, the image at GOLD_FAIL_MAX."""
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, camera_samples, path_trace,
+    )
+    from mitsuba_tpu_torch.render.film import develop_with_variance
+
+    cfg = PathConfig(max_depth=depth, spp=spp, pattern=pattern,
+                     remat=False)
+    ray, sampler, _, _ = camera_samples(scene, cfg, seed, morton=False)
+    L, _ = path_trace(scene, ray, sampler, cfg)
+    mean, var, _ = develop_with_variance(L.double(), spp, scene.height,
+                                         scene.width)
+    mean, var = mean.cpu().numpy(), var.cpu().numpy()
+    golden = STATS_GOLDENS[tag]
+    g = np.load(os.path.join(ROOT, golden))
+    se = np.sqrt(var / spp + g["var"] / int(g["spp"]))
+    t = (mean - g["mean"]) / np.maximum(se, 1e-6)
+    frac = float((np.abs(t) > GOLD_CRIT).any(axis=-1).mean())
+    phase(tag, golden=golden, width=scene.width, height=scene.height,
+          spp=spp, depth=depth, seed=seed, pattern=pattern,
+          golden_spp=int(g["spp"]), fail_fraction=frac, limit=GOLD_FAIL_MAX,
+          crit=GOLD_CRIT, mean=float(mean.mean()),
+          golden_mean=float(g["mean"].mean()),
+          finite=bool(np.isfinite(mean).all()))
+    if not frac < GOLD_FAIL_MAX or not np.isfinite(mean).all():
+        raise AssertionError(f"{tag}: fail fraction {frac}")
+
+
+def materials_phases(device, tmp):
+    """The materials slice: snow.xml through the CLI (cli_phase) and its
+    golden, the Ward / Phong / rough-glass spheres of
+    tests/golden_scenes.py:51 and the bsdf_zoo against theirs, the zoo's
+    render phase, and its first bounce on the card against the CPU.
+    Returns each render phase's launch counts."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_bsdf_cases as zc
+
+    out = {"snow_xml": cli_phase("snow_xml", device, tmp, "snow")}
+    g = np.load(os.path.join(ROOT, STATS_GOLDENS["golden_snow"]))
+    res = g["mean"].shape[0]
+    scene, cfg = load_scene(
+        os.path.join(ROOT, "scenes", "snow.xml"), params=dict(
+            depth=int(g["depth"]), spp=GOLD_SPP, width=res, height=res),
+        device=device)
+    golden_stats("golden_snow", scene, int(g["depth"]),
+                 pattern=cfg["pattern"])
+    mods = zc.port_modules()
+    golden_stats("golden_ward_spheres",
+                 zc.ward_spheres_scene(mods, res, device=device),
+                 zc.WARD_SPHERES_DEPTH)
+    golden_stats("golden_bsdf_zoo", zc.zoo_scene(mods, res, device=device),
+                 zc.ZOO_DEPTH)
+    zoo = zc.zoo_scene(mods, ZOO_RES, device=device)
+    out["bsdf_zoo"] = render_phase(
+        "bsdf_zoo", zoo, PathConfig(max_depth=ZOO_DEPTH, spp=ZOO_SPP),
+        ["shaded_any"], forbid=["shaded", "any"])
+    zoo_vs_cpu(zc.zoo_scene(mods, ZOO_CPU_RES, device=device))
+    return out
+
+
+def zoo_vs_cpu(scene):
+    """The zoo's first bounce on the card against the port on the CPU
+    (the plain versions), ZOO_CPU_RES x ZOO_CPU_RES px, ZOO_CPU_SPP spp:
+    each lane's material id, wo, weight, pdf and delta and transmission
+    flags. The libraries' sin, cos, exp, log and pow may round an ulp
+    apart, so the largest difference is printed and gated loosely: ids on
+    every lane, flags on 99% of lanes, and the lanes whose flags agree
+    within 1e-3 of the largest value."""
+    from mitsuba_tpu_torch.bsdfs import bsdf_sample
+    from mitsuba_tpu_torch.integrators.path import PathConfig, camera_samples
+    from mitsuba_tpu_torch.render.intersect import ray_intersect
+
+    def first_bounce(sc):
+        cfg = PathConfig(max_depth=1, spp=ZOO_CPU_SPP)
+        ray, sampler, _, _ = camera_samples(sc, cfg, seed=0, morton=False)
+        its = ray_intersect(sc.geom, ray)
+        u = sampler.next_2d()
+        albedo = sc.materials.reflectance[
+            torch.clamp(its.material_id, min=0).long()]
+        s = bsdf_sample(sc.materials, its.material_id, its.wi, u, u[:, 0],
+                        albedo=albedo)
+        s["material_id"] = its.material_id
+        return {k: v.cpu() for k, v in s.items()}
+
+    card, cpu = first_bounce(scene), first_bounce(scene.to("cpu"))
+    same_id = float((card["material_id"] == cpu["material_id"]).float()
+                    .mean())
+    flags = (card["delta"] == cpu["delta"]) \
+        & (card["transmission"] == cpu["transmission"]) \
+        & (card["valid"] == cpu["valid"])
+    diff = {}
+    for k in ("wo", "weight", "pdf"):
+        d = (card[k] - cpu[k]).abs()
+        d = d.reshape(d.shape[0], -1).amax(-1)[flags]
+        diff[k] = dict(max_abs=float(d.max()), rel_to_max=float(
+            d.max() / cpu[k].abs().max().clamp(min=1e-30)),
+            lanes_over_1e_5=int((d > 1e-5).sum()))
+    phase("bsdf_zoo_vs_cpu", width=scene.width, height=scene.height,
+          spp=ZOO_CPU_SPP, lanes=int(flags.numel()),
+          kinds=sorted({int(k) for k in cpu["material_id"].tolist()}),
+          same_material_id=same_id, same_flags=float(flags.float().mean()),
+          largest_difference=diff)
+    if same_id < 1.0 or float(flags.float().mean()) < 0.99:
+        raise AssertionError(f"bsdf_zoo_vs_cpu: ids {same_id}, flags "
+                             f"{float(flags.float().mean())}")
+    bad = {k: v for k, v in diff.items() if not v["rel_to_max"] <= 1e-3}
+    if bad:
+        raise AssertionError(f"bsdf_zoo_vs_cpu: {bad}")
 
 
 def xml_config3_phase(device, tmp, ref3, l3, w=W3, h=H3):
@@ -3019,7 +3184,10 @@ def main(argv=None):
     # the README's command through the CLI, and the same scene file
     # through io.xml.load_scene + render
     tmp = tempfile.TemporaryDirectory()
-    lcli = cli_cornell_phase(device, tmp.name)
+    lcli = cli_phase("cli_cornell", device, tmp.name, "cornell")
+    # the materials: snow.xml through the CLI, the goldens of snow, the
+    # Ward spheres and the zoo, the zoo's render, its card against CPU
+    lmat = materials_phases(device, tmp.name)
     # config 2: the brute kernel (#1) with the glass sphere merged after
     # it, camera lanes in pixel-Morton order as bench.py runs it
     l2 = render_phase("config2", cornell_box_specular(
@@ -3136,6 +3304,12 @@ def main(argv=None):
         brute("shaded_any", 337, l1["shaded_any"], brute_check,
               launches_config2=l2["shaded_any"],
               launches_cli_cornell=lcli,
+              launches_snow_xml=lmat["snow_xml"],
+              launches_bsdf_zoo=lmat["bsdf_zoo"]["shaded_any"],
+              device_ms_per_render_snow_xml=PROFILES["snow_xml"]["own"]
+              .get("brute_kernel", {}).get("ms"),
+              device_ms_per_render_bsdf_zoo=brute_ms("bsdf_zoo",
+                                                     "shaded_any"),
               launches_config4=l4["launches_shaded_any"],
               device_ms_per_render=brute_ms("config1", "shaded_any"),
               device_ms_per_render_config2=brute_ms("config2",

@@ -1,6 +1,6 @@
-"""SoA material table (port of mitsuba_tpu/bsdfs/table.py: lambertian,
-mirror, dielectric, rough-conductor and phong rows, and the opacity
-column of the mask adapter that `null()` sets to 0).
+"""SoA material table (port of mitsuba_tpu/bsdfs/table.py: every kind but
+the woven cloth of irawan.cpp, the opacity column of the mask adapter
+that `null()` sets to 0, and the composite's child rows and weights).
 
 The reference gathers small tables with a one-hot matmul for the TPU's
 matrix unit; here `gather` is a plain index gather, which is exact.
@@ -20,14 +20,30 @@ MIRROR = 1          # src/bsdfs/mirror.cpp
 DIELECTRIC = 2      # src/bsdfs/dielectric.cpp (smooth glass)
 ROUGH_CONDUCTOR = 3  # src/bsdfs/roughmetal.cpp, microfacet lobe
 PHONG = 4           # src/bsdfs/phong.cpp
+WARD = 5            # src/bsdfs/ward.cpp (anisotropic)
+ROUGH_GLASS = 6     # src/bsdfs/roughglass.cpp
+DIFF_TRANS = 7      # src/bsdfs/difftrans.cpp (diffuse transmitter)
+WISCOMBE = 8        # src/bsdfs/wiscombe.cpp (the fork's snow BRDF)
+HANRAHAN_KRUEGER = 9  # src/bsdfs/hanrahan-krueger.cpp
+COMPOSITE = 10      # src/bsdfs/composite.cpp (N weighted lobes)
+CLOTH = 11          # src/bsdfs/irawan.cpp: not ported (ROADMAP A.11)
+MAX_COMPOSITE_LOBES = 4
 KIND_NAMES = {LAMBERTIAN: "lambertian", MIRROR: "mirror",
               DIELECTRIC: "dielectric", ROUGH_CONDUCTOR: "roughconductor",
-              PHONG: "phong"}
+              PHONG: "phong", WARD: "ward", ROUGH_GLASS: "roughglass",
+              DIFF_TRANS: "difftrans", WISCOMBE: "wiscombe",
+              HANRAHAN_KRUEGER: "hk", COMPOSITE: "composite"}
 # the columns a kind reads beyond those every lane gathers, so that a
 # scene gathers only what its kinds need
 _KIND_FIELDS = {DIELECTRIC: ("transmittance", "eta"),
                 ROUGH_CONDUCTOR: ("alpha_u", "cond_eta", "cond_k",
-                                  "dist_type")}
+                                  "dist_type"),
+                WARD: ("alpha_u", "alpha_v"),
+                ROUGH_GLASS: ("transmittance", "eta", "alpha_u",
+                              "dist_type"),
+                DIFF_TRANS: ("transmittance",),
+                WISCOMBE: ("transmittance",),
+                HANRAHAN_KRUEGER: ("transmittance", "eta", "alpha_u")}
 
 
 @dataclass
@@ -46,12 +62,17 @@ class MaterialTable:
     alpha_v: torch.Tensor      # (M,)
     dist_type: torch.Tensor    # (M,) int32 microfacet distribution
     opacity: torch.Tensor = None  # (M,) mask adapter, 1 = opaque
+    child_ids: torch.Tensor = None      # (M, 4) composite child rows, -1 pad
+    child_weights: torch.Tensor = None  # (M, 4) composite lobe weights
     # the (kind, distribution) pairs present: the distribution is a static
     # choice, so each pair is dispatched on its own (as in the reference)
     kinds_present: tuple = ((LAMBERTIAN, mf.BECKMANN),)
     # a row with opacity < 0.999, decided on the host when the table is
     # built (dispatch.py:168 _np_min_opacity), never by a device sync
     has_mask: bool = False
+    # a composite row is present (its children are listed in
+    # kinds_present, the composite itself is not)
+    has_composite: bool = False
 
     @property
     def n_materials(self):
@@ -72,7 +93,7 @@ def check_kinds(kinds):
     missing = sorted(set(int(k) for k in kinds) - set(KIND_NAMES))
     if missing:
         raise NotImplementedError(
-            f"BSDF kinds {missing} are not ported (only "
+            f"BSDF kinds {missing} are not ported (ROADMAP A.11; only "
             f"{', '.join(KIND_NAMES.values())})")
 
 
@@ -88,7 +109,8 @@ class MaterialBuilder:
                    eta=1.5, cond_eta=(0.2, 0.9, 1.4), cond_k=(3.9, 2.5, 2.1),
                    alpha_u=0.1, alpha_v=0.1, exponent=30.0,
                    dist_type=mf.BECKMANN, tex_id=-1, two_sided=False,
-                   opacity=1.0)
+                   opacity=1.0, child_ids=(-1,) * MAX_COMPOSITE_LOBES,
+                   child_weights=(0.0,) * MAX_COMPOSITE_LOBES)
         row.update(kw)
         self.rows.append(row)
         return len(self.rows) - 1
@@ -127,6 +149,86 @@ class MaterialBuilder:
         return self._add(kind=PHONG, reflectance=diffuse, specular=specular,
                          exponent=exponent, tex_id=tex_id)
 
+    def ward(self, diffuse=(0.5, 0.5, 0.5), specular=(0.2, 0.2, 0.2),
+             alpha_u=0.1, alpha_v=0.1):
+        return self._add(kind=WARD, reflectance=diffuse, specular=specular,
+                         alpha_u=alpha_u, alpha_v=alpha_v)
+
+    def rough_glass(self, alpha=0.1, int_ior=1.5, ext_ior=1.0,
+                    specular=(1, 1, 1), transmittance=(1, 1, 1),
+                    dist=mf.GGX):
+        return self._add(kind=ROUGH_GLASS, alpha_u=alpha, alpha_v=alpha,
+                         eta=int_ior / ext_ior, specular=specular,
+                         transmittance=transmittance, dist_type=dist)
+
+    def diff_trans(self, transmittance=(0.5, 0.5, 0.5)):
+        return self._add(kind=DIFF_TRANS, transmittance=transmittance)
+
+    def wiscombe(self, g=0.874, w0=(0.99, 0.99, 0.99),
+                 sigma_t=(16.4967, 6.0957, 4.6547), depth=1.0):
+        """The Wiscombe-Warren snow BRDF; its delta-Eddington constants
+        in float64 on the host (reference wiscombe.cpp configure()):
+        reflectance <- wStar / (1 + P), specular <- xi, transmittance <-
+        bStar, alpha_u <- g. sigma_t and depth are accepted, as the
+        reference's configure() reads them, and unused."""
+        g = float(g)
+        w0 = np.asarray(w0, np.float64)
+        g_sq = g * g
+        w_star = ((1 - g_sq) * w0) / (1 - g_sq * w0)
+        g_star = g / (1 + g)
+        b_star = g_star / (1 - w_star * g_star)
+        xi = np.sqrt(3.0 * (1 - w_star * g_star) * (1 - w_star))
+        p_const = (2 * xi) / ((1 - w_star * g_star) * 3)
+        a_const = w_star / (1 + p_const)
+        return self._add(kind=WISCOMBE, reflectance=tuple(a_const),
+                         specular=tuple(xi), transmittance=tuple(b_star),
+                         alpha_u=g)
+
+    def composite(self, children, weights):
+        """N weighted lobes (reference composite.cpp, up to 4): children
+        are material rows, none of them a composite; the weights sum to
+        at most 1."""
+        assert len(children) == len(weights) <= MAX_COMPOSITE_LOBES
+        for c in children:
+            assert self.rows[c]["kind"] != COMPOSITE, "no nested composites"
+        pad = MAX_COMPOSITE_LOBES - len(children)
+        return self._add(kind=COMPOSITE,
+                         child_ids=list(children) + [-1] * pad,
+                         child_weights=list(weights) + [0.0] * pad)
+
+    def hanrahan_krueger(self, sigma_a=(0.032, 0.17, 0.48),
+                         sigma_s=(0.74, 0.88, 1.01), g=0.0,
+                         eta_int=1.32, eta_ext=1.0, ss_factor=(1.0,) * 3,
+                         dr_factor=(1.0,) * 3, use_diffuse=True):
+        """The Hanrahan-Krueger thin slab: single scattering plus the
+        delta-Eddington diffuse term, its constants in float64 on the
+        host (reference hanrahan-krueger.cpp configure()): reflectance <-
+        the single-scattering albedo times ssFactor, transmittance <- the
+        diffuse reflectance, eta <- etaInt / etaExt, alpha_u <- g."""
+        sa = np.asarray(sigma_a, np.float64)
+        ss = np.asarray(sigma_s, np.float64)
+        st = np.maximum(sa + ss, 1e-9)
+        ss_albedo = ss / st
+        ss_red = ss * (1 - g)
+        red_albedo = ss_red / np.maximum(sa + ss_red, 1e-9)
+        eta = eta_int / eta_ext
+        if eta == 1.0:
+            fdr, fdt = 0.0, 1.0
+        else:
+            fdr = -1.440 / eta ** 2 + 0.710 / eta + 0.668 + 0.0636 * eta
+            fdt = 1.0 - fdr
+        a_bc = (1 + fdr) / fdt
+        var1 = -np.sqrt(3.0 * (1 - red_albedo))
+        dr = (red_albedo / 2.0) * (1 + np.exp((4.0 / 3.0) * a_bc * var1)) \
+            * np.exp(var1)
+        dr = dr * np.asarray(dr_factor, np.float64)
+        if not use_diffuse:
+            dr = dr * 0.0
+        return self._add(
+            kind=HANRAHAN_KRUEGER,
+            reflectance=tuple(ss_albedo * np.asarray(ss_factor, np.float64)),
+            transmittance=tuple(dr), eta=eta, alpha_u=g)
+
     def build(self) -> MaterialTable:
         if not self.rows:
             self.lambertian()
@@ -150,7 +252,12 @@ class MaterialBuilder:
             alpha_v=col("alpha_v", np.float32),
             dist_type=col("dist_type", np.int32),
             opacity=col("opacity", np.float32),
+            child_ids=col("child_ids", np.int32),
+            child_weights=col("child_weights", np.float32),
             has_mask=min(r["opacity"] for r in self.rows) < 0.999,
+            # a composite row dispatches through its children's pairs
             kinds_present=tuple(sorted(
-                {(int(r["kind"]), int(r["dist_type"])) for r in self.rows})),
+                {(int(r["kind"]), int(r["dist_type"])) for r in self.rows
+                 if r["kind"] != COMPOSITE})),
+            has_composite=any(r["kind"] == COMPOSITE for r in self.rows),
         )

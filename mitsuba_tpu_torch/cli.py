@@ -93,6 +93,7 @@ def main(argv=None):
     from mitsuba_tpu_torch.integrators import PathConfig, render
     from mitsuba_tpu_torch.io import bitmap
     from mitsuba_tpu_torch.io.xml import load_scene
+    from mitsuba_tpu_torch.render.sampler import PATTERNS
 
     device = "cpu" if args.cpu else "cuda"
     rc = 0
@@ -118,9 +119,8 @@ def main(argv=None):
             max_depth=max_depth,
             rr_depth=cfg.get("rrDepth", 10),
             spp=args.spp or cfg["sampleCount"],
-            pattern=cfg["pattern"] if cfg["pattern"] in (
-                "independent", "stratified", "ldsampler", "halton",
-                "hammersley") else "independent",
+            pattern=cfg["pattern"] if cfg["pattern"] in PATTERNS
+            else "independent",
             remat=False,
             rfilter=args.rfilter or cfg.get("rfilter", "box"),
         )

@@ -1,6 +1,6 @@
 """Fresnel reflectance of dielectrics and conductors (port of the parts of
 mitsuba_tpu/core/fresnel.py that the BSDFs use; reference
-src/libcore/util.cpp fresnelDielectric, fresnelConductor).
+src/libcore/util.cpp fresnelDielectric, fresnel, fresnelConductor).
 """
 from __future__ import annotations
 
@@ -15,6 +15,21 @@ def fresnel_dielectric(cos_i, cos_t, eta_i, eta_t):
     rs = (eta_i * cos_i - eta_t * cos_t) / (eta_i * cos_i + eta_t * cos_t)
     rp = (eta_t * cos_i - eta_i * cos_t) / (eta_t * cos_i + eta_i * cos_t)
     return 0.5 * (rs * rs + rp * rp)
+
+
+def fresnel(cos_i, eta_ext, eta_int):
+    """Reflectance for incidence from either side: cos_i is signed
+    (positive outside); 1 under total internal reflection."""
+    entering = cos_i > 0.0
+    eta_i = torch.where(entering, eta_ext, eta_int)
+    eta_t = torch.where(entering, eta_int, eta_ext)
+    abs_ci = torch.abs(cos_i)
+    sin2_t = (eta_i / eta_t) ** 2 * torch.clamp(1.0 - abs_ci * abs_ci,
+                                                min=0.0)
+    tir = sin2_t >= 1.0
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    return torch.where(tir, 1.0, fresnel_dielectric(abs_ci, cos_t, eta_i,
+                                                    eta_t))
 
 
 def fresnel_dielectric_ext(cos_i, eta):

@@ -40,6 +40,13 @@ def safe_sqrt(x):
     return torch.sqrt(torch.clamp(x, min=0.0))
 
 
+def safe_rcp(x, eps: float = 1e-20):
+    """Reciprocal clamped away from inf; sign-preserving (0 counts as
+    +0)."""
+    mag = torch.clamp(torch.abs(x), min=eps)
+    return torch.where(x >= 0, 1.0, -1.0) / mag
+
+
 def coordinate_system(n):
     """Orthonormal (s, t) around unit normal n — Duff et al. branchless
     formulation, as in the reference. [s, t, n] is right-handed."""
@@ -107,6 +114,22 @@ def reflect(w, n):
     """Reflect w about the normal n; both point away from the surface
     (reference util.cpp reflect up to the wi convention)."""
     return 2.0 * dot(w, n)[..., None] * n - w
+
+
+def refract(wi, n, rel_eta):
+    """Refract wi (pointing away from the interface) through the normal n,
+    from either side of n; rel_eta = IOR of the transmitted side over IOR
+    of the incident side. Returns (wt, total internal reflection mask),
+    wt pointing away from the interface on the transmitted side."""
+    cos_i = dot(wi, n)
+    inv = 1.0 / torch.as_tensor(rel_eta, dtype=wi.dtype, device=wi.device)
+    sin2_t = inv * inv * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    tir = sin2_t >= 1.0
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    coef = inv * cos_i - torch.sign(cos_i) * cos_t
+    wt = -wi * torch.broadcast_to(inv, cos_i.shape)[..., None] \
+        + coef[..., None] * n
+    return normalize(wt), tir
 
 
 def spherical_direction(theta, phi):

@@ -50,6 +50,7 @@ from mitsuba_tpu_torch.emitters import (
     sample_direct,
 )
 from mitsuba_tpu_torch.render.film import develop
+from mitsuba_tpu_torch.render.rfilter import make_rfilter
 from mitsuba_tpu_torch.render.intersect import (
     ray_intersect, ray_intersect_and_test, ray_test,
 )
@@ -63,8 +64,8 @@ class PathConfig:
     max_depth: int = 5          # reference maxDepth (bounces incl. first hit)
     rr_depth: int = 10          # start Russian roulette after this depth
     spp: int = 16
-    pattern: str = "independent"
-    rfilter: str = "box"
+    pattern: str = "independent"   # render/sampler.py PATTERNS
+    rfilter: str = "box"           # reconstruction filter (render/rfilter.py)
     # Morton-sort rays per bounce; forced on for cluster scenes
     sort_rays: bool = False
     sort_mode: str = "full"     # octant-major Morton argsort ('octant',
@@ -356,10 +357,11 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
     return state.L, aux
 
 
-def camera_wavefront(scene, cfg: PathConfig, seed: int = 0, morton=None):
+def camera_samples(scene, cfg: PathConfig, seed: int = 0, morton=None):
     """The camera rays and sampler of `render`: lane = pixel * spp +
     sample, with pixels in Morton order if `morton` (default: on the
-    cluster backend). Returns (ray, sampler, inv_lane), inv_lane restoring
+    cluster backend). Returns (ray, sampler, offset, inv_lane): offset the
+    (N, 2) sub-pixel positions of cfg.pattern, inv_lane restoring
     scanline lane order (None without Morton order)."""
     w, h, spp = scene.width, scene.height, cfg.spp
     n = w * h * spp
@@ -385,13 +387,22 @@ def camera_wavefront(scene, cfg: PathConfig, seed: int = 0, morton=None):
     offset = sample_position(cfg.pattern, sample_id, spp, jitter)
     uv = torch.stack([(px + offset[:, 0]) / w, (py + offset[:, 1]) / h],
                      dim=-1)
-    return scene.camera.sample_ray(uv), sampler, inv_lane
+    return scene.camera.sample_ray(uv), sampler, offset, inv_lane
+
+
+def camera_wavefront(scene, cfg: PathConfig, seed: int = 0, morton=None):
+    """`camera_samples` without the offsets: (ray, sampler, inv_lane)."""
+    ray, sampler, _, inv_lane = camera_samples(scene, cfg, seed, morton)
+    return ray, sampler, inv_lane
 
 
 def render(scene, cfg: PathConfig, seed: int = 0):
-    """Render the scene to an (H, W, C) image on the scene's device."""
-    ray, sampler, inv_lane = camera_wavefront(scene, cfg, seed)
+    """Render the scene to an (H, W, C) image on the scene's device,
+    developed with cfg.rfilter; on Morton lanes the radiance and the
+    offsets return to scanline order together (path.py:1003-1007)."""
+    ray, sampler, offset, inv_lane = camera_samples(scene, cfg, seed)
     L, aux = path_trace(scene, ray, sampler, cfg)
     if inv_lane is not None:
-        L = L[inv_lane]
-    return develop(L, cfg.spp, scene.height, scene.width, cfg.rfilter), aux
+        L, offset = L[inv_lane], offset[inv_lane]
+    return develop(L, offset, cfg.spp, scene.height, scene.width,
+                   make_rfilter(cfg.rfilter)), aux

@@ -2,7 +2,8 @@
 
 `from_jax_scene` reads the reference scene's arrays as numpy (geometry on
 the brute, bvh or cluster backend, instanced or not, with or without
-analytic spheres, materials with their opacity column, textures,
+analytic spheres, materials of every kind but cloth with their opacity
+column and composite children, textures,
 emitters with the baked sky's sampling tables, camera, shape-interior
 media) and builds the port's tables from them, so that both packages
 render the same scene from the same arrays; `from_jax_medium` does the
@@ -20,10 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mitsuba_tpu_torch.bsdfs.table import (
-    ROUGH_CONDUCTOR, MaterialTable, check_kinds,
-)
-from mitsuba_tpu_torch.core import microfacet as mf
+from mitsuba_tpu_torch.bsdfs.table import MaterialTable, check_kinds
 from mitsuba_tpu_torch.emitters.table import EmitterTable
 from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
 from mitsuba_tpu_torch.integrators.guiding import GuideGrid
@@ -41,7 +39,8 @@ _GEOM_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
 _SPHERE_FIELDS = ("sph_c", "sph_r", "sph_mid", "sph_eid", "sph_sid")
 _MATERIAL_FIELDS = ("kind", "reflectance", "two_sided", "specular",
                     "exponent", "tex_id", "transmittance", "eta", "cond_eta",
-                    "cond_k", "alpha_u", "alpha_v", "dist_type")
+                    "cond_k", "alpha_u", "alpha_v", "dist_type", "child_ids",
+                    "child_weights")
 _BVH_FIELDS = ("bvh_min", "bvh_max", "bvh_first", "bvh_count", "bvh_skip",
                "bvh_packed", "tri_packed", "shade_pack")
 _CLUSTER_FIELDS = ("mt_tri", "mt_start", "mt_bmin", "mt_bmax", "cl_sc_bmin",
@@ -102,18 +101,13 @@ def _geometry(g) -> GeometryTables:
 
 
 def _materials(mt) -> MaterialTable:
-    kinds = np.asarray(mt.kind)
-    check_kinds(kinds)
-    if mt.has_composite or mt.cloth is not None:
-        _unported("composite or cloth BSDFs")
-    if any(k == ROUGH_CONDUCTOR and d not in (mf.BECKMANN, mf.GGX)
-           for k, d in mt.kinds_present):
-        _unported("the Phong microfacet distribution")
+    check_kinds(np.asarray(mt.kind))      # cloth raises (ROADMAP A.11)
     opacity = np.asarray(mt.opacity, np.float32)
     return MaterialTable(
         **{k: _t(getattr(mt, k)) for k in _MATERIAL_FIELDS},
         opacity=_t(opacity), has_mask=bool(opacity.min() < 0.999),
         kinds_present=tuple((int(k), int(d)) for k, d in mt.kinds_present),
+        has_composite=bool(mt.has_composite),
     )
 
 

@@ -18,6 +18,11 @@ pairs of Python ints, derived on the host with the same threefry, so a
 Woodcock loop costs no device launch to step its key; `uniform_keys`
 draws several such keys' counters on the device at once, and `uniform`
 any shape per tensor key.
+
+The pixel-sample patterns of the reference's sampler plugins
+(src/samplers/: independent, stratified, ldsampler, halton, hammersley)
+are `sample_position`, bit for bit with the JAX package's: the same
+float32 sums in the same order and the same uint32 xors.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import math
 
 import numpy as np
 import torch
+
+from mitsuba_tpu_torch.core.registry import register_plugin
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -167,10 +174,78 @@ class Sampler:
         return uniform(*self._dim_keys(d), 2)
 
 
+def _radical_inverse(base: int, idx):
+    """Van der Corput radical inverse of the int tensor idx in the given
+    base, float32, digit by digit as the JAX package sums it."""
+    inv_base = 1.0 / base
+    inv32 = np.float32(inv_base)
+    result = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    frac = inv32
+    i = idx.to(torch.int64)
+    # 32 digits cover idx < base^32 (20 of base 3 cover any int32)
+    for _ in range(32 if base == 2 else 20):
+        result = result + (i % base).to(torch.float32) * float(frac)
+        i = i // base
+        frac = np.float32(frac * inv32)
+    return result
+
+
+def _sobol_dirs():
+    dirs, v = [], 1 << 31
+    for _ in range(32):
+        dirs.append(v)
+        v ^= v >> 1
+    return dirs
+
+
+_SOBOL_DIR = _sobol_dirs()
+
+
+def _sobol_2d(idx):
+    """The first two dimensions of the Sobol (0,2)-sequence (reference
+    ldsampler): the base-2 radical inverse, and the xor of the direction
+    numbers of idx's set bits as a uint32 (held in int64) over 2^32."""
+    i = idx.to(torch.int64) & _MASK
+    y = torch.zeros_like(i)
+    for bit, v in enumerate(_SOBOL_DIR):
+        y = y ^ (((i >> bit) & 1) * v)
+    return torch.stack([_radical_inverse(2, idx),
+                        y.to(torch.float32) * (1.0 / 4294967296.0)], -1)
+
+
+PATTERNS = ("independent", "stratified", "ldsampler", "halton",
+            "hammersley")
+
+
 def sample_position(pattern: str, sample_ids, spp: int, rnd_2d):
-    """Sub-pixel sample offset in [0,1)^2 for each lane. Only the
-    'independent' pattern is ported."""
+    """Sub-pixel sample offset in [0, 1)^2 for each lane.
+
+    sample_ids: (N,) index of the sample within its pixel; rnd_2d: (N, 2)
+    uniforms for the jitter of the strata and the Cranley-Patterson
+    rotation of the sequences.
+    """
     if pattern == "independent":
         return rnd_2d
-    raise NotImplementedError(
-        f"sample pattern '{pattern}' is not ported (only 'independent')")
+    if pattern == "stratified":
+        res = math.ceil(np.sqrt(np.float32(spp)))   # float32, as in jnp
+        sx = (sample_ids % res).to(torch.float32)
+        sy = ((sample_ids // res) % res).to(torch.float32)
+        return (torch.stack([sx, sy], -1) + rnd_2d) / res
+    if pattern == "ldsampler":
+        p = _sobol_2d(sample_ids)
+    elif pattern == "halton":
+        p = torch.stack([_radical_inverse(2, sample_ids),
+                         _radical_inverse(3, sample_ids)], -1)
+    elif pattern == "hammersley":
+        p = torch.stack([sample_ids.to(torch.float32) / max(spp, 1),
+                         _radical_inverse(2, sample_ids)], -1)
+    else:
+        raise ValueError(f"unknown sample pattern '{pattern}'")
+    # a Cranley-Patterson rotation a lane keeps pixels decorrelated
+    return torch.remainder(p + rnd_2d, 1.0)
+
+
+for _name in PATTERNS:
+    register_plugin("sampler", _name)(
+        lambda props, _n=_name: {"pattern": _n,
+                                 "spp": int(props.get("sampleCount", 4))})

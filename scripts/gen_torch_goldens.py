@@ -24,15 +24,29 @@ one sphere group).
   noise floor of the gate (0.22 at 16 spp, 0.053 at 512, so "mean" has
   1,024).
 
+* snow.npz: scenes/snow.xml loaded by the JAX package's XML loader (the
+  Wiscombe snow BRDF on four analytic spheres under the Preetham sky),
+  48 x 48 px, depth 5, 256 spp, seed 1234, the scene's ldsampler pattern,
+  per-pixel mean and sample variance ("mean", "var", "spp", "depth"), as
+  tests/goldens/*.npz hold them for tests/test_goldens.py's |t| > 3.9
+  rule; also the same at 32 x 32 px ("mean32", "var32", "spp32"), which
+  tests/test_torch_snow.py holds the port's CPU render's mean to.
+  chip_smoke.py's `golden_snow` gates the port's 48 x 48 x 128 render.
+* bsdf_zoo.npz: tests/torch_bsdf_cases.py's zoo built by the JAX
+  package's SceneBuilder, 48 x 48 px, depth 5, 256 spp, seed 1234,
+  mean and variance as snow.npz; chip_smoke.py's `bsdf_zoo` gates the
+  port's 48 x 48 x 128 render.
+
 All store the image under "mean". Regenerate only after an intentional
 change of the JAX package's estimator:
 
-    python scripts/gen_torch_goldens.py
+    python scripts/gen_torch_goldens.py [name ...]
 """
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import jax
 
@@ -40,8 +54,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tests", "torch_goldens")
+DIR = os.path.join(ROOT, "tests", "torch_goldens")
 PLACES = ((-2.0, 0.0, 1.0, 1.0), (2.0, 0.5, 1.2, 0.7), (0.0, 2.0, 0.8, 1.3))
 GOLDENS = {
     # name: (px, n_theta, n_phi, spp, depth); n_theta None: config 3 bvh,
@@ -50,7 +63,10 @@ GOLDENS = {
     "instanced_32": (32, 10, 20, 2, 3),
     "bvh_16": (16, None, None, 2, 3),
     "volpath_fog": (64, "fog", None, 1024, 5),
+    "snow": (48, "snow", None, 256, 5),
+    "bsdf_zoo": (48, "zoo", None, 256, 5),
 }
+STATS_SEED = 1234
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 
 
@@ -102,12 +118,82 @@ def instanced_scene(res, n_theta, n_phi):
     return b.build(backend="cluster")
 
 
+def render_stats(scene, depth, spp, seed, pattern="independent"):
+    """Per-pixel mean and sample variance over spp samples, lanes in
+    scanline order (tests/golden_scenes.py render_stats, with a
+    pattern)."""
+    import jax.numpy as jnp
+
+    from mitsuba_tpu.integrators.path import PathConfig, path_trace
+    from mitsuba_tpu.render.sampler import Sampler, sample_position
+
+    w, h = scene.width, scene.height
+    lane = jnp.arange(w * h * spp)
+    pixel_id = lane // spp
+    sample_id = (lane % spp).astype(jnp.int32)
+    sampler = Sampler(seed, pixel_id, sample_id)
+    offset = sample_position(pattern, sample_id, spp, sampler.next_2d())
+    uv = jnp.stack([((pixel_id % w) + offset[:, 0]) / w,
+                    ((pixel_id // w) + offset[:, 1]) / h], -1)
+    L, _ = path_trace(scene, scene.camera.sample_ray(uv), sampler,
+                      PathConfig(max_depth=depth, spp=spp, remat=False))
+    Ls = np.asarray(L).reshape(h, w, spp, 3)
+    return Ls.mean(axis=2), Ls.var(axis=2, ddof=1)
+
+
+def snow_scene(res, spp, depth):
+    from mitsuba_tpu.io.xml import load_scene
+
+    return load_scene(os.path.join(ROOT, "scenes", "snow.xml"), params=dict(
+        depth=depth, spp=spp, width=res, height=res))
+
+
+def zoo_scene(res):
+    from types import SimpleNamespace
+
+    from mitsuba_tpu.core import microfacet as mf
+    from mitsuba_tpu.core import transform as tf
+    from mitsuba_tpu.render import mesh
+    from mitsuba_tpu.render.camera import make_perspective
+    from mitsuba_tpu.render.scene import SceneBuilder
+
+    sys.path.insert(0, os.path.dirname(DIR))
+    import torch_bsdf_cases as bc
+
+    return bc.zoo_scene(SimpleNamespace(
+        SceneBuilder=SceneBuilder, mesh=mesh, mf=mf, look_at=tf.look_at,
+        make_perspective=make_perspective), res)
+
+
+def stats_golden(name, res, spp, depth):
+    """snow.npz and bsdf_zoo.npz: mean and variance, as tests/goldens."""
+    out = {}
+    sizes = ((res, ""), (32, "32")) if name == "snow" else ((res, ""),)
+    for r, key in sizes:
+        if name == "snow":
+            scene, cfg = snow_scene(r, spp, depth)
+            pattern = cfg["pattern"]
+        else:
+            scene, pattern = zoo_scene(r), "independent"
+        mean, var = render_stats(scene, depth, spp, STATS_SEED, pattern)
+        out.update({f"mean{key}": mean.astype(np.float32),
+                    f"var{key}": var.astype(np.float32),
+                    f"spp{key}": spp})
+        print(f"{name}{key}: {r}x{r} px, {spp} spp, pattern {pattern}, "
+              f"mean={mean.mean():.6f}", flush=True)
+    np.savez_compressed(os.path.join(DIR, name + ".npz"), depth=depth,
+                        **out)
+
+
 def main():
     from mitsuba_tpu.integrators.path import PathConfig, render
 
     names = sys.argv[1:] or list(GOLDENS)
     for name in names:
         res, n_theta, n_phi, spp, depth = GOLDENS[name]
+        if n_theta in ("snow", "zoo"):
+            stats_golden(name, res, spp, depth)
+            continue
         if n_theta == "fog":
             img = render_fog(res, spp, depth, seed=0)
             spread = block_rel_rmse(render_fog(res, spp, depth, seed=1), img)

@@ -1312,3 +1312,52 @@ def test_media_render_on_the_card_matches_the_cpu(cuda, kind):
     assert float(ref.mean()) > 0
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
         ref.mean())
+
+
+def test_bsdf_zoo_render_on_the_card_matches_the_cpu(cuda):
+    """Every BSDF kind and option of the port (tests/torch_bsdf_cases.py's
+    zoo) on the card: one #1 launch a bounce, the spheres merged after
+    it; the image against the CPU's, lane for lane the same random
+    numbers, the mean within 2% (an ulp of the libraries' sin, cos or pow
+    may turn a sampled lobe)."""
+    import torch_bsdf_cases as zc
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+
+    cfg = PathConfig(max_depth=4, spp=2)
+    mods = zc.port_modules()
+    before = ip.LAUNCHES
+    img, _ = render(zc.zoo_scene(mods, 16, device=cuda), cfg, seed=3)
+    torch.cuda.synchronize()
+    assert ip.LAUNCHES - before == cfg.max_depth
+    ref, _ = render(zc.zoo_scene(mods, 16, device="cpu"), cfg, seed=3)
+    assert img.shape == ref.shape and bool(torch.isfinite(img).all())
+    assert float(ref.mean()) > 0
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+
+
+def test_cli_renders_snow_on_the_card(cuda, tmp_path):
+    """`python -m mitsuba_tpu_torch scenes/snow.xml` on the card at 64x64
+    px with the file's ldsampler pattern and gaussian filter: the EXR is
+    the library's render bit for bit, its mean within 5% of the CPU's."""
+    import os
+
+    from mitsuba_tpu_torch.cli import main
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+    from mitsuba_tpu_torch.io import bitmap
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    xml = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "snow.xml")
+    params = dict(depth=5, spp=4, width=64, height=64)
+    out = str(tmp_path / "snow.exr")
+    assert main(["-q", xml, *[a for k, v in params.items()
+                              for a in ("-D", f"{k}={v}")], "-o", out]) == 0
+    pc = PathConfig(max_depth=5, spp=4, pattern="ldsampler",
+                    rfilter="gaussian", remat=False)
+    img, _ = render(load_scene(xml, params=params, device=cuda)[0], pc)
+    assert np.array_equal(bitmap.read_exr(out), img.cpu().numpy())
+    ref, _ = render(load_scene(xml, params=params, device="cpu")[0], pc)
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.05 * float(
+        ref.mean())

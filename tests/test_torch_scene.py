@@ -200,12 +200,6 @@ def test_unported_features_raise():
     jb.add_cylinder([0, 0, 1], [0, 0, 2], 0.5, 0)
     with pytest.raises(NotImplementedError):
         from_jax_scene(jb.build(backend="brute"), device="cpu")  # cylinder
-    jb = JaxSceneBuilder()
-    jb.add_area_emitter_shape(mesh_mod.make_quad(
-        [0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]),
-        jb.materials.rough_conductor(dist=2), (1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError):     # Phong microfacets
-        from_jax_scene(jb.build(backend="brute"), device="cpu")
     with pytest.raises(NotImplementedError):
         TorchSceneBuilder().add_sphere([0, 0, 0], 1.0, 0, emitter_id=0)
     scene = cornell_box(4, 4, device="cpu")
@@ -213,10 +207,27 @@ def test_unported_features_raise():
                 "skip_direct_emission", "aniso_filter"):
         with pytest.raises(NotImplementedError):
             render(scene, PathConfig(max_depth=1, spp=1, **{opt: True}))
-    for kw in (dict(pattern="stratified"), dict(rfilter="gaussian"),
-               dict(sort_rays=True, sort_mode="octant")):
-        with pytest.raises(NotImplementedError):
-            render(scene, PathConfig(max_depth=1, spp=1, **kw))
+    with pytest.raises(NotImplementedError):
+        render(scene, PathConfig(max_depth=1, spp=1, sort_rays=True,
+                                 sort_mode="octant"))
+
+
+def test_ported_features_convert():
+    """What raised above until it was ported (ROADMAP A.11): a scene with
+    Phong-distribution microfacets converts to the reference's tables,
+    and renders under the stratified pattern and the gaussian filter."""
+    jb = JaxSceneBuilder()
+    jb.add_area_emitter_shape(mesh_mod.make_quad(
+        [0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]),
+        jb.materials.rough_conductor(alpha=20.0, dist=2), (1.0, 1.0, 1.0))
+    jscene = jb.build(backend="brute")
+    scene = from_jax_scene(jscene, device="cpu")
+    assert scene.materials.kinds_present == ((3, 2),)
+    assert scene.materials.dist_type.tolist() == [2]
+    scene = cornell_box(4, 4, device="cpu")
+    for kw in (dict(pattern="stratified"), dict(rfilter="gaussian")):
+        img, _ = render(scene, PathConfig(max_depth=2, spp=4, **kw))
+        assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
 
 
 @pytest.mark.parametrize("fn", ["textured_mesh_scene", "SceneBuilder.build",

@@ -409,13 +409,7 @@ UNPORTED = {
                       '</shape>',
     "subsurface": '<shape type="sphere"><subsurface type="dipole"/>'
                   '</shape>',
-    "roughglass": '<shape type="sphere"><bsdf type="roughglass"/></shape>',
-    "ward": '<shape type="sphere"><bsdf type="ward"/></shape>',
-    "mask": '<shape type="sphere"><bsdf type="mask"><bsdf type="diffuse"/>'
-            '</bsdf></shape>',
-    "phong_distribution": '<shape type="sphere"><bsdf type="roughmetal">'
-                          '<string name="distribution" value="phong"/>'
-                          '</bsdf></shape>',
+    "irawan": '<shape type="sphere"><bsdf type="irawan"/></shape>',
     "bitmap": '<shape type="sphere"><bsdf type="diffuse"><texture '
               'type="bitmap"><string name="filename" value="t.png"/>'
               '</texture></bsdf></shape>',
@@ -439,8 +433,7 @@ UNPORTED = {
 # the ROADMAP item each unported feature's error names
 ITEM = {"cylinder": "A.11", "hair": "A.12", "animatedinstance": "A.12",
         "sphere_emitter": "A.11",
-        "subsurface": "A.12", "roughglass": "A.11", "ward": "A.11",
-        "mask": "A.11", "phong_distribution": "A.11", "bitmap": "A.11",
+        "subsurface": "A.12", "irawan": "A.11", "bitmap": "A.11",
         "point": "A.11", "spot": "A.11", "directional": "A.11",
         "constant": "A.11", "envmap": "A.11", "blackbody": "A.12",
         "orthographic": "A.11",
@@ -490,10 +483,49 @@ def test_ported_media_features_equal_reference(tmp_path, feature):
         assert scene.materials.opacity.tolist() == [0.0]
 
 
-def test_snow_scene_names_what_it_lacks():
-    with pytest.raises(NotImplementedError, match="wiscombe.*A.11"):
-        txml.load_scene(os.path.join(REPO, "scenes", "snow.xml"),
-                        params=SMALL, device="cpu")
+# features that raised until they were ported (ROADMAP A.11, the
+# materials): each scene body loads as the reference loads it, and the
+# port's own tables render as the converted ones
+PORTED_BSDFS = {
+    "roughglass": '<shape type="sphere"><bsdf type="roughglass"/></shape>',
+    "ward": '<shape type="sphere"><bsdf type="ward"/></shape>',
+    "mask": '<shape type="sphere"><bsdf type="mask"><bsdf type="diffuse"/>'
+            '</bsdf></shape>',
+    "phong_distribution": '<shape type="sphere"><bsdf type="roughmetal">'
+                          '<string name="distribution" value="phong"/>'
+                          '</bsdf></shape>',
+    "composite": '<shape type="sphere"><bsdf type="composite"><string '
+                 'name="weights" value="0.3, 0.6"/><bsdf type="ward"/><bsdf '
+                 'type="difftrans"/></bsdf></shape>',
+    "hk_twosided": '<shape type="sphere"><bsdf type="twosided"><bsdf '
+                   'type="hk"/></bsdf></shape>',
+}
+
+
+@pytest.mark.parametrize("feature", sorted(PORTED_BSDFS))
+def test_ported_bsdfs_equal_reference(feature):
+    src = _scene(PORTED_BSDFS[feature])
+    scene, cfg = txml.load_scene_string(src, device="cpu")
+    jscene, jcfg = jxml.load_scene_string(src)
+    conv = from_jax_scene(jscene, device="cpu")
+    _same_scene(scene, conv, feature)
+    assert cfg == jcfg
+    pc = PathConfig(max_depth=3, spp=2, remat=False)
+    a, _ = render(scene, pc, seed=0)
+    b, _ = render(conv, pc, seed=0)
+    assert float(a.mean()) > 0
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def test_snow_scene_equals_reference():
+    """scenes/snow.xml, which named the Wiscombe BSDF it lacked until the
+    materials were ported: its tables are the reference's."""
+    path = os.path.join(REPO, "scenes", "snow.xml")
+    scene, cfg = txml.load_scene(path, params=SMALL, device="cpu")
+    jscene, jcfg = jxml.load_scene(path, params=SMALL)
+    _same_scene(scene, from_jax_scene(jscene, device="cpu"), "snow")
+    assert cfg == jcfg and cfg["pattern"] == "ldsampler"
+    assert scene.materials.kind.tolist() == [8]
 
 
 # ---------------------------------------------------------------------------
