@@ -52,7 +52,18 @@ ldsampler pattern and gaussian filter; 16,777,216 lanes), and through
 render "bsdf_zoo" (tests/torch_bsdf_cases.py: Ward, rough glass under
 Beckmann, GGX and Phong, a Phong rough conductor, a diffuse
 transmitter, Wiscombe, Hanrahan-Krueger, a composite, a mask and
-twosided Ward, brute), 512x512 px, 16 spp, depth 5.
+twosided Ward, brute), 512x512 px, 16 spp, depth 5; and the lights,
+textures and cameras (#1, #2, #3, #11): through cli.main "lights_xml",
+the lights file of tests/torch_light_cases.py (point, spot,
+directional, sphere and envmap lights over the two Cornell blocks on a
+floor, 22 triangles, a 1,024^2 bitmap EXR floor, a 512 x 1,024 sky
+EXR), 512x512 px, 64 spp, depth 5, and the same file with an
+orthographic camera at 16 spp; through render "textured_mip", the
+receding checker floor of tests/test_mipmap.py:154 at 512x512x16, with
+no filter, mip_filter and aniso_filter, and "textured_bvh", config 3's
+scene on bvh with a 1,024^2 bitmap floor and mips, 512x512x4; through
+integrators.ptracer.ptracer_render "ptracer", config 1's box at 256x256,
+depth 5, 2^24 particles.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -203,6 +214,20 @@ Phases, each printing one JSON line:
      zoo's first bounce at 32x32 px, 4 spp on the card against the CPU
      (`bsdf_zoo_vs_cpu`: material ids, wo, weight, pdf, the delta and
      transmission flags, the largest difference);
+  5d. the lights, textures and cameras, after the materials: lights_xml
+     through cli.main as the README's command is; the |t| > 3.9 rule at
+     48x48x128, seed 777, on the lights file (`golden_lights`) and on
+     the mip floor with aniso_filter (`golden_textured`) against the JAX
+     package's 256-spp renders tests/torch_goldens/lights.npz and
+     texture_mip.npz; render phases of the orthographic lights file, of
+     the mip floor under each filter (then one render of each gated by
+     tests/test_mipmap.py's three checks: energy within 12%, the far
+     rows' std halved, EWA's contrast over 1.3x the isotropic filter's),
+     of textured_bvh (#11 5 + 5 a render) and of ptracer (#2 5 and #3 6
+     a render; two runs equal bit for bit; tests/test_ptracer.py's rule
+     against config 1's path render: the mean within 6%, the pixels'
+     correlation over 0.9); the texel gradient at 32x32 px against
+     central differences (within 1e-3) and the CPU's (`texture_grad`);
   5c. the media: gates at 64x64, 1,024 spp, depth 5 against
      tests/torch_goldens/volpath_fog.npz with fog's 0.10 block gate and
      band: a heterogeneous medium of constant density 1 over a grid
@@ -266,7 +291,9 @@ TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
          "config3_v6": 2,
          "bvh": 2, "instanced": 2, "volpath": 2, "xml_config3": 2,
          "hetero_xml": 2, "flake": 2, "guided": 2, "tank": 2,
-         "tank_het": 2, "bsdf_zoo": 2}
+         "tank_het": 2, "bsdf_zoo": 2, "lights_ortho": 2,
+         "textured_mip": 1, "textured_mip_mip": 1, "textured_mip_aniso": 1,
+         "textured_bvh": 2, "ptracer": 2}
 # participating media: hetero_xml (scenes/cornell.xml's box in a grid
 # medium read from a HX_GRID³ float32 .vol, 64 MiB), flake (config 1's
 # box in an oriented Gaussian-flake medium, FLAKE_GRID³ density and
@@ -310,7 +337,27 @@ GOLD_CRIT, GOLD_FAIL_MAX = 3.9, 0.01
 # its golden's size and depth, 128 spp, seed 777
 STATS_GOLDENS = {"golden_snow": "tests/torch_goldens/snow.npz",
                  "golden_ward_spheres": "tests/goldens/ward_spheres.npz",
-                 "golden_bsdf_zoo": "tests/torch_goldens/bsdf_zoo.npz"}
+                 "golden_bsdf_zoo": "tests/torch_goldens/bsdf_zoo.npz",
+                 "golden_lights": "tests/torch_goldens/lights.npz",
+                 "golden_textured": "tests/torch_goldens/texture_mip.npz"}
+# the lights slice (tests/torch_light_cases.py): the lights file (point,
+# spot, directional, sphere and envmap lights; a LIGHTS_TEX^2 floor EXR,
+# an LIGHTS_ENV x 2 LIGHTS_ENV sky EXR) through the CLI at CLI_W x CLI_H x
+# CLI_SPP, and with its orthographic camera at ORTHO_SPP; the receding
+# checker floor of tests/test_mipmap.py:154 at MIP_RES^2 x MIP_SPP, depth
+# 5, with no filter, mip_filter and aniso_filter, gated by that test's
+# three checks (MIP_ENERGY, MIP_FAR_STD, MIP_CONTRAST; its far rows
+# 18-30 of 32); config 3's scene on bvh with a bitmap floor and mips at
+# W3 x H3 x SPP3; the particle tracer on config 1's box at PT_RES^2,
+# depth 5, PT_PARTICLES particles, gated by tests/test_ptracer.py's rule
+# against config 1's path render (PT_MEAN_REL, PT_CORR); the texel
+# gradient of tests/test_grad.py:100 at TEX_GRAD_RES^2, 4 spp, depth 2,
+# seed 5, central differences within TEX_GRAD_REL (that test's bound)
+LIGHTS_TEX, LIGHTS_ENV, ORTHO_SPP = 1024, 512, 16
+MIP_RES, MIP_SPP = 512, 16
+MIP_ENERGY, MIP_FAR_STD, MIP_CONTRAST = 0.12, 0.5, 1.3
+PT_RES, PT_PARTICLES, PT_MEAN_REL, PT_CORR = 256, 1 << 24, 0.06, 0.9
+TEX_GRAD_RES, TEX_GRAD_REL = 32, 1e-3
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
@@ -336,7 +383,17 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              "tank_het": (0.052, 0.121),
              # +-40% of the JAX package's 48x48 renders (snow 1.3541,
              # bsdf_zoo 0.2576; tests/torch_goldens)
-             "snow_xml": (0.812, 1.896), "bsdf_zoo": (0.155, 0.361)}
+             "snow_xml": (0.812, 1.896), "bsdf_zoo": (0.155, 0.361),
+             # +-40% of the JAX package's 48x48 renders (lights 0.3947,
+             # the mip floor 0.4319; tests/torch_goldens) and of the
+             # port's CPU renders at 32x32x4 (the orthographic lights
+             # file 0.4896, the bvh floor 0.2702); the particle tracer's
+             # is config 1's
+             "lights_xml": (0.237, 0.553), "lights_ortho": (0.294, 0.685),
+             "textured_mip": (0.259, 0.605),
+             "textured_mip_mip": (0.259, 0.605),
+             "textured_mip_aniso": (0.259, 0.605),
+             "textured_bvh": (0.162, 0.378), "ptracer": (0.09, 0.21)}
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -2456,8 +2513,9 @@ def grad_checks(device, res=32):
 # ---------------------------------------------------------------------------
 
 def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
-              depth=CLI_DEPTH):
-    """`python -m mitsuba_tpu_torch scenes/<name>.xml` through
+              depth=CLI_DEPTH, xml=None):
+    """`python -m mitsuba_tpu_torch scenes/<name>.xml` (or the file `xml`)
+    through
     mitsuba_tpu_torch.cli.main, launch counts set to 0 just before and
     read just after; then the same scene loaded by io.xml.load_scene and
     rendered by render, with the file's pattern and filter, twice (timed,
@@ -2469,7 +2527,8 @@ def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
     from mitsuba_tpu_torch.io.bitmap import read_exr
     from mitsuba_tpu_torch.io.xml import load_scene
 
-    xml = os.path.join(ROOT, "scenes", f"{name}.xml")
+    shown = f"scenes/{name}.xml" if xml is None else os.path.basename(xml)
+    xml = xml or os.path.join(ROOT, "scenes", f"{name}.xml")
     out = os.path.join(tmp, f"{name}.exr")
     defs = dict(depth=depth, spp=spp, width=w, height=h)
     argv = [xml] + [a for k, v in defs.items() for a in ("-D", f"{k}={v}")]
@@ -2506,7 +2565,7 @@ def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
     prof = device_profile(lambda: render(scene, pc, seed=0))
     band = MEAN_BAND[tag]
     phase(tag, command=["python", "-m", "mitsuba_tpu_torch",
-                        f"scenes/{name}.xml"] + argv[1:]
+                        shown] + argv[1:]
           + ["-o", f"{name}.exr"], width=w, height=h, spp=spp, depth=depth,
           lanes=w * h * spp, pattern=pc.pattern, rfilter=pc.rfilter,
           backend=scene.geom.backend, triangles=scene.geom.n_tris,
@@ -2571,7 +2630,7 @@ def golden_cornell_xml(device, res=GOLD_RES, spp=GOLD_SPP):
 
 
 def golden_stats(tag, scene, depth, spp=GOLD_SPP, seed=GOLD_SEED,
-                 pattern="independent"):
+                 pattern="independent", **options):
     """tests/test_goldens.py's gate of a render against the golden
     STATS_GOLDENS[tag]: per-pixel mean and variance of spp samples (lanes
     in scanline order, box-developed by render.film.develop_with_variance),
@@ -2582,7 +2641,7 @@ def golden_stats(tag, scene, depth, spp=GOLD_SPP, seed=GOLD_SEED,
     from mitsuba_tpu_torch.render.film import develop_with_variance
 
     cfg = PathConfig(max_depth=depth, spp=spp, pattern=pattern,
-                     remat=False)
+                     remat=False, **options)
     ray, sampler, _, _ = camera_samples(scene, cfg, seed, morton=False)
     L, _ = path_trace(scene, ray, sampler, cfg)
     mean, var, _ = develop_with_variance(L.double(), spp, scene.height,
@@ -2595,7 +2654,7 @@ def golden_stats(tag, scene, depth, spp=GOLD_SPP, seed=GOLD_SEED,
     frac = float((np.abs(t) > GOLD_CRIT).any(axis=-1).mean())
     phase(tag, golden=golden, width=scene.width, height=scene.height,
           spp=spp, depth=depth, seed=seed, pattern=pattern,
-          golden_spp=int(g["spp"]), fail_fraction=frac, limit=GOLD_FAIL_MAX,
+          options=options, golden_spp=int(g["spp"]), fail_fraction=frac, limit=GOLD_FAIL_MAX,
           crit=GOLD_CRIT, mean=float(mean.mean()),
           golden_mean=float(g["mean"].mean()),
           finite=bool(np.isfinite(mean).all()))
@@ -2686,6 +2745,214 @@ def zoo_vs_cpu(scene):
     bad = {k: v for k, v in diff.items() if not v["rel_to_max"] <= 1e-3}
     if bad:
         raise AssertionError(f"bsdf_zoo_vs_cpu: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# the lights, textures, cameras and the particle tracer
+# ---------------------------------------------------------------------------
+
+def _light_cases():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_bsdf_cases as zc
+    import torch_light_cases as lc
+
+    return lc, zc.port_modules()
+
+
+def lights_phases(device, tmp):
+    """The lights file of tests/torch_light_cases.py (point, spot,
+    directional, sphere and envmap lights on the two Cornell blocks, a
+    bitmap floor) through the CLI at CLI_W x CLI_H x CLI_SPP, depth 5
+    (cli_phase: #1 5 a render), its golden (golden_lights), and the same
+    file with its orthographic camera at ORTHO_SPP spp. Returns the
+    phases' launch counts."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    lc, _ = _light_cases()
+    t0 = time.perf_counter()
+    path = lc.write_lights_scene(tmp, LIGHTS_TEX, LIGHTS_ENV)
+    ortho = lc.write_lights_scene(tmp, LIGHTS_TEX, LIGHTS_ENV,
+                                  camera="orthographic")
+    phase("lights_files", seconds=time.perf_counter() - t0,
+          files=sorted(os.listdir(tmp)), floor_texels=LIGHTS_TEX ** 2,
+          sky_texels=2 * LIGHTS_ENV ** 2)
+    out = {"lights_xml": cli_phase("lights_xml", device, tmp, "lights",
+                                   xml=path)}
+    g = np.load(os.path.join(ROOT, STATS_GOLDENS["golden_lights"]))
+    res = g["mean"].shape[0]
+    scene, _ = load_scene(path, params=dict(
+        depth=int(g["depth"]), spp=GOLD_SPP, width=res, height=res),
+        device=device)
+    golden_stats("golden_lights", scene, int(g["depth"]))
+    t0 = time.perf_counter()
+    scene, cfg = load_scene(ortho, params=dict(
+        depth=CLI_DEPTH, spp=ORTHO_SPP, width=CLI_W, height=CLI_H),
+        device=device)
+    phase("lights_ortho_load", seconds=time.perf_counter() - t0,
+          camera_kind=scene.camera.kind,
+          emitter_kinds=list(scene.emitters.kinds_present))
+    out["lights_ortho"] = render_phase(
+        "lights_ortho", scene, PathConfig(max_depth=cfg["maxDepth"],
+                                          spp=cfg["sampleCount"]),
+        ["shaded_any"], forbid=["shaded", "any"])
+    return out
+
+
+def textured_phases(device):
+    """The receding checker floor (tests/test_mipmap.py:154, brute) at
+    MIP_RES^2 x MIP_SPP, depth 5: render phases with no filter, with
+    mip_filter and with aniso_filter, then one seed-0 render of each
+    gated by that test's three checks (each filter's energy within
+    MIP_ENERGY of the unfiltered, the far rows' std under mip_filter
+    below MIP_FAR_STD of the unfiltered, EWA's contrast over
+    MIP_CONTRAST times the isotropic filter's); its golden with
+    aniso_filter (golden_textured); config 3's scene on bvh with a bitmap
+    floor and mips under mip_filter (#11 5 + 5 a render)."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+
+    lc, mods = _light_cases()
+    t0 = time.perf_counter()
+    floor = lc.mip_floor(mods, MIP_RES, MIP_RES, device=device)
+    phase("textured_mip_build", seconds=time.perf_counter() - t0,
+          levels=floor.textures.mips[0].n_levels)
+    out = {}
+    filters = (("textured_mip", {}),
+               ("textured_mip_mip", dict(mip_filter=True)),
+               ("textured_mip_aniso", dict(aniso_filter=True)))
+    for tag, kw in filters:
+        out[tag] = render_phase(tag, floor, PathConfig(
+            max_depth=5, spp=MIP_SPP, **kw), ["shaded_any"],
+            forbid=["shaded", "any"])
+    imgs = [render(floor, PathConfig(max_depth=5, spp=MIP_SPP, **kw),
+                   seed=0)[0].cpu().numpy() for _, kw in filters]
+    n, m, a = imgs
+    far = slice(MIP_RES * 18 // 32, MIP_RES * 30 // 32)
+
+    def contrast(img):
+        return float(np.std(img[far, :, 0], axis=1).mean())
+
+    res = dict(energy_mip=float(abs(m.mean() - n.mean()) / n.mean()),
+               energy_aniso=float(abs(a.mean() - n.mean()) / n.mean()),
+               far_std_ratio=float(m[far].std() / n[far].std()),
+               contrast_ratio=contrast(a) / contrast(m),
+               means=[float(x.mean()) for x in imgs])
+    phase("textured_mip_gates", width=MIP_RES, height=MIP_RES, spp=MIP_SPP,
+          limits=dict(energy=MIP_ENERGY, far_std=MIP_FAR_STD,
+                      contrast=MIP_CONTRAST), **res)
+    if not (res["energy_mip"] < MIP_ENERGY
+            and res["energy_aniso"] < MIP_ENERGY
+            and res["far_std_ratio"] < MIP_FAR_STD
+            and res["contrast_ratio"] > MIP_CONTRAST
+            and all(np.isfinite(x).all() for x in imgs)):
+        raise AssertionError(f"textured_mip: {res}")
+    del floor, imgs, n, m, a
+    g = np.load(os.path.join(ROOT, STATS_GOLDENS["golden_textured"]))
+    r = g["mean"].shape[0]
+    golden_stats("golden_textured", lc.mip_floor(mods, r, r, device=device),
+                 int(g["depth"]), aniso_filter=True)
+    t0 = time.perf_counter()
+    scene = lc.textured_bvh_scene(mods, W3, H3, device=device)
+    phase("textured_bvh_build", seconds=time.perf_counter() - t0,
+          triangles=scene.geom.n_tris, backend=scene.geom.backend,
+          levels=scene.textures.mips[0].n_levels)
+    out["textured_bvh"] = render_phase(
+        "textured_bvh", scene, PathConfig(max_depth=DEPTH3, spp=SPP3,
+                                          mip_filter=True),
+        ["bvh_closest", "bvh_any"])
+    per = {k: out["textured_bvh"][k] // TIMED["textured_bvh"]
+           for k in ("bvh_closest", "bvh_any")}
+    if per != {"bvh_closest": DEPTH3, "bvh_any": DEPTH3}:
+        raise AssertionError(f"textured_bvh: #11 launched {per} a render")
+    return out
+
+
+def ptracer_phase(device):
+    """The particle tracer on config 1's box at PT_RES^2, depth 5,
+    PT_PARTICLES particles (render_phase: #2 once a bounce, #3 once a
+    bounce and once for the origins); two seed-0 runs equal bit for bit;
+    tests/test_ptracer.py's rule against config 1's path render at the
+    same size (16 spp): the mean within PT_MEAN_REL, the correlation of
+    the pixels over PT_CORR."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.integrators.ptracer import ptracer_render
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    scene = cornell_box(PT_RES, PT_RES, device=device)
+    cfg = PathConfig(max_depth=5)
+
+    def trace(sc, c, seed=0):
+        return ptracer_render(sc, c, PT_PARTICLES, seed=seed)
+
+    launches = render_phase("ptracer", scene, cfg, ["shaded", "any"],
+                            render_fn=trace, forbid=["shaded_any"])
+    a = trace(scene, cfg)[0]
+    b = trace(scene, cfg)[0]
+    same = bool(torch.equal(a, b))
+    path = render(scene, PathConfig(max_depth=5, spp=16), seed=0)[0]
+    p, lt = path.cpu().numpy(), a.cpu().numpy()
+    rel = float(abs(p.mean() - lt.mean()) / p.mean())
+    corr = float(np.corrcoef(p.mean(-1).ravel(), lt.mean(-1).ravel())[0, 1])
+    phase("ptracer_gates", particles=PT_PARTICLES, width=PT_RES,
+          height=PT_RES, runs_equal=same, mean=float(lt.mean()),
+          path_mean=float(p.mean()), mean_rel=rel, corr=corr,
+          limits=dict(mean_rel=PT_MEAN_REL, corr=PT_CORR),
+          finite=bool(np.isfinite(lt).all()))
+    if not same:
+        raise AssertionError("ptracer: two runs differ")
+    if not (rel < PT_MEAN_REL and corr > PT_CORR
+            and np.isfinite(lt).all()):
+        raise AssertionError(f"ptracer: mean {rel}, corr {corr}")
+    return launches
+
+
+def texture_grad(device, res=TEX_GRAD_RES):
+    """The texel gradient (tests/test_grad.py:100's scene at res x res, 4
+    spp, depth 2, seed 5) on the card: against central differences on
+    three texels (eps 1e-2, within TEX_GRAD_REL) and against the CPU's
+    gradient (the plain versions; within 1e-3 of the largest entry)."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+
+    lc, mods = _light_cases()
+    scene = lc.grad_quad(mods, res, res, device=device)
+    cfg = PathConfig(max_depth=2, spp=4, remat=True)
+
+    def loss(sc, img):
+        t = sc.textures
+        sc = dataclasses.replace(sc, textures=dataclasses.replace(
+            t, images=(img,) + t.images[1:]))
+        return render(sc, cfg, seed=5)[0].mean()
+
+    def grad(sc):
+        img = sc.textures.images[0].clone().requires_grad_(True)
+        loss(sc, img).backward()
+        return img.grad
+
+    g = grad(scene)
+    img0 = scene.textures.images[0]
+    eps = 1e-2
+    fd = []
+    with torch.no_grad():
+        for idx in ((1, 1, 0), (2, 3, 1), (0, 0, 2)):
+            e = torch.zeros_like(img0)
+            e[idx] = 1.0
+            f = (float(loss(scene, img0 + eps * e))
+                 - float(loss(scene, img0 - eps * e))) / (2 * eps)
+            an = float(g[idx])
+            fd.append(dict(entry=idx, fd=f, grad=an, rel=abs(f - an) / max(
+                abs(f), abs(an), 1e-6)))
+    g_cpu = grad(scene.to("cpu"))
+    cpu = dict(max_abs=float((g.cpu() - g_cpu).abs().max()),
+               rel_to_max=float((g.cpu() - g_cpu).abs().max()
+                                / g_cpu.abs().max()))
+    phase("texture_grad", width=res, height=res, spp=cfg.spp,
+          depth=cfg.max_depth, fd=fd, cpu=cpu, limit=TEX_GRAD_REL,
+          finite=bool(torch.isfinite(g).all()))
+    bad = [r for r in fd if not r["rel"] < TEX_GRAD_REL]
+    if bad or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"texture_grad: central differences {bad}")
+    if not cpu["rel_to_max"] <= 1e-3:
+        raise AssertionError(f"texture_grad: card vs CPU {cpu}")
 
 
 def xml_config3_phase(device, tmp, ref3, l3, w=W3, h=H3):
@@ -3188,6 +3455,14 @@ def main(argv=None):
     # the materials: snow.xml through the CLI, the goldens of snow, the
     # Ward spheres and the zoo, the zoo's render, its card against CPU
     lmat = materials_phases(device, tmp.name)
+    # the lights, textures and cameras: the lights file through the CLI
+    # and with its orthographic camera, their goldens; the mip floor's
+    # three filters; config 3's bvh scene with a bitmap; the particle
+    # tracer; the texel gradient
+    llights = lights_phases(device, tmp.name)
+    ltex = textured_phases(device)
+    lpt = ptracer_phase(device)
+    texture_grad(device)
     # config 2: the brute kernel (#1) with the glass sphere merged after
     # it, camera lanes in pixel-Morton order as bench.py runs it
     l2 = render_phase("config2", cornell_box_specular(
@@ -3306,6 +3581,17 @@ def main(argv=None):
               launches_cli_cornell=lcli,
               launches_snow_xml=lmat["snow_xml"],
               launches_bsdf_zoo=lmat["bsdf_zoo"]["shaded_any"],
+              launches_lights_xml=llights["lights_xml"],
+              launches_lights_ortho=llights["lights_ortho"]["shaded_any"],
+              launches_textured_mip={t: ltex[t]["shaded_any"] for t in (
+                  "textured_mip", "textured_mip_mip",
+                  "textured_mip_aniso")},
+              device_ms_per_render_lights_xml=PROFILES["lights_xml"][
+                  "own"].get("brute_kernel", {}).get("ms"),
+              device_ms_per_render_textured_mip={t: brute_ms(
+                  t, "shaded_any") for t in (
+                  "textured_mip", "textured_mip_mip",
+                  "textured_mip_aniso")},
               device_ms_per_render_snow_xml=PROFILES["snow_xml"]["own"]
               .get("brute_kernel", {}).get("ms"),
               device_ms_per_render_bsdf_zoo=brute_ms("bsdf_zoo",
@@ -3365,12 +3651,16 @@ def main(argv=None):
         entry("bvh_closest", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:169",
               lb["bvh_closest"], bvh[("bvh_closest", "bounce")],
               launches_xml_config3_bvh=lxml["bvh"]["bvh_closest"],
+              launches_textured_bvh=ltex["textured_bvh"]["bvh_closest"],
+              device_ms_per_render_textured_bvh=own_ms("textured_bvh",
+                                                       "bvh_kernel"),
               device_ms_per_render=own_ms("bvh", "bvh_kernel"),
               device_ms_per_render_instanced=own_ms("instanced",
                                                     "bvh_kernel")),
         entry("bvh_any", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:196",
               lb["bvh_any"], bvh[("bvh_any", "shadow")],
-              launches_xml_config3_bvh=lxml["bvh"]["bvh_any"]),
+              launches_xml_config3_bvh=lxml["bvh"]["bvh_any"],
+              launches_textured_bvh=ltex["textured_bvh"]["bvh_any"]),
         entry("wl_closest", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:364", li["wl_closest"],
               worklist[("wl_closest", "bounce", "instanced")],
@@ -3384,11 +3674,15 @@ def main(argv=None):
               device_ms_per_render=brute_ms("volpath", "shaded"),
               replayed_device_ms_per_render=live_fog["device_ms"],
               replayed_event_ms_per_render=live_fog["ms"],
+              launches_ptracer=lpt["shaded"],
+              device_ms_per_render_ptracer=brute_ms("ptracer", "shaded"),
               **media_entry(lmed, "shaded")),
         brute("any", 97, lv["any"], split["any"], path="volpath",
               device_ms_per_render=brute_ms("volpath", "any"),
               replayed_device_ms_per_render=live_fog_any["device_ms"],
               replayed_event_ms_per_render=live_fog_any["ms"],
+              launches_ptracer=lpt["any"],
+              device_ms_per_render_ptracer=brute_ms("ptracer", "any"),
               **media_entry(lmed, "any")),
         # no render path launches #4 (nor does the JAX package's): its
         # check phase holds it against its plain version

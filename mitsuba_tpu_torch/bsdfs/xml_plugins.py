@@ -8,10 +8,14 @@ src/bsdfs/roughmetal.cpp:38-41: alphaB, ior, k). Ported: lambertian /
 diffuse, mirror, dielectric, roughglass / roughdielectric, roughconductor /
 roughmetal, phong, ward, microfacet, difftrans, wiscombe / dozier, hk /
 hanrahan-krueger, composite, and the twosided and mask adapters over any
-of them; the checkerboard texture. The woven cloth (irawan) and every
-other texture raise NotImplementedError naming the plugin (ROADMAP A.11).
+of them; the checkerboard, gridtexture, ldrtexture, exrtexture, bitmap,
+diffusiontexture and vertexcolors textures (an image read by
+io/bitmap.py, whose JPEG files raise, ROADMAP A.13). The woven cloth
+(irawan) raises NotImplementedError naming the plugin (ROADMAP A.11).
 """
 from __future__ import annotations
+
+import os
 
 from mitsuba_tpu_torch.core import microfacet as mf
 
@@ -195,4 +199,22 @@ def build_texture(tb, tex_node, base_dir="."):
             dark=_spec(p, "darkColor", 0.2),
             uv_scale=uv_scale, uv_offset=uv_offset,
         )
-    _unported("texture", t)
+    if t == "gridtexture":
+        return tb.grid(
+            bright=_spec(p, "brightColor", 0.4),
+            dark=_spec(p, "darkColor", 0.2),
+            line_width=float(p.get("lineWidth", 0.01)),
+            uv_scale=uv_scale, uv_offset=uv_offset,
+        )
+    if t in ("ldrtexture", "exrtexture", "bitmap", "diffusiontexture"):
+        # diffusiontexture (src/textures/diffusiontexture.cpp): a linear
+        # bitmap whose filtering is the renderer-wide PathConfig switches
+        from mitsuba_tpu_torch.io.bitmap import read_image
+
+        img = read_image(os.path.join(base_dir, p["filename"]))
+        gamma = float(p.get("gamma", -1.0)) if t == "ldrtexture" else 1.0
+        return tb.bitmap(img, gamma=gamma, wrap=p.get("wrapMode", "repeat"),
+                         uv_scale=uv_scale, uv_offset=uv_offset)
+    if t == "vertexcolors":
+        return tb.vertex_colors()
+    raise ValueError(f"unsupported texture type '{t}'")

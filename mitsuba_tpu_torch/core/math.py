@@ -32,6 +32,10 @@ def squared_length(v):
     return dot(v, v)
 
 
+def length(v):
+    return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
+
+
 def normalize(v, eps: float = 1e-20):
     return v / torch.sqrt(torch.clamp(dot(v, v), min=eps))[..., None]
 

@@ -81,13 +81,18 @@ def apply_point_np(m, p):
     multiply-adds, m[i,0] p0, then + m[i,1] p1, then + m[i,2] p2, each
     rounded once (a float64 product of two float32 values is exact),
     then the translation."""
-    m32 = np.asarray(m, np.float32)
-    m64 = m32.astype(np.float64)
-    p = np.asarray(p, np.float32).astype(np.float64)
-    acc = (m64[:3, 0] * p[0]).astype(np.float32)
+    return apply_vector_np(m, p) + np.asarray(m, np.float32)[:3, 3]
+
+
+def apply_vector_np(m, v):
+    """A direction under m on the host: `apply_point_np` without the
+    translation, as the reference's `apply_vector` computes it."""
+    m64 = np.asarray(m, np.float32).astype(np.float64)
+    v = np.asarray(v, np.float32).astype(np.float64)
+    acc = (m64[:3, 0] * v[0]).astype(np.float32)
     for k in (1, 2):
-        acc = (m64[:3, k] * p[k] + acc).astype(np.float32)
-    return acc + m32[:3, 3]
+        acc = (m64[:3, k] * v[k] + acc).astype(np.float32)
+    return acc
 
 
 def _rows(m, v):

@@ -1,5 +1,6 @@
 """Square → distribution warps with their pdfs (port of the parts of
-mitsuba_tpu/core/warp.py that the path tracers use).
+mitsuba_tpu/core/warp.py that the path and particle tracers, the lights
+and the thin lens use).
 
 Samples are uniform in [0,1)^2 with a trailing axis of 2; pdfs are with
 respect to solid angle.
@@ -10,7 +11,7 @@ import math
 
 import torch
 
-from mitsuba_tpu_torch.core.math import INV_FOURPI, INV_PI, safe_sqrt
+from mitsuba_tpu_torch.core.math import INV_FOURPI, INV_PI, INV_TWOPI, safe_sqrt
 
 
 def square_to_uniform_sphere(sample):
@@ -23,6 +24,40 @@ def square_to_uniform_sphere(sample):
 def square_to_uniform_sphere_pdf(d):
     return torch.full(d.shape[:-1], INV_FOURPI, dtype=d.dtype,
                       device=d.device)
+
+
+def square_to_uniform_hemisphere(sample):
+    z = sample[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * sample[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_hemisphere_pdf(d):
+    return torch.where(d[..., 2] >= 0, INV_TWOPI, 0.0)
+
+
+def square_to_uniform_cone(cos_cutoff, sample):
+    """Uniform direction in a cone around +z with cos(angle) >= cos_cutoff
+    (cos_cutoff a float or a tensor broadcasting against the sample)."""
+    cos_theta = (1.0 - sample[..., 0]) + sample[..., 0] * cos_cutoff
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = 2.0 * math.pi * sample[..., 1]
+    return torch.stack([torch.cos(phi) * sin_theta,
+                        torch.sin(phi) * sin_theta, cos_theta], dim=-1)
+
+
+def square_to_uniform_cone_pdf(cos_cutoff, d=None):
+    pdf = 1.0 / (2.0 * math.pi * (1.0 - cos_cutoff))
+    if d is None:
+        return pdf
+    return torch.where(d[..., 2] >= cos_cutoff, pdf, 0.0)
+
+
+def square_to_uniform_disk(sample):
+    r = torch.sqrt(sample[..., 0])
+    phi = 2.0 * math.pi * sample[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
 
 
 def square_to_uniform_disk_concentric(sample):

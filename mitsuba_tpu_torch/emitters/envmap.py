@@ -86,9 +86,10 @@ def build_env_cdfs(image):
             pdf_img.astype(np.float32))
 
 
-def env_sample(prob, alias, pdf_img, image, u2, from_env):
+def env_sample(prob, alias, pdf_img, image, u2, from_env=None):
     """Directions sampled proportionally to luminance x sin(theta) through
-    the alias table. Returns (d_world (N, 3), pdf (N,), radiance (N, C))."""
+    the alias table (envmap.py:119). Returns (d_world (N, 3), pdf (N,),
+    radiance (N, C)), or (d_world, pdf) when `image` is None."""
     h, w = pdf_img.shape
     hw = h * w
     x = torch.clamp(u2[..., 0], 0.0, 1.0 - 1e-7) * hw
@@ -100,21 +101,18 @@ def env_sample(prob, alias, pdf_img, image, u2, from_env):
     col = idx % w
     uv = torch.stack([(col.to(torch.float32) + 0.5) / w,
                       (row.to(torch.float32) + 0.5) / h], dim=-1)
-    d = tf.apply_vector(from_env, latlong_uv_to_dir(uv))
+    d = latlong_uv_to_dir(uv)
+    if from_env is not None:
+        d = tf.apply_vector(from_env, d)
+    if image is None:
+        return d, pdf_img.reshape(-1)[idx]
     return (d, pdf_img.reshape(-1)[idx],
             image.reshape(hw, image.shape[-1])[idx])
 
 
-def env_eval_pdf(image, pdf_img, d, to_env):
-    """Bilinear radiance and nearest-texel sampling pdf for world
-    directions d (envmap.py:163, the branch where image and pdf share a
-    shape): the nearest texel is always one of the four bilinear corners,
-    selected by the fractions."""
-    d = tf.apply_vector(to_env, d)
-    uv = latlong_dir_to_uv(d)
-    h, w, c = image.shape
-    if tuple(pdf_img.shape) != (h, w):
-        raise ValueError("the pdf image must have the map's shape")
+def _bilinear_setup(uv, h, w):
+    """Corner indices and fractions of a bilinear lat-long lookup: u
+    wraps, v clamps at the poles."""
     x = uv[..., 0] * w - 0.5
     y = uv[..., 1] * h - 0.5
     x0 = torch.floor(x)
@@ -126,16 +124,60 @@ def env_eval_pdf(image, pdf_img, d, to_env):
     xi0, xi1 = xi % w, (xi + 1) % w
     yi0 = torch.clamp(yi, 0, h - 1)
     yi1 = torch.clamp(yi + 1, 0, h - 1)
+    return ((yi0 * w + xi0).long(), (yi0 * w + xi1).long(),
+            (yi1 * w + xi0).long(), (yi1 * w + xi1).long(), fx, fy)
+
+
+def _blend(c00, c10, c01, c11, fx, fy):
+    return (c00 * (1 - fx) * (1 - fy) + c10 * fx * (1 - fy)
+            + c01 * (1 - fx) * fy + c11 * fx * fy)
+
+
+def env_eval(image, d, to_env=None, scale=1.0):
+    """Bilinear radiance of world directions d (envmap.py:88)."""
+    if to_env is not None:
+        d = tf.apply_vector(to_env, d)
+    uv = latlong_dir_to_uv(d)
+    h, w, c = image.shape
+    flat = image.reshape(h * w, c)
+    i00, i10, i01, i11, fx, fy = _bilinear_setup(uv, h, w)
+    return _blend(flat[i00], flat[i10], flat[i01], flat[i11], fx, fy) \
+        * scale
+
+
+def env_pdf(pdf_img, d, to_env=None):
+    """Solid-angle pdf of env_sample at world directions d: the nearest
+    texel's (envmap.py:220)."""
+    if to_env is not None:
+        d = tf.apply_vector(to_env, d)
+    uv = latlong_dir_to_uv(d)
+    h, w = pdf_img.shape
+    col = torch.clamp((uv[..., 0] * w).to(torch.int32), 0, w - 1)
+    row = torch.clamp((uv[..., 1] * h).to(torch.int32), 0, h - 1)
+    return pdf_img.reshape(-1)[(row * w + col).long()]
+
+
+def env_eval_pdf(image, pdf_img, d, to_env):
+    """Bilinear radiance and nearest-texel sampling pdf for world
+    directions d (envmap.py:163): where the pdf image has the map's
+    shape, the nearest texel is one of the four bilinear corners,
+    selected by the fractions."""
+    d = tf.apply_vector(to_env, d)
+    uv = latlong_dir_to_uv(d)
+    h, w, c = image.shape
+    i00, i10, i01, i11, fx, fy = _bilinear_setup(uv, h, w)
+    if tuple(pdf_img.shape) != (h, w):
+        flat = image.reshape(h * w, c)
+        val = _blend(flat[i00], flat[i10], flat[i01], flat[i11], fx, fy)
+        hp, wp = pdf_img.shape
+        colp = torch.clamp((uv[..., 0] * wp).to(torch.int32), 0, wp - 1)
+        rowp = torch.clamp((uv[..., 1] * hp).to(torch.int32), 0, hp - 1)
+        return val, pdf_img.reshape(-1)[(rowp * wp + colp).long()]
     flat = torch.cat([image.reshape(h * w, c), pdf_img.reshape(h * w, 1)],
                      dim=1)
-    c00 = flat[(yi0 * w + xi0).long()]
-    c10 = flat[(yi0 * w + xi1).long()]
-    c01 = flat[(yi1 * w + xi0).long()]
-    c11 = flat[(yi1 * w + xi1).long()]
-    val = (c00[..., :c] * (1 - fx) * (1 - fy)
-           + c10[..., :c] * fx * (1 - fy)
-           + c01[..., :c] * (1 - fx) * fy
-           + c11[..., :c] * fx * fy)
+    c00, c10, c01, c11 = flat[i00], flat[i10], flat[i01], flat[i11]
+    val = _blend(c00[..., :c], c10[..., :c], c01[..., :c], c11[..., :c],
+                 fx, fy)
     right = fx[..., 0] >= 0.5
     down = fy[..., 0] >= 0.5
     pdf = torch.where(down, torch.where(right, c11[..., c], c01[..., c]),

@@ -2,8 +2,11 @@
 reference src/integrators/path/path.cpp:47 MIPathTracer::Li).
 
 Next-event estimation and BSDF sampling combined with the power heuristic,
-Russian roulette after `rr_depth`, one-sided area emitters, an environment
-emitter on escape, textured albedo. All lanes advance in lockstep through
+Russian roulette after `rr_depth`, one-sided area emitters (triangles and
+analytic spheres), point, spot, directional and collimated lights, an
+environment emitter on escape, textured albedo: bilinear, or from the
+ray cone's footprint trilinear (`mip_filter`) or anisotropic
+(`aniso_filter`). All lanes advance in lockstep through
 a Python loop over depth; terminated lanes are masked, never compacted.
 As in the reference, the NEE shadow ray of a bounce is deferred and
 answered by the next bounce's queries.
@@ -74,26 +77,30 @@ class PathConfig:
     # checkpoint each bounce for reverse-mode autodiff: its activations are
     # recomputed in the backward, so memory stays O(1) in depth
     remat: bool = True
+    # ray-cone texture lod: trilinear MIP lookups of bitmaps from the
+    # cone's footprint (needs a scene built with mips, else bilinear)
+    mip_filter: bool = False
+    # EWA-style anisotropic filtering of bitmaps (implies mip_filter)
+    aniso_filter: bool = False
     # options of the reference that are not ported: each must keep its
     # default, or path_trace raises
     strict_normals: bool = False
     hit_prediction: bool = False
-    mip_filter: bool = False
-    aniso_filter: bool = False
     skip_direct_emission: bool = False
 
 
-_UNPORTED = ("strict_normals", "hit_prediction", "mip_filter",
-             "aniso_filter", "skip_direct_emission")
+_UNPORTED = ("strict_normals", "hit_prediction", "skip_direct_emission")
 
 
 def _check_config(cfg: PathConfig):
     on = [name for name in _UNPORTED if getattr(cfg, name)]
     if on:
-        raise NotImplementedError(f"PathConfig options not ported: {on}")
+        raise NotImplementedError(
+            f"PathConfig options not ported: {on} (ROADMAP A.11)")
     if cfg.sort_mode != "full":
         raise NotImplementedError(
-            f"sort_mode '{cfg.sort_mode}' is not ported (only 'full')")
+            f"sort_mode '{cfg.sort_mode}' is not ported (only 'full'; "
+            "ROADMAP A.11)")
 
 
 def _morton_keys(o, d, bmin, bmax):
@@ -186,6 +193,7 @@ class _State(NamedTuple):
     prev_pdf: torch.Tensor      # BSDF pdf that made the ray (detached)
     prev_delta: torch.Tensor    # True for the camera ray
     depth_count: torch.Tensor
+    path_len: torch.Tensor      # distance travelled (the ray cone's)
     pend_o: torch.Tensor        # the deferred NEE shadow ray
     pend_d: torch.Tensor
     pend_mint: torch.Tensor
@@ -196,10 +204,94 @@ class _State(NamedTuple):
 
 def requires_grad(*tables) -> bool:
     """True where grad is enabled and a tensor of the given dataclasses (a
-    scene's tables, a wavefront's rays) requires grad."""
+    scene's tables, a wavefront's rays) requires grad, one in a tuple
+    field (a texture's images) included."""
+    def tensors(t):
+        for x in vars(t).values():
+            yield from x if isinstance(x, tuple) else (x,)
+
     return torch.is_grad_enabled() and any(
         isinstance(x, torch.Tensor) and x.requires_grad
-        for t in tables for x in vars(t).values())
+        for t in tables for x in tensors(t))
+
+
+def _cone_duv_aniso(geom, its, d, width):
+    """Anisotropic uv footprint of the ray cone at the hit (path.py:339):
+    the cone's disc of diameter `width` lands on the surface as an
+    ellipse, its major axis along d's projection stretched by 1/cos, its
+    minor axis across; both map to uv through the triangle's chart by a
+    2 x 2 Gram solve on (e1, e2). A sphere, or a degenerate chart, takes
+    an isotropic footprint from |dp_du|."""
+    n = its.sh_n
+    ndotd = torch.sum(n * d, dim=-1)
+    cos_v = torch.abs(ndotd)
+    d_proj = d - ndotd[:, None] * n
+    lp2 = torch.sum(d_proj * d_proj, dim=-1, keepdim=True)
+    fr = its.frame()
+    t_major = torch.where(lp2 > 1e-12,
+                          d_proj / torch.sqrt(torch.clamp(lp2, min=1e-24)),
+                          fr.s)
+    t_minor = m.cross(n, t_major)
+    stretch = (width / torch.clamp(cos_v, min=0.05))[:, None]
+    a_major = t_major * stretch
+    a_minor = t_minor * width[:, None]
+
+    prim_ok = (its.prim_id >= 0) & (its.prim_id < geom.n_tris)
+    prim = torch.clamp(its.prim_id, 0, geom.n_tris - 1).long()
+    e1, e2 = geom.e1[prim], geom.e2[prim]
+    duv1 = geom.uv1[prim] - geom.uv0[prim]
+    duv2 = geom.uv2[prim] - geom.uv0[prim]
+    c11 = torch.sum(e1 * e1, dim=-1)
+    c12 = torch.sum(e1 * e2, dim=-1)
+    c22 = torch.sum(e2 * e2, dim=-1)
+    det = c11 * c22 - c12 * c12
+    ok = prim_ok & (torch.abs(det) > 1e-20)
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+
+    def to_uv(a):
+        a1 = torch.sum(a * e1, dim=-1)
+        a2 = torch.sum(a * e2, dim=-1)
+        b1 = (c22 * a1 - c12 * a2) * inv_det
+        b2 = (c11 * a2 - c12 * a1) * inv_det
+        return b1[:, None] * duv1 + b2[:, None] * duv2
+
+    dens = torch.clamp(m.length(its.dp_du), min=1e-6)
+    f = (width / (dens * torch.clamp(cos_v, min=0.1)))[:, None]
+    iso_x = torch.cat([f, torch.zeros_like(f)], dim=-1)
+    duv_dx = torch.where(ok[:, None], to_uv(a_major), iso_x)
+    duv_dy = torch.where(ok[:, None], to_uv(a_minor), iso_x.flip(-1))
+    return duv_dx, duv_dy
+
+
+def _albedo(scene, cfg, its, d, path_len, cone_alpha):
+    """The reflectance of each hit's material, from its texture where it
+    has one (path.py:783-806): a bitmap's EWA lookup from the ray cone's
+    anisotropic footprint under `aniso_filter`, its trilinear lookup from
+    the isotropic |dp_du| footprint under `mip_filter`, its bilinear texel
+    otherwise; the mip filters need a scene built with mips. No vertex
+    colours reach the lookup, as in the reference (ROADMAP C)."""
+    mats, tex = scene.materials, scene.textures
+    mclip = torch.clamp(its.material_id, 0, mats.n_materials - 1).long()
+    albedo = mats.reflectance[mclip]
+    if tex.n_textures == 0:
+        return albedo
+    tex_id = mats.tex_id[mclip]
+    if cfg.aniso_filter and len(tex.mips) > 0:
+        width = cone_alpha * path_len
+        duv_dx, duv_dy = _cone_duv_aniso(scene.geom, its, d, width)
+        val = eval_texture(tex, tex_id, its.uv, duv_dx=duv_dx,
+                           duv_dy=duv_dy, aniso=True)
+    elif cfg.mip_filter and len(tex.mips) > 0:
+        width = cone_alpha * path_len
+        dens = torch.clamp(m.length(its.dp_du), min=1e-6)
+        cos_v = torch.clamp(torch.abs(its.wi[..., 2]), min=0.1)
+        f = (width / (dens * cos_v))[:, None]
+        duv = torch.cat([f, torch.zeros_like(f)], dim=-1)
+        val = eval_texture(tex, tex_id, its.uv, duv_dx=duv,
+                           duv_dy=duv.flip(-1))
+    else:
+        val = eval_texture(tex, tex_id, its.uv)
+    return torch.where((tex_id >= 0)[:, None], val, albedo)
 
 
 def run_bounce(bounce, depth: int, state, xs, remat: bool):
@@ -223,12 +315,17 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
     if scene.geom.backend == "cluster" and not cfg.sort_rays:
         # the cluster cull needs direction- and position-coherent rows
         cfg = replace(cfg, sort_rays=True)
+    if cfg.aniso_filter and not cfg.mip_filter:
+        cfg = replace(cfg, mip_filter=True)
     _check_config(cfg)
     n = ray.o.shape[0]
     dev = ray.o.device
     d_max = cfg.max_depth
     geom, mats, em = scene.geom, scene.materials, scene.emitters
     tex = scene.textures
+    # the ray cone's spread: one pixel's angle (path.py:485), in float32
+    cone_alpha = float(np.float32(2.0) * np.float32(
+        scene.camera.tan_half_fov_y) / np.float32(scene.height))
 
     # per-depth random fields, drawn up front in the reference's order
     u_nee_sel = sampler.next_stacked_1d(d_max)       # (D, N)
@@ -238,7 +335,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
     u_rr = sampler.next_stacked_1d(d_max)
 
     def bounce(depth, xs, L, throughput, o, d, mint, maxt, active, prev_pdf,
-               prev_delta, depth_count, pend_o, pend_d, pend_mint,
+               prev_delta, depth_count, path_len, pend_o, pend_d, pend_mint,
                pend_maxt, pend_contrib, pend_ok):
         u_nee_sel, u_nee_pos, u_bsdf_2d, u_lobe, u_rr = xs
         ray = Ray(o, d, mint, maxt)
@@ -258,6 +355,8 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
 
         # resolve the previous bounce's NEE shadow ray
         L = L + torch.where((pend_ok & ~s_occ)[:, None], pend_contrib, 0.0)
+        if cfg.mip_filter:
+            path_len = path_len + torch.where(active & its.valid, its.t, 0.0)
 
         # escaped rays: background luminaire with MIS
         esc = active & ~its.valid
@@ -273,7 +372,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
         if em.has_surface_emitters:
             le = eval_emitter_hit(em, its.emitter_id, -ray.d, its.geo_n)
             lum_pdf = pdf_direct_area(em, its.prim_id, ray.o, its.p,
-                                      its.geo_n)
+                                      its.geo_n, emitter_id=its.emitter_id)
             w_bsdf = torch.where(prev_delta, 1.0,
                                  mi_weight(prev_pdf, lum_pdf))
             L = L + torch.where(active[:, None],
@@ -281,12 +380,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
 
         # beyond here only matters when this is not the final depth
         cont = active & (not is_last)
-        mclip = torch.clamp(its.material_id, 0, mats.n_materials - 1).long()
-        albedo = mats.reflectance[mclip]
-        if tex.n_textures > 0:
-            tex_id = mats.tex_id[mclip]
-            albedo = torch.where((tex_id >= 0)[:, None],
-                                 eval_texture(tex, tex_id, its.uv), albedo)
+        albedo = _albedo(scene, cfg, its, ray.d, path_len, cone_alpha)
 
         # next-event estimation (luminaire sampling)
         ds = sample_direct(em, geom, its.p, u_nee_sel, u_nee_pos)
@@ -325,7 +419,8 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
             L, throughput, torch.where(active[:, None], its.p, ray.o),
             torch.where(active[:, None], wo_world, ray.d), eps,
             torch.where(active, float("inf"), -1.0), active,
-            bs["pdf"].detach(), bs["delta"], depth_count, pend_ray.o,
+            bs["pdf"].detach(), bs["delta"], depth_count, path_len,
+            pend_ray.o,
             pend_ray.d, pend_ray.mint, pend_ray.maxt, pend_contrib, pend_ok)
 
     n_ch = mats.reflectance.shape[-1]
@@ -339,6 +434,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig):
         torch.zeros(n, device=dev),
         torch.ones(n, dtype=torch.bool, device=dev),
         torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.zeros(n, device=dev),
         pend_ray.o, pend_ray.d, pend_ray.mint, pend_ray.maxt,
         torch.zeros((n, n_ch), device=dev),
         torch.zeros(n, dtype=torch.bool, device=dev))

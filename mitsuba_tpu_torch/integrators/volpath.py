@@ -144,7 +144,8 @@ def volpath_trace(scene, medium, ray: Ray, sampler: Sampler, cfg: PathConfig,
             guide_mass = gd.guide_update(
                 dataclasses.replace(guide, mass=guide_mass), ray.o.detach(),
                 ray.d.detach(), lum.detach(), act_in & (lum > 0)).mass
-        lum_pdf = pdf_direct_area(em, its.prim_id, ray.o, its.p, its.geo_n)
+        lum_pdf = pdf_direct_area(em, its.prim_id, ray.o, its.p, its.geo_n,
+                                  emitter_id=its.emitter_id)
         w_bsdf = torch.where(prev_delta, 1.0, mi_weight(prev_pdf, lum_pdf))
         L = L + torch.where(at_surface[:, None],
                             thr_surf * le * w_bsdf[:, None], 0.0)
@@ -428,7 +429,8 @@ def volpath_media_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
         depth_count = depth_count + (in_medium | at_surface).to(torch.int32)
 
         le = eval_emitter_hit(em, its.emitter_id, -ray.d, its.geo_n)
-        lum_pdf = pdf_direct_area(em, its.prim_id, ray.o, its.p, its.geo_n)
+        lum_pdf = pdf_direct_area(em, its.prim_id, ray.o, its.p, its.geo_n,
+                                  emitter_id=its.emitter_id)
         w_bsdf = torch.where(prev_delta, 1.0, mi_weight(prev_pdf, lum_pdf))
         L = L + torch.where(at_surface[:, None],
                             thr_surf * le * w_bsdf[:, None], 0.0)

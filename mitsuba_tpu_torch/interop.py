@@ -2,10 +2,11 @@
 
 `from_jax_scene` reads the reference scene's arrays as numpy (geometry on
 the brute, bvh or cluster backend, instanced or not, with or without
-analytic spheres, materials of every kind but cloth with their opacity
-column and composite children, textures,
-emitters with the baked sky's sampling tables, camera, shape-interior
-media) and builds the port's tables from them, so that both packages
+analytic spheres, sphere emitters, materials of every kind but cloth
+with their opacity column and composite children, textures of every kind
+with their images and MIP pyramids, emitters of every kind with the
+environment map's sampling tables, the perspective, thin-lens or
+orthographic camera, shape-interior media) and builds the port's tables from them, so that both packages
 render the same scene from the same arrays; `from_jax_medium` does the
 same for an ambient medium (homogeneous or a grid, oriented or a
 Gaussian flake), `from_jax_guide` for a path-guiding grid, and
@@ -23,7 +24,6 @@ import torch
 
 from mitsuba_tpu_torch.bsdfs.table import MaterialTable, check_kinds
 from mitsuba_tpu_torch.emitters.table import EmitterTable
-from mitsuba_tpu_torch.emitters.table import check_kinds as check_emitters
 from mitsuba_tpu_torch.integrators.guiding import GuideGrid
 from mitsuba_tpu_torch.media.medium import MediumStack, MediumTable
 from mitsuba_tpu_torch.ops import bvh as bp
@@ -31,8 +31,10 @@ from mitsuba_tpu_torch.render.camera import Camera
 from mitsuba_tpu_torch.render.clusters import ClusterTables
 from mitsuba_tpu_torch.render.intersect import GeometryTables
 from mitsuba_tpu_torch.render.scene import Scene, check_device
-from mitsuba_tpu_torch.render.texture import TextureTable
-from mitsuba_tpu_torch.render.texture import check_kinds as check_textures
+from mitsuba_tpu_torch.render.mipmap import MIPMap
+from mitsuba_tpu_torch.render.texture import (
+    BITMAP, TextureTable, wraps_present,
+)
 
 _GEOM_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                 "material_id", "emitter_id", "shape_id")
@@ -70,8 +72,6 @@ def _geometry(g) -> GeometryTables:
         _unported("cylinder or hair geometry")
     spheres = {}
     if g.n_spheres > 0:
-        if np.any(np.asarray(g.sph_eid) >= 0):
-            _unported("a sphere emitter")
         spheres = {k: _t(getattr(g, k)) for k in _SPHERE_FIELDS}
     geom = GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS},
                           bvh_min=_t(g.bvh_min), bvh_max=_t(g.bvh_max),
@@ -112,37 +112,47 @@ def _materials(mt) -> MaterialTable:
 
 
 def _textures(tx) -> TextureTable:
-    check_textures(np.asarray(tx.kind))
+    kind = np.asarray(tx.kind)
+    clamp = np.asarray(tx.wrap_clamp)
     return TextureTable(
-        kind=_t(tx.kind), color0=_t(tx.color0), color1=_t(tx.color1),
-        uv_scale=_t(tx.uv_scale), uv_offset=_t(tx.uv_offset))
+        **{k: _t(getattr(tx, k)) for k in (
+            "kind", "color0", "color1", "line_width", "uv_scale",
+            "uv_offset", "image_slot", "wrap_clamp")},
+        images=tuple(_t(x) for x in tx.images),
+        mips=tuple(MIPMap(tuple(_t(lv) for lv in mp.levels), mp.n_levels)
+                   for mp in tx.mips),
+        kinds_present=tuple(int(k) for k in tx.kinds_present),
+        wraps_present=wraps_present(clamp[kind == BITMAP]))
 
 
 def _emitters(em) -> EmitterTable:
-    check_emitters(np.asarray(em.kind))
-    env = {}
-    if em.env_id >= 0:
-        env = {k: _t(getattr(em, k)) for k in _ENV_FIELDS}
     return EmitterTable(
         **{k: _t(getattr(em, k)) for k in (
-            "kind", "radiance", "tri_pdf_area", "rec_cdf", "rec_pmf",
-            "rec_emitter", "rec_prim")},
-        **env,
+            "kind", "radiance", "position", "direction", "cutoff_cos",
+            "falloff_cos", "tri_pdf_area", "rec_cdf", "rec_pmf",
+            "rec_emitter", "rec_prim", "radius") + _ENV_FIELDS},
         n_tri_records=int(em.n_tri_records),
         kinds_present=tuple(int(k) for k in em.kinds_present),
         env_id=int(em.env_id),
+        env_kind=int(em.env_kind),
     )
 
 
 def _camera(cam) -> Camera:
-    if cam.kind != 0:
-        _unported("orthographic cameras")
-    if float(cam.aperture_radius) != 0.0 or float(cam.shutter_time) != 0.0:
-        _unported("thin-lens aperture or shutter time")
+    if float(cam.shutter_time) != 0.0:
+        _unported("an open shutter (motion blur, ROADMAP A.12)")
+
+    def f(x):
+        return float(np.asarray(x))
+
     return Camera(
         to_world=_t(np.asarray(cam.to_world, np.float32)),
-        tan_half_fov_x=float(np.asarray(cam.tan_half_fov_x)),
-        tan_half_fov_y=float(np.asarray(cam.tan_half_fov_y)),
+        tan_half_fov_x=f(cam.tan_half_fov_x),
+        tan_half_fov_y=f(cam.tan_half_fov_y),
+        aperture_radius=f(cam.aperture_radius),
+        focus_distance=f(cam.focus_distance),
+        ortho_scale=f(cam.ortho_scale),
+        kind=int(cam.kind),
     )
 
 

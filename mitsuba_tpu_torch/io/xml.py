@@ -311,7 +311,7 @@ def build_scene(parsed, base_dir: str, backend: str = "auto",
 
     # scene-level luminaires (not attached to shapes)
     for lum in _find_children(parsed, "luminaire"):
-        xml_shapes.add_scene_luminaire(builder, lum)
+        xml_shapes.add_scene_luminaire(builder, lum, base_dir)
 
     # the scene-level ambient medium, carried in the config
     med_node = _find_child(parsed, "medium")

@@ -4,18 +4,22 @@ mitsuba_tpu/io/xml_shapes.py for the shapes and emitters the port has).
 Shapes (reference src/shapes/): obj, ply and serialized file meshes, the
 analytic sphere, and `shapegroup` / `instance`, flattened into
 transformed copies as the reference flattens them. An inverted sphere is
-tessellated. An area `<luminaire>` binds to a triangle shape; a scene-
-level `sky` is the Preetham sky. A shape's <medium name="interior">
+tessellated. An area `<luminaire>` binds to a triangle shape or an
+analytic sphere; the scene-level luminaires are point, spot,
+directional, constant, envmap (an image read by io/bitmap.py) and the
+Preetham sky, with the reference's property names and defaults
+(xml_shapes.py:372-420). A shape's <medium name="interior">
 (homogeneous, or heterogeneous from a gridvolume) joins the scene's
 media, and a shape with an interior but neither BSDF nor luminaire gets
 the pass-through `null()` material. Everything else raises
 NotImplementedError naming its ROADMAP item: cylinder, hair and hspan
-shapes, animated instances, subsurface, sphere emitters, and point,
-spot, directional, constant and envmap luminaires.
+shapes, animated instances and subsurface.
 """
 from __future__ import annotations
 
 import numpy as np
+
+import os
 
 from mitsuba_tpu_torch.core import transform as tf
 from mitsuba_tpu_torch.io import meshio
@@ -160,9 +164,12 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
             "__black__", builder.materials.lambertian((0.0, 0.0, 0.0))
         )
     if analytic is not None:
+        eid = -1
         if lum is not None:
-            _unported("a sphere emitter", "A.11")
-        builder.add_sphere(analytic[0], analytic[1], mid,
+            eid = builder.emitters.sphere_area(
+                analytic[0], analytic[1], _spec(lum["props"], "intensity",
+                                                1.0))
+        builder.add_sphere(analytic[0], analytic[1], mid, emitter_id=eid,
                            interior_medium=interior)
         return
     if lum is not None:
@@ -218,21 +225,47 @@ def _interior_medium(builder, node, base_dir) -> int:
         density_scale=float(mp.get("densityMultiplier", 1.0)))
 
 
-_UNPORTED_LUMINAIRES = ("point", "spot", "directional", "constant",
-                        "envmap")
-
-
-def add_scene_luminaire(builder, lum_node):
+def add_scene_luminaire(builder, lum_node, base_dir="."):
+    """A scene-level <luminaire> (xml_shapes.py:372)."""
     t = lum_node["type"]
     p = lum_node["props"]
-    if t == "sky":
+    intensity = _spec(p, "intensity", 1.0)
+    to_world = p.get("toWorld")
+    if t == "point":
+        pos = p.get("position", (0.0, 0.0, 0.0))
+        if to_world is not None:
+            pos = tuple(tf.apply_point_np(to_world, np.asarray(pos)))
+        builder.emitters.point(pos, intensity)
+    elif t == "spot":
+        # reference spot.cpp: at the origin of toWorld, aimed along its +z
+        origin = (0.0, 0.0, 0.0)
+        direction = (0.0, 0.0, 1.0)
+        if to_world is not None:
+            origin = tuple(tf.apply_point_np(to_world, np.zeros(3)))
+            direction = tuple(tf.apply_vector_np(to_world, (0.0, 0.0, 1.0)))
+        cutoff = float(p.get("cutoffAngle", 20.0))
+        builder.emitters.spot(
+            origin, direction, intensity, cutoff_deg=cutoff,
+            falloff_deg=float(p.get("beamWidth", cutoff * 0.75)))
+    elif t == "directional":
+        d = p.get("direction", (0.0, 0.0, 1.0))
+        if to_world is not None and "direction" not in p:
+            d = tuple(tf.apply_vector_np(to_world, (0.0, 0.0, 1.0)))
+        builder.emitters.directional(d, intensity)
+    elif t == "constant":
+        builder.emitters.constant(intensity)
+    elif t == "envmap":
+        from mitsuba_tpu_torch.io.bitmap import read_image
+
+        img = read_image(os.path.join(base_dir, p["filename"]))
+        builder.emitters.envmap(img, to_world=to_world,
+                                scale=float(p.get("intensityScale", 1.0)))
+    elif t == "sky":
         sun = p.get("sunDirection", (0.0, 1.0, 0.0))
         builder.emitters.sky(
             turbidity=float(p.get("turbidity", 3.0)), sun_dir=sun,
             scale=float(p.get("intensityScale", 1.0)),
             extend_below=bool(p.get("extend", True)),
         )
-    elif t in _UNPORTED_LUMINAIRES:
-        _unported(f"the '{t}' luminaire", "A.11")
     else:
         raise ValueError(f"unsupported scene-level luminaire '{t}'")

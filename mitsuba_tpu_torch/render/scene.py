@@ -8,21 +8,24 @@ camera, all on one device: the card unless the caller passes
 `SceneBuilder` assembles them on the host; triangle shapes and analytic
 spheres bind lambertian, mirror, dielectric, rough-conductor, phong or
 null (pass-through) materials (lambertian and phong optionally
-checkerboard-textured), triangle shapes also area emitters, the
-builder's emitters may hold a Preetham sky, and groups of shapes may be
+textured), triangle shapes and spheres also area emitters, the
+builder's emitters may hold point, spot, directional, collimated,
+constant, image-map and Preetham-sky lights, textures may be constant,
+checkerboard, grid, vertex colours or bitmaps (with MIP pyramids under
+`build_mips`), and groups of shapes may be
 placed as true instances (one shared copy of their triangles, cluster
 backend). Triangle shapes and spheres may bound an interior medium
 (`add_medium`, homogeneous or a density grid): the scene then carries a
 `media.medium.MediumStack` and each shape's medium index, which
 `integrators/volpath.py` `render_volpath_media` renders. An ambient
 medium is not part of the scene: it is passed to `render_volpath`. Every
-other scene feature of the reference (cylinders, hair, sphere emitters,
-other BSDFs, emitters and texture kinds) is not ported yet.
+other scene feature of the reference (cylinders, hair, cloth, motion,
+subsurface) is not ported yet.
 
 A scene's tensors may require grad: `integrators/path.py` then
 differentiates a render with respect to them (materials and emitter
-radiance; a tensor that moves a ray, such as the geometry, is refused by
-the kernels' wrappers).
+radiance, texture images; a tensor that moves a ray, such as the
+geometry, is refused by the kernels' wrappers).
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ class Scene:
 
         return Scene(self.geom.to(device), move(self.materials),
                      move(self.emitters), move(self.camera),
-                     move(self.textures), self.width, self.height,
+                     self.textures.to(device), self.width, self.height,
                      None if self.media is None else self.media.to(device),
                      None if self.shape_interior is None
                      else self.shape_interior.to(device))
@@ -88,10 +91,10 @@ def check_device(device):
 class SceneBuilder:
     """Host-side scene assembly: shapes bind materials and area emitters."""
 
-    def __init__(self):
+    def __init__(self, build_mips: bool = False):
         self.materials = MaterialBuilder()
         self.emitters = EmitterBuilder()
-        self.textures = TextureBuilder()
+        self.textures = TextureBuilder(build_mips=build_mips)
         self._shapes = []     # (mesh, material_id, emitter_id, shape_id)
         self._spheres = []    # (centre, radius, material_id, -1, shape_id)
         self._n_shapes = 0    # shared id space: meshes and spheres
@@ -128,17 +131,20 @@ class SceneBuilder:
     def add_sphere(self, center, radius, material_id, emitter_id=-1,
                    interior_medium: int = -1):
         """An analytic sphere (reference src/shapes/sphere.cpp: exact
-        quadratic intersection, not tessellated; scene.py:121). Sphere
-        emitters are not ported."""
-        if emitter_id != -1:
-            raise NotImplementedError(
-                "sphere emitters are not ported (ROADMAP A.11)")
+        quadratic intersection, not tessellated; scene.py:121);
+        emitter_id binds a `sphere_area` emitter row."""
         sid = self._n_shapes
         self._n_shapes += 1
         self._spheres.append((tuple(center), float(radius),
-                              int(material_id), -1, sid))
+                              int(material_id), int(emitter_id), sid))
         self._shape_interior.append(int(interior_medium))
         return sid
+
+    def add_sphere_emitter(self, center, radius, material_id, radiance):
+        """An analytic sphere area light, sampled by solid angle
+        (reference sphere.cpp:359 sampleSolidAngle; scene.py:135)."""
+        eid = self.emitters.sphere_area(center, radius, radiance)
+        return self.add_sphere(center, radius, material_id, emitter_id=eid)
 
     def add_area_emitter_shape(self, mesh, material_id, radiance):
         eid = self.emitters.area(mesh, radiance)

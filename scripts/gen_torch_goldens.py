@@ -36,6 +36,17 @@ one sphere group).
   package's SceneBuilder, 48 x 48 px, depth 5, 256 spp, seed 1234,
   mean and variance as snow.npz; chip_smoke.py's `bsdf_zoo` gates the
   port's 48 x 48 x 128 render.
+* lights.npz: the lights file of tests/torch_light_cases.py
+  (`write_lights_scene`, its 1,024^2 floor EXR and 512 x 1,024 sky EXR:
+  point, spot, directional, sphere and envmap lights on the two Cornell
+  blocks), loaded by the JAX package's XML loader, 48 x 48 px, depth 5,
+  256 spp, seed 1234, mean and variance as snow.npz; chip_smoke.py's
+  `golden_lights` gates the port's 48 x 48 x 128 render.
+* texture_mip.npz: tests/torch_light_cases.py's `mip_floor` (the
+  receding checker floor of tests/test_mipmap.py:154, built with mips)
+  rendered with `aniso_filter`, 48 x 48 px, depth 5, 256 spp, seed 1234,
+  mean and variance; chip_smoke.py's `golden_textured` gates the port's
+  48 x 48 x 128 render.
 
 All store the image under "mean". Regenerate only after an intentional
 change of the JAX package's estimator:
@@ -65,7 +76,10 @@ GOLDENS = {
     "volpath_fog": (64, "fog", None, 1024, 5),
     "snow": (48, "snow", None, 256, 5),
     "bsdf_zoo": (48, "zoo", None, 256, 5),
+    "lights": (48, "lights", None, 256, 5),
+    "texture_mip": (48, "mip", None, 256, 5),
 }
+LIGHTS_TEX, LIGHTS_ENV = 1024, 512      # the lights file's image sizes
 STATS_SEED = 1234
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 
@@ -118,10 +132,10 @@ def instanced_scene(res, n_theta, n_phi):
     return b.build(backend="cluster")
 
 
-def render_stats(scene, depth, spp, seed, pattern="independent"):
+def render_stats(scene, depth, spp, seed, pattern="independent", **cfg):
     """Per-pixel mean and sample variance over spp samples, lanes in
     scanline order (tests/golden_scenes.py render_stats, with a
-    pattern)."""
+    pattern and PathConfig options)."""
     import jax.numpy as jnp
 
     from mitsuba_tpu.integrators.path import PathConfig, path_trace
@@ -136,7 +150,8 @@ def render_stats(scene, depth, spp, seed, pattern="independent"):
     uv = jnp.stack([((pixel_id % w) + offset[:, 0]) / w,
                     ((pixel_id // w) + offset[:, 1]) / h], -1)
     L, _ = path_trace(scene, scene.camera.sample_ray(uv), sampler,
-                      PathConfig(max_depth=depth, spp=spp, remat=False))
+                      PathConfig(max_depth=depth, spp=spp, remat=False,
+                                 **cfg))
     Ls = np.asarray(L).reshape(h, w, spp, 3)
     return Ls.mean(axis=2), Ls.var(axis=2, ddof=1)
 
@@ -165,17 +180,56 @@ def zoo_scene(res):
         make_perspective=make_perspective), res)
 
 
+def light_cases():
+    sys.path.insert(0, os.path.dirname(DIR))
+    import torch_light_cases as lc
+
+    return lc
+
+
+def lights_scene(res, spp, depth):
+    import tempfile
+
+    from mitsuba_tpu.io.xml import load_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = light_cases().write_lights_scene(tmp, LIGHTS_TEX, LIGHTS_ENV)
+        return load_scene(path, params=dict(depth=depth, spp=spp,
+                                             width=res, height=res))[0]
+
+
+def mip_scene(res):
+    from types import SimpleNamespace
+
+    from mitsuba_tpu.core import transform as tf
+    from mitsuba_tpu.render import mesh
+    from mitsuba_tpu.render.camera import make_perspective
+    from mitsuba_tpu.render.scene import SceneBuilder
+
+    return light_cases().mip_floor(SimpleNamespace(
+        SceneBuilder=SceneBuilder, mesh=mesh, look_at=tf.look_at,
+        make_perspective=make_perspective), res, res)
+
+
 def stats_golden(name, res, spp, depth):
-    """snow.npz and bsdf_zoo.npz: mean and variance, as tests/goldens."""
+    """snow.npz, bsdf_zoo.npz, lights.npz and texture_mip.npz: mean and
+    variance, as tests/goldens."""
     out = {}
     sizes = ((res, ""), (32, "32")) if name == "snow" else ((res, ""),)
     for r, key in sizes:
+        cfg = {}
+        pattern = "independent"
         if name == "snow":
-            scene, cfg = snow_scene(r, spp, depth)
-            pattern = cfg["pattern"]
+            scene, scfg = snow_scene(r, spp, depth)
+            pattern = scfg["pattern"]
+        elif name == "lights":
+            scene = lights_scene(r, spp, depth)
+        elif name == "texture_mip":
+            scene, cfg = mip_scene(r), dict(aniso_filter=True)
         else:
-            scene, pattern = zoo_scene(r), "independent"
-        mean, var = render_stats(scene, depth, spp, STATS_SEED, pattern)
+            scene = zoo_scene(r)
+        mean, var = render_stats(scene, depth, spp, STATS_SEED, pattern,
+                                 **cfg)
         out.update({f"mean{key}": mean.astype(np.float32),
                     f"var{key}": var.astype(np.float32),
                     f"spp{key}": spp})
@@ -191,7 +245,7 @@ def main():
     names = sys.argv[1:] or list(GOLDENS)
     for name in names:
         res, n_theta, n_phi, spp, depth = GOLDENS[name]
-        if n_theta in ("snow", "zoo"):
+        if n_theta in ("snow", "zoo", "lights", "mip"):
             stats_golden(name, res, spp, depth)
             continue
         if n_theta == "fog":

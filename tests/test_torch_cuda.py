@@ -1361,3 +1361,103 @@ def test_cli_renders_snow_on_the_card(cuda, tmp_path):
     ref, _ = render(load_scene(xml, params=params, device="cpu")[0], pc)
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.05 * float(
         ref.mean())
+
+
+def test_lights_scene_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The lights file of tests/torch_light_cases.py (point, spot,
+    directional, sphere and envmap lights, a bitmap floor) on the card:
+    one #1 launch a bounce; the image's mean within 2% of the CPU's, lane
+    for lane the same random numbers; its orthographic twin likewise."""
+    import torch_light_cases as lc
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    params = dict(depth=4, spp=2, width=24, height=24)
+    cfg = PathConfig(max_depth=4, spp=2)
+    for camera in ("perspective", "orthographic"):
+        xml = lc.write_lights_scene(str(tmp_path), camera=camera)
+        before = ip.LAUNCHES
+        img, _ = render(load_scene(xml, params=params, device=cuda)[0], cfg)
+        torch.cuda.synchronize()
+        assert ip.LAUNCHES - before == cfg.max_depth
+        ref, _ = render(load_scene(xml, params=params, device="cpu")[0], cfg)
+        assert bool(torch.isfinite(img).all()) and float(ref.mean()) > 0
+        assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+            ref.mean())
+
+
+@pytest.mark.parametrize("mode", ["none", "mip_filter", "aniso_filter"])
+def test_mip_floor_on_the_card_matches_the_cpu(cuda, mode):
+    """tests/test_mipmap.py's receding checker floor under each filter on
+    the card (#1 a bounce): the image within 1e-3 of the CPU's largest
+    pixel on 99% of pixels and its mean within 1%."""
+    import torch_bsdf_cases as zc
+    import torch_light_cases as lc
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+
+    kw = {} if mode == "none" else {mode: True}
+    cfg = PathConfig(max_depth=3, spp=2, **kw)
+    mods = zc.port_modules()
+    before = ip.LAUNCHES
+    img, _ = render(lc.mip_floor(mods, 24, 24, device=cuda), cfg, seed=1)
+    torch.cuda.synchronize()
+    assert ip.LAUNCHES - before == cfg.max_depth
+    ref, _ = render(lc.mip_floor(mods, 24, 24, device="cpu"), cfg, seed=1)
+    d = (img.cpu() - ref).abs().amax(-1)
+    assert float((d <= 1e-3 * float(ref.max())).float().mean()) >= 0.99
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.01 * float(
+        ref.mean())
+
+
+@pytest.mark.parametrize("backend", ["brute", "bvh"])
+def test_texel_gradient_on_the_card_matches_the_cpu(cuda, backend):
+    """tests/test_grad.py:100's texel gradient on the card (#1, or #11 on
+    bvh) within 1e-3 of the CPU's largest entry."""
+    import dataclasses
+
+    import torch_bsdf_cases as zc
+    import torch_light_cases as lc
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+
+    cfg = PathConfig(max_depth=2, spp=4)
+    mods = zc.port_modules()
+
+    def grad(device):
+        scene = lc.grad_quad(mods, backend=backend, device=device)
+        img = scene.textures.images[0].clone().requires_grad_(True)
+        t = scene.textures
+        scene = dataclasses.replace(scene, textures=dataclasses.replace(
+            t, images=(img,)))
+        render(scene, cfg, seed=5)[0].mean().backward()
+        return img.grad
+
+    g, ref = grad(cuda), grad("cpu")
+    assert bool(torch.isfinite(g).all()) and float(ref.abs().max()) > 0
+    assert float((g.cpu() - ref).abs().max()) <= 1e-3 * float(
+        ref.abs().max())
+
+
+def test_ptracer_on_the_card_matches_the_cpu_and_repeats(cuda):
+    """The particle tracer on the card (#2 a bounce, #3 a bounce and once
+    for the origins): two runs equal bit for bit, and the image within
+    1e-4 relative of the CPU's on 99% of pixels (its exact splat adds in
+    any order; the libraries' sqrt and sin may move a particle)."""
+    from mitsuba_tpu_torch.integrators import PathConfig
+    from mitsuba_tpu_torch.integrators.ptracer import ptracer_render
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    cfg = PathConfig(max_depth=3)
+    before = dict(ip.SPLIT_LAUNCHES)
+    a, _ = ptracer_render(cornell_box(16, 16, device=cuda), cfg, 20_000, 7)
+    torch.cuda.synchronize()
+    assert ip.SPLIT_LAUNCHES["shaded"] - before["shaded"] == 3
+    assert ip.SPLIT_LAUNCHES["any"] - before["any"] == 4
+    b, _ = ptracer_render(cornell_box(16, 16, device=cuda), cfg, 20_000, 7)
+    assert torch.equal(a, b)
+    ref, _ = ptracer_render(cornell_box(16, 16, device="cpu"), cfg, 20_000,
+                            7)
+    ok = np.isclose(a.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-6)
+    assert ok.mean() >= 0.99

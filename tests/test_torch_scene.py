@@ -5,6 +5,8 @@ Tolerance 1e-6 (absolute, on values of order 1): both sides run the same
 float32 formulas, but XLA may contract or reorder them and its sin, cos
 and sqrt may round differently from PyTorch's in the last bit.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,13 +202,29 @@ def test_unported_features_raise():
     jb.add_cylinder([0, 0, 1], [0, 0, 2], 0.5, 0)
     with pytest.raises(NotImplementedError):
         from_jax_scene(jb.build(backend="brute"), device="cpu")  # cylinder
-    with pytest.raises(NotImplementedError):
-        TorchSceneBuilder().add_sphere([0, 0, 0], 1.0, 0, emitter_id=0)
+    # an open shutter (motion blur, ROADMAP A.12); sphere emitters, which
+    # this case held until they were ported, convert (below)
+    from mitsuba_tpu.core import transform as jtf
+    from mitsuba_tpu.render.camera import make_perspective as j_persp
+    jb = JaxSceneBuilder()
+    jb.add_sphere_emitter([0, 0, 0], 1.0, jb.materials.lambertian(),
+                          (1.0, 1.0, 1.0))
+    jb.set_camera(j_persp(jtf.identity(), 45.0, 1.0, shutter_time=0.5),
+                  4, 4)
+    with pytest.raises(NotImplementedError, match="A.12"):
+        from_jax_scene(jb.build(backend="brute"), device="cpu")
     scene = cornell_box(4, 4, device="cpu")
-    for opt in ("hit_prediction", "mip_filter", "strict_normals",
-                "skip_direct_emission", "aniso_filter"):
+    # mip_filter and aniso_filter are ported; the particle tracer's
+    # gradient is not (ROADMAP A.14)
+    for opt in ("hit_prediction", "strict_normals", "skip_direct_emission"):
         with pytest.raises(NotImplementedError):
             render(scene, PathConfig(max_depth=1, spp=1, **{opt: True}))
+    from mitsuba_tpu_torch.integrators.ptracer import ptracer_render
+    refl = scene.materials.reflectance.clone().requires_grad_(True)
+    grad_scene = dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, reflectance=refl))
+    with pytest.raises(NotImplementedError, match="A.14"):
+        ptracer_render(grad_scene, PathConfig(max_depth=1), 16)
     with pytest.raises(NotImplementedError):
         render(scene, PathConfig(max_depth=1, spp=1, sort_rays=True,
                                  sort_mode="octant"))
@@ -224,6 +242,22 @@ def test_ported_features_convert():
     scene = from_jax_scene(jscene, device="cpu")
     assert scene.materials.kinds_present == ((3, 2),)
     assert scene.materials.dist_type.tolist() == [2]
+    # a sphere emitter (ROADMAP A.11, ported with the lights)
+    jb = JaxSceneBuilder()
+    jb.add_sphere_emitter([0, 0, 2], 0.5, jb.materials.lambertian(),
+                          (4.0, 4.0, 4.0))
+    jb.add_shape(mesh_mod.make_quad([-1, -1, 0], [1, -1, 0], [1, 1, 0],
+                                    [-1, 1, 0]), jb.materials.lambertian())
+    own = TorchSceneBuilder()
+    own.add_sphere_emitter([0, 0, 2], 0.5, own.materials.lambertian(),
+                           (4.0, 4.0, 4.0))
+    from mitsuba_tpu_torch.render import mesh as tmesh
+    own.add_shape(tmesh.make_quad([-1, -1, 0], [1, -1, 0], [1, 1, 0],
+                                  [-1, 1, 0]), own.materials.lambertian())
+    conv = from_jax_scene(jb.build(backend="brute"), device="cpu")
+    own = own.build(backend="brute", device="cpu")
+    assert conv.geom.sph_eid.tolist() == own.geom.sph_eid.tolist() == [0]
+    assert conv.emitters.kinds_present == own.emitters.kinds_present == (8,)
     scene = cornell_box(4, 4, device="cpu")
     for kw in (dict(pattern="stratified"), dict(rfilter="gaussian")):
         img, _ = render(scene, PathConfig(max_depth=2, spp=4, **kw))
