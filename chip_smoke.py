@@ -63,7 +63,19 @@ receding checker floor of tests/test_mipmap.py:154 at 512x512x16, with
 no filter, mip_filter and aniso_filter, and "textured_bvh", config 3's
 scene on bvh with a 1,024^2 bitmap floor and mips, 512x512x4; through
 integrators.ptracer.ptracer_render "ptracer", config 1's box at 256x256,
-depth 5, 2^24 particles.
+depth 5, 2^24 particles; and subsurface scattering, surface guiding,
+motion blur and the last PathConfig options (#1, #3; #5, #6, #9, #10):
+through cli.main "sss_xml", the dipole slab of tests/golden_scenes.py:144
+as a scene file (tests/torch_sss_cases.py, <subsurface type="dipole">,
+irrSamples 512), 512x512 px, 16 spp, depth 4, and its twins
+"sss_multipole" (thickness 0.3, 3 extra dipoles) and "sss_adipole"
+(anisoRatio 3); "guided_cli", `scenes/cornell.xml --guided`
+(render_guided), and "motion_xml", tests/test_motion.py:25's moving box
+as an animatedinstance under shutterClose 1 (render_motion over 4
+bins), each 512x512 px, 16 spp, depth 5; through render config 1 with
+hit_prediction and strict_normals ("config1_options") and config 3 with
+sort_mode="octant" ("config3_octant") and hit_prediction
+("config3_pred").
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -228,6 +240,28 @@ Phases, each printing one JSON line:
      against config 1's path render: the mean within 6%, the pixels'
      correlation over 0.9); the texel gradient at 32x32 px against
      central differences (within 1e-3) and the CPU's (`texture_grad`);
+  5e. the subsurface, guiding and motion slice, after texture_grad:
+     sss_xml, sss_multipole and sss_adipole through cli.main (#3 8 and
+     #1 16 in the CLI: the irradiance cache's direct samples and
+     indirect passes, then the render), each then loaded, its cache
+     timed alone (`cache_seconds`), rendered twice on the filled cache
+     (s/render, peak memory, #1 4 a render) and once whole under the
+     profiler (device ms, kernels, busy share); the EXR equal to the
+     seed-0 render bit for bit; golden_sss_slab and
+     golden_guided_cornell by the |t| > 3.9 rule at 48x48, 128 spp,
+     depth 4, seed 777 against the JAX package's goldens
+     tests/goldens/sss_slab.npz (the cache at seed 99) and
+     guided_cornell.npz (a res-12 guide learned on the same camera rays
+     at seed 782); guided_cli (#1 10 a render: a learning and a guided
+     pass; its EXR against the library's render by the largest
+     difference: the learning pass adds in atomic order) and
+     motion_xml (#1 20 a render, the EXR bit for bit, the smear and
+     energy of tests/test_motion.py:80-110 against the box baked at
+     mid-shutter); config1_options after config 1 (hit_prediction bit
+     for bit config 1's image, pred_hit_frac; strict_normals finite in
+     config 1's band); config3_octant and config3_pred after config 3 as
+     render phases (#5, #6, #9 and #10 as config 3), each image within
+     1e-6 of config 3's;
   5c. the media: gates at 64x64, 1,024 spp, depth 5 against
      tests/torch_goldens/volpath_fog.npz with fog's 0.10 block gate and
      band: a heterogeneous medium of constant density 1 over a grid
@@ -293,7 +327,8 @@ TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
          "hetero_xml": 2, "flake": 2, "guided": 2, "tank": 2,
          "tank_het": 2, "bsdf_zoo": 2, "lights_ortho": 2,
          "textured_mip": 1, "textured_mip_mip": 1, "textured_mip_aniso": 1,
-         "textured_bvh": 2, "ptracer": 2}
+         "textured_bvh": 2, "ptracer": 2, "config3_octant": 2,
+         "config3_pred": 2}
 # participating media: hetero_xml (scenes/cornell.xml's box in a grid
 # medium read from a HX_GRID³ float32 .vol, 64 MiB), flake (config 1's
 # box in an oriented Gaussian-flake medium, FLAKE_GRID³ density and
@@ -358,6 +393,22 @@ MIP_RES, MIP_SPP = 512, 16
 MIP_ENERGY, MIP_FAR_STD, MIP_CONTRAST = 0.12, 0.5, 1.3
 PT_RES, PT_PARTICLES, PT_MEAN_REL, PT_CORR = 256, 1 << 24, 0.06, 0.9
 TEX_GRAD_RES, TEX_GRAD_REL = 32, 1e-3
+# the subsurface, guiding and motion slice: the dipole slab of
+# tests/golden_scenes.py:144 as a scene file (tests/torch_sss_cases.py,
+# irrSamples SSS_IRR) through the CLI at SSS_W x SSS_H x SSS_SPP, depth
+# SSS_DEPTH, and its multipole (thickness 0.3, 3 extra dipoles) and
+# adipole (ratio 3) twins; scenes/cornell.xml --guided and the moving box
+# of tests/test_motion.py:25 (an animatedinstance, shutterClose 1, 4 time
+# bins) at the same size, depth CLI_DEPTH; the goldens sss_slab and
+# guided_cornell by tests/test_goldens.py's rule at GOLD_RES, GOLD_SPP,
+# depth 4, seed 777 (the cache at seed 99; the guide a res-12 grid learned
+# on the same camera rays at seed 777 + 5, tests/golden_scenes.py:203-240)
+SSS_W, SSS_H, SSS_SPP, SSS_DEPTH, SSS_IRR = 512, 512, 16, 4, 512
+SSS_CACHE_SEED, GUIDE_LEARN_SEED, GUIDE_GOLD_RES = 99, 777 + 5, 12
+# tests/test_motion.py:80-110: the blurred image's bright (mean > 0.35)
+# columns span more than MOTION_SMEAR px beyond the mid-shutter render's,
+# its mean within MOTION_ENERGY of it
+MOTION_SMEAR, MOTION_ENERGY, MOTION_BINS = 3, 0.1, 4
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
@@ -393,7 +444,15 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              "textured_mip": (0.259, 0.605),
              "textured_mip_mip": (0.259, 0.605),
              "textured_mip_aniso": (0.259, 0.605),
-             "textured_bvh": (0.162, 0.378), "ptracer": (0.09, 0.21)}
+             "textured_bvh": (0.162, 0.378), "ptracer": (0.09, 0.21),
+             # +-40% of the port's CPU renders at 48x48x4 of the slab's
+             # files (dipole 0.4011, multipole 0.3141, adipole 0.6072)
+             # and of the moving box's file (0.0736); --guided cornell as
+             # cli_cornell; config 3's options as config 3
+             "sss_xml": (0.241, 0.561), "sss_multipole": (0.188, 0.440),
+             "sss_adipole": (0.364, 0.850), "motion_xml": (0.044, 0.103),
+             "guided_cli": (0.09, 0.21), "config3_octant": (0.17, 0.41),
+             "config3_pred": (0.17, 0.41)}
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -3273,6 +3332,380 @@ def media_phases(device, tmp):
     return out
 
 
+def _slice_cases():
+    """tests/torch_sss_cases.py (numpy only) and the port's modules."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_sss_cases as sc
+
+    return sc, sc.port_modules()
+
+
+def _lanes(w, h, spp, device):
+    """(pixel_id, sample_id) of scanline lanes, int32."""
+    lane = torch.arange(w * h * spp, device=device)
+    return (lane // spp).to(torch.int32), (lane % spp).to(torch.int32)
+
+
+def _cli_run(tag, argv):
+    """cli.main(argv), launch counts set to 0 just before and read just
+    after: (seconds, launches)."""
+    from mitsuba_tpu_torch.cli import main as cli_main
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if cli_main(argv) != 0:
+        raise AssertionError(f"{tag}: the CLI exited non-zero")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, launch_counts()
+
+
+def _defs(**kv):
+    return [a for k, v in kv.items() for a in ("-D", f"{k}={v}")]
+
+
+def sss_phase(tag, device, tmp, form):
+    """The slab's scene file (tests/torch_sss_cases.py SLAB_SUBSURFACE
+    [form]) through cli.main at SSS_W x SSS_H x SSS_SPP, depth SSS_DEPTH,
+    irrSamples SSS_IRR (the irradiance cache: #3 once a direct sample, 8;
+    its indirect pass #1 3 times for each of 4 samples; the render #1 once
+    a bounce); then io.xml.load_scene and the cache alone
+    (prepare_scene_irradiance, timed), renders on the filled cache (twice
+    timed, peak memory) and one whole render (cache included) under the
+    profiler; the EXR, read back, equals the seed-0 render bit for bit."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.io.bitmap import read_exr
+    from mitsuba_tpu_torch.io.xml import load_scene
+    from mitsuba_tpu_torch.subsurface.dipole import prepare_scene_irradiance
+
+    sc, _ = _slice_cases()
+    xml = sc.write_slab_xml(tmp, form)
+    defs = dict(depth=SSS_DEPTH, spp=SSS_SPP, width=SSS_W, height=SSS_H,
+                irr=SSS_IRR)
+    out = os.path.join(tmp, f"{tag}.exr")
+    cli_s, cli_l = _cli_run(tag, [xml, *_defs(**defs), "-o", out])
+    t0 = time.perf_counter()
+    scene, cfg = load_scene(xml, params=defs, device=device)
+    load_s = time.perf_counter() - t0
+    pc = PathConfig(max_depth=SSS_DEPTH, spp=SSS_SPP, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    cache_s, secs, launches, means = [], [], [], []
+    for seed in (0, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        filled = dataclasses.replace(scene, subsurface=(
+            prepare_scene_irradiance(scene, seed=seed)))
+        torch.cuda.synchronize()
+        cache_s.append(time.perf_counter() - t0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        img, aux = render(filled, pc, seed=seed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(launch_counts())
+        means.append(float(img.mean()))
+        if seed == 0:
+            ref = img.cpu().numpy()
+            same = bool(np.array_equal(read_exr(out), ref))
+            finite = bool(np.isfinite(ref).all())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_profile(lambda: render(scene, pc, seed=0))
+    PROFILES[tag] = prof
+    ss = scene.subsurface
+    band = MEAN_BAND[tag]
+    want_cli = dict(shaded_any=4 * 3 + SSS_DEPTH, any=8)
+    phase(tag, command=["python", "-m", "mitsuba_tpu_torch",
+                        os.path.basename(xml)] + _defs(**defs)
+          + ["-o", f"{tag}.exr"], form=form, width=SSS_W, height=SSS_H,
+          spp=SSS_SPP, depth=SSS_DEPTH, lanes=SSS_W * SSS_H * SSS_SPP,
+          entries=ss.n_entries, points=int(ss.points.shape[1]),
+          poles=int(ss.zri.shape[1]), triangles=scene.geom.n_tris,
+          cli_seconds=cli_s, load_seconds=load_s, cache_seconds=cache_s,
+          seconds=secs, seconds_with_cache=[c + s for c, s in
+                                            zip(cache_s, secs)],
+          launches_cli={k: cli_l[k] for k in want_cli},
+          launches_render=[{k: ln[k] for k in want_cli} for ln in launches],
+          means=means, band=band, peak_mem_gib=peak, exr_equals_render=same,
+          device_busy_ms=prof["device_busy_ms"],
+          busy_share=prof["busy_share"], profile_wall_ms=prof["wall_ms"],
+          kernels=prof["kernels"],
+          own_ms=prof["own"].get("brute_kernel", {}).get("instances"),
+          top=prof["top"])
+    if not same or not finite:
+        raise AssertionError(f"{tag}: the EXR differs from the render or "
+                             "is not finite")
+    if any(cli_l[k] != n for k, n in want_cli.items()) or any(
+            ln["shaded_any"] != SSS_DEPTH or ln["any"] for ln in launches):
+        raise AssertionError(f"{tag}: launches {cli_l}, {launches}")
+    if not all(band[0] < m < band[1] for m in means):
+        raise AssertionError(f"{tag}: means {means} outside {band}")
+    return dict(shaded_any=cli_l["shaded_any"], any=cli_l["any"])
+
+
+def _stats_gate(tag, L, spp, res, golden, **extra):
+    """tests/test_goldens.py's rule on lanes L (res*res*spp, 3) in
+    scanline order against `golden` (a path under the repo)."""
+    Ls = L.reshape(res, res, spp, 3).double()
+    mean = Ls.mean(dim=2).cpu().numpy()
+    var = Ls.var(dim=2, unbiased=True).cpu().numpy()
+    g = np.load(os.path.join(ROOT, golden))
+    se = np.sqrt(var / spp + g["var"] / int(g["spp"]))
+    t = (mean - g["mean"]) / np.maximum(se, 1e-6)
+    frac = float((np.abs(t) > GOLD_CRIT).any(axis=-1).mean())
+    phase(tag, golden=golden, width=res, height=res, spp=spp,
+          golden_spp=int(g["spp"]), fail_fraction=frac, limit=GOLD_FAIL_MAX,
+          crit=GOLD_CRIT, mean=float(mean.mean()),
+          golden_mean=float(g["mean"].mean()),
+          finite=bool(np.isfinite(mean).all()), **extra)
+    if not frac < GOLD_FAIL_MAX or not np.isfinite(mean).all():
+        raise AssertionError(f"{tag}: fail fraction {frac}")
+
+
+def slice_goldens(device):
+    """golden_sss_slab and golden_guided_cornell: the port's renders of
+    tests/golden_scenes.py's sss_slab (the cache at seed 99) and
+    guided_cornell (a res-12 guide learned on the same camera rays by a
+    sampler at seed 777 + 5, then the guided estimator, alpha 0.5) at
+    GOLD_RES, GOLD_SPP spp, depth 4, seed 777, against the JAX package's
+    256-spp goldens by the |t| > 3.9 rule."""
+    from mitsuba_tpu_torch.integrators.guiding import make_guide
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, camera_wavefront, path_trace,
+    )
+    from mitsuba_tpu_torch.render.sampler import Sampler
+    from mitsuba_tpu_torch.render.scene import cornell_box
+    from mitsuba_tpu_torch.subsurface.dipole import prepare_scene_irradiance
+
+    sc, mods = _slice_cases()
+    cfg = PathConfig(max_depth=sc.SLAB_DEPTH, spp=GOLD_SPP, remat=False)
+    scene = sc.slab_scene(mods, GOLD_RES, device=device)
+    scene = dataclasses.replace(scene, subsurface=prepare_scene_irradiance(
+        scene, seed=SSS_CACHE_SEED))
+    ray, sampler, _ = camera_wavefront(scene, cfg, GOLD_SEED, morton=False)
+    L, _ = path_trace(scene, ray, sampler, cfg)
+    _stats_gate("golden_sss_slab", L, GOLD_SPP, GOLD_RES,
+                "tests/goldens/sss_slab.npz", depth=cfg.max_depth,
+                seed=GOLD_SEED, cache_seed=SSS_CACHE_SEED)
+    scene = cornell_box(GOLD_RES, GOLD_RES, device=device)
+    v0 = scene.geom.v0.cpu().numpy()
+    ext = v0.max(0) - v0.min(0)
+    guide = make_guide(v0.min(0) - 0.01 * ext, v0.max(0) + 0.01 * ext,
+                       res=GUIDE_GOLD_RES, device=device)
+    ray, sampler, _ = camera_wavefront(scene, cfg, GOLD_SEED, morton=False)
+    pid, sid = _lanes(GOLD_RES, GOLD_RES, GOLD_SPP, device)
+    _, aux = path_trace(scene, ray, Sampler(GUIDE_LEARN_SEED, pid, sid),
+                        cfg, guide=guide, learn_guide=True)
+    L, _ = path_trace(scene, ray, sampler, cfg, guide=aux["guide"],
+                      guide_alpha=0.5, guide_sampling=True)
+    _stats_gate("golden_guided_cornell", L, GOLD_SPP, GOLD_RES,
+                "tests/goldens/guided_cornell.npz", depth=cfg.max_depth,
+                seed=GOLD_SEED, guide_res=GUIDE_GOLD_RES,
+                learn_seed=GUIDE_LEARN_SEED,
+                guide_mass=float(aux["guide"].mass.sum()))
+
+
+def guided_cli_phase(device, tmp):
+    """`python -m mitsuba_tpu_torch scenes/cornell.xml --guided` at SSS_W x
+    SSS_H x SSS_SPP, depth CLI_DEPTH through cli.main (render_guided: a
+    learning pass and a guided pass, #1 once a bounce each); then the file
+    through load_scene and render_guided, twice timed (peak memory) and
+    once profiled. The learning pass adds by index_add, in atomic order on
+    the card, so the library's image is compared with the EXR's by its
+    largest difference, not bit for bit."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render_guided
+    from mitsuba_tpu_torch.io.bitmap import read_exr
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    tag = "guided_cli"
+    xml = os.path.join(ROOT, "scenes", "cornell.xml")
+    defs = dict(depth=CLI_DEPTH, spp=SSS_SPP, width=SSS_W, height=SSS_H)
+    out = os.path.join(tmp, "guided.exr")
+    cli_s, cli_l = _cli_run(tag, [xml, *_defs(**defs), "-o", out,
+                                  "--guided"])
+    scene, _ = load_scene(xml, params=defs, device=device)
+    pc = PathConfig(max_depth=CLI_DEPTH, spp=SSS_SPP, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    secs, launches, means, rays = [], [], [], []
+    for seed in (0, 1):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, aux = render_guided(scene, pc, seed=seed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(launch_counts()["shaded_any"])
+        means.append(float(img.mean()))
+        rays.append(int(aux["rays_traced"]))
+        if seed == 0:
+            exr_diff = float(np.abs(read_exr(out) - img.cpu().numpy()).max())
+            finite = bool(torch.isfinite(img).all())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_profile(lambda: render_guided(scene, pc, seed=0))
+    PROFILES[tag] = prof
+    band = MEAN_BAND[tag]
+    phase(tag, command=["python", "-m", "mitsuba_tpu_torch",
+                        "scenes/cornell.xml"] + _defs(**defs)
+          + ["-o", "guided.exr", "--guided"], width=SSS_W, height=SSS_H,
+          spp=SSS_SPP, depth=CLI_DEPTH, cli_seconds=cli_s, seconds=secs,
+          rays_traced=rays, mrays_per_s=[r / t / 1e6 for r, t in
+                                         zip(rays, secs)],
+          launches_cli=cli_l["shaded_any"], launches_render=launches,
+          means=means, band=band, exr_max_abs_diff=exr_diff,
+          peak_mem_gib=peak, device_busy_ms=prof["device_busy_ms"],
+          busy_share=prof["busy_share"], profile_wall_ms=prof["wall_ms"],
+          kernels=prof["kernels"], top=prof["top"])
+    if not finite or cli_l["shaded_any"] != 2 * CLI_DEPTH \
+            or launches != [2 * CLI_DEPTH] * 2:
+        raise AssertionError(f"{tag}: finite {finite}, launches {cli_l}, "
+                             f"{launches}")
+    if not all(band[0] < m < band[1] for m in means):
+        raise AssertionError(f"{tag}: means {means} outside {band}")
+    return cli_l["shaded_any"]
+
+
+def motion_phase(device, tmp):
+    """tests/test_motion.py:25's moving box as a scene file (an
+    animatedinstance whose track the port's save_animated_transform
+    writes, shutterClose 1) through cli.main at SSS_W x SSS_H x SSS_SPP,
+    depth CLI_DEPTH: render_motion over MOTION_BINS scenes baked at
+    stratified shutter times (#1 once a bounce each); the bins' builds
+    timed apart (load_scene); render_motion twice timed and once
+    profiled; the EXR equal to the seed-0 render bit for bit; gated by
+    tests/test_motion.py:80-110 against the builder's box baked at
+    mid-shutter."""
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, render, render_motion,
+    )
+    from mitsuba_tpu_torch.io.bitmap import read_exr
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    tag = "motion_xml"
+    sc, mods = _slice_cases()
+    xml = sc.write_motion_xml(tmp, mods.track)
+    defs = dict(depth=CLI_DEPTH, spp=SSS_SPP, width=SSS_W, height=SSS_H)
+    out = os.path.join(tmp, "motion.exr")
+    cli_s, cli_l = _cli_run(tag, [xml, *_defs(**defs), "-o", out])
+    t0 = time.perf_counter()
+    _, cfg = load_scene(xml, params=defs, device=device)
+    load_s = time.perf_counter() - t0
+    scenes = cfg["time_scenes"]
+    pc = PathConfig(max_depth=CLI_DEPTH, spp=SSS_SPP, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    secs, launches = [], []
+    for seed in (0, 1):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, aux = render_motion(scenes, pc, seed=seed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(launch_counts()["shaded_any"])
+        if seed == 0:
+            img_m = img.cpu().numpy()
+            same = bool(np.array_equal(read_exr(out), img_m))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_profile(lambda: render_motion(scenes, pc, seed=0))
+    PROFILES[tag] = prof
+    b = sc.moving_box_builder(mods, SSS_W, 1.0)
+    img_s = render(b.build(backend="brute", device=device, time=0.5), pc,
+                   seed=0)[0].cpu().numpy()
+
+    def x_extent(img):
+        cols = np.where((img.mean(-1) > 0.35).any(0))[0]
+        return int(cols.max() - cols.min()) if len(cols) else 0
+
+    ext_m, ext_s = x_extent(img_m), x_extent(img_s)
+    energy = float(abs(img_m.mean() - img_s.mean()) / img_s.mean())
+    band = MEAN_BAND[tag]
+    mean = float(img_m.mean())
+    phase(tag, command=["python", "-m", "mitsuba_tpu_torch",
+                        "motion.xml"] + _defs(**defs) + ["-o", "motion.exr"],
+          width=SSS_W, height=SSS_H, spp=SSS_SPP, depth=CLI_DEPTH,
+          time_bins=len(scenes), cli_seconds=cli_s, load_seconds=load_s,
+          seconds=secs, launches_cli=cli_l["shaded_any"],
+          launches_render=launches, mean=mean, band=band,
+          exr_equals_render=same, x_extent=ext_m, x_extent_mid=ext_s,
+          energy_rel=energy, limits=dict(smear=MOTION_SMEAR,
+                                         energy=MOTION_ENERGY),
+          peak_mem_gib=peak, device_busy_ms=prof["device_busy_ms"],
+          busy_share=prof["busy_share"], profile_wall_ms=prof["wall_ms"],
+          kernels=prof["kernels"], top=prof["top"])
+    if not same or not np.isfinite(img_m).all():
+        raise AssertionError(f"{tag}: the EXR differs from the render or "
+                             "is not finite")
+    want = MOTION_BINS * CLI_DEPTH
+    if cli_l["shaded_any"] != want or launches != [want, want]:
+        raise AssertionError(f"{tag}: launches {cli_l}, {launches}")
+    if not (ext_m > ext_s + MOTION_SMEAR and energy < MOTION_ENERGY
+            and band[0] < mean < band[1]):
+        raise AssertionError(f"{tag}: extent {ext_m} vs {ext_s}, energy "
+                             f"{energy}, mean {mean}")
+    return cli_l["shaded_any"]
+
+
+def config1_options(device):
+    """Config 1 (cornell_box at W1 x H1 x SPP1, depth DEPTH1, seed 0) with
+    hit_prediction: the image bit for bit config 1's (the bound is
+    exact), pred_hit_frac reported; with strict_normals: finite and within
+    config 1's band; each render's #1 launches and seconds."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    scene = cornell_box(W1, H1, device=device)
+    base = PathConfig(max_depth=DEPTH1, spp=SPP1)
+    res = {}
+    imgs = {}
+    for name, kw in (("plain", {}), ("hit_prediction", {
+            "hit_prediction": True}), ("strict_normals", {
+            "strict_normals": True})):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, aux = render(scene, dataclasses.replace(base, **kw), seed=0)
+        torch.cuda.synchronize()
+        imgs[name] = img
+        res[name] = dict(seconds=time.perf_counter() - t0,
+                         launches_shaded_any=launch_counts()["shaded_any"],
+                         mean=float(img.mean()),
+                         pred_hit_frac=float(aux["pred_hit_frac"]),
+                         finite=bool(torch.isfinite(img).all()))
+    same = bool(torch.equal(imgs["plain"], imgs["hit_prediction"]))
+    band = MEAN_BAND["config1"]
+    phase("config1_options", width=W1, height=H1, spp=SPP1, depth=DEPTH1,
+          prediction_equals_plain=same, band=band, **res)
+    if not same:
+        raise AssertionError("config1_options: hit_prediction changed the "
+                             "image")
+    sn = res["strict_normals"]
+    if not sn["finite"] or not band[0] < sn["mean"] < band[1]:
+        raise AssertionError(f"config1_options: strict_normals {sn}")
+    return {k: v["launches_shaded_any"] for k, v in res.items()}
+
+
+def config3_options(scene3, cfg, l3):
+    """Config 3 with sort_mode="octant" and with hit_prediction as render
+    phases (#9 and #10 as config 3), each seed-0 image within 1e-6 of
+    config 3's."""
+    from mitsuba_tpu_torch.integrators.path import render
+
+    ref = render(scene3, cfg, seed=0)[0]
+    out = {}
+    for tag, kw in (("config3_octant", dict(sort_mode="octant")),
+                    ("config3_pred", dict(hit_prediction=True))):
+        c = dataclasses.replace(cfg, **kw)
+        out[tag] = render_phase(tag, scene3, c,
+                                ["refine", "child_refine", "l1_masked"],
+                                forbid=["items", "l1_items"])
+        img, aux = render(scene3, c, seed=0)
+        diff = float((img - ref).abs().max())
+        phase(f"{tag}_vs_config3", max_abs_diff=diff, limit=1e-6,
+              equal=bool(torch.equal(img, ref)),
+              pred_hit_frac=float(aux["pred_hit_frac"]),
+              launches=out[tag], config3_launches=l3)
+        if not diff <= 1e-6:
+            raise AssertionError(f"{tag}: {diff} from config 3's image")
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -3448,6 +3881,8 @@ def main(argv=None):
                       ["shaded_any"])
     live1 = brute_liveness("config1", cornell_box(W1, H1, device=device),
                            cfg1, render, "shaded_any")
+    # config 1 with hit_prediction (the same image) and strict_normals
+    lopt1 = config1_options(device)
     # the README's command through the CLI, and the same scene file
     # through io.xml.load_scene + render
     tmp = tempfile.TemporaryDirectory()
@@ -3463,6 +3898,14 @@ def main(argv=None):
     ltex = textured_phases(device)
     lpt = ptracer_phase(device)
     texture_grad(device)
+    # subsurface scattering, surface guiding and motion blur through the
+    # CLI, and the goldens of the slab and the guided Cornell box
+    lsss = {tag: sss_phase(tag, device, tmp.name, form) for tag, form in (
+        ("sss_xml", "dipole"), ("sss_multipole", "multipole"),
+        ("sss_adipole", "adipole"))}
+    slice_goldens(device)
+    lguided = guided_cli_phase(device, tmp.name)
+    lmotion = motion_phase(device, tmp.name)
     # config 2: the brute kernel (#1) with the glass sphere merged after
     # it, camera lanes in pixel-Morton order as bench.py runs it
     l2 = render_phase("config2", cornell_box_specular(
@@ -3483,6 +3926,8 @@ def main(argv=None):
                       ["refine", "child_refine", "l1_masked"],
                       forbid=["items", "l1_items"])
     walk_liveness("config3", scene3, cfg)
+    # config 3 under sort_mode="octant" and hit_prediction
+    lopt3 = config3_options(scene3, cfg, l3)
     # config 3 as scene files: the cluster backend under auto, then bvh
     twin_dir = os.path.join(tmp.name, "config3")
     os.mkdir(twin_dir)
@@ -3597,6 +4042,16 @@ def main(argv=None):
               device_ms_per_render_bsdf_zoo=brute_ms("bsdf_zoo",
                                                      "shaded_any"),
               launches_config4=l4["launches_shaded_any"],
+              launches_config1_options=lopt1,
+              launches_sss={t: v["shaded_any"] for t, v in lsss.items()},
+              device_ms_per_render_sss={t: PROFILES[t]["own"].get(
+                  "brute_kernel", {}).get("ms") for t in lsss},
+              launches_guided_cli=lguided,
+              device_ms_per_render_guided_cli=PROFILES["guided_cli"][
+                  "own"].get("brute_kernel", {}).get("ms"),
+              launches_motion_xml=lmotion,
+              device_ms_per_render_motion_xml=PROFILES["motion_xml"][
+                  "own"].get("brute_kernel", {}).get("ms"),
               device_ms_per_render=brute_ms("config1", "shaded_any"),
               device_ms_per_render_config2=brute_ms("config2",
                                                     "shaded_any"),
@@ -3607,6 +4062,7 @@ def main(argv=None):
         entry("refine", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:114",
               l3["refine"], cluster[("refine", "bounce", "S1")],
               launches_xml_config3=lxml["cluster"]["refine"],
+              **{f"launches_{t}": v["refine"] for t, v in lopt3.items()},
               device_ms_per_render=own_ms("config3", "refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5", "refine_kernel"),
               check_phase="kernel_vs_plain refine (bounce S1)"),
@@ -3614,6 +4070,8 @@ def main(argv=None):
               "mitsuba_tpu/ops/exact_pallas.py:209", l3["child_refine"],
               cluster[("child_refine", "bounce", "S2")],
               launches_xml_config3=lxml["cluster"]["child_refine"],
+              **{f"launches_{t}": v["child_refine"]
+                 for t, v in lopt3.items()},
               device_ms_per_render=own_ms("config3", "child_refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5",
                                              "child_refine_kernel"),
@@ -3637,6 +4095,9 @@ def main(argv=None):
         entry("l1_masked", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:814",
               l3["l1_masked"], cluster[("l1_masked", "bounce", "closest")],
               device_ms_per_render=own_ms("config3", "l1_masked_kernel"),
+              **{f"launches_{t}": v["l1_masked"] for t, v in lopt3.items()},
+              **{f"device_ms_per_render_{t}": own_ms(t, "l1_masked_kernel")
+                 for t in lopt3},
               launches_xml_config3=lxml["cluster"]["l1_masked"],
               device_ms_per_render_xml_config3=own_ms("xml_config3",
                                                       "l1_masked_kernel")),
@@ -3645,6 +4106,7 @@ def main(argv=None):
               (l3 if stream_path == "config3" else l3v5)["stream"],
               cluster[("stream", "bounce", False)], path=stream_path,
               device_ms_per_render=own_ms(stream_path, "stream_kernel"),
+              **{f"launches_{t}": v["stream"] for t, v in lopt3.items()},
               launches_xml_config3=lxml["cluster"]["stream"]),
         # #11's device ms a render (both bodies), in the bvh render and
         # in the instanced one (its overflow fallback and instance walks)
@@ -3683,6 +4145,9 @@ def main(argv=None):
               replayed_event_ms_per_render=live_fog_any["ms"],
               launches_ptracer=lpt["any"],
               device_ms_per_render_ptracer=brute_ms("ptracer", "any"),
+              launches_sss_cache={t: v["any"] for t, v in lsss.items()},
+              device_ms_per_render_sss={t: brute_ms(t, "any")
+                                        for t in lsss},
               **media_entry(lmed, "any")),
         # no render path launches #4 (nor does the JAX package's): its
         # check phase holds it against its plain version

@@ -13,14 +13,17 @@
                        CUDA device the render raises)
         -j/-p/-c/-b/-r accepted for compatibility, no-ops
 
-`volpath` and `volpath_simple` integrators and a scene-level <medium>
-render through `render_volpath`, or with --guided or an integrator's
-`guiding` through `render_volpath_guided`; everything else through
-`render`. Shapes' interior media are routed as the reference routes them
-(cli.py:148-170): by the integrator, never to `render_volpath_media`.
-Not ported, each raising NotImplementedError: --server and
---listen-stdio (ROADMAP A.10), --gui (A.13), and --guided or `guiding`
-without a medium, which is surface path guiding (A.12).
+Routes, in the reference's order (cli.py:148-170): `volpath` and
+`volpath_simple` integrators and a scene-level <medium> render through
+`render_volpath`, or with --guided or an integrator's `guiding` through
+`render_volpath_guided`; animated shapes under an open shutter (the
+loader's "time_scenes") through `render_motion`; --guided or `guiding`
+otherwise through `render_guided` (surface path guiding); everything
+else through `render` (a subsurface scene fills its irradiance cache
+there). Shapes' interior media are routed as the reference routes them:
+by the integrator, never to `render_volpath_media`. Not ported, each
+raising NotImplementedError: --server and --listen-stdio (ROADMAP A.10)
+and --gui (A.13).
 """
 from __future__ import annotations
 
@@ -45,8 +48,8 @@ def main(argv=None):
     ap.add_argument("--gui", action="store_true",
                     help="interactive preview (not ported)")
     ap.add_argument("--guided", action="store_true",
-                    help="path-guided rendering (volumetric: the medium's "
-                    "scatter directions)")
+                    help="path-guided rendering (the surfaces' scatter "
+                    "directions, or a medium's)")
     ap.add_argument("--gui-port", type=int, default=8555)
     ap.add_argument("--cpu", action="store_true",
                     help="render on the host CPU instead of the card")
@@ -143,9 +146,15 @@ def main(argv=None):
                 scene, cfg.get("medium", no_medium()), pcfg, seed=args.seed,
                 mis=cfg["integrator"] != "volpath_simple",
             )
+        elif "time_scenes" in cfg:
+            from mitsuba_tpu_torch.integrators.path import render_motion
+
+            img, aux = render_motion(cfg["time_scenes"], pcfg,
+                                     seed=args.seed)
         elif guided:
-            raise NotImplementedError(
-                "surface path guiding is not ported (ROADMAP A.12)")
+            from mitsuba_tpu_torch.integrators.path import render_guided
+
+            img, aux = render_guided(scene, pcfg, seed=args.seed)
         else:
             img, aux = render(scene, pcfg, seed=args.seed)
         img = img.detach().cpu().numpy()

@@ -9,8 +9,10 @@ mass times B / 4π is the pdf. Learning is one scatter-add a bounce
 (`index_add`; on the card it adds in atomic order, so the learned mass
 differs from the reference's in the last bits); sampling and the pdf
 invert each lane's gathered row. Rendering stays unbiased for any guide
-content: `volpath_trace` draws from the α·phase + (1-α)·guide mixture and
-weights by the mixture's pdf.
+content: `volpath_trace` draws from the α·phase + (1-α)·guide mixture, and
+`path_trace` (surface guiding) from the α·BSDF + (1-α)·guide mixture,
+each weighting by the mixture's pdf. `make_guide` and `scene_guide` put
+the grid on the card unless the caller passes device="cpu".
 """
 from __future__ import annotations
 
@@ -41,12 +43,26 @@ class GuideGrid:
                          self.bmax.to(device), self.res)
 
 
-def make_guide(bmin, bmax, res: int = 16, device="cpu") -> GuideGrid:
+def make_guide(bmin, bmax, res: int = 16, device="cuda") -> GuideGrid:
+    """An empty res³ grid over the box [bmin, bmax] on `device` (the card
+    by default; without a CUDA device that raises)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
     return GuideGrid(
         mass=torch.zeros((res ** 3, N_BINS), device=device),
         bmin=torch.as_tensor(bmin, dtype=torch.float32, device=device),
         bmax=torch.as_tensor(bmax, dtype=torch.float32, device=device),
         res=res)
+
+
+def scene_guide(scene, res: int = 16) -> GuideGrid:
+    """An empty guide on the scene's device over its triangle-vertex box,
+    padded by 1% of its extent (volpath.py:319-322, path.py:1028-1031)."""
+    v0 = scene.geom.v0.detach().cpu().numpy()
+    ext = v0.max(0) - v0.min(0)
+    return make_guide(v0.min(0) - 0.01 * ext, v0.max(0) + 0.01 * ext,
+                      res=res, device=scene.device)
 
 
 def _cell_of(g: GuideGrid, p):

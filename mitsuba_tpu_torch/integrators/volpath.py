@@ -46,6 +46,7 @@ from mitsuba_tpu_torch.emitters import (
     sample_direct,
 )
 from mitsuba_tpu_torch.integrators import guiding as gd
+from mitsuba_tpu_torch.integrators.guiding import scene_guide
 from mitsuba_tpu_torch.integrators.path import (
     PathConfig, camera_wavefront, mi_weight, requires_grad, run_bounce,
 )
@@ -278,15 +279,6 @@ def render_volpath(scene, medium, cfg: PathConfig, seed: int = 0,
                            guide_alpha=guide_alpha,
                            guide_sampling=guide_sampling)
     return L.reshape(scene.height, scene.width, cfg.spp, 3).mean(dim=2), aux
-
-
-def scene_guide(scene, res: int = 16):
-    """An empty guide over the scene's triangle-vertex box, padded by 1%
-    of its extent (volpath.py:319-322)."""
-    v0 = scene.geom.v0.detach().cpu().numpy()
-    ext = v0.max(0) - v0.min(0)
-    return gd.make_guide(v0.min(0) - 0.01 * ext, v0.max(0) + 0.01 * ext,
-                         res=res, device=scene.device)
 
 
 def render_volpath_guided(scene, medium, cfg: PathConfig, seed: int = 0,

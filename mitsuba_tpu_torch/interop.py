@@ -6,8 +6,10 @@ analytic spheres, sphere emitters, materials of every kind but cloth
 with their opacity column and composite children, textures of every kind
 with their images and MIP pyramids, emitters of every kind with the
 environment map's sampling tables, the perspective, thin-lens or
-orthographic camera, shape-interior media) and builds the port's tables from them, so that both packages
-render the same scene from the same arrays; `from_jax_medium` does the
+orthographic camera with its shutter interval, shape-interior media,
+subsurface entries with their irradiance cache when it is filled) and
+builds the port's tables from them, so that both packages render the
+same scene from the same arrays; `from_jax_medium` does the
 same for an ambient medium (homogeneous or a grid, oriented or a
 Gaussian flake), `from_jax_guide` for a path-guiding grid, and
 `from_jax_cluster_tables` for the v1 cluster intersector's tables.
@@ -35,6 +37,7 @@ from mitsuba_tpu_torch.render.mipmap import MIPMap
 from mitsuba_tpu_torch.render.texture import (
     BITMAP, TextureTable, wraps_present,
 )
+from mitsuba_tpu_torch.subsurface.dipole import SceneSubsurface
 
 _GEOM_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                 "material_id", "emitter_id", "shape_id")
@@ -68,8 +71,10 @@ def _t(x):
 def _geometry(g) -> GeometryTables:
     if g.backend not in ("brute", "bvh", "cluster"):
         _unported(f"intersection backend '{g.backend}'")
-    if g.n_cylinders > 0 or g.n_hair > 0:
-        _unported("cylinder or hair geometry")
+    if g.n_cylinders > 0:
+        _unported("cylinder geometry (ROADMAP A.11)")
+    if g.n_hair > 0:
+        _unported("hair geometry (ROADMAP A.12)")
     spheres = {}
     if g.n_spheres > 0:
         spheres = {k: _t(getattr(g, k)) for k in _SPHERE_FIELDS}
@@ -139,9 +144,6 @@ def _emitters(em) -> EmitterTable:
 
 
 def _camera(cam) -> Camera:
-    if float(cam.shutter_time) != 0.0:
-        _unported("an open shutter (motion blur, ROADMAP A.12)")
-
     def f(x):
         return float(np.asarray(x))
 
@@ -153,7 +155,20 @@ def _camera(cam) -> Camera:
         focus_distance=f(cam.focus_distance),
         ortho_scale=f(cam.ortho_scale),
         kind=int(cam.kind),
+        shutter_open=f(cam.shutter_open),
+        shutter_time=f(cam.shutter_time),
     )
+
+
+_SUBSURFACE_FIELDS = ("sigma_tr", "zri", "zvi", "alpha_p", "eta", "fdr",
+                      "fdt", "ss_factor", "aniso_dir", "aniso_ratio",
+                      "points", "normals", "area", "mat_ss")
+
+
+def _subsurface(ss) -> SceneSubsurface:
+    return SceneSubsurface(
+        **{k: _t(getattr(ss, k)) for k in _SUBSURFACE_FIELDS},
+        irradiance=None if ss.irradiance is None else _t(ss.irradiance))
 
 
 def _media(st) -> MediumStack:
@@ -167,8 +182,6 @@ def _media(st) -> MediumStack:
 def from_jax_scene(scene, device="cuda") -> Scene:
     """The port's Scene for a `mitsuba_tpu.render.scene.Scene`, on
     `device` (the card by default)."""
-    if scene.subsurface is not None:
-        _unported("subsurface scattering")
     return Scene(
         geom=_geometry(scene.geom),
         materials=_materials(scene.materials),
@@ -180,6 +193,8 @@ def from_jax_scene(scene, device="cuda") -> Scene:
         media=None if scene.media is None else _media(scene.media),
         shape_interior=None if scene.shape_interior is None
         else _t(scene.shape_interior),
+        subsurface=None if scene.subsurface is None
+        else _subsurface(scene.subsurface),
     ).to(device)
 
 

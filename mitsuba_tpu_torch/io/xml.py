@@ -221,7 +221,9 @@ def load_scene(path: str, params: dict | None = None, backend: str = "auto",
 
     Returns (Scene, render_config_dict) where render_config_dict carries
     the integrator, sampler and film settings (maxDepth, sampleCount,
-    pattern, ...) and, for a scene-level <medium>, the MediumTable.
+    pattern, ...), for a scene-level <medium> the MediumTable, and for
+    animated shapes under an open shutter "time_scenes", the scenes of
+    4 stratified shutter times (SceneBuilder.build_time_scenes).
     """
     params = dict(params or {})
     base_dir = os.path.dirname(os.path.abspath(path))
@@ -323,6 +325,12 @@ def build_scene(parsed, base_dir: str, backend: str = "auto",
                              _material_from_bsdf)
 
     scene = builder.build(backend=backend, device=device)
+    # motion blur: animated shapes under an open shutter render through
+    # render_motion over scenes baked at stratified times (cli.py)
+    if builder._animated and builder.camera is not None \
+            and float(builder.camera.shutter_time) > 0.0:
+        config["time_scenes"] = builder.build_time_scenes(
+            int(config.get("time_bins", 4)), backend=backend, device=device)
     return scene, config
 
 

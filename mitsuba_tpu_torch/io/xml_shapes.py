@@ -2,18 +2,22 @@
 mitsuba_tpu/io/xml_shapes.py for the shapes and emitters the port has).
 
 Shapes (reference src/shapes/): obj, ply and serialized file meshes, the
-analytic sphere, and `shapegroup` / `instance`, flattened into
-transformed copies as the reference flattens them. An inverted sphere is
-tessellated. An area `<luminaire>` binds to a triangle shape or an
-analytic sphere; the scene-level luminaires are point, spot,
-directional, constant, envmap (an image read by io/bitmap.py) and the
-Preetham sky, with the reference's property names and defaults
-(xml_shapes.py:372-420). A shape's <medium name="interior">
-(homogeneous, or heterogeneous from a gridvolume) joins the scene's
-media, and a shape with an interior but neither BSDF nor luminaire gets
-the pass-through `null()` material. Everything else raises
-NotImplementedError naming its ROADMAP item: cylinder, hair and hspan
-shapes, animated instances and subsurface.
+analytic sphere, and `shapegroup` / `instance` / `animatedinstance`,
+flattened into transformed copies as the reference flattens them (an
+animated instance's shapes move along the track of its `filename`,
+animatedinstance.cpp:28-37, baked by the builder at a shutter time). An
+inverted sphere, or one carrying subsurface, is tessellated. An area
+`<luminaire>` binds to a triangle shape or an analytic sphere; the
+scene-level luminaires are point, spot, directional, constant, envmap
+(an image read by io/bitmap.py) and the Preetham sky, with the
+reference's property names and defaults (xml_shapes.py:372-420). A
+shape's <medium name="interior"> (homogeneous, or heterogeneous from a
+gridvolume) joins the scene's media, and a shape with an interior but
+neither BSDF nor luminaire gets the pass-through `null()` material. A
+shape's <subsurface type="dipole|multipole|adipole"> binds to a fresh
+copy of its material (xml_shapes.py:285-330); `marschner` is accepted
+and adds nothing, as in the reference. Cylinder, hair and hspan shapes
+raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,8 +48,7 @@ def _unported(what, item):
     raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
 
 
-_UNPORTED_SHAPES = {"cylinder": "A.11", "hair": "A.12", "hspan": "A.12",
-                    "animatedinstance": "A.12"}
+_UNPORTED_SHAPES = {"cylinder": "A.11", "hair": "A.12", "hspan": "A.12"}
 
 
 def _resolve(base_dir, name):
@@ -92,22 +95,30 @@ def load_shape_mesh(shape_node, base_dir):
     return mesh
 
 
-def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
+def add_shape(builder, shape_node, base_dir, mat_cache, material_fn,
+              track=None):
     t = shape_node["type"]
     if t == "shapegroup":
         # reference src/shapes/group.cpp: a named collection only
         # instantiated via <shape type="instance"> — nothing added here.
         return
-    if t == "instance":
-        # reference src/shapes/instance.cpp; the reference's loader
-        # flattens an instance into a transformed copy of the group's
-        # shapes, and so does the port's
+    if t in ("instance", "animatedinstance"):
+        # reference src/shapes/instance.cpp and animatedinstance.cpp; the
+        # reference's loader flattens an instance into a transformed copy
+        # of the group's shapes, and so does the port's; an animated
+        # instance's shapes follow the track of its binary file
         group = None
         for c in shape_node["children"]:
             if c["category"] == "shape" and c["type"] == "shapegroup":
                 group = c
         if group is None:
             raise ValueError("<instance> needs a <ref> to a shapegroup")
+        track = None
+        if t == "animatedinstance" and "filename" in shape_node["props"]:
+            from mitsuba_tpu_torch.core.track import load_animated_transform
+
+            track = load_animated_transform(
+                os.path.join(base_dir, shape_node["props"]["filename"]))
         to_world = shape_node["props"].get("toWorld")
         for sub in group["children"]:
             if sub["category"] != "shape":
@@ -121,15 +132,16 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
                 )
                 props["toWorld"] = comp
                 sub_copy["props"] = props
-            add_shape(builder, sub_copy, base_dir, mat_cache, material_fn)
+            add_shape(builder, sub_copy, base_dir, mat_cache, material_fn,
+                      track=track)
         return
-    if _find(shape_node, "subsurface") is not None:
-        _unported("subsurface scattering", "A.12")
     # the analytic sphere (reference sphere.cpp intersects exactly) skips
-    # tessellation unless inverted
+    # tessellation unless inverted or carrying subsurface (whose points
+    # sample triangles)
     props0 = shape_node["props"]
     analytic = None
-    if t == "sphere" and not props0.get("inverted", False):
+    if (t == "sphere" and not props0.get("inverted", False)
+            and _find(shape_node, "subsurface") is None):
         center = np.asarray(props0.get("center", (0.0, 0.0, 0.0)),
                             np.float32)
         radius = float(props0.get("radius", 1.0))
@@ -163,6 +175,10 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
         ) if lum is None else mat_cache.setdefault(
             "__black__", builder.materials.lambertian((0.0, 0.0, 0.0))
         )
+    ssn = _find(shape_node, "subsurface")
+    if ssn is not None and ssn["type"] != "marschner":
+        mid = _add_subsurface(builder, ssn, bsdf, mid, material_fn,
+                              base_dir)
     if analytic is not None:
         eid = -1
         if lum is not None:
@@ -172,14 +188,52 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn):
         builder.add_sphere(analytic[0], analytic[1], mid, emitter_id=eid,
                            interior_medium=interior)
         return
+    eid = -1
     if lum is not None:
         if lum["type"] not in ("area", ""):
             raise ValueError("only area luminaires can be attached to shapes")
         radiance = _spec(lum["props"], "intensity", 1.0)
         eid = builder.emitters.area(mesh, radiance)
-        builder.add_shape(mesh, mid, eid, interior_medium=interior)
+    if track is not None:
+        builder.add_animated_shape(mesh, mid, track, emitter_id=eid)
     else:
-        builder.add_shape(mesh, mid, interior_medium=interior)
+        builder.add_shape(mesh, mid, eid, interior_medium=interior)
+
+
+def _add_subsurface(builder, node, bsdf, mid, material_fn, base_dir) -> int:
+    """A shape's <subsurface type="dipole|multipole|adipole"> (dipole.cpp,
+    multipole.cpp, adipole.cpp properties; xml_shapes.py:295-330): sigmaS
+    and sigmaA, or sigmaT and albedo; eta, or intIOR / extIOR; g,
+    ssFactor, irrSamples, thickness, extraDipoles, anisoDirection,
+    anisoRatio. The entry binds to a fresh copy of the shape's BSDF, so
+    that shapes sharing it stay without (its textures resolved against the
+    scene's directory; the reference's copy loses it, xml_shapes.py:314).
+    Returns the material id."""
+    if node["type"] not in ("dipole", "multipole", "adipole", ""):
+        raise ValueError(f"unsupported subsurface type '{node['type']}'")
+    sp = node["props"]
+    if "sigmaT" in sp or "albedo" in sp:
+        st = _spec(sp, "sigmaT", 1.0)
+        al = _spec(sp, "albedo", 0.5)
+        ss_c = tuple(t_ * a_ for t_, a_ in zip(st, al))
+        sa_c = tuple(t_ - s_ for t_, s_ in zip(st, ss_c))
+    else:
+        ss_c = _spec(sp, "sigmaS", (2.6, 3.2, 3.9))
+        sa_c = _spec(sp, "sigmaA", (0.0021, 0.0041, 0.0071))
+    eta = float(sp.get("eta", float(sp.get("intIOR", 1.33))
+                / float(sp.get("extIOR", 1.0))))
+    if bsdf is not None:
+        mid = material_fn(builder, bsdf, {"__base_dir__": base_dir})
+    builder.add_subsurface(
+        mid, ss_c, sa_c, g=float(sp.get("g", 0.0)), eta=eta,
+        ss_factor=_spec(sp, "ssFactor", 1.0),
+        n_points=int(sp.get("irrSamples", 512)),
+        profile=node["type"] or "dipole",
+        thickness=float(sp.get("thickness", 1.0)),
+        n_poles=int(sp.get("extraDipoles", 3)),
+        aniso_dir=_spec(sp, "anisoDirection", (1.0, 0.0, 0.0)),
+        aniso_ratio=float(sp.get("anisoRatio", 2.0)))
+    return mid
 
 
 def medium_sigmas(props):

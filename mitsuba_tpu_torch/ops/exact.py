@@ -764,24 +764,29 @@ def _run(ex, o, d, mint, maxt, caps, any_hit, walk):
     rays, n, n_rows = pack_rays(o, d, mint, maxt)
     live = (rays[:, 7] >= rays[:, 6]).any(dim=1)
     rows = torch.nonzero(live)[:, 0]
-    all_live = rows.numel() == n_rows
-    rays_l = rays if all_live else rays[rows].contiguous()
-    res, ovf_l = _walk(ex, rays_l, caps, any_hit, walk)
     ovf = torch.zeros(n_rows, dtype=torch.bool, device=rays.device)
-    ovf[rows] = ovf_l
     if any_hit:
         out = torch.zeros((n_rows, LANES), dtype=torch.bool,
                           device=rays.device)
+    else:
+        t = rays[:, 7].clone()
+        u = torch.zeros_like(t)
+        v = torch.zeros_like(t)
+        p = torch.full((n_rows, LANES), -1, dtype=torch.int32,
+                       device=rays.device)
+        out = (t, u, v, p)
+    if rows.numel() == 0:
+        # no live lane (a wavefront's first shadow query): all miss
+        return out, ovf, n
+    rays_l = rays if rows.numel() == n_rows else rays[rows].contiguous()
+    res, ovf_l = _walk(ex, rays_l, caps, any_hit, walk)
+    ovf[rows] = ovf_l
+    if any_hit:
         out[rows] = res
         return out, ovf, n
-    t = rays[:, 7].clone()
-    u = torch.zeros_like(t)
-    v = torch.zeros_like(t)
-    p = torch.full((n_rows, LANES), -1, dtype=torch.int32,
-                   device=rays.device)
-    for full, part in zip((t, u, v, p), res):
+    for full, part in zip(out, res):
         full[rows] = part
-    return (t, u, v, p), ovf, n
+    return out, ovf, n
 
 
 def exact_closest(ex, o, d, mint, maxt, caps, walk=None):

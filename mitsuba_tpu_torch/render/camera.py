@@ -1,7 +1,11 @@
 """Cameras: perspective (pinhole or thin lens) and orthographic (port of
 mitsuba_tpu/render/camera.py; reference src/cameras/perspective.cpp and
-orthographic.cpp), and the camera plugins of the XML loader. An open
-shutter (motion blur) raises NotImplementedError naming ROADMAP A.12.
+orthographic.cpp), and the camera plugins of the XML loader. The
+perspective camera carries its shutter interval (`shutter_open`,
+`shutter_time`; the plugin's shutterOpen and shutterClose): rays carry no
+time, and motion blur averages scenes baked at stratified shutter times
+(render/scene.py `build_time_scenes`, integrators/path.py
+`render_motion`), as in the reference.
 
 A thin lens takes an aperture sample: `sample_ray(film_uv,
 aperture_sample)`. The render path calls `sample_ray(uv)` without one, as
@@ -33,6 +37,8 @@ class Camera:
     focus_distance: float = 1.0
     ortho_scale: float = 1.0      # half-width of the orthographic view
     kind: int = PERSPECTIVE
+    shutter_open: float = 0.0     # the shutter interval (motion blur)
+    shutter_time: float = 0.0
 
     def sample_ray(self, film_uv, aperture_sample=None):
         """film_uv: (N, 2) in [0,1)^2 (x right, y down, origin top-left).
@@ -72,7 +78,8 @@ def _f32(x) -> float:
 
 def make_perspective(to_world, fov_deg: float, aspect: float,
                      fov_axis: str = "x", aperture_radius: float = 0.0,
-                     focus_distance: float = 1.0) -> Camera:
+                     focus_distance: float = 1.0, shutter_open: float = 0.0,
+                     shutter_time: float = 0.0) -> Camera:
     tan_half = float(np.tan(np.deg2rad(fov_deg) / 2.0))
     if fov_axis == "larger":
         fov_axis = "x" if aspect >= 1 else "y"
@@ -93,6 +100,8 @@ def make_perspective(to_world, fov_deg: float, aspect: float,
         tan_half_fov_y=_f32(ty),
         aperture_radius=_f32(aperture_radius),
         focus_distance=_f32(focus_distance),
+        shutter_open=_f32(shutter_open),
+        shutter_time=_f32(shutter_time),
     )
 
 
@@ -109,12 +118,6 @@ def make_orthographic(to_world, scale: float = 1.0,
 @register_plugin("camera", "perspective")
 def _make_perspective_plugin(props, aspect=1.0):
     """The XML `perspective` camera (reference camera.py:123)."""
-    shutter = float(props.get("shutterClose", 0.0)) \
-        - float(props.get("shutterOpen", 0.0))
-    if shutter != 0.0:
-        raise NotImplementedError(
-            "an open shutter (motion blur, render_motion) is not ported "
-            "(ROADMAP A.12)")
     return make_perspective(
         to_world=props.get("toWorld", tf.identity()),
         fov_deg=float(props.get("fov", 49.13)),
@@ -122,6 +125,9 @@ def _make_perspective_plugin(props, aspect=1.0):
         fov_axis=props.get("fovAxis", "x"),
         aperture_radius=float(props.get("apertureRadius", 0.0)),
         focus_distance=float(props.get("focusDistance", 1.0)),
+        shutter_open=float(props.get("shutterOpen", 0.0)),
+        shutter_time=float(props.get("shutterClose", 0.0))
+        - float(props.get("shutterOpen", 0.0)),
     )
 
 

@@ -1090,3 +1090,31 @@ def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
         its = _merge_analytic(geom, ray, its)
         occ = occ | _analytic_any(geom, sray)
     return its, occ
+
+
+_DET_EPS = 1e-9
+
+
+def predicted_hit_bound(geom: GeometryTables, ray: Ray, pred_prim):
+    """One Möller–Trumbore test of each ray against its predicted triangle
+    (hash-based ray-path prediction, arXiv:1910.01304; intersect.py:556),
+    in the reference's `_mt_hit` form. A hit is an exact upper bound on
+    the nearest hit's distance, and answers a shadow ray's any-hit query
+    (the shadow cache). Returns (t, hit); only static triangles (ids below
+    n_tris) take part."""
+    ok = (pred_prim >= 0) & (pred_prim < geom.n_tris)
+    prim = torch.clamp(pred_prim, 0, geom.n_tris - 1).long()
+    v0, e1, e2 = geom.v0[prim], geom.e1[prim], geom.e2[prim]
+    o, d = ray.o, ray.d
+    pvec = m.cross(d, e2)
+    det = torch.sum(e1 * pvec, dim=-1)
+    det_ok = torch.abs(det) > _DET_EPS
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    tvec = o - v0
+    u = torch.sum(tvec * pvec, dim=-1) * inv_det
+    qvec = m.cross(tvec, e1)
+    v = torch.sum(d * qvec, dim=-1) * inv_det
+    t = torch.sum(e2 * qvec, dim=-1) * inv_det
+    hit = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) \
+        & (t > ray.mint) & (t < ray.maxt)
+    return t, hit & ok

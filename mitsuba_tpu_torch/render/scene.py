@@ -18,9 +18,15 @@ backend). Triangle shapes and spheres may bound an interior medium
 (`add_medium`, homogeneous or a density grid): the scene then carries a
 `media.medium.MediumStack` and each shape's medium index, which
 `integrators/volpath.py` `render_volpath_media` renders. An ambient
-medium is not part of the scene: it is passed to `render_volpath`. Every
-other scene feature of the reference (cylinders, hair, cloth, motion,
-subsurface) is not ported yet.
+medium is not part of the scene: it is passed to `render_volpath`. A
+material may carry a subsurface entry (`add_subsurface`: dipole,
+multipole or adipole): the scene then carries a
+`subsurface.dipole.SceneSubsurface`, its points sampled at build time and
+its irradiance filled by the first render. A shape may move along an
+animated transform (`add_animated_shape`, core/track.py): `build` bakes
+it at a time (the camera's shutter-open by default), `build_time_scenes`
+at stratified times across the shutter for `render_motion`. Cylinders,
+hair and cloth are not ported yet.
 
 A scene's tensors may require grad: `integrators/path.py` then
 differentiates a render with respect to them (materials and emitter
@@ -58,6 +64,9 @@ class Scene:
     # (S,) int32, -1 = none; both None when no shape has a medium
     media: object = None
     shape_interior: torch.Tensor = None
+    # subsurface entries (subsurface/dipole.py SceneSubsurface), None when
+    # no material carries one
+    subsurface: object = None
 
     @property
     def device(self) -> torch.device:
@@ -77,7 +86,9 @@ class Scene:
                      self.textures.to(device), self.width, self.height,
                      None if self.media is None else self.media.to(device),
                      None if self.shape_interior is None
-                     else self.shape_interior.to(device))
+                     else self.shape_interior.to(device),
+                     None if self.subsurface is None
+                     else self.subsurface.to(device))
 
 
 def check_device(device):
@@ -102,6 +113,8 @@ class SceneBuilder:
         self._instances = []     # [(group id, 4x4 to_world), ...]
         self._shape_interior = []   # per shape id: medium index or -1
         self._media = []            # (sigma_s, sigma_a, g) or grid dicts
+        self._subsurface = []       # dicts: material_id, sigma_s, ...
+        self._animated = []         # (mesh, material_id, emitter_id, track)
         self.camera = None
         self.width = 256
         self.height = 256
@@ -119,6 +132,46 @@ class SceneBuilder:
                 density=density, world_to_grid=world_to_grid,
                 density_scale=float(density_scale)))
         return len(self._media) - 1
+
+    def add_subsurface(self, material_id: int, sigma_s, sigma_a,
+                       g: float = 0.0, eta: float = 1.33,
+                       ss_factor=(1.0, 1.0, 1.0), n_points: int = 512,
+                       profile: str = "dipole", thickness: float = 1.0,
+                       n_poles: int = 3, aniso_dir=(1.0, 0.0, 0.0),
+                       aniso_ratio: float = 2.0):
+        """Attach a subsurface entry to every shape of material_id
+        (reference <subsurface type="dipole">, dipole.cpp:362-468;
+        scene.py:81). profile: 'dipole', 'multipole' (a thin slab of
+        `thickness`, 2·n_poles + 1 pole pairs; multipole.cpp) or 'adipole'
+        (a metric stretched by aniso_ratio along aniso_dir; adipole.cpp).
+        Its n_points are sampled at build time, their irradiance at the
+        first render."""
+        self._subsurface.append(dict(
+            material_id=int(material_id), sigma_s=tuple(sigma_s),
+            sigma_a=tuple(sigma_a), g=float(g), eta=float(eta),
+            ss_factor=tuple(ss_factor), n_points=int(n_points),
+            profile=str(profile), thickness=float(thickness),
+            n_poles=int(n_poles), aniso_dir=tuple(aniso_dir),
+            aniso_ratio=float(aniso_ratio)))
+
+    def add_animated_shape(self, mesh, material_id, track,
+                           emitter_id: int = -1):
+        """A shape in object space moving along `track` (an
+        AnimatedTransform; reference animatedinstance.cpp, scene.py:193).
+        `build` bakes it at one time, after every static shape."""
+        self._animated.append((mesh, int(material_id), int(emitter_id),
+                               track))
+
+    def build_time_scenes(self, n_bins: int, backend: str = "auto",
+                          device="cuda", ex_walk=None):
+        """Scenes baked at n_bins stratified times across the camera's
+        shutter, open + (k + 0.5) / n_bins * time (scene.py:203):
+        `render_motion` averages their renders."""
+        so = float(self.camera.shutter_open) if self.camera else 0.0
+        st = float(self.camera.shutter_time) if self.camera else 0.0
+        return [self.build(backend=backend, device=device, ex_walk=ex_walk,
+                           time=so + (k + 0.5) / n_bins * st)
+                for k in range(n_bins)]
 
     def add_shape(self, mesh, material_id, emitter_id=-1,
                   interior_medium: int = -1):
@@ -173,23 +226,35 @@ class SceneBuilder:
         self.width, self.height = width, height
 
     def build(self, backend: str = "auto", device="cuda",
-              ex_walk=None) -> Scene:
+              ex_walk=None, time: float | None = None) -> Scene:
         """backend: 'brute', 'bvh', 'cluster' or 'auto' (cluster above 64
         triangles); a scene with instances needs 'cluster' or 'auto'.
         device: where the scene's tables live, the card by default.
         ex_walk: the cluster backend's exact item walk, 'v5', 'v6', 'v6b'
-        or None for the device's default (ops/exact.py)."""
+        or None for the device's default (ops/exact.py). time: when to
+        bake the animated shapes (the camera's shutter-open by default),
+        each a shape after the static ones (scene.py:222-238)."""
         check_device(device)
-        if not self._shapes and not self._spheres:
-            raise ValueError("scene has no shapes")
-        shapes = self._shapes
+        shapes = list(self._shapes)
         interior = list(self._shape_interior)
+        if self._animated:
+            if time is None:
+                time = float(self.camera.shutter_open) if self.camera \
+                    else 0.0
+            sid = self._n_shapes
+            for mesh, mid, eid, track in self._animated:
+                m4 = track.eval(time).numpy()
+                shapes.append((mesh.transformed(m4), mid, eid, sid))
+                interior.append(-1)
+                sid += 1
+        if not shapes and not self._spheres:
+            raise ValueError("scene has no shapes")
         if not shapes:
             # spheres only: the triangle tables still need a row, a
             # degenerate far-away triangle that is never hit (as the
             # reference's builder adds, scene.py:263)
             far = mesh_mod.make_quad(*[(1e8, 1e8, 1e8)] * 4)
-            shapes = [(far, 0, -1, self._n_shapes)]
+            shapes = [(far, 0, -1, len(interior))]
             interior.append(-1)
         instanced = None
         if self._instances:
@@ -214,11 +279,20 @@ class SceneBuilder:
 
             media = make_medium_stack(self._media)
             shape_interior = torch.as_tensor(np.asarray(interior, np.int32))
-        scene = Scene(geom=geom, materials=self.materials.build(),
-                      emitters=em, camera=cam,
+        mats = self.materials.build()
+        subsurface = None
+        if self._subsurface:
+            from mitsuba_tpu_torch.subsurface.dipole import (
+                build_scene_subsurface,
+            )
+
+            subsurface = build_scene_subsurface(
+                self._subsurface, mats.n_materials, geom,
+                n_points=max(e["n_points"] for e in self._subsurface))
+        scene = Scene(geom=geom, materials=mats, emitters=em, camera=cam,
                       width=self.width, height=self.height,
                       textures=self.textures.build(), media=media,
-                      shape_interior=shape_interior)
+                      shape_interior=shape_interior, subsurface=subsurface)
         return scene.to(device)
 
 

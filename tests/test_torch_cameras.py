@@ -113,8 +113,22 @@ def test_camera_plugins_match(case):
 
 
 def test_open_shutter_refused():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        create_plugin("camera", "perspective", {"shutterClose": 0.5})
+    """An open shutter is ported (motion blur: render_motion,
+    tests/test_torch_motion.py): the plugin keeps the reference's shutter
+    interval. What a scene with one still refuses is a cylinder beside it
+    (ROADMAP A.11)."""
+    props = {"shutterOpen": 0.25, "shutterClose": 0.75}
+    cam = create_plugin("camera", "perspective", props)
+    jc = j_create("camera", "perspective", props)
+    assert (cam.shutter_open, cam.shutter_time) == (
+        float(jc.shutter_open), float(jc.shutter_time)) == (0.25, 0.5)
+    from mitsuba_tpu_torch.io.xml import load_scene_string
+
+    with pytest.raises(NotImplementedError, match="A.11"):
+        load_scene_string(
+            '<scene><camera type="perspective"><float name="shutterClose" '
+            'value="0.5"/></camera><shape type="cylinder"/></scene>',
+            device="cpu")
 
 
 def test_aperture_leaves_a_render_unchanged():

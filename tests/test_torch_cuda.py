@@ -1461,3 +1461,129 @@ def test_ptracer_on_the_card_matches_the_cpu_and_repeats(cuda):
                             7)
     ok = np.isclose(a.cpu().numpy(), ref.numpy(), rtol=1e-4, atol=1e-6)
     assert ok.mean() >= 0.99
+
+
+@pytest.mark.parametrize("profile", ["dipole", "multipole", "adipole"])
+def test_subsurface_slab_on_the_card_matches_the_cpu(cuda, profile):
+    """tests/golden_scenes.py:144's slab under each profile on the card:
+    the cache's direct NEE one #3 launch a sample (8), its indirect pass
+    and the render one #1 launch a bounce (4 x 3 + 4); the cache within
+    1e-4 of the CPU's largest point, the image's mean within 2%."""
+    import torch_sss_cases as sc
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+    from mitsuba_tpu_torch.subsurface.dipole import prepare_scene_irradiance
+
+    cfg = PathConfig(max_depth=4, spp=2)
+    mods = sc.port_modules()
+    scene = sc.slab_scene(mods, 16, profile, n_points=64, device=cuda)
+    before, split = ip.LAUNCHES, dict(ip.SPLIT_LAUNCHES)
+    img, _ = render(scene, cfg, seed=3)
+    torch.cuda.synchronize()
+    assert ip.LAUNCHES - before == 4 * 3 + cfg.max_depth
+    assert ip.SPLIT_LAUNCHES["any"] - split["any"] == 8
+    cpu = sc.slab_scene(mods, 16, profile, n_points=64, device="cpu")
+    ref, _ = render(cpu, cfg, seed=3)
+    irr = prepare_scene_irradiance(scene, seed=3).irradiance.cpu()
+    irr_ref = prepare_scene_irradiance(cpu, seed=3).irradiance
+    assert float((irr - irr_ref).abs().max()) <= 1e-4 * float(irr_ref.max())
+    assert bool(torch.isfinite(img).all()) and float(ref.mean()) > 0
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+
+
+def test_guided_render_on_the_card_matches_the_cpu(cuda):
+    """render_guided on the Cornell box on the card: one #1 launch a
+    bounce in each pass; the learned mass within 1e-4 of the CPU's
+    largest bin (index_add adds in atomic order on the card), the image's
+    mean within 2%."""
+    import dataclasses
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+    from mitsuba_tpu_torch.integrators.guiding import scene_guide
+    from mitsuba_tpu_torch.integrators.path import render_guided
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    cfg = PathConfig(max_depth=3, spp=4)
+    before = ip.LAUNCHES
+    img, _ = render_guided(cornell_box(16, 16, device=cuda), cfg, seed=2,
+                           res=6)
+    torch.cuda.synchronize()
+    assert ip.LAUNCHES - before == 2 * cfg.max_depth
+    ref, _ = render_guided(cornell_box(16, 16, device="cpu"), cfg, seed=2,
+                           res=6)
+    assert bool(torch.isfinite(img).all()) and float(ref.mean()) > 0
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+    half = dataclasses.replace(cfg, spp=2)
+    masses = []
+    for dev in (cuda, "cpu"):
+        scene = cornell_box(16, 16, device=dev)
+        masses.append(render(scene, half, seed=2, guide=scene_guide(
+            scene, 6), learn_guide=True)[1]["guide"].mass.cpu())
+    assert float(masses[1].max()) > 0
+    assert float((masses[0] - masses[1]).abs().max()) <= 1e-4 * float(
+        masses[1].max())
+
+
+def test_motion_file_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A scene file with an animatedinstance under an open shutter through
+    the CLI on the card: render_motion's 4 bins, one #1 launch a bounce
+    each; the EXR the library's image bit for bit, its mean within 2% of
+    the CPU's."""
+    import torch_sss_cases as sc
+
+    from mitsuba_tpu_torch.cli import main
+    from mitsuba_tpu_torch.core import track
+    from mitsuba_tpu_torch.integrators import PathConfig
+    from mitsuba_tpu_torch.integrators.path import render_motion
+    from mitsuba_tpu_torch.io import bitmap
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    xml = sc.write_motion_xml(str(tmp_path), track)
+    params = dict(depth=2, spp=2, width=24, height=24)
+    out = str(tmp_path / "m.exr")
+    before = ip.LAUNCHES
+    assert main(["-q", xml, *[a for k, v in params.items()
+                              for a in ("-D", f"{k}={v}")], "-o", out]) == 0
+    assert ip.LAUNCHES - before == 4 * 2
+    pc = PathConfig(max_depth=2, spp=2, remat=False)
+    img, _ = render_motion(load_scene(xml, params=params,
+                                      device=cuda)[1]["time_scenes"], pc)
+    assert np.array_equal(bitmap.read_exr(out), img.cpu().numpy())
+    ref, _ = render_motion(load_scene(xml, params=params,
+                                      device="cpu")[1]["time_scenes"], pc)
+    assert float(ref.mean()) > 0
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+        ref.mean())
+
+
+@pytest.mark.parametrize("backend", ["brute", "cluster"])
+def test_path_options_on_the_card(cuda, backend):
+    """hit_prediction renders the image without it bit for bit on the card
+    (the bound is exact); sort_mode="octant" within 1e-6 of "full";
+    strict_normals and skip_direct_emission within 2% of the CPU's mean."""
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+    from mitsuba_tpu_torch.render.scene import cornell_box_specular
+
+    def scene(dev):
+        return cornell_box_specular(24, 24, backend=backend, device=dev)
+
+    cfg = PathConfig(max_depth=3, spp=2)
+    a, _ = render(scene(cuda), cfg)
+    b, aux = render(scene(cuda), PathConfig(max_depth=3, spp=2,
+                                            hit_prediction=True))
+    assert torch.equal(a, b)
+    assert 0.0 <= float(aux["pred_hit_frac"]) <= 1.0
+    c, _ = render(scene(cuda), PathConfig(max_depth=3, spp=2,
+                                          sort_rays=True, sort_mode="octant"))
+    d, _ = render(scene(cuda), PathConfig(max_depth=3, spp=2,
+                                          sort_rays=True))
+    assert float((c - d).abs().max()) <= 1e-6
+    for opt in ("strict_normals", "skip_direct_emission"):
+        pc = PathConfig(max_depth=3, spp=2, **{opt: True})
+        img, _ = render(scene(cuda), pc)
+        ref, _ = render(scene("cpu"), pc)
+        assert float(ref.mean()) > 0
+        assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
+            ref.mean())

@@ -200,10 +200,10 @@ def test_unported_features_raise():
     jb.add_shape(mesh_mod.make_quad([0, 0, 0], [1, 0, 0], [1, 1, 0],
                                     [0, 1, 0]), jb.materials.lambertian())
     jb.add_cylinder([0, 0, 1], [0, 0, 2], 0.5, 0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A.11"):
         from_jax_scene(jb.build(backend="brute"), device="cpu")  # cylinder
-    # an open shutter (motion blur, ROADMAP A.12); sphere emitters, which
-    # this case held until they were ported, convert (below)
+    # hair (ROADMAP A.12); an open shutter, which this case held until
+    # motion blur was ported, converts (tests/test_torch_motion.py)
     from mitsuba_tpu.core import transform as jtf
     from mitsuba_tpu.render.camera import make_perspective as j_persp
     jb = JaxSceneBuilder()
@@ -211,23 +211,38 @@ def test_unported_features_raise():
                           (1.0, 1.0, 1.0))
     jb.set_camera(j_persp(jtf.identity(), 45.0, 1.0, shutter_time=0.5),
                   4, 4)
+    assert from_jax_scene(jb.build(backend="brute"),
+                          device="cpu").camera.shutter_time == 0.5
+    jb.add_hair(dict(a=np.zeros((1, 3), np.float32),
+                     b=np.ones((1, 3), np.float32),
+                     r=np.full(1, 0.05, np.float32),
+                     u0=np.zeros(1, np.float32), u1=np.ones(1, np.float32)),
+                0)
     with pytest.raises(NotImplementedError, match="A.12"):
         from_jax_scene(jb.build(backend="brute"), device="cpu")
     scene = cornell_box(4, 4, device="cpu")
-    # mip_filter and aniso_filter are ported; the particle tracer's
-    # gradient is not (ROADMAP A.14)
-    for opt in ("hit_prediction", "strict_normals", "skip_direct_emission"):
-        with pytest.raises(NotImplementedError):
-            render(scene, PathConfig(max_depth=1, spp=1, **{opt: True}))
+    # every PathConfig option is ported (tests/test_torch_path_options.py
+    # holds them against the reference); the gradients of the particle
+    # tracer and of a subsurface scene are not (ROADMAP A.14)
     from mitsuba_tpu_torch.integrators.ptracer import ptracer_render
     refl = scene.materials.reflectance.clone().requires_grad_(True)
     grad_scene = dataclasses.replace(scene, materials=dataclasses.replace(
         scene.materials, reflectance=refl))
     with pytest.raises(NotImplementedError, match="A.14"):
         ptracer_render(grad_scene, PathConfig(max_depth=1), 16)
-    with pytest.raises(NotImplementedError):
-        render(scene, PathConfig(max_depth=1, spp=1, sort_rays=True,
-                                 sort_mode="octant"))
+    tb = TorchSceneBuilder()
+    lam = tb.materials.lambertian((0.5, 0.5, 0.5))
+    tb.add_shape(mesh_mod.make_box([0, 0, 0], [1, 1, 1]), lam)
+    tb.add_subsurface(lam, (1.0, 1.0, 1.0), (0.1, 0.1, 0.1), n_points=8)
+    tb.add_area_emitter_shape(mesh_mod.make_quad(
+        [0, 3, 0], [1, 3, 0], [1, 3, 1], [0, 3, 1]), lam, (1.0,) * 3)
+    ss_scene = tb.build(backend="brute", device="cpu")
+    ss_scene = dataclasses.replace(ss_scene, materials=dataclasses.replace(
+        ss_scene.materials,
+        reflectance=ss_scene.materials.reflectance.clone()
+        .requires_grad_(True)))
+    with pytest.raises(NotImplementedError, match="A.14"):
+        render(ss_scene, PathConfig(max_depth=1, spp=1))
 
 
 def test_ported_features_convert():
