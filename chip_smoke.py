@@ -75,7 +75,11 @@ as an animatedinstance under shutterClose 1 (render_motion over 4
 bins), each 512x512 px, 16 spp, depth 5; through render config 1 with
 hit_prediction and strict_normals ("config1_options") and config 3 with
 sort_mode="octant" ("config3_octant") and hit_prediction
-("config3_pred").
+("config3_pred"); and the reverse-mode gradients off the brute backend
+(phase 5f): config 3's scene on bvh (#11) and on cluster (#5, #6, #9,
+#10), the instanced scene (#12, #11), sss_xml's slab with its
+irradiance cache inside the step (#1, #3) and the particle tracer's
+box (#2, #3), each at the size of its forward render.
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -192,15 +196,16 @@ Phases, each printing one JSON line:
      segments (its unused-slot tail apart from its walk), and each
      launch's rows or lanes, live lanes and dead-warp share. Config 2
      renders as config 1 does, its lanes in pixel-Morton order. Config 4
-     (bench.py bench_backward): the forward and the value-and-gradient
-     step, best of 3 each with the card synchronised before each clock
-     read, their ratio, spp/s, the step's peak memory, #1's launches
-     in the forward and in the backward (the recompute) apart, and a
-     profile of each (device busy time, kernels); then at
-     32x32 px the gradient against central differences, its linearity
-     in emitter radiance, the step with a checkpoint a bounce against
-     the one without, the card's gradient against the CPU's, and the
-     brute wrappers' refusal of a ray that requires grad;
+     (bench.py bench_backward) as the gradient phases of 5f run
+     (`grad_phase`: a profiled counting step, then the forward and the
+     value-and-gradient step best of 3 each with the card synchronised
+     before each clock read, their ratio, spp/s, the step's peak memory,
+     #1's launches in the forward and in the backward (the recompute)
+     apart); then its checks at 32x32 px as 5f's (`grad_checks_phase`:
+     the gradient against central differences, its linearity in emitter
+     radiance, the step with a checkpoint a bounce against the one
+     without, the card's gradient against the CPU's) and the brute
+     wrappers' refusal of a ray that requires grad;
   5b. the front end: after config 1, the README's command through
      cli.main (launch counts set to 0 just before and read just after),
      then the same file through io.xml.load_scene (timed) and render,
@@ -262,6 +267,26 @@ Phases, each printing one JSON line:
      config 1's band); config3_octant and config3_pred after config 3 as
      render phases (#5, #6, #9 and #10 as config 3), each image within
      1e-6 of config 3's;
+  5f. the gradients off brute, after config 4's checks (bench.py
+     bench_backward's recipe, remat on: a counting step, then the
+     forward and the value-and-gradient step best of 3 each (the
+     step best of 2 where the counting step took over 10 s), their
+     ratio, the peak memory of each, the kernels' launches in the
+     forward and in the backward's recompute apart, a profile of the
+     step with its top kernels and the index gathers' backward share,
+     grad_abs_max; each fails on a gradient that is not finite or all
+     zero, or a kernel that did not launch in both passes): grad_bvh and
+     grad_cluster (config 3's scene on bvh, #11, and on cluster, #5, #6,
+     #9, #10; with respect to the reflectance and the sky's image),
+     grad_instanced (#12, #11; the reflectance and the radiance),
+     grad_sss (sss_xml's slab file, the irradiance cache inside the
+     step: #3 and #1; the reflectance, the radiance and sigma_tr; its
+     peak under 40 GiB) and grad_ptracer (the ptracer phase's box and
+     particles: #2 and #3; the radiance and the reflectance); after
+     each, its checks at 32x32 px, 4 spp (tests/torch_grad_cases.py
+     grad_checks: central differences within 2e-2, linearity in
+     radiance 1e-4, remat on against off 1e-5, the card against the CPU
+     1e-3 of the largest entry);
   5c. the media: gates at 64x64, 1,024 spp, depth 5 against
      tests/torch_goldens/volpath_fog.npz with fog's 0.10 block gate and
      band: a heterogeneous medium of constant density 1 over a grid
@@ -393,6 +418,22 @@ MIP_RES, MIP_SPP = 512, 16
 MIP_ENERGY, MIP_FAR_STD, MIP_CONTRAST = 0.12, 0.5, 1.3
 PT_RES, PT_PARTICLES, PT_MEAN_REL, PT_CORR = 256, 1 << 24, 0.06, 0.9
 TEX_GRAD_RES, TEX_GRAD_REL = 32, 1e-3
+# config 4 and the gradients off brute (ROADMAP A.14), bench.py
+# bench_backward's recipe (the mean of L, remat on, best of GRAD_ROUNDS
+# steps, the profiled counting step the first of them, or of two where
+# it took over GRAD_LONG_S s): config 1's box (config 4), config 3's
+# scene on bvh and cluster (with respect to the reflectance and the
+# sky's image), the instanced scene
+# (reflectance, radiance), sss_xml's slab file at SSS_W x SSS_H x SSS_SPP,
+# depth SSS_DEPTH, SSS_IRR points, its cache inside the step (reflectance,
+# radiance, sigma_tr), and the particle tracer's box (PT_RES, depth 5,
+# PT_PARTICLES; radiance, reflectance); each path's checks at
+# GRAD_CHECK_RES^2 (tests/torch_grad_cases.py grad_checks: central
+# differences 2e-2, linearity in radiance 1e-4, remat on against off
+# 1e-5, the card against the CPU 1e-3 of the largest entry), the slab
+# with GRAD_CHECK_POINTS points, the particle tracer GRAD_CHECK_PARTICLES
+GRAD_ROUNDS, GRAD_LONG_S, GRAD_CHECK_RES = 3, 10.0, 32
+GRAD_CHECK_POINTS, GRAD_CHECK_PARTICLES = 64, 1 << 16
 # the subsurface, guiding and motion slice: the dipole slab of
 # tests/golden_scenes.py:144 as a scene file (tests/torch_sss_cases.py,
 # irrSamples SSS_IRR) through the CLI at SSS_W x SSS_H x SSS_SPP, depth
@@ -2103,15 +2144,19 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+    # each kernel's device time and launches, summed by name over the
+    # trace's device events (what key_averages gives for them, without
+    # the event object it builds a record, which takes longer than the
+    # profiled call itself on the paths of 10^5 launches)
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
             continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.key, e.count))
-    rows.sort(reverse=True)
+        a = acc.setdefault(e.name(), [0, 0])
+        a[0] += e.duration_ns()
+        a[1] += 1
+    rows = sorted(((ns / 1e6, k, c) for k, (ns, c) in acc.items() if ns > 0),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
     # the port's own kernels (csrc/*.cu, in no namespace), by function
     # name: their device ms and launches in this call, and a templated
@@ -2129,8 +2174,12 @@ def device_profile(fn):
                     name[len(base):], dict(ms=0.0, calls=0))
                 inst["ms"] += ms
                 inst["calls"] += c
+    # the backward of index gathers (the albedo gather's, reflectance
+    # [mclip], and the other tables' whose fields require grad)
+    gather_bwd = sum(ms for ms, k, _ in rows if "indexing_backward" in k)
     return dict(wall_ms=wall, device_busy_ms=busy,
                 busy_share=busy / wall if wall else 0.0,
+                gather_backward_ms=gather_bwd,
                 kernels=sum(r[2] for r in rows), own=own,
                 top=[dict(name=k[:80], ms=ms, calls=c)
                      for ms, k, c in rows[:12]])
@@ -2390,153 +2439,15 @@ def morton_render(scene, cfg, seed=0):
                    scene.width, make_rfilter(cfg.rfilter)), aux
 
 
-def _with(scene, table, **fields):
-    return dataclasses.replace(scene, **{table: dataclasses.replace(
-        getattr(scene, table), **fields)})
-
-
-def _mean_L(scene, cfg, seed=0):
-    """bench.py bench_backward's loss: the mean of the path tracer's L over
-    the render's lanes."""
-    from mitsuba_tpu_torch.integrators.path import (
-        camera_wavefront, path_trace,
-    )
-
-    ray, sampler, _ = camera_wavefront(scene, cfg, seed)
-    return path_trace(scene, ray, sampler, cfg)[0].mean()
-
-
-def _value_and_grad(scene, cfg, field="reflectance", table="materials",
-                    seed=0):
-    x = getattr(getattr(scene, table), field).detach().clone() \
-        .requires_grad_(True)
-    loss = _mean_L(_with(scene, table, **{field: x}), cfg, seed)
-    loss.backward()
-    return float(loss), x.grad
-
-
-def config4_phase(scene, cfg, rounds=3):
-    """Bench config 4 (bench.py bench_backward): the forward render's
-    loss against its value and gradient with respect to the material
-    reflectance, one checkpoint a bounce; best of `rounds` each, the card
-    synchronised before each clock read. Counts #1's launches in the
-    forward and in the backward (the bounces' recompute) apart, and the
-    peak memory of the gradient step."""
-    from mitsuba_tpu_torch.ops import intersect as ip
-
-    refl = scene.materials.reflectance
-
-    def fwd():
-        return float(_mean_L(scene, cfg))
-
-    def vgrad():
-        return _value_and_grad(scene, cfg)
-
-    def best(fn):
-        fn()                                    # warm-up
-        secs = []
-        for _ in range(rounds):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        return min(secs), secs
-
-    t_fwd, fwd_secs = best(fwd)
-    t_grad, grad_secs = best(vgrad)
-    # one more gradient step: launches of #1 in the forward and in the
-    # backward apart, and the step's peak memory
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    x = refl.detach().clone().requires_grad_(True)
-    loss = _mean_L(_with(scene, "materials", reflectance=x), cfg)
-    torch.cuda.synchronize()
-    fwd_launches = launch_counts()
-    loss.backward()
-    torch.cuda.synchronize()
-    all_launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    torch.cuda.reset_peak_memory_stats()
-    fwd()
-    peak_fwd = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = dict(forward=fwd_launches["shaded_any"],
-                    backward=all_launches["shaded_any"]
-                    - fwd_launches["shaded_any"])
-    g = x.grad
-    # where the step's time goes: device busy time and kernel counts of
-    # the forward and of the step
-    PROFILES["config4_forward"] = device_profile(fwd)
-    PROFILES["config4"] = device_profile(vgrad)
-    res = dict(width=scene.width, height=scene.height, spp=cfg.spp,
-               depth=cfg.max_depth, remat=cfg.remat, forward_s=t_fwd,
-               value_and_grad_s=t_grad, forward_seconds=fwd_secs,
-               value_and_grad_seconds=grad_secs,
-               bwd_fwd_ratio=t_grad / t_fwd, spp_per_s=cfg.spp / t_grad,
-               loss=float(loss), grad_abs_max=float(g.abs().max()),
-               peak_mem_gib=peak, peak_mem_forward_gib=peak_fwd,
-               launches_shaded_any=launches,
-               other_launches={k: v for k, v in all_launches.items()
-                               if v and k != "shaded_any"},
-               profile_forward=PROFILES["config4_forward"],
-               profile=PROFILES["config4"])
-    phase("config4", **res)
-    if not bool(torch.isfinite(g).all()) or not g.abs().max() > 0:
-        raise AssertionError("config4: the gradient is not finite or zero")
-    if launches["forward"] < 1 or launches["backward"] < 1:
-        raise AssertionError(f"config4: #1 launched {launches}")
-    return res
-
-
-def grad_checks(device, res=32):
-    """The gradient on the card at res x res: central differences on
-    three reflectance entries (tests/test_grad.py:38-45, 2e-2 relative),
-    linearity in emitter radiance (rtol 1e-4), a checkpoint a bounce
-    against none (1e-5 relative of each entry: not bit for bit, the
-    backward of an index gather accumulates with atomics), and the card's
-    gradient against the CPU's (the plain versions); and every kernel
-    wrapper's refusal of a ray that requires grad."""
-    from mitsuba_tpu_torch.integrators.path import PathConfig
+def config4_checks(device, res=GRAD_CHECK_RES):
+    """Config 4's checks on the card at res x res (`grad_checks_phase` on
+    config 1's box), and every kernel wrapper's refusal of a ray that
+    requires grad, on the card as on the CPU."""
     from mitsuba_tpu_torch.ops import intersect as ip
     from mitsuba_tpu_torch.render.scene import cornell_box
 
+    gc, _ = _grad_cases()
     scene = cornell_box(res, res, device=device)
-    cfg = PathConfig(max_depth=5, spp=4, remat=True)
-    out = {}
-    _, g = _value_and_grad(scene, cfg)
-    refl = scene.materials.reflectance
-    eps = 2e-3
-    fd = []
-    with torch.no_grad():
-        for idx in ((0, 0), (1, 1), (2, 2)):
-            e = torch.zeros_like(refl)
-            e[idx] = 1.0
-            lp = float(_mean_L(_with(scene, "materials",
-                                     reflectance=refl + eps * e), cfg))
-            lm = float(_mean_L(_with(scene, "materials",
-                                     reflectance=refl - eps * e), cfg))
-            f, a = (lp - lm) / (2 * eps), float(g[idx])
-            fd.append(dict(entry=idx, fd=f, grad=a,
-                           rel=abs(f - a) / max(abs(f), abs(a), 1e-6)))
-    out["fd"] = fd
-    lin_cfg = PathConfig(max_depth=5, spp=2, remat=True)
-    l0, g_rad = _value_and_grad(scene, lin_cfg, "radiance", "emitters",
-                                seed=1)
-    pred = float((g_rad * scene.emitters.radiance).sum())
-    out["linearity"] = dict(loss=l0, predicted=pred,
-                            rel=abs(pred - l0) / abs(l0))
-    _, g_plain = _value_and_grad(scene, dataclasses.replace(cfg,
-                                                            remat=False))
-    diff = (g - g_plain).abs()
-    out["remat"] = dict(max_abs=float(diff.max()), max_rel=float(
-        (diff / g_plain.abs().clamp(min=1e-30)).max()))
-    _, g_cpu = _value_and_grad(scene.to("cpu"), cfg)
-    out["cpu"] = dict(max_abs=float((g.cpu() - g_cpu).abs().max()),
-                      rel_to_max=float((g.cpu() - g_cpu).abs().max()
-                                       / g_cpu.abs().max()))
-    # a ray that requires grad: the kernel's wrapper refuses it on the
-    # card as on the CPU
     o = torch.zeros((64, 3), device=device, requires_grad=True)
     d = torch.ones((64, 3), device=device)
     t = torch.ones(64, device=device)
@@ -2550,20 +2461,214 @@ def grad_checks(device, res=32):
             call()
         except NotImplementedError:
             refused.append(name)
-    out["refused"] = refused
-    phase("config4_checks", width=res, height=res, spp=cfg.spp,
-          depth=cfg.max_depth, **out)
-    bad = [r for r in fd if not r["rel"] < 2e-2]
-    if bad:
-        raise AssertionError(f"config4_checks: central differences {bad}")
-    if not out["linearity"]["rel"] <= 1e-4:
-        raise AssertionError(f"config4_checks: linearity {out['linearity']}")
-    if not bool(torch.allclose(g, g_plain, rtol=1e-5, atol=0)):
-        raise AssertionError(f"config4_checks: remat {out['remat']}")
-    if not out["cpu"]["rel_to_max"] <= 1e-3:
-        raise AssertionError(f"config4_checks: card vs CPU {out['cpu']}")
+    out = grad_checks_phase("config4_checks", scene, gc.mean_l, res,
+                            refused=refused)
     if len(refused) != 2:
         raise AssertionError(f"config4_checks: refused only {refused}")
+    return out
+
+
+def _grad_cases():
+    """tests/torch_grad_cases.py (no JAX) and tests/torch_sss_cases.py."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_grad_cases as gc
+    import torch_sss_cases as sc
+
+    return gc, sc
+
+
+def grad_phase(tag, scene, cfg, loss_fn, fields, kernels, recompute=None,
+               **extra):
+    """The gradient of loss_fn(scene, cfg, seed 0) with respect to each
+    (table, field) of `fields`, one checkpoint a bounce: a first step
+    under the profiler (its top kernels and the index gathers' backward
+    share), every launch count set to 0 just before it and read after
+    its forward and after its backward (the kernels' launches in the
+    forward and in the backward's recompute apart), with the step's peak
+    memory; then the forward alone (its peak), best of GRAD_ROUNDS, and
+    the value-and-gradient step GRAD_ROUNDS - 1 times more (once more
+    where the profiled step took over GRAD_LONG_S), best of those and
+    the profiled step's wall time, the card synchronised before each
+    clock read. Fails on a gradient that is not finite or is all zero, on a
+    kernel of `kernels` that did not launch in the forward, and on one of
+    `recompute` (by default `kernels`: those the checkpointed bounces
+    run) that did not launch again in the backward."""
+    gc, _ = _grad_cases()
+    recompute = kernels if recompute is None else recompute
+
+    def with_grad():
+        xs, sc = {}, scene
+        for table, field in fields:
+            x = getattr(getattr(scene, table), field).detach().clone() \
+                .requires_grad_(True)
+            xs[f"{table}.{field}"] = x
+            sc = gc.with_field(sc, table, **{field: x})
+        return sc, xs
+
+    def fwd():
+        return float(loss_fn(scene, cfg, 0))
+
+    def step():
+        sc, xs = with_grad()
+        loss = loss_fn(sc, cfg, 0)
+        loss.backward()
+        return float(loss.detach()), xs
+
+    def best(fn, n=GRAD_ROUNDS):
+        secs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return min(secs), secs
+
+    first = {}
+
+    def counted_step():
+        reset_launch_counts()
+        sc, xs = with_grad()
+        loss = loss_fn(sc, cfg, 0)
+        torch.cuda.synchronize()
+        first["forward"] = launch_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        first["all"] = launch_counts()
+        first["grads"] = {k: x.grad for k, x in xs.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prof = device_profile(counted_step)
+    prof_s = time.perf_counter() - t0
+    PROFILES[tag] = prof
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd_l, all_l, grads = first["forward"], first["all"], first["grads"]
+    bwd_l = {k: all_l[k] - fwd_l[k] for k in all_l}
+    torch.cuda.reset_peak_memory_stats()
+    t_fwd, fwd_secs = best(fwd)
+    peak_fwd = torch.cuda.max_memory_allocated() / 2 ** 30
+    grad_secs = [prof["wall_ms"] / 1e3]
+    grad_secs += best(step, GRAD_ROUNDS - 1 if grad_secs[0] < GRAD_LONG_S
+                      else 1)[1]
+    t_grad = min(grad_secs)
+    finite = {k: bool(torch.isfinite(g).all()) for k, g in grads.items()}
+    gmax = {k: float(g.abs().max()) for k, g in grads.items()}
+    res = dict(width=scene.width, height=scene.height, depth=cfg.max_depth,
+               remat=cfg.remat, **extra, forward_s=t_fwd,
+               value_and_grad_s=t_grad, forward_seconds=fwd_secs,
+               value_and_grad_seconds=grad_secs,
+               profiled_step_seconds=prof_s,
+               bwd_fwd_ratio=t_grad / t_fwd,
+               **({"spp_per_s": extra["spp"] / t_grad} if "spp" in extra
+                  else {}),
+               peak_mem_gib=peak,
+               peak_mem_forward_gib=peak_fwd,
+               launches=dict(forward={k: v for k, v in fwd_l.items() if v},
+                             backward={k: v for k, v in bwd_l.items() if v}),
+               kernels=list(kernels), recompute=list(recompute),
+               finite=finite, grad_abs_max=gmax,
+               gather_backward_ms=prof["gather_backward_ms"],
+               gather_backward_share=prof["gather_backward_ms"]
+               / prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+               busy_share=prof["busy_share"], profile_wall_ms=prof["wall_ms"],
+               profile_kernels=prof["kernels"], top=prof["top"])
+    phase(tag, **res)
+    bad = [k for k in grads if not finite[k] or not gmax[k] > 0]
+    if bad:
+        raise AssertionError(f"{tag}: gradient of {bad} not finite or zero")
+    missing = [k for k in kernels if fwd_l[k] < 1] \
+        + [f"{k} (recompute)" for k in recompute if bwd_l[k] < 1]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} not launched: "
+                             f"{res['launches']}")
+    return res
+
+
+def grad_phases(device, scene_bvh, scene3, scene_inst):
+    """The gradients off brute at full size (grad_phase), each path's
+    checks at GRAD_CHECK_RES^2 after it (`grad_checks_phase`)."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.io.xml import load_scene
+    from mitsuba_tpu_torch.render.scene import cornell_box, instanced_scene
+
+    gc, sc = _grad_cases()
+    cfg = PathConfig(max_depth=DEPTH3, spp=SPP3, remat=True)
+    sky = (("materials", "reflectance"), ("emitters", "env_image"))
+    area = (("materials", "reflectance"), ("emitters", "radiance"))
+    check = dict(res=GRAD_CHECK_RES)
+    out = {"grad_bvh": grad_phase(
+        "grad_bvh", scene_bvh, cfg, gc.mean_l, sky,
+        ["bvh_closest", "bvh_any"], spp=cfg.spp)}
+    grad_checks_phase("grad_bvh_checks", gc.mesh_scene(
+        gc.port_modules(), GRAD_CHECK_RES, "bvh", device=device),
+        gc.mean_l, **check)
+    out["grad_cluster"] = grad_phase(
+        "grad_cluster", scene3, cfg, gc.mean_l, sky,
+        ["refine", "child_refine", "l1_masked", "stream"], spp=cfg.spp)
+    grad_checks_phase("grad_cluster_checks", gc.mesh_scene(
+        gc.port_modules(), GRAD_CHECK_RES, "cluster", device=device),
+        gc.mean_l, **check)
+    out["grad_instanced"] = grad_phase(
+        "grad_instanced", scene_inst, cfg, gc.mean_l, area,
+        ["wl_closest", "wl_any", "bvh_closest", "bvh_any"], spp=cfg.spp)
+    grad_checks_phase("grad_instanced_checks", instanced_scene(
+        GRAD_CHECK_RES, GRAD_CHECK_RES, 16, 32, device=device), gc.mean_l,
+        **check)
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = sc.write_slab_xml(tmp, "dipole")
+        slab, _ = load_scene(xml, params=dict(
+            depth=SSS_DEPTH, spp=SSS_SPP, width=SSS_W, height=SSS_H,
+            irr=SSS_IRR), device=device)
+    out["grad_sss"] = grad_phase(
+        "grad_sss", slab, PathConfig(max_depth=SSS_DEPTH, spp=SSS_SPP),
+        gc.cached_mean_l, area + (("subsurface", "sigma_tr"),),
+        # #3 runs in the cache's direct samples only, which no bounce's
+        # checkpoint holds (512 lanes keep their activations)
+        ["shaded_any", "any"], recompute=["shaded_any"], spp=SSS_SPP,
+        points=SSS_IRR,
+        lanes=SSS_W * SSS_H * SSS_SPP)
+    if not out["grad_sss"]["peak_mem_gib"] < 40:
+        raise AssertionError(f"grad_sss: peak {out['grad_sss']}")
+    del slab
+    grad_checks_phase("grad_sss_checks", sc.slab_scene(
+        sc.port_modules(), GRAD_CHECK_RES, n_points=GRAD_CHECK_POINTS,
+        device=device), gc.cached_mean_l, fd_table="subsurface",
+        fd_field="sigma_tr", fd_eps=1e-3, depth=SSS_DEPTH, **check)
+    out["grad_ptracer"] = grad_phase(
+        "grad_ptracer", cornell_box(PT_RES, PT_RES, device=device),
+        PathConfig(max_depth=5, remat=True), gc.ptracer_mean(PT_PARTICLES),
+        (("emitters", "radiance"), ("materials", "reflectance")),
+        ["shaded", "any"], particles=PT_PARTICLES)
+    grad_checks_phase("grad_ptracer_checks", cornell_box(
+        GRAD_CHECK_RES, GRAD_CHECK_RES, device=device),
+        gc.ptracer_mean(GRAD_CHECK_PARTICLES), **check)
+    return out
+
+
+def grad_checks_phase(tag, scene, loss_fn, res, fd_table="materials",
+                      fd_field="reflectance", fd_eps=None, depth=5, **extra):
+    """tests/torch_grad_cases.py grad_checks on the card at res x res, 4
+    spp (remat on; central differences on three entries of fd_field);
+    `extra` joins the phase's line."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+
+    gc, _ = _grad_cases()
+    cfg = PathConfig(max_depth=depth, spp=4, remat=True)
+    x = getattr(getattr(scene, fd_table), fd_field)
+    entries = ([(0, c) for c in range(3)] if fd_table == "subsurface"
+               else [(i, c) for i, c in ((0, 0), (1, 1), (1, 2))
+                     if i < x.shape[0]])
+    kw = {} if fd_eps is None else dict(fd_eps=fd_eps)
+    out, bad = gc.grad_checks(loss_fn, scene, cfg, entries,
+                              fd_table=fd_table, fd_field=fd_field, **kw)
+    phase(tag, width=res, height=res, spp=cfg.spp, depth=cfg.max_depth,
+          fd_field=f"{fd_table}.{fd_field}", **out, **extra,
+          limits=dict(fd=gc.FD_RTOL, linearity=gc.LIN_RTOL,
+                      remat=gc.REMAT_RTOL, cpu=gc.CPU_RTOL))
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
     return out
 
 
@@ -3912,16 +4017,23 @@ def main(argv=None):
         W2, H2, backend="auto", device=device),
         PathConfig(max_depth=DEPTH2, spp=SPP2), ["shaded_any"],
         render_fn=morton_render, forbid=["shaded", "any"])
-    # config 4: the gradient of config 1's loss, a checkpoint a bounce
-    l4 = config4_phase(cornell_box(W4, H4, device=device),
-                       PathConfig(max_depth=DEPTH4, spp=SPP4, remat=True))
-    if l4["launches_shaded_any"]["forward"] * TIMED["config1"] \
-            != l1["shaded_any"]:
+    # config 4: the gradient of config 1's loss with respect to the
+    # reflectance, a checkpoint a bounce
+    gc, _ = _grad_cases()
+    l4 = grad_phase("config4", cornell_box(W4, H4, device=device),
+                    PathConfig(max_depth=DEPTH4, spp=SPP4, remat=True),
+                    gc.mean_l, (("materials", "reflectance"),),
+                    ["shaded_any"], spp=SPP4)
+    l4 = {p: l4["launches"][p].get("shaded_any", 0)
+          for p in ("forward", "backward")}
+    if l4["forward"] * TIMED["config1"] != l1["shaded_any"]:
         raise AssertionError("config4: the forward launched #1 "
-                             f"{l4['launches_shaded_any']['forward']} "
-                             "times, a config-1 render "
+                             f"{l4['forward']} times, a config-1 render "
                              f"{l1['shaded_any'] / TIMED['config1']}")
-    grad_checks(device)
+    config4_checks(device)
+    # the gradients off brute: bvh, cluster, instanced, the subsurface
+    # slab with its cache inside the step, the particle tracer
+    lgrad = grad_phases(device, scene_bvh, scene3, scene_inst)
     l3 = render_phase("config3", scene3, cfg,
                       ["refine", "child_refine", "l1_masked"],
                       forbid=["items", "l1_items"])
@@ -4008,6 +4120,13 @@ def main(argv=None):
         return PROFILES[tag]["own"].get("brute_kernel", {}).get(
             "instances", {}).get(BRUTE_INSTANCE[kname], {}).get("ms")
 
+    def grad_launches(*tags, kname):
+        # a kernel's launches in the gradient phases' counting steps,
+        # the forward and the backward's recompute apart
+        return {f"launches_{t}": {p: lgrad[t]["launches"][p].get(kname, 0)
+                                  for p in ("forward", "backward")}
+                for t in tags}
+
     def media_entry(lmed, kname):
         return {f"{w}_{tag}": v for tag, counts in lmed.items()
                 for w, v in (("launches", counts[kname]),
@@ -4041,7 +4160,8 @@ def main(argv=None):
               .get("brute_kernel", {}).get("ms"),
               device_ms_per_render_bsdf_zoo=brute_ms("bsdf_zoo",
                                                      "shaded_any"),
-              launches_config4=l4["launches_shaded_any"],
+              launches_config4=l4,
+              **grad_launches("grad_sss", kname="shaded_any"),
               launches_config1_options=lopt1,
               launches_sss={t: v["shaded_any"] for t, v in lsss.items()},
               device_ms_per_render_sss={t: PROFILES[t]["own"].get(
@@ -4065,6 +4185,7 @@ def main(argv=None):
               **{f"launches_{t}": v["refine"] for t, v in lopt3.items()},
               device_ms_per_render=own_ms("config3", "refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5", "refine_kernel"),
+              **grad_launches("grad_cluster", kname="refine"),
               check_phase="kernel_vs_plain refine (bounce S1)"),
         entry("child_refine", "exact.cu",
               "mitsuba_tpu/ops/exact_pallas.py:209", l3["child_refine"],
@@ -4075,6 +4196,7 @@ def main(argv=None):
               device_ms_per_render=own_ms("config3", "child_refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5",
                                              "child_refine_kernel"),
+              **grad_launches("grad_cluster", kname="child_refine"),
               check_phase="kernel_vs_plain child_refine (bounce S2)"),
         # no default render path launches #7 (v5) or #8 (v6): their
         # launches and device ms a render are the config-3 render's with
@@ -4099,6 +4221,7 @@ def main(argv=None):
               **{f"device_ms_per_render_{t}": own_ms(t, "l1_masked_kernel")
                  for t in lopt3},
               launches_xml_config3=lxml["cluster"]["l1_masked"],
+              **grad_launches("grad_cluster", kname="l1_masked"),
               device_ms_per_render_xml_config3=own_ms("xml_config3",
                                                       "l1_masked_kernel")),
         entry("stream", "stream.cu",
@@ -4107,7 +4230,8 @@ def main(argv=None):
               cluster[("stream", "bounce", False)], path=stream_path,
               device_ms_per_render=own_ms(stream_path, "stream_kernel"),
               **{f"launches_{t}": v["stream"] for t, v in lopt3.items()},
-              launches_xml_config3=lxml["cluster"]["stream"]),
+              launches_xml_config3=lxml["cluster"]["stream"],
+              **grad_launches("grad_cluster", kname="stream")),
         # #11's device ms a render (both bodies), in the bvh render and
         # in the instanced one (its overflow fallback and instance walks)
         entry("bvh_closest", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:169",
@@ -4118,18 +4242,23 @@ def main(argv=None):
                                                        "bvh_kernel"),
               device_ms_per_render=own_ms("bvh", "bvh_kernel"),
               device_ms_per_render_instanced=own_ms("instanced",
-                                                    "bvh_kernel")),
+                                                    "bvh_kernel"),
+              **grad_launches("grad_bvh", "grad_instanced",
+                              kname="bvh_closest")),
         entry("bvh_any", "bvh.cu", "mitsuba_tpu/ops/bvh_pallas.py:196",
               lb["bvh_any"], bvh[("bvh_any", "shadow")],
               launches_xml_config3_bvh=lxml["bvh"]["bvh_any"],
-              launches_textured_bvh=ltex["textured_bvh"]["bvh_any"]),
+              launches_textured_bvh=ltex["textured_bvh"]["bvh_any"],
+              **grad_launches("grad_bvh", "grad_instanced", kname="bvh_any")),
         entry("wl_closest", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:364", li["wl_closest"],
               worklist[("wl_closest", "bounce", "instanced")],
-              device_ms_per_render=own_ms("instanced", "worklist_kernel")),
+              device_ms_per_render=own_ms("instanced", "worklist_kernel"),
+              **grad_launches("grad_instanced", kname="wl_closest")),
         entry("wl_any", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:458", li["wl_any"],
-              worklist[("wl_any", "shadow", "instanced")]),
+              worklist[("wl_any", "shadow", "instanced")],
+              **grad_launches("grad_instanced", kname="wl_any")),
         # #2 and #3 also on the media paths: launches (their timed
         # renders') and device ms of a render, by path
         brute("shaded", 202, lv["shaded"], split["shaded"], path="volpath",
@@ -4138,6 +4267,7 @@ def main(argv=None):
               replayed_event_ms_per_render=live_fog["ms"],
               launches_ptracer=lpt["shaded"],
               device_ms_per_render_ptracer=brute_ms("ptracer", "shaded"),
+              **grad_launches("grad_ptracer", kname="shaded"),
               **media_entry(lmed, "shaded")),
         brute("any", 97, lv["any"], split["any"], path="volpath",
               device_ms_per_render=brute_ms("volpath", "any"),
@@ -4145,6 +4275,7 @@ def main(argv=None):
               replayed_event_ms_per_render=live_fog_any["ms"],
               launches_ptracer=lpt["any"],
               device_ms_per_render_ptracer=brute_ms("ptracer", "any"),
+              **grad_launches("grad_ptracer", "grad_sss", kname="any"),
               launches_sss_cache={t: v["any"] for t, v in lsss.items()},
               device_ms_per_render_sss={t: brute_ms(t, "any")
                                         for t in lsss},

@@ -32,8 +32,11 @@ and pdf ratios are not, and the hit records are constants (no kernel has
 a backward; a wrapper given a float input that requires grad raises).
 With `remat` (the default) each bounce, the sorted path's first included,
 is a `torch.utils.checkpoint` where grad is enabled and a scene tensor
-requires grad: the backward recomputes it, launching its kernels again.
-A forward render takes the plain loop.
+requires grad: the backward recomputes it, launching its kernels again
+(the Morton sort, the exact cull's syncs and the instance walks give
+the same hits again). A forward render takes the plain loop. The
+gradient reaches every backend's renders and a subsurface scene's
+dipole gather and irradiance cache (subsurface/dipole.py).
 
 Every option of the reference's `PathConfig` is ported: `strict_normals`
 (a lane dies where the geometric and shading normals disagree about
@@ -350,10 +353,11 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
                guide_alpha: float = 0.5, guide_sampling: bool = None):
     """Trace radiance along the given camera rays. Returns (L, aux) with
     L (N, C) and aux = dict(avg_path_length, rays_traced, pred_hit_frac[,
-    guide]). Differentiable with respect to the scene's material, emitter
-    and texture tensors (not in a subsurface scene: ROADMAP A.14); with
-    `cfg.remat` each bounce is a checkpoint where grad is enabled and a
-    scene tensor requires grad, and otherwise the loop runs as is.
+    guide]). Differentiable with respect to the scene's material, emitter,
+    texture and subsurface tensors (the subsurface's irradiance cache
+    too, where `render` fills it under grad); with `cfg.remat` each
+    bounce is a checkpoint where grad is enabled and a scene tensor
+    requires grad, and otherwise the loop runs as is.
 
     guide (integrators/guiding.py GuideGrid): with learn_guide the
     bounces deposit the radiance arriving along each ray into it and
@@ -373,11 +377,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
     geom, mats, em = scene.geom, scene.materials, scene.emitters
     tex, ss = scene.textures, scene.subsurface
     if ss is not None:
-        from mitsuba_tpu_torch.subsurface.dipole import (
-            refuse_grad, scene_ss_lo,
-        )
-
-        refuse_grad(scene)
+        from mitsuba_tpu_torch.subsurface.dipole import scene_ss_lo
     if guide is not None:
         guide = guide.to(dev)
         from mitsuba_tpu_torch.integrators import guiding as gd
@@ -502,7 +502,8 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
 
         # subsurface scattering: each entry's dipole gather on the lanes
         # whose material carries it (reference Subsurface::Lo at every
-        # surface interaction)
+        # surface interaction); the scatter into `lo` carries the
+        # gradient back to those lanes
         if ss is not None:
             ssid = ss.mat_ss[torch.clamp(its.material_id, 0,
                                          ss.mat_ss.shape[0] - 1).long()]
@@ -611,8 +612,9 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
         torch.zeros((), dtype=torch.int64, device=dev),
         guide.mass if learn else torch.zeros((), device=dev))
     xs = (u_nee_sel, u_nee_pos, u_bsdf_2d, u_lobe, u_rr, u_gpick, u_gbin)
-    remat = cfg.remat and requires_grad(geom, mats, em, tex, scene.camera,
-                                        ray)
+    remat = cfg.remat and requires_grad(
+        geom, mats, em, tex, scene.camera, ray,
+        *(() if ss is None else (ss,)))
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(d_max):
         rays_traced = rays_traced + state.active.sum() + state.pend_ok.sum()
@@ -685,7 +687,8 @@ def render(scene, cfg: PathConfig, seed: int = 0, guide=None,
     developed with cfg.rfilter; on Morton lanes the radiance and the
     offsets return to scanline order together (path.py:1003-1007). A
     subsurface scene whose irradiance cache is empty gets it filled at
-    `seed` first (path.py:968-973). guide, learn_guide, guide_alpha,
+    `seed` first (path.py:968-973), inside the gradient where a scene
+    tensor requires grad. guide, learn_guide, guide_alpha,
     guide_sampling: path_trace's (render_guided)."""
     if scene.subsurface is not None and scene.subsurface.irradiance is None:
         from mitsuba_tpu_torch.subsurface.dipole import (

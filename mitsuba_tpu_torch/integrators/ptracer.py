@@ -18,8 +18,16 @@ two, so that the sum of all of them fits), added with an integer
 `index_add_`, whose sums are the same in any order, and converted back.
 Two runs give the same image, and the card the same bits as the CPU for
 the same contributions; the quantum is 2^-62 of the bounce's largest
-possible pixel sum. The render is forward only: with grad enabled, a
-scene tensor that requires grad raises NotImplementedError.
+possible pixel sum.
+
+Reverse-mode gradients flow to the emitter and material tensors, as
+`jax.grad` of the reference's float32 scatter-add does: the splat is a
+`torch.autograd.Function` whose forward is the exact add above, so the
+image with grad enabled has the same bits as without, and whose
+backward gathers each lane's pixel gradient (`grad_film[pix]` on the
+lanes it added). With `cfg.remat` each bounce is a checkpoint where a
+scene tensor requires grad, as in the path tracer: its activations are
+recomputed, its kernels launched again, by the backward.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ from mitsuba_tpu_torch.core import math as m
 from mitsuba_tpu_torch.core import transform as tf
 from mitsuba_tpu_torch.core import warp
 from mitsuba_tpu_torch.emitters.table import POINT, SPHERE, SPOT
-from mitsuba_tpu_torch.integrators.path import PathConfig, requires_grad
+from mitsuba_tpu_torch.integrators.path import (
+    PathConfig, requires_grad, run_bounce,
+)
 from mitsuba_tpu_torch.render.intersect import ray_intersect, ray_test
 from mitsuba_tpu_torch.render.records import Ray
 from mitsuba_tpu_torch.render.sampler import Sampler
@@ -147,10 +157,7 @@ def _connect_camera(scene, w2c, p):
     return pix, importance, d_cam, dist, on_film
 
 
-def splat(film, pix, contrib, ok):
-    """Add contrib (N, C) of the lanes `ok` to pixels pix of film
-    (H*W, C) float64, in 64-bit fixed point (see the module's note): the
-    result does not depend on the order of the adds."""
+def _splat_fixed(film, pix, contrib, ok):
     vals = torch.where(ok[:, None], contrib, 0.0).to(torch.float64)
     top = vals.abs().amax()
     # a power of two at or above the largest possible pixel sum
@@ -166,14 +173,40 @@ def splat(film, pix, contrib, ok):
     return film + (acc.to(torch.float64) / scale).reshape(film.shape)
 
 
+class _Splat(torch.autograd.Function):
+    """The exact splat forward; backward: the film's gradient passes on,
+    and each lane that added gets its pixel's (the reference's
+    `film.at[pix].add` transposed)."""
+
+    @staticmethod
+    def forward(ctx, film, pix, contrib, ok):
+        ctx.save_for_backward(pix, ok)
+        ctx.contrib_dtype = contrib.dtype
+        return _splat_fixed(film, pix, contrib, ok)
+
+    @staticmethod
+    def backward(ctx, g_film):
+        pix, ok = ctx.saved_tensors
+        g_contrib = None
+        if ctx.needs_input_grad[2]:
+            g_contrib = torch.where(ok[:, None], g_film[pix.long()],
+                                    0.0).to(ctx.contrib_dtype)
+        return g_film, None, g_contrib, None
+
+
+def splat(film, pix, contrib, ok):
+    """Add contrib (N, C) of the lanes `ok` to pixels pix of film
+    (H*W, C) float64, in 64-bit fixed point (see the module's note): the
+    result does not depend on the order of the adds. Differentiable in
+    film and contrib."""
+    return _Splat.apply(film, pix, contrib, ok)
+
+
 def ptracer_render(scene, cfg: PathConfig, n_particles: int, seed: int = 0):
     """Render by light tracing (ptracer.py:152): n_particles particles,
     cfg.max_depth bounces. Returns ((H, W, 3) image, aux) on the scene's
-    device."""
-    if requires_grad(scene.geom, scene.materials, scene.emitters,
-                     scene.textures, scene.camera):
-        raise NotImplementedError(
-            "gradients of the particle tracer are not ported (ROADMAP A.14)")
+    device. Differentiable with respect to the scene's emitter and
+    material tensors, each bounce a checkpoint under `cfg.remat`."""
     n = n_particles
     dev = scene.device
     d_max = cfg.max_depth
@@ -191,8 +224,10 @@ def ptracer_render(scene, cfg: PathConfig, n_particles: int, seed: int = 0):
                        device=dev)
     eps0 = m.EPSILON * torch.clamp(torch.abs(p0).amax(dim=-1), min=1.0)
     ray = Ray.make(p0, d0, mint=eps0)
-    active = valid
-    for depth in range(d_max):
+
+    def bounce(depth, xs, film, beta, o, d, mint, maxt, active):
+        u_scatter, u_lobe = xs
+        ray = Ray(o, d, mint, maxt)
         its = ray_intersect(scene.geom, ray)
         active = active & its.valid
         # connect the surface vertex to the camera
@@ -212,14 +247,22 @@ def ptracer_render(scene, cfg: PathConfig, n_particles: int, seed: int = 0):
         del contrib, fcos, shadow, occluded
         # continue the walk
         bs = bsdf_sample(scene.materials, its.material_id, its.wi,
-                         u_scatter[depth], u_lobe[depth])
+                         u_scatter, u_lobe)
         wo_world = its.to_world(bs["wo"])
         active = active & bs["valid"]
         beta = beta * torch.where(active[:, None], bs["weight"], 1.0)
         ray = Ray.make(torch.where(active[:, None], its.p, ray.o),
                        torch.where(active[:, None], wo_world, ray.d),
                        mint=eps)
-        del its, bs, wo_world
+        return film, beta, ray.o, ray.d, ray.mint, ray.maxt, active
+
+    remat = cfg.remat and requires_grad(scene.geom, scene.materials,
+                                        scene.emitters, scene.textures,
+                                        scene.camera)
+    state = (film, beta, ray.o, ray.d, ray.mint, ray.maxt, valid)
+    for depth in range(d_max):
+        state = run_bounce(bounce, depth, state, (u_scatter, u_lobe), remat)
+    film = state[0]
 
     # directly visible emitters: the camera connection of the particle
     # origins, weighted as the reference weights them (ptracer.py:213:

@@ -21,10 +21,22 @@ As in the JAX package:
     wavefront size; `path_trace` evaluates only the lanes whose hit
     carries an entry.
 
+Reverse-mode gradients reach the irradiance cache (a render: its NEE
+and its indirect `path_trace` passes), the profile's coefficients
+(`sigma_tr`, `alpha_p`, `zri`, `zvi`, `eta`, `fdt`, `area`,
+`ss_factor`) and the stretched metric, as `jax.grad` reaches them in the
+JAX package. The gather keeps none of its (lanes, chunk, 3) temporaries
+for the backward: under grad each lane block against each point chunk
+is a checkpoint (`_gather`), recomputed one at a time by the backward,
+its block cut by the number of pole pairs, so that the backward's peak
+stays near one forward block's at any wavefront size and any number of
+poles.
+
 Dipole, multipole (2·n_poles + 1 mirrored pole pairs) and adipole (a
 stretched distance metric) all evaluate through `scene_ss_lo`'s pole sum.
 `scene_ss_lo_hier` is the host-side hierarchical gather on the octree
-(core/octree.py), for isotropic profiles. Nothing here is a kernel of the
+(core/octree.py), for isotropic profiles; it has no gradient. Nothing
+here is a kernel of the
 JAX package (it computes all of it in XLA), so the port's is plain
 PyTorch; the renders' queries run the brute, bvh and cluster kernels.
 """
@@ -36,6 +48,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mitsuba_tpu_torch.core import math as m
 from mitsuba_tpu_torch.core.fresnel import fresnel
@@ -396,23 +409,10 @@ def build_scene_subsurface(entries, n_materials: int, geom,
         area=_f32(area_all), mat_ss=torch.as_tensor(mat_ss))
 
 
-def refuse_grad(scene):
-    """A subsurface scene whose tensors require grad: the gradient
-    through the cache and the gather is not ported (ROADMAP A.14)."""
-    from mitsuba_tpu_torch.integrators.path import requires_grad
-
-    if scene.subsurface is not None and requires_grad(
-            scene.geom, scene.materials, scene.emitters, scene.textures,
-            scene.camera, scene.subsurface):
-        raise NotImplementedError(
-            "gradients of a subsurface scene are not ported (ROADMAP A.14)")
-
-
 def prepare_scene_irradiance(scene, n_samples: int = 8,
                              seed: int = 7) -> SceneSubsurface:
     """The scene's SceneSubsurface with its irradiance filled by
     compute_irradiance (direct NEE and the indirect estimate)."""
-    refuse_grad(scene)
     ss = scene.subsurface
     S, K, _ = ss.points.shape
     irr = compute_irradiance(scene, ss.points.reshape(S * K, 3),
@@ -436,6 +436,41 @@ def _rd_poles(r, zri, zvi, sigma_tr, alpha_p):
     return torch.clamp(total, min=0.0)
 
 
+def _chunk_rd_sum(xb, cp, ce, adir, stretch, zri, zvi, sigma_tr, alpha_p):
+    """sum_i Rd(|xb - p_i|) E_i over one chunk of points cp (C, 3) with
+    irradiance ce (C, 3), in the stretched metric: (B, 3)."""
+    rv = xb[:, None, :] - cp[None]
+    along = torch.sum(rv * adir, dim=-1)
+    r_eff = torch.sqrt(torch.clamp(
+        torch.sum(rv * rv, dim=-1) + stretch * along * along, min=0.0))
+    rd = _rd_poles(r_eff, zri, zvi, sigma_tr, alpha_p)
+    return torch.sum(rd * ce[None], dim=1)
+
+
+def _gather(block, x, pts_c, irr_c, *prof):
+    """Mo / (A Fdt) of lanes x (N, 3): the chunks (n, C, 3) of points and
+    irradiance summed in order, the lanes in blocks of `block`. Under
+    grad each block of block // P lanes (P pole pairs) against one chunk
+    is a checkpoint: the forward keeps its inputs only, and the backward
+    recomputes one block and one chunk at a time (a lane's sum does not
+    depend on its block)."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, pts_c, irr_c, *prof))
+    if grad:
+        block = max(1, block // prof[2].shape[0])       # zri: (P, 3)
+    mo = torch.empty((x.shape[0], 3), device=x.device)
+    for b0 in range(0, x.shape[0], block):
+        xb = x[b0:b0 + block]
+        acc = torch.zeros((xb.shape[0], 3), device=x.device)
+        for cp, ce in zip(pts_c, irr_c):
+            acc = acc + (checkpoint(_chunk_rd_sum, xb, cp, ce, *prof,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+                         if grad else _chunk_rd_sum(xb, cp, ce, *prof))
+        mo[b0:b0 + block] = acc
+    return mo
+
+
 def scene_ss_lo(ss: SceneSubsurface, s: int, x, wo_cos,
                 chunk: int = GATHER_CHUNK, block: int = GATHER_BLOCK):
     """Outgoing subsurface radiance of entry `s` at points x (N, 3), wo_cos
@@ -444,7 +479,8 @@ def scene_ss_lo(ss: SceneSubsurface, s: int, x, wo_cos,
     Lo = Mo * ssFactor / pi * (eta == 1 ? 1 : Ft(cos_o) / Fdr),
     Rd the entry's pole sum in its stretched metric. Each lane sums the
     points chunk by chunk in order, as the JAX package's scan does; the
-    lanes run in blocks of `block`."""
+    lanes run in blocks of `block` (`_gather`, whose backward recomputes
+    them)."""
     sigma_tr, alpha_p = ss.sigma_tr[s], ss.alpha_p[s]
     zri, zvi = ss.zri[s], ss.zvi[s]
     eta, fdr = ss.eta[s], ss.fdr[s]
@@ -455,19 +491,8 @@ def scene_ss_lo(ss: SceneSubsurface, s: int, x, wo_cos,
         -1, chunk, 3)
     irr_c = torch.nn.functional.pad(ss.irradiance[s], (0, 0, 0, pad)) \
         .reshape(-1, chunk, 3)
-    mo = torch.empty((x.shape[0], 3), device=x.device)
-    for b0 in range(0, x.shape[0], block):
-        xb = x[b0:b0 + block]
-        acc = torch.zeros((xb.shape[0], 3), device=x.device)
-        for cp, ce in zip(pts_c, irr_c):
-            rv = xb[:, None, :] - cp[None]
-            along = torch.sum(rv * adir, dim=-1)
-            r_eff = torch.sqrt(torch.clamp(
-                torch.sum(rv * rv, dim=-1) + stretch * along * along,
-                min=0.0))
-            rd = _rd_poles(r_eff, zri, zvi, sigma_tr, alpha_p)
-            acc = acc + torch.sum(rd * ce[None], dim=1)
-        mo[b0:b0 + block] = acc
+    mo = _gather(block, x, pts_c, irr_c, adir, stretch, zri, zvi,
+                 sigma_tr, alpha_p)
     mo = mo * ss.area[s] * ss.fdt[s]
     ft = 1.0 - fresnel(wo_cos, torch.ones_like(eta), eta)
     bdy = torch.where(torch.abs(eta - 1.0) < 1e-4, 1.0,
@@ -481,9 +506,14 @@ def scene_ss_lo_hier(ss: SceneSubsurface, s: int, x, wo_cos,
     IrradianceOctree::execute): a far cluster adds Rd(|x - centroid|) times
     its summed irradiance instead of a term per point. Numpy float64, x
     (N, 3) -> (N, 3). Isotropic profiles only (the reference's irrtree
-    gathers an isotropic Rd too)."""
+    gathers an isotropic Rd too). Tensors that require grad raise
+    ValueError: nothing here is differentiable."""
     from mitsuba_tpu_torch.core.octree import Octree
 
+    if any(isinstance(t, torch.Tensor) and t.requires_grad
+           for t in (*vars(ss).values(), x, wo_cos)):
+        raise ValueError("the hierarchical gather runs in host numpy and "
+                         "has no gradient: use scene_ss_lo")
     if abs(float(ss.aniso_ratio[s]) - 1.0) > 1e-6:
         raise ValueError("hierarchical gather supports isotropic profiles"
                          " (aniso_ratio == 1)")

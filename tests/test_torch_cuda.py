@@ -1587,3 +1587,109 @@ def test_path_options_on_the_card(cuda, backend):
         assert float(ref.mean()) > 0
         assert abs(float(img.mean()) - float(ref.mean())) <= 0.02 * float(
             ref.mean())
+
+
+def _launches():
+    from mitsuba_tpu_torch.ops import bvh as bp
+    from mitsuba_tpu_torch.ops import exact as ep
+    from mitsuba_tpu_torch.ops import stream as stp
+    from mitsuba_tpu_torch.ops import worklist as wl
+
+    return dict(shaded_any=ip.LAUNCHES, **ip.SPLIT_LAUNCHES, **ep.LAUNCHES,
+                stream=stp.LAUNCHES, **bp.LAUNCHES, **wl.LAUNCHES)
+
+
+# each gradient path off brute: its 32 x 32 scene, and the kernels it
+# launches in the forward and again in the backward's recompute (the
+# slab's #3 runs in its irradiance cache's direct samples, which no
+# bounce's checkpoint holds: in the forward only)
+GRAD_PATHS = {
+    "bvh": ("mesh", "bvh_closest", "bvh_any"),
+    "cluster": ("mesh", "child_refine", "l1_masked"),
+    "instanced": ("instanced", "wl_closest", "wl_any"),
+    "dipole": ("slab", "shaded_any"),
+    "multipole": ("slab", "shaded_any"),
+    "adipole": ("slab", "shaded_any"),
+    "ptracer": ("ptracer", "shaded", "any"),
+}
+
+
+@pytest.mark.parametrize("path", sorted(GRAD_PATHS))
+def test_gradient_paths_on_the_card(cuda, path):
+    """tests/torch_grad_cases.py grad_checks on the card at 32 x 32 px, 4
+    spp, depth 4, remat on: central differences within 2e-2, linearity in
+    radiance within 1e-4, remat on against off within 1e-5 relative, the
+    card's gradient within 1e-3 of the CPU's largest entry; the path's
+    kernels launched in the forward and in the backward's recompute."""
+    import torch_grad_cases as gc
+    import torch_sss_cases as sc
+
+    from mitsuba_tpu_torch.integrators import PathConfig
+    from mitsuba_tpu_torch.render.scene import cornell_box, instanced_scene
+
+    kind, *kernels = GRAD_PATHS[path]
+    loss_fn, fd = gc.mean_l, {}
+    if kind == "mesh":
+        scene = gc.mesh_scene(gc.port_modules(), 32, path, device=cuda)
+    elif kind == "instanced":
+        scene = instanced_scene(32, 32, 16, 32, device=cuda)
+    elif kind == "slab":
+        scene = sc.slab_scene(sc.port_modules(), 32, path, n_points=64,
+                              device=cuda)
+        loss_fn = gc.cached_mean_l
+        fd = dict(fd_table="subsurface", fd_field="sigma_tr", fd_eps=1e-3)
+    else:
+        scene = cornell_box(32, 32, device=cuda)
+        loss_fn = gc.ptracer_mean(1 << 16)
+    cfg = PathConfig(max_depth=4, spp=4, remat=True)
+    entries = ([(0, c) for c in range(3)] if fd
+               else [(0, 0), (1, 1), (1, 2)])
+    out, bad = gc.grad_checks(loss_fn, scene, cfg, entries, **fd)
+    assert not bad, (bad, out)
+    before = _launches()
+    refl = scene.materials.reflectance.clone().requires_grad_(True)
+    loss = loss_fn(gc.with_field(scene, "materials", reflectance=refl), cfg)
+    torch.cuda.synchronize()
+    mid = _launches()
+    loss.backward()
+    torch.cuda.synchronize()
+    after = _launches()
+    for k in kernels:
+        assert mid[k] > before[k] and after[k] > mid[k], (k, before, mid,
+                                                           after)
+    if kind == "slab":
+        assert mid["any"] - before["any"] == 8 and after["any"] == mid["any"]
+
+
+@pytest.mark.parametrize("profile", ["dipole", "multipole"])
+def test_subsurface_gradient_peak_at_full_width(cuda, profile):
+    """chip_smoke.py's grad_sss step: the slab at 512 x 512 x 16, depth 4,
+    512 cache points, the cache inside the step; the gradient of the
+    reflectance, radiance and sigma_tr finite and not zero, the step's
+    peak under 40 GiB (the gather's backward recomputes a block of lanes,
+    cut by the number of pole pairs, against a point chunk at a time):
+    the dipole's one pole pair and the multipole's seven."""
+    import torch_grad_cases as gc
+    import torch_sss_cases as sc
+
+    from mitsuba_tpu_torch.integrators import PathConfig
+
+    scene = sc.slab_scene(sc.port_modules(), 512, profile, n_points=512,
+                          device=cuda)
+    cfg = PathConfig(max_depth=4, spp=16, remat=True)
+    xs = {}
+    for table, field in (("materials", "reflectance"),
+                         ("emitters", "radiance"),
+                         ("subsurface", "sigma_tr")):
+        xs[field] = getattr(getattr(scene, table), field).clone() \
+            .requires_grad_(True)
+        scene = gc.with_field(scene, table, **{field: xs[field]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.cached_mean_l(scene, cfg).backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k, x in xs.items():
+        assert bool(torch.isfinite(x.grad).all()), k
+        assert float(x.grad.abs().max()) > 0, k
+    assert peak < 40, peak

@@ -223,26 +223,29 @@ def test_unported_features_raise():
     scene = cornell_box(4, 4, device="cpu")
     # every PathConfig option is ported (tests/test_torch_path_options.py
     # holds them against the reference); the gradients of the particle
-    # tracer and of a subsurface scene are not (ROADMAP A.14)
+    # tracer and of a subsurface scene, which this case held refused
+    # until they were ported (ROADMAP A.14), are finite
+    # (tests/test_torch_grad_ptracer.py, tests/test_torch_grad_sss.py)
     from mitsuba_tpu_torch.integrators.ptracer import ptracer_render
     refl = scene.materials.reflectance.clone().requires_grad_(True)
     grad_scene = dataclasses.replace(scene, materials=dataclasses.replace(
         scene.materials, reflectance=refl))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        ptracer_render(grad_scene, PathConfig(max_depth=1), 16)
+    ptracer_render(grad_scene, PathConfig(max_depth=1), 16)[0].sum() \
+        .backward()
+    assert torch.isfinite(refl.grad).all()
     tb = TorchSceneBuilder()
     lam = tb.materials.lambertian((0.5, 0.5, 0.5))
     tb.add_shape(mesh_mod.make_box([0, 0, 0], [1, 1, 1]), lam)
     tb.add_subsurface(lam, (1.0, 1.0, 1.0), (0.1, 0.1, 0.1), n_points=8)
     tb.add_area_emitter_shape(mesh_mod.make_quad(
         [0, 3, 0], [1, 3, 0], [1, 3, 1], [0, 3, 1]), lam, (1.0,) * 3)
+    tb.width = tb.height = 8
     ss_scene = tb.build(backend="brute", device="cpu")
+    refl = ss_scene.materials.reflectance.clone().requires_grad_(True)
     ss_scene = dataclasses.replace(ss_scene, materials=dataclasses.replace(
-        ss_scene.materials,
-        reflectance=ss_scene.materials.reflectance.clone()
-        .requires_grad_(True)))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        render(ss_scene, PathConfig(max_depth=1, spp=1))
+        ss_scene.materials, reflectance=refl))
+    render(ss_scene, PathConfig(max_depth=1, spp=1))[0].sum().backward()
+    assert torch.isfinite(refl.grad).all()
 
 
 def test_ported_features_convert():

@@ -18,8 +18,8 @@
   at seed 777, as tests/golden_scenes.py:203 renders it): >= 99% of lanes
   within rtol 1e-4, the mean within 1e-3 of it.
 - The loader's <subsurface> forms against the reference loader's tables,
-  bit for bit; render fills the cache at its own seed; a subsurface scene
-  that requires grad raises naming ROADMAP A.14.
+  bit for bit; render fills the cache at its own seed. The gradients of
+  a subsurface scene: tests/test_torch_grad_sss.py.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -251,15 +251,6 @@ def test_render_fills_the_cache_at_its_seed():
         scene, seed=3))
     assert torch.equal(img, render(filled, cfg, seed=3)[0])
     assert scene.subsurface.irradiance is None
-
-
-def test_subsurface_gradient_refused():
-    scene = sc.slab_scene(sc.port_modules(), 4, n_points=K, device="cpu")
-    refl = scene.materials.reflectance.clone().requires_grad_(True)
-    grad_scene = dataclasses.replace(scene, materials=dataclasses.replace(
-        scene.materials, reflectance=refl))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        render(grad_scene, PathConfig(max_depth=2, spp=1))
 
 
 FORMS = sorted(sc.SLAB_SUBSURFACE)
