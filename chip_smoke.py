@@ -79,7 +79,22 @@ sort_mode="octant" ("config3_octant") and hit_prediction
 (phase 5f): config 3's scene on bvh (#11) and on cluster (#5, #6, #9,
 #10), the instanced scene (#12, #11), sss_xml's slab with its
 irradiance cache inside the step (#1, #3) and the particle tracer's
-box (#2, #3), each at the size of its forward render.
+box (#2, #3), each at the size of its forward render; and what scene
+files could not name before (phase 5g; tests/torch_leftover_cases.py,
+its files written at run time from seeds): through cli.main
+"cylinders_xml", scenes/cornell.xml's box with three analytic cylinders
+(lambertian, rough conductor, a dielectric under toWorld), 512x512 px,
+64 spp, and "cloth_xml", the box with an irawan floor from a weave file
+and a procedural twill panel, 512x512 px, 16 spp (#1); through
+render_volpath_media "cylinder_media", the box with a homogeneous medium
+held in a dielectric cylinder, 512x512 px, 4 spp, depth 6 (#2); through
+render "cylinders_cluster" and "cylinders_bvh", config 3's binary-PLY
+twin with eight cylinders, 512x512 px, 4 spp (#5, #6, #9, #10; #11); and
+through cli.main "leftovers_xml", a 256x256-cell hspan snow field
+(130,050 triangles), 1,000 tessellated hair fibres (180,000 triangles),
+a 1,024^2 JPEG ground and an area light of <blackbody
+temperature="5800">, 512x512 px, 16 spp, written as EXR and as JPEG
+(#5, #6, #9, #10).
 Phases, each printing one JSON line:
 
   1. the card's name and power limit (as nvidia-smi reports them);
@@ -287,6 +302,19 @@ Phases, each printing one JSON line:
      grad_checks: central differences within 2e-2, linearity in
      radiance 1e-4, remat on against off 1e-5, the card against the CPU
      1e-3 of the largest entry);
+  5g. the leftovers, after motion_xml: cylinders_xml and cloth_xml
+     through cli.main as cli_cornell (#1 5 a render, the EXR equal to the
+     seed-0 render bit for bit) and their goldens (`golden_cylinders`,
+     `golden_cloth`) by the |t| > 3.9 rule at 48x48x128, seed 777,
+     against the JAX package's 256-spp renders on its kernel path
+     (tests/torch_goldens/cylinders.npz, cloth.npz); cylinder_media,
+     cylinders_cluster and cylinders_bvh as render phases, each after a
+     line of its file's load (s, backend, triangles, cylinders, media);
+     leftovers_xml through cli.main on the cluster backend (#5, #6 and
+     #9 in the CLI's run and in each render), then the CLI again with a
+     .jpg output, whose bytes must be the port's JPEG of the render's
+     sRGB image, and `golden_leftovers` (the same files at the golden's
+     smaller cell and fibre counts, tests/torch_goldens/leftovers.npz);
   5c. the media: gates at 64x64, 1,024 spp, depth 5 against
      tests/torch_goldens/volpath_fog.npz with fog's 0.10 block gate and
      band: a heterogeneous medium of constant density 1 over a grid
@@ -353,7 +381,8 @@ TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
          "tank_het": 2, "bsdf_zoo": 2, "lights_ortho": 2,
          "textured_mip": 1, "textured_mip_mip": 1, "textured_mip_aniso": 1,
          "textured_bvh": 2, "ptracer": 2, "config3_octant": 2,
-         "config3_pred": 2}
+         "config3_pred": 2, "cylinders_cluster": 2, "cylinders_bvh": 2,
+         "cylinder_media": 2}
 # participating media: hetero_xml (scenes/cornell.xml's box in a grid
 # medium read from a HX_GRID³ float32 .vol, 64 MiB), flake (config 1's
 # box in an oriented Gaussian-flake medium, FLAKE_GRID³ density and
@@ -399,7 +428,10 @@ STATS_GOLDENS = {"golden_snow": "tests/torch_goldens/snow.npz",
                  "golden_ward_spheres": "tests/goldens/ward_spheres.npz",
                  "golden_bsdf_zoo": "tests/torch_goldens/bsdf_zoo.npz",
                  "golden_lights": "tests/torch_goldens/lights.npz",
-                 "golden_textured": "tests/torch_goldens/texture_mip.npz"}
+                 "golden_textured": "tests/torch_goldens/texture_mip.npz",
+                 "golden_cylinders": "tests/torch_goldens/cylinders.npz",
+                 "golden_cloth": "tests/torch_goldens/cloth.npz",
+                 "golden_leftovers": "tests/torch_goldens/leftovers.npz"}
 # the lights slice (tests/torch_light_cases.py): the lights file (point,
 # spot, directional, sphere and envmap lights; a LIGHTS_TEX^2 floor EXR,
 # an LIGHTS_ENV x 2 LIGHTS_ENV sky EXR) through the CLI at CLI_W x CLI_H x
@@ -450,6 +482,21 @@ SSS_CACHE_SEED, GUIDE_LEARN_SEED, GUIDE_GOLD_RES = 99, 777 + 5, 12
 # columns span more than MOTION_SMEAR px beyond the mid-shutter render's,
 # its mean within MOTION_ENERGY of it
 MOTION_SMEAR, MOTION_ENERGY, MOTION_BINS = 3, 0.1, 4
+# what scene files could not name before (ROADMAP A.15, A.11;
+# tests/torch_leftover_cases.py): cylinders.xml (scenes/cornell.xml's box
+# with three analytic cylinders) through the CLI at CLI_W x CLI_H x
+# CLI_SPP; cloth.xml (a weave-file floor, a procedural twill panel) at
+# LEFT_SPP; config 3's binary-PLY twin with eight cylinders at W3 x H3 x
+# SPP3 on cluster and on bvh; the box with a medium held in a cylinder
+# through render_volpath_media at TANK_RES, TANK_SPP, TANK_DEPTH; and
+# leftovers.xml (a LEFT_CELLS^2-cell hspan field, LEFT_FIBERS tessellated
+# hair fibres of 16 points and 6 sides, a LEFT_TEX^2 JPEG ground, a
+# blackbody area light) through the CLI at LEFT_SPP, as EXR and as JPEG;
+# the first, the cloth and the leftovers (at the golden's own, smaller
+# cell and fibre counts) gated by tests/test_goldens.py's rule against
+# the JAX package's CPU renders
+LEFT_SPP = 16
+LEFT_CELLS, LEFT_FIBERS, LEFT_TEX = 256, 1000, 1024
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
@@ -493,7 +540,17 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              "sss_xml": (0.241, 0.561), "sss_multipole": (0.188, 0.440),
              "sss_adipole": (0.364, 0.850), "motion_xml": (0.044, 0.103),
              "guided_cli": (0.09, 0.21), "config3_octant": (0.17, 0.41),
-             "config3_pred": (0.17, 0.41)}
+             "config3_pred": (0.17, 0.41),
+             # +-40% of the port's CPU renders at 32x32x4 of the files of
+             # tests/torch_leftover_cases.py (cylinders.xml 0.1550,
+             # cloth.xml 0.1784, config 3 with cylinders 0.2597 on cluster
+             # and on bvh, the cylinder's medium 0.1451 at depth 6,
+             # leftovers.xml 0.2866)
+             "cylinders_xml": (0.0930, 0.217), "cloth_xml": (0.107, 0.250),
+             "cylinders_cluster": (0.156, 0.364),
+             "cylinders_bvh": (0.156, 0.364),
+             "cylinder_media": (0.0871, 0.203),
+             "leftovers_xml": (0.172, 0.401)}
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -2677,7 +2734,7 @@ def grad_checks_phase(tag, scene, loss_fn, res, fd_table="materials",
 # ---------------------------------------------------------------------------
 
 def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
-              depth=CLI_DEPTH, xml=None):
+              depth=CLI_DEPTH, xml=None, need=("shaded_any",), jpeg=False):
     """`python -m mitsuba_tpu_torch scenes/<name>.xml` (or the file `xml`)
     through
     mitsuba_tpu_torch.cli.main, launch counts set to 0 just before and
@@ -2685,10 +2742,16 @@ def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
     rendered by render, with the file's pattern and filter, twice (timed,
     launch counts and peak memory) and once under the profiler (device
     busy share). The EXR the CLI wrote, read back by io.bitmap.read_exr,
-    must equal the seed-0 render bit for bit."""
+    must equal the seed-0 render bit for bit. A brute scene launches #1
+    `depth` times a render; another names the kernels it `need`s, each
+    launched in the CLI's run and in each render. `jpeg`: the CLI runs
+    again with a .jpg output, whose bytes must be the port's JPEG of the
+    render's sRGB image."""
     from mitsuba_tpu_torch.cli import main as cli_main
+    from mitsuba_tpu_torch.core.spectrum import to_srgb
     from mitsuba_tpu_torch.integrators.path import PathConfig, render
     from mitsuba_tpu_torch.io.bitmap import read_exr
+    from mitsuba_tpu_torch.io.jpeg import write_jpeg
     from mitsuba_tpu_torch.io.xml import load_scene
 
     shown = f"scenes/{name}.xml" if xml is None else os.path.basename(xml)
@@ -2710,14 +2773,15 @@ def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
                     remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    secs, rays, launches, means = [], [], [], []
+    secs, rays, launches, means, all_launches = [], [], [], [], []
     for seed in (0, 1):
         reset_launch_counts()
         t0 = time.perf_counter()
         img, aux = render(scene, pc, seed=seed)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        launches.append(launch_counts()["shaded_any"])
+        all_launches.append(launch_counts())
+        launches.append(all_launches[-1]["shaded_any"])
         rays.append(int(aux["rays_traced"]))
         means.append(float(img.mean()))
         if seed == 0:
@@ -2728,13 +2792,31 @@ def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = device_profile(lambda: render(scene, pc, seed=0))
     band = MEAN_BAND[tag]
+    extra = {}
+    if jpeg:
+        jpg = os.path.join(tmp, f"{name}.jpg")
+        t0 = time.perf_counter()
+        if cli_main(argv + ["-o", jpg]) != 0:
+            raise AssertionError(f"{tag}: the CLI exited non-zero (.jpg)")
+        want = os.path.join(tmp, f"{name}_want.jpg")
+        write_jpeg(want, (to_srgb(ref) * 255 + 0.5).astype(np.uint8))
+        with open(jpg, "rb") as a, open(want, "rb") as b:
+            extra.update(jpeg_seconds=time.perf_counter() - t0,
+                         jpeg_bytes=os.path.getsize(jpg),
+                         jpeg_equals_render=a.read() == b.read())
+        if not extra["jpeg_equals_render"]:
+            raise AssertionError(f"{tag}: the JPEG is not the render's")
     phase(tag, command=["python", "-m", "mitsuba_tpu_torch",
                         shown] + argv[1:]
           + ["-o", f"{name}.exr"], width=w, height=h, spp=spp, depth=depth,
           lanes=w * h * spp, pattern=pc.pattern, rfilter=pc.rfilter,
           backend=scene.geom.backend, triangles=scene.geom.n_tris,
-          spheres=scene.geom.n_spheres, cli_seconds=cli_s,
+          spheres=scene.geom.n_spheres, cylinders=scene.geom.n_cylinders,
+          cli_seconds=cli_s,
           cli_launches_shaded_any=cli_launches["shaded_any"],
+          cli_launches={k: v for k, v in cli_launches.items() if v},
+          render_launches=[{k: v for k, v in la.items() if v}
+                           for la in all_launches],
           load_seconds=load_s, seconds=secs, rays_traced=rays,
           mrays_per_s=[r / t / 1e6 for r, t in zip(rays, secs)],
           launches_shaded_any=launches, means=means, band=band,
@@ -2743,17 +2825,26 @@ def cli_phase(tag, device, tmp, name, w=CLI_W, h=CLI_H, spp=CLI_SPP,
           busy_share=prof["busy_share"], profile_wall_ms=prof["wall_ms"],
           kernels=prof["kernels"],
           own_ms=prof["own"].get("brute_kernel", {}).get("ms"),
-          top=prof["top"])
+          own=prof["own"], top=prof["top"], **extra)
     if not same or not finite:
         raise AssertionError(f"{tag}: the EXR differs from the render "
                              "or is not finite")
-    if cli_launches["shaded_any"] != depth or launches != [depth, depth]:
-        raise AssertionError(f"{tag}: #1 launched "
-                             f"{cli_launches['shaded_any']}, {launches}")
+    if tuple(need) == ("shaded_any",):
+        if cli_launches["shaded_any"] != depth \
+                or launches != [depth, depth]:
+            raise AssertionError(f"{tag}: #1 launched "
+                                 f"{cli_launches['shaded_any']}, {launches}")
+    else:
+        for k in need:
+            if cli_launches[k] < 1 or min(la[k] for la in all_launches) < 1:
+                raise AssertionError(f"{tag}: kernel {k} was never "
+                                     "launched")
     if not all(band[0] < m < band[1] for m in means):
         raise AssertionError(f"{tag}: means {means} outside {band}")
     PROFILES[tag] = prof
-    return dict(cli=cli_launches["shaded_any"], render=launches[0])
+    if tuple(need) == ("shaded_any",):
+        return dict(cli=cli_launches["shaded_any"], render=launches[0])
+    return dict(cli=cli_launches, render=all_launches[0])
 
 
 def golden_cornell_xml(device, res=GOLD_RES, spp=GOLD_SPP):
@@ -3811,6 +3902,113 @@ def config3_options(scene3, cfg, l3):
     return out
 
 
+# ---------------------------------------------------------------------------
+# what scene files could not name before: analytic cylinders, the woven
+# cloth, <blackbody>, JPEG, hspan and tessellated hair (ROADMAP A.15, A.11)
+# ---------------------------------------------------------------------------
+
+def _leftover_cases():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_leftover_cases as lc
+
+    return lc
+
+
+def _file_golden(tag, path, device):
+    """golden_stats of the scene file `path` loaded at its golden's size
+    and depth."""
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    g = np.load(os.path.join(ROOT, STATS_GOLDENS[tag]))
+    res = g["mean"].shape[0]
+    scene, cfg = load_scene(path, params=dict(
+        depth=int(g["depth"]), spp=GOLD_SPP, width=res, height=res),
+        device=device)
+    golden_stats(tag, scene, int(g["depth"]), pattern=cfg["pattern"])
+
+
+def _load_phase(tag, path, defs, device, **kw):
+    """load_scene of `path`, its time and the scene's counts in a line."""
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    t0 = time.perf_counter()
+    scene, cfg = load_scene(path, params=defs, device=device, **kw)
+    torch.cuda.synchronize()
+    g = scene.geom
+    phase(tag, seconds=time.perf_counter() - t0, backend=g.backend,
+          triangles=g.n_tris, spheres=g.n_spheres, cylinders=g.n_cylinders,
+          materials=scene.materials.kind.tolist(),
+          media=0 if scene.media is None else int(scene.media.n_media),
+          emitter_radiance=scene.emitters.radiance.tolist()[:4])
+    return scene
+
+
+def leftovers_phases(device, tmp):
+    """The analytic cylinders, the cloth, <blackbody>, JPEG, hspan and
+    tessellated hair: cylinders.xml and cloth.xml through the CLI
+    (cli_phase, #1 5 a render) and their goldens; the cylinder's medium
+    through render_volpath_media (#2); config 3's twin with eight
+    cylinders on cluster (#5, #6, #9, #10) and bvh (#11); leftovers.xml
+    through the CLI on cluster, written as EXR and JPEG, and its golden.
+    Returns each phase's launch counts."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+
+    lc = _leftover_cases()
+    t0 = time.perf_counter()
+    cyl = lc.write_cylinders_xml(tmp)
+    med = lc.write_cylinders_xml(tmp, media=True)
+    cloth = lc.write_cloth_xml(tmp)
+    phase("leftover_files", seconds=time.perf_counter() - t0,
+          files=sorted(os.listdir(tmp)))
+    out = {"cylinders_xml": cli_phase("cylinders_xml", device, tmp,
+                                      "cylinders", xml=cyl)}
+    _file_golden("golden_cylinders", cyl, device)
+    out["cloth_xml"] = cli_phase("cloth_xml", device, tmp, "cloth",
+                                 xml=cloth, spp=LEFT_SPP)
+    _file_golden("golden_cloth", cloth, device)
+    scene = _load_phase("cylinder_media_load", med, dict(
+        depth=TANK_DEPTH, spp=TANK_SPP, width=TANK_RES, height=TANK_RES),
+        device)
+    out["cylinder_media"] = render_phase(
+        "cylinder_media", scene, PathConfig(max_depth=TANK_DEPTH,
+                                            spp=TANK_SPP), ["shaded"],
+        render_fn=media_render, forbid=["shaded_any", "any"])
+    del scene
+    d3 = os.path.join(tmp, "config3_cylinders")
+    os.mkdir(d3)
+    path = lc.write_config3_cylinders(d3)
+    defs = dict(depth=DEPTH3, spp=SPP3, width=W3, height=H3)
+    cfg = PathConfig(max_depth=DEPTH3, spp=SPP3)
+    scene = _load_phase("cylinders_cluster_load", path, defs, device)
+    out["cylinders_cluster"] = render_phase(
+        "cylinders_cluster", scene, cfg,
+        ["refine", "child_refine", "l1_masked"], forbid=["items",
+                                                         "l1_items"])
+    del scene
+    scene = _load_phase("cylinders_bvh_load", path, defs, device,
+                        backend="bvh")
+    out["cylinders_bvh"] = render_phase("cylinders_bvh", scene, cfg,
+                                        ["bvh_closest", "bvh_any"])
+    del scene
+    dl = os.path.join(tmp, "leftovers")
+    os.mkdir(dl)
+    t0 = time.perf_counter()
+    left = lc.write_leftovers_xml(dl, LEFT_CELLS, LEFT_FIBERS, LEFT_TEX)
+    phase("leftovers_files", seconds=time.perf_counter() - t0,
+          cells=LEFT_CELLS, fibers=LEFT_FIBERS, texels=LEFT_TEX ** 2,
+          bytes={f: os.path.getsize(os.path.join(dl, f))
+                 for f in sorted(os.listdir(dl))})
+    out["leftovers_xml"] = cli_phase(
+        "leftovers_xml", device, dl, "leftovers", xml=left, spp=LEFT_SPP,
+        need=("refine", "child_refine", "l1_masked"), jpeg=True)
+    g = np.load(os.path.join(ROOT, STATS_GOLDENS["golden_leftovers"]))
+    dg = os.path.join(tmp, "leftovers_golden")
+    os.mkdir(dg)
+    _file_golden("golden_leftovers", lc.write_leftovers_xml(
+        dg, int(g["cells"]), int(g["fibers"]), int(g["tex"])), device)
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -4011,6 +4209,9 @@ def main(argv=None):
     slice_goldens(device)
     lguided = guided_cli_phase(device, tmp.name)
     lmotion = motion_phase(device, tmp.name)
+    # analytic cylinders, the cloth, <blackbody>, JPEG, hspan and
+    # tessellated hair through scene files, and their goldens
+    lleft = leftovers_phases(device, tmp.name)
     # config 2: the brute kernel (#1) with the glass sphere merged after
     # it, camera lanes in pixel-Morton order as bench.py runs it
     l2 = render_phase("config2", cornell_box_specular(
@@ -4133,6 +4334,20 @@ def main(argv=None):
                              ("device_ms_per_render",
                               brute_ms(tag, kname)))}
 
+    def left_launches(kname, profiled=None):
+        # a cluster kernel's launches in the cylinders' config-3 twin (a
+        # render) and in leftovers.xml (the CLI's run and a render), and
+        # their device ms a render
+        out = {"launches_cylinders_cluster":
+               lleft["cylinders_cluster"][kname],
+               "launches_leftovers_xml": {
+                   p: lleft["leftovers_xml"][p][kname]
+                   for p in ("cli", "render")}}
+        if profiled:
+            out.update({f"device_ms_per_render_{t}": own_ms(t, profiled)
+                        for t in ("cylinders_cluster", "leftovers_xml")})
+        return out
+
     # the stream fallback launches only where a lane overflows the XL caps
     stream_path = "config3" if l3["stream"] else "config3_v5"
     print(json.dumps({"kernels": [
@@ -4172,6 +4387,11 @@ def main(argv=None):
               launches_motion_xml=lmotion,
               device_ms_per_render_motion_xml=PROFILES["motion_xml"][
                   "own"].get("brute_kernel", {}).get("ms"),
+              **{f"launches_{t}": lleft[t] for t in ("cylinders_xml",
+                                                     "cloth_xml")},
+              **{f"device_ms_per_render_{t}": PROFILES[t]["own"].get(
+                  "brute_kernel", {}).get("ms") for t in ("cylinders_xml",
+                                                          "cloth_xml")},
               device_ms_per_render=brute_ms("config1", "shaded_any"),
               device_ms_per_render_config2=brute_ms("config2",
                                                     "shaded_any"),
@@ -4182,6 +4402,7 @@ def main(argv=None):
         entry("refine", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:114",
               l3["refine"], cluster[("refine", "bounce", "S1")],
               launches_xml_config3=lxml["cluster"]["refine"],
+              **left_launches("refine"),
               **{f"launches_{t}": v["refine"] for t, v in lopt3.items()},
               device_ms_per_render=own_ms("config3", "refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5", "refine_kernel"),
@@ -4191,6 +4412,7 @@ def main(argv=None):
               "mitsuba_tpu/ops/exact_pallas.py:209", l3["child_refine"],
               cluster[("child_refine", "bounce", "S2")],
               launches_xml_config3=lxml["cluster"]["child_refine"],
+              **left_launches("child_refine"),
               **{f"launches_{t}": v["child_refine"]
                  for t, v in lopt3.items()},
               device_ms_per_render=own_ms("config3", "child_refine_kernel"),
@@ -4221,6 +4443,7 @@ def main(argv=None):
               **{f"device_ms_per_render_{t}": own_ms(t, "l1_masked_kernel")
                  for t in lopt3},
               launches_xml_config3=lxml["cluster"]["l1_masked"],
+              **left_launches("l1_masked", "l1_masked_kernel"),
               **grad_launches("grad_cluster", kname="l1_masked"),
               device_ms_per_render_xml_config3=own_ms("xml_config3",
                                                       "l1_masked_kernel")),
@@ -4231,6 +4454,7 @@ def main(argv=None):
               device_ms_per_render=own_ms(stream_path, "stream_kernel"),
               **{f"launches_{t}": v["stream"] for t, v in lopt3.items()},
               launches_xml_config3=lxml["cluster"]["stream"],
+              **left_launches("stream", "stream_kernel"),
               **grad_launches("grad_cluster", kname="stream")),
         # #11's device ms a render (both bodies), in the bvh render and
         # in the instanced one (its overflow fallback and instance walks)
@@ -4240,6 +4464,9 @@ def main(argv=None):
               launches_textured_bvh=ltex["textured_bvh"]["bvh_closest"],
               device_ms_per_render_textured_bvh=own_ms("textured_bvh",
                                                        "bvh_kernel"),
+              launches_cylinders_bvh=lleft["cylinders_bvh"]["bvh_closest"],
+              device_ms_per_render_cylinders_bvh=own_ms("cylinders_bvh",
+                                                        "bvh_kernel"),
               device_ms_per_render=own_ms("bvh", "bvh_kernel"),
               device_ms_per_render_instanced=own_ms("instanced",
                                                     "bvh_kernel"),
@@ -4249,6 +4476,7 @@ def main(argv=None):
               lb["bvh_any"], bvh[("bvh_any", "shadow")],
               launches_xml_config3_bvh=lxml["bvh"]["bvh_any"],
               launches_textured_bvh=ltex["textured_bvh"]["bvh_any"],
+              launches_cylinders_bvh=lleft["cylinders_bvh"]["bvh_any"],
               **grad_launches("grad_bvh", "grad_instanced", kname="bvh_any")),
         entry("wl_closest", "worklist.cu",
               "mitsuba_tpu/ops/worklist_pallas.py:364", li["wl_closest"],
@@ -4267,6 +4495,9 @@ def main(argv=None):
               replayed_event_ms_per_render=live_fog["ms"],
               launches_ptracer=lpt["shaded"],
               device_ms_per_render_ptracer=brute_ms("ptracer", "shaded"),
+              launches_cylinder_media=lleft["cylinder_media"]["shaded"],
+              device_ms_per_render_cylinder_media=brute_ms(
+                  "cylinder_media", "shaded"),
               **grad_launches("grad_ptracer", kname="shaded"),
               **media_entry(lmed, "shaded")),
         brute("any", 97, lv["any"], split["any"], path="volpath",

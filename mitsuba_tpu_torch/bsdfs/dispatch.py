@@ -6,15 +6,19 @@ evaluated on all lanes and the result selected by material mask. The
 lanes whose material has the flag and wi.z < 0, except for the smooth and
 rough dielectrics, which are two-sided already. A composite row
 (src/bsdfs/composite.cpp) sums its weighted children's values, mixes
-their pdfs by weight and samples one child picked by u1.
+their pdfs by weight and samples one child picked by u1. The woven cloth
+(bsdfs/irawan.py) reads each lane's hit uv, which eval and sample take as
+`uv` (dispatch.py:72); without it the cloth evaluates to zero, as in the
+reference.
 """
 from __future__ import annotations
 
 import torch
 
+from mitsuba_tpu_torch.bsdfs import irawan as ir
 from mitsuba_tpu_torch.bsdfs import models as md
 from mitsuba_tpu_torch.bsdfs.table import (
-    COMPOSITE, DIELECTRIC, DIFF_TRANS, HANRAHAN_KRUEGER, LAMBERTIAN,
+    CLOTH, COMPOSITE, DIELECTRIC, DIFF_TRANS, HANRAHAN_KRUEGER, LAMBERTIAN,
     MAX_COMPOSITE_LOBES, MIRROR, PHONG, ROUGH_CONDUCTOR, ROUGH_GLASS, WARD,
     WISCOMBE, MaterialTable,
 )
@@ -33,6 +37,7 @@ _MODELS = {
     DIFF_TRANS: (md.difftrans_eval, md.difftrans_pdf, md.difftrans_sample),
     WISCOMBE: (md.wiscombe_eval, md.wiscombe_pdf, md.wiscombe_sample),
     HANRAHAN_KRUEGER: (md.hk_eval, md.hk_pdf, md.hk_sample),
+    CLOTH: (ir.irawan_eval, ir.irawan_pdf, ir.irawan_sample),
 }
 
 _NO_FLIP_KINDS = (DIELECTRIC, ROUGH_GLASS)      # two-sided already
@@ -48,9 +53,12 @@ def _flip(v, mask):
     return torch.where(mask[..., None], v * sign, v)
 
 
-def _resolve(p, albedo=None):
+def _resolve(p, albedo=None, uv=None):
+    """The lanes' texture-resolved albedo and hit uv over their rows."""
     if albedo is not None:
         p = dict(p, reflectance=albedo)
+    if uv is not None:
+        p = dict(p, _uv=uv)
     return p
 
 
@@ -72,24 +80,27 @@ def _composite(table, material_id):
             table.child_weights[i])
 
 
-def bsdf_eval(table: MaterialTable, material_id, wi, wo, albedo=None):
+def bsdf_eval(table: MaterialTable, material_id, wi, wo, albedo=None,
+              uv=None):
     """fCos for every lane (reference BSDF::fCos); a composite row sums
     its weighted children (composite.cpp f()), which read their own
-    reflectance."""
-    base = _eval(table, material_id, wi, wo, albedo)
+    reflectance and the lane's uv."""
+    base = _eval(table, material_id, wi, wo, albedo, uv)
     if not table.has_composite:
         return base
     is_comp, cids, cws = _composite(table, material_id)
     total = torch.zeros_like(base)
     for k in range(MAX_COMPOSITE_LOBES):
-        val = _eval(table, torch.clamp(cids[:, k], min=0), wi, wo)
+        val = _eval(table, torch.clamp(cids[:, k], min=0), wi, wo, None,
+                    uv)
         total = total + torch.where((is_comp & (cids[:, k] >= 0))[:, None],
                                     cws[:, k][:, None] * val, 0.0)
     return torch.where(is_comp[:, None], total, base)
 
 
-def _eval(table: MaterialTable, material_id, wi, wo, albedo=None):
-    p = _resolve(table.gather(material_id), albedo)
+def _eval(table: MaterialTable, material_id, wi, wo, albedo=None,
+          uv=None):
+    p = _resolve(table.gather(material_id), albedo, uv)
     fl = _flip_mask(p, wi)
     wi_f, wo_f = _flip(wi, fl), _flip(wo, fl)
     out = torch.zeros(wi.shape[:-1] + (table.reflectance.shape[-1],),
@@ -129,7 +140,8 @@ def _pdf(table: MaterialTable, material_id, wi, wo):
     return out
 
 
-def bsdf_sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
+def bsdf_sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None,
+                uv=None):
     """Sample wo ~ BSDF; returns the merged per-lane sample dict
     (reference BSDF::sampleCos). Opacity masks (reference mask.cpp,
     dispatch.py:162-183): with probability 1 - opacity the surface is
@@ -141,7 +153,7 @@ def bsdf_sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
         pass_through = u1 >= opacity
         u1 = torch.clamp(u1 / torch.clamp(opacity, min=1e-6), 0.0,
                          1.0 - 1e-7)
-    s = _sample_composite(table, material_id, wi, u2, u1, albedo)
+    s = _sample_composite(table, material_id, wi, u2, u1, albedo, uv)
     if table.has_mask:
         sel = pass_through[:, None]
         s["wo"] = torch.where(sel, -wi, s["wo"])
@@ -153,13 +165,13 @@ def bsdf_sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
 
 
 def _sample_composite(table: MaterialTable, material_id, wi, u2, u1,
-                      albedo=None):
+                      albedo=None, uv=None):
     """A composite row samples the child that u1 picks by weight, with u1
     rescaled into that child's share; its weight and pdf are the whole
     row's eval over its pdf (composite.cpp sample(), dispatch.py:194-225).
     """
     if not table.has_composite:
-        return _sample(table, material_id, wi, u2, u1, albedo)
+        return _sample(table, material_id, wi, u2, u1, albedo, uv)
     is_comp, cids, cws = _composite(table, material_id)
     w_valid = torch.where(cids >= 0, cws, 0.0)
     wsum = torch.clamp(w_valid.sum(-1), min=1e-8)
@@ -174,8 +186,8 @@ def _sample_composite(table: MaterialTable, material_id, wi, u2, u1,
                         1.0 - 1e-7)
     child = torch.clamp(torch.gather(cids, 1, chosen)[:, 0], min=0)
     s = _sample(table, torch.where(is_comp, child, material_id), wi, u2,
-                torch.where(is_comp, u1_re, u1), albedo)
-    fcos = bsdf_eval(table, material_id, wi, s["wo"], albedo)
+                torch.where(is_comp, u1_re, u1), albedo, uv)
+    fcos = bsdf_eval(table, material_id, wi, s["wo"], albedo, uv)
     pdf = bsdf_pdf(table, material_id, wi, s["wo"])
     s["weight"] = torch.where(is_comp[:, None],
                               fcos / torch.clamp(pdf, min=1e-9)[:, None],
@@ -186,8 +198,9 @@ def _sample_composite(table: MaterialTable, material_id, wi, u2, u1,
     return s
 
 
-def _sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None):
-    p = _resolve(table.gather(material_id), albedo)
+def _sample(table: MaterialTable, material_id, wi, u2, u1, albedo=None,
+            uv=None):
+    p = _resolve(table.gather(material_id), albedo, uv)
     fl = _flip_mask(p, wi)
     wi_f = _flip(wi, fl)
     out = md.zero_sample(wi, p["reflectance"].shape[-1])

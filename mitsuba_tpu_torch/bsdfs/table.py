@@ -1,12 +1,14 @@
-"""SoA material table (port of mitsuba_tpu/bsdfs/table.py: every kind but
-the woven cloth of irawan.cpp, the opacity column of the mask adapter
-that `null()` sets to 0, and the composite's child rows and weights).
+"""SoA material table (port of mitsuba_tpu/bsdfs/table.py: every kind, the
+opacity column of the mask adapter that `null()` sets to 0, the
+composite's child rows and weights, and the woven cloth's shared weave
+tables with each row's slot in them, bsdfs/irawan.py).
 
 The reference gathers small tables with a one-hot matmul for the TPU's
 matrix unit; here `gather` is a plain index gather, which is exact.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,13 +28,14 @@ DIFF_TRANS = 7      # src/bsdfs/difftrans.cpp (diffuse transmitter)
 WISCOMBE = 8        # src/bsdfs/wiscombe.cpp (the fork's snow BRDF)
 HANRAHAN_KRUEGER = 9  # src/bsdfs/hanrahan-krueger.cpp
 COMPOSITE = 10      # src/bsdfs/composite.cpp (N weighted lobes)
-CLOTH = 11          # src/bsdfs/irawan.cpp: not ported (ROADMAP A.11)
+CLOTH = 11          # src/bsdfs/irawan.cpp (woven cloth, weave patterns)
 MAX_COMPOSITE_LOBES = 4
 KIND_NAMES = {LAMBERTIAN: "lambertian", MIRROR: "mirror",
               DIELECTRIC: "dielectric", ROUGH_CONDUCTOR: "roughconductor",
               PHONG: "phong", WARD: "ward", ROUGH_GLASS: "roughglass",
               DIFF_TRANS: "difftrans", WISCOMBE: "wiscombe",
-              HANRAHAN_KRUEGER: "hk", COMPOSITE: "composite"}
+              HANRAHAN_KRUEGER: "hk", COMPOSITE: "composite",
+              CLOTH: "irawan"}
 # the columns a kind reads beyond those every lane gathers, so that a
 # scene gathers only what its kinds need
 _KIND_FIELDS = {DIELECTRIC: ("transmittance", "eta"),
@@ -64,6 +67,10 @@ class MaterialTable:
     opacity: torch.Tensor = None  # (M,) mask adapter, 1 = opaque
     child_ids: torch.Tensor = None      # (M, 4) composite child rows, -1 pad
     child_weights: torch.Tensor = None  # (M, 4) composite lobe weights
+    cloth_slot: torch.Tensor = None     # (M,) int32 cloth table row, -1
+    # the cloth materials' shared weave tables (irawan.py pack_patterns:
+    # grid, yarn, kd, ks, gl), None without a cloth row
+    cloth: dict = None
     # the (kind, distribution) pairs present: the distribution is a static
     # choice, so each pair is dispatched on its own (as in the reference)
     kinds_present: tuple = ((LAMBERTIAN, mf.BECKMANN),)
@@ -85,15 +92,27 @@ class MaterialTable:
         names = ["kind", "reflectance", "two_sided", "specular", "exponent"]
         for kind, _ in self.kinds_present:
             names += _KIND_FIELDS.get(kind, ())
-        return {name: getattr(self, name)[i] for name in dict.fromkeys(names)}
+        out = {name: getattr(self, name)[i] for name in dict.fromkeys(names)}
+        if self.cloth is not None:
+            out.update(_cloth=self.cloth, _cloth_slot=self.cloth_slot[i])
+        return out
+
+    def to(self, device) -> "MaterialTable":
+        """The table, the cloth's tables included, on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)},
+            cloth=None if self.cloth is None else {
+                k: v.to(device) for k, v in self.cloth.items()})
 
 
 def check_kinds(kinds):
-    """Raise for any BSDF kind the port does not implement yet."""
+    """Raise for a BSDF kind that neither package has."""
     missing = sorted(set(int(k) for k in kinds) - set(KIND_NAMES))
     if missing:
         raise NotImplementedError(
-            f"BSDF kinds {missing} are not ported (ROADMAP A.11; only "
+            f"BSDF kinds {missing} are unknown (the kinds are "
             f"{', '.join(KIND_NAMES.values())})")
 
 
@@ -102,6 +121,7 @@ class MaterialBuilder:
 
     def __init__(self):
         self.rows = []
+        self.cloth_specs = []
 
     def _add(self, **kw):
         row = dict(kind=LAMBERTIAN, reflectance=(0.5, 0.5, 0.5),
@@ -110,7 +130,8 @@ class MaterialBuilder:
                    alpha_u=0.1, alpha_v=0.1, exponent=30.0,
                    dist_type=mf.BECKMANN, tex_id=-1, two_sided=False,
                    opacity=1.0, child_ids=(-1,) * MAX_COMPOSITE_LOBES,
-                   child_weights=(0.0,) * MAX_COMPOSITE_LOBES)
+                   child_weights=(0.0,) * MAX_COMPOSITE_LOBES,
+                   cloth_slot=-1)
         row.update(kw)
         self.rows.append(row)
         return len(self.rows) - 1
@@ -184,6 +205,53 @@ class MaterialBuilder:
                          specular=tuple(xi), transmittance=tuple(b_star),
                          alpha_u=g)
 
+    def _add_cloth(self, pattern, repeat_u, repeat_v, kd_mult, ks_mult):
+        """A weave pattern and a row pointing at it (table.py:243); the
+        row's reflectance is its warp yarns' mean kd and its specular all
+        yarns' mean ks, as the reference's, for what reads one colour a
+        row; the model reads the segment tables (bsdfs/irawan.py)."""
+        from mitsuba_tpu_torch.io.weave import EWARP
+
+        warp_yarns = [y for y in pattern.yarns if y.type == EWARP] \
+            or pattern.yarns
+
+        def mean(ys, f):
+            return tuple(np.mean([getattr(y, f) for y in ys], axis=0))
+
+        self.cloth_specs.append(dict(
+            pattern=pattern, repeat_u=float(repeat_u),
+            repeat_v=float(repeat_v), kd_mult=float(kd_mult),
+            ks_mult=float(ks_mult)))
+        return self._add(kind=CLOTH, reflectance=mean(warp_yarns, "kd"),
+                         specular=mean(pattern.yarns, "ks"),
+                         cloth_slot=len(self.cloth_specs) - 1)
+
+    def irawan(self, warp_kd=(0.3, 0.27, 0.25), weft_kd=(0.6, 0.1, 0.1),
+               ks=(0.2, 0.2, 0.2), repeat_u=10.0, repeat_v=10.0,
+               pattern: str = "plain", kd_mult=1.0, ks_mult=1.0):
+        """Woven cloth of a procedural plain or twill weave (the
+        reference needs a pattern file; table.py:270), through the whole
+        yarn model on the pattern it synthesizes."""
+        from mitsuba_tpu_torch.bsdfs.irawan import procedural_pattern
+
+        return self._add_cloth(
+            procedural_pattern(pattern, warp_kd, weft_kd, ks), repeat_u,
+            repeat_v, kd_mult, ks_mult)
+
+    def irawan_file(self, path: str, props: dict | None = None,
+                    repeat_u: float = 10.0, repeat_v: float = 10.0,
+                    kd_mult: float = 1.0, ks_mult: float = 1.0):
+        """Woven cloth from a weave-pattern file (irawan.cpp:64, the
+        grammar of io/weave.py); `props` resolve its $names, and its
+        kdMultiplier and ksMultiplier win over kd_mult and ks_mult."""
+        from mitsuba_tpu_torch.io.weave import load_weave
+
+        props = props or {}
+        return self._add_cloth(
+            load_weave(path, props), repeat_u, repeat_v,
+            float(props.get("kdMultiplier", kd_mult)),
+            float(props.get("ksMultiplier", ks_mult)))
+
     def composite(self, children, weights):
         """N weighted lobes (reference composite.cpp, up to 4): children
         are material rows, none of them a composite; the weights sum to
@@ -230,6 +298,8 @@ class MaterialBuilder:
             transmittance=tuple(dr), eta=eta, alpha_u=g)
 
     def build(self) -> MaterialTable:
+        from mitsuba_tpu_torch.bsdfs.irawan import pack_patterns
+
         if not self.rows:
             self.lambertian()
 
@@ -254,6 +324,8 @@ class MaterialBuilder:
             opacity=col("opacity", np.float32),
             child_ids=col("child_ids", np.int32),
             child_weights=col("child_weights", np.float32),
+            cloth_slot=col("cloth_slot", np.int32),
+            cloth=pack_patterns(self.cloth_specs),
             has_mask=min(r["opacity"] for r in self.rows) < 0.999,
             # a composite row dispatches through its children's pairs
             kinds_present=tuple(sorted(

@@ -7,11 +7,11 @@ specularTransmittance, alphaB / alpha, intIOR / extIOR, distribution;
 src/bsdfs/roughmetal.cpp:38-41: alphaB, ior, k). Ported: lambertian /
 diffuse, mirror, dielectric, roughglass / roughdielectric, roughconductor /
 roughmetal, phong, ward, microfacet, difftrans, wiscombe / dozier, hk /
-hanrahan-krueger, composite, and the twosided and mask adapters over any
-of them; the checkerboard, gridtexture, ldrtexture, exrtexture, bitmap,
-diffusiontexture and vertexcolors textures (an image read by
-io/bitmap.py, whose JPEG files raise, ROADMAP A.13). The woven cloth
-(irawan) raises NotImplementedError naming the plugin (ROADMAP A.11).
+hanrahan-krueger, the woven cloth irawan (a weave-pattern `filename`,
+else the procedural `pattern`, plain or twill), composite, and the
+twosided and mask adapters over any of them; the checkerboard,
+gridtexture, ldrtexture, exrtexture, bitmap, diffusiontexture and
+vertexcolors textures (an image read by io/bitmap.py).
 """
 from __future__ import annotations
 
@@ -27,11 +27,6 @@ def _spec(props, name, default):
     if isinstance(v, (int, float)):
         return (float(v),) * 3
     return tuple(v)
-
-
-def _unported(what, name):
-    raise NotImplementedError(
-        f"the {what} '{name}' is not ported (ROADMAP A.11)")
 
 
 def _dist(p):
@@ -154,6 +149,26 @@ def build_material(mb, bsdf_node, two_sided: bool = False, opacity=None,
                 use_diffuse=bool(p.get("diffuseReflectance", True)),
             )
         )
+    if t == "irawan":
+        # reference irawan.cpp: a weave-pattern file, repeatU / repeatV and
+        # kd / ksMultiplier, the file's $names from the plugin's props;
+        # without a file the procedural weave (xml_plugins.py:136-160)
+        if "filename" in p:
+            from mitsuba_tpu_torch.io.xml_shapes import _resolve
+
+            return finish(mb.irawan_file(
+                _resolve(base_dir, p["filename"]), props=p,
+                repeat_u=float(p.get("repeatU", 10.0)),
+                repeat_v=float(p.get("repeatV", 10.0))))
+        return finish(mb.irawan(
+            warp_kd=_spec(p, "warpKd", (0.3, 0.27, 0.25)),
+            weft_kd=_spec(p, "weftKd", (0.6, 0.1, 0.1)),
+            ks=_spec(p, "ks", (0.2, 0.2, 0.2)),
+            repeat_u=float(p.get("repeatU", 10.0)),
+            repeat_v=float(p.get("repeatV", 10.0)),
+            pattern=p.get("pattern", "plain"),
+            kd_mult=float(p.get("kdMultiplier", 1.0)),
+            ks_mult=float(p.get("ksMultiplier", 1.0))))
     if t == "composite":
         # reference composite.cpp: the string "weights", comma-separated,
         # and the nested bsdfs in order
@@ -176,7 +191,7 @@ def build_material(mb, bsdf_node, two_sided: bool = False, opacity=None,
         return build_material(mb, inner, two_sided=two_sided,
                               opacity=p.get("opacity", (1.0, 1.0, 1.0)),
                               tb=tb, base_dir=base_dir)
-    _unported("BSDF", t)
+    raise ValueError(f"unsupported bsdf type '{t}'")
 
 
 def _first_bsdf_child(node):
@@ -209,9 +224,9 @@ def build_texture(tb, tex_node, base_dir="."):
     if t in ("ldrtexture", "exrtexture", "bitmap", "diffusiontexture"):
         # diffusiontexture (src/textures/diffusiontexture.cpp): a linear
         # bitmap whose filtering is the renderer-wide PathConfig switches
-        from mitsuba_tpu_torch.io.bitmap import read_image
+        from mitsuba_tpu_torch.io.bitmap import read_image_cached
 
-        img = read_image(os.path.join(base_dir, p["filename"]))
+        img = read_image_cached(os.path.join(base_dir, p["filename"]))
         gamma = float(p.get("gamma", -1.0)) if t == "ldrtexture" else 1.0
         return tb.bitmap(img, gamma=gamma, wrap=p.get("wrapMode", "repeat"),
                          uv_scale=uv_scale, uv_offset=uv_offset)

@@ -524,7 +524,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
         ds = sample_direct(em, geom, its.p, u_nee_sel, u_nee_pos)
         wo_local = its.to_local(ds.d)
         fcos = bsdf_eval(mats, its.material_id, its.wi, wo_local,
-                         albedo=albedo)
+                         albedo=albedo, uv=its.uv)
         b_pdf = bsdf_pdf(mats, its.material_id, its.wi, wo_local)
         if guide_sampling:
             # the MIS counterweight is the pdf of the mixture that scatters
@@ -543,7 +543,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
 
         # BSDF sampling
         bs = bsdf_sample(mats, its.material_id, its.wi, u_bsdf_2d, u_lobe,
-                         albedo=albedo)
+                         albedo=albedo, uv=its.uv)
         wo_world = its.to_world(bs["wo"])
         wo_z = bs["wo"][..., 2]
         if guide_sampling:
@@ -554,7 +554,7 @@ def path_trace(scene, ray: Ray, sampler: Sampler, cfg: PathConfig,
             wo_mix = torch.where(pick_g[:, None], g_dir, wo_world)
             wo_mix_l = its.to_local(wo_mix)
             fcos_mix = bsdf_eval(mats, its.material_id, its.wi, wo_mix_l,
-                                 albedo=albedo)
+                                 albedo=albedo, uv=its.uv)
             pb_mix = bsdf_pdf(mats, its.material_id, its.wi, wo_mix_l)
             pg_mix = torch.where(pick_g, g_pdf_s, gd.guide_pdf(
                 guide, p_det, wo_mix.detach(), normal=n_det))

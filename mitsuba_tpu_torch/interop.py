@@ -2,8 +2,9 @@
 
 `from_jax_scene` reads the reference scene's arrays as numpy (geometry on
 the brute, bvh or cluster backend, instanced or not, with or without
-analytic spheres, sphere emitters, materials of every kind but cloth
-with their opacity column and composite children, textures of every kind
+analytic spheres and cylinders, sphere emitters, materials of every kind
+with their opacity column, composite children and the woven cloth's
+weave tables, textures of every kind
 with their images and MIP pyramids, emitters of every kind with the
 environment map's sampling tables, the perspective, thin-lens or
 orthographic camera with its shutter interval, shape-interior media,
@@ -42,6 +43,8 @@ from mitsuba_tpu_torch.subsurface.dipole import SceneSubsurface
 _GEOM_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                 "material_id", "emitter_id", "shape_id")
 _SPHERE_FIELDS = ("sph_c", "sph_r", "sph_mid", "sph_eid", "sph_sid")
+_CYLINDER_FIELDS = ("cyl_a", "cyl_b", "cyl_r", "cyl_mid", "cyl_eid",
+                    "cyl_sid")
 _MATERIAL_FIELDS = ("kind", "reflectance", "two_sided", "specular",
                     "exponent", "tex_id", "transmittance", "eta", "cond_eta",
                     "cond_k", "alpha_u", "alpha_v", "dist_type", "child_ids",
@@ -71,16 +74,16 @@ def _t(x):
 def _geometry(g) -> GeometryTables:
     if g.backend not in ("brute", "bvh", "cluster"):
         _unported(f"intersection backend '{g.backend}'")
-    if g.n_cylinders > 0:
-        _unported("cylinder geometry (ROADMAP A.11)")
     if g.n_hair > 0:
         _unported("hair geometry (ROADMAP A.12)")
-    spheres = {}
+    analytic = {}
     if g.n_spheres > 0:
-        spheres = {k: _t(getattr(g, k)) for k in _SPHERE_FIELDS}
+        analytic.update({k: _t(getattr(g, k)) for k in _SPHERE_FIELDS})
+    if g.n_cylinders > 0:
+        analytic.update({k: _t(getattr(g, k)) for k in _CYLINDER_FIELDS})
     geom = GeometryTables(**{k: _t(getattr(g, k)) for k in _GEOM_FIELDS},
                           bvh_min=_t(g.bvh_min), bvh_max=_t(g.bvh_max),
-                          **spheres)
+                          **analytic)
     if g.backend == "brute":
         return geom
     fields = {k: _t(getattr(g, k)) for k in _BVH_FIELDS}
@@ -106,11 +109,14 @@ def _geometry(g) -> GeometryTables:
 
 
 def _materials(mt) -> MaterialTable:
-    check_kinds(np.asarray(mt.kind))      # cloth raises (ROADMAP A.11)
+    check_kinds(np.asarray(mt.kind))
     opacity = np.asarray(mt.opacity, np.float32)
     return MaterialTable(
         **{k: _t(getattr(mt, k)) for k in _MATERIAL_FIELDS},
         opacity=_t(opacity), has_mask=bool(opacity.min() < 0.999),
+        cloth_slot=_t(mt.cloth_slot),
+        cloth=None if mt.cloth is None
+        else {k: _t(v) for k, v in mt.cloth.items()},
         kinds_present=tuple((int(k), int(d)) for k, d in mt.kinds_present),
         has_composite=bool(mt.has_composite),
     )

@@ -9,11 +9,14 @@ bitmap.h:35, src/libcore/bitmap.cpp):
   * EXR: float32/half scanline images, compression none or ZIP — enough to
     read lat-long envmaps and write HDR output (exrfilm parity)
   * PPM/PGM binary, TGA and BMP read/write
-Each writer gives the reference writer's bytes for the same image. JPEG
-is not ported (ROADMAP A.13): `.jpg` raises NotImplementedError.
+  * baseline JPEG read/write (io/jpeg.py); a progressive file is read by
+    PIL where PIL is importable, and raises ValueError where it is not
+Each writer gives the reference writer's bytes for the same image.
 """
 from __future__ import annotations
 
+import collections
+import os
 import struct
 import zlib
 
@@ -363,10 +366,6 @@ def read_exr(path: str) -> np.ndarray:
 # dispatch by extension (reference Bitmap::load switches on file type)
 # ---------------------------------------------------------------------------
 
-def _no_jpeg():
-    raise NotImplementedError("JPEG files are not ported (ROADMAP A.13)")
-
-
 def read_image(path: str) -> np.ndarray:
     p = path.lower()
     if p.endswith(".png"):
@@ -382,8 +381,38 @@ def read_image(path: str) -> np.ndarray:
     if p.endswith(".bmp"):
         return read_bmp(path)
     if p.endswith((".jpg", ".jpeg")):
-        _no_jpeg()
+        from mitsuba_tpu_torch.io.jpeg import read_jpeg
+
+        try:
+            return read_jpeg(path)
+        except ValueError as err:
+            # progressive or arithmetic-coded files: PIL where it is
+            # importable (bitmap.py:377-387), else the decoder's error
+            try:
+                from PIL import Image
+            except ImportError:
+                raise err from None
+            return np.asarray(Image.open(path))
     raise ValueError(f"unsupported image format: {path}")
+
+
+_IMAGE_CACHE = collections.OrderedDict()
+_IMAGE_CACHE_SIZE = 64
+
+
+def read_image_cached(path: str) -> np.ndarray:
+    """read_image through a cache of the last 64 files by absolute path
+    (bitmap.py:393 read_image_cached): a scene whose materials name one
+    texture file many times, or that is loaded twice in a process,
+    decodes it once. The array is shared: callers do not write to it."""
+    key = os.path.abspath(path)
+    img = _IMAGE_CACHE.pop(key, None)
+    if img is None:
+        img = read_image(path)
+    _IMAGE_CACHE[key] = img
+    while len(_IMAGE_CACHE) > _IMAGE_CACHE_SIZE:
+        _IMAGE_CACHE.popitem(last=False)
+    return img
 
 
 def write_image(path: str, img) -> None:
@@ -402,7 +431,9 @@ def write_image(path: str, img) -> None:
     elif p.endswith(".bmp"):
         write_bmp(path, img)
     elif p.endswith((".jpg", ".jpeg")):
-        _no_jpeg()
+        from mitsuba_tpu_torch.io.jpeg import write_jpeg
+
+        write_jpeg(path, img)
     else:
         raise ValueError(f"unsupported image format: {path}")
 

@@ -2,7 +2,7 @@
 
 Same tag set and semantics as the reference SceneHandler
 (src/librender/scenehandler.cpp:100-460): nested property tags
-(integer/float/boolean/string/point/vector/rgb/srgb/spectrum),
+(integer/float/boolean/string/point/vector/rgb/srgb/spectrum/blackbody),
 <transform> blocks composed left to right (translate/rotate/scale/lookAt/
 matrix, each NEW * CURRENT), $var substitution from parameter maps,
 <ref id=...> to named objects, <include>. Builds the port's Scene through
@@ -16,10 +16,9 @@ isotropic, kkay or microflake phase, a `stddev` making it the Gaussian
 flake) is carried in the config as a MediumTable; a shape's interior
 <medium> joins the scene's MediumStack (io/xml_shapes.py).
 
-Not ported, each raising NotImplementedError: <blackbody> values
-(ROADMAP A.12), and what the shape, BSDF, texture, luminaire and camera
-plugins refuse (io/xml_shapes.py, bsdfs/xml_plugins.py,
-render/camera.py).
+Not ported, each raising NotImplementedError: what the shape, BSDF,
+texture, luminaire and camera plugins refuse (io/xml_shapes.py,
+bsdfs/xml_plugins.py, render/camera.py).
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ import torch
 import mitsuba_tpu_torch.render.camera  # noqa: F401  (camera plugins)
 from mitsuba_tpu_torch.core import transform as tf
 from mitsuba_tpu_torch.core.math import coordinate_system
-from mitsuba_tpu_torch.core.spectrum import from_srgb
+from mitsuba_tpu_torch.core.spectrum import blackbody, from_srgb
 from mitsuba_tpu_torch.render.scene import SceneBuilder
 
 _PROP_TAGS = {"integer", "float", "boolean", "string", "point", "vector",
@@ -165,8 +164,13 @@ def parse_node(node, params, named, base_dir):
             elif tag == "spectrum":
                 props[name] = _parse_spectrum(child)
             elif tag == "blackbody":
-                raise NotImplementedError(
-                    "<blackbody> spectra are not ported (ROADMAP A.12)")
+                # Planck at three wavelengths times `scale`
+                # (xml.py:154-158)
+                temp = float(_substitute(child.get("temperature", "6500"),
+                                         params))
+                scale = float(_substitute(child.get("scale", "1"), params))
+                props[name] = tuple(float(x) * scale
+                                    for x in blackbody(temp).tolist())
         elif tag == "transform":
             props[name or "toWorld"] = _parse_transform(child, params)
         elif tag == "ref":

@@ -2,12 +2,16 @@
 mitsuba_tpu/io/xml_shapes.py for the shapes and emitters the port has).
 
 Shapes (reference src/shapes/): obj, ply and serialized file meshes, the
-analytic sphere, and `shapegroup` / `instance` / `animatedinstance`,
+analytic sphere and open cylinder, `hspan` height-span maps and `hair`
+files under `tessellate="true"` (io/hairio.py), and `shapegroup` /
+`instance` / `animatedinstance`,
 flattened into transformed copies as the reference flattens them (an
 animated instance's shapes move along the track of its `filename`,
 animatedinstance.cpp:28-37, baked by the builder at a shutter time). An
-inverted sphere, or one carrying subsurface, is tessellated. An area
-`<luminaire>` binds to a triangle shape or an analytic sphere; the
+inverted sphere, or a sphere, cylinder or hair carrying subsurface, is
+tessellated. An area `<luminaire>` binds to a triangle shape or an
+analytic sphere (a cylinder with one raises the reference's ValueError);
+the
 scene-level luminaires are point, spot, directional, constant, envmap
 (an image read by io/bitmap.py) and the Preetham sky, with the
 reference's property names and defaults (xml_shapes.py:372-420). A
@@ -16,8 +20,9 @@ gridvolume) joins the scene's media, and a shape with an interior but
 neither BSDF nor luminaire gets the pass-through `null()` material. A
 shape's <subsurface type="dipole|multipole|adipole"> binds to a fresh
 copy of its material (xml_shapes.py:285-330); `marschner` is accepted
-and adds nothing, as in the reference. Cylinder, hair and hspan shapes
-raise NotImplementedError naming their ROADMAP item.
+and adds nothing, as in the reference. An analytic hair (`hair` without
+`tessellate` or subsurface) raises NotImplementedError naming ROADMAP
+A.12.
 """
 from __future__ import annotations
 
@@ -44,11 +49,30 @@ def _find(node, category):
     return None
 
 
-def _unported(what, item):
-    raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
-
-
-_UNPORTED_SHAPES = {"cylinder": "A.11", "hair": "A.12", "hspan": "A.12"}
+def _make_cylinder_mesh(p1, p2, radius, n_phi=64):
+    """The open cylinder from p1 to p2 as n_phi quads (cylinder.cpp has no
+    caps either; xml_shapes.py:35), for a cylinder carrying subsurface,
+    whose irradiance points sample triangles."""
+    p1 = np.asarray(p1, np.float64)
+    p2 = np.asarray(p2, np.float64)
+    axis = p2 - p1
+    z = axis / np.linalg.norm(axis)
+    a = np.array([1.0, 0, 0]) if abs(z[0]) < 0.9 else np.array([0, 1.0, 0])
+    x = np.cross(a, z)
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    phi = np.linspace(0, 2 * np.pi, n_phi + 1)
+    ring = (np.cos(phi)[:, None] * x + np.sin(phi)[:, None] * y) * radius
+    verts = np.concatenate([p1 + ring, p2 + ring]).astype(np.float32)
+    normals = np.concatenate([ring, ring]) / radius
+    w = n_phi + 1
+    faces = []
+    for i in range(n_phi):
+        faces.append([i, i + 1, w + i + 1])
+        faces.append([i, w + i + 1, w + i])
+    return mesh_mod.TriMesh(verts, np.asarray(faces, np.int32),
+                            normals=np.asarray(normals, np.float32),
+                            name="cylinder")
 
 
 def _resolve(base_dir, name):
@@ -81,8 +105,19 @@ def load_shape_mesh(shape_node, base_dir):
         if p.get("inverted", False):
             mesh.faces = mesh.faces[:, ::-1].copy()
             mesh.normals = -mesh.normals
-    elif t in _UNPORTED_SHAPES:
-        _unported(f"the shape '{t}'", _UNPORTED_SHAPES[t])
+    elif t == "cylinder":
+        mesh = _make_cylinder_mesh(p.get("p1", (0, 0, 0)),
+                                   p.get("p2", (0, 0, 1)),
+                                   float(p.get("radius", 1.0)))
+    elif t == "hair":
+        from mitsuba_tpu_torch.io.hairio import load_hair
+
+        mesh = load_hair(_resolve(base_dir, p["filename"]),
+                         radius=float(p.get("radius", 0.05)))
+    elif t == "hspan":
+        from mitsuba_tpu_torch.io.hairio import load_hspan
+
+        mesh = load_hspan(_resolve(base_dir, p["filename"]))
     else:
         raise ValueError(f"unsupported shape type '{t}'")
     to_world = p.get("toWorld")
@@ -135,23 +170,35 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn,
             add_shape(builder, sub_copy, base_dir, mat_cache, material_fn,
                       track=track)
         return
-    # the analytic sphere (reference sphere.cpp intersects exactly) skips
-    # tessellation unless inverted or carrying subsurface (whose points
-    # sample triangles)
+    # the analytic sphere and cylinder (reference sphere.cpp and
+    # cylinder.cpp intersect exactly) skip tessellation unless inverted
+    # (a sphere) or carrying subsurface (whose points sample triangles);
+    # a hair is analytic unless tessellated or carrying subsurface
     props0 = shape_node["props"]
+    sss = _find(shape_node, "subsurface") is not None
+    tw = props0.get("toWorld")
+    tw = None if tw is None else np.asarray(tw, np.float32)
+    scale = 1.0 if tw is None else float(np.linalg.norm(tw[:3, 0]))
     analytic = None
-    if (t == "sphere" and not props0.get("inverted", False)
-            and _find(shape_node, "subsurface") is None):
+    mesh = None
+    if t == "sphere" and not props0.get("inverted", False) and not sss:
         center = np.asarray(props0.get("center", (0.0, 0.0, 0.0)),
                             np.float32)
-        radius = float(props0.get("radius", 1.0))
-        tw = props0.get("toWorld")
         if tw is not None:
-            tw = np.asarray(tw, np.float32)
             center = tf.apply_point_np(tw, center)
-            radius *= float(np.linalg.norm(tw[:3, 0]))
-        analytic = (center, radius)
-        mesh = None
+        analytic = ("sphere", center, float(props0.get("radius", 1.0))
+                    * scale)
+    elif t == "cylinder" and not sss:
+        ends = [np.asarray(props0.get(k, d), np.float32) for k, d in (
+            ("p1", (0.0, 0.0, 0.0)), ("p2", (0.0, 0.0, 1.0)))]
+        if tw is not None:
+            ends = [tf.apply_point_np(tw, e) for e in ends]
+        analytic = ("cylinder", *ends, float(props0.get("radius", 1.0))
+                    * scale)
+    elif t == "hair" and not props0.get("tessellate", False) and not sss:
+        raise NotImplementedError(
+            "the analytic hair shape is not ported (ROADMAP A.12); "
+            "tessellate=\"true\" loads it as a mesh")
     else:
         mesh = load_shape_mesh(shape_node, base_dir)
     bsdf = _find(shape_node, "bsdf")
@@ -179,14 +226,21 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn,
     if ssn is not None and ssn["type"] != "marschner":
         mid = _add_subsurface(builder, ssn, bsdf, mid, material_fn,
                               base_dir)
-    if analytic is not None:
+    if analytic is not None and analytic[0] == "sphere":
+        _, center, radius = analytic
         eid = -1
         if lum is not None:
             eid = builder.emitters.sphere_area(
-                analytic[0], analytic[1], _spec(lum["props"], "intensity",
-                                                1.0))
-        builder.add_sphere(analytic[0], analytic[1], mid, emitter_id=eid,
+                center, radius, _spec(lum["props"], "intensity", 1.0))
+        builder.add_sphere(center, radius, mid, emitter_id=eid,
                            interior_medium=interior)
+        return
+    if analytic is not None:
+        _, p1, p2, radius = analytic
+        if lum is not None:
+            raise ValueError("cylinder area emitters are not supported; "
+                             "tessellate explicitly")
+        builder.add_cylinder(p1, p2, radius, mid, interior_medium=interior)
         return
     eid = -1
     if lum is not None:

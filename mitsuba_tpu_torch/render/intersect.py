@@ -1,6 +1,7 @@
 """Ray–scene intersection on the brute, bvh and cluster backends, with
-true instancing on the cluster backend and analytic spheres (port of
-mitsuba_tpu/render/intersect.py, triangle and sphere scenes).
+true instancing on the cluster backend and analytic spheres and
+cylinders (port of mitsuba_tpu/render/intersect.py, triangle, sphere and
+cylinder scenes).
 
 Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
 
@@ -40,10 +41,14 @@ Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
   Instanced hits carry virtual prim ids >= n_tris, which decode to the
   shared blocks.
 
-Analytic spheres (`sph_*`, prim ids [T, T+S) after the T triangles) are
-intersected in plain PyTorch against every ray after the triangles'
-query, on any backend, and merged into its record where nearer; a shadow
-ray is also occluded by a sphere (intersect.py:1579-1612, 1827-1941).
+Analytic spheres (`sph_*`, prim ids [T, T+S) after the T triangles) and
+open cylinders (`cyl_*`, prim ids [T+S, T+S+C)) are intersected in plain
+PyTorch against every ray after the triangles' query, on any backend,
+and merged into its record where nearer; a shadow ray is also occluded
+by a sphere or a cylinder (intersect.py:1579-1651, 1827-1941). Their
+prim ids lie at or above n_tris, where an instanced hit's virtual prims
+also start, and every per-triangle lookup (textures, hit prediction, the
+area lights' pdf) takes only prims below n_tris.
 
 Off the brute backend the hit record comes from the reference's generic
 tail (intersect.py:1359-1481): one packed `shade_pack` row per hit (the
@@ -168,6 +173,14 @@ class GeometryTables:
     sph_mid: torch.Tensor = None       # (S,) int32 material ids
     sph_eid: torch.Tensor = None       # (S,) int32 emitter ids, -1 = none
     sph_sid: torch.Tensor = None       # (S,) int32 shape ids
+    # analytic open cylinders (reference src/shapes/cylinder.cpp: no end
+    # caps); prim ids [T+S, T+S+C) are cylinders
+    cyl_a: torch.Tensor = None         # (C, 3) axis start
+    cyl_b: torch.Tensor = None         # (C, 3) axis end
+    cyl_r: torch.Tensor = None         # (C,) radii
+    cyl_mid: torch.Tensor = None       # (C,) int32 material ids
+    cyl_eid: torch.Tensor = None       # (C,) int32 emitter ids, -1 = none
+    cyl_sid: torch.Tensor = None       # (C,) int32 shape ids
     mt_k: int = MT_K
     backend: str = "brute"
 
@@ -182,6 +195,14 @@ class GeometryTables:
     @property
     def n_spheres(self):
         return 0 if self.sph_r is None else self.sph_r.shape[0]
+
+    @property
+    def n_cylinders(self):
+        return 0 if self.cyl_r is None else self.cyl_r.shape[0]
+
+    @property
+    def has_analytic(self):
+        return self.n_spheres + self.n_cylinders > 0
 
     @property
     def bvh_tables(self):
@@ -252,14 +273,15 @@ def _dev(x):
 
 def build_geometry(meshes_with_ids, backend: str = "auto",
                    instanced=None, ex_walk=None,
-                   spheres=()) -> GeometryTables:
+                   spheres=(), cylinders=()) -> GeometryTables:
     """Assemble GeometryTables from [(TriMesh, material_id, emitter_id
     [, shape_id]), ...]. backend: 'brute' keeps the input order and
     builds no tree, only the root box; 'bvh' orders the triangles by a
     BVH; 'cluster' also builds the cluster tables; 'auto' is cluster
     above 64 triangles, brute below (intersect.py:257); the analytic
     spheres [(centre, radius, material_id, emitter_id, shape_id), ...]
-    count for neither choice nor box. instanced:
+    and cylinders [(p0, p1, radius, material_id, emitter_id, shape_id),
+    ...] count for neither choice nor box. instanced:
     (groups, instances) for
     true instancing on the cluster backend, groups = [[(TriMesh in object
     space, material_id, shape_id), ...], ...] and instances = [(group
@@ -327,6 +349,14 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
             sph_mid=np.asarray([x[2] for x in spheres], np.int32),
             sph_eid=np.asarray([x[3] for x in spheres], np.int32),
             sph_sid=np.asarray([x[4] for x in spheres], np.int32))
+    if cylinders:
+        tables.update(
+            cyl_a=np.asarray([x[0] for x in cylinders], np.float32),
+            cyl_b=np.asarray([x[1] for x in cylinders], np.float32),
+            cyl_r=np.asarray([x[2] for x in cylinders], np.float32),
+            cyl_mid=np.asarray([x[3] for x in cylinders], np.int32),
+            cyl_eid=np.asarray([x[4] for x in cylinders], np.int32),
+            cyl_sid=np.asarray([x[5] for x in cylinders], np.int32))
     return GeometryTables(
         **{k: (_dev(x) if isinstance(x, np.ndarray) else x)
            for k, x in tables.items()},
@@ -956,9 +986,9 @@ def _dp_du(uv0, uv1, uv2, e1, e2):
 
 
 # ---------------------------------------------------------------------------
-# analytic spheres: intersected in plain PyTorch against every ray (S is
-# small) and merged with the triangle result, outside the kernels
-# (intersect.py:1579-1612, 1827-1873)
+# analytic spheres and cylinders: intersected in plain PyTorch against
+# every ray (S and C are small) and merged with the triangle result,
+# outside the kernels (intersect.py:1579-1651, 1827-1905)
 # ---------------------------------------------------------------------------
 
 def _sphere_closest(geom: GeometryTables, ray: Ray):
@@ -986,27 +1016,63 @@ def _sphere_closest(geom: GeometryTables, ray: Ray):
     return t_best, idx, torch.isfinite(t_best)
 
 
+def _cylinder_closest(geom: GeometryTables, ray: Ray):
+    """(t, cylinder index, valid) of the nearest hit on an open cylinder
+    (no end caps, cylinder.cpp): the ray's components across the axis
+    solve the quadratic, a root counts between the axis' two ends; a loop
+    over the cylinders as for the spheres (intersect.py:1614). A ray
+    along the axis has A clamped at 1e-12: its roots, if any, lie far
+    past the cylinder's ends."""
+    n = ray.o.shape[0]
+    t_best = torch.full((n,), float("inf"), device=ray.o.device)
+    idx = torch.zeros(n, dtype=torch.int64, device=ray.o.device)
+    for ci in range(geom.n_cylinders):
+        a = geom.cyl_a[ci]
+        ax = geom.cyl_b[ci] - a
+        r = geom.cyl_r[ci]
+        ln = torch.clamp(torch.sqrt(m.dot(ax, ax)), min=1e-12)
+        u = ax / ln
+        oc = ray.o - a[None]
+        du = m.dot(ray.d, u[None])
+        ou = m.dot(oc, u[None])
+        dp = ray.d - du[:, None] * u[None]
+        op = oc - ou[:, None] * u[None]
+        A = torch.clamp(m.dot(dp, dp), min=1e-12)
+        B = m.dot(dp, op)
+        Cq = m.dot(op, op) - r * r
+        disc = B * B - A * Cq
+        ok = disc >= 0.0
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t0 = (-B - sq) / A
+        t1 = (-B + sq) / A
+
+        def axial_ok(t):
+            s_ax = ou + t * du
+            return (s_ax >= 0.0) & (s_ax <= ln)
+
+        ok0 = ok & (t0 > ray.mint) & axial_ok(t0)
+        ok1 = ok & (t1 > ray.mint) & axial_ok(t1)
+        t = torch.where(ok0, t0, torch.where(ok1, t1, float("inf")))
+        t = torch.where(t < ray.maxt, t, float("inf"))
+        better = t < t_best
+        t_best = torch.where(better, t, t_best)
+        idx = torch.where(better, ci, idx)
+    return t_best, idx, torch.isfinite(t_best)
+
+
 def _analytic_any(geom: GeometryTables, ray: Ray):
-    """Occlusion by any sphere (intersect.py:1827)."""
-    return _sphere_closest(geom, ray)[2]
+    """Occlusion by any sphere or cylinder (intersect.py:1827)."""
+    occ = torch.zeros(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
+    if geom.n_spheres:
+        occ = occ | _sphere_closest(geom, ray)[2]
+    if geom.n_cylinders:
+        occ = occ | _cylinder_closest(geom, ray)[2]
+    return occ
 
 
-def _merge_analytic(geom: GeometryTables, ray: Ray,
-                    its: Intersection) -> Intersection:
-    """The triangle record with each lane whose nearest sphere is nearer
-    taking the sphere's record: the spherical uv of sphere.cpp and the
-    frame from the normal and dp/du (intersect.py:1838)."""
-    t, i, v = _sphere_closest(geom, ray)
-    closer = v & (t < its.t)
-    p = ray.at(torch.where(closer, t, 1.0))
-    n = m.normalize(p - geom.sph_c[i])
-    phi = torch.atan2(n[:, 1], n[:, 0])
-    theta = torch.arccos(torch.clamp(n[:, 2], -1.0, 1.0))
-    uv = torch.stack([phi * (0.5 / np.pi) + 0.5, theta / np.pi], -1)
-    dpdu = m.normalize(torch.stack(
-        [-n[:, 1], n[:, 0], torch.zeros_like(n[:, 0])], -1) + 1e-12)
-    wi = m.Frame.from_normal_tangent(n, dpdu).to_local(-ray.d)
-
+def _take(its: Intersection, closer, t, p, n, uv, dpdu, wi, prim, sid,
+          mid, eid) -> Intersection:
+    """The record with the lanes of `closer` taking an analytic hit."""
     def pick(a, b):
         return torch.where(closer[:, None] if b.dim() > 1 else closer, a, b)
 
@@ -1019,11 +1085,53 @@ def _merge_analytic(geom: GeometryTables, ray: Ray,
         uv=pick(uv, its.uv),
         dp_du=pick(dpdu, its.dp_du),
         wi=pick(wi, its.wi),
-        prim_id=pick(geom.n_tris + i.to(its.prim_id.dtype), its.prim_id),
-        shape_id=pick(geom.sph_sid[i], its.shape_id),
-        material_id=pick(geom.sph_mid[i], its.material_id),
-        emitter_id=pick(geom.sph_eid[i], its.emitter_id),
+        prim_id=pick(prim.to(its.prim_id.dtype), its.prim_id),
+        shape_id=pick(sid, its.shape_id),
+        material_id=pick(mid, its.material_id),
+        emitter_id=pick(eid, its.emitter_id),
     )
+
+
+def _merge_analytic(geom: GeometryTables, ray: Ray,
+                    its: Intersection) -> Intersection:
+    """The triangle record with each lane whose nearest sphere, then
+    whose nearest cylinder, is nearer taking its record (intersect.py:
+    1838): the sphere's spherical uv of sphere.cpp, the cylinder's
+    (azimuth about the axis, the axial fraction), each frame from the
+    normal and dp/du."""
+    T = geom.n_tris
+    if geom.n_spheres:
+        t, i, v = _sphere_closest(geom, ray)
+        closer = v & (t < its.t)
+        p = ray.at(torch.where(closer, t, 1.0))
+        n = m.normalize(p - geom.sph_c[i])
+        phi = torch.atan2(n[:, 1], n[:, 0])
+        theta = torch.arccos(torch.clamp(n[:, 2], -1.0, 1.0))
+        uv = torch.stack([phi * (0.5 / np.pi) + 0.5, theta / np.pi], -1)
+        dpdu = m.normalize(torch.stack(
+            [-n[:, 1], n[:, 0], torch.zeros_like(n[:, 0])], -1) + 1e-12)
+        wi = m.Frame.from_normal_tangent(n, dpdu).to_local(-ray.d)
+        its = _take(its, closer, t, p, n, uv, dpdu, wi, T + i,
+                    geom.sph_sid[i], geom.sph_mid[i], geom.sph_eid[i])
+    if geom.n_cylinders:
+        t, i, v = _cylinder_closest(geom, ray)
+        closer = v & (t < its.t)
+        a = geom.cyl_a[i]
+        ax = geom.cyl_b[i] - a
+        ln = torch.clamp(torch.sqrt(m.dot(ax, ax)), min=1e-12)
+        u_ax = ax / ln[:, None]
+        p = ray.at(torch.where(closer, t, 1.0))
+        s_ax = m.dot(p - a, u_ax)
+        n = m.normalize(p - a - s_ax[:, None] * u_ax)
+        lp = m.Frame.from_normal(u_ax).to_local(n)
+        phi = torch.atan2(lp[:, 1], lp[:, 0])
+        uv = torch.stack([phi * (0.5 / np.pi) + 0.5, s_ax / ln], -1)
+        dpdu = m.normalize(m.cross(u_ax, n))
+        wi = m.Frame.from_normal_tangent(n, dpdu).to_local(-ray.d)
+        its = _take(its, closer, t, p, n, uv, dpdu, wi,
+                    T + geom.n_spheres + i, geom.cyl_sid[i],
+                    geom.cyl_mid[i], geom.cyl_eid[i])
+    return its
 
 
 # ---------------------------------------------------------------------------
@@ -1061,11 +1169,11 @@ def _test_tri(geom: GeometryTables, ray: Ray):
 
 def ray_intersect(geom: GeometryTables, ray: Ray,
                   coherent: bool = False) -> Intersection:
-    """Closest-hit query -> Intersection, spheres merged after the
-    triangles (intersect.py:1911). coherent: camera-like wavefront; the
-    exact cull then runs at the small coherent caps."""
+    """Closest-hit query -> Intersection, spheres and cylinders merged
+    after the triangles (intersect.py:1911). coherent: camera-like
+    wavefront; the exact cull then runs at the small coherent caps."""
     its = _intersect_tri(geom, ray, coherent)
-    if geom.n_spheres:
+    if geom.has_analytic:
         its = _merge_analytic(geom, ray, its)
     return its
 
@@ -1073,20 +1181,21 @@ def ray_intersect(geom: GeometryTables, ray: Ray,
 def ray_test(geom: GeometryTables, ray: Ray):
     """Any-hit (shadow ray) query -> occluded (intersect.py:1922)."""
     occ = _test_tri(geom, ray)
-    if geom.n_spheres:
+    if geom.has_analytic:
         occ = occ | _analytic_any(geom, ray)
     return occ
 
 
 def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
     """Closest hit (ray) and shadow any-hit (sray): one fused kernel on the
-    brute backend, two separate queries elsewhere, spheres merged after
-    either (intersect.py:1932). Returns (Intersection, occluded)."""
+    brute backend, two separate queries elsewhere, spheres and cylinders
+    merged after either (intersect.py:1932). Returns (Intersection,
+    occluded)."""
     if geom.backend == "brute":
         its, occ = _fused_brute(geom, ray, sray)
     else:
         its, occ = _intersect_tri(geom, ray, False), _test_tri(geom, sray)
-    if geom.n_spheres:
+    if geom.has_analytic:
         its = _merge_analytic(geom, ray, its)
         occ = occ | _analytic_any(geom, sray)
     return its, occ

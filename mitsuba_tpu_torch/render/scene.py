@@ -5,16 +5,17 @@ instanced scenes, and shape-interior media).
 A `Scene` holds the geometry, material, emitter and texture tables and the
 camera, all on one device: the card unless the caller passes
 `device="cpu"` (without a CUDA device any other request raises).
-`SceneBuilder` assembles them on the host; triangle shapes and analytic
-spheres bind lambertian, mirror, dielectric, rough-conductor, phong or
-null (pass-through) materials (lambertian and phong optionally
-textured), triangle shapes and spheres also area emitters, the
+`SceneBuilder` assembles them on the host; triangle shapes, analytic
+spheres and analytic open cylinders bind any material of
+`bsdfs.MaterialBuilder` (the woven cloth's included), triangle shapes
+and spheres also area emitters, the
 builder's emitters may hold point, spot, directional, collimated,
 constant, image-map and Preetham-sky lights, textures may be constant,
 checkerboard, grid, vertex colours or bitmaps (with MIP pyramids under
 `build_mips`), and groups of shapes may be
 placed as true instances (one shared copy of their triangles, cluster
-backend). Triangle shapes and spheres may bound an interior medium
+backend). Triangle shapes, spheres and cylinders may bound an interior
+medium
 (`add_medium`, homogeneous or a density grid): the scene then carries a
 `media.medium.MediumStack` and each shape's medium index, which
 `integrators/volpath.py` `render_volpath_media` renders. An ambient
@@ -25,8 +26,8 @@ multipole or adipole): the scene then carries a
 its irradiance filled by the first render. A shape may move along an
 animated transform (`add_animated_shape`, core/track.py): `build` bakes
 it at a time (the camera's shutter-open by default), `build_time_scenes`
-at stratified times across the shutter for `render_motion`. Cylinders,
-hair and cloth are not ported yet.
+at stratified times across the shutter for `render_motion`. Analytic
+hair is not ported yet (ROADMAP A.12).
 
 A scene's tensors may require grad: `integrators/path.py` then
 differentiates a render with respect to them (materials and emitter
@@ -81,7 +82,7 @@ class Scene:
                 for f in dataclasses.fields(table)
                 if isinstance(getattr(table, f.name), torch.Tensor)})
 
-        return Scene(self.geom.to(device), move(self.materials),
+        return Scene(self.geom.to(device), self.materials.to(device),
                      move(self.emitters), move(self.camera),
                      self.textures.to(device), self.width, self.height,
                      None if self.media is None else self.media.to(device),
@@ -108,7 +109,9 @@ class SceneBuilder:
         self.textures = TextureBuilder(build_mips=build_mips)
         self._shapes = []     # (mesh, material_id, emitter_id, shape_id)
         self._spheres = []    # (centre, radius, material_id, -1, shape_id)
-        self._n_shapes = 0    # shared id space: meshes and spheres
+        # (p0, p1, radius, material_id, emitter_id, shape_id)
+        self._cylinders = []
+        self._n_shapes = 0    # shared id space: meshes, spheres, cylinders
         self._inst_groups = []   # [[(mesh, material_id, shape_id), ...]]
         self._instances = []     # [(group id, 4x4 to_world), ...]
         self._shape_interior = []   # per shape id: medium index or -1
@@ -199,6 +202,17 @@ class SceneBuilder:
         eid = self.emitters.sphere_area(center, radius, radiance)
         return self.add_sphere(center, radius, material_id, emitter_id=eid)
 
+    def add_cylinder(self, p0, p1, radius, material_id, emitter_id=-1,
+                     interior_medium: int = -1):
+        """An analytic open cylinder from p0 to p1 (reference
+        src/shapes/cylinder.cpp: no end caps; scene.py:139)."""
+        sid = self._n_shapes
+        self._n_shapes += 1
+        self._cylinders.append((tuple(p0), tuple(p1), float(radius),
+                                int(material_id), int(emitter_id), sid))
+        self._shape_interior.append(int(interior_medium))
+        return sid
+
     def add_area_emitter_shape(self, mesh, material_id, radiance):
         eid = self.emitters.area(mesh, radiance)
         return self.add_shape(mesh, material_id, eid)
@@ -247,12 +261,12 @@ class SceneBuilder:
                 shapes.append((mesh.transformed(m4), mid, eid, sid))
                 interior.append(-1)
                 sid += 1
-        if not shapes and not self._spheres:
+        if not shapes and not self._spheres and not self._cylinders:
             raise ValueError("scene has no shapes")
         if not shapes:
-            # spheres only: the triangle tables still need a row, a
-            # degenerate far-away triangle that is never hit (as the
-            # reference's builder adds, scene.py:263)
+            # analytic shapes only: the triangle tables still need a row,
+            # a degenerate far-away triangle that is never hit (as the
+            # reference's builder adds, scene.py:253-267)
             far = mesh_mod.make_quad(*[(1e8, 1e8, 1e8)] * 4)
             shapes = [(far, 0, -1, len(interior))]
             interior.append(-1)
@@ -265,7 +279,8 @@ class SceneBuilder:
             instanced = (self._inst_groups, self._instances)
         geom = build_geometry(shapes, backend=backend,
                               instanced=instanced, ex_walk=ex_walk,
-                              spheres=self._spheres)
+                              spheres=self._spheres,
+                              cylinders=self._cylinders)
         e1 = geom.e1.numpy()
         e2 = geom.e2.numpy()
         areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)

@@ -48,6 +48,25 @@ one sphere group).
   mean and variance; chip_smoke.py's `golden_textured` gates the port's
   48 x 48 x 128 render.
 
+* cylinders.npz, cloth.npz: the files of tests/torch_leftover_cases.py
+  `write_cylinders_xml` (scenes/cornell.xml's box with three analytic
+  cylinders) and `write_cloth_xml` (a weave-file irawan floor and a
+  procedural twill panel in the box), loaded by the JAX package's XML
+  loader, 48 x 48 px, depth 5, 256 spp, seed 1234, mean and variance as
+  snow.npz. Both are brute scenes: the JAX package renders them on its
+  kernel path (the kernels' plain references, tests/torch_kernel_path.py),
+  whose shading frame the port's brute backend builds (ROADMAP C, "two
+  shading frames"; the cloth's yarns turn with it). chip_smoke.py's
+  `golden_cylinders` and `golden_cloth` gate the port's 48 x 48 x 128
+  renders.
+* leftovers.npz: `write_leftovers_xml` at LEFT_CELLS^2 hspan cells and
+  LEFT_FIBERS hair fibres (fewer than chip_smoke.py's leftovers_xml
+  phase renders: the JAX package's CPU cluster path takes too long at
+  full size) with its LEFT_TEX^2 JPEG ground and blackbody light, 48 x 48
+  px, depth 5, 256 spp, seed 1234, mean and variance, and the counts
+  ("cells", "fibers", "tex"); chip_smoke.py's `golden_leftovers` writes
+  the same files and gates the port's 48 x 48 x 128 render.
+
 All store the image under "mean". Regenerate only after an intentional
 change of the JAX package's estimator:
 
@@ -78,7 +97,11 @@ GOLDENS = {
     "bsdf_zoo": (48, "zoo", None, 256, 5),
     "lights": (48, "lights", None, 256, 5),
     "texture_mip": (48, "mip", None, 256, 5),
+    "cylinders": (48, "cylinders", None, 256, 5),
+    "cloth": (48, "cloth", None, 256, 5),
+    "leftovers": (48, "leftovers", None, 256, 5),
 }
+LEFT_CELLS, LEFT_FIBERS, LEFT_TEX = 64, 200, 1024   # leftovers.npz
 LIGHTS_TEX, LIGHTS_ENV = 1024, 512      # the lights file's image sizes
 STATS_SEED = 1234
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
@@ -211,6 +234,56 @@ def mip_scene(res):
         make_perspective=make_perspective), res, res)
 
 
+def leftover_scene(name, res, spp, depth, tmp):
+    """A file of tests/torch_leftover_cases.py written into tmp, loaded by
+    the JAX package's XML loader."""
+    from mitsuba_tpu.io.xml import load_scene
+
+    sys.path.insert(0, os.path.dirname(DIR))
+    import torch_leftover_cases as lc
+
+    if name == "cylinders":
+        path = lc.write_cylinders_xml(tmp)
+    elif name == "cloth":
+        path = lc.write_cloth_xml(tmp)
+    else:
+        path = lc.write_leftovers_xml(tmp, LEFT_CELLS, LEFT_FIBERS,
+                                      LEFT_TEX)
+    return load_scene(path, params=dict(depth=depth, spp=spp, width=res,
+                                        height=res))
+
+
+def leftover_golden(name, res, spp, depth):
+    """cylinders.npz, cloth.npz and leftovers.npz: mean and variance; the
+    brute scenes on the JAX package's kernel path."""
+    import tempfile
+
+    from _pytest.monkeypatch import MonkeyPatch
+
+    sys.path.insert(0, os.path.dirname(DIR))
+    import torch_kernel_path as kp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, cfg = leftover_scene(name, res, spp, depth, tmp)
+        mp = MonkeyPatch()
+        try:
+            if scene.geom.backend == "brute":
+                kp.kernel_path(mp, scene.geom)
+            mean, var = render_stats(scene, depth, spp, STATS_SEED,
+                                     cfg["pattern"])
+        finally:
+            mp.undo()
+    extra = {}
+    if name == "leftovers":
+        extra = dict(cells=LEFT_CELLS, fibers=LEFT_FIBERS, tex=LEFT_TEX)
+    np.savez_compressed(os.path.join(DIR, name + ".npz"), depth=depth,
+                        mean=mean.astype(np.float32),
+                        var=var.astype(np.float32), spp=spp, **extra)
+    print(f"{name}: {res}x{res} px, {spp} spp, backend "
+          f"{scene.geom.backend}, {scene.geom.n_tris} triangles, "
+          f"mean={mean.mean():.6f}", flush=True)
+
+
 def stats_golden(name, res, spp, depth):
     """snow.npz, bsdf_zoo.npz, lights.npz and texture_mip.npz: mean and
     variance, as tests/goldens."""
@@ -247,6 +320,9 @@ def main():
         res, n_theta, n_phi, spp, depth = GOLDENS[name]
         if n_theta in ("snow", "zoo", "lights", "mip"):
             stats_golden(name, res, spp, depth)
+            continue
+        if n_theta in ("cylinders", "cloth", "leftovers"):
+            leftover_golden(name, res, spp, depth)
             continue
         if n_theta == "fog":
             img = render_fog(res, spp, depth, seed=0)

@@ -1,8 +1,11 @@
 """The port's image files (`mitsuba_tpu_torch.io.bitmap`) against the JAX
 package's: each writer gives the reference writer's bytes for the same
 image, each reader reads what either package wrote back to the same
-array (exactly; half-float EXR and 8-bit formats to what they store),
-and `.jpg` raises (JPEG is not ported).
+array (exactly; half-float EXR and 8-bit formats to what they store).
+`.jpg` was refused until JPEG was ported: its case now holds the JPEG
+hooks of `write_image` and `read_image` to the reference's (the same
+bytes written, the same pixels read; tests/test_torch_jpeg.py holds the
+codec), and unknown formats still raise.
 """
 import numpy as np
 import pytest
@@ -102,9 +105,13 @@ def test_mfilm_equals_reference(tmp_path):
 
 
 def test_jpeg_and_unknown_formats_raise(tmp_path):
+    a, b = str(tmp_path / "x.jpg"), str(tmp_path / "y.jpg")
+    tb.write_image(a, LDR)
+    jb.write_image(b, LDR)
+    assert _bytes(a) == _bytes(b)
+    got = tb.read_image(a)
+    assert got.shape == LDR.shape and np.array_equal(got, jb.read_image(a))
     for fn in (tb.write_image, lambda p, _img: tb.read_image(p)):
-        with pytest.raises(NotImplementedError, match="JPEG.*A.13"):
-            fn(str(tmp_path / "x.jpg"), LDR)
         with pytest.raises(ValueError, match="unsupported"):
             fn(str(tmp_path / "x.gif"), LDR)
     p = str(tmp_path / "x.png")

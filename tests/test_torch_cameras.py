@@ -115,8 +115,9 @@ def test_camera_plugins_match(case):
 def test_open_shutter_refused():
     """An open shutter is ported (motion blur: render_motion,
     tests/test_torch_motion.py): the plugin keeps the reference's shutter
-    interval. What a scene with one still refuses is a cylinder beside it
-    (ROADMAP A.11)."""
+    interval. What a scene with one still refuses is an analytic hair
+    beside it (ROADMAP A.12; the cylinder this case held until then is
+    ported, tests/test_torch_cylinders.py)."""
     props = {"shutterOpen": 0.25, "shutterClose": 0.75}
     cam = create_plugin("camera", "perspective", props)
     jc = j_create("camera", "perspective", props)
@@ -124,10 +125,11 @@ def test_open_shutter_refused():
         float(jc.shutter_open), float(jc.shutter_time)) == (0.25, 0.5)
     from mitsuba_tpu_torch.io.xml import load_scene_string
 
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.12"):
         load_scene_string(
             '<scene><camera type="perspective"><float name="shutterClose" '
-            'value="0.5"/></camera><shape type="cylinder"/></scene>',
+            'value="0.5"/></camera><shape type="hair"><string '
+            'name="filename" value="h.hair"/></shape></scene>',
             device="cpu")
 
 

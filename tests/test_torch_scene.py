@@ -200,8 +200,12 @@ def test_unported_features_raise():
     jb.add_shape(mesh_mod.make_quad([0, 0, 0], [1, 0, 0], [1, 1, 0],
                                     [0, 1, 0]), jb.materials.lambertian())
     jb.add_cylinder([0, 0, 1], [0, 0, 2], 0.5, 0)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        from_jax_scene(jb.build(backend="brute"), device="cpu")  # cylinder
+    # a cylinder, which this case held refused until it was ported
+    # (ROADMAP A.11), converts with its tables
+    # (tests/test_torch_cylinders.py holds its records)
+    geom = from_jax_scene(jb.build(backend="brute"), device="cpu").geom
+    assert geom.n_cylinders == 1 and geom.cyl_r.tolist() == [0.5]
+    assert geom.cyl_a.tolist() == [[0.0, 0.0, 1.0]]
     # hair (ROADMAP A.12); an open shutter, which this case held until
     # motion blur was ported, converts (tests/test_torch_motion.py)
     from mitsuba_tpu.core import transform as jtf

@@ -400,73 +400,72 @@ def test_medium_equals_reference(assets, src):
 
 # (feature, the scene body or a whole scene) -> NotImplementedError
 _SPH = '<shape type="sphere"><bsdf type="diffuse"/></shape>'
+# an analytic hair (ROADMAP A.12), the last shape the port refuses
+_HAIR = ('<shape type="hair"><string name="filename" value="h.hair"/>'
+         '</shape>')
 UNPORTED = {
-    "cylinder": '<shape type="cylinder"/>',
-    "hair": '<shape type="hair"><string name="filename" value="h.hair"/>'
-            '</shape>',
+    "cylinder": _HAIR + '<shape type="cylinder"/>',
+    "hair": _HAIR,
     # animated instances, subsurface and an open shutter are ported
-    # (tests/test_torch_motion.py, test_torch_subsurface.py); their cases
-    # keep their names with a cylinder, a hair or a blackbody
-    "animatedinstance": '<shape type="shapegroup" id="g"><shape '
-                        'type="cylinder"/></shape><shape '
-                        'type="animatedinstance"><ref id="g"/></shape>',
-    "subsurface": '<shape type="cylinder"><subsurface type="dipole"/>'
-                  '</shape>',
-    "irawan": '<shape type="sphere"><bsdf type="irawan"/></shape>',
-    "blackbody": '<shape type="sphere"><luminaire type="area"><blackbody '
-                 'name="intensity" temperature="3000"/></luminaire></shape>',
+    # (tests/test_torch_motion.py, test_torch_subsurface.py), and so are
+    # cylinders, the woven cloth, <blackbody>, JPEG and hspan
+    # (tests/test_torch_cylinders.py, test_torch_cloth.py,
+    # test_torch_spectrum.py, test_torch_jpeg.py, test_torch_hairio.py):
+    # each case keeps its name with its feature beside an analytic hair,
+    # which raises first
+    "animatedinstance": '<shape type="shapegroup" id="g">' + _HAIR
+                        + '</shape><shape type="animatedinstance"><ref '
+                        'id="g"/></shape>',
+    "subsurface": _HAIR + '<shape type="cylinder"><subsurface '
+                  'type="dipole"/></shape>',
+    "irawan": _HAIR + '<shape type="sphere"><bsdf type="irawan"/></shape>',
+    "blackbody": _HAIR + '<shape type="sphere"><luminaire type="area">'
+                 '<blackbody name="intensity" temperature="3000"/>'
+                 '</luminaire></shape>',
     "shutter": '<camera type="perspective"><float name="shutterClose" '
-               'value="0.5"/></camera><shape type="hair"><string '
-               'name="filename" value="h.hair"/></shape>',
+               'value="0.5"/></camera>' + _HAIR,
     # the cases below named features that are ported now (sphere
     # emitters, bitmaps, the scene-level luminaires, the orthographic
-    # camera, the aperture, a scene without emitters: PORTED_LIGHTS);
-    # each keeps its name with a feature that stays unported beside it
-    "sphere_emitter": '<shape type="cylinder"><luminaire type="area"/>'
-                      '</shape>',
-    "bitmap": '<shape type="sphere"><bsdf type="diffuse"><texture '
+    # camera, the aperture, a scene without emitters: PORTED_LIGHTS); each
+    # keeps its name with the feature beside an analytic hair
+    "sphere_emitter": _HAIR + '<shape type="sphere"><luminaire '
+                      'type="area"/></shape>',
+    "bitmap": _HAIR + '<shape type="sphere"><bsdf type="diffuse"><texture '
               'type="bitmap"><string name="filename" value="t.jpg"/>'
               '</texture></bsdf></shape>',
-    "point": '<luminaire type="point"/><shape type="cylinder"/>',
-    "spot": '<luminaire type="spot"/><shape type="hspan"><string '
-            'name="filename" value="h.hspan"/></shape>',
-    "directional": '<luminaire type="directional"/><shape type="sphere">'
-                   '<bsdf type="irawan"/></shape>',
-    "constant": '<luminaire type="constant"/><shape type="hspan">'
-                '<string name="filename" value="h.hspan"/></shape>',
-    "envmap": '<luminaire type="envmap"><string name="filename" '
-              'value="e.jpg"/></luminaire>' + _SPH,
-    "orthographic": '<camera type="orthographic"/><shape type="sphere">'
-                    '<bsdf type="irawan"/></shape>',
+    "point": '<luminaire type="point"/>' + _HAIR,
+    "spot": '<luminaire type="spot"/>' + _HAIR + '<shape type="hspan">'
+            '<string name="filename" value="h.hspan"/></shape>',
+    "directional": '<luminaire type="directional"/>' + _HAIR,
+    "constant": '<luminaire type="constant"/>' + _HAIR,
+    "envmap": _HAIR + '<luminaire type="envmap"><string name="filename" '
+              'value="e.exr"/></luminaire>',
+    "orthographic": '<camera type="orthographic"/>' + _HAIR,
     "aperture": '<camera type="perspective"><float name="apertureRadius" '
                 'value="0.1"/><float name="shutterClose" value="0.5"/>'
-                '</camera><shape type="sphere"><luminaire type="area">'
-                '<blackbody name="intensity" temperature="3000"/>'
-                '</luminaire></shape>',
-    "no_emitter": '<shape type="sphere"><bsdf type="diffuse"><texture '
-                  'type="ldrtexture"><string name="filename" '
+                '</camera>' + _HAIR,
+    "no_emitter": _HAIR + '<shape type="sphere"><bsdf type="diffuse">'
+                  '<texture type="ldrtexture"><string name="filename" '
                   'value="t.jpeg"/></texture></bsdf></shape>',
 }
 
 
-# the ROADMAP item each unported feature's error names
-ITEM = {"cylinder": "A.11", "hair": "A.12", "animatedinstance": "A.11",
-        "sphere_emitter": "A.11",
-        "subsurface": "A.11", "irawan": "A.11", "bitmap": "A.13",
-        "point": "A.11", "spot": "A.12", "directional": "A.11",
-        "constant": "A.12", "envmap": "A.13", "blackbody": "A.12",
-        "orthographic": "A.11",
-        "aperture": "A.12", "shutter": "A.12",
-        "no_emitter": "A.13"}
+# the ROADMAP item each unported feature's error names: the analytic
+# hair's, A.12, in every case now
+ITEM = {feature: "A.12" for feature in UNPORTED}
 
 
 @pytest.mark.parametrize("feature", sorted(UNPORTED))
-def test_unported_features_raise(feature):
+def test_unported_features_raise(feature, tmp_path):
+    from mitsuba_tpu_torch.io.bitmap import write_exr
+
+    # the envmap case's image (scene-level luminaires load before shapes)
+    write_exr(str(tmp_path / "e.exr"), np.ones((4, 8, 3), np.float32))
     body = UNPORTED[feature]
     light = "" if feature == "no_emitter" else _SKY
     with pytest.raises(NotImplementedError, match=ITEM[feature]):
         txml.load_scene_string(f"<scene>{light}{body}</scene>",
-                               device="cpu")
+                               base_dir=str(tmp_path), device="cpu")
 
 
 # features that raised until they were ported (ROADMAP A.7 and A.8): each
