@@ -290,7 +290,8 @@ Phases, each printing one JSON line:
      forward and in the backward's recompute apart, a profile of the
      step with its top kernels and the index gathers' backward share,
      grad_abs_max; each fails on a gradient that is not finite or all
-     zero, or a kernel that did not launch in both passes): grad_bvh and
+     zero, or a kernel that did not launch in both passes), at depths
+     cut to GRAD_DEPTH, GRAD_SSS_DEPTH and GRAD_PT_DEPTH: grad_bvh and
      grad_cluster (config 3's scene on bvh, #11, and on cluster, #5, #6,
      #9, #10; with respect to the reflectance and the sky's image),
      grad_instanced (#12, #11; the reflectance and the radiance),
@@ -315,6 +316,30 @@ Phases, each printing one JSON line:
      .jpg output, whose bytes must be the port's JPEG of the render's
      sRGB image, and `golden_leftovers` (the same files at the golden's
      smaller cell and fibre counts, tests/torch_goldens/leftovers.npz);
+  5h. analytic hair and the integrators outside the CLI (ROADMAP A.12),
+     after the leftovers: hair_xml (scenes/cornell.xml's box with
+     HAIR_FIBERS analytic fibres of 16 points, 15,000 segments, through
+     cli.main as cli_cornell at CLI_W x CLI_H x LEFT_SPP: #1 5 a
+     render, the segment walk after it; the EXR equal to the render),
+     `hair_walk` (its walk steps a render and the walks' device ms,
+     replayed alone), `golden_hair` (the |t| rule at 48x48x128 against
+     tests/torch_goldens/hair_cornell.npz at its own fibre count) and
+     `hair_tess` (the same fibres tessellated, cluster: the means within
+     HAIR_TESS_REL, tests/test_shapes_extra.py:127); hair_cluster
+     (leftovers.xml with its fibres analytic, a render phase at W3 x H3 x
+     SPP3: #5, #6, #9, #10 and the walk); then photonmap, ppm,
+     photonmapper and sppm on cornell_box(INTEG_RES, INTEG_RES) at
+     INTEG_SPP spp, depth INTEG_DEPTH and their default photon counts,
+     irrcache, vpl and adaptive on the box, bre in fog, photons_cluster
+     (sppm_render on leftovers.xml, cluster, one sample a pixel a pass:
+     #5, #6, #9, #10; config 3's scene has no light a photon can leave):
+     each one profiled run, a line of its seconds, launches, peak
+     memory, device busy ms and share and its aux numbers; and
+     `golden_integrators`: each at 48x48 against the JAX package's CPU
+     image at the same seed and counts (tests/torch_goldens/
+     integrators.npz) by the relative RMSE of 8x8-block means, at most
+     INTEG_REL_RMSE_MAX (a photon map's pixels share their photons, so
+     the |t| rule does not apply);
   5c. the media: gates at 64x64, 1,024 spp, depth 5 against
      tests/torch_goldens/volpath_fog.npz with fog's 0.10 block gate and
      band: a heterogeneous medium of constant density 1 over a grid
@@ -382,7 +407,7 @@ TIMED = {"config1": 2, "config2": 2, "config3": 2, "config3_v5": 2,
          "textured_mip": 1, "textured_mip_mip": 1, "textured_mip_aniso": 1,
          "textured_bvh": 2, "ptracer": 2, "config3_octant": 2,
          "config3_pred": 2, "cylinders_cluster": 2, "cylinders_bvh": 2,
-         "cylinder_media": 2}
+         "cylinder_media": 2, "hair_cluster": 1}
 # participating media: hetero_xml (scenes/cornell.xml's box in a grid
 # medium read from a HX_GRID³ float32 .vol, 64 MiB), flake (config 1's
 # box in an oriented Gaussian-flake medium, FLAKE_GRID³ density and
@@ -431,7 +456,8 @@ STATS_GOLDENS = {"golden_snow": "tests/torch_goldens/snow.npz",
                  "golden_textured": "tests/torch_goldens/texture_mip.npz",
                  "golden_cylinders": "tests/torch_goldens/cylinders.npz",
                  "golden_cloth": "tests/torch_goldens/cloth.npz",
-                 "golden_leftovers": "tests/torch_goldens/leftovers.npz"}
+                 "golden_leftovers": "tests/torch_goldens/leftovers.npz",
+                 "golden_hair": "tests/torch_goldens/hair_cornell.npz"}
 # the lights slice (tests/torch_light_cases.py): the lights file (point,
 # spot, directional, sphere and envmap lights; a LIGHTS_TEX^2 floor EXR,
 # an LIGHTS_ENV x 2 LIGHTS_ENV sky EXR) through the CLI at CLI_W x CLI_H x
@@ -465,6 +491,12 @@ TEX_GRAD_RES, TEX_GRAD_REL = 32, 1e-3
 # 1e-5, the card against the CPU 1e-3 of the largest entry), the slab
 # with GRAD_CHECK_POINTS points, the particle tracer GRAD_CHECK_PARTICLES
 GRAD_ROUNDS, GRAD_LONG_S, GRAD_CHECK_RES = 3, 10.0, 32
+# the gradient phases' depths, cut to make room for the hair and
+# integrator phases (5h) in the script's time limit (grad_bvh,
+# grad_cluster and grad_instanced from 5 to GRAD_DEPTH, grad_sss from 4
+# to GRAD_SSS_DEPTH, grad_ptracer from 5 to GRAD_PT_DEPTH): every step
+# is the gathers' backward a bounce at any depth (PERF.md section 6)
+GRAD_DEPTH, GRAD_SSS_DEPTH, GRAD_PT_DEPTH = 3, 2, 2
 GRAD_CHECK_POINTS, GRAD_CHECK_PARTICLES = 64, 1 << 16
 # the subsurface, guiding and motion slice: the dipole slab of
 # tests/golden_scenes.py:144 as a scene file (tests/torch_sss_cases.py,
@@ -497,6 +529,18 @@ MOTION_SMEAR, MOTION_ENERGY, MOTION_BINS = 3, 0.1, 4
 # the JAX package's CPU renders
 LEFT_SPP = 16
 LEFT_CELLS, LEFT_FIBERS, LEFT_TEX = 256, 1000, 1024
+# analytic hair and the integrators outside the CLI (ROADMAP A.12;
+# tests/torch_leftover_cases.py write_hair_cornell_xml): HAIR_FIBERS
+# fibres of 16 points in scenes/cornell.xml's box, analytic against
+# tessellated within HAIR_TESS_REL in the mean (tests/test_shapes_extra.py
+# :127) at W3 x H3 x SPP3; the integrators on cornell_box(INTEG_RES) at
+# INTEG_SPP spp, depth INTEG_DEPTH, each at its defaults, and their gates
+# at INTEG_GOLD_RES against tests/torch_goldens/integrators.npz: the port
+# on the CPU reads at most 1.4e-3 there (sppm; the others 2e-5 or less),
+# the limit is INTEG_REL_RMSE_MAX
+HAIR_FIBERS, HAIR_TESS_REL = 1000, 0.08
+INTEG_RES, INTEG_SPP, INTEG_DEPTH, INTEG_GOLD_RES = 512, 4, 5, 48
+INTEG_REL_RMSE_MAX = 0.01
 FOG = dict(sigma_s=(0.0015,) * 3, sigma_a=(0.0003,) * 3, g=0.4)
 FOG_GOLDEN_SPP = 1024          # tests/torch_goldens/volpath_fog.npz
 GOLDEN_REL_RMSE_MAX = 0.10     # bench.py validate_golden, 8x8 blocks
@@ -550,7 +594,14 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              "cylinders_cluster": (0.156, 0.364),
              "cylinders_bvh": (0.156, 0.364),
              "cylinder_media": (0.0871, 0.203),
-             "leftovers_xml": (0.172, 0.401)}
+             "leftovers_xml": (0.172, 0.401),
+             # +-40% of the port's CPU renders at 32x32x4 of the files of
+             # write_hair_cornell_xml (1,000 fibres, 0.1518) and of
+             # leftovers.xml with analytic fibres (0.2732)
+             "hair_xml": (0.0911, 0.2125), "hair_cluster": (0.164, 0.383),
+             # sppm estimates the radiance leftovers_xml's path tracer
+             # does: its band
+             "photons_cluster": (0.172, 0.401)}
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -2651,7 +2702,7 @@ def grad_phases(device, scene_bvh, scene3, scene_inst):
     from mitsuba_tpu_torch.render.scene import cornell_box, instanced_scene
 
     gc, sc = _grad_cases()
-    cfg = PathConfig(max_depth=DEPTH3, spp=SPP3, remat=True)
+    cfg = PathConfig(max_depth=GRAD_DEPTH, spp=SPP3, remat=True)
     sky = (("materials", "reflectance"), ("emitters", "env_image"))
     area = (("materials", "reflectance"), ("emitters", "radiance"))
     check = dict(res=GRAD_CHECK_RES)
@@ -2679,7 +2730,8 @@ def grad_phases(device, scene_bvh, scene3, scene_inst):
             depth=SSS_DEPTH, spp=SSS_SPP, width=SSS_W, height=SSS_H,
             irr=SSS_IRR), device=device)
     out["grad_sss"] = grad_phase(
-        "grad_sss", slab, PathConfig(max_depth=SSS_DEPTH, spp=SSS_SPP),
+        "grad_sss", slab, PathConfig(max_depth=GRAD_SSS_DEPTH,
+                                     spp=SSS_SPP),
         gc.cached_mean_l, area + (("subsurface", "sigma_tr"),),
         # #3 runs in the cache's direct samples only, which no bounce's
         # checkpoint holds (512 lanes keep their activations)
@@ -2695,7 +2747,8 @@ def grad_phases(device, scene_bvh, scene3, scene_inst):
         fd_field="sigma_tr", fd_eps=1e-3, depth=SSS_DEPTH, **check)
     out["grad_ptracer"] = grad_phase(
         "grad_ptracer", cornell_box(PT_RES, PT_RES, device=device),
-        PathConfig(max_depth=5, remat=True), gc.ptracer_mean(PT_PARTICLES),
+        PathConfig(max_depth=GRAD_PT_DEPTH, remat=True),
+        gc.ptracer_mean(PT_PARTICLES),
         (("emitters", "radiance"), ("materials", "reflectance")),
         ["shaded", "any"], particles=PT_PARTICLES)
     grad_checks_phase("grad_ptracer_checks", cornell_box(
@@ -3937,6 +3990,7 @@ def _load_phase(tag, path, defs, device, **kw):
     g = scene.geom
     phase(tag, seconds=time.perf_counter() - t0, backend=g.backend,
           triangles=g.n_tris, spheres=g.n_spheres, cylinders=g.n_cylinders,
+          hair_segments=g.n_hair,
           materials=scene.materials.kind.tolist(),
           media=0 if scene.media is None else int(scene.media.n_media),
           emitter_radiance=scene.emitters.radiance.tolist()[:4])
@@ -4006,6 +4060,220 @@ def leftovers_phases(device, tmp):
     os.mkdir(dg)
     _file_golden("golden_leftovers", lc.write_leftovers_xml(
         dg, int(g["cells"]), int(g["fibers"]), int(g["tex"])), device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# analytic hair and the integrators outside the CLI (ROADMAP A.12)
+# ---------------------------------------------------------------------------
+
+def hair_walk_phase(tag, scene, cfg):
+    """One render at seed 0 with its hair walks recorded: the walk steps a
+    render (closest and any), then the recorded walks replayed alone once
+    under the profiler (their wall s, device ms, busy share and kernels a
+    render). Returns them with the render's mean."""
+    from mitsuba_tpu_torch.integrators.path import render
+    from mitsuba_tpu_torch.render import intersect as ri
+
+    for k in ri.HAIR_STEPS:
+        ri.HAIR_STEPS[k] = 0
+    (img, _), calls = record_calls(ri, ("_hair_walk",),
+                                   lambda: render(scene, cfg, seed=0))
+    steps = dict(ri.HAIR_STEPS)
+    walks = calls["_hair_walk"]
+
+    def replay():
+        for geom, ray, any_hit in walks:
+            ri._hair_walk(geom, ray, any_hit)
+
+    prof = device_profile(replay)
+    phase(tag, width=scene.width, height=scene.height, spp=cfg.spp,
+          depth=cfg.max_depth, segments=scene.geom.n_hair,
+          nodes=int(scene.geom.hair_nodes.shape[0]), walks=len(walks),
+          lanes=[int(w[1].o.shape[0]) for w in walks], steps=steps,
+          replay_seconds=prof["wall_ms"] / 1e3,
+          device_busy_ms=prof["device_busy_ms"],
+          busy_share=prof["busy_share"], kernels=prof["kernels"],
+          top=prof["top"][:6])
+    return dict(steps=steps, device_ms=prof["device_busy_ms"],
+                launches=prof["kernels"], mean=float(img.mean()))
+
+
+def hair_phases(device, tmp):
+    """hair_xml through the CLI, its walk, its golden and the tessellated
+    fibres' mean; hair_cluster (leftovers.xml with analytic fibres).
+    Returns the phases' launch counts."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.io.xml import load_scene
+
+    lc = _leftover_cases()
+    dh = os.path.join(tmp, "hair")
+    os.mkdir(dh)
+    t0 = time.perf_counter()
+    path = lc.write_hair_cornell_xml(dh, HAIR_FIBERS)
+    tess = lc.write_hair_cornell_xml(dh, HAIR_FIBERS, tessellate=True)
+    phase("hair_files", seconds=time.perf_counter() - t0,
+          fibers=HAIR_FIBERS, bytes={f: os.path.getsize(os.path.join(dh, f))
+                                     for f in sorted(os.listdir(dh))})
+    out = {"hair_xml": cli_phase("hair_xml", device, dh, "hair_cornell",
+                                 xml=path, spp=LEFT_SPP)}
+    defs = dict(depth=DEPTH3, spp=SPP3, width=W3, height=H3)
+    cfg = PathConfig(max_depth=DEPTH3, spp=SPP3)
+    scene = _load_phase("hair_xml_load", path, defs, device)
+    out["hair_walk"] = hair_walk_phase("hair_walk", scene, cfg)
+    ma = out["hair_walk"]["mean"]
+    del scene
+    scene = _load_phase("hair_tess_load", tess, defs, device)
+    mt = float(render(scene, cfg, seed=0)[0].mean())
+    del scene
+    rel = abs(ma - mt) / max(mt, 1e-6)
+    phase("hair_tess", width=W3, height=H3, spp=SPP3, depth=DEPTH3,
+          analytic_mean=ma, tessellated_mean=mt, rel=rel,
+          limit=HAIR_TESS_REL)
+    if not rel < HAIR_TESS_REL:
+        raise AssertionError(f"hair_tess: means {ma} and {mt}")
+    g = np.load(os.path.join(ROOT, STATS_GOLDENS["golden_hair"]))
+    dg = os.path.join(tmp, "hair_golden")
+    os.mkdir(dg)
+    _file_golden("golden_hair", lc.write_hair_cornell_xml(
+        dg, int(g["fibers"])), device)
+    dl = os.path.join(tmp, "hair_cluster")
+    os.mkdir(dl)
+    left = lc.write_leftovers_xml(dl, LEFT_CELLS, LEFT_FIBERS, LEFT_TEX,
+                                  analytic=True)
+    scene = _load_phase("hair_cluster_load", left, defs, device)
+    out["hair_cluster"] = render_phase(
+        "hair_cluster", scene, cfg, ["refine", "child_refine", "l1_masked"],
+        forbid=["items", "l1_items"])
+    del scene
+    return out
+
+
+def _integrators():
+    """name -> (call (scene, cfg) -> (image, aux), kernels it launches
+    on the brute box)."""
+    from mitsuba_tpu_torch.integrators import (
+        adaptive, bre, irrcache, photonmap, vpl,
+    )
+    from mitsuba_tpu_torch.media import make_homogeneous
+
+    fog = make_homogeneous(**FOG)
+    return {
+        "photonmap": (photonmap.photonmap_render, ["shaded"]),
+        "ppm": (photonmap.ppm_render, ["shaded"]),
+        "photonmapper": (photonmap.photonmapper_render, ["shaded", "any"]),
+        "sppm": (photonmap.sppm_render, ["shaded"]),
+        "irrcache": (irrcache.irrcache_render, ["shaded_any", "shaded"]),
+        "vpl": (vpl.render_vpl, ["shaded", "any"]),
+        "adaptive": (adaptive.adaptive_render, ["shaded_any"]),
+        "bre": (lambda scene, cfg: bre.bre_render(scene, fog, cfg),
+                ["shaded"]),
+    }
+
+
+def _aux_numbers(aux):
+    """The numbers of an integrator's aux dict (render_vpl returns its
+    VPLs instead: their count)."""
+    if not isinstance(aux, dict):
+        return dict(vpls=int(aux.p.shape[0]), valid=int(aux.valid.sum()))
+    return {k: v for k, v in aux.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+
+def integrator_phase(tag, fn, scene, cfg, need, band):
+    """fn(scene, cfg) once under the profiler, every launch count set to 0
+    just before and read just after: its seconds (the profiled wall
+    time; the trace records the device alone), launches, peak memory,
+    device busy ms and share."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = {}
+    prof = device_profile(lambda: res.update(out=fn(scene, cfg)))
+    img, aux = res["out"]
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    PROFILES[tag] = prof
+    mean = float(img.mean())
+    extra = {}
+    if isinstance(aux, dict) and "sample_count" in aux:
+        extra = dict(passes=aux["passes"],
+                     samples_mean=float(aux["sample_count"].float().mean()))
+    phase(tag, width=scene.width, height=scene.height, spp=cfg.spp,
+          depth=cfg.max_depth, backend=scene.geom.backend,
+          seconds=prof["wall_ms"] / 1e3,
+          launches={k: v for k, v in launches.items() if v},
+          peak_mem_gib=peak, device_busy_ms=prof["device_busy_ms"],
+          busy_share=prof["busy_share"], kernels=prof["kernels"],
+          own=prof["own"], top=prof["top"][:6], mean=mean, band=band,
+          aux=_aux_numbers(aux), **extra)
+    if tuple(img.shape) != (scene.height, scene.width, 3) \
+            or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{tag} image is not finite or misshapen")
+    if not band[0] < mean < band[1]:
+        raise AssertionError(f"{tag} mean {mean} outside {band}")
+    for k in need:
+        if launches[k] < 1:
+            raise AssertionError(f"{tag}: kernel {k} was never launched")
+    return launches
+
+
+def integrators_phases(device, tmp):
+    """Each integrator at full size on the box, sppm on the cluster
+    backend, then the 48x48 gates. Config 3's scene is lit by its sky
+    alone, and photons leave finite lights alone (ptracer.py
+    `_sample_emission`, as the reference's): the reference's sppm_render
+    raises there for want of a deposit. The cluster photon phase takes
+    leftovers.xml (310,050 triangles, a blackbody area light) at W3 x
+    H3. Returns each phase's launch counts."""
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.integrators.photonmap import sppm_render
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    golden = np.load(os.path.join(ROOT, "tests/torch_goldens/"
+                                  "integrators.npz"))
+    cfg = PathConfig(max_depth=INTEG_DEPTH, spp=INTEG_SPP)
+    box = cornell_box(INTEG_RES, INTEG_RES, device=device)
+    out = {}
+    for name, (fn, need) in _integrators().items():
+        m = float(golden[name].mean())
+        out[name] = integrator_phase(name, fn, box, cfg, need,
+                                     (0.6 * m, 1.4 * m))
+    del box
+    dl = os.path.join(tmp, "photons_cluster")
+    os.mkdir(dl)
+    scene = _load_phase("photons_cluster_load", _leftover_cases()
+                        .write_leftovers_xml(dl, LEFT_CELLS, LEFT_FIBERS,
+                                             LEFT_TEX),
+                        dict(depth=DEPTH3, spp=1, width=W3, height=H3),
+                        device)
+    out["photons_cluster"] = integrator_phase(
+        "photons_cluster", sppm_render, scene,
+        PathConfig(max_depth=DEPTH3, spp=1),
+        ["refine", "child_refine", "l1_masked"],
+        MEAN_BAND["photons_cluster"])
+    del scene
+    box = cornell_box(INTEG_GOLD_RES, INTEG_GOLD_RES, device=device)
+
+    def blocks(a, b=8):
+        h, w, c = a.shape
+        return a.reshape(h // b, b, w // b, b, c).mean(axis=(1, 3))
+
+    rels = {}
+    for name, (fn, _) in _integrators().items():
+        img = fn(box, cfg)[0].cpu().numpy()
+        rb, ib = blocks(golden[name]), blocks(img)
+        rels[name] = float(np.sqrt(np.mean((ib - rb) ** 2))
+                           / max(rb.mean(), 1e-9))
+        if not np.isfinite(img).all():
+            rels[name] = float("inf")
+    phase("golden_integrators", golden="tests/torch_goldens/integrators.npz",
+          width=INTEG_GOLD_RES, height=INTEG_GOLD_RES, spp=INTEG_SPP,
+          depth=INTEG_DEPTH, block=8, rel_rmse=rels,
+          limit=INTEG_REL_RMSE_MAX)
+    bad = {k: v for k, v in rels.items() if not v <= INTEG_REL_RMSE_MAX}
+    if bad:
+        raise AssertionError(f"golden_integrators: {bad}")
     return out
 
 
@@ -4212,6 +4480,11 @@ def main(argv=None):
     # analytic cylinders, the cloth, <blackbody>, JPEG, hspan and
     # tessellated hair through scene files, and their goldens
     lleft = leftovers_phases(device, tmp.name)
+    # analytic hair through a scene file and on the cluster backend, the
+    # photon map family, the irradiance cache, VPLs, adaptive sampling
+    # and the beam estimate (ROADMAP A.12)
+    lhair = hair_phases(device, tmp.name)
+    linteg = integrators_phases(device, tmp.name)
     # config 2: the brute kernel (#1) with the glass sphere merged after
     # it, camera lanes in pixel-Morton order as bench.py runs it
     l2 = render_phase("config2", cornell_box_specular(
@@ -4348,6 +4621,27 @@ def main(argv=None):
                         for t in ("cylinders_cluster", "leftovers_xml")})
         return out
 
+    def integ(kname, *tags):
+        # a brute kernel's launches in the integrator phases' counted run
+        # (and its device ms in their profiled run)
+        out = {}
+        for t in tags:
+            out[f"launches_{t}"] = linteg[t][kname]
+            out[f"device_ms_per_run_{t}"] = brute_ms(t, kname)
+        return out
+
+    def hair_cluster(kname, profiled=None):
+        # a cluster kernel's launches in hair_cluster (a render) and in
+        # photons_cluster (the sppm run), and their device ms
+        out = {"launches_hair_cluster": lhair["hair_cluster"][kname],
+               "launches_photons_cluster": linteg["photons_cluster"][kname]}
+        if profiled:
+            out["device_ms_per_render_hair_cluster"] = own_ms(
+                "hair_cluster", profiled)
+            out["device_ms_per_run_photons_cluster"] = own_ms(
+                "photons_cluster", profiled)
+        return out
+
     # the stream fallback launches only where a lane overflows the XL caps
     stream_path = "config3" if l3["stream"] else "config3_v5"
     print(json.dumps({"kernels": [
@@ -4392,6 +4686,10 @@ def main(argv=None):
               **{f"device_ms_per_render_{t}": PROFILES[t]["own"].get(
                   "brute_kernel", {}).get("ms") for t in ("cylinders_xml",
                                                           "cloth_xml")},
+              launches_hair_xml=lhair["hair_xml"],
+              device_ms_per_render_hair_xml=PROFILES["hair_xml"]["own"]
+              .get("brute_kernel", {}).get("ms"),
+              **integ("shaded_any", "irrcache", "adaptive"),
               device_ms_per_render=brute_ms("config1", "shaded_any"),
               device_ms_per_render_config2=brute_ms("config2",
                                                     "shaded_any"),
@@ -4402,7 +4700,7 @@ def main(argv=None):
         entry("refine", "exact.cu", "mitsuba_tpu/ops/exact_pallas.py:114",
               l3["refine"], cluster[("refine", "bounce", "S1")],
               launches_xml_config3=lxml["cluster"]["refine"],
-              **left_launches("refine"),
+              **left_launches("refine"), **hair_cluster("refine"),
               **{f"launches_{t}": v["refine"] for t, v in lopt3.items()},
               device_ms_per_render=own_ms("config3", "refine_kernel"),
               device_ms_per_render_v5=own_ms("config3_v5", "refine_kernel"),
@@ -4412,7 +4710,7 @@ def main(argv=None):
               "mitsuba_tpu/ops/exact_pallas.py:209", l3["child_refine"],
               cluster[("child_refine", "bounce", "S2")],
               launches_xml_config3=lxml["cluster"]["child_refine"],
-              **left_launches("child_refine"),
+              **left_launches("child_refine"), **hair_cluster("child_refine"),
               **{f"launches_{t}": v["child_refine"]
                  for t, v in lopt3.items()},
               device_ms_per_render=own_ms("config3", "child_refine_kernel"),
@@ -4444,6 +4742,7 @@ def main(argv=None):
                  for t in lopt3},
               launches_xml_config3=lxml["cluster"]["l1_masked"],
               **left_launches("l1_masked", "l1_masked_kernel"),
+              **hair_cluster("l1_masked", "l1_masked_kernel"),
               **grad_launches("grad_cluster", kname="l1_masked"),
               device_ms_per_render_xml_config3=own_ms("xml_config3",
                                                       "l1_masked_kernel")),
@@ -4455,6 +4754,7 @@ def main(argv=None):
               **{f"launches_{t}": v["stream"] for t, v in lopt3.items()},
               launches_xml_config3=lxml["cluster"]["stream"],
               **left_launches("stream", "stream_kernel"),
+              **hair_cluster("stream", "stream_kernel"),
               **grad_launches("grad_cluster", kname="stream")),
         # #11's device ms a render (both bodies), in the bvh render and
         # in the instanced one (its overflow fallback and instance walks)
@@ -4498,6 +4798,8 @@ def main(argv=None):
               launches_cylinder_media=lleft["cylinder_media"]["shaded"],
               device_ms_per_render_cylinder_media=brute_ms(
                   "cylinder_media", "shaded"),
+              **integ("shaded", "photonmap", "ppm", "photonmapper", "sppm",
+                      "irrcache", "vpl", "bre"),
               **grad_launches("grad_ptracer", kname="shaded"),
               **media_entry(lmed, "shaded")),
         brute("any", 97, lv["any"], split["any"], path="volpath",
@@ -4508,6 +4810,7 @@ def main(argv=None):
               device_ms_per_render_ptracer=brute_ms("ptracer", "any"),
               **grad_launches("grad_ptracer", "grad_sss", kname="any"),
               launches_sss_cache={t: v["any"] for t, v in lsss.items()},
+              **integ("any", "photonmapper", "vpl"),
               device_ms_per_render_sss={t: brute_ms(t, "any")
                                         for t in lsss},
               **media_entry(lmed, "any")),

@@ -86,12 +86,13 @@ def apply_point_np(m, p):
 
 def apply_vector_np(m, v):
     """A direction under m on the host: `apply_point_np` without the
-    translation, as the reference's `apply_vector` computes it."""
+    translation, as the reference's `apply_vector` computes it; v (3,) or
+    (..., 3)."""
     m64 = np.asarray(m, np.float32).astype(np.float64)
     v = np.asarray(v, np.float32).astype(np.float64)
-    acc = (m64[:3, 0] * v[0]).astype(np.float32)
+    acc = (m64[:3, 0] * v[..., 0, None]).astype(np.float32)
     for k in (1, 2):
-        acc = (m64[:3, k] * v[k] + acc).astype(np.float32)
+        acc = (m64[:3, k] * v[..., k, None] + acc).astype(np.float32)
     return acc
 
 

@@ -2,8 +2,8 @@
 
 `from_jax_scene` reads the reference scene's arrays as numpy (geometry on
 the brute, bvh or cluster backend, instanced or not, with or without
-analytic spheres and cylinders, sphere emitters, materials of every kind
-with their opacity column, composite children and the woven cloth's
+analytic spheres, cylinders and hair, sphere emitters, materials of
+every kind with their opacity column, composite children and the woven cloth's
 weave tables, textures of every kind
 with their images and MIP pyramids, emitters of every kind with the
 environment map's sampling tables, the perspective, thin-lens or
@@ -74,9 +74,10 @@ def _t(x):
 def _geometry(g) -> GeometryTables:
     if g.backend not in ("brute", "bvh", "cluster"):
         _unported(f"intersection backend '{g.backend}'")
-    if g.n_hair > 0:
-        _unported("hair geometry (ROADMAP A.12)")
     analytic = {}
+    if g.n_hair > 0:
+        analytic.update(hair_nodes=_t(g.hair_nodes),
+                        hair_segs=_t(g.hair_segs))
     if g.n_spheres > 0:
         analytic.update({k: _t(getattr(g, k)) for k in _SPHERE_FIELDS})
     if g.n_cylinders > 0:

@@ -7,8 +7,9 @@ host numpy, each a TriMesh).
     reference intersects the swept volume analytically; under
     `tessellate="true"` a fibre becomes a generalized cylinder (a tube of
     `n_sides` sides on rotation-minimizing frames), whose triangles
-    traverse the same kernels as every other mesh. (The analytic fibre,
-    the reference's default, is not ported: ROADMAP A.12.)
+    traverse the same kernels as every other mesh. Without it a fibre is
+    analytic: `load_hair_segments` returns its segments, each an exact
+    open cylinder of the segment BVH that render/intersect.py walks.
   * src/shapes/hspan.cpp:1197 (the fork's own shape): .hspans1/.hspans2
     height-span maps, per-cell lists of [h1, h2] vertical spans, used for
     snow surfaces; the top surface is triangulated by joining each span's
@@ -24,9 +25,8 @@ import numpy as np
 from mitsuba_tpu_torch.render.mesh import TriMesh, merge
 
 
-def load_hair(path: str, radius: float = 0.05, n_sides: int = 6,
-              name: str | None = None) -> TriMesh:
-    """Load a mitsuba hair file and tessellate fibers into tubes."""
+def _read_fibers(path: str):
+    """The fibres of a hair file, each (P, 3) float64, P >= 2."""
     fibers = []
     cur = []
     with open(path) as f:
@@ -40,6 +40,13 @@ def load_hair(path: str, radius: float = 0.05, n_sides: int = 6,
             cur.append([float(x) for x in line.split()[:3]])
     if len(cur) >= 2:
         fibers.append(np.asarray(cur, np.float64))
+    return fibers
+
+
+def load_hair(path: str, radius: float = 0.05, n_sides: int = 6,
+              name: str | None = None) -> TriMesh:
+    """Load a mitsuba hair file and tessellate fibers into tubes."""
+    fibers = _read_fibers(path)
     meshes = [tessellate_fiber(fb, radius, n_sides) for fb in fibers]
     if not meshes:
         raise ValueError(f"{path}: no fibers found")
@@ -181,3 +188,30 @@ def load_hspan(path: str, cell_size: float = 1.0, name: str | None = None) -> Tr
     )
     mesh.compute_vertex_normals()
     return mesh
+
+
+def load_hair_segments(path: str, radius: float = 0.05):
+    """A mitsuba hair file as analytic cylinder segments (hairio.py:178;
+    hair.cpp:132 intersects exact per-segment cylinders). Returns dict(a
+    (H, 3), b (H, 3), r (H,), u0 (H,), u1 (H,)), float32: u0 and u1 are
+    each segment's arclength range along its fibre over the fibre's
+    length, the v coordinate of its hits."""
+    fibers = _read_fibers(path)
+    if not fibers:
+        raise ValueError(f"{path}: no fibers found")
+    a_list, b_list, u0_list, u1_list = [], [], [], []
+    for p in fibers:
+        seg_len = np.linalg.norm(np.diff(p, axis=0), axis=-1)
+        arc = np.concatenate([[0.0], np.cumsum(seg_len)])
+        total = max(arc[-1], 1e-12)
+        a_list.append(p[:-1])
+        b_list.append(p[1:])
+        u0_list.append(arc[:-1] / total)
+        u1_list.append(arc[1:] / total)
+    a = np.concatenate(a_list).astype(np.float32)
+    return dict(
+        a=a, b=np.concatenate(b_list).astype(np.float32),
+        r=np.full(a.shape[0], radius, np.float32),
+        u0=np.concatenate(u0_list).astype(np.float32),
+        u1=np.concatenate(u1_list).astype(np.float32),
+    )

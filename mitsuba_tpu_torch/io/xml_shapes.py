@@ -2,8 +2,9 @@
 mitsuba_tpu/io/xml_shapes.py for the shapes and emitters the port has).
 
 Shapes (reference src/shapes/): obj, ply and serialized file meshes, the
-analytic sphere and open cylinder, `hspan` height-span maps and `hair`
-files under `tessellate="true"` (io/hairio.py), and `shapegroup` /
+analytic sphere and open cylinder, `hspan` height-span maps, `hair`
+files (io/hairio.py: analytic segments, or tubes under
+`tessellate="true"`), and `shapegroup` /
 `instance` / `animatedinstance`,
 flattened into transformed copies as the reference flattens them (an
 animated instance's shapes move along the track of its `filename`,
@@ -20,9 +21,8 @@ gridvolume) joins the scene's media, and a shape with an interior but
 neither BSDF nor luminaire gets the pass-through `null()` material. A
 shape's <subsurface type="dipole|multipole|adipole"> binds to a fresh
 copy of its material (xml_shapes.py:285-330); `marschner` is accepted
-and adds nothing, as in the reference. An analytic hair (`hair` without
-`tessellate` or subsurface) raises NotImplementedError naming ROADMAP
-A.12.
+and adds nothing, as in the reference. A hair with a luminaire raises
+the reference's ValueError.
 """
 from __future__ import annotations
 
@@ -196,9 +196,16 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn,
         analytic = ("cylinder", *ends, float(props0.get("radius", 1.0))
                     * scale)
     elif t == "hair" and not props0.get("tessellate", False) and not sss:
-        raise NotImplementedError(
-            "the analytic hair shape is not ported (ROADMAP A.12); "
-            "tessellate=\"true\" loads it as a mesh")
+        # exact per-segment cylinders (hair.cpp:132; xml_shapes.py:200)
+        from mitsuba_tpu_torch.io.hairio import load_hair_segments
+
+        seg = load_hair_segments(_resolve(base_dir, props0["filename"]),
+                                 radius=float(props0.get("radius", 0.05)))
+        if tw is not None:
+            seg["a"] = tf.apply_point_np(tw, seg["a"])
+            seg["b"] = tf.apply_point_np(tw, seg["b"])
+            seg["r"] = (seg["r"] * scale).astype(np.float32)
+        analytic = ("hair", seg)
     else:
         mesh = load_shape_mesh(shape_node, base_dir)
     bsdf = _find(shape_node, "bsdf")
@@ -234,6 +241,11 @@ def add_shape(builder, shape_node, base_dir, mat_cache, material_fn,
                 center, radius, _spec(lum["props"], "intensity", 1.0))
         builder.add_sphere(center, radius, mid, emitter_id=eid,
                            interior_medium=interior)
+        return
+    if analytic is not None and analytic[0] == "hair":
+        if lum is not None:
+            raise ValueError("hair emitters are not supported")
+        builder.add_hair(analytic[1], mid)
         return
     if analytic is not None:
         _, p1, p2, radius = analytic

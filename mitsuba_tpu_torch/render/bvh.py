@@ -85,3 +85,18 @@ def build_bvh(vertices: np.ndarray, faces: np.ndarray,
     return BVH(bounds_min=bmin[:m].copy(), bounds_max=bmax[:m].copy(),
                first=first[:m].copy(), count=count[:m].copy(),
                skip=skip[:m].copy(), perm=perm)
+
+
+def build_bvh_boxes(pmin: np.ndarray, pmax: np.ndarray,
+                    max_leaf: int = MAX_LEAF) -> BVH:
+    """Binned-SAH skip-link BVH over arbitrary boxes (hair segments;
+    bvh.py:204): one synthesised triangle a box, whose vertices are its
+    min corner, its max corner and its centre, so that its vertex box and
+    centroid are the box's. perm, first and count index the boxes."""
+    pmin = np.asarray(pmin, np.float64)
+    pmax = np.asarray(pmax, np.float64)
+    n = pmin.shape[0]
+    center = (pmin + pmax) * 0.5
+    verts = np.stack([pmin, pmax, center], axis=1).reshape(n * 3, 3)
+    faces = np.arange(n * 3, dtype=np.int64).reshape(n, 3)
+    return build_bvh(verts, faces, max_leaf=max_leaf)

@@ -1,7 +1,6 @@
 """Ray–scene intersection on the brute, bvh and cluster backends, with
-true instancing on the cluster backend and analytic spheres and
-cylinders (port of mitsuba_tpu/render/intersect.py, triangle, sphere and
-cylinder scenes).
+true instancing on the cluster backend and analytic spheres, cylinders
+and hair (port of mitsuba_tpu/render/intersect.py).
 
 Geometry lives in `GeometryTables`, SoA tensors of the triangle soup.
 
@@ -50,6 +49,14 @@ prim ids lie at or above n_tris, where an instanced hit's virtual prims
 also start, and every per-triangle lookup (textures, hit prediction, the
 area lights' pdf) takes only prims below n_tris.
 
+Analytic hair (`hair_*`, prim ids [T+S+C, T+S+C+H)) is a list of open
+cylinder segments in a skip-link BVH of their own (`build_bvh_boxes`),
+walked in plain PyTorch after the analytic merge, on any backend, as the
+reference walks it in XLA (intersect.py:1717): a lane tests one segment
+or visits one node a step; the host reads the lanes' liveness every
+_HAIR_CHECK_EVERY steps, and compacts the live lanes when fewer than
+half still walk.
+
 Off the brute backend the hit record comes from the reference's generic
 tail (intersect.py:1359-1481): one packed `shade_pack` row per hit (the
 shared block's attributes, rotated to world space, for an instanced
@@ -74,7 +81,7 @@ from mitsuba_tpu_torch.ops import exact as ep
 from mitsuba_tpu_torch.ops import intersect as ip
 from mitsuba_tpu_torch.ops import stream as sp
 from mitsuba_tpu_torch.ops import worklist as wl
-from mitsuba_tpu_torch.render.bvh import build_bvh
+from mitsuba_tpu_torch.render.bvh import MAX_LEAF, build_bvh, build_bvh_boxes
 from mitsuba_tpu_torch.render.clusters import (
     MTTables, build_instanced_tables, build_mt_tables, cut_clusters,
 )
@@ -181,6 +188,11 @@ class GeometryTables:
     cyl_mid: torch.Tensor = None       # (C,) int32 material ids
     cyl_eid: torch.Tensor = None       # (C,) int32 emitter ids, -1 = none
     cyl_sid: torch.Tensor = None       # (C,) int32 shape ids
+    # analytic hair (reference src/shapes/hair.cpp: exact per-segment
+    # cylinders): the segments in the order of their own skip-link BVH;
+    # prim ids [T+S+C, T+S+C+H) are segments
+    hair_nodes: torch.Tensor = None    # (Mh, 9) bmin|bmax|first|count|skip
+    hair_segs: torch.Tensor = None     # (H, 16) a|b|r|u0|u1|mid|eid|sid|0
     mt_k: int = MT_K
     backend: str = "brute"
 
@@ -199,6 +211,10 @@ class GeometryTables:
     @property
     def n_cylinders(self):
         return 0 if self.cyl_r is None else self.cyl_r.shape[0]
+
+    @property
+    def n_hair(self):
+        return 0 if self.hair_segs is None else self.hair_segs.shape[0]
 
     @property
     def has_analytic(self):
@@ -273,7 +289,7 @@ def _dev(x):
 
 def build_geometry(meshes_with_ids, backend: str = "auto",
                    instanced=None, ex_walk=None,
-                   spheres=(), cylinders=()) -> GeometryTables:
+                   spheres=(), cylinders=(), hair=None) -> GeometryTables:
     """Assemble GeometryTables from [(TriMesh, material_id, emitter_id
     [, shape_id]), ...]. backend: 'brute' keeps the input order and
     builds no tree, only the root box; 'bvh' orders the triangles by a
@@ -281,7 +297,8 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
     above 64 triangles, brute below (intersect.py:257); the analytic
     spheres [(centre, radius, material_id, emitter_id, shape_id), ...]
     and cylinders [(p0, p1, radius, material_id, emitter_id, shape_id),
-    ...] count for neither choice nor box. instanced:
+    ...] count for neither choice nor box, nor do the hair segments
+    dict(a, b, r, u0, u1, mid, eid, sid) (`_pack_hair`). instanced:
     (groups, instances) for
     true instancing on the cluster backend, groups = [[(TriMesh in object
     space, material_id, shape_id), ...], ...] and instances = [(group
@@ -357,6 +374,8 @@ def build_geometry(meshes_with_ids, backend: str = "auto",
             cyl_mid=np.asarray([x[3] for x in cylinders], np.int32),
             cyl_eid=np.asarray([x[4] for x in cylinders], np.int32),
             cyl_sid=np.asarray([x[5] for x in cylinders], np.int32))
+    if hair is not None and hair["a"].shape[0] > 0:
+        tables.update(_pack_hair(hair))
     return GeometryTables(
         **{k: (_dev(x) if isinstance(x, np.ndarray) else x)
            for k, x in tables.items()},
@@ -1135,6 +1154,206 @@ def _merge_analytic(geom: GeometryTables, ray: Ray,
 
 
 # ---------------------------------------------------------------------------
+# analytic hair: open-cylinder segments in a skip-link BVH of their own,
+# walked in plain PyTorch after the triangles and the analytic merge
+# (intersect.py:1654-1823); the reference runs this walk in XLA, outside
+# its kernels
+# ---------------------------------------------------------------------------
+
+# the hair walk checks for live lanes, and compacts them, once every this
+# many steps (each check is a host sync; the steps between leave a
+# finished lane as it is, as the reference's body does)
+_HAIR_CHECK_EVERY = 16
+# steps of the hair walks since import (reset by callers that count)
+HAIR_STEPS = {"closest": 0, "any": 0}
+
+
+def _pack_hair(hair) -> dict:
+    """numpy `hair_nodes` and `hair_segs` of the segments dict(a, b, r,
+    u0, u1, mid, eid, sid) (intersect.py:1654): their BVH over the
+    segments' boxes swept by r, the segments in its order."""
+    a = np.asarray(hair["a"], np.float32)
+    b = np.asarray(hair["b"], np.float32)
+    r = np.asarray(hair["r"], np.float32)
+    bvh = build_bvh_boxes(np.minimum(a, b) - r[:, None],
+                          np.maximum(a, b) + r[:, None])
+    perm = bvh.perm
+    segs = np.zeros((a.shape[0], 16), np.float32)
+    segs[:, 0:3] = a[perm]
+    segs[:, 3:6] = b[perm]
+    segs[:, 6] = r[perm]
+    for col, k in ((7, "u0"), (8, "u1"), (9, "mid"), (10, "eid"),
+                   (11, "sid")):
+        segs[:, col] = np.asarray(hair[k], np.float32)[perm]
+    nodes = np.concatenate(
+        [bvh.bounds_min, bvh.bounds_max,
+         bvh.first[:, None].astype(np.float32),
+         bvh.count[:, None].astype(np.float32),
+         bvh.skip[:, None].astype(np.float32)], axis=1)
+    return dict(hair_nodes=nodes, hair_segs=segs)
+
+
+def _cyl_seg_hit(o, d, rows, mint, tcap):
+    """The open-cylinder test of segment rows (..., 16) against the rays
+    o, d (..., 3), mint and tcap broadcasting with them (intersect.py:
+    1683): (t, axial fraction, valid). A ray along the axis has A clamped
+    at 1e-12."""
+    a = rows[..., 0:3]
+    ax = rows[..., 3:6] - a
+    r = rows[..., 6]
+    ln = torch.clamp(torch.sqrt(m.dot(ax, ax)), min=1e-12)
+    u = ax / ln[..., None]
+    oc = o - a
+    du = m.dot(d, u)
+    ou = m.dot(oc, u)
+    dp = d - du[..., None] * u
+    op = oc - ou[..., None] * u
+    A = torch.clamp(m.dot(dp, dp), min=1e-12)
+    B = m.dot(dp, op)
+    Cq = m.dot(op, op) - r * r
+    disc = B * B - A * Cq
+    ok = disc >= 0.0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0 = (-B - sq) / A
+    t1 = (-B + sq) / A
+
+    def axial_ok(t):
+        s_ax = ou + t * du
+        return (s_ax >= 0.0) & (s_ax <= ln)
+
+    ok0 = ok & (t0 > mint) & axial_ok(t0)
+    ok1 = ok & (t1 > mint) & axial_ok(t1)
+    t = torch.where(ok0, t0, torch.where(ok1, t1, float("inf")))
+    valid = (ok0 | ok1) & (t < tcap)
+    frac = torch.clamp((ou + t * du) / ln, 0.0, 1.0)
+    return t, frac, valid
+
+
+def _hair_walk(geom: GeometryTables, ray: Ray, any_hit: bool):
+    """The stackless walk of the segment BVH (intersect.py:1717): a step
+    tests one segment of the lane's current leaf, or else visits one
+    node; the state is the reference's. Every _HAIR_CHECK_EVERY steps the
+    host reads which lanes still walk, stops when none does, and compacts
+    the walking lanes when fewer than half of the current ones still walk
+    (a finished lane's state is left as it is, as the reference's body
+    leaves it). The step cap is the reference's. Returns (t, frac,
+    segment, valid)."""
+    nodes, segs = geom.hair_nodes, geom.hair_segs
+    m_nodes, n_segs = nodes.shape[0], segs.shape[0]
+    cap = (MAX_LEAF + 1) * m_nodes + 8
+    n = ray.o.shape[0]
+    dev = ray.o.device
+    z = torch.zeros(n, dtype=torch.int64, device=dev)
+    out = dict(t=torch.where(torch.isfinite(ray.maxt), ray.maxt,
+                             float("inf")),
+               frac=torch.zeros(n, device=dev), prim=z,
+               valid=torch.zeros(n, dtype=torch.bool, device=dev))
+    st = dict(out, node=z, lf=z, lc=z, lk=z)
+    o, d, mint, maxt = ray.o, ray.d, ray.mint, ray.maxt
+    inv_d = m.safe_rcp(d)
+    lanes = None          # the current lanes' indices (None: all)
+    key = "any" if any_hit else "closest"
+
+    def live_of(st):
+        live = (st["node"] < m_nodes) | (st["lk"] < st["lc"])
+        return live & ~st["valid"] if any_hit else live
+
+    def put_back(st, lanes):
+        for k in out:
+            out[k] = st[k] if lanes is None \
+                else out[k].index_copy(0, lanes, st[k])
+
+    step = 0
+    while step < cap:
+        if step % _HAIR_CHECK_EVERY == 0:
+            live = live_of(st)
+            n_live = int(live.sum())
+            if n_live == 0:
+                break
+            if n_live * 2 < live.shape[0]:
+                put_back(st, lanes)
+                sel = torch.nonzero(live).squeeze(1)
+                lanes = sel if lanes is None else lanes[sel]
+                st = {k: v[sel] for k, v in st.items()}
+                o, d, mint, maxt, inv_d = (x[sel] for x in
+                                           (o, d, mint, maxt, inv_d))
+        step += 1
+        HAIR_STEPS[key] += 1
+        node, lf, lc, lk = st["node"], st["lf"], st["lc"], st["lk"]
+        t_best, valid = st["t"], st["valid"]
+        in_leaf = lk < lc
+        if any_hit:
+            in_leaf = in_leaf & ~valid
+        si = torch.clamp(lf + torch.clamp(lk, max=MAX_LEAF - 1),
+                         max=n_segs - 1)
+        t, frac, hit = _cyl_seg_hit(o, d, segs[si], mint,
+                                    torch.minimum(maxt, t_best))
+        closer = in_leaf & hit & (t < t_best)
+        st["t"] = t_best = torch.where(closer, t, t_best)
+        st["frac"] = torch.where(closer, frac, st["frac"])
+        st["prim"] = torch.where(closer, si, st["prim"])
+        st["valid"] = valid = valid | closer
+        lk = torch.where(in_leaf, lk + 1, lk)
+        do_node = ~in_leaf & (node < m_nodes)
+        if any_hit:
+            do_node = do_node & ~valid
+        nd = torch.clamp(node, max=m_nodes - 1)
+        row = nodes[nd]
+        t0 = (row[:, 0:3] - o) * inv_d
+        t1 = (row[:, 3:6] - o) * inv_d
+        t_near = torch.maximum(torch.amax(torch.minimum(t0, t1), dim=-1),
+                               mint)
+        t_far = torch.minimum(torch.amin(torch.maximum(t0, t1), dim=-1),
+                              torch.minimum(maxt, t_best))
+        box_hit = do_node & (t_near <= t_far)
+        count = row[:, 7].to(torch.int64)
+        is_leaf = count > 0
+        enter = box_hit & is_leaf
+        st["lf"] = torch.where(enter, row[:, 6].to(torch.int64), lf)
+        st["lc"] = torch.where(enter, torch.clamp(count, max=MAX_LEAF), lc)
+        st["lk"] = torch.where(enter, 0, lk)
+        st["node"] = torch.where(
+            do_node, torch.where(box_hit & ~is_leaf, nd + 1,
+                                 row[:, 8].to(torch.int64)), node)
+    put_back(st, lanes)
+    return out["t"], out["frac"], out["prim"], out["valid"]
+
+
+def _hair_any(geom: GeometryTables, ray: Ray):
+    """Occlusion by any hair segment (intersect.py:1780)."""
+    return _hair_walk(geom, ray, True)[3]
+
+
+def _merge_hair(geom: GeometryTables, ray: Ray,
+                its: Intersection) -> Intersection:
+    """The record with each lane whose nearest segment is nearer taking
+    the segment's hit (intersect.py:1785): u the azimuth about the axis,
+    v the arclength along the fibre, the frame from the normal and
+    dp/du = axis x normal."""
+    t, frac, si, valid = _hair_walk(geom, ray, False)
+    closer = valid & (t < its.t)
+    rows = geom.hair_segs[si]
+    a = rows[:, 0:3]
+    ax = rows[:, 3:6] - a
+    ln = torch.clamp(torch.sqrt(m.dot(ax, ax)), min=1e-12)
+    u_ax = ax / ln[:, None]
+    p = ray.at(torch.where(closer, t, 1.0))
+    s_ax = m.dot(p - a, u_ax)
+    nrm = m.normalize(p - a - s_ax[:, None] * u_ax)
+    lp = m.Frame.from_normal(u_ax).to_local(nrm)
+    phi = torch.atan2(lp[:, 1], lp[:, 0])
+    v_par = rows[:, 7] + frac * (rows[:, 8] - rows[:, 7])
+    uv = torch.stack([phi * (0.5 / np.pi) + 0.5, v_par], -1)
+    dpdu = m.normalize(m.cross(u_ax, nrm))
+    wi = m.Frame.from_normal_tangent(nrm, dpdu).to_local(-ray.d)
+    base = geom.n_tris + geom.n_spheres + geom.n_cylinders
+    ids = rows[:, 9:12].to(torch.int32)
+    return _take(its, closer, t, p, nrm, uv, dpdu, wi, base + si,
+                 ids[:, 2].to(its.shape_id.dtype),
+                 ids[:, 0].to(its.material_id.dtype),
+                 ids[:, 1].to(its.emitter_id.dtype))
+
+# ---------------------------------------------------------------------------
 # queries
 # ---------------------------------------------------------------------------
 
@@ -1170,26 +1389,32 @@ def _test_tri(geom: GeometryTables, ray: Ray):
 def ray_intersect(geom: GeometryTables, ray: Ray,
                   coherent: bool = False) -> Intersection:
     """Closest-hit query -> Intersection, spheres and cylinders merged
-    after the triangles (intersect.py:1911). coherent: camera-like
-    wavefront; the exact cull then runs at the small coherent caps."""
+    after the triangles, then hair (intersect.py:1911). coherent:
+    camera-like wavefront; the exact cull then runs at the small coherent
+    caps."""
     its = _intersect_tri(geom, ray, coherent)
     if geom.has_analytic:
         its = _merge_analytic(geom, ray, its)
+    if geom.n_hair:
+        its = _merge_hair(geom, ray, its)
     return its
 
 
 def ray_test(geom: GeometryTables, ray: Ray):
-    """Any-hit (shadow ray) query -> occluded (intersect.py:1922)."""
+    """Any-hit (shadow ray) query -> occluded by a triangle, a sphere, a
+    cylinder or a hair segment (intersect.py:1922)."""
     occ = _test_tri(geom, ray)
     if geom.has_analytic:
         occ = occ | _analytic_any(geom, ray)
+    if geom.n_hair:
+        occ = occ | _hair_any(geom, ray)
     return occ
 
 
 def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
     """Closest hit (ray) and shadow any-hit (sray): one fused kernel on the
-    brute backend, two separate queries elsewhere, spheres and cylinders
-    merged after either (intersect.py:1932). Returns (Intersection,
+    brute backend, two separate queries elsewhere, spheres, cylinders and
+    hair merged after either (intersect.py:1932). Returns (Intersection,
     occluded)."""
     if geom.backend == "brute":
         its, occ = _fused_brute(geom, ray, sray)
@@ -1198,6 +1423,9 @@ def ray_intersect_and_test(geom: GeometryTables, ray: Ray, sray: Ray):
     if geom.has_analytic:
         its = _merge_analytic(geom, ray, its)
         occ = occ | _analytic_any(geom, sray)
+    if geom.n_hair:
+        its = _merge_hair(geom, ray, its)
+        occ = occ | _hair_any(geom, sray)
     return its, occ
 
 

@@ -86,13 +86,18 @@ def uniform(k1, k2, size, start: int = 0):
     return _bits_to_unit_float(b1 ^ b2).reshape(k1.shape + shape)
 
 
-def key(seed: int):
-    """jax.random.key(seed): the pair (0, seed) (seeds in [0, 2^31))."""
-    if not 0 <= int(seed) < 2 ** 31:
+def _check_seed(seed) -> int:
+    """A seed as the uint32 that `jax.random.key` keeps: the port takes
+    seeds in [0, 2^32) only, where that is the seed itself."""
+    if not 0 <= int(seed) < 2 ** 32:
         raise NotImplementedError(
-            "seeds outside [0, 2^31) take another key derivation path "
-            "in jax.random.key")
-    return (0, int(seed))
+            "the port takes seeds in [0, 2^32) only")
+    return int(seed)
+
+
+def key(seed: int):
+    """jax.random.key(seed): the pair (0, seed) (seeds in [0, 2^32))."""
+    return (0, _check_seed(seed))
 
 
 def fold_in_key(k, data: int):
@@ -137,11 +142,9 @@ class Sampler:
     counter; each `next_*` call consumes fresh dimensions in order."""
 
     def __init__(self, seed: int, lane_ids, sample_ids):
-        """lane_ids: (N,) pixel/lane index; sample_ids: (N,) spp index."""
-        if not 0 <= int(seed) < 2 ** 31:
-            raise NotImplementedError(
-                "seeds outside [0, 2^31) take another key derivation path "
-                "in jax.random.key")
+        """lane_ids: (N,) pixel/lane index; sample_ids: (N,) spp index;
+        seed in [0, 2^32), the key (0, seed)."""
+        seed = _check_seed(seed)
         lane = lane_ids.to(torch.int64) & _MASK
         sample = sample_ids.to(torch.int64) & _MASK
         k1 = torch.zeros_like(lane)

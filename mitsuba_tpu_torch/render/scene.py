@@ -27,7 +27,8 @@ its irradiance filled by the first render. A shape may move along an
 animated transform (`add_animated_shape`, core/track.py): `build` bakes
 it at a time (the camera's shutter-open by default), `build_time_scenes`
 at stratified times across the shutter for `render_motion`. Analytic
-hair is not ported yet (ROADMAP A.12).
+hair (`add_hair`) is a set of exact cylinder segments in a BVH of their
+own (render/intersect.py).
 
 A scene's tensors may require grad: `integrators/path.py` then
 differentiates a render with respect to them (materials and emitter
@@ -111,7 +112,9 @@ class SceneBuilder:
         self._spheres = []    # (centre, radius, material_id, -1, shape_id)
         # (p0, p1, radius, material_id, emitter_id, shape_id)
         self._cylinders = []
-        self._n_shapes = 0    # shared id space: meshes, spheres, cylinders
+        self._hair = []       # (segments dict, material_id, shape_id)
+        # shared id space: meshes, spheres, cylinders, hair
+        self._n_shapes = 0
         self._inst_groups = []   # [[(mesh, material_id, shape_id), ...]]
         self._instances = []     # [(group id, 4x4 to_world), ...]
         self._shape_interior = []   # per shape id: medium index or -1
@@ -213,6 +216,16 @@ class SceneBuilder:
         self._shape_interior.append(int(interior_medium))
         return sid
 
+    def add_hair(self, segments, material_id):
+        """Analytic hair segments (reference src/shapes/hair.cpp: exact
+        per-segment cylinders, not tessellated; scene.py:151): segments
+        dict(a, b, r, u0, u1) of io/hairio.py `load_hair_segments`."""
+        sid = self._n_shapes
+        self._n_shapes += 1
+        self._hair.append((segments, int(material_id), sid))
+        self._shape_interior.append(-1)
+        return sid
+
     def add_area_emitter_shape(self, mesh, material_id, radiance):
         eid = self.emitters.area(mesh, radiance)
         return self.add_shape(mesh, material_id, eid)
@@ -261,7 +274,7 @@ class SceneBuilder:
                 shapes.append((mesh.transformed(m4), mid, eid, sid))
                 interior.append(-1)
                 sid += 1
-        if not shapes and not self._spheres and not self._cylinders:
+        if not (shapes or self._spheres or self._cylinders or self._hair):
             raise ValueError("scene has no shapes")
         if not shapes:
             # analytic shapes only: the triangle tables still need a row,
@@ -277,10 +290,22 @@ class SceneBuilder:
                     "true instancing requires the cluster backend")
             backend = "cluster"
             instanced = (self._inst_groups, self._instances)
+        hair = None
+        if self._hair:
+            # one row a segment, its material and shape ids beside it
+            # (scene.py:274-286)
+            parts = [dict(a=seg["a"], b=seg["b"], r=seg["r"], u0=seg["u0"],
+                          u1=seg["u1"],
+                          mid=np.full(seg["a"].shape[0], mid, np.int32),
+                          eid=np.full(seg["a"].shape[0], -1, np.int32),
+                          sid=np.full(seg["a"].shape[0], sid, np.int32))
+                     for seg, mid, sid in self._hair]
+            hair = {k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]}
         geom = build_geometry(shapes, backend=backend,
                               instanced=instanced, ex_walk=ex_walk,
                               spheres=self._spheres,
-                              cylinders=self._cylinders)
+                              cylinders=self._cylinders, hair=hair)
         e1 = geom.e1.numpy()
         e2 = geom.e2.numpy()
         areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)

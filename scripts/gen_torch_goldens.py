@@ -67,6 +67,29 @@ one sphere group).
   ("cells", "fibers", "tex"); chip_smoke.py's `golden_leftovers` writes
   the same files and gates the port's 48 x 48 x 128 render.
 
+* hair_cornell.npz: tests/torch_leftover_cases.py
+  `write_hair_cornell_xml` (scenes/cornell.xml's box with analytic hair
+  fibres of 16 points standing on its floor) at HAIR_FIBERS fibres, the
+  count chip_smoke.py's hair_xml phase renders (15,000 segments; ~3 min
+  on the CPU), loaded by the JAX package's XML loader and rendered on its
+  kernel path, 48 x 48 px, depth 5, 256 spp,
+  seed 1234, mean and variance, and the count ("fibers");
+  chip_smoke.py's `golden_hair` writes the same file and gates the port's
+  48 x 48 x 128 render by the |t| rule.
+* integrators.npz: the images of the integrators outside the CLI
+  (photonmap, ppm, photonmapper, sppm, irrcache, vpl, adaptive on
+  `cornell_box(48, 48)`, bre in the fog of tests/test_guiding.py), each
+  at its own defaults (photon counts, passes, cache and VPL counts),
+  PathConfig(max_depth=5, spp=4), seed 0, the JAX package on its kernel
+  path, one array a name; chip_smoke.py's `golden_integrators` renders
+  the port's the same way and gates each by the relative RMSE of its
+  8 x 8-block means.
+
+`python scripts/gen_torch_goldens.py integrators_port` writes nothing: it
+renders the port's eight integrator images the same way on the CPU and
+prints each one's 8 x 8-block relative RMSE against integrators.npz (the
+reading chip_smoke.py's limit is set from).
+
 All store the image under "mean". Regenerate only after an intentional
 change of the JAX package's estimator:
 
@@ -100,6 +123,22 @@ GOLDENS = {
     "cylinders": (48, "cylinders", None, 256, 5),
     "cloth": (48, "cloth", None, 256, 5),
     "leftovers": (48, "leftovers", None, 256, 5),
+    "hair_cornell": (48, "hair_cornell", None, 256, 5),
+    "integrators": (48, "integrators", None, 4, 5),
+    "integrators_port": (48, "integrators_port", None, 4, 5),
+}
+HAIR_FIBERS = 1000                       # hair_cornell.npz
+# the integrators' calls, each a function of (module, scene, cfg) with
+# the package's own integrator modules; bre in FOG
+INTEGRATORS = {
+    "photonmap": lambda m, s, c: m.photonmap.photonmap_render(s, c),
+    "ppm": lambda m, s, c: m.photonmap.ppm_render(s, c),
+    "photonmapper": lambda m, s, c: m.photonmap.photonmapper_render(s, c),
+    "sppm": lambda m, s, c: m.photonmap.sppm_render(s, c),
+    "irrcache": lambda m, s, c: m.irrcache.irrcache_render(s, c),
+    "vpl": lambda m, s, c: m.vpl.render_vpl(s, c),
+    "adaptive": lambda m, s, c: m.adaptive.adaptive_render(s, c),
+    "bre": lambda m, s, c: m.bre.bre_render(s, m.fog, c),
 }
 LEFT_CELLS, LEFT_FIBERS, LEFT_TEX = 64, 200, 1024   # leftovers.npz
 LIGHTS_TEX, LIGHTS_ENV = 1024, 512      # the lights file's image sizes
@@ -284,6 +323,98 @@ def leftover_golden(name, res, spp, depth):
           f"mean={mean.mean():.6f}", flush=True)
 
 
+def hair_golden(res, spp, depth):
+    """hair_cornell.npz: mean and variance on the kernel path."""
+    import tempfile
+
+    from _pytest.monkeypatch import MonkeyPatch
+
+    from mitsuba_tpu.io.xml import load_scene
+
+    sys.path.insert(0, os.path.dirname(DIR))
+    import torch_kernel_path as kp
+    import torch_leftover_cases as lc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = lc.write_hair_cornell_xml(tmp, HAIR_FIBERS)
+        scene, cfg = load_scene(path, params=dict(depth=depth, spp=spp,
+                                                  width=res, height=res))
+        mp = MonkeyPatch()
+        try:
+            kp.kernel_path(mp, scene.geom)
+            mean, var = render_stats(scene, depth, spp, STATS_SEED,
+                                     cfg["pattern"])
+        finally:
+            mp.undo()
+    np.savez_compressed(os.path.join(DIR, "hair_cornell.npz"), depth=depth,
+                        mean=mean.astype(np.float32),
+                        var=var.astype(np.float32), spp=spp,
+                        fibers=HAIR_FIBERS)
+    print(f"hair_cornell: {res}x{res} px, {spp} spp, {HAIR_FIBERS} fibres, "
+          f"{scene.geom.n_hair} segments, mean={mean.mean():.6f}",
+          flush=True)
+
+
+def integrators_golden(res, spp, depth):
+    """integrators.npz: each integrator's image at its defaults."""
+    import time
+    from types import SimpleNamespace
+
+    from _pytest.monkeypatch import MonkeyPatch
+
+    from mitsuba_tpu.integrators import (
+        adaptive, bre, irrcache, photonmap, vpl,
+    )
+    from mitsuba_tpu.integrators.path import PathConfig
+    from mitsuba_tpu.media import make_homogeneous
+    from mitsuba_tpu.render.scene import cornell_box
+
+    sys.path.insert(0, os.path.dirname(DIR))
+    import torch_kernel_path as kp
+
+    mods = SimpleNamespace(photonmap=photonmap, irrcache=irrcache, vpl=vpl,
+                           adaptive=adaptive, bre=bre,
+                           fog=make_homogeneous(**FOG))
+    scene = cornell_box(res, res)
+    cfg = PathConfig(max_depth=depth, spp=spp, remat=False)
+    out = {}
+    mp = MonkeyPatch()
+    try:
+        kp.kernel_path(mp, scene.geom)
+        for name, fn in INTEGRATORS.items():
+            t0 = time.perf_counter()
+            out[name] = np.asarray(fn(mods, scene, cfg)[0], np.float32)
+            print(f"integrators/{name}: mean={out[name].mean():.6f} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    finally:
+        mp.undo()
+    np.savez_compressed(os.path.join(DIR, "integrators.npz"), depth=depth,
+                        spp=spp, **out)
+
+
+def integrators_port_reading(res, spp, depth):
+    """The port's CPU images against integrators.npz, by block_rel_rmse."""
+    from types import SimpleNamespace
+
+    from mitsuba_tpu_torch.integrators import (
+        adaptive, bre, irrcache, photonmap, vpl,
+    )
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.media import make_homogeneous
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    golden = np.load(os.path.join(DIR, "integrators.npz"))
+    mods = SimpleNamespace(photonmap=photonmap, irrcache=irrcache, vpl=vpl,
+                           adaptive=adaptive, bre=bre,
+                           fog=make_homogeneous(**FOG))
+    scene = cornell_box(res, res, device="cpu")
+    cfg = PathConfig(max_depth=depth, spp=spp)
+    for name, fn in INTEGRATORS.items():
+        img = fn(mods, scene, cfg)[0].numpy()
+        print(f"integrators_port/{name}: block rel RMSE "
+              f"{block_rel_rmse(img, golden[name]):.3e}", flush=True)
+
+
 def stats_golden(name, res, spp, depth):
     """snow.npz, bsdf_zoo.npz, lights.npz and texture_mip.npz: mean and
     variance, as tests/goldens."""
@@ -315,7 +446,7 @@ def stats_golden(name, res, spp, depth):
 def main():
     from mitsuba_tpu.integrators.path import PathConfig, render
 
-    names = sys.argv[1:] or list(GOLDENS)
+    names = sys.argv[1:] or [k for k in GOLDENS if k != "integrators_port"]
     for name in names:
         res, n_theta, n_phi, spp, depth = GOLDENS[name]
         if n_theta in ("snow", "zoo", "lights", "mip"):
@@ -323,6 +454,15 @@ def main():
             continue
         if n_theta in ("cylinders", "cloth", "leftovers"):
             leftover_golden(name, res, spp, depth)
+            continue
+        if n_theta == "hair_cornell":
+            hair_golden(res, spp, depth)
+            continue
+        if n_theta == "integrators":
+            integrators_golden(res, spp, depth)
+            continue
+        if n_theta == "integrators_port":
+            integrators_port_reading(res, spp, depth)
             continue
         if n_theta == "fog":
             img = render_fog(res, spp, depth, seed=0)

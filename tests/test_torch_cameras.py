@@ -112,25 +112,33 @@ def test_camera_plugins_match(case):
     _rays_close(cam.sample_ray(_t(uv)), jc.sample_ray(jnp.asarray(uv)))
 
 
-def test_open_shutter_refused():
+def test_open_shutter_refused(tmp_path):
     """An open shutter is ported (motion blur: render_motion,
     tests/test_torch_motion.py): the plugin keeps the reference's shutter
-    interval. What a scene with one still refuses is an analytic hair
-    beside it (ROADMAP A.12; the cylinder this case held until then is
-    ported, tests/test_torch_cylinders.py)."""
+    interval. The analytic hair this case held refused beside it is
+    ported too (ROADMAP A.12, tests/test_torch_hair.py): the scene loads
+    with both, as the reference loads it."""
     props = {"shutterOpen": 0.25, "shutterClose": 0.75}
     cam = create_plugin("camera", "perspective", props)
     jc = j_create("camera", "perspective", props)
     assert (cam.shutter_open, cam.shutter_time) == (
         float(jc.shutter_open), float(jc.shutter_time)) == (0.25, 0.5)
+    from mitsuba_tpu.io.xml import load_scene_string as j_load
+    from mitsuba_tpu_torch.interop import from_jax_scene
     from mitsuba_tpu_torch.io.xml import load_scene_string
+    from tests.torch_leftover_cases import write_hair
 
-    with pytest.raises(NotImplementedError, match="A.12"):
-        load_scene_string(
-            '<scene><camera type="perspective"><float name="shutterClose" '
-            'value="0.5"/></camera><shape type="hair"><string '
-            'name="filename" value="h.hair"/></shape></scene>',
-            device="cpu")
+    write_hair(str(tmp_path / "h.hair"), 2, n_pts=3)
+    src = ('<scene><camera type="perspective"><float name="shutterClose" '
+           'value="0.5"/></camera><shape type="hair"><string '
+           'name="filename" value="h.hair"/></shape></scene>')
+    scene, _ = load_scene_string(src, base_dir=str(tmp_path), device="cpu")
+    ref = from_jax_scene(j_load(src, base_dir=str(tmp_path))[0],
+                         device="cpu")
+    assert scene.camera.shutter_time == ref.camera.shutter_time == 0.5
+    assert scene.geom.n_hair == 4
+    assert torch.equal(scene.geom.hair_segs, ref.geom.hair_segs)
+    assert torch.equal(scene.geom.hair_nodes, ref.geom.hair_nodes)
 
 
 def test_aperture_leaves_a_render_unchanged():

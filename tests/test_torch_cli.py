@@ -131,29 +131,55 @@ def test_volpath_routes_equal_library_render(tmp_path, integ, medium, mis,
     assert np.array_equal(bitmap.read_exr(out), ref.numpy())
 
 
+def _hair_scene(tmp_path):
+    """A scene file of an analytic hair (its fibres written beside it)
+    under a constant light."""
+    from tests.torch_leftover_cases import write_hair
+
+    write_hair(str(tmp_path / "h.hair"), 4, n_pts=4)
+    hair = tmp_path / "hair.xml"
+    hair.write_text(
+        '<scene><integrator type="path"><integer name="maxDepth" '
+        'value="$depth"/></integrator><camera type="perspective">'
+        '<transform name="toWorld"><lookAt ox="0" oy="0.4" oz="-3" tx="0" '
+        'ty="0.3" tz="0" ux="0" uy="1" uz="0"/></transform><sampler '
+        'type="independent"><integer name="sampleCount" value="$spp"/>'
+        '</sampler><film type="exrfilm"><integer name="width" '
+        'value="$width"/><integer name="height" value="$height"/></film>'
+        '</camera><luminaire type="constant"/><shape type="hair"><string '
+        'name="filename" value="h.hair"/><float name="radius" '
+        'value="0.05"/></shape></scene>')
+    return str(hair)
+
+
 # --guided without a medium (surface path guiding) is ported
-# (tests/test_torch_guided_path.py): its case keeps its id, cornell.xml
-# rendering guided before a second scene file with a hair shape, which
-# stays unported (ROADMAP A.12)
+# (tests/test_torch_guided_path.py), and so is the analytic hair (ROADMAP
+# A.12, tests/test_torch_hair.py): its case keeps its id, cornell.xml and
+# then a scene file with a hair shape rendering guided to one output,
+# which the second render writes last
 @pytest.mark.parametrize("flags,item", [
     (["--server"], "A.10"), (["--listen-stdio"], "A.10"),
     (["--gui"], "A.13"), (["--guided", "hair.xml"], "A.12")])
 def test_unported_flags_raise(tmp_path, flags, item):
-    hair = tmp_path / "hair.xml"
-    hair.write_text('<scene><shape type="hair"><string name="filename" '
-                    'value="h.hair"/></shape></scene>')
-    scenes = [str(hair) for f in flags if f == "hair.xml"]
+    hair = _hair_scene(tmp_path)
+    scenes = [hair for f in flags if f == "hair.xml"]
     flags = [f for f in flags if f != "hair.xml"]
+    out = str(tmp_path / "x.exr")
+    if scenes:
+        assert main(["--cpu", "-q", CORNELL, *scenes, *DEFS, "-o", out,
+                     *flags]) == 0
+        img = bitmap.read_exr(out)
+        assert img.shape == (8, 12, 3) and np.isfinite(img).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
-        main(["--cpu", CORNELL, *scenes, *DEFS, "-o",
-              str(tmp_path / "x.exr"), *flags])
+        main(["--cpu", CORNELL, *DEFS, "-o", out, *flags])
 
 
 # a .jpg output raised until JPEG was ported: its case holds the file the
 # CLI writes (the library render's sRGB bytes through the port's encoder,
 # which tests/test_torch_jpeg.py holds to the reference's), and that a
-# scene naming what stays unported (an analytic hair, ROADMAP A.12) still
-# raises with that output
+# scene with an analytic hair, which raised with that output until the
+# hair was ported (ROADMAP A.12), writes one too
 @pytest.mark.parametrize("case", ["jpg"])
 def test_unported_options_raise(tmp_path, case):
     from mitsuba_tpu_torch.io.jpeg import write_jpeg
@@ -165,11 +191,9 @@ def test_unported_options_raise(tmp_path, case):
     with open(out, "rb") as a, open(want, "rb") as b:
         assert a.read() == b.read()
     assert bitmap.read_image(out).shape == (8, 12, 3)
-    hair = tmp_path / "hair.xml"
-    hair.write_text('<scene><shape type="hair"><string name="filename" '
-                    'value="h.hair"/></shape></scene>')
-    with pytest.raises(NotImplementedError, match="A.12"):
-        main([str(hair), "--cpu", "-q", *DEFS, "-o", out])
+    assert main([_hair_scene(tmp_path), "--cpu", "-q", *DEFS, "-o",
+                 out]) == 0
+    assert bitmap.read_image(out).shape == (8, 12, 3)
 
 
 @pytest.mark.parametrize("case", ["stratified", "gaussian"])

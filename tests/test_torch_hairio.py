@@ -9,7 +9,8 @@ tests/test_shapes_extra.py:9,20,29.
   `tessellate="true"` (and a hair carrying subsurface, which the
   reference tessellates too) in a scene file: every table equal to
   `from_jax_scene` of the reference's load, bit for bit; the analytic
-  hair (the reference's default) raises, naming ROADMAP A.12.
+  hair (the reference's default), which raised naming ROADMAP A.12 until
+  it was ported, loads its segments as the reference does.
 """
 import dataclasses
 
@@ -150,10 +151,17 @@ def test_scene_file_routes_equal_reference(tmp_path, case):
 
 
 def test_analytic_hair_raises(tmp_path):
+    """The analytic hair, which this case held raising until it was
+    ported (ROADMAP A.12, tests/test_torch_hair.py), loads as segments
+    equal to the reference's load."""
     lc.write_hair(str(tmp_path / "h.hair"), 2, n_pts=3)
     xml = _SCENE.replace("{body}", _HAIR.format(tess="false", sub=""))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        txml.load_scene_string(xml, base_dir=str(tmp_path), device="cpu")
+    scene, _ = txml.load_scene_string(xml, base_dir=str(tmp_path),
+                                      device="cpu")
+    ref = from_jax_scene(jxml.load_scene_string(
+        xml, base_dir=str(tmp_path))[0], device="cpu")
+    assert scene.geom.n_hair == 2 * 2
+    assert torch.equal(scene.geom.hair_segs, ref.geom.hair_segs)
     # the same file loads in full under tessellate="true"
     scene, _ = txml.load_scene_string(
         xml.replace('value="false"', 'value="true"'),

@@ -46,10 +46,40 @@ def test_sampler_bitwise_equal(seed):
         assert (b >= 0.0).all() and (b < 1.0).all()
 
 
+# seeds at and above 2^31: jax.random.key keeps (0, seed) for them too,
+# and the photon walks seed from `seed ^ 0x9E3779B9` and `seed ^ 0xBEEF1234`
+HIGH_SEEDS = [2 ** 31, 0x9E3779B9, 0xBEEF1234, 2 ** 32 - 1]
+
+
+@pytest.mark.parametrize("seed", HIGH_SEEDS)
+def test_high_seed_keys_and_draws_equal(seed):
+    import jax
+
+    from mitsuba_tpu_torch.render.sampler import key, key_data
+
+    np.testing.assert_array_equal(
+        key_data(key(seed)), np.asarray(jax.random.key_data(
+            jax.random.key(seed)), np.uint32))
+    lanes, samples = _ids(seed % 997)
+    ref = JaxSampler(seed, jnp.asarray(lanes), jnp.asarray(samples))
+    port = Sampler(seed, torch.from_numpy(lanes), torch.from_numpy(samples))
+    for name, args in _CALLS:
+        a = np.asarray(getattr(ref, name)(*args))
+        b = getattr(port, name)(*args).numpy()
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32),
+                                      err_msg=name)
+
+
 def test_unported_sampler_inputs_raise():
+    from mitsuba_tpu_torch.render.sampler import key
+
     ids = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        Sampler(2 ** 31, ids, ids)
+    # outside [0, 2^32) the port refuses the seed
+    for seed in (2 ** 32, -1):
+        with pytest.raises(NotImplementedError):
+            Sampler(seed, ids, ids)
+        with pytest.raises(NotImplementedError):
+            key(seed)
     # the patterns are ported (tests/test_torch_film.py holds them bit for
     # bit); a name the reference does not know raises as it does there
     with pytest.raises(ValueError):

@@ -206,8 +206,9 @@ def test_unported_features_raise():
     geom = from_jax_scene(jb.build(backend="brute"), device="cpu").geom
     assert geom.n_cylinders == 1 and geom.cyl_r.tolist() == [0.5]
     assert geom.cyl_a.tolist() == [[0.0, 0.0, 1.0]]
-    # hair (ROADMAP A.12); an open shutter, which this case held until
-    # motion blur was ported, converts (tests/test_torch_motion.py)
+    # an open shutter and an analytic hair, which this case held refused
+    # until motion blur and the hair were ported (ROADMAP A.12), convert
+    # (tests/test_torch_motion.py, tests/test_torch_hair.py)
     from mitsuba_tpu.core import transform as jtf
     from mitsuba_tpu.render.camera import make_perspective as j_persp
     jb = JaxSceneBuilder()
@@ -222,8 +223,13 @@ def test_unported_features_raise():
                      r=np.full(1, 0.05, np.float32),
                      u0=np.zeros(1, np.float32), u1=np.ones(1, np.float32)),
                 0)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        from_jax_scene(jb.build(backend="brute"), device="cpu")
+    jscene = jb.build(backend="brute")
+    geom = from_jax_scene(jscene, device="cpu").geom
+    assert geom.n_hair == 1
+    assert geom.hair_segs.numpy().tolist() == np.asarray(
+        jscene.geom.hair_segs).tolist()
+    assert geom.hair_nodes.numpy().tolist() == np.asarray(
+        jscene.geom.hair_nodes).tolist()
     scene = cornell_box(4, 4, device="cpu")
     # every PathConfig option is ported (tests/test_torch_path_options.py
     # holds them against the reference); the gradients of the particle

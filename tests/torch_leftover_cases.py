@@ -15,14 +15,22 @@ made from a seed).
   procedural twill on a panel before the back wall. 36 triangles: brute.
 * `write_leftovers_xml(dir, cells, fibers)`: a height-span snow field of
   cells x cells (`write_hspan`, version 2), `fibers` tessellated hair
-  fibres of 16 points and 6 sides (`write_hair`), a ground quad under a
-  `tex` x `tex` JPEG bitmap, and an area light whose intensity is
-  `<blackbody temperature="5800">`. The cluster backend.
+  fibres of 16 points and 6 sides (`write_hair`; `analytic=True` leaves
+  them analytic segments), a ground quad under a `tex` x `tex` JPEG
+  bitmap, and an area light whose intensity is `<blackbody
+  temperature="5800">`. The cluster backend.
+* `write_hair_cornell_xml(dir, fibers)`: scenes/cornell.xml's box with
+  an analytic `hair` of `fibers` fibres of 16 points (15 segments each)
+  standing on its floor; `tessellate=True` makes them tubes. 32
+  triangles: brute.
 * `write_config3_cylinders(dir)`: tests/torch_xml_cases.py's binary-PLY
   twin of bench config 3 with eight analytic cylinders in a ring about
   its body (the cluster backend under `auto`).
 * `cylinders_scene(mods, ...)`: a floor, a sphere and cylinders built with
-  either package's SceneBuilder, for the intersection tests.
+  either package's SceneBuilder, for the intersection tests;
+  `hair_scene(mods, backend, path)` the same floor, a sphere, a cylinder
+  and the analytic hair of the file `path` (`load_hair_segments` of
+  either package's io.hairio).
 """
 from __future__ import annotations
 
@@ -323,10 +331,11 @@ LEFTOVERS = """<?xml version="1.0" encoding="utf-8"?>
 """
 
 
-def write_leftovers_xml(d, cells, fibers, tex=1024, seed=0):
+def write_leftovers_xml(d, cells, fibers, tex=1024, seed=0,
+                        analytic=False):
     """leftovers.xml and its files in d; the field spans [-1.8, 1.8]^2
     whatever its cells (its heights scale with it), no overhangs: 2 (cells
-    - 1)^2 triangles."""
+    - 1)^2 triangles. analytic: the fibres stay analytic segments."""
     write_hspan(os.path.join(d, "snow.hspans2"), cells, seed, overhang=0)
     write_hair(os.path.join(d, "fibres.hair"), fibers, seed=seed + 1)
     write_ground_jpeg(os.path.join(d, "ground.jpg"), tex, seed + 2)
@@ -336,9 +345,40 @@ def write_leftovers_xml(d, cells, fibers, tex=1024, seed=0):
         f.write(_quad_obj(((-1, 4, -1), (1, 4, -1), (1, 4, 1), (-1, 4, 1))))
     scale = 3.6 / (cells - 1)
     path = os.path.join(d, "leftovers.xml")
+    xml = LEFTOVERS.replace("{shift}", repr(-(cells - 1) / 2.0)) \
+        .replace("{scale}", repr(scale))
+    if analytic:
+        xml = xml.replace(
+            '\t\t<boolean name="tessellate" value="true"/>\n', "")
     with open(path, "w") as f:
-        f.write(LEFTOVERS.replace("{shift}", repr(-(cells - 1) / 2.0))
-                .replace("{scale}", repr(scale)))
+        f.write(xml)
+    return path
+
+
+HAIR_CORNELL = """
+	<shape type="hair">
+		<string name="filename" value="fibres.hair"/>
+		{tessellate}<float name="radius" value="0.012"/>
+		<transform name="toWorld">
+			<scale value="100"/><translate x="278" y="0" z="280"/>
+		</transform>
+		<bsdf type="diffuse"><rgb name="reflectance" value="0.55 0.35 0.2"/></bsdf>
+	</shape>
+"""
+
+
+def write_hair_cornell_xml(d, fibers, seed=0, tessellate=False):
+    """hair_cornell.xml (hair_cornell_tess.xml with tessellate) and its
+    fibres.hair in d: the Cornell box with `fibers` fibres 1.2 units
+    tall in a unit frame, scaled 100 onto the middle of the floor."""
+    write_hair(os.path.join(d, "fibres.hair"), fibers, seed=seed,
+               length=1.2)
+    tess = '<boolean name="tessellate" value="true"/>' if tessellate \
+        else ""
+    path = os.path.join(d, "hair_cornell_tess.xml" if tessellate
+                        else "hair_cornell.xml")
+    with open(path, "w") as f:
+        f.write(_cornell(HAIR_CORNELL.replace("{tessellate}", tess)))
     return path
 
 
@@ -363,6 +403,28 @@ def cylinders_scene(mods, backend, device=None, width=16, height=16,
     b.add_cylinder((0.8, -0.5, -1.5), (1.8, 0.9, -0.6), 0.35,
                    b.materials.dielectric(int_ior=1.33) if media else lm,
                    interior_medium=medium)
+    b.add_area_emitter_shape(mods.mesh.make_quad(
+        [-1, 3, -1], [1, 3, -1], [1, 3, 1], [-1, 3, 1]), lm, (12.0,) * 3)
+    b.set_camera(mods.make_perspective(
+        mods.look_at([0.5, 1.5, -5.0], [0.0, 0.0, 0.0], [0, 1, 0]), 45.0,
+        width / height), width, height)
+    kw = {} if device is None else dict(device=device)
+    return b.build(backend=backend, **kw)
+
+
+def hair_scene(mods, backend, path, radius=0.04, device=None, width=16,
+               height=16):
+    """cylinders_scene's floor and light, a sphere, a cylinder and the
+    analytic hair of the hair file `path`, built with either package's
+    modules (SceneBuilder, mesh, look_at, make_perspective, hairio)."""
+    b = mods.SceneBuilder()
+    lm = b.materials.lambertian((0.5, 0.5, 0.5))
+    brown = b.materials.lambertian((0.55, 0.35, 0.2))
+    b.add_shape(mods.mesh.make_quad([-3, -1, -3], [-3, -1, 3], [3, -1, 3],
+                                    [3, -1, -3]), lm)
+    b.add_sphere((1.5, 0.0, 0.0), 0.5, lm)
+    b.add_cylinder((-1.5, -1.0, -1.0), (-1.5, 0.5, -0.8), 0.3, lm)
+    b.add_hair(mods.hairio.load_hair_segments(path, radius=radius), brown)
     b.add_area_emitter_shape(mods.mesh.make_quad(
         [-1, 3, -1], [1, 3, -1], [1, 3, 1], [-1, 3, 1]), lm, (12.0,) * 3)
     b.set_camera(mods.make_perspective(
