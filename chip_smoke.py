@@ -363,7 +363,13 @@ Phases, each printing one JSON line:
      products and the approximate reciprocals of V2 and V4) at step counts
      where the plain version takes under a second, #13 on the first 1,024
      rows of config 3's 1,048,576-lane work list and on the flat lists of
-     tests/torch_instanced_cases.py; then, every launch count
+     tests/torch_instanced_cases.py; the spread products mm_cuda and
+     mm_tf32 also at a ragged last tile with two copies, on all-negative
+     rows and at 8,192 copies, with their registers, shared memory and
+     SASS (mm_tf32 must issue HGMMA: `probe_products`), and on config 3's
+     own Plücker rows and bounce rays, where the plain versions' sign
+     errors against float64 answer ROADMAP A.5 (`plucker_signs`); then,
+     every launch count
      set to 0 just before and read just after, the five probe drivers at
      the scripts' sizes (a line per probe and form), and the library
      yardsticks (torch.matmul on the products' shapes, table[idx] on the
@@ -377,8 +383,10 @@ imports nothing of JAX.
     python3 chip_smoke.py --parent FILE
 
 also reports, in each kernel_vs_plain line, the time that another run's
-output FILE gives the same kernel at the same stage (`parent_ms`): run a `git archive` of the parent
-commit first, in the same call, and pass its output.
+output FILE gives the same kernel at the same stage (`parent_ms`; for the
+probes also the device time of its probe checks, `parent_device_ms`):
+run a `git archive` of the parent commit first, in the same call, and
+pass its output.
 """
 from __future__ import annotations
 
@@ -386,6 +394,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -661,6 +670,8 @@ _T0 = time.perf_counter()
 # device_ms where they have it, as parent_device_ms
 PARENT_MS = {}
 PARENT_DEVICE_MS = {}
+# and the device ms of its probe checks (its probe_device_ms line), by key
+PARENT_PROBE_MS = {}
 # each render phase's torch.profiler summary, by phase tag
 PROFILES = {}
 
@@ -673,6 +684,9 @@ def read_parent(path):
                 rec = json.loads(ln)
             except ValueError:
                 continue
+            if isinstance(rec, dict) and rec.get("phase") == \
+                    "probe_device_ms":
+                PARENT_PROBE_MS.update(rec)
             if isinstance(rec, dict) and rec.get("phase") == \
                     "kernel_vs_plain":
                 PARENT_MS[(rec["kernel"], rec["stage"])] = rec["ms"]
@@ -1930,11 +1944,18 @@ def _probe_inputs(device):
         fma_b=t(rng.random((8, 128)) * 1e-6),
         tri={k: t(rng.random((k, 16))) for k in (128, 32)},
         rays=t(rng.random((8, 128))),
-        mm={(m, k): (t(rng.standard_normal((m, k))),
-                     t(rng.standard_normal((k, 128))))
-            for m, k in ((4096, 10), (512, 128))},
+        mm=_mm_inputs({(m, k): (t(rng.standard_normal((m, k))),
+                                t(rng.standard_normal((k, 128))))
+                       for m, k in ((4096, 10), (512, 128))}),
         table=t(rng.random(32768)),
         idx=t(rng.integers(0, 32768, 1 << 20), np.int32))
+
+
+def _mm_inputs(mm):
+    """The products' inputs at the three shapes of run_mm: (512, 10) is
+    the first 512 rows of the (4096, 10) product."""
+    G, M = mm[(4096, 10)]
+    return {(512, 10): (G[:512].contiguous(), M), **mm}
 
 
 def _distinct(ids, nbytes):
@@ -1970,7 +1991,8 @@ def check_within(name, stage, kern, plain, args, ops, judge, peak_ops,
     plain_ms = cuda_ms(lambda: plain(*args),
                        reps=3 if plain_s > PLAIN_SLOW_S else 10)
     res = dict(kernel=name, stage=stage, mismatches=mism,
-               max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               max_abs_err=max_err, ms=ms,
+               parent_ms=PARENT_MS.get((name, stage)), plain_ms=plain_ms,
                **bound(args, ref, ops, peak_ops=peak_ops), library_ms=None,
                **verdict, **extra)
     phase("kernel_vs_plain", **res)
@@ -2027,6 +2049,7 @@ def compare_probes(device, case):
                               tables=(lambda _a, _w: tables) if tables
                               else None, unit=unit)
         out[key]["device_ms"] = device_ms(lambda: kern(*args))
+        out[key]["parent_device_ms"] = PARENT_PROBE_MS.get(str(key))
 
     exact("count", "count", "64 launches", pr.count, pr.count_ref,
           (x["counter"], 64), 0, unit="launches")
@@ -2058,12 +2081,13 @@ def compare_probes(device, case):
             _packed_judge(name), PEAK_FP32_OPS)
         out[name]["device_ms"] = device_ms(
             lambda n_=name: getattr(pr, n_)(x["tri"][32], x["rays"], 4))
-    G, M = x["mm"][(4096, 10)]
-    exact("mm_cuda", "mm_cuda", "(4096, 10) x (10, 128), 1 step",
-          pr.mm_cuda, pr.mm_cuda_ref, (G, M, 1), 2 * 4096 * 10 * 128,
-          unit="rows")
+    for m in (4096, 512):
+        G, M = x["mm"][(m, 10)]
+        exact("mm_cuda" if m == 4096 else ("mm_cuda", m, 10), "mm_cuda",
+              f"({m}, 10) x (10, 128), 1 step", pr.mm_cuda, pr.mm_cuda_ref,
+              (G, M, 1), 2 * m * 10 * 128, unit="rows")
     for (m, k), (G, M) in x["mm"].items():
-        for kind in ("tf32", "bf16"):
+        for kind in ("tf32", "bf16") if (m, k) != (512, 10) else ("tf32",):
             out[(f"mm_{kind}", m, k)] = check_within(
                 f"mm_{kind}", f"({m}, {k}) x ({k}, 128), 1 step",
                 lambda g_, m_, s_, kd=kind: pr.mm_tc(g_, m_, s_, kd),
@@ -2072,6 +2096,8 @@ def compare_probes(device, case):
                 PEAK_TC_OPS[kind])
             out[(f"mm_{kind}", m, k)]["device_ms"] = device_ms(
                 lambda g_=G, m_=M, kd=kind: pr.mm_tc(g_, m_, 1, kd))
+            out[(f"mm_{kind}", m, k)]["parent_device_ms"] = \
+                PARENT_PROBE_MS.get(str((f"mm_{kind}", m, k)))
     for name in ("gather_smem", "gather_global"):
         exact(name, name, "K 32,768, N 2^20", getattr(pr, name),
               pr.gather_ref, (x["table"], x["idx"]), 0, unit="lanes")
@@ -2154,6 +2180,187 @@ def probes_phase(device, case):
     return launches
 
 
+# the spread products' other forms: m whose last tile is ragged, with two
+# copies, also on rows whose products are all negative (where a padded
+# row's zero would win the maximum), and 8,192 copies at run_mm's shapes
+PRODUCT_RAGGED = {"cuda": (8, 24, 4104), "tf32": (16, 48, 528)}
+
+
+def sass_counts(lib, names, ops=("HGMMA", "HMMA")):
+    """{function: {op: count}} of the SASS of library `lib` (cuobjdump)
+    for the functions whose names hold one of `names`."""
+    from mitsuba_tpu_torch.ops import build as nv
+
+    tool = os.path.join(os.path.dirname(nv._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    res = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if any(n in name for n in names):
+            res[name] = {op: fn.count(op) for op in ops}
+    return res
+
+
+def product_forms(device):
+    """mm_cuda bit for bit and mm_tf32 within TOLERANCE of their plain
+    versions on the forms the kernel checks leave out; the blocks that
+    each call's one launch ran, as the kernel counts them (`blocks_ran`;
+    the plan's, more than one from m = 64), also of one copy at each of
+    run_mm's shapes; each kernel's resources and compiled tile, and its
+    tensor-core instructions in the SASS (mm_tf32 must issue wgmma:
+    HGMMA)."""
+    from mitsuba_tpu_torch.ops import build as nv
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng = np.random.default_rng(24)
+    cases, launched, off_plan = {}, {}, []
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=device)
+
+    def call(kind, G, M, steps, blocks):
+        # the call's result and the blocks its launch ran; a call is one
+        # launch over the plan's blocks, several from m = 64
+        fn = (lambda: pr.mm_cuda(G, M, steps, blocks)) if kind == "cuda" \
+            else (lambda: pr.mm_tc(G, M, steps, "tf32", blocks))
+        n0 = pr.LAUNCHES[f"mm_{kind}"]
+        out, ran = pr.blocks_ran(fn, device)
+        n = pr.LAUNCHES[f"mm_{kind}"] - n0
+        m = G.shape[0]
+        if n != 1 or ran != pr.mm_plan(kind, m, blocks)["blocks"] or (
+                m >= 64 and ran < 2):
+            off_plan.append((kind, m, blocks, n, ran))
+        return out, ran
+
+    def hold(kind, tag, G, M, steps, blocks):
+        got, n_blocks = call(kind, G, M, steps, blocks)
+        if kind == "cuda":
+            ref = pr.mm_cuda_ref(G, M, steps)
+            err = [int((a != r.expand_as(a)).sum()) for a, r in zip(got, ref)]
+            ok = not any(err)
+        else:
+            ref = pr.mm_tc_ref(G, M, steps, "tf32")
+            err = [pr.rel_err(a, r.expand_as(a)) for a, r in zip(got, ref)]
+            ok = max(err) <= pr.TOLERANCE["mm_tf32"] and all(
+                bool(torch.isfinite(a).all()) for a in got)
+        cases[f"mm_{kind} {tag}"] = dict(
+            ok=ok, err=err, max=float(ref[1].max()),
+            blocks_launched=n_blocks)
+
+    for kind, ms in PRODUCT_RAGGED.items():
+        for m in ms:
+            G = t(rng.standard_normal((m, 10)))
+            M = t(rng.standard_normal((10, 128)))
+            hold(kind, f"m {m}, 2 copies, 3 steps", G, M, 3, 2)
+            hold(kind, f"m {m} negative, 2 copies, 3 steps",
+                 -(G.abs() + 0.1), M.abs() + 0.1, 3, 2)
+    for (m, k), (G, M) in _probe_inputs(device)["mm"].items():
+        for kind in (("cuda",) if k == 10 else ()) + ("tf32",):
+            hold(kind, f"({m}, {k}), 8,192 copies, 2 steps", G, M, 2, 8192)
+            launched.setdefault(kind, {})[f"({m}, {k})"] = call(
+                kind, G, M, 1, 1)[1]
+    torch.cuda.synchronize()
+    kernels = {"mm_cuda": ("cuda", 10), "mm_tf32 K 10": ("tf32", 10),
+               "mm_tf32 K 128": ("tf32", 128)}
+    resources = {name: pr.mm_info(*a) for name, a in kernels.items()}
+    res = dict(cases=cases, blocks_launched=launched, resources=resources,
+               sass=sass_counts(nv.lib_path(pr.SOURCE), ("mm_cuda_kernel",
+                                                         "mm_tf32_kernel")))
+    phase("probe_products", **res)
+    bad = [k for k, c in cases.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"probe_products: {bad} differ from the plain "
+                             "versions")
+    if off_plan:
+        raise AssertionError(f"probe_products: launches off the plan "
+                             f"(kind, m, copies, launches, blocks): "
+                             f"{off_plan}")
+    off = [name for name, (kind, _) in kernels.items()
+           if (resources[name]["tile_rows"], resources[name]["halves"]) !=
+           (pr.TILE_ROWS[kind], pr.HALVES[kind])]
+    if off:
+        raise AssertionError(f"probe_products: {off} compiled for other "
+                             f"tiles than mm_plan's: {resources}")
+    tf32 = [c for f, c in res["sass"].items() if "mm_tf32_kernel" in f]
+    if not tf32 or not all(c["HGMMA"] > 0 for c in tf32):
+        raise AssertionError(f"mm_tf32 issues no wgmma: {res['sass']}")
+    return res
+
+
+def _accepts(P):
+    """#14's accept rule on a group's products (8 clusters x 4 x 128
+    rows, 128 lanes): the three edge products of one sign and |det| above
+    the kernel's epsilon; (8, 128, 128) bool."""
+    p = P.reshape(8, 4, 128, P.shape[1])
+    lo = torch.minimum(torch.minimum(p[:, 0], p[:, 1]), p[:, 2])
+    hi = torch.maximum(torch.maximum(p[:, 0], p[:, 1]), p[:, 2])
+    det = p[:, 0] + p[:, 1] + p[:, 2]
+    return ((lo >= 0) | (hi <= 0)) & (det.abs() > 1e-12)
+
+
+def plucker_signs(cl, bounce):
+    """ROADMAP A.5's question on config 3's own data: one supercluster
+    group's 4,096 Plücker rows (the first 10 columns of G) against the
+    [o | d | o x d | 1] of one row of 128 bounce rays (the first of the
+    rows with the most live lanes, and the group its tile's list reaches
+    first), as
+    csrc/cluster.cu forms them (ops/cluster.py ray_matrix). mm_cuda and
+    mm_tf32 on them, each held against its plain version; then the plain
+    versions' full (4096, 128) products against the float64 products of
+    the unrounded inputs: the share whose sign differs, the largest
+    relative error, and the share of (triangle, lane) pairs whose accept
+    (#14's rule) differs, float32 ordered and TF32."""
+    from mitsuba_tpu_torch.ops import cluster as cp
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    (rays, ids, counts, G, *_), _n = cp.launch_args(
+        cl, *_ray_args(bounce), any_hit=False)
+    live = (rays[:, 7] >= rays[:, 6]).sum(dim=1)
+    live = torch.where(counts.repeat_interleave(cp.BM) > 0, live, -1)
+    row = int(torch.argmax(live))            # the first of the most live
+    group = int(ids[row // cp.BM, 0])
+    g = G[group, :, :pr.N_COEF].contiguous()
+    mr = cp.ray_matrix(rays[row:row + 1])[0].contiguous()
+    got, ref = pr.mm_cuda(g, mr, 1), pr.mm_cuda_ref(g, mr, 1)
+    cuda_same = all(torch.equal(a[0], r) for a, r in zip(got, ref))
+    got, ref = pr.mm_tc(g, mr, 1, "tf32"), pr.mm_tc_ref(g, mr, 1, "tf32")
+    tf32_err = max(pr.rel_err(a[0], r) for a, r in zip(got, ref))
+    p64 = g.double() @ mr.double()
+    terms = g.double().abs() @ mr.double().abs()
+    nz = p64 != 0
+    acc64 = _accepts(p64)
+    real = (g.reshape(8, 4, 128, pr.N_COEF) != 0).any(dim=(1, 3))
+    pairs = real[..., None].expand_as(acc64)
+    res = dict(row=row, live_lanes=int(live[row]), group=group,
+               triangles=int(real.sum()),
+               products=int(p64.numel()), nonzero=int(nz.sum()),
+               accepts_fp64=int(acc64[pairs].sum()),
+               mm_cuda_bit_for_bit=cuda_same, mm_tf32_rel_err=tf32_err,
+               tolerance=pr.TOLERANCE["mm_tf32"])
+    for name, p in (("fp32", pr.mm_cuda_products(g, mr)),
+                    ("tf32", pr.mm_tc_products(g, mr, "tf32"))):
+        p = p.double()
+        flip = torch.sign(p) != torch.sign(p64)
+        acc = _accepts(p)
+        res[name] = dict(
+            sign_differs=int(flip.sum()),
+            sign_differs_share=float(flip.float().mean()),
+            sign_differs_share_nonzero=float(flip[nz].float().mean()),
+            max_rel_err=float(((p - p64).abs() / p64.abs())[nz].max()),
+            max_err_over_terms=float(
+                ((p - p64).abs() / terms)[terms > 0].max()),
+            accepts=int(acc[pairs].sum()),
+            accept_differs=int((acc != acc64)[pairs].sum()),
+            accept_differs_share=float((acc != acc64)[pairs].float().mean()))
+    phase("plucker_signs", **res)
+    if not cuda_same or not tf32_err <= pr.TOLERANCE["mm_tf32"]:
+        raise AssertionError(f"plucker_signs: the kernels differ from their "
+                             f"plain versions ({cuda_same}, {tf32_err})")
+    return res
+
+
 def library_phase(device):
     """The library yardsticks, timed here only: one torch.matmul on each
     product's shapes (float32, TF32, bf16) and table[idx] on the
@@ -2165,12 +2372,9 @@ def library_phase(device):
         res[key] = cuda_ms(fn)
         res[f"{key}_device"] = device_ms(fn)
 
-    mm = dict(x["mm"])
-    mm[(512, 10)] = (x["mm"][(4096, 10)][0][:512].contiguous(),
-                     x["mm"][(4096, 10)][1])
     tf32 = torch.backends.cuda.matmul.allow_tf32
     try:
-        for (m, k), (G, M) in mm.items():
+        for (m, k), (G, M) in x["mm"].items():
             torch.backends.cuda.matmul.allow_tf32 = False
             both(f"matmul_fp32_{m}x{k}", lambda: torch.matmul(G, M))
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -4551,6 +4755,8 @@ def main(argv=None):
     phase("probe_list", seconds=time.perf_counter() - t0,
           clusters=int(case[0]["tri"].shape[0]), lanes=int(case[1].shape[0]))
     pc = compare_probes(device, case)
+    forms = product_forms(device)
+    signs = plucker_signs(cl, bounce3)
     lp = probes_phase(device, case)
     lib = library_phase(device)
 
@@ -4564,14 +4770,39 @@ def main(argv=None):
                 "bound_by": r["bound_by"], "library_ms": library_ms,
                 **extra}
 
-    def probe(kname, replaces, key, source="probes.cu", library_ms=None):
+    def probe(kname, replaces, key, source="probes.cu", library_ms=None,
+              **extra):
         # a probe kernel's ms is its device time at the check's inputs,
         # the host's share left out; event_ms the CUDA events'
         r = pc[key]
         return entry(kname, source, replaces, lp[kname],
                      dict(r, ms=r["device_ms"]), library_ms, path="probes",
                      event_ms=r["ms"], check_phase=f"kernel_vs_plain "
-                     f"{kname} ({r['stage']})")
+                     f"{kname} ({r['stage']})", **extra)
+
+    def spread(kind, *shapes):
+        # a spread product at each of its shapes: device ms beside the
+        # parent's (--parent), torch.matmul's, the plain version's and
+        # the bound; its resources, and the A.5 answer's sign errors
+        by = {}
+        for (m, k), key in shapes:
+            r = pc[key]
+            by[f"({m}, {k})"] = dict(
+                ms=r["device_ms"], parent_ms=r.get("parent_device_ms"),
+                library_ms=lib[f"matmul_{'fp32' if kind == 'cuda' else kind}"
+                               f"_{m}x{k}_device"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"],
+                blocks_launched=forms["blocks_launched"][kind][f"({m}, {k})"])
+        res = forms["resources"]
+        return dict(
+            parent_ms=by["(4096, 10)"]["parent_ms"], shapes=by,
+            resources={k: v for k, v in res.items()
+                       if k.startswith(f"mm_{kind}")},
+            sass={f: c for f, c in forms["sass"].items()
+                  if f"mm_{kind}_kernel" in f},
+            sign_differs_share=signs["fp32" if kind == "cuda" else kind][
+                "sign_differs_share"])
 
     cost = "scripts/exp_kernel_cost.py"
 
@@ -4848,9 +5079,14 @@ def main(argv=None):
         probe("v2", "scripts/exp_r3_mt.py:63", "v2"),
         probe("v4", "scripts/exp_r3_mt.py:63", "v4"),
         probe("mm_cuda", f"{cost}:71", "mm_cuda",
-              library_ms=lib["matmul_fp32_4096x10_device"]),
+              library_ms=lib["matmul_fp32_4096x10_device"],
+              **spread("cuda", ((512, 10), ("mm_cuda", 512, 10)),
+                       ((4096, 10), "mm_cuda"))),
         probe("mm_tf32", f"{cost}:71", ("mm_tf32", 4096, 10),
-              library_ms=lib["matmul_tf32_4096x10_device"]),
+              library_ms=lib["matmul_tf32_4096x10_device"],
+              **spread("tf32", *(((m, k), ("mm_tf32", m, k))
+                                 for m, k in ((512, 10), (4096, 10),
+                                              (512, 128))))),
         probe("mm_bf16", f"{cost}:71", ("mm_bf16", 4096, 10),
               library_ms=lib["matmul_bf16_4096x10_device"]),
         probe("gather_smem", "scripts/exp_r5_megakernel.py:72",

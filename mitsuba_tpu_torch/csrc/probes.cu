@@ -10,8 +10,11 @@
 //   mt_kernel          <- exp_kernel_cost.py:188 `run_vpu_mt`
 //   v0, v1, packed_kernel <- exp_r3_mt.py:63 `run_variant` (V0-V4; v1 also
 //                         exp_r3_kernel.py:112 `bench_mt_ceiling`)
-//   mm_cuda_kernel     <- exp_kernel_cost.py:71 `run_mm`, CUDA cores
-//   mm_tf32/bf16_kernel<- the same on the tensor cores (mma.sync)
+//   mm_cuda_kernel     <- exp_kernel_cost.py:71 `run_mm`, CUDA cores, one
+//                         product tiled over the card
+//   mm_tf32_kernel     <- the same on the tensor cores (wgmma), tiled too
+//   mm_bf16_kernel     <- the same on the tensor cores (mma.sync), one
+//                         block a copy
 //   gather_*_kernel    <- exp_r5_megakernel.py:72 `pallas_gather`
 // Wrapped by mitsuba_tpu_torch/ops/probes.py, whose `*_ref` functions are
 // the plain PyTorch versions each kernel is held against.
@@ -20,7 +23,9 @@
 // is one 128-thread block (the form of the port's item walks #7, #9, #12
 // and #14: a thread per lane, a loop over items or steps) launched as one
 // block or as many (8,192, the blocks of a 1,048,576-lane wavefront) that
-// all do the same work, each writing its own copy of the result. What
+// all do the same work, each writing its own copy of the result; but
+// mm_cuda and mm_tf32 spread each copy's product over several blocks
+// (their section says how). What
 // each probe costs is what it measures: a floor (launch, item loop,
 // staging), an issue rate (FMA, Moeller-Trumbore, products) or a memory
 // path (gather).
@@ -39,6 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "mt.cuh"
 
 #define LANES 128
@@ -440,17 +446,187 @@ __device__ __forceinline__ float dot10(const float* g, const float m[N_COEF]) {
   return s;
 }
 
-// on the float32 pipes, as #14 computes them: lane l holds column l of M
-// in registers and reads G's rows from shared memory as broadcasts. Rows
-// 0-7 add into the sum; the other rows' products feed a running maximum
-// (out_max), so that every product is computed and checked
+// Spread over the card (mm_cuda, mm_tf32). A copy's product is cut into
+// tiles of G's rows (MM_ROWS for mm_cuda; TC_ROWS for mm_tf32, whose
+// blocks also split M's 128 columns into TC_HALVES halves). A block takes
+// a chunk of `per` consecutive tiles; the grid is copies x halves x chunks
+// blocks, block b of copy b / (halves * chunks), then its half, then its
+// chunk. ops/probes.py `mm_plan` picks the chunks: a tile a block where
+// that gives at most SPREAD_BLOCKS blocks, fewer blocks of more tiles
+// where many copies fill the card anyway. A block stages its tiles in
+// shared memory (cp.async) and runs the steps on each tile in turn: rows
+// 0-7 belong to tile 0 alone, so their step sums add in the plain
+// version's order whatever the other tiles do. The maximum of the other
+// rows (the padded rows of a ragged last tile left out) is the block's
+// partial. With one chunk a copy the block writes it in place; else it
+// writes it to `part` (copies, chunks, 128), takes a ticket of its copy,
+// and the copy's last block to arrive folds every chunk's partial (fmaxf,
+// as before) and sets the ticket back to 0: the wrapper's ticket buffer
+// is zero between launches, and a call is one launch. Where the wrapper
+// passes a counter (`ran`, ops/probes.py `blocks_ran`), each block adds
+// one to it as it ends: the blocks a launch ran, measured.
+
+#define MM_ROWS 32            // rows of G in an mm_cuda tile
+#define TC_ROWS 64            // rows of G in an mm_tf32 tile: wgmma's M
+#define TC_COLS 64            // columns of M an mm_tf32 block takes: its N
+#define TC_HALVES (LANES / TC_COLS)
+#define FOLD_LOADS 8          // float4 partials a thread reads at once
+
+// a block's place in the grid: its copy, half and chunk, and its tiles
+// [t0, t1)
+struct Spread {
+  int copy, half, chunk, t0, t1;
+};
+
+__device__ __forceinline__ Spread spread(int m, int tile_rows, int halves,
+                                         int chunks, int per) {
+  Spread s;
+  const int b = blockIdx.x;
+  s.copy = b / (halves * chunks);
+  s.half = (b / chunks) % halves;
+  s.chunk = b % chunks;
+  s.t0 = s.chunk * per;
+  s.t1 = min((m + tile_rows - 1) / tile_rows, s.t0 + per);
+  return s;
+}
+
+// n floats from src into shared memory at dst (16-byte aligned), as
+// asynchronous copies committed as one group: 16-byte pieces where src is
+// 16-byte aligned (every tile of a G that PyTorch allocated), else 4-byte
+// ones
+__device__ __forceinline__ void stage_span(float* dst, const float* src,
+                                           int n) {
+  const int n4 = ((uintptr_t)src & 15) ? 0 : n / 4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    cp_async16(dst + 4 * i, src + 4 * i);
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x)
+    cp_async4(dst + i, src + i);
+  cp_async_commit();
+}
+
+// the block's partial maximum v of column col (threads l < ncol) into
+// out_max, in place or through `part` and the copy's ticket, of which
+// `arrivals` (the copy's blocks) are drawn a launch
+__device__ void fold_max(float v, int col, int ncol, const Spread& s,
+                         int chunks, int arrivals, float* out_max,
+                         float* part, int* tickets) {
+  __shared__ int last;
+  const int l = threadIdx.x;
+  if (chunks == 1) {
+    if (l < ncol) out_max[(size_t)s.copy * LANES + col] = v;
+    return;
+  }
+  if (l < ncol)
+    part[((size_t)s.copy * chunks + s.chunk) * LANES + col] = v;
+  __threadfence();
+  __syncthreads();
+  if (l == 0) last = atomicAdd(tickets + s.copy, 1) == arrivals - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // thread l reads columns 4 (l % 32) .. 4 (l % 32) + 3 of the chunks
+  // l / 32, + 4, + 8, ... as float4, FOLD_LOADS loads in flight; the four
+  // chunk classes then meet in shared memory (the maximum does not depend
+  // on the order)
+  __shared__ float4 cls[4][LANES / 4];
+  const int cg = l % (LANES / 4), cl = l / (LANES / 4);
+  const float4* p = reinterpret_cast<const float4*>(
+                        part + (size_t)s.copy * chunks * LANES) + cg;
+  float4 m4 = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+  for (int c = cl; c < chunks; c += 4 * FOLD_LOADS) {
+    float4 v[FOLD_LOADS];
+#pragma unroll
+    for (int u = 0; u < FOLD_LOADS; ++u)
+      v[u] = c + 4 * u < chunks ? __ldcg(p + (size_t)(c + 4 * u) * (LANES / 4))
+                                : m4;
+#pragma unroll
+    for (int u = 0; u < FOLD_LOADS; ++u)
+      m4 = make_float4(fmaxf(m4.x, v[u].x), fmaxf(m4.y, v[u].y),
+                       fmaxf(m4.z, v[u].z), fmaxf(m4.w, v[u].w));
+  }
+  cls[cl][cg] = m4;
+  __syncthreads();
+  const float* r = reinterpret_cast<const float*>(cls);
+  const float mx = fmaxf(fmaxf(r[l], r[LANES + l]),
+                         fmaxf(r[2 * LANES + l], r[3 * LANES + l]));
+  out_max[(size_t)s.copy * LANES + l] = mx;
+  if (l == 0) tickets[s.copy] = 0;
+}
+
+// On the float32 pipes, as #14 computes them: lane l holds column l of M
+// in registers and reads G's rows from shared memory as broadcasts, two
+// rows (80 bytes) as five float4 loads. Rows 0-7 add into the sum; the
+// other rows' products feed a running maximum (out_max), so that every
+// product is computed and checked. Bound on this card by the float32
+// instructions (19 a product at --fmad=false), 10.5 M a step at m = 4,096:
+// a launch's floor, so the design is one launch that spreads the rows
+// over the SMs.
+
+// products of rows 2p and 2p + 1 of a staged tile
+__device__ __forceinline__ void row_pair(const float4* t, int p,
+                                         const float mk[N_COEF], float& a,
+                                         float& b) {
+  const float4* x = t + 5 * p;
+  const float4 x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3], x4 = x[4];
+  const float r0[N_COEF] = {x0.x, x0.y, x0.z, x0.w, x1.x,
+                            x1.y, x1.z, x1.w, x2.x, x2.y};
+  const float r1[N_COEF] = {x2.z, x2.w, x3.x, x3.y, x3.z,
+                            x3.w, x4.x, x4.y, x4.z, x4.w};
+  a = dot10(r0, mk);
+  b = dot10(r1, mk);
+}
+
+// the steps on a staged tile of `rows` rows (an odd count followed by a
+// zero row): tile 0's rows 0-7 into acc, every other row into mx
+__device__ __forceinline__ void cuda_tile(const float* sg, int rows,
+                                          bool first, int steps, int zero,
+                                          const float mk[N_COEF],
+                                          float acc[ROWS], float& mx) {
+  for (int step = 0; step < steps; ++step) {
+    const float4* t = reinterpret_cast<const float4*>(sg) + (step & zero);
+    int p = 0;
+    if (first) {
+#pragma unroll
+      for (int r = 0; r < ROWS; r += 2) {
+        float a, b;
+        row_pair(t, r / 2, mk, a, b);
+        acc[r] = acc[r] + a;
+        acc[r + 1] = acc[r + 1] + b;
+      }
+      p = ROWS / 2;
+    }
+    for (; p < rows / 2; ++p) {
+      float a, b;
+      row_pair(t, p, mk, a, b);
+      mx = fmaxf(mx, a);
+      mx = fmaxf(mx, b);
+    }
+    if (rows & 1) {
+      float a, b;
+      row_pair(t, rows / 2, mk, a, b);
+      mx = fmaxf(mx, a);
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_cuda_tile(float* sg, const float* G,
+                                                int m, int t) {
+  const int rows = min(MM_ROWS, m - t * MM_ROWS);
+  stage_span(sg, G + (size_t)t * MM_ROWS * N_COEF, rows * N_COEF);
+  if (rows & 1)
+    for (int i = threadIdx.x; i < N_COEF; i += blockDim.x)
+      sg[rows * N_COEF + i] = 0.0f;
+}
+
 __global__ void __launch_bounds__(LANES)
 mm_cuda_kernel(const float* __restrict__ G, int m,
-               const float* __restrict__ M, int steps, int zero,
-               float* __restrict__ out_sum, float* __restrict__ out_max) {
-  extern __shared__ float sg[];
+               const float* __restrict__ M, int steps, int zero, int chunks,
+               int per, float* __restrict__ out_sum,
+               float* __restrict__ out_max, float* __restrict__ part,
+               int* __restrict__ tickets, int* __restrict__ ran) {
+  __shared__ __align__(16) float sg[2][MM_ROWS * N_COEF];
   const int l = threadIdx.x;
-  stage(sg, G, m * N_COEF);
+  const Spread s = spread(m, MM_ROWS, 1, chunks, per);
   float mk[N_COEF];
 #pragma unroll
   for (int k = 0; k < N_COEF; ++k) mk[k] = M[k * LANES + l];
@@ -458,33 +634,209 @@ mm_cuda_kernel(const float* __restrict__ G, int m,
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
   float mx = -INFINITY;
-  for (int step = 0; step < steps; ++step) {
-    const float* gs = sg + (step & zero);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = acc[r] + dot10(gs + r * N_COEF, mk);
-    for (int r = ROWS; r < m; ++r) mx = fmaxf(mx, dot10(gs + r * N_COEF, mk));
+  stage_cuda_tile(sg[0], G, m, s.t0);
+  for (int t = s.t0; t < s.t1; ++t) {
+    const int b = (t - s.t0) & 1;
+    if (t + 1 < s.t1) {                   // the next tile while this one runs
+      stage_cuda_tile(sg[b ^ 1], G, m, t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();                      // tile t staged
+    cuda_tile(sg[b], min(MM_ROWS, m - t * MM_ROWS), t == 0, steps, zero, mk,
+              acc, mx);
+    __syncthreads();                      // read before tile t + 2 lands
   }
-  float* o = out_sum + (size_t)blockIdx.x * ROWS * LANES;
+  if (s.t0 == 0) {
+    float* o = out_sum + (size_t)s.copy * ROWS * LANES;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) o[r * LANES + l] = acc[r];
-  out_max[(size_t)blockIdx.x * LANES + l] = mx;
+    for (int r = 0; r < ROWS; ++r) o[r * LANES + l] = acc[r];
+  }
+  fold_max(mx, l, LANES, s, chunks, chunks, out_max, part, tickets);
+  if (ran != nullptr && l == 0) atomicAdd(ran, 1);
 }
 
-// On the tensor cores, mma.sync with float32 accumulators, K padded to a
-// multiple of 16. Warp w computes columns 32w..32w+31 (four 8-column
-// tiles) of every 16-row tile: B's fragments stay in registers, A's are
-// read per step from device memory (cached). Fragment layouts: PTX ISA,
-// mma.m16n8k8 (.tf32) and mma.m16n8k16 (.bf16); the accumulator of a
+// On the tensor cores with wgmma (sm_90a). A block is one warpgroup; a
+// tile's D (64 x 64) = A (64 x KP) B (KP x 64) is KP / 8 instructions
+// m64n64k8 .tf32 with A and B in shared memory and D in registers. The
+// block takes G and M as float32, as the caller holds them (K <= 16, or
+// 128), and prepares them itself: its half of M once, each tile of G
+// staged as one flat span (a tile's rows are contiguous; TMA would need
+// 16-byte row strides, and a row is 4K bytes) and re-laid. Both operands
+// K zero-padded to KP, each value rounded to TF32 by cvt.rna (to nearest,
+// ties away from zero: ops/probes.py round_tf32), in the K-major layout
+// without swizzle: [KP / 4][rows][4] floats, 8-row x 16-byte core
+// matrices, those adjacent in K rows * 16 bytes apart (the descriptor's
+// leading byte offset), those adjacent in M or N 128 bytes apart (its
+// stride byte offset). The accumulator fragment of m64nN (PTX ISA, wgmma
+// register fragments): thread (warp w, lane 4g + q) holds d[4j + c] of
+// row 16w + g and d[4j + 2 + c] of row 16w + g + 8, column 8j + 2q + c.
+// Bound by a launch's floor at these sizes (1.3 M TF32 products a step at
+// m = 4,096 against 495 TFLOP/s); over many copies by the tensor cores'
+// rate at K = 16, of which 10 are useful.
+
+template <int KP>
+struct TcSmem {
+  float a[KP / 4][TC_ROWS][4];    // the tile of G as wgmma reads it
+  float b[KP / 4][TC_COLS][4];    // the block's half of M, likewise
+  float raw[TC_ROWS * KP];        // the tile of G as staged, K floats a row
+  float red[4][TC_COLS];          // each warp's column maxima
+};
+
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// a shared-memory matrix descriptor without swizzle: the start address,
+// the leading and the stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// keeps the compiler from moving an accumulator's reads or writes across
+// the asynchronous product
+__device__ __forceinline__ void fence_acc(float d[TC_COLS / 2]) {
+#pragma unroll
+  for (int i = 0; i < TC_COLS / 2; ++i)
+    asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D = A B (accumulate 0) or D += A B: m64n64k8, TF32 in, float32 out
+__device__ __forceinline__ void wgmma_tf32(float d[TC_COLS / 2], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int KP>
+__global__ void __launch_bounds__(LANES)
+mm_tf32_kernel(const float* __restrict__ G, int m, int k,
+               const float* __restrict__ M, int steps, int zero, int chunks,
+               int per, float* __restrict__ out_sum,
+               float* __restrict__ out_max, float* __restrict__ part,
+               int* __restrict__ tickets, int* __restrict__ ran) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  TcSmem<KP>& sh = *reinterpret_cast<TcSmem<KP>*>(smem_raw);
+  const int l = threadIdx.x, warp = l >> 5, g = (l & 31) >> 2, q = l & 3;
+  const Spread s = spread(m, TC_ROWS, TC_HALVES, chunks, per);
+  const int col0 = s.half * TC_COLS;
+  for (int i = l; i < KP * TC_COLS; i += LANES) {
+    const int kk = i / TC_COLS, n = i % TC_COLS;
+    sh.b[kk / 4][n][kk % 4] = kk < k ? tf32(M[kk * LANES + col0 + n]) : 0.0f;
+  }
+  float acc[TC_COLS / 8][2], mx[TC_COLS / 8][2], d[TC_COLS / 2];
+#pragma unroll
+  for (int j = 0; j < TC_COLS / 8; ++j) {
+    acc[j][0] = acc[j][1] = 0.0f;
+    mx[j][0] = mx[j][1] = -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < TC_COLS / 2; ++i) d[i] = 0.0f;
+  const int r0 = 16 * warp + g;           // this thread's rows r0, r0 + 8
+  stage_span(sh.raw, G + (size_t)s.t0 * TC_ROWS * k,
+             min(TC_ROWS, m - s.t0 * TC_ROWS) * k);
+  for (int t = s.t0; t < s.t1; ++t) {
+    const int rows = min(TC_ROWS, m - t * TC_ROWS);
+    cp_async_wait_all();
+    __syncthreads();                      // tile t staged, tile t - 1 read
+    for (int i = l; i < TC_ROWS * KP; i += LANES) {
+      const int r = i / KP, kk = i % KP;
+      sh.a[kk / 4][r][kk % 4] =
+          r < rows && kk < k ? tf32(sh.raw[r * k + kk]) : 0.0f;
+    }
+    // the generic proxy's writes of A (and B) seen by wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                      // A laid out, the staged tile read
+    if (t + 1 < s.t1)                     // the next tile while this one runs
+      stage_span(sh.raw, G + (size_t)(t + 1) * TC_ROWS * k,
+                 min(TC_ROWS, m - (t + 1) * TC_ROWS) * k);
+    // which of this thread's rows add into the sum (tile 0's rows 0-7,
+    // warp 0's r0) and which feed the maximum (the tile's real rows): the
+    // fold below selects, so that it compiles without branches
+    const bool sums = t == 0 && warp == 0;
+    const bool max0 = !sums && r0 < rows, max1 = r0 + 8 < rows;
+    for (int step = 0; step < steps; ++step) {
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < KP / 8; ++ks)
+        wgmma_tf32(d,
+                   wgmma_desc(&sh.a[2 * ks][0][0], TC_ROWS * 16, 128) +
+                       (step & zero),
+                   wgmma_desc(&sh.b[2 * ks][0][0], TC_COLS * 16, 128),
+                   ks > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(d);
+#pragma unroll
+      for (int j = 0; j < TC_COLS / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float lo = d[4 * j + c], hi = d[4 * j + 2 + c];
+          const float sum = acc[j][c] + lo;
+          acc[j][c] = sums ? sum : acc[j][c];
+          mx[j][c] = fmaxf(mx[j][c], max0 ? lo : -INFINITY);
+          mx[j][c] = fmaxf(mx[j][c], max1 ? hi : -INFINITY);
+        }
+      }
+    }
+  }
+  // the column maxima over a warp's 8 row groups (lanes q, q + 4, ...),
+  // then over the 4 warps
+#pragma unroll
+  for (int j = 0; j < TC_COLS / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = mx[j][c];
+      for (int o = 4; o < 32; o <<= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+      if (g == 0) sh.red[warp][8 * j + 2 * q + c] = v;
+    }
+  }
+  if (s.t0 == 0 && warp == 0) {
+    float* o = out_sum + (size_t)s.copy * ROWS * LANES + col0;
+#pragma unroll
+    for (int j = 0; j < TC_COLS / 8; ++j) {
+      o[g * LANES + 8 * j + 2 * q] = acc[j][0];
+      o[g * LANES + 8 * j + 2 * q + 1] = acc[j][1];
+    }
+  }
+  __syncthreads();
+  float v = -INFINITY;
+  if (l < TC_COLS)
+    v = fmaxf(fmaxf(sh.red[0][l], sh.red[1][l]),
+              fmaxf(sh.red[2][l], sh.red[3][l]));
+  fold_max(v, col0 + l, TC_COLS, s, chunks, chunks * TC_HALVES, out_max,
+           part, tickets);
+  if (ran != nullptr && l == 0) atomicAdd(ran, 1);
+}
+
+// On the tensor cores with mma.sync (bf16), float32 accumulators, K
+// padded to a multiple of 16 by the wrapper. Warp w computes columns
+// 32w..32w+31 (four 8-column tiles) of every 16-row tile: B's fragments
+// stay in registers, A's are read per step from device memory (cached).
+// Fragment layouts: PTX ISA, mma.m16n8k16 (.bf16); the accumulator of a
 // (16 x 8) tile gives thread (group g, index q) rows g and g + 8 of
 // columns 2q and 2q + 1.
-
-__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
                                          const uint32_t b[2]) {
@@ -527,57 +879,6 @@ __device__ __forceinline__ void write_mm(float acc[4][2], float mx[4][2],
       if (g == 0) out_max[(size_t)blockIdx.x * LANES + col] = v;
     }
   }
-}
-
-// TF32: G (m, KP) and M (KP, 128) float32 holding TF32 values (rounded by
-// the wrapper)
-template <int KP>
-__global__ void __launch_bounds__(LANES)
-mm_tf32_kernel(const float* __restrict__ G, int m,
-               const float* __restrict__ M, int steps, int zero,
-               float* __restrict__ out_sum, float* __restrict__ out_max) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int col0 = (threadIdx.x >> 5) * 32;
-  uint32_t b[KP / 8][4][2];
-#pragma unroll
-  for (int ks = 0; ks < KP / 8; ++ks) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = col0 + nt * 8 + g;
-      b[ks][nt][0] = __float_as_uint(M[(ks * 8 + q) * LANES + col]);
-      b[ks][nt][1] = __float_as_uint(M[(ks * 8 + q + 4) * LANES + col]);
-    }
-  }
-  float acc[4][2], mx[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    acc[nt][0] = acc[nt][1] = 0.0f;
-    mx[nt][0] = mx[nt][1] = -INFINITY;
-  }
-  for (int step = 0; step < steps; ++step) {
-    const float* gs = G + (step & zero);
-    for (int mt = 0; mt < m / 16; ++mt) {
-      float d[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) d[nt][0] = d[nt][1] = d[nt][2] =
-          d[nt][3] = 0.0f;
-      const float* r0 = gs + (size_t)(mt * 16 + g) * KP;
-      const float* r1 = r0 + 8 * KP;
-#pragma unroll
-      for (int ks = 0; ks < KP / 8; ++ks) {
-        const uint32_t a[4] = {__float_as_uint(__ldg(r0 + ks * 8 + q)),
-                               __float_as_uint(__ldg(r1 + ks * 8 + q)),
-                               __float_as_uint(__ldg(r0 + ks * 8 + q + 4)),
-                               __float_as_uint(__ldg(r1 + ks * 8 + q + 4))};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(d[nt], a, b[ks][nt]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) fold(d[nt], mt == 0, acc[nt], mx[nt]);
-    }
-  }
-  write_mm(acc, mx, out_sum, out_max);
 }
 
 // bf16: G (m, KP) and M (KP, 128) as bfloat16 bits
@@ -759,36 +1060,93 @@ extern "C" int mts_probe_v4(const float* tri, int K, const float* rays,
   return launched();
 }
 
+// a launch's tile plan (ops/probes.py mm_plan): chunks of `per` tiles,
+// every tile in exactly one
+static bool bad_plan(int m, int tile_rows, int chunks, int per) {
+  const int tiles = (m + tile_rows - 1) / tile_rows;
+  return chunks < 1 || per < 1 || (chunks - 1) * per >= tiles ||
+         chunks * per < tiles;
+}
+
+// part (copies, chunks, 128) floats and tickets (copies) ints, zero
+// between launches: read only where chunks > 1; ran, where not null, an
+// int to which every block of the launch adds one as it ends
 extern "C" int mts_probe_mm_cuda(const float* G, int m, const float* M,
-                                 int steps, int zero, int blocks,
-                                 float* out_sum, float* out_max,
+                                 int steps, int zero, int copies, int chunks,
+                                 int per, float* out_sum, float* out_max,
+                                 float* part, int* tickets, int* ran,
                                  void* stream) {
-  const int smem = m * N_COEF * (int)sizeof(float);
-  if (m < ROWS) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mm_cuda_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  mm_cuda_kernel<<<blocks, LANES, smem, STREAM>>>(G, m, M, steps, zero,
-                                                  out_sum, out_max);
+  if (m < ROWS || copies < 1 || bad_plan(m, MM_ROWS, chunks, per))
+    return (int)cudaErrorInvalidValue;
+  mm_cuda_kernel<<<copies * chunks, LANES, 0, STREAM>>>(
+      G, m, M, steps, zero, chunks, per, out_sum, out_max, part, tickets,
+      ran);
   return launched();
 }
 
-extern "C" int mts_probe_mm_tf32(const float* G, int m, int kp, const float* M,
-                                 int steps, int zero, int blocks,
-                                 float* out_sum, float* out_max,
-                                 void* stream) {
-  if (m < 16 || m % 16) return (int)cudaErrorInvalidValue;
-  if (kp == 16)
-    mm_tf32_kernel<16><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
-                                                     out_sum, out_max);
-  else if (kp == 128)
-    mm_tf32_kernel<128><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
-                                                      out_sum, out_max);
-  else
-    return (int)cudaErrorInvalidValue;
+template <int KP>
+static int launch_tf32(const float* G, int m, int k, const float* M,
+                       int steps, int zero, int copies, int chunks, int per,
+                       float* out_sum, float* out_max, float* part,
+                       int* tickets, int* ran, cudaStream_t stream) {
+  const int smem = (int)sizeof(TcSmem<KP>);
+  const cudaError_t e = cudaFuncSetAttribute(
+      mm_tf32_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  mm_tf32_kernel<KP><<<copies * TC_HALVES * chunks, LANES, smem, stream>>>(
+      G, m, k, M, steps, zero, chunks, per, out_sum, out_max, part, tickets,
+      ran);
   return launched();
+}
+
+// G (m, k) and M (k, 128) float32 as the caller holds them, k <= 16 or
+// k = 128
+extern "C" int mts_probe_mm_tf32(const float* G, int m, int k, const float* M,
+                                 int steps, int zero, int copies, int chunks,
+                                 int per, float* out_sum, float* out_max,
+                                 float* part, int* tickets, int* ran,
+                                 void* stream) {
+  if (m < ROWS || copies < 1 || bad_plan(m, TC_ROWS, chunks, per))
+    return (int)cudaErrorInvalidValue;
+  if (k >= 1 && k <= 16)
+    return launch_tf32<16>(G, m, k, M, steps, zero, copies, chunks, per,
+                           out_sum, out_max, part, tickets, ran, STREAM);
+  if (k == 128)
+    return launch_tf32<128>(G, m, k, M, steps, zero, copies, chunks, per,
+                            out_sum, out_max, part, tickets, ran, STREAM);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the resources of a product kernel on the current card (which: 0
+// mm_cuda, 1 mm_tf32 at K <= 16, 2 at K = 128): blocks resident per SM,
+// registers per thread, shared memory bytes a block (static and dynamic),
+// local (spill) bytes per thread, rows of G a tile and halves of M's
+// columns (ops/probes.py TILE_ROWS, HALVES)
+extern "C" int mts_probe_mm_info(int which, int* out) {
+  const void* fn = which == 0   ? (const void*)mm_cuda_kernel
+                   : which == 1 ? (const void*)mm_tf32_kernel<16>
+                                : (const void*)mm_tf32_kernel<128>;
+  const int dyn = which == 0   ? 0
+                  : which == 1 ? (int)sizeof(TcSmem<16>)
+                               : (int)sizeof(TcSmem<128>);
+  cudaError_t e;
+  if (dyn && (e = cudaFuncSetAttribute(
+                  fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn)) !=
+                 cudaSuccess)
+    return (int)e;
+  cudaFuncAttributes attr;
+  if ((e = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, LANES,
+                                                         dyn)) != cudaSuccess)
+    return (int)e;
+  out[0] = per_sm;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.sharedSizeBytes + dyn;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = which == 0 ? MM_ROWS : TC_ROWS;
+  out[5] = which == 0 ? 1 : TC_HALVES;
+  return 0;
 }
 
 extern "C" int mts_probe_mm_bf16(const uint16_t* G, int m, int kp,

@@ -5,9 +5,10 @@ exp_r3_mt.py:63 and exp_r5_megakernel.py:72).
 
 Each probe computes what its TPU script's kernel body computes, in the
 form the port's kernels take: a 128-thread block, a thread per lane,
-looping over items or steps (see the source's note). `blocks` launches that
-many blocks, each doing the same work and writing its own copy of the
-result: 1 for the per-block form, 8,192 for the whole card.
+looping over items or steps (see the source's note). `blocks` asks for
+that many copies of the work, each written to its own slot of the
+result, a block each (but the spread products, below): 1 for the
+per-block form, 8,192 for the whole card.
 
 * floors: `count` (a kernel that only counts its launches), `gate`
   (run_empty: an item loop gated per item, adding the 8 row sums of a
@@ -25,7 +26,10 @@ result: 1 for the per-block form, 8,192 for the whole card.
 * `mm_cuda`, `mm_tf32`, `mm_bf16` (run_mm): the sum over steps of
   (G @ M)[0:8], on the float32 pipes as #14 forms its Plücker products,
   and on the tensor cores with K padded to 16 (or 128); the products of
-  the other rows feed a running maximum, so that all are computed;
+  the other rows feed a running maximum, so that all are computed.
+  `mm_cuda` and `mm_tf32` (wgmma, padding and TF32 rounding inside the
+  kernel) spread each copy's product over several blocks by `mm_plan`,
+  and fold the maximum across them in the same launch;
 * `gather_smem`, `gather_global` (pallas_gather): table[idx], from the
   table staged in shared memory or from device memory.
 
@@ -84,6 +88,13 @@ LAUNCHES = {k: 0 for k in (
     "count", "gate", "rotate", "grid", "fma", "mt", "v0", "v1", "v2", "v4",
     "mm_cuda", "mm_tf32", "mm_bf16", "gather_smem", "gather_global")}
 _FN = {}
+# the tickets of the spread products (csrc/probes.cu), one buffer per
+# (device, stream): zeroed once, on that stream, and left at zero by every
+# launch, which runs after the one before it on its stream
+_TICKETS = {}
+# the device counter that the spread products add their blocks to while
+# `blocks_ran` measures a call; None: they count nothing
+_RAN = None
 
 
 def build() -> str:
@@ -97,14 +108,30 @@ def build() -> str:
         "fma": [p, p, i, i, i, p], "mt": [p, i, p, i, i, i, p, p],
         "v0": [p, i, i, p], "v1": [p, i, p, i, i, i, p, p],
         "v2": [p, i, p, i, i, p, p], "v4": [p, i, p, i, i, p, p],
-        "mm_cuda": [p, i, p, i, i, i, p, p],
-        "mm_tf32": [p, i, i, p, i, i, i, p, p],
+        "mm_cuda": [p, i, p, i, i, i, i, i, p, p, p, p, p],
+        "mm_tf32": [p, i, i, p, i, i, i, i, i, p, p, p, p, p],
         "mm_bf16": [p, i, i, p, i, i, i, p, p],
         "gather_smem": [p, i, p, i, p], "gather_global": [p, i, p, i, p],
     }
     for name, args in sigs.items():
         _FN[name] = nv.bind(SOURCE, f"mts_probe_{name}", args + [p])
+    _FN["mm_info"] = nv.bind(SOURCE, "mts_probe_mm_info", [i, p])
     return log
+
+
+def mm_info(kind: str, k: int = N_COEF) -> dict:
+    """The resources of a spread product kernel (kind "cuda" or "tf32",
+    the latter at depth k) on the current card: blocks resident per SM,
+    registers per thread, shared memory bytes a block and local (spill)
+    bytes per thread; and the tile rows and column halves the kernel is
+    compiled for (TILE_ROWS, HALVES here must match them)."""
+    if "mm_info" not in _FN:
+        build()
+    out = (ctypes.c_int * 6)()
+    which = 0 if kind == "cuda" else 1 if k <= 16 else 2
+    nv.check(_FN["mm_info"](which, out), "mm_info")
+    return dict(blocks_per_sm=out[0], registers=out[1], smem_bytes=out[2],
+                local_bytes=out[3], tile_rows=out[4], halves=out[5])
 
 
 def _on_card(*xs) -> bool:
@@ -529,6 +556,33 @@ def v4(tri, rays, reps: int, blocks: int = 1):
 # Plücker products: the sum over steps of (G @ M)[0:8]
 # ---------------------------------------------------------------------------
 
+# rows of G in a tile, per spread kernel (csrc/probes.cu MM_ROWS,
+# TC_ROWS), and the column halves an mm_tf32 copy splits M into
+TILE_ROWS = {"cuda": 32, "tf32": 64}
+HALVES = {"cuda": 1, "tf32": 2}
+# the most blocks a launch spreads its copies' tiles over before it gives
+# a block several tiles: 8 blocks of 128 threads on each of 128 SMs
+SPREAD_BLOCKS = 1024
+
+
+def mm_plan(kind: str, m: int, copies: int = 1) -> dict:
+    """The grid of a spread product kernel (kind "cuda" or "tf32") for
+    `copies` copies of an (m, K) x (K, 128) product: G's rows cut into
+    `tiles` tiles of `tile_rows` (the last holding `last_rows`), M's
+    columns into `halves`; each block takes a chunk of `per` consecutive
+    tiles of one half of one copy, `chunks` chunks a half, so that the
+    launch has at most SPREAD_BLOCKS blocks unless the copies alone need
+    more (a chunk of every tile a copy: `blocks` = copies x halves)."""
+    rows, halves = TILE_ROWS[kind], HALVES[kind]
+    tiles = -(-m // rows)
+    want = max(1, min(tiles, SPREAD_BLOCKS // (copies * halves)))
+    per = -(-tiles // want)
+    chunks = -(-tiles // per)
+    return dict(tile_rows=rows, tiles=tiles, last_rows=m - (tiles - 1) * rows,
+                halves=halves, per=per, chunks=chunks,
+                blocks=copies * halves * chunks)
+
+
 def _fold(s, steps):
     """Rows 0-7 of the step's product summed over steps in order, and the
     maximum of the other rows (-inf if none)."""
@@ -541,23 +595,35 @@ def _fold(s, steps):
     return acc, mx
 
 
-def mm_cuda_ref(G, M, steps: int):
-    """The float32 products as #14 forms them, each an ordered 10-term
-    sum; returns (sum (8, 128), max of rows 8.. (128,))."""
+def mm_cuda_products(G, M):
+    """The (m, 128) float32 products as #14 forms them, each an ordered
+    10-term sum."""
     s = G[:, 0:1] * M[0:1]
     for k in range(1, N_COEF):
         s = s + G[:, k:k + 1] * M[k:k + 1]
-    return _fold(s, steps)
+    return s
+
+
+def mm_cuda_ref(G, M, steps: int):
+    """The float32 products as #14 forms them, each an ordered 10-term
+    sum; returns (sum (8, 128), max of rows 8.. (128,))."""
+    return _fold(mm_cuda_products(G, M), steps)
+
+
+def _tc_depth(k: int) -> int:
+    """The depth a tensor-core kernel pads K to: 16 (K <= 16) or 128."""
+    kp = 16 if k <= 16 else k
+    if kp not in (16, 128):
+        raise ValueError(f"depth {k}: the tensor-core probes take K <= 16 "
+                         f"or K = 128")
+    return kp
 
 
 def _padded(G, M):
     """G (m, K), M (K, 128) with K zero-padded to 16 (K <= 16) or kept
     (K = 128): the depths the tensor-core kernels take."""
     k = G.shape[1]
-    kp = 16 if k <= 16 else k
-    if kp not in (16, 128):
-        raise ValueError(f"depth {k}: the tensor-core probes take K <= 16 "
-                         f"or K = 128")
+    kp = _tc_depth(k)
     if kp == k:
         return G.contiguous(), M.contiguous()
     gp = torch.zeros((G.shape[0], kp), dtype=G.dtype, device=G.device)
@@ -574,13 +640,18 @@ def _tc_inputs(G, M, kind):
     return gp.to(torch.bfloat16), mp.to(torch.bfloat16)
 
 
-def mm_tc_ref(G, M, steps: int, kind: str):
-    """The tensor-core products in plain PyTorch: the inputs rounded as
-    the kernel takes them (TF32: to nearest, ties away; bf16: to nearest
-    even), the exact products summed in float64 and rounded once."""
+def mm_tc_products(G, M, kind: str):
+    """The (m, 128) tensor-core products in plain PyTorch: the inputs
+    rounded as the kernel takes them (TF32: to nearest, ties away; bf16:
+    to nearest even), the exact products summed in float64 and rounded
+    once."""
     gq, mq = _tc_inputs(G, M, kind)
-    s = (gq.double() @ mq.double()).float()
-    return _fold(s, steps)
+    return (gq.double() @ mq.double()).float()
+
+
+def mm_tc_ref(G, M, steps: int, kind: str):
+    """`mm_tc_products` folded: (sum (8, 128), max of rows 8.. (128,))."""
+    return _fold(mm_tc_products(G, M, kind), steps)
 
 
 def _check_mm(G, M):
@@ -591,42 +662,89 @@ def _check_mm(G, M):
     return m, k
 
 
+def _tickets(device, n: int):
+    """At least n zero tickets for a spread launch on the current stream
+    of `device`. Two spread launches must not overlap on one buffer: a
+    launch on another stream draws that stream's, and a CUDA graph that
+    captures one must not replay beside another launch of the stream."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        with torch.cuda.device(device):
+            t = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def _spread(kind, G, M, m, k, steps, blocks):
+    """One launch of a spread product kernel: (sum (blocks, 8, 128), max
+    (blocks, 128)); the partial maxima's scratch is empty memory, and
+    only a launch of several chunks a copy draws tickets."""
+    plan = mm_plan(kind, m, blocks)
+    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
+                      device=G.device)
+    mx = torch.empty((blocks, LANES), dtype=torch.float32, device=G.device)
+    several = plan["chunks"] > 1
+    part = torch.empty((blocks, plan["chunks"], LANES) if several else (1,),
+                       dtype=torch.float32, device=G.device)
+    tickets = _tickets(G.device, blocks if several else 1)
+    name = f"mm_{kind}"
+    head = (_ptr(G), m, _ptr(M)) if kind == "cuda" else (_ptr(G), m, k,
+                                                        _ptr(M))
+    _launch(name, G.device, *head, steps, 0, blocks, plan["chunks"],
+            plan["per"], _ptr(out), _ptr(mx), _ptr(part), _ptr(tickets),
+            None if _RAN is None else _ptr(_RAN))
+    LAUNCHES[name] += 1
+    return out, mx
+
+
+def blocks_ran(fn, device):
+    """fn()'s result and the blocks that the spread products' launches in
+    it ran on `device`, as the kernels count them: each block adds one to
+    a device counter, which they are handed only inside this call."""
+    global _RAN
+    _RAN = torch.zeros(1, dtype=torch.int32, device=device)
+    try:
+        out = fn()
+        return out, int(_RAN.item())
+    finally:
+        _RAN = None
+
+
 def mm_cuda(G, M, steps: int, blocks: int = 1):
     """The products on the float32 pipes; K = 10. (sum (blocks, 8, 128),
-    max (blocks, 128))."""
+    max (blocks, 128)); each of the `blocks` copies spread by
+    mm_plan("cuda", m, blocks)."""
     m, k = _check_mm(G, M)
     if k != N_COEF or m < ROWS:
         raise ValueError(f"mm_cuda takes G (m >= 8, 10), got {(m, k)}")
     if not _on_card(G, M):
         return tuple(_copies(x, blocks) for x in mm_cuda_ref(G, M, steps))
-    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
-                      device=G.device)
-    mx = torch.empty((blocks, LANES), dtype=torch.float32, device=G.device)
-    _launch("mm_cuda", G.device, _ptr(G), m, _ptr(M), steps, 0, blocks,
-            _ptr(out), _ptr(mx))
-    LAUNCHES["mm_cuda"] += 1
-    return out, mx
+    return _spread("cuda", G, M, m, k, steps, blocks)
 
 
 def mm_tc(G, M, steps: int, kind: str, blocks: int = 1):
     """The products on the tensor cores, kind "tf32" or "bf16", float32
     accumulators; m a multiple of 16. (sum (blocks, 8, 128), max (blocks,
-    128))."""
-    m, _k = _check_mm(G, M)
+    128)). TF32: one launch of the spread wgmma kernel, which pads and
+    rounds G and M itself; bf16: the inputs padded and converted here."""
+    m, k = _check_mm(G, M)
     if m % 16:
         raise ValueError(f"m = {m} is not a multiple of 16")
     if kind not in ("tf32", "bf16"):
         raise ValueError(f"unknown tensor-core kind {kind!r}")
     if not _on_card(G, M):
         return tuple(_copies(x, blocks) for x in mm_tc_ref(G, M, steps, kind))
+    if kind == "tf32":
+        _tc_depth(k)
+        return _spread("tf32", G, M, m, k, steps, blocks)
     gq, mq = _tc_inputs(G, M, kind)
     out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
                       device=G.device)
     mx = torch.empty((blocks, LANES), dtype=torch.float32, device=G.device)
-    name = f"mm_{kind}"
-    _launch(name, G.device, _ptr(gq), m, gq.shape[1], _ptr(mq), steps, 0,
-            blocks, _ptr(out), _ptr(mx))
-    LAUNCHES[name] += 1
+    _launch("mm_bf16", G.device, _ptr(gq), m, gq.shape[1], _ptr(mq), steps,
+            0, blocks, _ptr(out), _ptr(mx))
+    LAUNCHES["mm_bf16"] += 1
     return out, mx
 
 

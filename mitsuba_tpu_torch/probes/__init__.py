@@ -13,9 +13,12 @@ stands for, the shape, the sizes run (the two of a slope), the times, the time
 per step, item or launch, the rate, and the bound of that work (the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type; a floor does no work: `bound_by` "none"). The per-block
-form runs one 128-thread block (one SM of 132: `one_sm_bound_ns` is the
-bound at 1/132 of the card's rates); the card form 8,192 blocks, as a
-1,048,576-lane wavefront gives.
+form runs one copy, as one 128-thread block (one SM of 132:
+`one_sm_bound_ns` is the bound at 1/132 of the card's rates) but for the
+spread products (kernel_cost.py), whose copy takes the blocks that its
+launch counts as they run (`shape["blocks_launched"]`; no
+`one_sm_bound_ns` where that is more than one); the card form 8,192
+copies, as a 1,048,576-lane wavefront gives.
 
 Each module's `run(device, sizes)` returns the lines. On a CPU device it
 runs the plain versions at the sizes given, once each, and measures no
@@ -111,14 +114,19 @@ def bound_ns(ops: float = 0.0, nbytes: float = 0.0, kind: str = "fp32"):
 
 
 def measure(device, run, sizes, unit: str, work=None, rate=None,
-            rate_unit=None, kind: str = "fp32", blocks: int = 1, **line):
+            rate_unit=None, kind: str = "fp32", blocks: int = 1,
+            blocks_of=None, **line):
     """One probe line: run(n) at each of `sizes` (one size: the device
     time per call; two: the slope between them of the CUDA-event times,
     per unit of n, which cancels the host's share). work(n, blocks) ->
     (ops, bytes) of run(n) on all its blocks, for the bound (none: a
     floor); rate(n, blocks) -> the amount counted in `rate_unit`
-    (default: the ops, or for a bytes-only probe the bytes). On a CPU device run(n) runs once
-    per size and no time is measured."""
+    (default: the ops, or for a bytes-only probe the bytes). blocks_of:
+    for a probe whose copy spans several blocks, blocks_of(fn) -> the
+    blocks that fn()'s launch ran; on the card those of run(sizes[0]) go
+    to `shape["blocks_launched"]`, and the line has `one_sm_bound_ns` only
+    where they are one. On a CPU device run(n) runs once per size and no
+    time is measured."""
     dev = torch.device(device)
     res = dict(form="block" if blocks == 1 else "card", blocks=blocks,
                unit=unit, slope=list(sizes) if len(sizes) == 2 else None,
@@ -129,6 +137,9 @@ def measure(device, run, sizes, unit: str, work=None, rate=None,
             run(n)
         return dict(res, ms=None, ns_per_unit=None, rate=None,
                     bound_ns=None, bound_by=None)
+    if blocks_of:
+        res["shape"] = dict(res.get("shape", {}),
+                            blocks_launched=blocks_of(lambda: run(sizes[0])))
     if len(sizes) == 2:
         ms = [timed_ms(lambda n=n: run(n)) for n in sizes]
     else:
@@ -153,7 +164,8 @@ def measure(device, run, sizes, unit: str, work=None, rate=None,
     res["rate"] = amount / n_units / (per * 1e-9) if amount and per > 0 \
         else None
     res["rate_unit"] = rate_unit
-    if blocks == 1 and b_ns is not None:
+    if res.get("shape", {}).get("blocks_launched", blocks) == 1 and \
+            b_ns is not None:
         res["one_sm_bound_ns"] = b_ns * SMS
     return res
 

@@ -10,6 +10,13 @@ the gated item loop off and on (run_empty :228) and the rotating 8 KB and
 (or item) counts, per block and over the card; inputs drawn as the script
 draws them, from a seed.
 
+The products `mm_cuda` and `mm_tf32` spread each copy over several
+blocks (ops/probes.py `mm_plan`; on the card `shape["blocks_launched"]`
+records the blocks that each form's launch ran, as the kernel counts
+them, `blocks_ran`): their 1-copy line is one product over the card, no
+longer a one-SM rate, and carries no `one_sm_bound_ns`; their
+8,192-copy line does the same total work as before.
+
     python -m mitsuba_tpu_torch.probes.kernel_cost
 """
 from __future__ import annotations
@@ -117,6 +124,8 @@ def run(device="cuda", sizes=None, seed: int = 0):
                 rate_unit="flop/s",
                 kind="fp32" if way == "cuda" else way,
                 probe="run_mm", script=f"{SCRIPT}:71", kernel=f"mm_{way}",
+                blocks_of=(lambda f: pr.blocks_ran(f, device)[1])
+                if way in pr.TILE_ROWS else None,
                 shape={"m": m, "k": k, "n": 128,
                        "k_padded": k if way == "cuda" else max(16, k)})
 

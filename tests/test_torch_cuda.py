@@ -1119,22 +1119,154 @@ def test_probe_mt_kernels_match_plain_versions(cuda):
     assert pr.rel_err(acc[0][same], acc_r[same]) <= pr.TOLERANCE["v2"]
 
 
-@pytest.mark.parametrize("m,k", [(512, 10), (4096, 10), (512, 128)])
-def test_probe_products_match_plain_versions(cuda, m, k):
-    """The (m, k) x (k, 128) products: on the float32 pipes bit for bit
-    (k = 10), on the tensor cores within TOLERANCE."""
+@pytest.mark.parametrize("m,k,negative", [
+    (512, 10, False), (4096, 10, False), (512, 128, False),
+    # a ragged last tile of the spread kernels (mm_cuda's 32 rows,
+    # mm_tf32's 64), also on rows whose products are all negative, where a
+    # padded row's zero would win the maximum
+    (8, 10, False), (16, 10, False), (24, 10, False), (48, 10, False),
+    (528, 10, False), (4104, 10, False), (24, 10, True), (48, 10, True),
+    (528, 10, True), (4104, 10, True), (48, 128, True)])
+def test_probe_products_match_plain_versions(cuda, m, k, negative):
+    """The (m, k) x (k, 128) products, 2 copies: on the float32 pipes bit
+    for bit (k = 10), on the tensor cores (m a multiple of 16) within
+    TOLERANCE."""
     from mitsuba_tpu_torch.ops import probes as pr
 
     rng, t = _probe_inputs(cuda, m + k)
     G, M = t(rng.standard_normal((m, k))), t(rng.standard_normal((k, 128)))
+    if negative:
+        G, M = -(G.abs() + 0.1), M.abs() + 0.1
     if k == 10:
         got = pr.mm_cuda(G, M, 3, blocks=2)
         for a, r in zip(got, pr.mm_cuda_ref(G, M, 3)):
             assert torch.equal(a, r.expand_as(a))
-    for kind in ("tf32", "bf16"):
+    for kind in ("tf32", "bf16") if m % 16 == 0 else ():
         got = pr.mm_tc(G, M, 3, kind, blocks=2)
-        for a, r in zip(got, pr.mm_tc_ref(G, M, 3, kind)):
+        ref = pr.mm_tc_ref(G, M, 3, kind)
+        assert not negative or bool((ref[1] < 0).all())
+        for a, r in zip(got, ref):
             assert pr.rel_err(a, r.expand_as(a)) <= pr.TOLERANCE[f"mm_{kind}"]
+
+
+def test_probe_products_at_8192_copies(cuda):
+    """Each of 8,192 copies (a block each) as the plain version."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, 8192)
+    G, M = t(rng.standard_normal((4096, 10))), t(rng.standard_normal((10,
+                                                                     128)))
+    for a, r in zip(pr.mm_cuda(G, M, 2, blocks=8192), pr.mm_cuda_ref(G, M,
+                                                                      2)):
+        assert torch.equal(a, r.expand_as(a))
+    for a, r in zip(pr.mm_tc(G, M, 2, "tf32", blocks=8192),
+                    pr.mm_tc_ref(G, M, 2, "tf32")):
+        assert pr.rel_err(a, r.expand_as(a)) <= pr.TOLERANCE["mm_tf32"]
+
+
+# one call of each spread product profiled in a process of its own: in a
+# process that has run for minutes, torch.profiler may record no device
+# event of so short a window
+_ONE_KERNEL = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from mitsuba_tpu_torch.ops import probes as pr
+
+dev = torch.device("cuda", 0)
+gen = torch.Generator().manual_seed(64)
+for m in (64, 4096):
+    G = torch.randn(m, 10, generator=gen).to(dev)
+    M = torch.randn(10, 128, generator=gen).to(dev)
+    for kind, call in (("tf32", lambda: pr.mm_tc(G, M, 1, "tf32")),
+                       ("cuda", lambda: pr.mm_cuda(G, M, 1))):
+        call()                          # the tickets' buffer, zeroed once
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        print(json.dumps([kind, m, [e.name for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA]]))
+"""
+
+
+def test_probe_tf32_product_is_one_kernel(cuda):
+    """One mm_tc(..., "tf32") call launches one kernel, mm_tf32_kernel
+    (the padding and the TF32 rounding inside it), and mm_cuda one too
+    (the profiler's device events of one call, in a fresh process), each
+    over more than one block from m = 64: the blocks that ran, as the
+    kernel counts them, are the plan's; each kernel is compiled for the
+    plan's tiles."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for kind, k in (("cuda", 10), ("tf32", 10), ("tf32", 128)):
+        info = pr.mm_info(kind, k)
+        assert (info["tile_rows"], info["halves"]) == (pr.TILE_ROWS[kind],
+                                                       pr.HALVES[kind])
+    run = subprocess.run(
+        [sys.executable, "-c", _ONE_KERNEL], cwd=root, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])))
+    assert run.returncode == 0, run.stderr[-2000:]
+    seen = [json.loads(ln) for ln in run.stdout.splitlines()
+            if ln.startswith("[")]
+    assert len(seen) == 4
+    for kind, m, kernels in seen:
+        assert len(kernels) == 1 and f"mm_{kind}_kernel" in kernels[0], \
+            (kind, m, kernels)
+    rng, t = _probe_inputs(cuda, 64)
+    for m in (64, 4096):
+        G, M = t(rng.standard_normal((m, 10))), t(rng.standard_normal(
+            (10, 128)))
+        for kind, call in (("tf32", lambda: pr.mm_tc(G, M, 1, "tf32")),
+                           ("cuda", lambda: pr.mm_cuda(G, M, 1))):
+            ran = pr.blocks_ran(call, cuda)[1]
+            assert ran == pr.mm_plan(kind, m)["blocks"] and ran > 1
+
+
+def _tf32_ties():
+    """float32 values planted on TF32's rounding: the 13 dropped bits a
+    tie (0x1000), one either side, none and all, in both signs, on bases
+    where a tie carries into the exponent, among the subnormals and at
+    the largest finite values."""
+    bits = [((base | low) ^ sign)
+            for base in (0x3F800000, 0x40490000, 0x3F801000, 0x00000000,
+                         0x00400000, 0x3FFFE000, 0x7F7FE000, 0x0080A000)
+            for low in (0x1000, 0x0FFF, 0x1001, 0x0000, 0x1FFF, 0x0001)
+            for sign in (0, 0x80000000)]
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+def test_probe_tf32_rounds_as_round_tf32(cuda):
+    """mm_tf32's own rounding (cvt.rna in the kernel) on planted ties,
+    each product one rounded input times a rounded 1: M's row of K = 1
+    against G's ones (128 a call, in out_sum and out_max), then G's
+    column against M's ones (8 a call, in out_sum); equal to round_tf32's
+    values (a zero's sign aside: the padded depth adds +0)."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    _, t = _probe_inputs(cuda)
+    x = _tf32_ties()
+    want = pr.round_tf32(torch.from_numpy(x.copy()))
+    row = np.resize(x, 128)
+    out_sum, out_max = pr.mm_tc(t(np.ones((64, 1))), t(row[None]), 1, "tf32")
+    w = torch.from_numpy(np.resize(want.numpy(), 128)).to(cuda)
+    assert torch.equal(out_sum[0], w.expand(8, 128))
+    assert torch.equal(out_max[0], w)
+    for i in range(0, len(x), 8):
+        col = np.zeros((16, 1), np.float32)
+        col[:8, 0] = np.resize(x[i:i + 8], 8)
+        out_sum, _ = pr.mm_tc(t(col), t(np.ones((1, 128))), 1, "tf32")
+        w = pr.round_tf32(torch.from_numpy(col[:8].copy())).to(cuda)
+        assert torch.equal(out_sum[0], w.expand(8, 128))
 
 
 @pytest.mark.parametrize("k", [512, 32768])

@@ -409,6 +409,22 @@ def test_fma32_rounds_once():
     assert (got[:4] - 1) * 2 ** 23 == pytest.approx([4097, 4096, 4096, 4097])
 
 
+def _rna_tf32(x: np.float32) -> np.float32:
+    """cvt.rna.tf32.f32 exactly: the nearest value with a 10-bit mantissa
+    (ulp 2^(e - 10), or 2^-136 below the normal range), ties away from
+    zero, the sign kept (a tiny negative value rounds to -0); beyond the
+    largest float32, infinity."""
+    if x == 0:
+        return x
+    f = abs(Fraction(float(x)))
+    e = max(int(np.floor(np.log2(float(f)))), -126)
+    ulp = Fraction(2) ** (e - 10)
+    q = f / ulp
+    r = (int(q) + (1 if q - int(q) >= Fraction(1, 2) else 0)) * ulp
+    mag = np.float32(np.inf) if r >= 2 ** 128 else np.float32(float(r))
+    return np.copysign(mag, x)
+
+
 def test_round_tf32_is_nearest_ties_away():
     x = np.array([1 + 2 ** -11, 1 + 2 ** -11 + 2 ** -23, -(1 + 2 ** -11),
                   1 + 2 ** -12, 3.0], np.float32)
@@ -417,6 +433,23 @@ def test_round_tf32_is_nearest_ties_away():
                                          -(1 + 2 ** -10), 1.0, 3.0],
                                         np.float32))
     assert not (got.view(np.int32) & 0x1FFF).any()
+    # planted: the 13 dropped bits a tie (0x1000), one either side, none
+    # and all, in both signs, on bases where a tie carries into the
+    # exponent, among the subnormals and at the largest finite values,
+    # against an exact cvt.rna
+    bits = np.array([(base | low) ^ sign
+                     for base in (0x3F800000, 0x40490000, 0x3F801000,
+                                  0x00000000, 0x00400000, 0x3FFFE000,
+                                  0x7F7FE000, 0x0080A000)
+                     for low in (0x1000, 0x0FFF, 0x1001, 0x0000, 0x1FFF,
+                                 0x0001)
+                     for sign in (0, 0x80000000)], np.uint32)
+    x = bits.view(np.float32).copy()
+    got = pr.round_tf32(_t(x)).numpy()
+    want = np.array([_rna_tf32(v) for v in x], np.float32)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    tie = (bits & 0x1FFF) == 0x1000
+    assert np.all(np.abs(got[tie]) > np.abs(x[tie]))      # away from zero
 
 
 @pytest.mark.parametrize("module,sizes", [
@@ -431,7 +464,9 @@ def test_round_tf32_is_nearest_ties_away():
 ])
 def test_probe_driver_runs_on_the_cpu(module, sizes):
     """Each driver runs its probes' plain versions on the CPU and names
-    the TPU script line of every probe; no time is measured there."""
+    the TPU script line of every probe; no time is measured there, and
+    no launch: the product lines' shapes carry no `blocks_launched`,
+    which only a launch's profiled grid gives."""
     import importlib
 
     mod = importlib.import_module(f"mitsuba_tpu_torch.probes.{module}")
@@ -439,6 +474,9 @@ def test_probe_driver_runs_on_the_cpu(module, sizes):
     assert lines and all(ln["script"].startswith("scripts/exp_")
                          for ln in lines)
     assert all(ln["ms"] is None and ln["device"] == "cpu" for ln in lines)
+    for ln in lines:
+        if ln.get("probe") == "run_mm":
+            assert set(ln["shape"]) == {"m", "k", "n", "k_padded"}
 
 
 def test_r3_kernel_list_items_on_the_cpu():
