@@ -363,12 +363,16 @@ Phases, each printing one JSON line:
      products and the approximate reciprocals of V2 and V4) at step counts
      where the plain version takes under a second, #13 on the first 1,024
      rows of config 3's 1,048,576-lane work list and on the flat lists of
-     tests/torch_instanced_cases.py; the spread products mm_cuda and
-     mm_tf32 also at a ragged last tile with two copies, on all-negative
-     rows and at 8,192 copies, with their registers, shared memory and
-     SASS (mm_tf32 must issue HGMMA: `probe_products`), and on config 3's
-     own Plücker rows and bounce rays, where the plain versions' sign
-     errors against float64 answer ROADMAP A.5 (`plucker_signs`); then,
+     tests/torch_instanced_cases.py; the spread products mm_cuda,
+     mm_tf32 and mm_bf16 also at a ragged last tile with two copies, on
+     all-negative rows and at 8,192 copies, with their registers, shared
+     memory and SASS (both instances of the wgmma kernel must issue
+     HGMMA: `probe_products`); rotate's bulk-copy ring at 8 and 32 KB
+     over 1, S - 1, S, S + 1 and 512 items on 1 and 8,192 copies, with
+     its stages, shared memory, registers and SASS (it must issue UBLKCP:
+     `rotate_ring`); and on config 3's own Plücker rows and bounce rays,
+     where the plain versions' sign errors against float64 answer ROADMAP
+     A.5 (`plucker_signs`); then,
      every launch count
      set to 0 just before and read just after, the five probe drivers at
      the scripts' sizes (a line per probe and form), and the library
@@ -2149,7 +2153,8 @@ def compare_probes(device, case):
 
 def probes_phase(device, case):
     """The five probe drivers at the scripts' sizes, every launch count
-    set to 0 just before and read just after: one line per probe."""
+    set to 0 just before and read just after: one line per probe.
+    Returns the launches and the lines."""
     from mitsuba_tpu_torch.ops import probes as pr
     from mitsuba_tpu_torch.probes import (
         kernel_cost, r3_kernel, r3_mt, r3_refinebits, r5_megakernel,
@@ -2177,16 +2182,25 @@ def probes_phase(device, case):
         if ms is not None and not all(np.isfinite(v) and v > 0
                                       for v in np.atleast_1d(ms)):
             raise AssertionError(f"probes: bad times in {ln}")
-    return launches
+    return launches, lines
 
 
 # the spread products' other forms: m whose last tile is ragged, with two
 # copies, also on rows whose products are all negative (where a padded
 # row's zero would win the maximum), and 8,192 copies at run_mm's shapes
-PRODUCT_RAGGED = {"cuda": (8, 24, 4104), "tf32": (16, 48, 528)}
+PRODUCT_RAGGED = {"cuda": (8, 24, 4104), "tf32": (16, 48, 528),
+                  "bf16": (16, 48, 528)}
+# the kernel of each spread product, as its (mangled) name holds it
+SPREAD_KERNEL = {"cuda": ("mm_cuda_kernel",),
+                 "tf32": ("mm_tc_kernel", "Tf32"),
+                 "bf16": ("mm_tc_kernel", "Bf16")}
 
 
-def sass_counts(lib, names, ops=("HGMMA", "HMMA")):
+def _of_kind(fn, kind):
+    return all(part in fn for part in SPREAD_KERNEL[kind])
+
+
+def sass_counts(lib, names, ops=("HGMMA", "HMMA", "UBLKCP")):
     """{function: {op: count}} of the SASS of library `lib` (cuobjdump)
     for the functions whose names hold one of `names`."""
     from mitsuba_tpu_torch.ops import build as nv
@@ -2203,13 +2217,13 @@ def sass_counts(lib, names, ops=("HGMMA", "HMMA")):
 
 
 def product_forms(device):
-    """mm_cuda bit for bit and mm_tf32 within TOLERANCE of their plain
-    versions on the forms the kernel checks leave out; the blocks that
-    each call's one launch ran, as the kernel counts them (`blocks_ran`;
-    the plan's, more than one from m = 64), also of one copy at each of
-    run_mm's shapes; each kernel's resources and compiled tile, and its
-    tensor-core instructions in the SASS (mm_tf32 must issue wgmma:
-    HGMMA)."""
+    """mm_cuda bit for bit and mm_tf32, mm_bf16 within TOLERANCE of their
+    plain versions on the forms the kernel checks leave out; the blocks
+    that each call's one launch ran, as the kernel counts them
+    (`blocks_ran`; the plan's, more than one from m = 64), also of one
+    copy at each of run_mm's shapes; each kernel's resources and compiled
+    tile, and its tensor-core instructions in the SASS (both instances of
+    mm_tc_kernel must issue wgmma: HGMMA)."""
     from mitsuba_tpu_torch.ops import build as nv
     from mitsuba_tpu_torch.ops import probes as pr
 
@@ -2224,7 +2238,7 @@ def product_forms(device):
         # the call's result and the blocks its launch ran; a call is one
         # launch over the plan's blocks, several from m = 64
         fn = (lambda: pr.mm_cuda(G, M, steps, blocks)) if kind == "cuda" \
-            else (lambda: pr.mm_tc(G, M, steps, "tf32", blocks))
+            else (lambda: pr.mm_tc(G, M, steps, kind, blocks))
         n0 = pr.LAUNCHES[f"mm_{kind}"]
         out, ran = pr.blocks_ran(fn, device)
         n = pr.LAUNCHES[f"mm_{kind}"] - n0
@@ -2241,9 +2255,9 @@ def product_forms(device):
             err = [int((a != r.expand_as(a)).sum()) for a, r in zip(got, ref)]
             ok = not any(err)
         else:
-            ref = pr.mm_tc_ref(G, M, steps, "tf32")
+            ref = pr.mm_tc_ref(G, M, steps, kind)
             err = [pr.rel_err(a, r.expand_as(a)) for a, r in zip(got, ref)]
-            ok = max(err) <= pr.TOLERANCE["mm_tf32"] and all(
+            ok = max(err) <= pr.TOLERANCE[f"mm_{kind}"] and all(
                 bool(torch.isfinite(a).all()) for a in got)
         cases[f"mm_{kind} {tag}"] = dict(
             ok=ok, err=err, max=float(ref[1].max()),
@@ -2257,17 +2271,18 @@ def product_forms(device):
             hold(kind, f"m {m} negative, 2 copies, 3 steps",
                  -(G.abs() + 0.1), M.abs() + 0.1, 3, 2)
     for (m, k), (G, M) in _probe_inputs(device)["mm"].items():
-        for kind in (("cuda",) if k == 10 else ()) + ("tf32",):
+        for kind in (("cuda",) if k == 10 else ()) + ("tf32", "bf16"):
             hold(kind, f"({m}, {k}), 8,192 copies, 2 steps", G, M, 2, 8192)
             launched.setdefault(kind, {})[f"({m}, {k})"] = call(
                 kind, G, M, 1, 1)[1]
     torch.cuda.synchronize()
     kernels = {"mm_cuda": ("cuda", 10), "mm_tf32 K 10": ("tf32", 10),
-               "mm_tf32 K 128": ("tf32", 128)}
+               "mm_tf32 K 128": ("tf32", 128), "mm_bf16 K 10": ("bf16", 10),
+               "mm_bf16 K 128": ("bf16", 128)}
     resources = {name: pr.mm_info(*a) for name, a in kernels.items()}
     res = dict(cases=cases, blocks_launched=launched, resources=resources,
                sass=sass_counts(nv.lib_path(pr.SOURCE), ("mm_cuda_kernel",
-                                                         "mm_tf32_kernel")))
+                                                         "mm_tc_kernel")))
     phase("probe_products", **res)
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
@@ -2283,10 +2298,49 @@ def product_forms(device):
     if off:
         raise AssertionError(f"probe_products: {off} compiled for other "
                              f"tiles than mm_plan's: {resources}")
-    tf32 = [c for f, c in res["sass"].items() if "mm_tf32_kernel" in f]
-    if not tf32 or not all(c["HGMMA"] > 0 for c in tf32):
-        raise AssertionError(f"mm_tf32 issues no wgmma: {res['sass']}")
+    for kind in ("tf32", "bf16"):
+        inst = [c for f, c in res["sass"].items() if _of_kind(f, kind)]
+        if len(inst) != 2 or not all(c["HGMMA"] > 0 for c in inst):
+            raise AssertionError(f"mm_{kind} issues no wgmma: {res['sass']}")
     return res
+
+
+def rotate_ring(device):
+    """rotate's bulk-copy ring: for 8 and 32 KB blocks its stages, shared
+    memory, registers and blocks a SM (`rotate_info`), bit for bit with
+    the plain version at 1, S - 1, S, S + 1 and 512 items (ids repeated)
+    on 1 and 8,192 copies; and the bulk copies in its SASS (UBLKCP, the
+    instruction of cp.async.bulk): the phase fails without them."""
+    from mitsuba_tpu_torch.ops import build as nv
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng = np.random.default_rng(25)
+    res, bad = {}, []
+    for kb in (8, 32):
+        g = torch.as_tensor(rng.standard_normal((64, kb * 16, 16)).astype(
+            np.float32), device=device)
+        info = pr.rotate_info(kb * 256)
+        s = info["stages"]
+        for n in sorted({1, s - 1, s, s + 1, PROBE_ITEMS} - {0}):
+            ids = torch.as_tensor(rng.integers(0, 64, n).astype(np.int32),
+                                  device=device)
+            ids[1:4] = ids[0]
+            ref = pr.rotate_ref(g, ids)
+            for blocks in (1, 8192):
+                if not torch.equal(pr.rotate(g, ids, blocks),
+                                   ref.expand(blocks, 8, 128)):
+                    bad.append((kb, n, blocks))
+        res[f"{kb} KB"] = info
+    torch.cuda.synchronize()
+    sass = sass_counts(nv.lib_path(pr.SOURCE), ("rotate_kernel",))
+    phase("rotate_ring", ring_bytes=pr.RING_BYTES, differs=bad, sass=sass,
+          **res)
+    if bad:
+        raise AssertionError(f"rotate_ring: differs from rotate_ref at "
+                             f"(KB, items, copies) {bad}")
+    if not sass or not all(c["UBLKCP"] > 0 for c in sass.values()):
+        raise AssertionError(f"rotate issues no bulk copy: {sass}")
+    return dict(res, sass=sass)
 
 
 def _accepts(P):
@@ -2306,12 +2360,13 @@ def plucker_signs(cl, bounce):
     [o | d | o x d | 1] of one row of 128 bounce rays (the first of the
     rows with the most live lanes, and the group its tile's list reaches
     first), as
-    csrc/cluster.cu forms them (ops/cluster.py ray_matrix). mm_cuda and
-    mm_tf32 on them, each held against its plain version; then the plain
-    versions' full (4096, 128) products against the float64 products of
-    the unrounded inputs: the share whose sign differs, the largest
-    relative error, and the share of (triangle, lane) pairs whose accept
-    (#14's rule) differs, float32 ordered and TF32."""
+    csrc/cluster.cu forms them (ops/cluster.py ray_matrix). mm_cuda,
+    mm_tf32 and mm_bf16 on them, each held against its plain version;
+    then the plain versions' full (4096, 128) products against the
+    float64 products of the unrounded inputs: the share whose sign
+    differs, the largest relative error, and the share of (triangle,
+    lane) pairs whose accept (#14's rule) differs, float32 ordered, TF32
+    and bf16."""
     from mitsuba_tpu_torch.ops import cluster as cp
     from mitsuba_tpu_torch.ops import probes as pr
 
@@ -2325,8 +2380,10 @@ def plucker_signs(cl, bounce):
     mr = cp.ray_matrix(rays[row:row + 1])[0].contiguous()
     got, ref = pr.mm_cuda(g, mr, 1), pr.mm_cuda_ref(g, mr, 1)
     cuda_same = all(torch.equal(a[0], r) for a, r in zip(got, ref))
-    got, ref = pr.mm_tc(g, mr, 1, "tf32"), pr.mm_tc_ref(g, mr, 1, "tf32")
-    tf32_err = max(pr.rel_err(a[0], r) for a, r in zip(got, ref))
+    tc_err = {}
+    for kind in ("tf32", "bf16"):
+        got, ref = pr.mm_tc(g, mr, 1, kind), pr.mm_tc_ref(g, mr, 1, kind)
+        tc_err[kind] = max(pr.rel_err(a[0], r) for a, r in zip(got, ref))
     p64 = g.double() @ mr.double()
     terms = g.double().abs() @ mr.double().abs()
     nz = p64 != 0
@@ -2337,10 +2394,13 @@ def plucker_signs(cl, bounce):
                triangles=int(real.sum()),
                products=int(p64.numel()), nonzero=int(nz.sum()),
                accepts_fp64=int(acc64[pairs].sum()),
-               mm_cuda_bit_for_bit=cuda_same, mm_tf32_rel_err=tf32_err,
+               mm_cuda_bit_for_bit=cuda_same,
+               mm_tf32_rel_err=tc_err["tf32"],
+               mm_bf16_rel_err=tc_err["bf16"],
                tolerance=pr.TOLERANCE["mm_tf32"])
     for name, p in (("fp32", pr.mm_cuda_products(g, mr)),
-                    ("tf32", pr.mm_tc_products(g, mr, "tf32"))):
+                    ("tf32", pr.mm_tc_products(g, mr, "tf32")),
+                    ("bf16", pr.mm_tc_products(g, mr, "bf16"))):
         p = p.double()
         flip = torch.sign(p) != torch.sign(p64)
         acc = _accepts(p)
@@ -2355,9 +2415,10 @@ def plucker_signs(cl, bounce):
             accept_differs=int((acc != acc64)[pairs].sum()),
             accept_differs_share=float((acc != acc64)[pairs].float().mean()))
     phase("plucker_signs", **res)
-    if not cuda_same or not tf32_err <= pr.TOLERANCE["mm_tf32"]:
+    if not cuda_same or not all(e <= pr.TOLERANCE[f"mm_{k}"]
+                                for k, e in tc_err.items()):
         raise AssertionError(f"plucker_signs: the kernels differ from their "
-                             f"plain versions ({cuda_same}, {tf32_err})")
+                             f"plain versions ({cuda_same}, {tc_err})")
     return res
 
 
@@ -4481,6 +4542,18 @@ def integrators_phases(device, tmp):
     return out
 
 
+def rotate_entry(ring, lines):
+    """rotate's kernel line beside its bound: the ring (stages, shared
+    memory, registers, SASS) and, at 8 and 32 KB, the staged rate of the
+    probes phase's slopes, per block and over the card (GB/s)."""
+    staged = {}
+    for ln in lines:
+        if ln.get("kernel") == "rotate" and ln.get("rate"):
+            staged[f"{ln['shape']['block_kb']} KB {ln['form']}"] = \
+                ln["rate"] / 1e9
+    return dict(ring=ring, staged_gb_per_s=staged)
+
+
 def main(argv=None):
     import argparse
 
@@ -4756,8 +4829,9 @@ def main(argv=None):
           clusters=int(case[0]["tri"].shape[0]), lanes=int(case[1].shape[0]))
     pc = compare_probes(device, case)
     forms = product_forms(device)
+    ring = rotate_ring(device)
     signs = plucker_signs(cl, bounce3)
-    lp = probes_phase(device, case)
+    lp, lines = probes_phase(device, case)
     lib = library_phase(device)
 
     def entry(kname, source, replaces, launches, r, library_ms=None,
@@ -4800,7 +4874,7 @@ def main(argv=None):
             resources={k: v for k, v in res.items()
                        if k.startswith(f"mm_{kind}")},
             sass={f: c for f, c in forms["sass"].items()
-                  if f"mm_{kind}_kernel" in f},
+                  if _of_kind(f, kind)},
             sign_differs_share=signs["fp32" if kind == "cuda" else kind][
                 "sign_differs_share"])
 
@@ -5070,7 +5144,8 @@ def main(argv=None):
               "wl_probe", source="worklist.cu"),
         probe("count", f"{cost}:228", "count"),
         probe("gate", f"{cost}:228", "gate"),
-        probe("rotate", f"{cost}:270", ("rotate", 32)),
+        probe("rotate", f"{cost}:270", ("rotate", 32),
+              **rotate_entry(ring, lines)),
         probe("grid", "scripts/exp_r3_kernel.py:70", ("grid", True)),
         probe("fma", f"{cost}:111", "fma"),
         probe("mt", f"{cost}:188", "mt"),
@@ -5088,7 +5163,9 @@ def main(argv=None):
                                  for m, k in ((512, 10), (4096, 10),
                                               (512, 128))))),
         probe("mm_bf16", f"{cost}:71", ("mm_bf16", 4096, 10),
-              library_ms=lib["matmul_bf16_4096x10_device"]),
+              library_ms=lib["matmul_bf16_4096x10_device"],
+              **spread("bf16", *(((m, k), ("mm_bf16", m, k))
+                                 for m, k in ((4096, 10), (512, 128))))),
         probe("gather_smem", "scripts/exp_r5_megakernel.py:72",
               "gather_smem", library_ms=lib["gather_32768_device"]),
         probe("gather_global", "scripts/exp_r5_megakernel.py:72",

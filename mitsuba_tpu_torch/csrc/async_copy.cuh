@@ -2,7 +2,8 @@
 // sm_80 and later), shared by the walks that stage their next block of
 // triangles while they test the current one (exact.cu's v6b walk,
 // stream.cu) and by the refine kernels, which stage their next tile of
-// boxes (exact.cu).
+// boxes (exact.cu); and, at the end, Hopper's bulk copies with the
+// mbarriers that count them (probes.cu's staging ring).
 //
 // A thread issues its 16-byte copies, commits them as one group, and
 // waits for all of its groups before a barrier makes the staged block
@@ -55,4 +56,84 @@ __device__ __forceinline__ void cp_async_wait() {
 // barrier `id` (1-15; 0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA bulk copies and mbarriers (sm_90). One thread copies a whole span of
+// device memory into shared memory with one instruction; the copy counts
+// its bytes against an mbarrier in shared memory, whose phase completes
+// when the arrivals it was initialised with have come and every byte it
+// was told to expect has landed. Source, destination and size are
+// multiples of 16 bytes. A thread waits for a phase by its parity (the
+// first use of a barrier is parity 0). Where shared memory that generic
+// loads have read is refilled by a copy, the reads are ordered before the
+// copy's writes by a barrier (the readers arrive on an mbarrier, the
+// thread that issues the copy waits on it) and a proxy fence in that
+// thread.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// a barrier expecting `count` arrivals a phase (one thread)
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the barriers' initialisation seen by the other threads (and by the
+// async proxy) once a barrier of the block has passed
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// orders this thread's (and, through a barrier, its block's) generic
+// accesses of shared memory before the async proxy's, and back
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival on `bar` that also tells it to expect `bytes` more, then the
+// bulk copy of `bytes` from src to dst, which counts them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// one arrival on `bar` (its release orders this thread's accesses before
+// the phase's completion)
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait until the phase of `bar` of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
 }

@@ -4,7 +4,8 @@
 // Replace the TPU cost probes of scripts/ (each a pallas_call):
 //   count_kernel       <- the launch floor behind every grid step
 //   gate_kernel        <- exp_kernel_cost.py:228 `run_empty`
-//   rotate_kernel      <- exp_kernel_cost.py:270 `run_dma_rotate`
+//   rotate_kernel      <- exp_kernel_cost.py:270 `run_dma_rotate`, each
+//                         item's block staged by a TMA bulk-copy ring
 //   grid_kernel        <- exp_r3_kernel.py:70 `bench_grid_floor`
 //   fma_kernel         <- exp_kernel_cost.py:111 `run_vpu_fma`
 //   mt_kernel          <- exp_kernel_cost.py:188 `run_vpu_mt`
@@ -12,9 +13,8 @@
 //                         exp_r3_kernel.py:112 `bench_mt_ceiling`)
 //   mm_cuda_kernel     <- exp_kernel_cost.py:71 `run_mm`, CUDA cores, one
 //                         product tiled over the card
-//   mm_tf32_kernel     <- the same on the tensor cores (wgmma), tiled too
-//   mm_bf16_kernel     <- the same on the tensor cores (mma.sync), one
-//                         block a copy
+//   mm_tc_kernel<Tf32> <- the same on the tensor cores (wgmma, TF32), tiled
+//   mm_tc_kernel<Bf16>    too; bf16 the same kernel's other instance
 //   gather_*_kernel    <- exp_r5_megakernel.py:72 `pallas_gather`
 // Wrapped by mitsuba_tpu_torch/ops/probes.py, whose `*_ref` functions are
 // the plain PyTorch versions each kernel is held against.
@@ -24,8 +24,8 @@
 // and #14: a thread per lane, a loop over items or steps) launched as one
 // block or as many (8,192, the blocks of a 1,048,576-lane wavefront) that
 // all do the same work, each writing its own copy of the result; but
-// mm_cuda and mm_tf32 spread each copy's product over several blocks
-// (their section says how). What
+// the products mm_cuda, mm_tf32 and mm_bf16 spread each copy's product
+// over several blocks (their section says how). What
 // each probe costs is what it measures: a floor (launch, item loop,
 // staging), an issue rate (FMA, Moeller-Trumbore, products) or a memory
 // path (gather).
@@ -104,20 +104,120 @@ gate_kernel(const float* __restrict__ g, int rows,
 }
 
 // run_dma_rotate: per item the whole block ids[i] of g (B, block_floats)
-// staged in shared memory by the block's 128 threads (#12's staging), then
-// the row sums of its first 8 rows
+// staged in shared memory, then the row sums of its first 8 rows, in item
+// order. The TPU kernel fetched the next block by DMA while it summed the
+// current one (Pallas's double-buffered BlockSpec pipeline); here a ring
+// of `stages` blocks in dynamic shared memory is filled by TMA bulk copies
+// (async_copy.cuh: one instruction a block, its bytes counted on the
+// stage's "full" mbarrier), item i in stage i % stages.
+//
+// Producers: lane 0 of warps 1-3, item i by warp 1 + i % 3 (its next id
+// loaded an item ahead). Before it refills a stage, a producer waits on
+// the stage's "empty" mbarrier for the phase in which the consumer read
+// the item before (those reads ordered before the copy's writes by the
+// barrier's release and acquire and a proxy fence), sets the "full"
+// barrier to expect the block's bytes and issues the copy. Consumer: warp
+// 0, W items a batch (W groups of 8 lanes; W = 4 where the ring has 8
+// stages or more, else 2 or 1): group j waits for item W b + j's phase
+// and sums its rows (16 terms in order, read as float4), lanes 0-7 add
+// the W row sums in item order through shuffles, and after the warp's
+// barrier each group's lane 0 releases its stage. So the result is the
+// plain version's, bit for bit.
+//
+// What bounds it on this card (H100 80GB HBM3, 700 W): the latency of a
+// wait on an mbarrier, not the copy engine or the L2. A ring that one
+// thread issues and waits on item by item runs at one rate an item from
+// 2 to 32 KB and at any depth; only more waits in flight (more issuers,
+// more items a wait) go faster. kernel_cost's per-block slopes give ~67
+// ns an item at 8 KB and ~161 ns at 32 KB (~120 and ~200 GB/s into one
+// SM). The 64 blocks a run rotates (2 MB at 32 KB) stay in L2.
+// ops/probes.py `ring_stages` fills RING_BYTES (192 KB: 6 stages of
+// 32 KB, 24 of 8 KB; one block a SM), at most RING_MAX_STAGES.
+
+#define RING_MAX_STAGES 32
+#define RING_BAR_BYTES (2 * RING_MAX_STAGES * 8)
+#define RING_PRODUCERS 3
+#define SMEM_MAX 232448       // bytes of shared memory a block may have
+
+__device__ __forceinline__ float row_sum4(const float4* row) {
+  const float4 a = row[0], b = row[1], c = row[2], d = row[3];
+  const float v[ROW_COLS] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                             c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
+  float s = v[0];
+#pragma unroll
+  for (int k = 1; k < ROW_COLS; ++k) s = s + v[k];
+  return s;
+}
+
+static int ring_smem(int block_floats, int stages) {
+  return RING_BAR_BYTES + stages * block_floats * (int)sizeof(float);
+}
+
+// the items a batch: 4 where the ring leaves 4 stages or more to the
+// producers, else 2 (or 1 in a ring of fewer than 4)
+static int ring_width(int stages) {
+  return stages >= 8 ? 4 : stages >= 4 ? 2 : 1;
+}
+
+template <int W>
 __global__ void __launch_bounds__(LANES)
 rotate_kernel(const float* __restrict__ g, int block_floats,
-              const int* __restrict__ ids, int n, float* __restrict__ out) {
-  __shared__ float blk[MAX_STAGE];
-  const int l = threadIdx.x;
+              const int* __restrict__ ids, int n, int stages,
+              float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char ring_raw[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(ring_raw);
+  unsigned long long* empty = full + RING_MAX_STAGES;
+  float* ring = reinterpret_cast<float*>(ring_raw + RING_BAR_BYTES);
+  const int l = threadIdx.x, warp = l >> 5, grp = (l & 31) / ROWS,
+            r = l % ROWS;
+  const unsigned bytes = (unsigned)(block_floats * (int)sizeof(float));
   float acc = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    const float* src = g + (size_t)ids[i] * block_floats;
-    for (int k = l; k < block_floats; k += LANES) blk[k] = src[k];
-    __syncthreads();
-    if (l < ROWS) acc = acc + row_sum(blk + l * ROW_COLS);
-    __syncthreads();                            // before the next staging
+  if (l == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (warp > 0 && (l & 31) == 0) {               // a producer
+    int i = warp - 1;
+    int id = i < n ? ids[i] : 0;
+    for (; i < n; i += RING_PRODUCERS) {
+      const int next = i + RING_PRODUCERS < n ? ids[i + RING_PRODUCERS] : 0;
+      const int st = i % stages, use = i / stages;
+      if (use > 0) mbar_wait(empty + st, (unsigned)(use - 1) & 1);
+      fence_proxy_async();
+      bulk_load(ring + (size_t)st * block_floats,
+                g + (size_t)id * block_floats, bytes, full + st);
+      id = next;
+    }
+  } else if (warp == 0) {                          // the consumer
+    int s0 = 0;                                    // item i0's stage
+    unsigned p0 = 0;                               // and its phase's parity
+    for (int i0 = 0; i0 < n; i0 += W) {
+      const bool mine = grp < W && i0 + grp < n;
+      const bool wrap = s0 + grp >= stages;
+      const int st = wrap ? s0 + grp - stages : s0 + grp;
+      float rs = 0.0f;
+      if (mine) {
+        mbar_wait(full + st, p0 ^ (unsigned)wrap);
+        rs = row_sum4(reinterpret_cast<const float4*>(
+            ring + (size_t)st * block_floats + r * ROW_COLS));
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j) {                // in item order
+        const float v = __shfl_sync(0xffffffffu, rs, j * ROWS + r);
+        if (l < ROWS && i0 + j < n) acc = acc + v;
+      }
+      __syncwarp();                                // the batch's rows read
+      if (mine && r == 0) mbar_arrive(empty + st);
+      s0 += W;
+      if (s0 >= stages) {
+        s0 -= stages;
+        p0 ^= 1;
+      }
+    }
   }
   write_rows(acc, out);
 }
@@ -446,9 +546,10 @@ __device__ __forceinline__ float dot10(const float* g, const float m[N_COEF]) {
   return s;
 }
 
-// Spread over the card (mm_cuda, mm_tf32). A copy's product is cut into
-// tiles of G's rows (MM_ROWS for mm_cuda; TC_ROWS for mm_tf32, whose
-// blocks also split M's 128 columns into TC_HALVES halves). A block takes
+// Spread over the card (mm_cuda, mm_tf32, mm_bf16). A copy's product is
+// cut into tiles of G's rows (MM_ROWS for mm_cuda; TC_ROWS for the
+// tensor-core products, whose blocks also split M's 128 columns into
+// TC_HALVES halves). A block takes
 // a chunk of `per` consecutive tiles; the grid is copies x halves x chunks
 // blocks, block b of copy b / (halves * chunks), then its half, then its
 // chunk. ops/probes.py `mm_plan` picks the chunks: a tile a block where
@@ -467,8 +568,8 @@ __device__ __forceinline__ float dot10(const float* g, const float m[N_COEF]) {
 // one to it as it ends: the blocks a launch ran, measured.
 
 #define MM_ROWS 32            // rows of G in an mm_cuda tile
-#define TC_ROWS 64            // rows of G in an mm_tf32 tile: wgmma's M
-#define TC_COLS 64            // columns of M an mm_tf32 block takes: its N
+#define TC_ROWS 64            // rows of G in a tensor-core tile: wgmma's M
+#define TC_COLS 64            // columns of M such a block takes: its N
 #define TC_HALVES (LANES / TC_COLS)
 #define FOLD_LOADS 8          // float4 partials a thread reads at once
 
@@ -657,38 +758,93 @@ mm_cuda_kernel(const float* __restrict__ G, int m,
   if (ran != nullptr && l == 0) atomicAdd(ran, 1);
 }
 
-// On the tensor cores with wgmma (sm_90a). A block is one warpgroup; a
-// tile's D (64 x 64) = A (64 x KP) B (KP x 64) is KP / 8 instructions
-// m64n64k8 .tf32 with A and B in shared memory and D in registers. The
-// block takes G and M as float32, as the caller holds them (K <= 16, or
-// 128), and prepares them itself: its half of M once, each tile of G
-// staged as one flat span (a tile's rows are contiguous; TMA would need
-// 16-byte row strides, and a row is 4K bytes) and re-laid. Both operands
-// K zero-padded to KP, each value rounded to TF32 by cvt.rna (to nearest,
-// ties away from zero: ops/probes.py round_tf32), in the K-major layout
-// without swizzle: [KP / 4][rows][4] floats, 8-row x 16-byte core
-// matrices, those adjacent in K rows * 16 bytes apart (the descriptor's
-// leading byte offset), those adjacent in M or N 128 bytes apart (its
-// stride byte offset). The accumulator fragment of m64nN (PTX ISA, wgmma
-// register fragments): thread (warp w, lane 4g + q) holds d[4j + c] of
-// row 16w + g and d[4j + 2 + c] of row 16w + g + 8, column 8j + 2q + c.
-// Bound by a launch's floor at these sizes (1.3 M TF32 products a step at
-// m = 4,096 against 495 TFLOP/s); over many copies by the tensor cores'
-// rate at K = 16, of which 10 are useful.
+// On the tensor cores with wgmma (sm_90a), one kernel template over the
+// kind of the inputs: mm_tc_kernel<Tf32, KP> (mm_tf32) and
+// mm_tc_kernel<Bf16, KP> (mm_bf16). A block is one warpgroup; a tile's D
+// (64 x 64) = A (64 x KP) B (KP x 64) is KP / 8 instructions m64n64k8
+// .tf32 or KP / 16 m64n64k16 .bf16, A and B in shared memory, D in
+// registers. The block takes G and M as float32, as the caller holds them
+// (K <= 16, or 128), and prepares them itself: its half of M once, each
+// tile of G staged as one flat span (a tile's rows are contiguous; TMA
+// would need 16-byte row strides, and a row is 4K bytes) and re-laid.
+// Both operands K zero-padded to KP, each value rounded as the kind
+// rounds (TF32: cvt.rna, to nearest, ties away from zero, ops/probes.py
+// round_tf32; bf16: cvt.rn.bf16x2.f32, to nearest even, as
+// torch.Tensor.to(torch.bfloat16), round_bf16), in the K-major layout
+// without swizzle: [KP / V][rows][V] values, V = 4 TF32 or 8 bf16 a
+// 16-byte row of an 8-row core matrix, those adjacent in K rows * 16
+// bytes apart (the descriptor's leading byte offset), those adjacent in M
+// or N 128 bytes apart (its stride byte offset); an instruction takes two
+// core matrices of K (32 bytes) whichever the kind. The accumulator
+// fragment of m64nN (PTX ISA, wgmma register fragments): thread (warp w,
+// lane 4g + q) holds d[4j + c] of row 16w + g and d[4j + 2 + c] of row
+// 16w + g + 8, column 8j + 2q + c. Bound by a launch's floor at these
+// sizes (1.3 M products a step at m = 4,096 against 495 TFLOP/s TF32,
+// 989 bf16); over many copies by the per-step wait and fold at K 10 (one
+// bf16 instruction a step where TF32 issues two), by the tensor cores'
+// rate at K 128.
 
-template <int KP>
+// the two kinds: the value as wgmma reads it (T), V of them a 16-byte
+// core-matrix row; put2 lays two values adjacent in K, rounded; mma is
+// D = A B (accumulate 0) or D += A B on one 64 x 64 tile, 32 bytes of K
+#define WGMMA_64x64(types, tail)                                             \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64" types " "                       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1" tail ";\n}\n"                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+struct Tf32 {
+  typedef float T;
+  static constexpr int V = 4;
+  static __device__ __forceinline__ void put2(T* p, float x0, float x1) {
+    uint32_t r0, r1;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r0) : "f"(x0));
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r1) : "f"(x1));
+    p[0] = __uint_as_float(r0);
+    p[1] = __uint_as_float(r1);
+  }
+  static __device__ __forceinline__ void mma(float d[TC_COLS / 2],
+                                             uint64_t da, uint64_t db,
+                                             int accumulate) {
+    WGMMA_64x64("k8.f32.tf32.tf32", "");
+  }
+};
+
+struct Bf16 {
+  typedef uint16_t T;
+  static constexpr int V = 8;
+  // cvt.rn.bf16x2.f32 puts its first source in the upper half
+  static __device__ __forceinline__ void put2(T* p, float x0, float x1) {
+    uint32_t r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(x1), "f"(x0));
+    *reinterpret_cast<uint32_t*>(p) = r;
+  }
+  // the two immediates after the scales: A and B not transposed (K-major)
+  static __device__ __forceinline__ void mma(float d[TC_COLS / 2],
+                                             uint64_t da, uint64_t db,
+                                             int accumulate) {
+    WGMMA_64x64("k16.f32.bf16.bf16", ", 0, 0");
+  }
+};
+
+template <class KIND, int KP>
 struct TcSmem {
-  float a[KP / 4][TC_ROWS][4];    // the tile of G as wgmma reads it
-  float b[KP / 4][TC_COLS][4];    // the block's half of M, likewise
+  typedef typename KIND::T T;
+  T a[KP / KIND::V][TC_ROWS][KIND::V];  // the tile of G as wgmma reads it
+  T b[KP / KIND::V][TC_COLS][KIND::V];  // the block's half of M, likewise
   float raw[TC_ROWS * KP];        // the tile of G as staged, K floats a row
   float red[4][TC_COLS];          // each warp's column maxima
 };
-
-__device__ __forceinline__ float tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
 
 // a shared-memory matrix descriptor without swizzle: the start address,
 // the leading and the stride byte offsets, each in 16-byte units
@@ -708,40 +864,24 @@ __device__ __forceinline__ void fence_acc(float d[TC_COLS / 2]) {
     asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D = A B (accumulate 0) or D += A B: m64n64k8, TF32 in, float32 out
-__device__ __forceinline__ void wgmma_tf32(float d[TC_COLS / 2], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <int KP>
+template <class KIND, int KP>
 __global__ void __launch_bounds__(LANES)
-mm_tf32_kernel(const float* __restrict__ G, int m, int k,
-               const float* __restrict__ M, int steps, int zero, int chunks,
-               int per, float* __restrict__ out_sum,
-               float* __restrict__ out_max, float* __restrict__ part,
-               int* __restrict__ tickets, int* __restrict__ ran) {
+mm_tc_kernel(const float* __restrict__ G, int m, int k,
+             const float* __restrict__ M, int steps, int zero, int chunks,
+             int per, float* __restrict__ out_sum,
+             float* __restrict__ out_max, float* __restrict__ part,
+             int* __restrict__ tickets, int* __restrict__ ran) {
+  constexpr int V = KIND::V;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  TcSmem<KP>& sh = *reinterpret_cast<TcSmem<KP>*>(smem_raw);
+  TcSmem<KIND, KP>& sh = *reinterpret_cast<TcSmem<KIND, KP>*>(smem_raw);
   const int l = threadIdx.x, warp = l >> 5, g = (l & 31) >> 2, q = l & 3;
   const Spread s = spread(m, TC_ROWS, TC_HALVES, chunks, per);
   const int col0 = s.half * TC_COLS;
-  for (int i = l; i < KP * TC_COLS; i += LANES) {
-    const int kk = i / TC_COLS, n = i % TC_COLS;
-    sh.b[kk / 4][n][kk % 4] = kk < k ? tf32(M[kk * LANES + col0 + n]) : 0.0f;
+  for (int i = l; i < KP / 2 * TC_COLS; i += LANES) {
+    const int kk = 2 * (i / TC_COLS), n = i % TC_COLS;
+    const float* x = M + kk * LANES + col0 + n;
+    KIND::put2(&sh.b[kk / V][n][kk % V], kk < k ? x[0] : 0.0f,
+               kk + 1 < k ? x[LANES] : 0.0f);
   }
   float acc[TC_COLS / 8][2], mx[TC_COLS / 8][2], d[TC_COLS / 2];
 #pragma unroll
@@ -758,13 +898,14 @@ mm_tf32_kernel(const float* __restrict__ G, int m, int k,
     const int rows = min(TC_ROWS, m - t * TC_ROWS);
     cp_async_wait_all();
     __syncthreads();                      // tile t staged, tile t - 1 read
-    for (int i = l; i < TC_ROWS * KP; i += LANES) {
-      const int r = i / KP, kk = i % KP;
-      sh.a[kk / 4][r][kk % 4] =
-          r < rows && kk < k ? tf32(sh.raw[r * k + kk]) : 0.0f;
+    for (int i = l; i < TC_ROWS * KP / 2; i += LANES) {
+      const int r = i / (KP / 2), kk = 2 * (i % (KP / 2));
+      const float* x = sh.raw + r * k + kk;
+      KIND::put2(&sh.a[kk / V][r][kk % V], r < rows && kk < k ? x[0] : 0.0f,
+                 r < rows && kk + 1 < k ? x[1] : 0.0f);
     }
     // the generic proxy's writes of A (and B) seen by wgmma's async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();                      // A laid out, the staged tile read
     if (t + 1 < s.t1)                     // the next tile while this one runs
       stage_span(sh.raw, G + (size_t)(t + 1) * TC_ROWS * k,
@@ -778,12 +919,12 @@ mm_tf32_kernel(const float* __restrict__ G, int m, int k,
       fence_acc(d);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ks = 0; ks < KP / 8; ++ks)
-        wgmma_tf32(d,
-                   wgmma_desc(&sh.a[2 * ks][0][0], TC_ROWS * 16, 128) +
-                       (step & zero),
-                   wgmma_desc(&sh.b[2 * ks][0][0], TC_COLS * 16, 128),
-                   ks > 0);
+      for (int ks = 0; ks < KP / (2 * V); ++ks)
+        KIND::mma(d,
+                  wgmma_desc(&sh.a[2 * ks][0][0], TC_ROWS * 16, 128) +
+                      (step & zero),
+                  wgmma_desc(&sh.b[2 * ks][0][0], TC_COLS * 16, 128),
+                  ks > 0);
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_acc(d);
@@ -828,111 +969,6 @@ mm_tf32_kernel(const float* __restrict__ G, int m, int k,
   fold_max(v, col0 + l, TC_COLS, s, chunks, chunks * TC_HALVES, out_max,
            part, tickets);
   if (ran != nullptr && l == 0) atomicAdd(ran, 1);
-}
-
-// On the tensor cores with mma.sync (bf16), float32 accumulators, K
-// padded to a multiple of 16 by the wrapper. Warp w computes columns
-// 32w..32w+31 (four 8-column tiles) of every 16-row tile: B's fragments
-// stay in registers, A's are read per step from device memory (cached).
-// Fragment layouts: PTX ISA, mma.m16n8k16 (.bf16); the accumulator of a
-// (16 x 8) tile gives thread (group g, index q) rows g and g + 8 of
-// columns 2q and 2q + 1.
-
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// the tile's accumulators into the step's sum (rows 0-7 of tile 0) and the
-// running maximum (every other row)
-__device__ __forceinline__ void fold(const float d[4], bool first_tile,
-                                     float acc[2], float mx[2]) {
-  if (first_tile) {
-    acc[0] = acc[0] + d[0];
-    acc[1] = acc[1] + d[1];
-  } else {
-    mx[0] = fmaxf(mx[0], d[0]);
-    mx[1] = fmaxf(mx[1], d[1]);
-  }
-  mx[0] = fmaxf(mx[0], d[2]);
-  mx[1] = fmaxf(mx[1], d[3]);
-}
-
-__device__ __forceinline__ void write_mm(float acc[4][2], float mx[4][2],
-                                         float* out_sum, float* out_max) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int col0 = (threadIdx.x >> 5) * 32;
-  float* o = out_sum + (size_t)blockIdx.x * ROWS * LANES;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = col0 + nt * 8 + 2 * q + c;
-      o[g * LANES + col] = acc[nt][c];
-      float v = mx[nt][c];
-      for (int sh = 4; sh < 32; sh <<= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, sh));
-      if (g == 0) out_max[(size_t)blockIdx.x * LANES + col] = v;
-    }
-  }
-}
-
-// bf16: G (m, KP) and M (KP, 128) as bfloat16 bits
-template <int KP>
-__global__ void __launch_bounds__(LANES)
-mm_bf16_kernel(const uint16_t* __restrict__ G, int m,
-               const uint16_t* __restrict__ M, int steps, int zero,
-               float* __restrict__ out_sum, float* __restrict__ out_max) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int col0 = (threadIdx.x >> 5) * 32;
-  uint32_t b[KP / 16][4][2];
-#pragma unroll
-  for (int ks = 0; ks < KP / 16; ++ks) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = col0 + nt * 8 + g;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = ks * 16 + 2 * q + 8 * h;
-        b[ks][nt][h] = (uint32_t)M[k * LANES + col] |
-                       ((uint32_t)M[(k + 1) * LANES + col] << 16);
-      }
-    }
-  }
-  float acc[4][2], mx[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    acc[nt][0] = acc[nt][1] = 0.0f;
-    mx[nt][0] = mx[nt][1] = -INFINITY;
-  }
-  const uint32_t* G2 = reinterpret_cast<const uint32_t*>(G);
-  for (int step = 0; step < steps; ++step) {
-    const uint32_t* gs = G2 + (step & zero);
-    for (int mt = 0; mt < m / 16; ++mt) {
-      float d[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) d[nt][0] = d[nt][1] = d[nt][2] =
-          d[nt][3] = 0.0f;
-      const uint32_t* r0 = gs + (size_t)(mt * 16 + g) * (KP / 2);
-      const uint32_t* r1 = r0 + 8 * (KP / 2);
-#pragma unroll
-      for (int ks = 0; ks < KP / 16; ++ks) {
-        const uint32_t a[4] = {__ldg(r0 + ks * 8 + q), __ldg(r1 + ks * 8 + q),
-                               __ldg(r0 + ks * 8 + q + 4),
-                               __ldg(r1 + ks * 8 + q + 4)};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(d[nt], a, b[ks][nt]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) fold(d[nt], mt == 0, acc[nt], mx[nt]);
-    }
-  }
-  write_mm(acc, mx, out_sum, out_max);
 }
 
 // ---------------------------------------------------------------------------
@@ -990,13 +1026,61 @@ extern "C" int mts_probe_gate(const float* g, int rows, const int* ids,
   return launched();
 }
 
+// the instance of rotate_kernel for a ring of `stages`
+static const void* rotate_instance(int stages) {
+  const int w = ring_width(stages);
+  return w == 4   ? (const void*)rotate_kernel<4>
+         : w == 2 ? (const void*)rotate_kernel<2>
+                  : (const void*)rotate_kernel<1>;
+}
+
+// g 16-byte aligned, block_floats a multiple of 4 (the bulk copy's
+// rules), a ring of `stages` blocks (ops/probes.py ring_stages); n may be
+// 0 (the sums are then 0)
 extern "C" int mts_probe_rotate(const float* g, int block_floats,
-                                const int* ids, int n, int blocks, float* out,
-                                void* stream) {
-  if (block_floats < ROWS * ROW_COLS || block_floats > MAX_STAGE)
+                                const int* ids, int n, int stages,
+                                int blocks, float* out, void* stream) {
+  if (block_floats < ROWS * ROW_COLS || block_floats > MAX_STAGE ||
+      block_floats % 4 || ((uintptr_t)g & 15) || n < 0 || stages < 1 ||
+      stages > RING_MAX_STAGES || ring_smem(block_floats, stages) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  rotate_kernel<<<blocks, LANES, 0, STREAM>>>(g, block_floats, ids, n, out);
-  return launched();
+  const int smem = ring_smem(block_floats, stages);
+  const void* fn = rotate_instance(stages);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&g, &block_floats, &ids, &n, &stages, &out};
+  const cudaError_t l = cudaLaunchKernel(fn, blocks, LANES, args,
+                                         (size_t)smem, STREAM);
+  return l != cudaSuccess ? (int)l : launched();
+}
+
+// rotate's resources on the current card at a ring of `stages` blocks of
+// block_floats: blocks resident per SM, registers per thread, shared
+// memory bytes a block (static and dynamic), local (spill) bytes per
+// thread, and the items a batch (W)
+extern "C" int mts_probe_rotate_info(int block_floats, int stages,
+                                     int* out) {
+  if (stages < 1 || stages > RING_MAX_STAGES ||
+      ring_smem(block_floats, stages) > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int dyn = ring_smem(block_floats, stages);
+  const void* fn = rotate_instance(stages);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  if ((e = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, LANES,
+                                                         dyn)) != cudaSuccess)
+    return (int)e;
+  out[0] = per_sm;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.sharedSizeBytes + dyn;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = ring_width(stages);
+  return 0;
 }
 
 extern "C" int mts_probe_grid(const float* tri, const int* ids, int n,
@@ -1084,51 +1168,77 @@ extern "C" int mts_probe_mm_cuda(const float* G, int m, const float* M,
   return launched();
 }
 
-template <int KP>
-static int launch_tf32(const float* G, int m, int k, const float* M,
-                       int steps, int zero, int copies, int chunks, int per,
-                       float* out_sum, float* out_max, float* part,
-                       int* tickets, int* ran, cudaStream_t stream) {
-  const int smem = (int)sizeof(TcSmem<KP>);
+template <class KIND, int KP>
+static int launch_tc(const float* G, int m, int k, const float* M, int steps,
+                     int zero, int copies, int chunks, int per,
+                     float* out_sum, float* out_max, float* part,
+                     int* tickets, int* ran, cudaStream_t stream) {
+  const int smem = (int)sizeof(TcSmem<KIND, KP>);
   const cudaError_t e = cudaFuncSetAttribute(
-      mm_tf32_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mm_tc_kernel<KIND, KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
-  mm_tf32_kernel<KP><<<copies * TC_HALVES * chunks, LANES, smem, stream>>>(
-      G, m, k, M, steps, zero, chunks, per, out_sum, out_max, part, tickets,
-      ran);
+  mm_tc_kernel<KIND, KP><<<copies * TC_HALVES * chunks, LANES, smem,
+                           stream>>>(G, m, k, M, steps, zero, chunks, per,
+                                     out_sum, out_max, part, tickets, ran);
   return launched();
 }
 
 // G (m, k) and M (k, 128) float32 as the caller holds them, k <= 16 or
 // k = 128
+template <class KIND>
+static int launch_tc_depth(const float* G, int m, int k, const float* M,
+                           int steps, int zero, int copies, int chunks,
+                           int per, float* out_sum, float* out_max,
+                           float* part, int* tickets, int* ran,
+                           void* stream) {
+  if (m < ROWS || copies < 1 || bad_plan(m, TC_ROWS, chunks, per))
+    return (int)cudaErrorInvalidValue;
+  if (k >= 1 && k <= 16)
+    return launch_tc<KIND, 16>(G, m, k, M, steps, zero, copies, chunks, per,
+                               out_sum, out_max, part, tickets, ran, STREAM);
+  if (k == 128)
+    return launch_tc<KIND, 128>(G, m, k, M, steps, zero, copies, chunks, per,
+                                out_sum, out_max, part, tickets, ran, STREAM);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int mts_probe_mm_tf32(const float* G, int m, int k, const float* M,
                                  int steps, int zero, int copies, int chunks,
                                  int per, float* out_sum, float* out_max,
                                  float* part, int* tickets, int* ran,
                                  void* stream) {
-  if (m < ROWS || copies < 1 || bad_plan(m, TC_ROWS, chunks, per))
-    return (int)cudaErrorInvalidValue;
-  if (k >= 1 && k <= 16)
-    return launch_tf32<16>(G, m, k, M, steps, zero, copies, chunks, per,
-                           out_sum, out_max, part, tickets, ran, STREAM);
-  if (k == 128)
-    return launch_tf32<128>(G, m, k, M, steps, zero, copies, chunks, per,
-                            out_sum, out_max, part, tickets, ran, STREAM);
-  return (int)cudaErrorInvalidValue;
+  return launch_tc_depth<Tf32>(G, m, k, M, steps, zero, copies, chunks, per,
+                               out_sum, out_max, part, tickets, ran, stream);
+}
+
+extern "C" int mts_probe_mm_bf16(const float* G, int m, int k, const float* M,
+                                 int steps, int zero, int copies, int chunks,
+                                 int per, float* out_sum, float* out_max,
+                                 float* part, int* tickets, int* ran,
+                                 void* stream) {
+  return launch_tc_depth<Bf16>(G, m, k, M, steps, zero, copies, chunks, per,
+                               out_sum, out_max, part, tickets, ran, stream);
 }
 
 // the resources of a product kernel on the current card (which: 0
-// mm_cuda, 1 mm_tf32 at K <= 16, 2 at K = 128): blocks resident per SM,
-// registers per thread, shared memory bytes a block (static and dynamic),
-// local (spill) bytes per thread, rows of G a tile and halves of M's
-// columns (ops/probes.py TILE_ROWS, HALVES)
+// mm_cuda, 1 mm_tf32 at K <= 16, 2 at K = 128, 3 and 4 mm_bf16 likewise):
+// blocks resident per SM, registers per thread, shared memory bytes a
+// block (static and dynamic), local (spill) bytes per thread, rows of G a
+// tile and halves of M's columns (ops/probes.py TILE_ROWS, HALVES)
 extern "C" int mts_probe_mm_info(int which, int* out) {
-  const void* fn = which == 0   ? (const void*)mm_cuda_kernel
-                   : which == 1 ? (const void*)mm_tf32_kernel<16>
-                                : (const void*)mm_tf32_kernel<128>;
-  const int dyn = which == 0   ? 0
-                  : which == 1 ? (int)sizeof(TcSmem<16>)
-                               : (int)sizeof(TcSmem<128>);
+  const void* fns[] = {(const void*)mm_cuda_kernel,
+                       (const void*)mm_tc_kernel<Tf32, 16>,
+                       (const void*)mm_tc_kernel<Tf32, 128>,
+                       (const void*)mm_tc_kernel<Bf16, 16>,
+                       (const void*)mm_tc_kernel<Bf16, 128>};
+  const int dyns[] = {0, (int)sizeof(TcSmem<Tf32, 16>),
+                      (int)sizeof(TcSmem<Tf32, 128>),
+                      (int)sizeof(TcSmem<Bf16, 16>),
+                      (int)sizeof(TcSmem<Bf16, 128>)};
+  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+  const void* fn = fns[which];
+  const int dyn = dyns[which];
   cudaError_t e;
   if (dyn && (e = cudaFuncSetAttribute(
                   fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn)) !=
@@ -1147,22 +1257,6 @@ extern "C" int mts_probe_mm_info(int which, int* out) {
   out[4] = which == 0 ? MM_ROWS : TC_ROWS;
   out[5] = which == 0 ? 1 : TC_HALVES;
   return 0;
-}
-
-extern "C" int mts_probe_mm_bf16(const uint16_t* G, int m, int kp,
-                                 const uint16_t* M, int steps, int zero,
-                                 int blocks, float* out_sum, float* out_max,
-                                 void* stream) {
-  if (m < 16 || m % 16) return (int)cudaErrorInvalidValue;
-  if (kp == 16)
-    mm_bf16_kernel<16><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
-                                                     out_sum, out_max);
-  else if (kp == 128)
-    mm_bf16_kernel<128><<<blocks, LANES, 0, STREAM>>>(G, m, M, steps, zero,
-                                                      out_sum, out_max);
-  else
-    return (int)cudaErrorInvalidValue;
-  return launched();
 }
 
 #define GATHER_THREADS 1024

@@ -13,8 +13,12 @@ per-block form, 8,192 for the whole card.
 * floors: `count` (a kernel that only counts its launches), `gate`
   (run_empty: an item loop gated per item, adding the 8 row sums of a
   block read in place), `rotate` (run_dma_rotate: the same with each
-  item's block staged in shared memory, #12's staging), `grid`
-  (bench_grid_floor: row 0 of a 2 KB block per item, staged or in place);
+  item's block staged in shared memory, on a ring of `ring_stages`
+  blocks that TMA bulk copies fill ahead of the items summed, three
+  warps issuing and one waiting for up to four items at once: bound by
+  the latency of the waits on the ring's mbarriers; the staging floor
+  that #12's staging is judged against), `grid` (bench_grid_floor: row
+  0 of a 2 KB block per item, staged or in place);
 * `fma` (run_vpu_fma): dependent fused multiply-adds;
 * `mt` (run_vpu_mt): csrc/mt.cuh's test of a resident cluster, the
   running nearest t and chunk per sublane;
@@ -26,10 +30,13 @@ per-block form, 8,192 for the whole card.
 * `mm_cuda`, `mm_tf32`, `mm_bf16` (run_mm): the sum over steps of
   (G @ M)[0:8], on the float32 pipes as #14 forms its Plücker products,
   and on the tensor cores with K padded to 16 (or 128); the products of
-  the other rows feed a running maximum, so that all are computed.
-  `mm_cuda` and `mm_tf32` (wgmma, padding and TF32 rounding inside the
-  kernel) spread each copy's product over several blocks by `mm_plan`,
-  and fold the maximum across them in the same launch;
+  the other rows feed a running maximum, so that all are computed. All
+  three spread each copy's product over several blocks by `mm_plan`,
+  and fold the maximum across them in the same launch: a call is one
+  launch. `mm_tf32` and `mm_bf16` are the two instances of one wgmma
+  kernel, which pads K and rounds (TF32 to nearest, ties away; bf16 to
+  nearest even) itself; each is bound by a launch's floor at run_mm's
+  sizes, and over many copies by its per-step wait and fold at K 10;
 * `gather_smem`, `gather_global` (pallas_gather): table[idx], from the
   table staged in shared memory or from device memory.
 
@@ -83,6 +90,14 @@ def rel_err(got, ref) -> float:
     return float((got - ref)[fin].abs().max()) / max(scale, 1e-30)
 
 
+# rotate's ring: the shared memory its stages may fill (one block a SM;
+# 6 stages of 32 KB, 12 of 16 KB, 24 of 8 KB: from 16 KB down room for a
+# batch of 4 items being summed and 4 or more in flight), and the most
+# stages (csrc/probes.cu)
+RING_BYTES = 192 * 1024
+RING_MAX_STAGES = 32
+
+
 # kernel launches since import, per probe (reset by callers that count)
 LAUNCHES = {k: 0 for k in (
     "count", "gate", "rotate", "grid", "fma", "mt", "v0", "v1", "v2", "v4",
@@ -104,34 +119,56 @@ def build() -> str:
     p, i = ctypes.c_void_p, ctypes.c_int
     sigs = {
         "count": [p, i, i], "gate": [p, i, p, p, i, i, p],
-        "rotate": [p, i, p, i, i, p], "grid": [p, p, i, i, i, p],
+        "rotate": [p, i, p, i, i, i, p], "grid": [p, p, i, i, i, p],
         "fma": [p, p, i, i, i, p], "mt": [p, i, p, i, i, i, p, p],
         "v0": [p, i, i, p], "v1": [p, i, p, i, i, i, p, p],
         "v2": [p, i, p, i, i, p, p], "v4": [p, i, p, i, i, p, p],
         "mm_cuda": [p, i, p, i, i, i, i, i, p, p, p, p, p],
         "mm_tf32": [p, i, i, p, i, i, i, i, i, p, p, p, p, p],
-        "mm_bf16": [p, i, i, p, i, i, i, p, p],
+        "mm_bf16": [p, i, i, p, i, i, i, i, i, p, p, p, p, p],
         "gather_smem": [p, i, p, i, p], "gather_global": [p, i, p, i, p],
     }
     for name, args in sigs.items():
         _FN[name] = nv.bind(SOURCE, f"mts_probe_{name}", args + [p])
     _FN["mm_info"] = nv.bind(SOURCE, "mts_probe_mm_info", [i, p])
+    _FN["rotate_info"] = nv.bind(SOURCE, "mts_probe_rotate_info", [i, i, p])
     return log
 
 
 def mm_info(kind: str, k: int = N_COEF) -> dict:
-    """The resources of a spread product kernel (kind "cuda" or "tf32",
-    the latter at depth k) on the current card: blocks resident per SM,
-    registers per thread, shared memory bytes a block and local (spill)
-    bytes per thread; and the tile rows and column halves the kernel is
-    compiled for (TILE_ROWS, HALVES here must match them)."""
+    """The resources of a spread product kernel (kind "cuda", "tf32" or
+    "bf16", the tensor-core ones at depth k) on the current card: blocks
+    resident per SM, registers per thread, shared memory bytes a block and
+    local (spill) bytes per thread; and the tile rows and column halves
+    the kernel is compiled for (TILE_ROWS, HALVES here must match them)."""
     if "mm_info" not in _FN:
         build()
     out = (ctypes.c_int * 6)()
-    which = 0 if kind == "cuda" else 1 if k <= 16 else 2
+    which = 0 if kind == "cuda" else {"tf32": 1, "bf16": 3}[kind] + (k > 16)
     nv.check(_FN["mm_info"](which, out), "mm_info")
     return dict(blocks_per_sm=out[0], registers=out[1], smem_bytes=out[2],
                 local_bytes=out[3], tile_rows=out[4], halves=out[5])
+
+
+def ring_stages(block_floats: int) -> int:
+    """The stages of rotate's ring for blocks of `block_floats` floats:
+    as many as RING_BYTES holds, at most RING_MAX_STAGES."""
+    return min(RING_MAX_STAGES, RING_BYTES // (4 * block_floats))
+
+
+def rotate_info(block_floats: int) -> dict:
+    """rotate's resources on the current card for blocks of
+    `block_floats` floats: its stages, the items its loop waits for at
+    once (`batch`), blocks resident per SM, registers per thread, shared
+    memory bytes a block (the ring and its barriers) and local (spill)
+    bytes per thread."""
+    if "rotate_info" not in _FN:
+        build()
+    out = (ctypes.c_int * 5)()
+    stages = ring_stages(block_floats)
+    nv.check(_FN["rotate_info"](block_floats, stages, out), "rotate_info")
+    return dict(stages=stages, batch=out[4], blocks_per_sm=out[0],
+                registers=out[1], smem_bytes=out[2], local_bytes=out[3])
 
 
 def _on_card(*xs) -> bool:
@@ -198,6 +235,13 @@ def round_tf32(x):
     zero: cvt.rna.tf32.f32), kept as float32."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def round_bf16(x):
+    """float32 -> the nearest bfloat16 value (7-bit mantissa, ties to
+    even, as torch.Tensor.to(torch.bfloat16) and cvt.rn.bf16x2.f32),
+    kept as float32."""
+    return x.to(torch.bfloat16).float()
 
 
 def _row_sums(blk):
@@ -274,17 +318,27 @@ def rotate_ref(g, ids):
 
 def rotate(g, ids, blocks: int = 1):
     """The item loop staging each item's whole block (rows * 16 floats,
-    at most 32 KB) in shared memory; (blocks, 8, 128)."""
+    at most 32 KB) in shared memory, on a ring of ring_stages(rows * 16)
+    blocks that bulk copies fill; (blocks, 8, 128). The bulk copy takes a
+    source on 16 bytes and a multiple of 16 bytes: g must be contiguous
+    and start on 16 bytes, and a block of (rows, 16) floats is always a
+    multiple of 4 floats. No items (n = 0) are taken: the sums are 0."""
     _need(ids, torch.int32, (ids.shape[0],), "ids")
     if g.dim() != 3 or g.shape[2] != ROW_COLS or not (
             ROWS <= g.shape[1] and g.shape[1] * ROW_COLS <= MAX_STAGE):
         raise ValueError(f"g must be (B, 8..512, 16), got {tuple(g.shape)}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous: each block is one bulk copy")
+    if g.data_ptr() % 16:
+        raise ValueError(f"g must start on 16 bytes for the bulk copy, not "
+                         f"{g.data_ptr() % 16} past")
     if not _on_card(g, ids):
         return _copies(rotate_ref(g, ids), blocks)
     out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
                       device=g.device)
-    _launch("rotate", g.device, _ptr(g), g.shape[1] * ROW_COLS, _ptr(ids),
-            ids.shape[0], blocks, _ptr(out))
+    bf = g.shape[1] * ROW_COLS
+    _launch("rotate", g.device, _ptr(g), bf, _ptr(ids), ids.shape[0],
+            ring_stages(bf), blocks, _ptr(out))
     LAUNCHES["rotate"] += 1
     return out
 
@@ -557,22 +611,23 @@ def v4(tri, rays, reps: int, blocks: int = 1):
 # ---------------------------------------------------------------------------
 
 # rows of G in a tile, per spread kernel (csrc/probes.cu MM_ROWS,
-# TC_ROWS), and the column halves an mm_tf32 copy splits M into
-TILE_ROWS = {"cuda": 32, "tf32": 64}
-HALVES = {"cuda": 1, "tf32": 2}
+# TC_ROWS), and the column halves a tensor-core copy splits M into
+TILE_ROWS = {"cuda": 32, "tf32": 64, "bf16": 64}
+HALVES = {"cuda": 1, "tf32": 2, "bf16": 2}
 # the most blocks a launch spreads its copies' tiles over before it gives
 # a block several tiles: 8 blocks of 128 threads on each of 128 SMs
 SPREAD_BLOCKS = 1024
 
 
 def mm_plan(kind: str, m: int, copies: int = 1) -> dict:
-    """The grid of a spread product kernel (kind "cuda" or "tf32") for
-    `copies` copies of an (m, K) x (K, 128) product: G's rows cut into
-    `tiles` tiles of `tile_rows` (the last holding `last_rows`), M's
-    columns into `halves`; each block takes a chunk of `per` consecutive
-    tiles of one half of one copy, `chunks` chunks a half, so that the
-    launch has at most SPREAD_BLOCKS blocks unless the copies alone need
-    more (a chunk of every tile a copy: `blocks` = copies x halves)."""
+    """The grid of a spread product kernel (kind "cuda", "tf32" or
+    "bf16") for `copies` copies of an (m, K) x (K, 128) product: G's rows
+    cut into `tiles` tiles of `tile_rows` (the last holding `last_rows`),
+    M's columns into `halves`; each block takes a chunk of `per`
+    consecutive tiles of one half of one copy, `chunks` chunks a half, so
+    that the launch has at most SPREAD_BLOCKS blocks unless the copies
+    alone need more (a chunk of every tile a copy: `blocks` = copies x
+    halves)."""
     rows, halves = TILE_ROWS[kind], HALVES[kind]
     tiles = -(-m // rows)
     want = max(1, min(tiles, SPREAD_BLOCKS // (copies * halves)))
@@ -634,10 +689,10 @@ def _padded(G, M):
 
 
 def _tc_inputs(G, M, kind):
-    gp, mp = _padded(G, M)
-    if kind == "tf32":
-        return round_tf32(gp), round_tf32(mp)
-    return gp.to(torch.bfloat16), mp.to(torch.bfloat16)
+    """G and M as the tensor-core kernels take them: padded, rounded
+    (the plain version's inputs; the kernels do this themselves)."""
+    rnd = round_tf32 if kind == "tf32" else round_bf16
+    return tuple(rnd(x) for x in _padded(G, M))
 
 
 def mm_tc_products(G, M, kind: str):
@@ -726,8 +781,9 @@ def mm_cuda(G, M, steps: int, blocks: int = 1):
 def mm_tc(G, M, steps: int, kind: str, blocks: int = 1):
     """The products on the tensor cores, kind "tf32" or "bf16", float32
     accumulators; m a multiple of 16. (sum (blocks, 8, 128), max (blocks,
-    128)). TF32: one launch of the spread wgmma kernel, which pads and
-    rounds G and M itself; bf16: the inputs padded and converted here."""
+    128)); each of the `blocks` copies spread by mm_plan(kind, m,
+    blocks): one launch of the spread wgmma kernel's instance of the
+    kind, which pads and rounds G and M itself."""
     m, k = _check_mm(G, M)
     if m % 16:
         raise ValueError(f"m = {m} is not a multiple of 16")
@@ -735,17 +791,8 @@ def mm_tc(G, M, steps: int, kind: str, blocks: int = 1):
         raise ValueError(f"unknown tensor-core kind {kind!r}")
     if not _on_card(G, M):
         return tuple(_copies(x, blocks) for x in mm_tc_ref(G, M, steps, kind))
-    if kind == "tf32":
-        _tc_depth(k)
-        return _spread("tf32", G, M, m, k, steps, blocks)
-    gq, mq = _tc_inputs(G, M, kind)
-    out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
-                      device=G.device)
-    mx = torch.empty((blocks, LANES), dtype=torch.float32, device=G.device)
-    _launch("mm_bf16", G.device, _ptr(gq), m, gq.shape[1], _ptr(mq), steps,
-            0, blocks, _ptr(out), _ptr(mx))
-    LAUNCHES["mm_bf16"] += 1
-    return out, mx
+    _tc_depth(k)
+    return _spread(kind, G, M, m, k, steps, blocks)
 
 
 # ---------------------------------------------------------------------------

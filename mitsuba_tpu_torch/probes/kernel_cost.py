@@ -10,12 +10,13 @@ the gated item loop off and on (run_empty :228) and the rotating 8 KB and
 (or item) counts, per block and over the card; inputs drawn as the script
 draws them, from a seed.
 
-The products `mm_cuda` and `mm_tf32` spread each copy over several
-blocks (ops/probes.py `mm_plan`; on the card `shape["blocks_launched"]`
-records the blocks that each form's launch ran, as the kernel counts
-them, `blocks_ran`): their 1-copy line is one product over the card, no
-longer a one-SM rate, and carries no `one_sm_bound_ns`; their
-8,192-copy line does the same total work as before.
+The products `mm_cuda`, `mm_tf32` and `mm_bf16` spread each copy over
+several blocks (ops/probes.py `mm_plan`; on the card
+`shape["blocks_launched"]` records the blocks that each form's launch
+ran, as the kernel counts them, `blocks_ran`): their 1-copy line is one
+product over the card, no longer a one-SM rate, and carries no
+`one_sm_bound_ns`; their 8,192-copy line does the same total work as
+before. The staging lines' `shape["stages"]` is rotate's ring.
 
     python -m mitsuba_tpu_torch.probes.kernel_cost
 """
@@ -147,7 +148,8 @@ def run(device="cuda", sizes=None, seed: int = 0):
             rate=lambda n, b, kb=kb: n * kb * 1024 * b,
             rate_unit="staged B/s",
             probe="run_dma_rotate", script=f"{SCRIPT}:270", kernel="rotate",
-            shape={"block_kb": kb, "blocks_rotated": N_BLOCKS})
+            shape={"block_kb": kb, "blocks_rotated": N_BLOCKS,
+                   "stages": pr.ring_stages(kb * 256)})
     return lines
 
 

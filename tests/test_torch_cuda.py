@@ -1150,7 +1150,8 @@ def test_probe_products_match_plain_versions(cuda, m, k, negative):
 
 
 def test_probe_products_at_8192_copies(cuda):
-    """Each of 8,192 copies (a block each) as the plain version."""
+    """Each of 8,192 copies (a block each, two for the tensor-core
+    kinds' halves) as the plain version."""
     from mitsuba_tpu_torch.ops import probes as pr
 
     rng, t = _probe_inputs(cuda, 8192)
@@ -1159,9 +1160,11 @@ def test_probe_products_at_8192_copies(cuda):
     for a, r in zip(pr.mm_cuda(G, M, 2, blocks=8192), pr.mm_cuda_ref(G, M,
                                                                       2)):
         assert torch.equal(a, r.expand_as(a))
-    for a, r in zip(pr.mm_tc(G, M, 2, "tf32", blocks=8192),
-                    pr.mm_tc_ref(G, M, 2, "tf32")):
-        assert pr.rel_err(a, r.expand_as(a)) <= pr.TOLERANCE["mm_tf32"]
+    for kind in ("tf32", "bf16"):
+        for a, r in zip(pr.mm_tc(G, M, 2, kind, blocks=8192),
+                        pr.mm_tc_ref(G, M, 2, kind)):
+            assert pr.rel_err(a, r.expand_as(a)) <= pr.TOLERANCE[
+                f"mm_{kind}"]
 
 
 # one call of each spread product profiled in a process of its own: in a
@@ -1180,6 +1183,7 @@ for m in (64, 4096):
     G = torch.randn(m, 10, generator=gen).to(dev)
     M = torch.randn(10, 128, generator=gen).to(dev)
     for kind, call in (("tf32", lambda: pr.mm_tc(G, M, 1, "tf32")),
+                       ("bf16", lambda: pr.mm_tc(G, M, 1, "bf16")),
                        ("cuda", lambda: pr.mm_cuda(G, M, 1))):
         call()                          # the tickets' buffer, zeroed once
         torch.cuda.synchronize()
@@ -1191,13 +1195,21 @@ for m in (64, 4096):
 """
 
 
+# the kernel each spread product's call must launch, as the profiler
+# names it
+_SPREAD_KERNEL = {"cuda": "mm_cuda_kernel", "tf32": "mm_tc_kernel<Tf32",
+                  "bf16": "mm_tc_kernel<Bf16"}
+
+
 def test_probe_tf32_product_is_one_kernel(cuda):
-    """One mm_tc(..., "tf32") call launches one kernel, mm_tf32_kernel
-    (the padding and the TF32 rounding inside it), and mm_cuda one too
-    (the profiler's device events of one call, in a fresh process), each
-    over more than one block from m = 64: the blocks that ran, as the
-    kernel counts them, are the plan's; each kernel is compiled for the
-    plan's tiles."""
+    """One mm_tc(..., "tf32") call launches one kernel, mm_tc_kernel's
+    TF32 instance (the padding and the TF32 rounding inside it), one
+    mm_tc(..., "bf16") call its bf16 instance (the padding and the bf16
+    rounding inside it: no conversion kernel), and mm_cuda one too (the
+    profiler's device events of one call, in a fresh process), each over
+    more than one block from m = 64: the blocks that ran, as the kernel
+    counts them, are the plan's; each kernel is compiled for the plan's
+    tiles."""
     import json
     import os
     import subprocess
@@ -1206,7 +1218,8 @@ def test_probe_tf32_product_is_one_kernel(cuda):
     from mitsuba_tpu_torch.ops import probes as pr
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for kind, k in (("cuda", 10), ("tf32", 10), ("tf32", 128)):
+    for kind, k in (("cuda", 10), ("tf32", 10), ("tf32", 128), ("bf16", 10),
+                    ("bf16", 128)):
         info = pr.mm_info(kind, k)
         assert (info["tile_rows"], info["halves"]) == (pr.TILE_ROWS[kind],
                                                        pr.HALVES[kind])
@@ -1218,15 +1231,16 @@ def test_probe_tf32_product_is_one_kernel(cuda):
     assert run.returncode == 0, run.stderr[-2000:]
     seen = [json.loads(ln) for ln in run.stdout.splitlines()
             if ln.startswith("[")]
-    assert len(seen) == 4
+    assert len(seen) == 6
     for kind, m, kernels in seen:
-        assert len(kernels) == 1 and f"mm_{kind}_kernel" in kernels[0], \
+        assert len(kernels) == 1 and _SPREAD_KERNEL[kind] in kernels[0], \
             (kind, m, kernels)
     rng, t = _probe_inputs(cuda, 64)
     for m in (64, 4096):
         G, M = t(rng.standard_normal((m, 10))), t(rng.standard_normal(
             (10, 128)))
         for kind, call in (("tf32", lambda: pr.mm_tc(G, M, 1, "tf32")),
+                           ("bf16", lambda: pr.mm_tc(G, M, 1, "bf16")),
                            ("cuda", lambda: pr.mm_cuda(G, M, 1))):
             ran = pr.blocks_ran(call, cuda)[1]
             assert ran == pr.mm_plan(kind, m)["blocks"] and ran > 1
@@ -1267,6 +1281,77 @@ def test_probe_tf32_rounds_as_round_tf32(cuda):
         out_sum, _ = pr.mm_tc(t(col), t(np.ones((1, 128))), 1, "tf32")
         w = pr.round_tf32(torch.from_numpy(col[:8].copy())).to(cuda)
         assert torch.equal(out_sum[0], w.expand(8, 128))
+
+
+def _bf16_ties():
+    """float32 values planted on bf16's rounding: the 16 dropped bits a
+    tie (0x8000), one either side, none and all, in both signs, on kept
+    mantissas even and odd, where a tie carries into the exponent, among
+    the subnormals and at the largest finite values."""
+    bits = [((base | low) ^ sign)
+            for base in (0x3F800000, 0x3F810000, 0x40490000, 0x3FFF0000,
+                         0x00000000, 0x00010000, 0x00400000, 0x7F7E0000,
+                         0x00800000)
+            for low in (0x8000, 0x7FFF, 0x8001, 0x0000, 0xFFFF, 0x0001)
+            for sign in (0, 0x80000000)]
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+def test_probe_bf16_rounds_as_the_plain_version(cuda):
+    """mm_bf16's own rounding (cvt.rn.bf16x2 in the kernel) on planted
+    ties, each product one rounded input times a rounded 1: M's row of
+    K = 1 against G's ones (128 a call, in out_sum and out_max), then G's
+    column against M's ones (8 a call, in out_sum); equal to round_bf16's
+    values, the plain version's conversion (a zero's sign aside: the
+    padded depth adds +0)."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    _, t = _probe_inputs(cuda)
+    x = _bf16_ties()
+    want = pr.round_bf16(torch.from_numpy(x.copy()))
+    row = np.resize(x, 128)
+    out_sum, out_max = pr.mm_tc(t(np.ones((64, 1))), t(row[None]), 1, "bf16")
+    w = torch.from_numpy(np.resize(want.numpy(), 128)).to(cuda)
+    assert torch.equal(out_sum[0], w.expand(8, 128))
+    assert torch.equal(out_max[0], w)
+    for i in range(0, len(x), 8):
+        col = np.zeros((16, 1), np.float32)
+        col[:8, 0] = np.resize(x[i:i + 8], 8)
+        out_sum, _ = pr.mm_tc(t(col), t(np.ones((1, 128))), 1, "bf16")
+        w = pr.round_bf16(torch.from_numpy(col[:8].copy())).to(cuda)
+        assert torch.equal(out_sum[0], w.expand(8, 128))
+
+
+@pytest.mark.parametrize("kb", [8, 32])
+def test_probe_rotate_ring_matches_plain_version(cuda, kb):
+    """rotate's bulk-copy ring bit for bit with rotate_ref at 8 and 32 KB
+    blocks: no item, 1, S - 1, S, S + 1 (S the ring's stages), 33 and 65
+    (the warp's ids past a chunk of 32) and 512 items, ids repeated (the
+    same block in flight in several stages), on 1 and 8,192 copies; and
+    the refusals of what the bulk copy cannot take."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, kb)
+    g = t(rng.standard_normal((64, kb * 16, 16)))
+    stages = pr.ring_stages(kb * 256)
+    info = pr.rotate_info(kb * 256)
+    assert info["stages"] == stages > 1 and info["local_bytes"] == 0, info
+    assert info["smem_bytes"] <= 232448, info
+    for n in sorted({0, 1, stages - 1, stages, stages + 1, 33, 65, 512}):
+        ids = t(rng.integers(0, 64, n), np.int32)
+        if n > 3:
+            ids[1:4] = ids[0]                     # one block, 4 stages
+        ref = pr.rotate_ref(g, ids)
+        for blocks in (1, 8192):
+            before = pr.LAUNCHES["rotate"]
+            got = pr.rotate(g, ids, blocks=blocks)
+            assert pr.LAUNCHES["rotate"] == before + 1
+            assert torch.equal(got, ref.expand(blocks, 8, 128)), (n, blocks)
+    flat = torch.zeros(64 * kb * 256 + 4, device=cuda)
+    with pytest.raises(ValueError):
+        pr.rotate(flat[1:1 + 64 * kb * 256].view(64, kb * 16, 16), ids)
+    with pytest.raises(ValueError):
+        pr.rotate(torch.zeros(64, kb * 16, 32, device=cuda)[..., :16], ids)
 
 
 @pytest.mark.parametrize("k", [512, 32768])

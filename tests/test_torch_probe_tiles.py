@@ -1,5 +1,6 @@
 """The tile plan of the spread product probes (csrc/probes.cu `mm_cuda`,
-`mm_tf32`; ops/probes.py `mm_plan`) on the CPU, where no kernel runs.
+`mm_tf32`, `mm_bf16`; ops/probes.py `mm_plan`) on the CPU, where no
+kernel runs.
 
 A copy's product is cut into tiles of G's rows; a block takes a chunk of
 consecutive tiles of one column half of one copy; rows 0-7 of tile 0 add
@@ -18,7 +19,7 @@ import torch
 from mitsuba_tpu_torch.ops import probes as pr
 
 M_CUDA = (8, 24, 512, 4096, 4104)
-M_TF32 = (16, 48, 528, 4096)
+M_TF32 = (16, 48, 528, 4096)      # the tensor-core kinds' (m % 16 == 0)
 
 
 def _inputs(m, k=10, seed=0, negative=False):
@@ -41,7 +42,7 @@ def _emulate(kind, G, M, steps, copies, mask=True):
     padded[:m] = G
     # each tile's products (its rows zero-padded), as a block computes them
     prods = [(pr.mm_cuda_products(tile, M) if kind == "cuda"
-              else pr.mm_tc_products(tile, M, "tf32"))
+              else pr.mm_tc_products(tile, M, kind))
              for tile in padded.split(rows)]
     sums = torch.empty((copies, 8, 128))
     maxima = torch.empty((copies, 128))
@@ -84,15 +85,20 @@ def _same(got, ref):
     ("tf32", 4096, 1, 128, 64, 64),        # 64 tiles x 2 column halves
     ("tf32", 528, 2, 36, 9, 16),
     ("tf32", 4096, 8192, 16384, 64, 64),
+    ("bf16", 4096, 1, 128, 64, 64),        # the tf32 plan, the same tiles
+    ("bf16", 528, 2, 36, 9, 16),
+    ("bf16", 512, 1, 16, 8, 64),
+    ("bf16", 4096, 8192, 16384, 64, 64),
 ])
 def test_mm_plan_grids(kind, m, copies, blocks, tiles, last):
     plan = pr.mm_plan(kind, m, copies)
     assert (plan["blocks"], plan["tiles"], plan["last_rows"]) == (
         blocks, tiles, last)
-    assert plan["tile_rows"] == {"cuda": 32, "tf32": 64}[kind]
+    assert plan["tile_rows"] == {"cuda": 32, "tf32": 64, "bf16": 64}[kind]
+    assert plan["halves"] == {"cuda": 1, "tf32": 2, "bf16": 2}[kind]
 
 
-@pytest.mark.parametrize("kind", ["cuda", "tf32"])
+@pytest.mark.parametrize("kind", ["cuda", "tf32", "bf16"])
 @pytest.mark.parametrize("copies", [1, 2, 3, 7, 100, 513, 8192])
 def test_mm_plan_covers_every_tile_once(kind, copies):
     """Every tile in exactly one chunk, no empty chunk; at most
@@ -132,15 +138,32 @@ def test_tf32_split_at_depth_128():
     _same(_emulate("tf32", G, M, 2, 1), pr.mm_tc_ref(G, M, 2, "tf32"))
 
 
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("m", M_TF32)
+def test_bf16_split_matches_plain_version(m, steps):
+    """mm_bf16, the bf16 instance of mm_tf32's kernel, on its plan: each
+    tile's products from the inputs rounded to bf16 (to nearest even)."""
+    G, M = _inputs(m)
+    _same(_emulate("bf16", G, M, steps, 2), pr.mm_tc_ref(G, M, steps,
+                                                          "bf16"))
+
+
+def test_bf16_split_at_depth_128():
+    """The (512, 128) x (128, 128) form in bf16: 8 tiles of 8 k16 steps."""
+    G, M = _inputs(512, 128)
+    _same(_emulate("bf16", G, M, 2, 1), pr.mm_tc_ref(G, M, 2, "bf16"))
+
+
 @pytest.mark.parametrize("kind,m", [("cuda", 24), ("cuda", 4104),
-                                    ("tf32", 48), ("tf32", 528)])
+                                    ("tf32", 48), ("tf32", 528),
+                                    ("bf16", 48), ("bf16", 528)])
 def test_padded_rows_stay_out_of_the_maximum(kind, m):
     """Rows whose products are all negative: the masked split gives the
     plain maximum (below zero), while one that let a ragged tile's padded
     rows in would report 0."""
     G, M = _inputs(m, negative=True)
     ref = (pr.mm_cuda_ref(G, M, 3) if kind == "cuda"
-           else pr.mm_tc_ref(G, M, 3, "tf32"))
+           else pr.mm_tc_ref(G, M, 3, kind))
     assert bool((ref[1] < 0).all())
     _same(_emulate(kind, G, M, 3, 2), ref)
     unmasked = _emulate(kind, G, M, 3, 1, mask=False)[1]

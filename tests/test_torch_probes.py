@@ -452,6 +452,91 @@ def test_round_tf32_is_nearest_ties_away():
     assert np.all(np.abs(got[tie]) > np.abs(x[tie]))      # away from zero
 
 
+def _rne_bf16(x: np.float32) -> np.float32:
+    """float32 -> bfloat16 exactly, kept as float32: the nearest value
+    with a 7-bit mantissa (ulp 2^(e - 7), or 2^-133 below the normal
+    range), ties to the even mantissa, the sign kept; beyond the largest
+    bfloat16 (halfway to 2^128 and up), infinity."""
+    if x == 0:
+        return x
+    f = abs(Fraction(float(x)))
+    e = max(int(np.floor(np.log2(float(f)))), -126)
+    ulp = Fraction(2) ** (e - 7)
+    q = f / ulp
+    n = int(q)
+    if q - n > Fraction(1, 2) or (q - n == Fraction(1, 2) and n % 2):
+        n += 1
+    r = n * ulp
+    mag = np.float32(np.inf) if r >= 2 ** 128 else np.float32(float(r))
+    return np.copysign(mag, x)
+
+
+def test_round_bf16_is_nearest_even():
+    """The plain version's bf16 conversion (what mm_bf16's cvt.rn.bf16x2
+    must match) on planted values: the 16 dropped bits a tie (0x8000),
+    one either side, none and all, in both signs, on bases whose kept
+    mantissa is even and odd, where a tie carries into the exponent,
+    among the subnormals and at the largest finite values (a tie there
+    rounds to infinity), against an exact round-to-nearest-even."""
+    x = np.array([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8),
+                  1 + 2 ** -8 + 2 ** -20, 3.0], np.float32)
+    got = pr.round_bf16(_t(x)).numpy()
+    assert np.array_equal(got, np.array([1.0, 1 + 2 ** -6, -1.0,
+                                         1 + 2 ** -7, 3.0], np.float32))
+    bits = np.array([(base | low) ^ sign
+                     for base in (0x3F800000, 0x3F810000, 0x40490000,
+                                  0x3FFF0000, 0x3FFE0000, 0x00000000,
+                                  0x00010000, 0x00400000, 0x7F7E0000,
+                                  0x7F7F0000, 0x00800000)
+                     for low in (0x8000, 0x7FFF, 0x8001, 0x0000, 0xFFFF,
+                                 0x0001)
+                     for sign in (0, 0x80000000)], np.uint32)
+    x = bits.view(np.float32).copy()
+    got = pr.round_bf16(_t(x)).numpy()
+    want = np.array([_rne_bf16(v) for v in x], np.float32)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not (got.view(np.uint32) & 0xFFFF).any()
+    tie = (bits & 0xFFFF) == 0x8000
+    even = (got.view(np.uint32)[tie] >> 16) & 1
+    assert not even[np.isfinite(got[tie])].any()           # to even
+    assert np.isinf(got[tie & ((bits & 0x7FFFFFFF) >> 16 == 0x7F7F)]).all()
+    # the tensor-core inputs of the plain version are these values
+    G = _t(x[:64].reshape(64, 1))
+    gq, _ = pr._tc_inputs(G, _t(np.ones((1, 128), np.float32)), "bf16")
+    assert np.array_equal(gq[:, 0].numpy().view(np.uint32),
+                          want[:64].view(np.uint32))
+
+
+@pytest.mark.parametrize("form", ["misaligned", "strided", "sized"])
+def test_rotate_refuses_what_the_bulk_copy_cannot_take(form):
+    """rotate's ring copies each block as one bulk copy: a source on 16
+    bytes, a multiple of 16 bytes. A g that starts 4 bytes past an
+    aligned address, one whose rows are strided, and one whose block is
+    not (rows, 16) floats (here 9 x 15, not a multiple of 4) raise before
+    any kernel or plain version runs, on the CPU as on the card."""
+    ids = torch.zeros(3, dtype=torch.int32)
+    if form == "misaligned":
+        flat = torch.zeros(4 * 128 * 16 + 1)
+        g = flat[1:].view(4, 128, 16)
+        assert g.is_contiguous() and g.data_ptr() % 16 == 4
+    elif form == "strided":
+        g = torch.zeros(4, 128, 32)[:, :, :16]
+    else:
+        g = torch.zeros(4, 9, 15)
+    with pytest.raises(ValueError):
+        pr.rotate(g, ids)
+    ok = torch.zeros(4, 128, 16)
+    assert pr.rotate(ok, ids).shape == (1, 8, 128)
+
+
+def test_rotate_takes_no_items():
+    """n = 0: the kernel takes it (no copy issued, the ring never waited
+    on) and the sums are 0, as the plain version's."""
+    g = torch.ones(4, 128, 16)
+    out = pr.rotate(g, torch.zeros(0, dtype=torch.int32), blocks=2)
+    assert out.shape == (2, 8, 128) and not out.any()
+
+
 @pytest.mark.parametrize("module,sizes", [
     ("kernel_cost", dict(launches=(1, 2), fma=(1, 2), fma_card=(1, 2),
                          n_ops=2, mt=(1, 2), mt_card=(1, 2), mm=(1, 2),
