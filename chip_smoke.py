@@ -379,6 +379,28 @@ Phases, each printing one JSON line:
      yardsticks (torch.matmul on the products' shapes, table[idx] on the
      gathers'), timed here only.
 
+The last entry points and the spectra, after the integrators (#1, and
+#3 in the preview's VPL frame): "spectral_furnace", tests/test_spectral.py
+:83's furnace at n = 8 channels, 256x256 px, 16 spp, depth 5, each
+channel within 5% of its closed form; "spectral_rgb" and "spectral_n8",
+config 1's box and the same box with every colour upsampled to 8 bins
+(tests/torch_spectral_cases.py), s/render and Mrays/s side by side;
+"spectral_vs_cpu", the n = 8 box's lanes at 32x32x4 on the card against
+the CPU; "sharded_world1", render_sharded over NCCL at world size 1 in
+this process equal to render bit for bit at config 1, and
+training_step_sharded at config 4 within 1e-5 of one process's step;
+"graft_entry", graft_entry.entry()'s forward and dryrun_multichip(1);
+"sharded_two_ranks", two gloo ranks sharing the card in spawned
+processes (tests/torch_parallel_cases.py rank_checks), the image within
+rtol 2e-5 / atol 1e-7 of the single render, the step within 1e-5;
+"scaling", measure_scaling at world sizes 1 and 2 (two ranks on one
+card, not a multi-GPU figure); "server", a RenderServer on 127.0.0.1 on
+the card rendering scenes/cornell.xml at 512x512x64 equal to the
+library's render bit for bit, a bad scene reported, serve_pipe over
+os.pipe, and a `python -m mitsuba_tpu_torch --listen-stdio` child through
+RenderClient.over_ssh(ssh_cmd=()); "gui", gui.serve on config 1's box
+until 6 passes (passes a second, /frame.png, an orbit).
+
 Then a JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the exit code is not
 0; without a CUDA device the script exits 2 before doing anything. It
@@ -615,6 +637,16 @@ MEAN_BAND = {"config1": (0.09, 0.21), "config2": (0.09, 0.21),
              # sppm estimates the radiance leftovers_xml's path tracer
              # does: its band
              "photons_cluster": (0.172, 0.401)}
+# the spectra, the sharded forms, the server and the preview (the last
+# entry points): the n = 8 furnace of tests/test_spectral.py:83 at config
+# 1's size and depth, seed 11, each channel within SPEC_FURNACE_REL of
+# Le_c * sum_{k<5} a_c^k; config 1's box upsampled to n = 8 beside the
+# RGB box, SPEC_TIMED timed renders each; the n = 8 box's lanes on the
+# card against the CPU at SPEC_CPU_RES, 4 spp (>= 99% within rtol 1e-4,
+# the means within 1e-3); the preview until GUI_PASSES passes
+SPEC_FURNACE_SEED, SPEC_FURNACE_REL, SPEC_TIMED, SPEC_CPU_RES = \
+    11, 0.05, 2, 32
+GUI_PASSES = 6
 # where a plain version takes over a second on the whole wavefront (the
 # script's own runs on the H100, PERF.md section 6), kernel and plain
 # version are compared and timed on its first PLAIN_CUT_ROWS rows (or
@@ -4542,6 +4574,447 @@ def integrators_phases(device, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the last entry points and the spectra: n-channel renders, the sharded
+# render and training step, the render server, the preview, the graft
+# entry points
+# ---------------------------------------------------------------------------
+
+def _count_brute():
+    """#1, #2 and #3's launches since the last reset."""
+    c = launch_counts()
+    return {k: c[k] for k in ("shaded_any", "shaded", "any")}
+
+
+def _timed_render(scene, cfg, seed=0, render_fn=None):
+    """A warm-up render, then SPEC_TIMED timed renders, the launch counts
+    set to 0 before them: (image, seconds, rays, launches)."""
+    from mitsuba_tpu_torch.integrators.path import render
+
+    render_fn = render_fn or render
+    render_fn(scene, cfg, seed=seed)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    secs, rays = [], []
+    for _ in range(SPEC_TIMED):
+        t0 = time.perf_counter()
+        img, aux = render_fn(scene, cfg, seed=seed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        rays.append(int(aux["rays_traced"]))
+    return img, secs, rays, _count_brute()
+
+
+def _lanes_agree(card, cpu):
+    """tests/test_torch_hetero.py's lane rule: the share of lanes within
+    rtol 1e-4 / atol 1e-6 in every channel, the means' distance."""
+    close = torch.isclose(card, cpu, rtol=1e-4, atol=1e-6).all(dim=-1)
+    rel = abs(float(card.mean()) - float(cpu.mean())) / max(
+        abs(float(cpu.mean())), 1e-12)
+    return float(close.float().mean()), rel
+
+
+def spectral_phases(device):
+    """The n = 8 furnace, config 1's box upsampled to n = 8 beside the RGB
+    box, and the n = 8 box's lanes on the card against the CPU."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_bsdf_cases as zc
+    import torch_spectral_cases as sc
+    from mitsuba_tpu_torch.core import spectral as sp
+    from mitsuba_tpu_torch.integrators.path import (
+        PathConfig, camera_wavefront, path_trace, render,
+    )
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    mods = zc.port_modules()
+    cfg = PathConfig(max_depth=DEPTH1, spp=SPP1, remat=False)
+    a, le = sc.furnace_colours()
+    furnace = sc.furnace(mods, a, le, res=W1, device=device)
+    img, secs, rays, launches = _timed_render(furnace, cfg,
+                                              seed=SPEC_FURNACE_SEED)
+    got = img.mean(dim=(0, 1)).cpu().numpy()
+    want = sc.furnace_expected(a, le, DEPTH1)
+    rel = np.abs(got / want - 1.0)
+    phase("spectral_furnace", width=W1, height=W1, spp=SPP1, depth=DEPTH1,
+          channels=sc.N_CH, triangles=furnace.geom.n_tris, seconds=secs,
+          mrays_per_s=[r / s / 1e6 for r, s in zip(rays, secs)],
+          launches=launches, got=got.tolist(), want=want.tolist(),
+          rel=rel.tolist(), limit=SPEC_FURNACE_REL)
+    if tuple(img.shape) != (W1, W1, sc.N_CH) or not rel.max() \
+            <= SPEC_FURNACE_REL or launches["shaded_any"] < 1:
+        raise AssertionError(f"spectral_furnace: rel {rel.tolist()}, "
+                             f"launches {launches}")
+    del furnace
+    out = {"spectral_furnace": launches["shaded_any"]}
+    spec = sp.SpectralBins(sc.N_CH)
+    for tag, scene in (("spectral_rgb", cornell_box(W1, H1, device=device)),
+                       ("spectral_n8", sc.cornell_n(mods, sp, sc.N_CH, W1,
+                                                    H1, device=device))):
+        img, secs, rays, launches = _timed_render(scene, cfg)
+        prof = device_profile(lambda: render(scene, cfg, seed=0))
+        mean = img.mean(dim=(0, 1))
+        rgb = (sp.to_rgb(mean, spec) if img.shape[-1] == sc.N_CH
+               else mean).tolist()
+        phase(tag, width=W1, height=H1, spp=SPP1, depth=DEPTH1,
+              channels=int(img.shape[-1]), seconds=secs, rays_traced=rays,
+              mrays_per_s=[r / s / 1e6 for r, s in zip(rays, secs)],
+              launches=launches, mean_rgb=rgb,
+              busy_share=prof["busy_share"],
+              device_busy_ms=prof["device_busy_ms"],
+              kernels=prof["kernels"])
+        if not bool(torch.isfinite(img).all()) \
+                or launches["shaded_any"] != DEPTH1 * SPEC_TIMED:
+            raise AssertionError(f"{tag}: launches {launches}")
+        out[tag] = launches["shaded_any"]
+    # the same n = 8 box's lanes, card against CPU
+    lcfg = PathConfig(max_depth=DEPTH1, spp=4, remat=False)
+    lanes = []
+    for dev in (device, torch.device("cpu")):
+        scene = sc.cornell_n(mods, sp, sc.N_CH, SPEC_CPU_RES, SPEC_CPU_RES,
+                             device=dev)
+        ray, sampler, _ = camera_wavefront(scene, lcfg, 0, morton=False)
+        lanes.append(path_trace(scene, ray, sampler, lcfg)[0].cpu())
+    agree, rel = _lanes_agree(*lanes)
+    phase("spectral_vs_cpu", width=SPEC_CPU_RES, height=SPEC_CPU_RES,
+          spp=lcfg.spp, depth=lcfg.max_depth, channels=sc.N_CH,
+          lanes_agree=agree, mean_rel=rel, limits=[0.99, 1e-3],
+          finite=bool(torch.isfinite(lanes[0]).all()))
+    if not (agree >= 0.99 and rel <= 1e-3):
+        raise AssertionError(f"spectral_vs_cpu: {agree}, {rel}")
+    return out
+
+
+def sharded_phases(device, tmp):
+    """World size 1 over NCCL in this process (render_sharded against
+    render bit for bit at config 1; training_step_sharded against one
+    process's step at config 4), the graft entry points on that group,
+    then two gloo ranks sharing the card in spawned processes, and
+    measure_scaling at world sizes 1 and 2."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_parallel_cases as pc
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.parallel import (
+        make_mesh, render_sharded, training_step_sharded,
+    )
+    from mitsuba_tpu_torch.parallel.mesh import run_group
+    from mitsuba_tpu_torch.parallel.scaling import (
+        measure_scaling, scaling_efficiency,
+    )
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    cases = {"config1": ("cornell", W1, SPP1, DEPTH1, 0)}
+    train = dict(res=W4, spp=SPP4, depth=DEPTH4, lr=0.05)
+    cfg1 = PathConfig(max_depth=DEPTH1, spp=SPP1, remat=False)
+    cfg4 = PathConfig(max_depth=DEPTH4, spp=SPP4, remat=True)
+    out = {}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "nccl_rendezvous"), world_size=1, rank=0)
+    try:
+        init_s = time.perf_counter() - t0
+        mesh = make_mesh()
+        scene = cornell_box(W1, H1, device=device)
+        want, _ = render(scene, cfg1, seed=0)
+        img, secs, rays, launches = _timed_render(
+            scene, cfg1, render_fn=lambda s, c, seed: render_sharded(
+                s, c, seed=seed, mesh=mesh))
+        same = bool(torch.equal(img, want))
+        scene, target, params = pc.training_inputs(device, train)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        new, loss = training_step_sharded(scene, cfg4, target, params,
+                                          pc.apply_reflectance,
+                                          lr=train["lr"], mesh=mesh)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        step_launches = _count_brute()
+        one, one_loss = pc.single_step(scene, cfg4, target, params,
+                                       train["lr"])
+        step_err = float((new["reflectance"] - one["reflectance"]).abs()
+                         .max())
+        moved = float((new["reflectance"] - params["reflectance"]).abs()
+                      .max())
+        phase("sharded_world1", backend=dist.get_backend(), world=mesh[1],
+              init_seconds=init_s, width=W1, height=H1, spp=SPP1,
+              depth=DEPTH1, seconds=secs,
+              mrays_per_s=[r / s / 1e6 for r, s in zip(rays, secs)],
+              launches=launches, equal_to_render=same,
+              step_seconds=step_s, step_launches=step_launches,
+              loss=float(loss), loss_one=float(one_loss),
+              step_max_abs_err=step_err, step_moved=moved, limit=1e-5)
+        if not same or not step_err <= 1e-5 or not moved > 0 \
+                or launches["shaded_any"] < 1 \
+                or step_launches["shaded_any"] < 1:
+            raise AssertionError(f"sharded_world1: equal {same}, step "
+                                 f"{step_err}, launches {launches}")
+        out["sharded_world1"] = launches["shaded_any"]
+        out["graft_entry"] = graft_entry_phase(device)
+    finally:
+        dist.destroy_process_group()
+    # two ranks on the one card over gloo, spawned
+    t0 = time.perf_counter()
+    ranks = run_group(pc.rank_checks, 2, (str(device), cases, train,
+                                          False), backend="gloo")
+    two_s = time.perf_counter() - t0
+    errs = [float(np.abs(r["config1"][0] - want.cpu().numpy()).max())
+            for r in ranks]
+    close = all(np.allclose(r["config1"][0], want.cpu().numpy(),
+                            rtol=2e-5, atol=1e-7) for r in ranks)
+    step = [float(np.abs(r["train"][0] - one["reflectance"].cpu().numpy())
+                  .max()) for r in ranks]
+    phase("sharded_two_ranks", backend="gloo", world=2,
+          where="two ranks on one H100", seconds=two_s,
+          rank_work_seconds=[r["seconds"] for r in ranks],
+          launches=[r["launches"] for r in ranks], image_max_abs_err=errs,
+          within_rtol_2e_5=close, step_max_abs_err=step,
+          coordinator=[r["coordinator"] for r in ranks])
+    if not close or not max(step) <= 1e-5 \
+            or min(r["launches"] for r in ranks) < 1 \
+            or [r["coordinator"] for r in ranks] != [True, False]:
+        raise AssertionError(f"sharded_two_ranks: {errs}, {step}")
+    out["sharded_two_ranks"] = [r["launches"] for r in ranks]
+    t0 = time.perf_counter()
+    rates = measure_scaling(cornell_box(W1, H1, device=device), cfg1,
+                            world_sizes=(1, 2), rows_per_device=H1,
+                            rounds=2, device=device)
+    eff = scaling_efficiency(rates)
+    phase("scaling", where="two ranks on one H100 (gloo): the card "
+          "shared, not a multi-GPU figure", seconds=time.perf_counter() - t0,
+          rows_per_device=H1, width=W1, spp=SPP1, depth=DEPTH1,
+          rays_per_s={str(k): v for k, v in rates.items()},
+          efficiency={str(k): v for k, v in eff.items()})
+    if not all(v > 0 for v in rates.values()):
+        raise AssertionError(f"scaling: {rates}")
+    return out
+
+
+def graft_entry_phase(device):
+    """graft_entry.entry()'s forward on the card (warm, then timed), and
+    dryrun_multichip(1) on the current group."""
+    from mitsuba_tpu_torch.graft_entry import dryrun_multichip, entry
+
+    forward, args = entry(device=device)
+    forward(*args)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    img = forward(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _count_brute()
+    t0 = time.perf_counter()
+    dryrun_multichip(1, device=device)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(img).all())
+    phase("graft_entry", shape=list(img.shape), seconds=secs,
+          mean=float(img.mean()), finite=finite, launches=launches,
+          dryrun_multichip_1_seconds=dry_s)
+    if not finite or tuple(img.shape) != (64, 64, 3) \
+            or launches["shaded_any"] != 5:
+        raise AssertionError(f"graft_entry: {launches}")
+    return launches["shaded_any"]
+
+
+def _stdio_client(holder):
+    """A `python -m mitsuba_tpu_torch --listen-stdio` child on the card,
+    its client in holder (or the error that stopped it)."""
+    from mitsuba_tpu_torch.parallel.server import RenderClient
+
+    try:
+        t0 = time.perf_counter()
+        holder["client"] = RenderClient.over_ssh(ssh_cmd=(), remote_cmd=(
+            sys.executable, "-m", "mitsuba_tpu_torch", "--listen-stdio"))
+        holder["start_seconds"] = time.perf_counter() - t0
+    except Exception as e:      # reported by server_phase
+        holder["error"] = repr(e)
+
+
+def server_phase(device, stdio):
+    """A RenderServer on 127.0.0.1 on the card: ping, scenes/cornell.xml at
+    cli_cornell's size against the library's render bit for bit, a bad
+    scene, serve_pipe over os.pipe; then the --listen-stdio child's ping
+    and render (stdio: the thread starting it and its holder)."""
+    import threading
+
+    from mitsuba_tpu_torch.integrators.path import PathConfig, render
+    from mitsuba_tpu_torch.io.xml import load_scene
+    from mitsuba_tpu_torch.parallel.server import (
+        RenderClient, RenderServer, _handshake_client, _read_msg,
+        _write_msg, serve_pipe,
+    )
+
+    xml_path = os.path.join(ROOT, "scenes", "cornell.xml")
+    with open(xml_path) as f:
+        xml = f.read()
+    base = os.path.dirname(xml_path)
+
+    def library(defs, seed=0):
+        scene, cfg = load_scene(xml_path, params=defs, device=device)
+        img, _ = render(scene, PathConfig(max_depth=cfg["maxDepth"],
+                                          spp=cfg["sampleCount"],
+                                          remat=False), seed=seed)
+        return img.cpu().numpy()
+
+    defs = dict(depth=CLI_DEPTH, spp=CLI_SPP, width=CLI_W, height=CLI_H)
+    srv = RenderServer("127.0.0.1", 0, device=device)
+    srv.start()
+    try:
+        with RenderClient("127.0.0.1", srv.port) as c:
+            info = c.ping()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            remote = c.render(xml, seed=0, defines=defs, base_dir=base)
+            request_s = time.perf_counter() - t0
+            launches = _count_brute()
+            try:
+                c.render("<scene version='0.2.1'><bogus/></scene>")
+                bad = "no error"
+            except RuntimeError as e:
+                bad = str(e)
+            still = c.ping()["status"]
+    finally:
+        srv.stop()
+    t0 = time.perf_counter()
+    same = bool(np.array_equal(remote, library(defs)))
+    library_s = time.perf_counter() - t0
+    # serve_pipe over os.pipe
+    c2s_r, c2s_w = os.pipe()
+    s2c_r, s2c_w = os.pipe()
+    files = [os.fdopen(fd, mode) for fd, mode in (
+        (c2s_r, "rb"), (s2c_w, "wb"), (s2c_r, "rb"), (c2s_w, "wb"))]
+    t = threading.Thread(target=serve_pipe, args=files[:2],
+                         kwargs={"device": device}, daemon=True)
+    t.start()
+    _handshake_client(files[2], files[3])
+    _write_msg(files[3], {"cmd": "ping"})
+    pipe_ping = _read_msg(files[2])[0]
+    _write_msg(files[3], {"cmd": "quit"})
+    _read_msg(files[2])
+    t.join(timeout=30)
+    for f in files:
+        f.close()
+    # the --listen-stdio child, started at the beginning of these phases
+    stdio[0].join(timeout=300)
+    holder = stdio[1]
+    if "client" not in holder:
+        raise AssertionError(f"listen_stdio: {holder.get('error')}")
+    small = dict(depth=CLI_DEPTH, spp=4, width=64, height=64)
+    with holder["client"] as c:
+        child_ping = c.ping()
+        t0 = time.perf_counter()
+        child_img = c.render(xml, seed=0, defines=small, base_dir=base)
+        child_s = time.perf_counter() - t0
+    child_rc = holder["client"]._proc.returncode
+    child_same = bool(np.array_equal(child_img, library(small)))
+    card = {"status": "ok", "devices": torch.cuda.device_count(),
+            "backend": "cuda"}
+    phase("server", ping=info, width=CLI_W, height=CLI_H, spp=CLI_SPP,
+          depth=CLI_DEPTH, request_seconds=request_s,
+          library_seconds=library_s, launches=launches,
+          equal_to_library=same, bad_scene=bad, serving_after=still,
+          pipe_ping=pipe_ping, stdio_start_seconds=holder["start_seconds"],
+          stdio_ping=child_ping, stdio_render_seconds=child_s,
+          stdio_equal_to_library=child_same, stdio_exit=child_rc)
+    if info != card or pipe_ping != card or child_ping != card \
+            or not same or not child_same or child_rc != 0 \
+            or "remote render failed" not in bad or still != "ok" \
+            or launches["shaded_any"] != CLI_DEPTH:
+        raise AssertionError(f"server: {info}, {same}, {child_same}, "
+                             f"{bad}, {launches}")
+    return launches["shaded_any"]
+
+
+def gui_phase(device, tmp):
+    """gui.serve on config 1's box at 127.0.0.1:0 (depth 5, 16 spp a
+    pass): the passes a second once GUI_PASSES have landed, /frame.png's
+    size and mean, an orbit bumping the generation."""
+    import threading
+    import urllib.request
+
+    from mitsuba_tpu_torch.gui import serve
+    from mitsuba_tpu_torch.integrators.path import PathConfig
+    from mitsuba_tpu_torch.io.bitmap import read_png
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.read()
+
+    reset_launch_counts()
+    httpd, session, t = serve(cornell_box(W1, H1, device=device),
+                              PathConfig(max_depth=DEPTH1, spp=SPP1,
+                                         remat=False),
+                              port=0, open_msg=False)
+    port = httpd.server_address[1]
+    srv = threading.Thread(target=httpd.serve_forever, daemon=True)
+    srv.start()
+    try:
+        seen = {}
+        deadline = time.perf_counter() + 120
+        while time.perf_counter() < deadline:
+            st = json.loads(get("/state"))
+            seen.setdefault(st["pass"], time.perf_counter())
+            if st["pass"] >= GUI_PASSES:
+                break
+            time.sleep(0.02)
+        first = min(p for p in seen if p >= 1)
+        rate = (st["pass"] - first) / max(seen[st["pass"]] - seen[first],
+                                          1e-9)
+        png = os.path.join(tmp, "frame.png")
+        with open(png, "wb") as f:
+            f.write(get("/frame.png"))
+        frame = read_png(png)
+        gen = st["gen"]
+        get("/camera?yaw=0.3")
+        gen2 = json.loads(get("/state"))["gen"]
+    finally:
+        session.stop = True
+        httpd.shutdown()
+        httpd.server_close()
+        srv.join(timeout=30)
+        t.join(timeout=120)
+    launches = _count_brute()
+    phase("gui", width=W1, height=H1, spp_per_pass=SPP1, depth=DEPTH1,
+          passes=st["pass"], passes_per_s=rate,
+          frame_shape=list(frame.shape), frame_mean=float(frame.mean()),
+          generation=[gen, gen2], launches=launches)
+    if st["pass"] < GUI_PASSES or frame.shape[:2] != (H1, W1) \
+            or not frame.mean() > 1 or gen2 != gen + 1 \
+            or launches["shaded_any"] < 1 or t.is_alive():
+        raise AssertionError(f"gui: {st}, {frame.shape}, {gen}, {gen2}")
+    return launches
+
+
+def entry_point_phases(device):
+    """The spectral, sharded, server, gui and graft_entry phases; the
+    --listen-stdio child starts first, in a thread, so its start overlaps
+    the other phases."""
+    import threading
+
+    holder = {}
+    starter = threading.Thread(target=_stdio_client, args=(holder,),
+                               daemon=True)
+    starter.start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = spectral_phases(device)
+            out.update(sharded_phases(device, tmp))
+            out["server"] = server_phase(device, (starter, holder))
+            out["gui"] = gui_phase(device, tmp)
+    finally:
+        starter.join(timeout=300)
+        client = holder.get("client")
+        if client is not None and client._proc.poll() is None:
+            client._proc.kill()
+            client._proc.wait()
+    return out
+
+
 def rotate_entry(ring, lines):
     """rotate's kernel line beside its bound: the ring (stages, shared
     memory, registers, SASS) and, at 8 and 32 KB, the staged rate of the
@@ -4762,6 +5235,11 @@ def main(argv=None):
     # and the beam estimate (ROADMAP A.12)
     lhair = hair_phases(device, tmp.name)
     linteg = integrators_phases(device, tmp.name)
+    # the last entry points and the spectra: n = 8 renders, the sharded
+    # render and training step (NCCL at world size 1, two gloo ranks on
+    # the card), the render server and its --listen-stdio child, the
+    # preview, the graft entry points
+    phase("entry_point_launches", shaded_any=entry_point_phases(device))
     # config 2: the brute kernel (#1) with the glass sphere merged after
     # it, camera lanes in pixel-Morton order as bench.py runs it
     l2 = render_phase("config2", cornell_box_specular(

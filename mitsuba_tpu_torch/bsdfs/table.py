@@ -47,6 +47,8 @@ _KIND_FIELDS = {DIELECTRIC: ("transmittance", "eta"),
                 DIFF_TRANS: ("transmittance",),
                 WISCOMBE: ("transmittance",),
                 HANRAHAN_KRUEGER: ("transmittance", "eta", "alpha_u")}
+# the colour fields, which take the scene's channel count
+_COLOR_FIELDS = ("reflectance", "specular", "transmittance")
 
 
 @dataclass
@@ -302,6 +304,33 @@ class MaterialBuilder:
 
         if not self.rows:
             self.lambertian()
+        # spectral rendering: the colour fields widen to the widest row's
+        # channel count C; 3-wide uniform greys broadcast, anything else
+        # must be given at full width (mitsuba_tpu/bsdfs/table.py:336-358)
+        c = max(len(np.atleast_1d(r[k])) for r in self.rows
+                for k in _COLOR_FIELDS)
+
+        def widen(v):
+            v = np.asarray(v, np.float32).reshape(-1)
+            if v.shape[0] == c:
+                return v
+            if np.all(v == v[0]):
+                return np.full(c, v[0], np.float32)
+            raise ValueError(
+                f"color field of width {v.shape[0]} cannot widen to the "
+                f"scene's {c} spectral channels unless it is uniform")
+
+        if c != 3:
+            if any(r["kind"] == ROUGH_CONDUCTOR for r in self.rows):
+                # the reference keeps cond_eta / cond_k 3-wide and fails
+                # at render on such a scene; the port refuses it here
+                raise ValueError(
+                    f"a rough conductor's cond_eta and cond_k stay 3-wide: "
+                    f"a scene of {c} spectral channels cannot hold one "
+                    "(ROADMAP C)")
+            for r in self.rows:
+                for k in _COLOR_FIELDS:
+                    r[k] = widen(r[k])
 
         def col(key, dtype):
             return torch.as_tensor(

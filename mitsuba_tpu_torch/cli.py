@@ -21,9 +21,15 @@ loader's "time_scenes") through `render_motion`; --guided or `guiding`
 otherwise through `render_guided` (surface path guiding); everything
 else through `render` (a subsurface scene fills its irradiance cache
 there). Shapes' interior media are routed as the reference routes them:
-by the integrator, never to `render_volpath_media`. Not ported, each
-raising NotImplementedError: --server and --listen-stdio (ROADMAP A.10)
-and --gui (A.13).
+by the integrator, never to `render_volpath_media`.
+
+Other front ends, as the reference's (cli.py:75-87, :133-141):
+--server [--port N] serves renders over TCP (parallel/server.py
+`RenderServer`, port 7554 by default), --listen-stdio serves one session
+over stdin/stdout (`serve_pipe`, for `RenderClient.over_ssh`), and
+--gui [--gui-port N] serves the progressive preview of the first scene
+in the browser (gui.py `serve`). Each renders on the card, or on the CPU
+under --cpu.
 """
 from __future__ import annotations
 
@@ -40,13 +46,15 @@ def main(argv=None):
         description="differentiable renderer (PyTorch / CUDA port)")
     ap.add_argument("scenes", nargs="*", help="scene XML file(s)")
     ap.add_argument("--server", action="store_true",
-                    help="run as a network render node (not ported)")
+                    help="run as a network render node (mtssrv analogue)")
     ap.add_argument("--port", type=int, default=None,
-                    help="server listen port (not ported)")
+                    help="server listen port (default 7554)")
     ap.add_argument("--listen-stdio", action="store_true",
-                    help="serve one client over stdin/stdout (not ported)")
+                    help="serve one session over stdin/stdout (mtssrv -ls, "
+                    "for SSH tunnels)")
     ap.add_argument("--gui", action="store_true",
-                    help="interactive preview (not ported)")
+                    help="interactive progressive preview in the browser "
+                    "(mtsgui analogue; an HTTP viewport)")
     ap.add_argument("--guided", action="store_true",
                     help="path-guided rendering (the surfaces' scatter "
                     "directions, or a medium's)")
@@ -75,13 +83,26 @@ def main(argv=None):
     ap.add_argument("-j", type=int, default=1, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
+    device = "cpu" if args.cpu else "cuda"
     if args.server or args.listen_stdio:
-        raise NotImplementedError(
-            "the render server is not ported (ROADMAP A.10)")
-    if args.gui:
-        raise NotImplementedError("the GUI is not ported (ROADMAP A.13)")
+        from mitsuba_tpu_torch.parallel.server import (
+            DEFAULT_PORT, RenderServer, serve_pipe,
+        )
+
+        if args.listen_stdio:
+            serve_pipe(sys.stdin.buffer, sys.stdout.buffer, device=device)
+            return 0
+        srv = RenderServer(port=args.port or DEFAULT_PORT, device=device)
+        if not args.quiet:
+            print(f"mitsuba_tpu_torch render node listening on port "
+                  f"{srv.port}", flush=True)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        return 0
     if not args.scenes:
-        ap.error("scene XML file(s) required")
+        ap.error("scene XML file(s) required (or --server)")
 
     params = {}
     for d in args.define:
@@ -98,7 +119,6 @@ def main(argv=None):
     from mitsuba_tpu_torch.io.xml import load_scene
     from mitsuba_tpu_torch.render.sampler import PATTERNS
 
-    device = "cpu" if args.cpu else "cuda"
     rc = 0
     for scene_path in args.scenes:
         out = args.output or os.path.splitext(scene_path)[0] + ".exr"
@@ -127,6 +147,19 @@ def main(argv=None):
             remat=False,
             rfilter=args.rfilter or cfg.get("rfilter", "box"),
         )
+        if args.gui:
+            from mitsuba_tpu_torch.gui import serve
+
+            httpd, session, thread = serve(scene, pcfg, port=args.gui_port)
+            try:
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                session.stop = True
+                httpd.server_close()
+                thread.join(timeout=60)
+            return 0
         if not args.quiet:
             print(
                 f"rendering {scene_path}: {scene.width}x{scene.height} "

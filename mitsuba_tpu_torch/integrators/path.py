@@ -641,13 +641,12 @@ def _add_emission(L, em_w, mask, term):
     return L + (term if em_w == 1.0 else em_w * term)
 
 
-def camera_samples(scene, cfg: PathConfig, seed: int = 0, morton=None):
-    """The camera rays and sampler of `render`: lane = pixel * spp +
-    sample, with pixels in Morton order if `morton` (default: on the
-    cluster backend). Returns (ray, sampler, offset, inv_lane): offset the
-    (N, 2) sub-pixel positions of cfg.pattern, inv_lane restoring
-    scanline lane order (None without Morton order)."""
-    w, h, spp = scene.width, scene.height, cfg.spp
+def lane_ids(scene, spp: int, morton=None):
+    """The lanes of `render`: lane = pixel * spp + sample, with pixels in
+    Morton order if `morton` (default: on the cluster backend). Returns
+    (pixel_id, sample_id, inv_lane), int32 ids on the scene's device,
+    inv_lane restoring scanline lane order (None without Morton order)."""
+    w, h = scene.width, scene.height
     n = w * h * spp
     dev = scene.device
     lane = torch.arange(n, dtype=torch.int32, device=dev)
@@ -663,15 +662,32 @@ def camera_samples(scene, cfg: PathConfig, seed: int = 0, morton=None):
         inv_lane = torch.as_tensor(np.argsort(lane_tgt), device=dev)
     else:
         pixel_id = lane // spp
-    sample_id = lane % spp
+    return pixel_id, lane % spp, inv_lane
+
+
+def camera_rays(scene, cfg: PathConfig, seed, pixel_id, sample_id):
+    """The camera rays and sampler of the lanes (pixel_id, sample_id), any
+    subset of `lane_ids`' (each lane's draws depend on its ids alone).
+    Returns (ray, sampler, offset): offset the (N, 2) sub-pixel
+    positions of cfg.pattern."""
+    w, h = scene.width, scene.height
     px = (pixel_id % w).to(torch.float32)
     py = (pixel_id // w).to(torch.float32)
     sampler = Sampler(seed, pixel_id, sample_id)
     jitter = sampler.next_2d()
-    offset = sample_position(cfg.pattern, sample_id, spp, jitter)
+    offset = sample_position(cfg.pattern, sample_id, cfg.spp, jitter)
     uv = torch.stack([(px + offset[:, 0]) / w, (py + offset[:, 1]) / h],
                      dim=-1)
-    return scene.camera.sample_ray(uv), sampler, offset, inv_lane
+    return scene.camera.sample_ray(uv), sampler, offset
+
+
+def camera_samples(scene, cfg: PathConfig, seed: int = 0, morton=None):
+    """The camera rays and sampler of `render` (`lane_ids`, then
+    `camera_rays`). Returns (ray, sampler, offset, inv_lane)."""
+    pixel_id, sample_id, inv_lane = lane_ids(scene, cfg.spp, morton)
+    ray, sampler, offset = camera_rays(scene, cfg, seed, pixel_id,
+                                       sample_id)
+    return ray, sampler, offset, inv_lane
 
 
 def camera_wavefront(scene, cfg: PathConfig, seed: int = 0, morton=None):

@@ -3,11 +3,18 @@ mitsuba_tpu_torch`) on the CPU (`--cpu`): the file it writes equals the
 library's render of the same scene and seed (`io.xml.load_scene` +
 `render` or `render_volpath`) bit for bit, EXR and PFM exactly, LDR
 formats (JPEG too) through the same sRGB curve; `-x` skips a file that
-exists; each
-flag of the reference's CLI that is not ported raises
-NotImplementedError.
+exists; the other front ends serve in a child process under --cpu:
+--server answers a ping on its port, --listen-stdio renders cornell.xml
+through `RenderClient.over_ssh(ssh_cmd=())` equal to the library's
+render, --gui serves /state and a first pass.
 """
+import json
 import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -152,27 +159,101 @@ def _hair_scene(tmp_path):
     return str(hair)
 
 
-# --guided without a medium (surface path guiding) is ported
-# (tests/test_torch_guided_path.py), and so is the analytic hair (ROADMAP
-# A.12, tests/test_torch_hair.py): its case keeps its id, cornell.xml and
-# then a scene file with a hair shape rendering guided to one output,
-# which the second render writes last
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _child(args):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.Popen([sys.executable, "-m", "mitsuba_tpu_torch",
+                             *args], cwd=REPO, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+
+
+def _poll(proc, fn, seconds=120):
+    """fn() once it stops raising OSError, while the child lives."""
+    deadline = time.monotonic() + seconds
+    while True:
+        assert proc.poll() is None, proc.stderr.read().decode()[-2000:]
+        try:
+            return fn()
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def _stop(proc):
+    proc.terminate()
+    proc.wait(timeout=30)
+    proc.stderr.close()
+
+
+def _front_end(flags):
+    from mitsuba_tpu_torch.parallel.server import RenderClient
+
+    if flags == ["--listen-stdio"]:
+        with RenderClient.over_ssh(ssh_cmd=(), remote_cmd=(
+                sys.executable, "-m", "mitsuba_tpu_torch", "--cpu",
+                "--listen-stdio")) as c:
+            assert c.ping() == {"status": "ok", "devices": 1,
+                                "backend": "cpu"}
+            with open(CORNELL) as f:
+                img = c.render(f.read(), defines=PARAMS,
+                               base_dir=os.path.dirname(CORNELL))
+        assert np.array_equal(img, _library())
+        assert c._proc.returncode == 0
+        return
+    port = _free_port()
+    if flags == ["--server"]:
+        proc = _child(["--server", "--cpu", "-q", "--port", str(port)])
+        try:
+            with _poll(proc, lambda: RenderClient("127.0.0.1", port)) as c:
+                assert c.ping()["backend"] == "cpu"
+        finally:
+            _stop(proc)
+        return
+    proc = _child(["--gui", "--cpu", "--gui-port", str(port), CORNELL,
+                   *DEFS])
+
+    def state():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/state",
+                                    timeout=10) as r:
+            st = json.loads(r.read())
+        if st["pass"] < 1:
+            raise OSError("no pass yet")
+        return st
+    try:
+        st = _poll(proc, state)
+    finally:
+        _stop(proc)
+    assert (st["width"], st["height"]) == (12, 8) and st["spp"] >= 2
+
+
+# the front ends raised NotImplementedError until they were ported
+# (ROADMAP A.10, A.13): their cases now serve, each in a child process on
+# the CPU; --guided without a medium (surface path guiding,
+# tests/test_torch_guided_path.py) and the analytic hair (A.12,
+# tests/test_torch_hair.py) keep their case, cornell.xml and then a scene
+# file with a hair shape rendering guided to one output, which the
+# second render writes last
 @pytest.mark.parametrize("flags,item", [
     (["--server"], "A.10"), (["--listen-stdio"], "A.10"),
     (["--gui"], "A.13"), (["--guided", "hair.xml"], "A.12")])
-def test_unported_flags_raise(tmp_path, flags, item):
-    hair = _hair_scene(tmp_path)
-    scenes = [hair for f in flags if f == "hair.xml"]
-    flags = [f for f in flags if f != "hair.xml"]
-    out = str(tmp_path / "x.exr")
-    if scenes:
-        assert main(["--cpu", "-q", CORNELL, *scenes, *DEFS, "-o", out,
-                     *flags]) == 0
-        img = bitmap.read_exr(out)
-        assert img.shape == (8, 12, 3) and np.isfinite(img).all()
+def test_front_ends_serve_and_guided_hair_renders(tmp_path, flags, item):
+    if "hair.xml" not in flags:
+        _front_end(flags)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--cpu", CORNELL, *DEFS, "-o", out, *flags])
+    hair = _hair_scene(tmp_path)
+    out = str(tmp_path / "x.exr")
+    assert main(["--cpu", "-q", CORNELL, hair, *DEFS, "-o", out,
+                 "--guided"]) == 0
+    img = bitmap.read_exr(out)
+    assert img.shape == (8, 12, 3) and np.isfinite(img).all()
 
 
 # a .jpg output raised until JPEG was ported: its case holds the file the

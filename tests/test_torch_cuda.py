@@ -1910,3 +1910,79 @@ def test_subsurface_gradient_peak_at_full_width(cuda, profile):
         assert bool(torch.isfinite(x.grad).all()), k
         assert float(x.grad.abs().max()) > 0, k
     assert peak < 40, peak
+
+
+def test_spectral_furnace_on_the_card(cuda):
+    """tests/test_spectral.py:83's furnace at n = 8 channels on the card,
+    brute (16x16 px, 96 spp, depth 3, seed 11): one #1 launch a bounce,
+    each channel within 5% of Le_c (1 + a_c + a_c^2)."""
+    import torch_bsdf_cases as zc
+    import torch_spectral_cases as sc
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+
+    a, le = sc.furnace_colours()
+    scene = sc.furnace(zc.port_modules(), a, le, device=cuda)
+    before = ip.LAUNCHES
+    img, _ = render(scene, PathConfig(max_depth=3, spp=96), seed=11)
+    torch.cuda.synchronize()
+    assert ip.LAUNCHES - before == 3
+    assert img.shape == (16, 16, sc.N_CH)
+    np.testing.assert_allclose(img.mean(dim=(0, 1)).cpu().numpy(),
+                               sc.furnace_expected(a, le, 3), rtol=0.05)
+
+
+def test_server_round_trip_on_the_card(cuda):
+    """A RenderServer on the card: ping reports it, and scenes/cornell.xml
+    at 64x64x4 comes back equal to the library's render on the card bit
+    for bit, one #1 launch a bounce."""
+    import os
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+    from mitsuba_tpu_torch.io.xml import load_scene
+    from mitsuba_tpu_torch.parallel.server import RenderClient, RenderServer
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "cornell.xml")
+    defs = dict(depth=5, spp=4, width=64, height=64)
+    srv = RenderServer("127.0.0.1", 0, device=cuda)
+    srv.start()
+    try:
+        with RenderClient("127.0.0.1", srv.port) as c:
+            info = c.ping()
+            before = ip.LAUNCHES
+            with open(path) as f:
+                remote = c.render(f.read(), defines=defs,
+                                  base_dir=os.path.dirname(path))
+            launched = ip.LAUNCHES - before
+    finally:
+        srv.stop()
+    assert info == {"status": "ok", "devices": torch.cuda.device_count(),
+                    "backend": "cuda"}
+    assert launched == 5
+    scene, cfg = load_scene(path, params=defs, device=cuda)
+    want, _ = render(scene, PathConfig(max_depth=cfg["maxDepth"],
+                                       spp=cfg["sampleCount"], remat=False))
+    assert np.array_equal(remote, want.cpu().numpy())
+
+
+def test_sharded_render_world_one_on_the_card(cuda, tmp_path):
+    """render_sharded over an NCCL group of this process alone equals
+    render on the card bit for bit (the all-gather a copy)."""
+    import torch.distributed as dist
+
+    from mitsuba_tpu_torch.integrators import PathConfig, render
+    from mitsuba_tpu_torch.parallel import make_mesh, render_sharded
+    from mitsuba_tpu_torch.render.scene import cornell_box
+
+    scene = cornell_box(64, 64, device=cuda)
+    cfg = PathConfig(max_depth=5, spp=4, remat=False)
+    want, aux = render(scene, cfg, seed=2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        img, saux = render_sharded(scene, cfg, seed=2, mesh=make_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(img, want)
+    assert int(saux["rays_traced"]) == int(aux["rays_traced"])

@@ -1,6 +1,7 @@
 """The port stands without JAX and without the JAX package: importing
 every module of mitsuba_tpu_torch (media/, the volumetric path tracer,
-guiding, io/volio.py, ops/probes.py and the probe drivers of probes/
+guiding, io/volio.py, ops/probes.py and the probe drivers of probes/,
+core/spectral.py, parallel/, graft_entry.py, the preview and gui.py
 among them) and rendering a brute and an instanced cluster scene (which
 builds BVHs with the port's own native builder) and the brute scene in a
 medium; rendering, guided, in a Gaussian-flake grid medium and a grid
@@ -22,6 +23,16 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the spectra, the sharded render, the render service, the graft entry
+# points and the preview
+NEW_MODULES = (
+    "mitsuba_tpu_torch.core.spectral", "mitsuba_tpu_torch.parallel",
+    "mitsuba_tpu_torch.parallel.mesh", "mitsuba_tpu_torch.parallel.multihost",
+    "mitsuba_tpu_torch.parallel.scaling", "mitsuba_tpu_torch.parallel.server",
+    "mitsuba_tpu_torch.graft_entry", "mitsuba_tpu_torch.utils.checkpoint",
+    "mitsuba_tpu_torch.utils.tonemap", "mitsuba_tpu_torch.render.preview",
+    "mitsuba_tpu_torch.gui")
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -56,6 +67,7 @@ assert {"mitsuba_tpu_torch.media.medium", "mitsuba_tpu_torch.media.phase",
         "mitsuba_tpu_torch.probes.r3_kernel", "mitsuba_tpu_torch.probes.r3_mt",
         "mitsuba_tpu_torch.probes.r3_refinebits",
         "mitsuba_tpu_torch.probes.r5_megakernel"} <= set(names)
+assert set(NEW_MODULES) <= set(names)
 # the exact cull's L1 walks and the v1 cluster intersector
 from mitsuba_tpu_torch.ops import cluster as cp
 from mitsuba_tpu_torch.ops import exact as ep
@@ -126,7 +138,8 @@ def _run(args, cwd, timeout=300):
 
 
 def test_port_imports_and_renders_without_jax():
-    proc = _run(["-c", _PROBE, ROOT], cwd=ROOT)
+    proc = _run(["-c", f"NEW_MODULES = {NEW_MODULES!r}\n" + _PROBE, ROOT],
+                cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     n_modules, jax_loaded, loaded = proc.stdout.split(maxsplit=2)
     assert int(n_modules) >= 20
@@ -153,6 +166,13 @@ def test_no_source_of_the_port_imports_the_reference():
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
     files += glob.glob(os.path.join(ROOT, "tests", "torch_*_cases.py"))
     assert len(files) >= 20
+    scanned = {os.path.relpath(f, ROOT) for f in files}
+    for name in NEW_MODULES:
+        path = name.replace(".", os.sep)
+        assert (path + ".py" in scanned
+                or os.path.join(path, "__init__.py") in scanned), name
+    assert {os.path.join("tests", f"torch_{c}_cases.py")
+            for c in ("spectral", "parallel")} <= scanned
     offenders = []
     for path in files:
         with open(path, encoding="utf-8") as f:
