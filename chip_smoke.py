@@ -370,14 +370,17 @@ Phases, each printing one JSON line:
      HGMMA: `probe_products`); rotate's bulk-copy ring at 8 and 32 KB
      over 1, S - 1, S, S + 1 and 512 items on 1 and 8,192 copies, with
      its stages, shared memory, registers and SASS (it must issue UBLKCP:
-     `rotate_ring`); and on config 3's own Plücker rows and bounce rays,
-     where the plain versions' sign errors against float64 answer ROADMAP
-     A.5 (`plucker_signs`); then,
+     `rotate_ring`); grid's instance of the same ring and gate's passes
+     at their edges on planted rows, 1 and 8,192 copies (grid must issue
+     UBLKCP, gate LDG.E.128: `grid_gate`); and on config 3's own Plücker rows and
+     bounce rays, where the plain versions' sign errors against float64
+     answer ROADMAP A.5 (`plucker_signs`); then,
      every launch count
      set to 0 just before and read just after, the five probe drivers at
      the scripts' sizes (a line per probe and form), and the library
      yardsticks (torch.matmul on the products' shapes, table[idx] on the
-     gathers'), timed here only.
+     gathers', an index and a sum on grid's, gate's and rotate's), timed
+     here only.
 
 The last entry points and the spectra, after the integrators (#1, and
 #3 in the preview's VPL frame): "spectral_furnace", tests/test_spectral.py
@@ -2341,7 +2344,8 @@ def rotate_ring(device):
     """rotate's bulk-copy ring: for 8 and 32 KB blocks its stages, shared
     memory, registers and blocks a SM (`rotate_info`), bit for bit with
     the plain version at 1, S - 1, S, S + 1 and 512 items (ids repeated)
-    on 1 and 8,192 copies; and the bulk copies in its SASS (UBLKCP, the
+    on 1 and 8,192 copies; and the bulk copies in the SASS of its
+    instances of the ring (`ring_kernel<RotateSums<W>>`; UBLKCP, the
     instruction of cp.async.bulk): the phase fails without them."""
     from mitsuba_tpu_torch.ops import build as nv
     from mitsuba_tpu_torch.ops import probes as pr
@@ -2364,7 +2368,9 @@ def rotate_ring(device):
                     bad.append((kb, n, blocks))
         res[f"{kb} KB"] = info
     torch.cuda.synchronize()
-    sass = sass_counts(nv.lib_path(pr.SOURCE), ("rotate_kernel",))
+    sass = {f: c for f, c in sass_counts(nv.lib_path(pr.SOURCE),
+                                         ("ring_kernel",)).items()
+            if "RotateSums" in f}
     phase("rotate_ring", ring_bytes=pr.RING_BYTES, differs=bad, sass=sass,
           **res)
     if bad:
@@ -2373,6 +2379,102 @@ def rotate_ring(device):
     if not sass or not all(c["UBLKCP"] > 0 for c in sass.values()):
         raise AssertionError(f"rotate issues no bulk copy: {sass}")
     return dict(res, sass=sass)
+
+
+def _planted(rng, shape, device):
+    """Standard normal values, one in five scaled by 1e7: sums taken in
+    another order than the plain version's round otherwise."""
+    x = rng.standard_normal(shape)
+    x[rng.random(shape) < 0.2] *= 1e7
+    return torch.as_tensor(x.astype(np.float32), device=device)
+
+
+def grid_gate(device):
+    """grid's ring (fetch; `ring_kernel<GridRow0>`) and gate's passes:
+    grid's group, stages, shared memory, registers and blocks a SM
+    (`grid_info`), bit for bit with the plain version, fetch and no
+    fetch, at 0, 1, G - 1, G, G + 1, S G - 1, S G, S G + 1 and 512 items
+    (ids repeated, the last block among them) on 1 and 8,192 copies;
+    gate bit for bit at its pass, batch and chunk edges with every gate
+    open, closed, alternating and drawn, on 1 and 8,192 copies. Rows are planted with large and small values. The
+    phase fails where a result differs, where grid's instance issues no
+    bulk copy (UBLKCP) or gate's SASS has no 128-bit load (LDG.E.128)."""
+    from mitsuba_tpu_torch.ops import build as nv
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng = np.random.default_rng(27)
+    bad = []
+
+    def ints(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+    def hold(tag, fn, ref, blocks):
+        # one launch, every copy the plain version's bit for bit
+        n0 = pr.LAUNCHES[tag]
+        got = fn(blocks)
+        return pr.LAUNCHES[tag] == n0 + 1 and torch.equal(
+            got, ref.expand(blocks, 8, 128))
+
+    def listed(n, blocks_in):
+        # drawn ids, the first repeated (one block in several slots), the
+        # last block among them
+        ids = rng.integers(0, blocks_in, n)
+        if n > 3:
+            ids[1:4] = ids[0]
+        if n:
+            ids[n // 2] = blocks_in - 1
+        return ints(ids)
+
+    tri = _planted(rng, (2048, 4, 128), device)
+    info = pr.grid_info()
+    g_, s_ = info["group"], info["stages"]
+    for n in sorted({0, 1, g_ - 1, g_, g_ + 1, s_ * g_ - 1, s_ * g_,
+                     s_ * g_ + 1, PROBE_ITEMS}):
+        ids = listed(n, 2048)
+        for fetch in (True, False):
+            ref = pr.grid_ref(tri, ids, fetch)
+            for blocks in (1, 8192):
+                if not hold("grid", lambda b: pr.grid(tri, ids, fetch, b),
+                            ref, blocks):
+                    bad.append(("grid", n, fetch, blocks))
+
+    g = _planted(rng, (64, 512, 16), device)
+    gate_cases = 0
+    for n in sorted({0, 1, pr.GATE_PASS - 1, pr.GATE_PASS,
+                     pr.GATE_PASS + 1, 63, 64, 65, 127, 128, 129,
+                     pr.GATE_CHUNK - 1, pr.GATE_CHUNK, pr.GATE_CHUNK + 1,
+                     1100}):
+        ids = listed(n, 64)
+        for form, flags in (("open", np.ones(n)), ("closed", np.zeros(n)),
+                            ("alternating", np.arange(n) % 2),
+                            ("drawn", rng.integers(-1, 2, n))):
+            flags = ints(flags)
+            ref = pr.gate_ref(g, ids, flags)
+            for blocks in (1, 8192):
+                gate_cases += 1
+                if not hold("gate", lambda b: pr.gate(g, ids, flags, b),
+                            ref, blocks):
+                    bad.append(("gate", n, form, blocks))
+    torch.cuda.synchronize()
+    sass = sass_counts(nv.lib_path(pr.SOURCE), ("ring_kernel", "gate_kernel"),
+                       ops=("UBLKCP", "LDG.E.128", "LDS.128"))
+    grid_sass = {f: c for f, c in sass.items() if "GridRow0" in f}
+    gate_sass = {f: c for f, c in sass.items() if "gate_kernel" in f}
+    res = dict(grid=info, gate_cases=gate_cases,
+               gate_schedule=dict(pass_items=pr.GATE_PASS,
+                                  passes=pr.GATE_PASSES,
+                                  chunk=pr.GATE_CHUNK),
+               sass=dict(grid=grid_sass, gate=gate_sass), differs=bad)
+    phase("grid_gate", **res)
+    if bad:
+        raise AssertionError(f"grid_gate: differs from the plain versions "
+                             f"(or launched other than once) at {bad}")
+    if not grid_sass or not all(c["UBLKCP"] > 0 for c in grid_sass.values()):
+        raise AssertionError(f"grid issues no bulk copy: {grid_sass}")
+    if not gate_sass or not all(c["LDG.E.128"] > 0
+                                for c in gate_sass.values()):
+        raise AssertionError(f"gate has no 128-bit loads: {gate_sass}")
+    return res
 
 
 def _accepts(P):
@@ -2456,8 +2558,9 @@ def plucker_signs(cl, bounce):
 
 def library_phase(device):
     """The library yardsticks, timed here only: one torch.matmul on each
-    product's shapes (float32, TF32, bf16) and table[idx] on the
-    gathers'."""
+    product's shapes (float32, TF32, bf16), table[idx] on the gathers',
+    and an index and a reduction on grid's, gate's and rotate's (32 KB)
+    inputs."""
     x = _probe_inputs(device)
     res = {}
 
@@ -2483,6 +2586,14 @@ def library_phase(device):
         idx = torch.as_tensor(rng.integers(0, k, 1 << 20).astype(np.int32),
                               device=device)
         both(f"gather_{k}", lambda: table[idx])
+    # the item loops' sums as an index and a reduction (another order
+    # than the kernels': timed, not compared)
+    tri, ids, g = x["tri_grid"], x["grid_ids"], x["g"][32]
+    both("grid", lambda: tri[:, 0][ids.long()].sum(0))
+    ids, flags = x["ids"], x["flags"]
+    both("gate", lambda: ((flags > 0).float()[:, None]
+                          * g[:, :8].sum(2)[ids.long()]).sum(0))
+    both("rotate_32", lambda: g[:, :8].sum(2)[ids.long()].sum(0))
     phase("library", unit="ms per call: CUDA events; _device: device time "
           "(probes.device_ms)", **res)
     return res
@@ -5027,6 +5138,35 @@ def rotate_entry(ring, lines):
     return dict(ring=ring, staged_gb_per_s=staged)
 
 
+def _slopes(lines, kernel, key):
+    """A probe's per-item slopes (ns) and rates by form, from the probes
+    phase's lines: {f"{key(line)} {form}": (ns, rate)}."""
+    return {f"{key(ln)} {ln['form']}": (ln["ns_per_unit"], ln.get("rate"))
+            for ln in lines if ln.get("kernel") == kernel}
+
+
+def grid_entry(floors, lines):
+    """grid's kernel line beside its bound: the ring (group, stages,
+    shared memory, registers, SASS) and r3_kernel's
+    per-item slopes (ns) with the staged rate (GB/s), per block and over
+    the card."""
+    sl = _slopes(lines, "grid",
+                 lambda ln: "fetch" if ln["shape"]["fetch"] else "no fetch")
+    return dict(ring=dict(floors["grid"], sass=floors["sass"]["grid"]),
+                ns_per_item={k: v[0] for k, v in sl.items()},
+                staged_gb_per_s={k: v[1] / 1e9 for k, v in sl.items()
+                                 if v[1]})
+
+
+def gate_entry(floors, lines):
+    """gate's kernel line beside its bound: its schedule, SASS, and
+    kernel_cost's per-item slopes (ns) with the gates open and closed."""
+    sl = _slopes(lines, "gate", lambda ln: f"gate {ln['shape']['gate']}")
+    return dict(schedule=floors["gate_schedule"],
+                sass=floors["sass"]["gate"],
+                ns_per_item={k: v[0] for k, v in sl.items()})
+
+
 def main(argv=None):
     import argparse
 
@@ -5308,6 +5448,7 @@ def main(argv=None):
     pc = compare_probes(device, case)
     forms = product_forms(device)
     ring = rotate_ring(device)
+    floors = grid_gate(device)
     signs = plucker_signs(cl, bounce3)
     lp, lines = probes_phase(device, case)
     lib = library_phase(device)
@@ -5327,6 +5468,7 @@ def main(argv=None):
         # a probe kernel's ms is its device time at the check's inputs,
         # the host's share left out; event_ms the CUDA events'
         r = pc[key]
+        extra.setdefault("parent_ms", r.get("parent_device_ms"))
         return entry(kname, source, replaces, lp[kname],
                      dict(r, ms=r["device_ms"]), library_ms, path="probes",
                      event_ms=r["ms"], check_phase=f"kernel_vs_plain "
@@ -5621,10 +5763,17 @@ def main(argv=None):
         probe("wl_probe", "mitsuba_tpu/ops/worklist_pallas.py:424",
               "wl_probe", source="worklist.cu"),
         probe("count", f"{cost}:228", "count"),
-        probe("gate", f"{cost}:228", "gate"),
+        probe("gate", f"{cost}:228", "gate", library_ms=lib["gate_device"],
+              **gate_entry(floors, lines)),
         probe("rotate", f"{cost}:270", ("rotate", 32),
+              library_ms=lib["rotate_32_device"],
               **rotate_entry(ring, lines)),
-        probe("grid", "scripts/exp_r3_kernel.py:70", ("grid", True)),
+        probe("grid", "scripts/exp_r3_kernel.py:70", ("grid", True),
+              library_ms=lib["grid_device"],
+              no_fetch_ms=pc[("grid", False)]["device_ms"],
+              no_fetch_parent_ms=pc[("grid", False)].get(
+                  "parent_device_ms"),
+              **grid_entry(floors, lines)),
         probe("fma", f"{cost}:111", "fma"),
         probe("mt", f"{cost}:188", "mt"),
         probe("v0", "scripts/exp_r3_mt.py:63", "v0"),

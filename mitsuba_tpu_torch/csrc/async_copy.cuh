@@ -97,20 +97,24 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// one arrival on `bar` that also tells it to expect `bytes` more, then the
-// bulk copy of `bytes` from src to dst, which counts them on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  const unsigned b = smem_addr(bar);
+// one arrival on `bar` that also tells it to expect `bytes` more, which
+// the bulk copies counted on it bring
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
+                                                      unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(b),
+                   "r"(smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// the bulk copy of `bytes` from src to dst, which counts them on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(b)
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -3,10 +3,14 @@
 //
 // Replace the TPU cost probes of scripts/ (each a pallas_call):
 //   count_kernel       <- the launch floor behind every grid step
-//   gate_kernel        <- exp_kernel_cost.py:228 `run_empty`
-//   rotate_kernel      <- exp_kernel_cost.py:270 `run_dma_rotate`, each
-//                         item's block staged by a TMA bulk-copy ring
-//   grid_kernel        <- exp_r3_kernel.py:70 `bench_grid_floor`
+//   gate_kernel        <- exp_kernel_cost.py:228 `run_empty`, the items 16
+//                         a pass, 64 in flight, folded in item order
+//   ring_kernel<RotateSums<W>> <- exp_kernel_cost.py:270 `run_dma_rotate`
+//   ring_kernel<GridRow0>      <- exp_r3_kernel.py:70 `bench_grid_floor`
+//                         with fetch; both instances of one TMA bulk-copy
+//                         ring that stages each item's block (grid: 32
+//                         items under one wait)
+//   grid_loop_kernel   <- the same without fetch
 //   fma_kernel         <- exp_kernel_cost.py:111 `run_vpu_fma`
 //   mt_kernel          <- exp_kernel_cost.py:188 `run_vpu_mt`
 //   v0, v1, packed_kernel <- exp_r3_mt.py:63 `run_variant` (V0-V4; v1 also
@@ -28,7 +32,10 @@
 // over several blocks (their section says how). What
 // each probe costs is what it measures: a floor (launch, item loop,
 // staging), an issue rate (FMA, Moeller-Trumbore, products) or a memory
-// path (gather).
+// path (gather). The floors keep the card's own means in flight: the
+// staging floors (rotate, grid) a ring of bulk copies, the gated loop
+// (gate) 64 items' row loads at once, each with its sums in the plain
+// version's order.
 //
 // A step whose inputs do not change from step to step reads its operands
 // at an offset `step & zero`, where `zero` is 0 at every call: the
@@ -70,15 +77,7 @@ __global__ void count_kernel(int* count) {
   if (blockIdx.x == 0 && threadIdx.x == 0) count[0] += 1;
 }
 
-// the 8 row sums of an item's (rows, 16) block, each an ordered 16-term
-// sum; thread r < 8 keeps row r's running total
-__device__ __forceinline__ float row_sum(const float* row) {
-  float s = row[0];
-#pragma unroll
-  for (int c = 1; c < ROW_COLS; ++c) s = s + row[c];
-  return s;
-}
-
+// the block's copy of the result: row r of out is thread r's acc
 __device__ __forceinline__ void write_rows(float acc, float* out) {
   __shared__ float sums[ROWS];
   const int l = threadIdx.x;
@@ -88,59 +87,10 @@ __device__ __forceinline__ void write_rows(float acc, float* out) {
   for (int r = 0; r < ROWS; ++r) o[r * LANES + l] = sums[r];
 }
 
-// run_empty: an item loop gated per item by flags[i]; an open gate adds the
-// row sums of block ids[i] of g (B, rows, 16), read from device memory
-__global__ void __launch_bounds__(LANES)
-gate_kernel(const float* __restrict__ g, int rows,
-            const int* __restrict__ ids, const int* __restrict__ flags,
-            int n, float* __restrict__ out) {
-  const int l = threadIdx.x;
-  float acc = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    if (flags[i] > 0 && l < ROWS)
-      acc = acc + row_sum(g + ((size_t)ids[i] * rows + l) * ROW_COLS);
-  }
-  write_rows(acc, out);
-}
-
-// run_dma_rotate: per item the whole block ids[i] of g (B, block_floats)
-// staged in shared memory, then the row sums of its first 8 rows, in item
-// order. The TPU kernel fetched the next block by DMA while it summed the
-// current one (Pallas's double-buffered BlockSpec pipeline); here a ring
-// of `stages` blocks in dynamic shared memory is filled by TMA bulk copies
-// (async_copy.cuh: one instruction a block, its bytes counted on the
-// stage's "full" mbarrier), item i in stage i % stages.
-//
-// Producers: lane 0 of warps 1-3, item i by warp 1 + i % 3 (its next id
-// loaded an item ahead). Before it refills a stage, a producer waits on
-// the stage's "empty" mbarrier for the phase in which the consumer read
-// the item before (those reads ordered before the copy's writes by the
-// barrier's release and acquire and a proxy fence), sets the "full"
-// barrier to expect the block's bytes and issues the copy. Consumer: warp
-// 0, W items a batch (W groups of 8 lanes; W = 4 where the ring has 8
-// stages or more, else 2 or 1): group j waits for item W b + j's phase
-// and sums its rows (16 terms in order, read as float4), lanes 0-7 add
-// the W row sums in item order through shuffles, and after the warp's
-// barrier each group's lane 0 releases its stage. So the result is the
-// plain version's, bit for bit.
-//
-// What bounds it on this card (H100 80GB HBM3, 700 W): the latency of a
-// wait on an mbarrier, not the copy engine or the L2. A ring that one
-// thread issues and waits on item by item runs at one rate an item from
-// 2 to 32 KB and at any depth; only more waits in flight (more issuers,
-// more items a wait) go faster. kernel_cost's per-block slopes give ~67
-// ns an item at 8 KB and ~161 ns at 32 KB (~120 and ~200 GB/s into one
-// SM). The 64 blocks a run rotates (2 MB at 32 KB) stay in L2.
-// ops/probes.py `ring_stages` fills RING_BYTES (192 KB: 6 stages of
-// 32 KB, 24 of 8 KB; one block a SM), at most RING_MAX_STAGES.
-
-#define RING_MAX_STAGES 32
-#define RING_BAR_BYTES (2 * RING_MAX_STAGES * 8)
-#define RING_PRODUCERS 3
-#define SMEM_MAX 232448       // bytes of shared memory a block may have
-
-__device__ __forceinline__ float row_sum4(const float4* row) {
-  const float4 a = row[0], b = row[1], c = row[2], d = row[3];
+// a row of 16 floats, read as four float4, summed in order: the ordered
+// 16-term row sum of run_empty and run_dma_rotate
+__device__ __forceinline__ float sum16(const float4 a, const float4 b,
+                                       const float4 c, const float4 d) {
   const float v[ROW_COLS] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
                              c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
   float s = v[0];
@@ -149,61 +99,275 @@ __device__ __forceinline__ float row_sum4(const float4* row) {
   return s;
 }
 
-static int ring_smem(int block_floats, int stages) {
-  return RING_BAR_BYTES + stages * block_floats * (int)sizeof(float);
+__device__ __forceinline__ float row_sum4(const float4* row) {
+  return sum16(row[0], row[1], row[2], row[3]);
 }
 
-// the items a batch: 4 where the ring leaves 4 stages or more to the
+// run_empty: an item loop gated per item by flags[i]; an open gate adds the
+// 8 row sums of block ids[i] of g (B, rows, 16), read in place from device
+// memory, in item order (the TPU kernel skipped a closed item's work, not
+// its grid step; rotate is the staged form).
+//
+// The block loads the list a chunk of GATE_CHUNK items at a time (the
+// whole of a 512-item list) into shared memory, with coalesced loads of
+// all 128 threads: an item's id, or -1 where its gate is closed. It takes
+// a chunk GATE_BATCH (64) items at a time, in passes of 16: in a pass
+// thread t reads row t % 8 of item t / 8 (an open one) as four 16-byte
+// loads and forms its ordered 16-term sum, written to one of two shared
+// arrays used in turn. The next batch's loads are issued before the
+// barrier that publishes this batch's sums, so they are in flight while
+// threads 0-7 fold the batch: each adds its row's sums of the batch's open
+// items to acc one after another, in item order, the plain version's
+// order (the only serial part: a tree across items would round
+// otherwise), the loop unrolled over the batch so that its reads of the
+// list (16 bytes at a time) and of the sums are issued ahead of the adds.
+// So the result is gate_ref's, bit for bit. g starts on 16
+// bytes and a row of 16 floats is 64 bytes, so every row read is aligned.
+//
+// What bounds it on this card (H100 80GB HBM3, 700 W): a batch's round
+// trip to L2 and the serial fold of its open items on 8 threads. A call
+// at 512 items (~256 open) takes ~8 us of device time, kernel_cost's
+// per-block slope ~15 ns an open item and 5-8 ns a closed one. Trial
+// forms measured slower: a fold that read the list item by item (a load
+// and a branch an item), and eight passes a batch over 8,192 copies.
+
+#define GATE_PASS (LANES / ROWS)      // items a pass: 16
+#define GATE_PASSES 4                 // passes a batch, loads in flight
+#define GATE_BATCH (GATE_PASS * GATE_PASSES)
+#define GATE_CHUNK 512                // items of the list in shared memory
+
+// the rows of this thread's items of the batch at b0 (item b0 + p * 16 +
+// t / 8, row t % 8), zero where the item is past the chunk or closed
+__device__ __forceinline__ void gate_loads(float4 (&v)[GATE_PASSES][4],
+                                           const float* __restrict__ g,
+                                           int rows, const int* list,
+                                           int b0, int cn) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < GATE_PASSES; ++p) {
+    const int k = b0 + p * GATE_PASS + t / ROWS;
+    const int id = k < cn ? list[k] : -1;
+    if (id >= 0) {
+      const float4* row = reinterpret_cast<const float4*>(
+          g + ((size_t)id * rows + t % ROWS) * ROW_COLS);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[p][q] = __ldg(row + q);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[p][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(LANES)
+gate_kernel(const float* __restrict__ g, int rows,
+            const int* __restrict__ ids, const int* __restrict__ flags,
+            int n, float* __restrict__ out) {
+  __shared__ __align__(16) int list[GATE_CHUNK];
+  __shared__ float sums[2][GATE_BATCH * ROWS];
+  const int t = threadIdx.x;
+  float acc = 0.0f;
+  int buf = 0;
+  for (int c0 = 0; c0 < n; c0 += GATE_CHUNK) {
+    const int cn = min(GATE_CHUNK, n - c0);
+    __syncthreads();                          // the last chunk folded
+    for (int k = t; k < cn; k += LANES)
+      list[k] = flags[c0 + k] > 0 ? ids[c0 + k] : -1;
+    __syncthreads();
+    float4 v[GATE_PASSES][4];
+    gate_loads(v, g, rows, list, 0, cn);
+    for (int b0 = 0; b0 < cn; b0 += GATE_BATCH) {
+      // sums[buf] was last folded two batches ago, before the barrier
+      // that the batch between passed
+      float* s = sums[buf];
+#pragma unroll
+      for (int p = 0; p < GATE_PASSES; ++p)
+        s[p * LANES + t] = sum16(v[p][0], v[p][1], v[p][2], v[p][3]);
+      if (b0 + GATE_BATCH < cn)               // the next batch, in flight
+        gate_loads(v, g, rows, list, b0 + GATE_BATCH, cn);
+      __syncthreads();                        // the batch's sums written
+      if (t < ROWS) {                         // in item order
+        const int m = min(GATE_BATCH, cn - b0);
+        const int4* gates = reinterpret_cast<const int4*>(list + b0);
+#pragma unroll
+        for (int k = 0; k < GATE_BATCH; k += 4) {
+          const int4 id = gates[k / 4];
+          const int open[4] = {id.x, id.y, id.z, id.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (k + j < m && open[j] >= 0)
+              acc = acc + s[(k + j) * ROWS + t];
+        }
+      }
+      buf ^= 1;
+    }
+  }
+  write_rows(acc, out);
+}
+
+// ---------------------------------------------------------------------------
+// The staging ring: run_dma_rotate (rotate) and bench_grid_floor's fetch
+// (grid), one kernel template over what its consumer does with an item
+// ---------------------------------------------------------------------------
+
+// Each item's block ids[i] of `src` (item_floats floats a block) is staged
+// in shared memory. The TPU kernels fetched the next block by DMA while
+// they used the current one (Pallas's double-buffered BlockSpec pipeline);
+// here a ring of `stages` stages in dynamic shared memory, `group` items a
+// stage (group q of the items, items q * group .. q * group + group - 1,
+// in stage q % stages), is filled by TMA bulk copies (async_copy.cuh: one
+// instruction an item, its bytes counted on the stage's "full" mbarrier).
+//
+// Producers: warps 1-3, group q by warp 1 + q % 3. Before it refills a
+// stage, a producer waits on the stage's "empty" mbarrier for the phase
+// in which the consumer read the group before (those reads ordered before
+// the copies' writes by the barrier's release and acquire and a proxy
+// fence), arrives on the "full" barrier expecting the group's bytes
+// (group x block, or the last, partial group's; a copy that lands first
+// takes the barrier's byte count below zero, and the phase waits for the
+// arrival all the same) and issues the copies, the ids loaded a group
+// ahead (the load's latency hidden by the wait). Which lanes do it
+// follows the group (H100 80GB HBM3, 700 W): with one item a stage
+// (rotate) lane 0 alone, as one thread: every lane waiting cost 8 KB
+// items ~26% and left 32 KB as it was, where this form runs ~2% behind
+// the parent's separate kernel with the same producer. With several (grid) every lane
+// waits, lane j copies item j and lane 0 also arrives; a warp barrier
+// between the arrival and the copies, or one lane waiting for the warp,
+// measured slower. Consumer: warp 0, which waits for a stage's phase,
+// uses its items in item order, and releases it (one arrival on
+// "empty").
+//
+// rotate (RotateSums<W>): a group is one block (up to 32 KB), W stages a
+// batch (W groups of 8 lanes; W = 4 where the ring has 8 stages or more,
+// else 2 or 1): group j waits for item W b + j's phase and sums its first
+// 8 rows (16 terms in order, read as float4), lanes 0-7 add the W row sums
+// in item order through shuffles. ops/probes.py `ring_stages` fills
+// RING_BYTES (192 KB: 6 stages of 32 KB, 24 of 8 KB; one block a SM), at
+// most RING_MAX_STAGES. What bounds it on this card (H100 80GB HBM3,
+// 700 W): the latency of a wait on an mbarrier, not the copy engine or
+// the L2. A ring that one thread issues and waits on item by item ran at
+// one rate an item from 2 to 32 KB and at any depth; only more waits in
+// flight (more issuers, more items a wait) go faster. kernel_cost's
+// per-block slopes give ~70 ns an item at 8 KB and ~160 ns at 32 KB
+// (~118 and ~205 GB/s into one SM). The 64 blocks a run rotates (2 MB at
+// 32 KB) stay in L2.
+//
+// grid (GridRow0): a block is bench_grid_floor's (4, 128), 2 KB, a quarter
+// of rotate's smallest; at one item a wait it would run at a wait's pace,
+// so a stage holds `group` items under one wait (ops/probes.py
+// `grid_plan`: GRID_GROUP items a stage, as many stages as RING_BYTES
+// holds). Lane l of warp 0 reads floats 4l .. 4l + 3 of row 0 of each
+// staged item (a float4) and adds them to its four running sums in item
+// order: each of the 128 sums is grid_ref's sequential sum, bit for bit.
+// GRID_GROUP is 32 (64 KB a wait, 3 stages): with 16 the fastest of 1,
+// 2, 4, 8, 16 and 32 items a stage, timed once as a call at 512 items on
+// one block and on 8,192 copies (H100 80GB HBM3, 700 W; the two tie on one
+// block and each led over the card in one of two runs); 8 items a stage
+// ran ~1.2x and 1.2-1.35x as long, one item a stage ~5x and ~2x (PERF.md
+// has the figures). What bounds it: the copies' rate into one SM, ~125
+// GB/s (r3_kernel's per-block slope, ~16 ns an item), below rotate's 32
+// KB rate (~200 GB/s): a 2 KB copy costs the copy engine more than its
+// bytes.
+
+#define RING_MAX_STAGES 32
+#define RING_BAR_BYTES (2 * RING_MAX_STAGES * 8)
+#define RING_PRODUCERS 3
+#define RING_MAX_GROUP 32             // items a stage: a producer lane each
+#define SMEM_MAX 232448       // bytes of shared memory a block may have
+
+struct Ring {
+  unsigned long long* full;   // a stage's copies have landed
+  unsigned long long* empty;  // a stage's items have been read
+  float* data;
+  int item_floats, group, stages;
+  __device__ float* stage(int s) const {
+    return data + (size_t)s * group * item_floats;
+  }
+};
+
+static int ring_smem(int item_floats, int group, int stages) {
+  return RING_BAR_BYTES + stages * group * item_floats * (int)sizeof(float);
+}
+
+// rotate's items a batch: 4 where the ring leaves 4 stages or more to the
 // producers, else 2 (or 1 in a ring of fewer than 4)
 static int ring_width(int stages) {
   return stages >= 8 ? 4 : stages >= 4 ? 2 : 1;
 }
 
-template <int W>
-__global__ void __launch_bounds__(LANES)
-rotate_kernel(const float* __restrict__ g, int block_floats,
-              const int* __restrict__ ids, int n, int stages,
-              float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char ring_raw[];
-  unsigned long long* full = reinterpret_cast<unsigned long long*>(ring_raw);
-  unsigned long long* empty = full + RING_MAX_STAGES;
-  float* ring = reinterpret_cast<float*>(ring_raw + RING_BAR_BYTES);
-  const int l = threadIdx.x, warp = l >> 5, grp = (l & 31) / ROWS,
-            r = l % ROWS;
-  const unsigned bytes = (unsigned)(block_floats * (int)sizeof(float));
-  float acc = 0.0f;
-  if (l == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 1);
-    }
-    mbar_init_fence();
+// one item a stage (rotate): lane 0 of the warp waits and issues alone,
+// item i's id loaded an item ahead; the other lanes have nothing to copy
+__device__ __forceinline__ void ring_produce_one(const Ring& r,
+                                                 const float* __restrict__ src,
+                                                 const int* __restrict__ ids,
+                                                 int n) {
+  if ((threadIdx.x & 31) != 0) return;
+  const unsigned item_bytes = (unsigned)r.item_floats * sizeof(float);
+  int i = (threadIdx.x >> 5) - 1;
+  int id = i < n ? ids[i] : 0;
+  for (; i < n; i += RING_PRODUCERS) {
+    const int next = i + RING_PRODUCERS < n ? ids[i + RING_PRODUCERS] : 0;
+    const int st = i % r.stages, use = i / r.stages;
+    if (use > 0) mbar_wait(r.empty + st, (unsigned)(use - 1) & 1);
+    fence_proxy_async();
+    mbar_arrive_expect_tx(r.full + st, item_bytes);
+    bulk_copy(r.stage(st), src + (size_t)id * r.item_floats, item_bytes,
+              r.full + st);
+    id = next;
   }
-  __syncthreads();
-  if (warp > 0 && (l & 31) == 0) {               // a producer
-    int i = warp - 1;
-    int id = i < n ? ids[i] : 0;
-    for (; i < n; i += RING_PRODUCERS) {
-      const int next = i + RING_PRODUCERS < n ? ids[i + RING_PRODUCERS] : 0;
-      const int st = i % stages, use = i / stages;
-      if (use > 0) mbar_wait(empty + st, (unsigned)(use - 1) & 1);
+}
+
+__device__ __forceinline__ void ring_produce(const Ring& r,
+                                             const float* __restrict__ src,
+                                             const int* __restrict__ ids,
+                                             int n) {
+  if (r.group == 1) {
+    ring_produce_one(r, src, ids, n);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const unsigned item_bytes = (unsigned)r.item_floats * sizeof(float);
+  const int groups = (n + r.group - 1) / r.group;
+  // the id of this lane's item of group q (0 where it has none)
+  auto id_of = [&](int q) {
+    const int i = q * r.group + lane;
+    return q < groups && lane < r.group && i < n ? ids[i] : 0;
+  };
+  int q = (threadIdx.x >> 5) - 1;
+  int id = id_of(q);
+  for (; q < groups; q += RING_PRODUCERS) {
+    const int first = q * r.group, m = min(r.group, n - first);
+    const int st = q % r.stages, use = q / r.stages;
+    const int next = id_of(q + RING_PRODUCERS);   // the warp's next group
+    if (use > 0) mbar_wait(r.empty + st, (unsigned)(use - 1) & 1);
+    if (lane < m) {
       fence_proxy_async();
-      bulk_load(ring + (size_t)st * block_floats,
-                g + (size_t)id * block_floats, bytes, full + st);
-      id = next;
+      if (lane == 0)
+        mbar_arrive_expect_tx(r.full + st, (unsigned)m * item_bytes);
+      bulk_copy(r.stage(st) + (size_t)lane * r.item_floats,
+                src + (size_t)id * r.item_floats, item_bytes, r.full + st);
     }
-  } else if (warp == 0) {                          // the consumer
+    id = next;
+  }
+}
+
+template <int W>
+struct RotateSums {
+  float acc = 0.0f;
+
+  __device__ void consume(const Ring& ring, int n) {
+    const int l = threadIdx.x, grp = l / ROWS, r = l % ROWS;
     int s0 = 0;                                    // item i0's stage
     unsigned p0 = 0;                               // and its phase's parity
     for (int i0 = 0; i0 < n; i0 += W) {
       const bool mine = grp < W && i0 + grp < n;
-      const bool wrap = s0 + grp >= stages;
-      const int st = wrap ? s0 + grp - stages : s0 + grp;
+      const bool wrap = s0 + grp >= ring.stages;
+      const int st = wrap ? s0 + grp - ring.stages : s0 + grp;
       float rs = 0.0f;
       if (mine) {
-        mbar_wait(full + st, p0 ^ (unsigned)wrap);
-        rs = row_sum4(reinterpret_cast<const float4*>(
-            ring + (size_t)st * block_floats + r * ROW_COLS));
+        mbar_wait(ring.full + st, p0 ^ (unsigned)wrap);
+        rs = row_sum4(reinterpret_cast<const float4*>(ring.stage(st) +
+                                                      r * ROW_COLS));
       }
 #pragma unroll
       for (int j = 0; j < W; ++j) {                // in item order
@@ -211,37 +375,93 @@ rotate_kernel(const float* __restrict__ g, int block_floats,
         if (l < ROWS && i0 + j < n) acc = acc + v;
       }
       __syncwarp();                                // the batch's rows read
-      if (mine && r == 0) mbar_arrive(empty + st);
+      if (mine && r == 0) mbar_arrive(ring.empty + st);
       s0 += W;
-      if (s0 >= stages) {
-        s0 -= stages;
+      if (s0 >= ring.stages) {
+        s0 -= ring.stages;
         p0 ^= 1;
       }
     }
   }
-  write_rows(acc, out);
+
+  __device__ void write(float* out) { write_rows(acc, out); }
+};
+
+struct GridRow0 {
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  __device__ void consume(const Ring& ring, int n) {
+    const int l = threadIdx.x;
+    int st = 0;
+    unsigned parity = 0;
+    for (int first = 0; first < n; first += ring.group) {
+      const int m = min(ring.group, n - first);
+      mbar_wait(ring.full + st, parity);
+      const float4* row = reinterpret_cast<const float4*>(ring.stage(st)) + l;
+      const int stride = ring.item_floats / 4;
+#pragma unroll 8
+      for (int j = 0; j < m; ++j) {                // in item order
+        const float4 v = row[j * stride];
+        acc.x = acc.x + v.x;
+        acc.y = acc.y + v.y;
+        acc.z = acc.z + v.z;
+        acc.w = acc.w + v.w;
+      }
+      __syncwarp();                                // the group's rows read
+      if (l == 0) mbar_arrive(ring.empty + st);
+      if (++st == ring.stages) {
+        st = 0;
+        parity ^= 1;
+      }
+    }
+  }
+
+  __device__ void write(float* out) {
+    const int l = threadIdx.x;
+    float* o = out + (size_t)blockIdx.x * ROWS * LANES;
+    if (l < 32) reinterpret_cast<float4*>(o)[l] = acc;
+    for (int r = 1; r < ROWS; ++r) o[r * LANES + l] = 0.0f;
+  }
+};
+
+template <class CONSUMER>
+__global__ void __launch_bounds__(LANES)
+ring_kernel(const float* __restrict__ src, int item_floats,
+            const int* __restrict__ ids, int n, int group, int stages,
+            float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char ring_raw[];
+  Ring ring;
+  ring.full = reinterpret_cast<unsigned long long*>(ring_raw);
+  ring.empty = ring.full + RING_MAX_STAGES;
+  ring.data = reinterpret_cast<float*>(ring_raw + RING_BAR_BYTES);
+  ring.item_floats = item_floats;
+  ring.group = group;
+  ring.stages = stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring.full + s, 1);
+      mbar_init(ring.empty + s, 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  CONSUMER c;
+  if (threadIdx.x >= 32)
+    ring_produce(ring, src, ids, n);
+  else
+    c.consume(ring, n);
+  c.write(out);
 }
 
-// bench_grid_floor: per item lane l adds row 0 of a (4, 128) block: block
-// ids[i] staged in shared memory (fetch), or block 0 in place
+// bench_grid_floor without fetch: per item lane l adds row 0 of block 0,
+// read in place once: n dependent adds, the item loop's floor
 __global__ void __launch_bounds__(LANES)
-grid_kernel(const float* __restrict__ tri, const int* __restrict__ ids, int n,
-            int fetch, float* __restrict__ out) {
-  __shared__ float blk[GRID_FLOATS];
+grid_loop_kernel(const float* __restrict__ tri, int n,
+                 float* __restrict__ out) {
   const int l = threadIdx.x;
+  const float v = tri[l];
   float acc = 0.0f;
-  if (fetch) {
-    for (int i = 0; i < n; ++i) {
-      const float* src = tri + (size_t)ids[i] * GRID_FLOATS;
-      for (int k = l; k < GRID_FLOATS; k += LANES) blk[k] = src[k];
-      __syncthreads();
-      acc = acc + blk[l];
-      __syncthreads();
-    }
-  } else {
-    const float v = tri[l];
-    for (int i = 0; i < n; ++i) acc = acc + v;
-  }
+  for (int i = 0; i < n; ++i) acc = acc + v;
   float* o = out + (size_t)blockIdx.x * ROWS * LANES;
   o[l] = acc;
   for (int r = 1; r < ROWS; ++r) o[r * LANES + l] = 0.0f;
@@ -1018,54 +1238,84 @@ extern "C" int mts_probe_count(int* count, int n_launches, int blocks,
   return 0;
 }
 
+// g 16-byte aligned (its rows are read as float4), rows >= 8; n may be 0
 extern "C" int mts_probe_gate(const float* g, int rows, const int* ids,
                               const int* flags, int n, int blocks, float* out,
                               void* stream) {
-  if (rows < ROWS) return (int)cudaErrorInvalidValue;
+  if (rows < ROWS || ((uintptr_t)g & 15) || n < 0)
+    return (int)cudaErrorInvalidValue;
   gate_kernel<<<blocks, LANES, 0, STREAM>>>(g, rows, ids, flags, n, out);
   return launched();
 }
 
-// the instance of rotate_kernel for a ring of `stages`
-static const void* rotate_instance(int stages) {
+// the instance of ring_kernel: grid's, or rotate's for a ring of `stages`
+static const void* ring_instance(int grid, int stages) {
+  if (grid) return (const void*)ring_kernel<GridRow0>;
   const int w = ring_width(stages);
-  return w == 4   ? (const void*)rotate_kernel<4>
-         : w == 2 ? (const void*)rotate_kernel<2>
-                  : (const void*)rotate_kernel<1>;
+  return w == 4   ? (const void*)ring_kernel<RotateSums<4>>
+         : w == 2 ? (const void*)ring_kernel<RotateSums<2>>
+                  : (const void*)ring_kernel<RotateSums<1>>;
 }
 
-// g 16-byte aligned, block_floats a multiple of 4 (the bulk copy's
-// rules), a ring of `stages` blocks (ops/probes.py ring_stages); n may be
-// 0 (the sums are then 0)
-extern "C" int mts_probe_rotate(const float* g, int block_floats,
-                                const int* ids, int n, int stages,
-                                int blocks, float* out, void* stream) {
-  if (block_floats < ROWS * ROW_COLS || block_floats > MAX_STAGE ||
-      block_floats % 4 || ((uintptr_t)g & 15) || n < 0 || stages < 1 ||
-      stages > RING_MAX_STAGES || ring_smem(block_floats, stages) > SMEM_MAX)
+// the ring's rules: blocks of a multiple of 4 floats and a source on 16
+// bytes (the bulk copy's), up to RING_MAX_GROUP items a stage, up to
+// RING_MAX_STAGES stages, all in a block's shared memory
+static bool bad_ring(int item_floats, int group, int stages) {
+  return item_floats <= 0 || item_floats % 4 || group < 1 ||
+         group > RING_MAX_GROUP || stages < 1 || stages > RING_MAX_STAGES ||
+         ring_smem(item_floats, group, stages) > SMEM_MAX;
+}
+
+static int ring_launch(int grid, const float* src, int item_floats,
+                       const int* ids, int n, int group, int stages,
+                       int blocks, float* out, void* stream) {
+  if (bad_ring(item_floats, group, stages) || ((uintptr_t)src & 15) || n < 0)
     return (int)cudaErrorInvalidValue;
-  const int smem = ring_smem(block_floats, stages);
-  const void* fn = rotate_instance(stages);
+  const int smem = ring_smem(item_floats, group, stages);
+  const void* fn = ring_instance(grid, stages);
   const cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {&g, &block_floats, &ids, &n, &stages, &out};
+  void* args[] = {&src, &item_floats, &ids, &n, &group, &stages, &out};
   const cudaError_t l = cudaLaunchKernel(fn, blocks, LANES, args,
                                          (size_t)smem, STREAM);
   return l != cudaSuccess ? (int)l : launched();
 }
 
-// rotate's resources on the current card at a ring of `stages` blocks of
-// block_floats: blocks resident per SM, registers per thread, shared
-// memory bytes a block (static and dynamic), local (spill) bytes per
-// thread, and the items a batch (W)
-extern "C" int mts_probe_rotate_info(int block_floats, int stages,
-                                     int* out) {
-  if (stages < 1 || stages > RING_MAX_STAGES ||
-      ring_smem(block_floats, stages) > SMEM_MAX)
+// a ring of `stages` blocks of block_floats (ops/probes.py ring_stages), an
+// item a stage; n may be 0 (the sums are then 0)
+extern "C" int mts_probe_rotate(const float* g, int block_floats,
+                                const int* ids, int n, int stages,
+                                int blocks, float* out, void* stream) {
+  if (block_floats < ROWS * ROW_COLS || block_floats > MAX_STAGE)
     return (int)cudaErrorInvalidValue;
-  const int dyn = ring_smem(block_floats, stages);
-  const void* fn = rotate_instance(stages);
+  return ring_launch(0, g, block_floats, ids, n, 1, stages, blocks, out,
+                     stream);
+}
+
+// fetch: the ring, `group` items a stage and `stages` stages
+// (ops/probes.py grid_plan); else the plain loop. n may be 0
+extern "C" int mts_probe_grid(const float* tri, const int* ids, int n,
+                              int fetch, int group, int stages, int blocks,
+                              float* out, void* stream) {
+  if (fetch)
+    return ring_launch(1, tri, GRID_FLOATS, ids, n, group, stages, blocks,
+                       out, stream);
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  grid_loop_kernel<<<blocks, LANES, 0, STREAM>>>(tri, n, out);
+  return launched();
+}
+
+// a ring instance's resources on the current card (grid's, or rotate's)
+// at `group` items of item_floats a stage and `stages` stages: blocks
+// resident per SM, registers per thread, shared memory bytes a block
+// (static and dynamic), local (spill) bytes per thread, and the items a
+// wait covers (rotate's W, grid's group)
+extern "C" int mts_probe_ring_info(int grid, int item_floats, int group,
+                                   int stages, int* out) {
+  if (bad_ring(item_floats, group, stages)) return (int)cudaErrorInvalidValue;
+  const int dyn = ring_smem(item_floats, group, stages);
+  const void* fn = ring_instance(grid, stages);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (e != cudaSuccess) return (int)e;
@@ -1079,15 +1329,8 @@ extern "C" int mts_probe_rotate_info(int block_floats, int stages,
   out[1] = attr.numRegs;
   out[2] = (int)attr.sharedSizeBytes + dyn;
   out[3] = (int)attr.localSizeBytes;
-  out[4] = ring_width(stages);
+  out[4] = grid ? group : ring_width(stages);
   return 0;
-}
-
-extern "C" int mts_probe_grid(const float* tri, const int* ids, int n,
-                              int fetch, int blocks, float* out,
-                              void* stream) {
-  grid_kernel<<<blocks, LANES, 0, STREAM>>>(tri, ids, n, fetch, out);
-  return launched();
 }
 
 extern "C" int mts_probe_fma(const float* a, const float* b, int n_ops,

@@ -12,13 +12,19 @@ per-block form, 8,192 for the whole card.
 
 * floors: `count` (a kernel that only counts its launches), `gate`
   (run_empty: an item loop gated per item, adding the 8 row sums of a
-  block read in place), `rotate` (run_dma_rotate: the same with each
-  item's block staged in shared memory, on a ring of `ring_stages`
-  blocks that TMA bulk copies fill ahead of the items summed, three
-  warps issuing and one waiting for up to four items at once: bound by
-  the latency of the waits on the ring's mbarriers; the staging floor
-  that #12's staging is judged against), `grid` (bench_grid_floor: row
-  0 of a 2 KB block per item, staged or in place);
+  block read in place; the list loaded once into shared memory, the
+  items 16 a pass, a thread a row, 64 items' row loads in flight while 8
+  threads fold the batch before in item order: bound by a batch's round
+  trip to L2 and that serial fold), `rotate` (run_dma_rotate: the same
+  with each item's block staged in shared memory, on a ring of
+  `ring_stages` blocks that TMA bulk copies fill ahead of the items
+  summed, three warps issuing and one waiting for up to four items at
+  once: bound by the latency of the waits on the ring's mbarriers; the
+  staging floor that #12's staging is judged against), `grid`
+  (bench_grid_floor: row 0 of a 2 KB block per item, staged or in
+  place; staged, an instance of rotate's ring whose stage holds
+  `grid_plan`'s GRID_GROUP items under one wait, so that a wait's
+  latency is paid once for 64 KB);
 * `fma` (run_vpu_fma): dependent fused multiply-adds;
 * `mt` (run_vpu_mt): csrc/mt.cuh's test of a resident cluster, the
   running nearest t and chunk per sublane;
@@ -90,12 +96,24 @@ def rel_err(got, ref) -> float:
     return float((got - ref)[fin].abs().max()) / max(scale, 1e-30)
 
 
-# rotate's ring: the shared memory its stages may fill (one block a SM;
-# 6 stages of 32 KB, 12 of 16 KB, 24 of 8 KB: from 16 KB down room for a
-# batch of 4 items being summed and 4 or more in flight), and the most
-# stages (csrc/probes.cu)
+# the staging ring of rotate and grid: the shared memory its stages may
+# fill (one block a SM; rotate's 6 stages of 32 KB, 12 of 16 KB, 24 of
+# 8 KB: from 16 KB down room for a batch of 4 items being summed and 4 or
+# more in flight), the most stages and the most items a stage (a producer
+# lane each; csrc/probes.cu)
 RING_BYTES = 192 * 1024
 RING_MAX_STAGES = 32
+RING_MAX_GROUP = 32
+# grid's items a stage, under one wait: 32 of 2 KB, 64 KB a wait, in 3
+# stages (with 16 the fastest of 1-32 on the card, per block and over
+# 8,192 copies: csrc/probes.cu's note)
+GRID_GROUP = 32
+# gate's schedule (csrc/probes.cu): items a pass (a thread a row of one),
+# passes a batch (the loads in flight while the batch before is folded),
+# items of the list in shared memory at once
+GATE_PASS = LANES // ROWS
+GATE_PASSES = 4
+GATE_CHUNK = 512
 
 
 # kernel launches since import, per probe (reset by callers that count)
@@ -119,7 +137,7 @@ def build() -> str:
     p, i = ctypes.c_void_p, ctypes.c_int
     sigs = {
         "count": [p, i, i], "gate": [p, i, p, p, i, i, p],
-        "rotate": [p, i, p, i, i, i, p], "grid": [p, p, i, i, i, p],
+        "rotate": [p, i, p, i, i, i, p], "grid": [p, p, i, i, i, i, i, p],
         "fma": [p, p, i, i, i, p], "mt": [p, i, p, i, i, i, p, p],
         "v0": [p, i, i, p], "v1": [p, i, p, i, i, i, p, p],
         "v2": [p, i, p, i, i, p, p], "v4": [p, i, p, i, i, p, p],
@@ -131,7 +149,7 @@ def build() -> str:
     for name, args in sigs.items():
         _FN[name] = nv.bind(SOURCE, f"mts_probe_{name}", args + [p])
     _FN["mm_info"] = nv.bind(SOURCE, "mts_probe_mm_info", [i, p])
-    _FN["rotate_info"] = nv.bind(SOURCE, "mts_probe_rotate_info", [i, i, p])
+    _FN["ring_info"] = nv.bind(SOURCE, "mts_probe_ring_info", [i, i, i, i, p])
     return log
 
 
@@ -156,19 +174,44 @@ def ring_stages(block_floats: int) -> int:
     return min(RING_MAX_STAGES, RING_BYTES // (4 * block_floats))
 
 
+def grid_plan(n: int) -> dict:
+    """grid's ring (fetch) for n items: GRID_GROUP 2 KB items a stage
+    (one wait), as many stages as RING_BYTES holds (at most
+    RING_MAX_STAGES); the items in `groups` groups of consecutive items,
+    group q in stage q % stages, the last holding `last` (0 without
+    items)."""
+    group = GRID_GROUP
+    stages = min(RING_MAX_STAGES, RING_BYTES // (4 * GRID_FLOATS * group))
+    groups = -(-n // group)
+    return dict(group=group, stages=stages, groups=groups,
+                last=n - (groups - 1) * group if groups else 0)
+
+
+def _ring_info(grid: int, item_floats: int, group: int, stages: int):
+    if "ring_info" not in _FN:
+        build()
+    out = (ctypes.c_int * 5)()
+    nv.check(_FN["ring_info"](grid, item_floats, group, stages, out),
+             "ring_info")
+    return dict(stages=stages, batch=out[4], blocks_per_sm=out[0],
+                registers=out[1], smem_bytes=out[2], local_bytes=out[3])
+
+
 def rotate_info(block_floats: int) -> dict:
     """rotate's resources on the current card for blocks of
     `block_floats` floats: its stages, the items its loop waits for at
     once (`batch`), blocks resident per SM, registers per thread, shared
     memory bytes a block (the ring and its barriers) and local (spill)
     bytes per thread."""
-    if "rotate_info" not in _FN:
-        build()
-    out = (ctypes.c_int * 5)()
-    stages = ring_stages(block_floats)
-    nv.check(_FN["rotate_info"](block_floats, stages, out), "rotate_info")
-    return dict(stages=stages, batch=out[4], blocks_per_sm=out[0],
-                registers=out[1], smem_bytes=out[2], local_bytes=out[3])
+    return _ring_info(0, block_floats, 1, ring_stages(block_floats))
+
+
+def grid_info() -> dict:
+    """grid's (fetch) resources on the current card, on grid_plan's ring:
+    as rotate_info, `group` (= `batch`) the items a wait covers."""
+    plan = grid_plan(0)
+    return dict(_ring_info(1, GRID_FLOATS, plan["group"], plan["stages"]),
+                group=plan["group"])
 
 
 def _on_card(*xs) -> bool:
@@ -205,6 +248,16 @@ def _need(x, dtype, shape, what):
     if x.dtype != dtype or tuple(x.shape) != tuple(shape):
         raise ValueError(f"{what}: expected {dtype} {tuple(shape)}, got "
                          f"{x.dtype} {tuple(x.shape)}")
+
+
+def _need_aligned(x, what, why):
+    """x contiguous and starting on 16 bytes (its kernel reads it `why`),
+    checked on the CPU as on the card."""
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous: {why}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what} must start on 16 bytes ({why}), not "
+                         f"{x.data_ptr() % 16} past")
 
 
 # ---------------------------------------------------------------------------
@@ -295,12 +348,24 @@ def gate_ref(g, ids, flags):
     return acc[:, None].expand(ROWS, LANES).contiguous()
 
 
+def _check_g(g, why, most_rows=None):
+    """g float32 (B, rows, 16), 8 <= rows (<= most_rows), contiguous and
+    on 16 bytes (its kernel reads it `why`)."""
+    rows = g.shape[1] if g.dim() == 3 else 0
+    if g.dtype != torch.float32 or g.dim() != 3 or g.shape[2] != ROW_COLS \
+            or rows < ROWS or (most_rows and rows > most_rows):
+        raise ValueError(f"g must be float32 (B, 8..{most_rows or ''}, 16), "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    _need_aligned(g, "g", why)
+
+
 def gate(g, ids, flags, blocks: int = 1):
-    """The gated item loop; (blocks, 8, 128)."""
+    """The gated item loop; (blocks, 8, 128). The kernel reads each row of
+    16 floats as four 16-byte loads: g must be float32, contiguous and
+    start on 16 bytes (a row is then 64 bytes)."""
     _need(ids, torch.int32, (ids.shape[0],), "ids")
     _need(flags, torch.int32, ids.shape, "flags")
-    if g.dim() != 3 or g.shape[1] < ROWS or g.shape[2] != ROW_COLS:
-        raise ValueError(f"g must be (B, rows >= 8, 16), got {tuple(g.shape)}")
+    _check_g(g, "its rows are read as float4")
     if not _on_card(g, ids, flags):
         return _copies(gate_ref(g, ids, flags), blocks)
     out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
@@ -320,18 +385,12 @@ def rotate(g, ids, blocks: int = 1):
     """The item loop staging each item's whole block (rows * 16 floats,
     at most 32 KB) in shared memory, on a ring of ring_stages(rows * 16)
     blocks that bulk copies fill; (blocks, 8, 128). The bulk copy takes a
-    source on 16 bytes and a multiple of 16 bytes: g must be contiguous
-    and start on 16 bytes, and a block of (rows, 16) floats is always a
-    multiple of 4 floats. No items (n = 0) are taken: the sums are 0."""
+    source on 16 bytes and a multiple of 16 bytes: g must be float32,
+    contiguous and start on 16 bytes, and a block of (rows, 16) floats is
+    always a multiple of 4 floats. No items (n = 0) are taken: the sums
+    are 0."""
     _need(ids, torch.int32, (ids.shape[0],), "ids")
-    if g.dim() != 3 or g.shape[2] != ROW_COLS or not (
-            ROWS <= g.shape[1] and g.shape[1] * ROW_COLS <= MAX_STAGE):
-        raise ValueError(f"g must be (B, 8..512, 16), got {tuple(g.shape)}")
-    if not g.is_contiguous():
-        raise ValueError("g must be contiguous: each block is one bulk copy")
-    if g.data_ptr() % 16:
-        raise ValueError(f"g must start on 16 bytes for the bulk copy, not "
-                         f"{g.data_ptr() % 16} past")
+    _check_g(g, "each block is one bulk copy", MAX_STAGE // ROW_COLS)
     if not _on_card(g, ids):
         return _copies(rotate_ref(g, ids), blocks)
     out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
@@ -356,15 +415,20 @@ def grid_ref(tri, ids, fetch: bool):
 
 def grid(tri, ids, fetch: bool, blocks: int = 1):
     """The near-empty item loop, with (fetch) or without a 2 KB block
-    staged per item; (blocks, 8, 128)."""
+    staged per item; (blocks, 8, 128). With fetch, the blocks go through
+    the bulk-copy ring of grid_plan(n), GRID_GROUP items a stage: tri
+    must be contiguous and start on 16 bytes (a block of 512 floats is a
+    multiple of 16 bytes). No items (n = 0) are taken: the sums are 0."""
     _need(ids, torch.int32, (ids.shape[0],), "ids")
     _need(tri, torch.float32, (tri.shape[0], 4, LANES), "tri")
+    _need_aligned(tri, "tri", "each block is one bulk copy")
+    plan = grid_plan(ids.shape[0])
     if not _on_card(tri, ids):
         return _copies(grid_ref(tri, ids, fetch), blocks)
     out = torch.empty((blocks, ROWS, LANES), dtype=torch.float32,
                       device=tri.device)
     _launch("grid", tri.device, _ptr(tri), _ptr(ids), ids.shape[0],
-            int(fetch), blocks, _ptr(out))
+            int(fetch), plan["group"], plan["stages"], blocks, _ptr(out))
     LAUNCHES["grid"] += 1
     return out
 

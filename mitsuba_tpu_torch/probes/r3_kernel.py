@@ -3,7 +3,9 @@ A-E of its docstring:
 
   A. the item-loop floor: a near-empty loop over W items, no block
      fetched (bench_grid_floor :70, fetch off);
-  B. the same staging a 2 KB block per item in shared memory (fetch on);
+  B. the same staging a 2 KB block per item in shared memory (fetch on;
+     rotate's bulk-copy ring, `shape["group"]` items a stage, the staged
+     rate beside);
   C. the Möller–Trumbore ceiling: `_mt_chunks`' form (ops/probes.py `v1`
      without u) on a resident 32-triangle block, R reps (bench_mt_ceiling
      :112);
@@ -169,10 +171,15 @@ def run(device="cuda", sizes=None, scene=None, case=None):
             device, lambda b, fetch=fetch: lambda n: pr.grid(
                 tri, items(n), fetch, blocks=b),
             s["grid"], s["grid_card"], unit="item",
+            rate=(lambda n, b: n * 2048 * b) if fetch else None,
+            rate_unit="staged B/s" if fetch else None,
             probe="bench_grid_floor", script=f"{SCRIPT}:70", kernel="grid",
             item="B" if fetch else "A",
             shape={"fetch": fetch, "block_bytes": 2048,
-                   "blocks": N_TRI_BLOCKS})
+                   "blocks": N_TRI_BLOCKS,
+                   **({"group": pr.GRID_GROUP,
+                       "stages": pr.grid_plan(0)["stages"]}
+                      if fetch else {})})
 
     c_tri = torch.full((K_CL, 16), 0.3, device=device)
     c_rays = torch.full((8, 128), 0.7, device=device)

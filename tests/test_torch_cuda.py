@@ -1354,6 +1354,86 @@ def test_probe_rotate_ring_matches_plain_version(cuda, kb):
         pr.rotate(torch.zeros(64, kb * 16, 32, device=cuda)[..., :16], ids)
 
 
+def _planted_probe(rng, shape, t):
+    """Standard normal values, one in five scaled by 1e7: a sum taken in
+    another order than the plain version's rounds otherwise."""
+    x = rng.standard_normal(shape)
+    x[rng.random(shape) < 0.2] *= 1e7
+    return t(x)
+
+
+def _probe_list(rng, n, blocks, t):
+    """Drawn ids, the first repeated, the last block among them."""
+    ids = rng.integers(0, blocks, n)
+    if n > 3:
+        ids[1:4] = ids[0]
+    if n:
+        ids[n // 2] = blocks - 1
+    return t(ids, np.int32)
+
+
+def test_probe_grid_ring_matches_plain_version(cuda):
+    """grid on rotate's bulk-copy ring (`ring_kernel<GridRow0>`, G items a
+    stage), fetch and no fetch, bit for bit with grid_ref at 0, 1, G - 1,
+    G, G + 1, S G - 1, S G, S G + 1 and 512 items, ids repeated and the
+    last block among them, on 1, 3 and 8,192 copies, one launch a call;
+    its resources; and the refusal of a misaligned tri on the card."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, 27)
+    info = pr.grid_info()
+    g_, s_ = info["group"], info["stages"]
+    assert (g_, s_) == (pr.GRID_GROUP, pr.grid_plan(0)["stages"]), info
+    assert info["batch"] == g_ and info["local_bytes"] == 0, info
+    assert info["smem_bytes"] <= 232448, info
+    tri = _planted_probe(rng, (2048, 4, 128), t)
+    for n in sorted({0, 1, g_ - 1, g_, g_ + 1, s_ * g_ - 1, s_ * g_,
+                     s_ * g_ + 1, 512}):
+        ids = _probe_list(rng, n, 2048, t)
+        for fetch in (True, False):
+            ref = pr.grid_ref(tri, ids, fetch)
+            for blocks in (1, 3, 8192):
+                before = pr.LAUNCHES["grid"]
+                got = pr.grid(tri, ids, fetch, blocks=blocks)
+                assert pr.LAUNCHES["grid"] == before + 1
+                assert torch.equal(got, ref.expand(blocks, 8, 128)), (
+                    n, fetch, blocks)
+    flat = torch.zeros(2048 * 512 + 4, device=cuda)
+    with pytest.raises(ValueError):
+        pr.grid(flat[1:1 + 2048 * 512].view(2048, 4, 128), ids, True)
+
+
+@pytest.mark.parametrize("form", ["open", "closed", "alternating", "drawn"])
+def test_probe_gate_matches_plain_version(cuda, form):
+    """gate's passes of 16 items (64 in flight, folded in item order) bit
+    for bit with gate_ref at its pass, batch and chunk edges and 512
+    items, every gate open, closed, alternating or drawn, planted rows,
+    ids repeated and the last block among them, on 1, 3 and 8,192
+    copies, one launch a call; and the refusals of a misaligned or
+    float64 g on the card."""
+    from mitsuba_tpu_torch.ops import probes as pr
+
+    rng, t = _probe_inputs(cuda, 28)
+    g = _planted_probe(rng, (64, 512, 16), t)
+    for n in (0, 1, 15, 16, 17, 63, 64, 65, 511, 512, 513, 1100):
+        ids = _probe_list(rng, n, 64, t)
+        flags = {"open": np.ones(n), "closed": np.zeros(n),
+                 "alternating": np.arange(n) % 2,
+                 "drawn": rng.integers(-1, 2, n)}[form]
+        flags = t(flags, np.int32)
+        ref = pr.gate_ref(g, ids, flags)
+        for blocks in (1, 3, 8192):
+            before = pr.LAUNCHES["gate"]
+            got = pr.gate(g, ids, flags, blocks=blocks)
+            assert pr.LAUNCHES["gate"] == before + 1
+            assert torch.equal(got, ref.expand(blocks, 8, 128)), (n, blocks)
+    flat = torch.zeros(64 * 512 * 16 + 4, device=cuda)
+    with pytest.raises(ValueError):
+        pr.gate(flat[1:1 + 64 * 512 * 16].view(64, 512, 16), ids, flags)
+    with pytest.raises(ValueError):
+        pr.gate(g.double(), ids, flags)
+
+
 @pytest.mark.parametrize("k", [512, 32768])
 def test_probe_gathers_match_plain_version(cuda, k):
     """Both gathers equal table[idx]; an index outside the table reads

@@ -1,6 +1,8 @@
 """The tile plan of the spread product probes (csrc/probes.cu `mm_cuda`,
 `mm_tf32`, `mm_bf16`; ops/probes.py `mm_plan`) on the CPU, where no
-kernel runs.
+kernel runs; and (at the end) the schedules of the item loops `grid`
+(its fetch form on the bulk-copy ring, `grid_plan`) and `gate` (passes
+of 16 items, folded in item order).
 
 A copy's product is cut into tiles of G's rows; a block takes a chunk of
 consecutive tiles of one column half of one copy; rows 0-7 of tile 0 add
@@ -168,3 +170,192 @@ def test_padded_rows_stay_out_of_the_maximum(kind, m):
     _same(_emulate(kind, G, M, 3, 2), ref)
     unmasked = _emulate(kind, G, M, 3, 1, mask=False)[1]
     assert bool((unmasked == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# grid's ring and gate's passes
+# ---------------------------------------------------------------------------
+
+def _planted(shape, seed):
+    """Standard normal float32 values, one in five scaled by 1e7: a sum
+    taken in another order rounds otherwise."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    x[rng.random(shape) < 0.2] *= 1e7
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _listed(n, blocks, seed):
+    """Drawn ids, the first repeated (one block in several slots), the
+    last block among them."""
+    ids = np.random.default_rng(seed).integers(0, blocks, n)
+    if n > 3:
+        ids[1:4] = ids[0]
+    if n:
+        ids[n // 2] = blocks - 1
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+def _ring_plan(n, group):
+    """grid_plan's ring at `group` 2 KB items a stage (the kernel's entry
+    takes 1 .. RING_MAX_GROUP; grid_plan uses GRID_GROUP)."""
+    stages = min(pr.RING_MAX_STAGES, pr.RING_BYTES // (2048 * group))
+    groups = -(-n // group)
+    return dict(group=group, stages=stages, groups=groups,
+                last=n - (groups - 1) * group if groups else 0)
+
+
+def _emulate_grid(tri, ids, group, order=None):
+    """grid's ring on the CPU: group q (items q * group ...) copied into
+    stage q % stages, then lane l of the consumer adds floats 4l .. 4l +
+    3 of each staged item's row 0 to its four sums, in item order (or in
+    the order `order` gives the items of a group)."""
+    plan = _ring_plan(ids.shape[0], group)
+    stages, n = plan["stages"], ids.shape[0]
+    ring = torch.zeros((stages, group, 4, 128))
+    acc = torch.zeros((32, 4))
+    for q in range(plan["groups"]):
+        first, st = q * group, q % stages
+        m = min(group, n - first)
+        ring[st, :m] = tri[ids[first:first + m].long()]
+        for j in (order(m) if order else range(m)):
+            acc = acc + ring[st, j, 0].view(32, 4)
+    out = torch.zeros((8, 128))
+    out[0] = acc.reshape(128)
+    return out
+
+
+def _emulate_gate(g, ids, flags, tree=False):
+    """gate's schedule on the CPU: the list a chunk at a time (an id, or
+    -1 for a closed gate), batches of GATE_PASSES passes of GATE_PASS
+    items, thread t the ordered 16-term sum of row t % 8 of item t / 8,
+    then the batch's open items added to acc in item order (tree: each
+    pass's open items summed first, then the pass's sum added, as a fold
+    across items would)."""
+    n, batch = ids.shape[0], pr.GATE_PASS * pr.GATE_PASSES
+    t = torch.arange(128)
+    j, r = t // 8, t % 8
+    acc = torch.zeros(8)
+    for c0 in range(0, n, pr.GATE_CHUNK):
+        cn = min(pr.GATE_CHUNK, n - c0)
+        lst = torch.where(flags[c0:c0 + cn] > 0, ids[c0:c0 + cn], -1)
+        for b0 in range(0, cn, batch):
+            sums = torch.zeros(batch * 8)
+            for p in range(pr.GATE_PASSES):
+                k = b0 + p * pr.GATE_PASS + j
+                idk = torch.where(k < cn, lst[k.clamp(max=cn - 1)], -1)
+                row = torch.where((idk >= 0)[:, None],
+                                  g[idk.clamp(min=0).long(), r], 0.0)
+                s = row[:, 0]
+                for c in range(1, 16):
+                    s = s + row[:, c]
+                sums[p * 128:(p + 1) * 128] = s
+            sums = sums.view(batch, 8)
+            m = min(batch, cn - b0)
+            open_ = [k for k in range(m) if lst[b0 + k] >= 0]
+            if not tree:
+                for k in open_:
+                    acc = acc + sums[k]
+                continue
+            for p0 in range(0, m, pr.GATE_PASS):
+                part = [k for k in open_ if p0 <= k < p0 + pr.GATE_PASS]
+                if part:
+                    acc = acc + pr._sequential_sum(sums[part[1:]],
+                                                   sums[part[0]])
+    return acc[:, None].expand(8, 128)
+
+
+GRID_N = (0, 1, 7, 8, 9, 31, 32, 33, 95, 96, 97, 512)
+GATE_N = (0, 1, 15, 16, 17, 63, 64, 65, 511, 512, 513, 1100)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_grid_plan_fits_the_ring(group):
+    """At G items a stage: G x stages x 2 KB within RING_BYTES, the
+    stages within RING_MAX_STAGES, as many as fit; grid_plan is that
+    ring at GRID_GROUP (32 items a stage, 3 stages)."""
+    plan = _ring_plan(512, group)
+    s = plan["stages"]
+    assert 1 <= s <= pr.RING_MAX_STAGES and plan["group"] == group
+    assert group * s * 2048 <= pr.RING_BYTES
+    assert s == pr.RING_MAX_STAGES or group * (s + 1) * 2048 > pr.RING_BYTES
+    assert 1 <= pr.GRID_GROUP <= pr.RING_MAX_GROUP
+    assert pr.grid_plan(512) == _ring_plan(512, pr.GRID_GROUP)
+    assert (pr.grid_plan(0)["group"], pr.grid_plan(0)["stages"]) == (32, 3)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 512])
+def test_grid_plan_takes_every_item_once(n):
+    """At n = 0, 1, G - 1, G, G + 1 and 512 (G = 32): the groups of
+    consecutive items cover 0 .. n - 1 once each, the last holding
+    `last`."""
+    plan = pr.grid_plan(n)
+    g = plan["group"]
+    seen = [i for q in range(plan["groups"])
+            for i in range(q * g, min(n, (q + 1) * g))]
+    assert seen == list(range(n))
+    assert plan["last"] == (n - (plan["groups"] - 1) * g if n else 0)
+    assert 0 < plan["last"] <= g or n == 0
+
+
+@pytest.mark.parametrize("group", [1, 8, 32])
+@pytest.mark.parametrize("n", GRID_N)
+def test_grid_ring_matches_plain_version(n, group):
+    """The ring's groups (G - 1, G, G + 1 at G = 8 and 32), wrapping
+    its stages (S G - 1, S G, S G + 1: 96 items at both), bit for bit
+    with grid_ref on planted rows, ids repeated and the last block among
+    them."""
+    tri = _planted((64, 4, 128), n)
+    ids = _listed(n, 64, n + 1)
+    ref = pr.grid_ref(tri, ids, True)
+    assert torch.equal(_emulate_grid(tri, ids, group), ref)
+    assert torch.equal(pr.grid(tri, ids, True, blocks=2), ref.expand(2, 8,
+                                                                     128))
+
+
+def test_grid_ring_out_of_order_would_differ():
+    """On the planted rows a group summed in reverse differs: the
+    emulation's match above is the order's, not the data's."""
+    tri, ids = _planted((64, 4, 128), 5), _listed(512, 64, 6)
+    ref = pr.grid_ref(tri, ids, True)
+    rev = _emulate_grid(tri, ids, pr.GRID_GROUP,
+                        order=lambda m: reversed(range(m)))
+    assert not torch.equal(rev, ref)
+
+
+def _flags(form, n, seed):
+    if form == "open":
+        f = np.ones(n)
+    elif form == "closed":
+        f = np.zeros(n)
+    elif form == "alternating":
+        f = np.arange(n) % 2
+    else:
+        f = np.random.default_rng(seed).integers(-1, 2, n)
+    return torch.from_numpy(f.astype(np.int32))
+
+
+@pytest.mark.parametrize("form", ["open", "closed", "alternating", "drawn"])
+@pytest.mark.parametrize("n", GATE_N)
+def test_gate_passes_match_plain_version(n, form):
+    """gate's passes, batches and chunks (n at each edge, past one chunk
+    of 512), every gate open, closed, alternating or drawn (flags -1, 0,
+    1), bit for bit with gate_ref on planted rows of a (B, 12, 16) g (a
+    block's rows past the 8 summed), ids repeated and the last block
+    among them."""
+    g = _planted((64, 12, 16), n)
+    ids, flags = _listed(n, 64, n + 2), _flags(form, n, n + 3)
+    ref = pr.gate_ref(g, ids, flags)
+    assert torch.equal(_emulate_gate(g, ids, flags), ref)
+    if form == "closed" or n == 0:
+        assert not ref.any()
+
+
+def test_gate_tree_fold_would_differ():
+    """A fold that sums each pass's items first differs on the planted
+    rows: the fold across items must stay serial."""
+    g = _planted((64, 12, 16), 8)
+    ids, flags = _listed(512, 64, 9), _flags("drawn", 512, 10)
+    ref = pr.gate_ref(g, ids, flags)
+    assert torch.equal(_emulate_gate(g, ids, flags), ref)
+    assert not torch.equal(_emulate_gate(g, ids, flags, tree=True), ref)

@@ -529,6 +529,68 @@ def test_rotate_refuses_what_the_bulk_copy_cannot_take(form):
     assert pr.rotate(ok, ids).shape == (1, 8, 128)
 
 
+def _misaligned(shape):
+    """A contiguous float32 tensor starting 4 bytes past a 16-byte
+    boundary."""
+    numel = int(np.prod(shape))
+    x = torch.zeros(numel + 4)[1:1 + numel].view(*shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    return x
+
+
+@pytest.mark.parametrize("form", ["misaligned", "strided", "float64"])
+def test_gate_refuses_what_its_loads_cannot_take(form):
+    """gate's kernel reads each row as four 16-byte loads: a g off 16
+    bytes, one whose rows are strided and one that is not float32 (the
+    kernel would read its bytes as float32 while the plain version
+    computes in float64) raise before any kernel or plain version runs,
+    on the CPU as on the card."""
+    ids = torch.zeros(3, dtype=torch.int32)
+    flags = torch.ones(3, dtype=torch.int32)
+    if form == "misaligned":
+        g = _misaligned((4, 512, 16))
+    elif form == "strided":
+        g = torch.zeros(4, 512, 32)[:, :, :16]
+    else:
+        g = torch.zeros(4, 512, 16, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        pr.gate(g, ids, flags)
+    assert pr.gate(torch.zeros(4, 512, 16), ids, flags).shape == (1, 8, 128)
+
+
+def test_rotate_refuses_a_g_not_float32():
+    """A float64 g (the kernel would read its bytes as float32) raises, on
+    the CPU as on the card; so does float16."""
+    ids = torch.zeros(3, dtype=torch.int32)
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(ValueError):
+            pr.rotate(torch.zeros(4, 128, 16, dtype=dtype), ids)
+
+
+@pytest.mark.parametrize("fetch", [False, True])
+def test_grid_refuses_a_misaligned_tri(fetch):
+    """grid's ring copies each 2 KB block as one bulk copy, from a source
+    on 16 bytes: a tri 4 bytes past a boundary raises before any kernel
+    or plain version runs, on the CPU as on the card; a strided one too."""
+    ids = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pr.grid(_misaligned((8, 4, 128)), ids, fetch)
+    with pytest.raises(ValueError):
+        pr.grid(torch.zeros(8, 4, 256)[..., :128], ids, fetch)
+    assert pr.grid(torch.zeros(8, 4, 128), ids, fetch).shape == (1, 8, 128)
+
+
+def test_grid_and_gate_take_no_items():
+    """n = 0: zeros, as the plain versions give and the kernels write
+    (grid's ring issues no copy; gate loads no list)."""
+    none = torch.zeros(0, dtype=torch.int32)
+    for fetch in (False, True):
+        out = pr.grid(torch.ones(8, 4, 128), none, fetch, blocks=2)
+        assert out.shape == (2, 8, 128) and not out.any()
+    out = pr.gate(torch.ones(4, 512, 16), none, none, blocks=2)
+    assert out.shape == (2, 8, 128) and not out.any()
+
+
 def test_rotate_takes_no_items():
     """n = 0: the kernel takes it (no copy issued, the ring never waited
     on) and the sums are 0, as the plain version's."""
